@@ -1,0 +1,10 @@
+"""blades_tpu_torch: the PyTorch/CUDA port of blades_tpu.
+
+A second package beside the JAX reference, written for one NVIDIA H100.
+It imports ``torch`` and never ``jax`` or ``blades_tpu``; its hot kernels
+are hand-written CUDA (``csrc/``), built on first use.  Entry points take
+``device=None``, meaning ``"cuda"``: they raise when no card is present
+unless the caller passes ``device="cpu"``.
+"""
+
+from blades_tpu_torch.device import resolve_device  # noqa: F401

@@ -1,0 +1,51 @@
+"""Adversaries: the coordinate-wise update-forging attacks of the port's
+first slice (ALIE, IPM, Adaptive)."""
+
+import inspect
+
+from blades_tpu_torch.adversaries.base import (  # noqa: F401
+    Adversary,
+    benign_mean_std,
+    make_malicious_mask,
+)
+from blades_tpu_torch.adversaries.update_attacks import (  # noqa: F401
+    AdaptiveAdversary,
+    ALIEAdversary,
+    IPMAdversary,
+)
+
+ADVERSARIES = {
+    "ALIE": ALIEAdversary,
+    "IPM": IPMAdversary,
+    "Adaptive": AdaptiveAdversary,
+}
+_LATER = {"LabelFlip", "SignFlip", "Noise", "MinMax", "SignGuard",
+          "Attackclippedclustering", "Lazy", "DiurnalALIE", "LazyRamp",
+          "TopologyAttack"}
+_ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
+
+
+def get_adversary(spec, **context) -> Adversary:
+    """Resolve a name / ``{"type": ..., **kwargs}`` / instance; ``context``
+    supplies build-time knowledge (``num_clients``, ``num_byzantine``)
+    where the attack's constructor takes it."""
+    if spec is None:
+        return None
+    if isinstance(spec, Adversary):
+        return spec
+    if isinstance(spec, str):
+        spec = {"type": spec}
+    spec = dict(spec)
+    name = spec.pop("type").rsplit(".", 1)[-1]
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name} is not in the port yet (a later slice)")
+    cls = ADVERSARIES.get(name) or _ALIASES.get(name)
+    if cls is None:
+        raise KeyError(f"unknown adversary {name!r}; known: "
+                       f"{sorted(ADVERSARIES)}")
+    accepted = set(inspect.signature(cls).parameters)
+    for k, v in context.items():
+        if k in accepted and k not in spec:
+            spec[k] = v
+    return cls(**spec)

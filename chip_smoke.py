@@ -1,0 +1,700 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (``blades_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py                 # every phase, as a check runs it
+    python3 chip_smoke.py --phases build,small   # a short compile-and-check
+
+Phases, each printing its lines before the last:
+
+1. ``build``: the card's name and power limit (``nvidia-smi``), then the
+   CUDA kernels built from ``blades_tpu_torch/csrc/`` with ``nvcc`` for
+   ``sm_90a`` into ``build/``.
+2. ``small``: every kernel wrapper against its plain PyTorch version on a
+   grid of forges x aggregators x storage types x sanitize, with a NaN row
+   confined to one 512-column stripe; then one small MLP round on the card
+   against the same round on the CPU.
+3. ``kernels``: each kernel against its plain version at the main path's
+   shapes, with its time, the plain version's time and its bound.
+4. ``main``: the headline round -- ResNet-10, 1000 clients of CIFAR-10
+   shapes, the first 250 running ALIE, exact coordinate-wise Median, bf16
+   compute and storage, ``client_block=50``, ``malicious_prefix=250`` --
+   one warm-up round and 3 timed rounds through the compact fused finish.
+5. ``full``: one ResNet-10 round at 200 clients with no malicious prefix,
+   through the full fused finish.
+6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
+   ``(1000, 1 << 20)`` f32 matrix, through the column-select kernels.
+7. ``profile`` (only when named): one more main-path round under
+   ``torch.profiler``; device time by kernel goes to
+   ``chiprun_out/profile_main.txt``.
+
+Launch counts are set to 0 just before each of phases 4-6 and read just
+after; a kernel of the phase that did not launch fails the run.  The last
+three lines are the card (``nvidia-smi``), one JSON object with every
+kernel's numbers, and ``{"ok": true, "device": ...}``.  Any failure exits
+non-zero before those lines.  Without a CUDA device, or without the
+package beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("build", "small", "kernels", "main", "full", "aggregators")
+EXTRA_PHASES = ("profile",)  # run only when named
+
+# H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
+# rate outside the tensor cores, which is where these kernels' arithmetic
+# (sums, compares) runs.  A kernel's bound counts each input byte it must
+# read once and each output byte once, and the operations the function
+# needs per element (statistics, row norms, at least one compare per
+# element for a selection).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# Tolerances of a kernel against its plain version on the same inputs.
+# Order statistics, counts and flags are exact.  Values computed from the
+# benign mean/variance (the forged row and what the aggregate takes from
+# it) are f32 sums in another order: rtol 1e-5 / atol 1e-6 under f32
+# storage; under bf16 storage the forged row is rounded to bf16, so a
+# last-ulp f32 difference can move it by one bf16 ulp (at most 2**-7 of
+# it).  Row norms are f32 sums over up to 4.9M terms in another order:
+# rtol 1e-4.  Trimmed means are f32 sums over the kept values in another
+# order: rtol 1e-5, atol 1e-5 (inputs of unit scale).
+RTOL, ATOL = 1e-5, 1e-6
+SQ_RTOL = 1e-4
+TRIM_TOL = 1e-5
+
+TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
+REPS = 5          # timed launches per kernel, after one warm-up launch
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise Failure(what)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# Comparisons
+# --------------------------------------------------------------------------
+
+def max_err(a, b) -> float:
+    import torch
+
+    a, b = a.double(), b.double()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    d = (a - b).abs().masked_fill(both_nan, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def same(a, b, what: str) -> float:
+    import torch
+
+    if not a.is_floating_point():
+        ok = torch.equal(a, b)
+    else:
+        ok = torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.masked_fill(a.isnan(), 0), b.masked_fill(b.isnan(), 0))
+    check(ok, f"{what}: not bit-exact (max err {max_err(a, b)})")
+    return 0.0
+
+
+def close(a, b, what: str, rtol=RTOL, atol=ATOL, forged=None,
+          bf16=False) -> float:
+    """``|a - b| <= atol + rtol |b|``; with ``forged`` under bf16 storage
+    the slack grows by one bf16 ulp of the forged value, per column."""
+    import torch
+
+    a, b = a.double(), b.double()
+    slack = atol + rtol * b.abs()
+    if bf16 and forged is not None:
+        slack = slack + 2.0 ** -7 * forged.double().abs() + 2.0 ** -6 * b.abs()
+    bad = ~((a - b).abs() <= slack) & ~(a.isnan() & b.isnan())
+    if bool(bad.any()):
+        i = torch.nonzero(bad).flatten()[:5].tolist()
+        raise Failure(f"{what}: {int(bad.sum())} values out of tolerance, "
+                      f"e.g. at {i}: {a.flatten()[i].tolist()} vs "
+                      f"{b.flatten()[i].tolist()}")
+    return max_err(a, b)
+
+
+def timed(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
+    after one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------------------
+# Phases
+# --------------------------------------------------------------------------
+
+def phase_build():
+    from blades_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    lib = _cuda.build()
+    _cuda.library()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+def _small_matrix(gen, rows, d, dtype, poison):
+    import torch
+
+    x = torch.randn((rows, d), generator=gen, device="cuda") * 0.05
+    if poison:
+        x[2, 600] = float("nan")      # stripe 1 only
+        x[5, 7] = float("inf")        # stripe 0 only
+        x[rows - 1, d - 1] = -float("nan")  # the ragged last stripe
+    return x.to(dtype).contiguous()
+
+
+def phase_small():
+    """Every wrapper against its plain version on small shapes."""
+    import torch
+
+    from blades_tpu_torch.ops import column_select as cs
+    from blades_tpu_torch.ops import fused_finish as ff
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = 3000  # six stripes, the last ragged
+    forges = [None, ("alie", 0.7), ("ipm", 1.5), ("adaptive", 2.0)]
+    aggs = [("mean",), ("median",), ("trimmed", 3)]
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for sanitize in (False, True):
+            for rows in (37, 40):
+                x = _small_matrix(gen, rows, d, dtype, sanitize)
+                noise = torch.rand((d,), generator=gen, device="cuda")
+                mal = torch.rand((rows,), generator=gen,
+                                 device="cuda") < 0.3
+                for forge in forges:
+                    for agg in aggs:
+                        tag = f"{dtype} rows={rows} san={sanitize} " \
+                              f"forge={forge} agg={agg}"
+                        nz = noise if forge and forge[0] == "adaptive" \
+                            else None
+                        got = ff.fused_finish(x, mal, nz, forge=forge,
+                                              agg=agg, sanitize=sanitize)
+                        want = ff.fused_finish_plain(
+                            x, mal, nz, forge=forge, agg=agg,
+                            sanitize=sanitize)
+                        same(got[2], want[2], f"full bad {tag}")
+                        fw = None
+                        if forge is not None:
+                            fw = ff.fused_finish_compact_plain(
+                                x[~mal], nz, forged_mult=1, forge=forge,
+                                agg=("mean",), sanitize=sanitize)[3]
+                        if forge is None and agg[0] == "median":
+                            same(got[0], want[0], f"full agg {tag}")
+                        else:
+                            close(got[0], want[0], f"full agg {tag}",
+                                  forged=fw, bf16=bf16)
+                        close(got[1], want[1], f"full sq {tag}",
+                              rtol=SQ_RTOL, forged=None if fw is None
+                              else fw.square().sum().reshape(1), bf16=bf16)
+                        if forge is None:
+                            cases += 1
+                            continue
+                        mult = 9
+                        got = ff.fused_finish_compact(
+                            x, nz, forged_mult=mult, forge=forge, agg=agg,
+                            sanitize=sanitize)
+                        want = ff.fused_finish_compact_plain(
+                            x, nz, forged_mult=mult, forge=forge, agg=agg,
+                            sanitize=sanitize)
+                        same(got[2], want[2], f"compact bad {tag}")
+                        close(got[3], want[3], f"compact forged {tag}",
+                              forged=want[3], bf16=bf16)
+                        close(got[0], want[0], f"compact agg {tag}",
+                              forged=want[3], bf16=bf16)
+                        close(got[1], want[1], f"compact sq {tag}",
+                              rtol=SQ_RTOL)
+                        cases += 2
+    # Column selects: NaNs of both signs, ties across the cuts, odd/even n.
+    for rows in (33, 34):
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        x = torch.round(x * 2) / 2  # long duplicate runs
+        x[1, :40] = float("nan")
+        x[3, 20:60] = -float("nan")
+        x[4, 100:110] = float("inf")
+        same(cs.column_median(x), cs.column_median_plain(x),
+             f"column_median rows={rows}")
+        close(cs.column_trimmed_mean(x, 5),
+              cs.column_trimmed_mean_plain(x, 5),
+              f"column_trimmed_mean rows={rows}", rtol=TRIM_TOL,
+              atol=TRIM_TOL)
+        cases += 2
+    torch.cuda.synchronize()
+    log(f"small: {cases} kernel-vs-plain cases agree")
+    _small_round()
+
+
+def _small_round():
+    """One MLP round (f32 compute and storage, both finishes) on the card
+    against the same round on the CPU."""
+    import torch
+
+    from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.parallel.streamed import streamed_step
+
+    n, f, shape = 16, 4, (8, 8, 1)
+    fr = FedRound(task=TaskSpec(model="mlp", input_shape=shape,
+                                lr=0.1).build(),
+                  server=Server.from_config("Median", lr=0.5),
+                  adversary=get_adversary("ALIE", num_clients=n,
+                                          num_byzantine=f),
+                  batch_size=4)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((n, 8) + shape, generator=gen)
+    y = torch.randint(0, 10, (n, 8), generator=gen)
+    lengths = torch.full((n,), 8)
+    idx = torch.randint(0, 8, (n, 1, 4), generator=gen)
+    masks = tuple(torch.rand((n, 1, 4, w), generator=gen) >= 0.2
+                  for w in fr.task.model.dropout_widths)
+    mal = make_malicious_mask(n, f)
+    for prefix in (f, None):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            state = fr.init(0, n, device=dev)
+            step = streamed_step(fr, client_block=4,
+                                 update_dtype=torch.float32,
+                                 malicious_prefix=prefix, device=dev)
+            state, m = step(state, x.to(dev), y.to(dev), lengths, mal, 0,
+                            batch_idx=idx, dropout_masks=masks)
+            out[dev] = (state.server.params, m)
+        for k, v in out["cpu"][0].items():
+            close(out["cuda"][0][k].cpu(), v, f"small round param {k}",
+                  rtol=1e-4, atol=1e-5)
+        for k in ("train_loss", "agg_norm", "update_norm_mean"):
+            close(out["cuda"][1][k].cpu().reshape(1),
+                  out["cpu"][1][k].reshape(1), f"small round {k}",
+                  rtol=1e-4, atol=1e-5)
+    log("small: MLP round on the card matches the CPU round "
+        "(compact and full branches)")
+
+
+def _record(name, source, replaces, ms, plain_ms, bytes_moved, ops, err,
+            library_ms=None):
+    """One kernel's line.  ``library_ms`` is the time of one PyTorch call
+    computing the same function on the same inputs, or null where there
+    is none (no call forges or sanitizes, and ``torch.median`` returns the
+    lower middle value)."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+SRC = "blades_tpu_torch/csrc/fused_finish.cu"
+
+
+def phase_kernels():
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+
+    from blades_tpu_torch.adversaries import ALIEAdversary
+    from blades_tpu_torch.ops import column_select as cs
+    from blades_tpu_torch.ops import fused_finish as ff
+
+    d = 4_903_242
+    z = ALIEAdversary(num_clients=1000, num_byzantine=250).z_max
+    forge, agg = ("alie", z), ("median",)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    records = {}
+
+    # 1. The compact finish over the benign rows, as the main path calls it.
+    x = (torch.randn((750, d), generator=gen, device="cuda") * 1e-3).to(
+        torch.bfloat16)
+    got = ff.fused_finish_compact(x, forged_mult=250, forge=forge, agg=agg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ff.fused_finish_compact_plain(x, forged_mult=250, forge=forge,
+                                         agg=agg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same(got[2], want[2], "compact bad (main shape)")
+    close(got[3], want[3], "compact forged (main shape)", forged=want[3],
+          bf16=True)
+    err = close(got[0], want[0], "compact agg (main shape)",
+                forged=want[3], bf16=True)
+    close(got[1], want[1], "compact sq (main shape)", rtol=SQ_RTOL)
+    ms = timed(lambda: ff.fused_finish_compact(
+        x, forged_mult=250, forge=forge, agg=agg), REPS)
+    nbytes = 750 * d * 2 + 2 * d * 4 + 750 * 5
+    # Per element: mean 1, variance 3, row norm 2, selection 1.
+    records["fused_finish_compact"] = _record(
+        "fused_finish_compact", SRC, "blades_tpu/ops/pallas_round.py:502",
+        ms, plain_ms, nbytes, 7 * 750 * d, err)
+    del x, got, want
+
+    # 2. The full finish over all 1000 rows, the first 250 forged.
+    x = (torch.randn((1000, d), generator=gen, device="cuda") * 1e-3).to(
+        torch.bfloat16)
+    mal = torch.arange(1000, device="cuda") < 250
+    got = ff.fused_finish(x, mal, forge=forge, agg=agg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ff.fused_finish_plain(x, mal, forge=forge, agg=agg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fw = ff.fused_finish_compact_plain(x[250:], forged_mult=250,
+                                       forge=forge, agg=agg)[3]
+    same(got[2], want[2], "full bad (main shape)")
+    err = close(got[0], want[0], "full agg (main shape)", forged=fw,
+                bf16=True)
+    close(got[1], want[1], "full sq (main shape)", rtol=SQ_RTOL,
+          forged=fw.square().sum().reshape(1), bf16=True)
+    ms = timed(lambda: ff.fused_finish(x, mal, forge=forge, agg=agg), REPS)
+    # The forged rows replace the malicious ones, so the function reads
+    # only the 750 benign rows (and the mask).
+    nbytes = 750 * d * 2 + 1000 + d * 4 + 1000 * 5
+    records["fused_finish"] = _record(
+        "fused_finish", SRC, "blades_tpu/ops/pallas_round.py:628", ms,
+        plain_ms, nbytes, 7 * 750 * d, err)
+    del x, got, want, fw
+
+    # 3-4. The column selects on a (1000, 1 << 20) f32 matrix.
+    x = torch.randn((1000, 1 << 20), generator=gen, device="cuda")
+    nbytes = 1000 * (1 << 20) * 4 + (1 << 20) * 4
+    # Per element: one compare for the median, a compare and an add for
+    # the trimmed mean.
+    for name, fn, plain, replaces, per_elem in (
+            ("column_median", cs.column_median, cs.column_median_plain,
+             "blades_tpu/ops/pallas_select.py:206", 1),
+            ("column_trimmed_mean", lambda a: cs.column_trimmed_mean(a, 250),
+             lambda a: cs.column_trimmed_mean_plain(a, 250),
+             "blades_tpu/ops/pallas_select.py:220", 2)):
+        got = fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if name == "column_median":
+            err = same(got, want, f"{name} (main shape)")
+        else:
+            err = close(got, want, f"{name} (main shape)", rtol=TRIM_TOL,
+                        atol=TRIM_TOL)
+        ms = timed(lambda: fn(x), REPS)
+        lib_ms = None
+        if name == "column_median":
+            # On NaN-free columns the midpoint median is the 0.5 quantile
+            # with linear interpolation: one PyTorch call, the yardstick.
+            lib_ms = timed(lambda: torch.quantile(x, 0.5, dim=0), REPS)
+        records[name] = _record(name, SRC, replaces, ms, plain_ms, nbytes,
+                                per_elem * 1000 * (1 << 20), err, lib_ms)
+    del x
+    torch.cuda.empty_cache()
+    for r in records.values():
+        lib = r["library_ms"]
+        log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f}"
+            f" ms, bound {r['bound_ms']:.3f} ms, library "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}), max_abs_err "
+            f"{r['max_abs_err']:.3g} vs plain")
+    return records
+
+
+def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
+                    profile_to=None):
+    """Build the headline configuration at ``n`` clients and run ``rounds``
+    rounds; return the per-round losses, seconds and last metrics.
+    ``block``, ``hw`` and ``device`` shrink it for a rehearsal.  With
+    ``profile_to`` (a directory) the last round runs under
+    ``torch.profiler`` and its kernel table is written there."""
+    import torch
+
+    from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.parallel.streamed import streamed_step
+
+    shard, batch = 32, 32
+    dev = device or "cuda"
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    fr = FedRound(
+        task=TaskSpec(model="resnet", input_shape=(hw, hw, 3),
+                      num_classes=10, lr=0.1,
+                      compute_dtype="bfloat16").build(),
+        server=Server.from_config("Median", lr=0.5),
+        adversary=get_adversary("ALIE", num_clients=n, num_byzantine=f),
+        batch_size=batch, num_batches_per_round=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, shard, hw, hw, 3), generator=gen, device=dev)
+    y = torch.randint(0, 10, (n, shard), generator=gen, device=dev)
+    lengths = torch.full((n,), shard, device=dev)
+    mal = make_malicious_mask(n, f, device=dev)
+    state = fr.init(0, n, device=device)
+    step = streamed_step(fr, client_block=block, malicious_prefix=prefix,
+                         device=device)
+    losses, secs = [], []
+    for r in range(rounds):
+        prof = None
+        if profile_to and r == rounds - 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, x, y, lengths, mal, r)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            _write_profile(prof, secs[-1], profile_to)
+        losses.append(float(m["train_loss"]))
+        check(math.isfinite(losses[-1]), f"round {r}: loss {losses[-1]}")
+        check(math.isfinite(float(m["agg_norm"])),
+              f"round {r}: agg_norm {float(m['agg_norm'])}")
+    for k, v in state.server.params.items():
+        check(bool(torch.isfinite(v).all()), f"non-finite parameter {k}")
+    return losses, secs, m
+
+
+def _write_profile(prof, wall_s, out_dir):
+    """Device time by kernel over one profiled round: the table goes to
+    ``out_dir/profile_main.txt``; the device's busy share and the time by
+    kind of kernel are printed."""
+    from torch.autograd import DeviceType
+
+    events = []
+    for e in prof.key_averages():
+        # Device-side events only (kernels, memcpy, memset): the host ops
+        # that launched them carry the same time again.
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            events.append((us, e.count, e.key))
+    events.sort(reverse=True)
+    kernel_us = sum(us for us, _, _ in events)
+    # Busy time: the union of the device events' intervals (events on
+    # different streams may overlap, so the sum can exceed the wall).
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    kinds = {}
+    for us, _, key in events:
+        k = key.lower()
+        if "finish_kernel" in k or "finalize_kernel" in k:
+            kind = "fused finish"
+        elif any(w in k for w in ("conv", "cudnn", "xmma", "gemm", "cutlass",
+                                  "wgrad", "dgrad", "sm90")):
+            kind = "convolution / matmul"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "profile_main.txt")
+    with open(path, "w") as fh:
+        fh.write(f"round wall {wall_s * 1e3:.1f} ms under the profiler, "
+                 f"device busy {busy_us / 1e3:.1f} ms, kernel time summed "
+                 f"{kernel_us / 1e3:.1f} ms\n")
+        for us, count, key in events:
+            fh.write(f"{us / 1e3:10.3f} ms {count:7d}x  {key}\n")
+    log(f"profile: round {wall_s * 1e3:.1f} ms under the profiler, device "
+        f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / (wall_s * 1e3):.1f}"
+        f"% of the wall), kernel time summed {kernel_us / 1e3:.1f} ms; by "
+        f"kind: " + ", ".join(
+            f"{k} {v / 1e3:.1f} ms" for k, v in sorted(
+                kinds.items(), key=lambda kv: -kv[1])))
+    for us, count, key in events[:8]:
+        log(f"profile:   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    log(f"profile: table in {path}")
+
+
+def phase_profile(out_dir: str):
+    """One warm-up and one profiled round of the main path."""
+    _headline_round(1000, 250, 250, 2, profile_to=out_dir)
+
+
+def phase_main():
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    losses, secs, m = _headline_round(1000, 250, 250, 1 + TIMED_ROUNDS)
+    counts = dict(_cuda.LAUNCHES)
+    rounds = 1 + TIMED_ROUNDS
+    check(counts.get("fused_finish_compact", 0) == rounds,
+          f"main: compact finish launched {counts} times over {rounds} rounds")
+    check(set(counts) == {"fused_finish_compact"},
+          f"main: unexpected kernels {counts}")
+    check(int(m["elided_lanes"]) == 250, "main: elision did not engage")
+    rps = TIMED_ROUNDS / sum(secs[1:])
+    log(f"main: ResNet-10 x 1000 clients (250 ALIE), Median, bf16; "
+        f"{TIMED_ROUNDS} timed rounds at {rps:.4f} rounds/s "
+        f"(round seconds {[round(s, 3) for s in secs]}, first is warm-up)")
+    log(f"main: train_loss per round {losses}; compact finish launches "
+        f"{counts['fused_finish_compact']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, rps
+
+
+def phase_full():
+    from blades_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    losses, secs, m = _headline_round(200, 50, None, 1)
+    counts = dict(_cuda.LAUNCHES)
+    check(counts == {"fused_finish": 1},
+          f"full: expected one full-finish launch, got {counts}")
+    check("elided_lanes" not in m, "full: elision engaged without a prefix")
+    log(f"full: ResNet-10 x 200 clients, no prefix: loss {losses[0]}, "
+        f"{secs[0]:.3f} s, full finish launches {counts['fused_finish']}")
+    return counts
+
+
+def phase_aggregators():
+    """The dense aggregator path: ``Median`` and ``Trimmedmean`` on a CUDA
+    update matrix go through the column-select kernels."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops.aggregators import get_aggregator
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((1000, 1 << 20), generator=gen, device="cuda")
+    _cuda.reset_launches()
+    med, _ = get_aggregator("Median")(x)
+    tm, _ = get_aggregator("Trimmedmean", num_byzantine=250)(x)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    check(counts == {"column_median": 1, "column_trimmed_mean": 1},
+          f"aggregators: launches {counts}")
+    check(bool(torch.isfinite(med).all() and torch.isfinite(tm).all()),
+          "aggregators: non-finite aggregate")
+    log(f"aggregators: Median and Trimmedmean launches {counts}")
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                         f"{','.join(PHASES + EXTRA_PHASES)}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is missing: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import blades_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    # Full f32 where f32 is asked for (cuDNN would take TF32 otherwise).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = smi()
+    log(f"card: {card}")
+    records = {}
+    try:
+        if "build" in phases:
+            phase_build()
+        if "small" in phases:
+            phase_small()
+        if "kernels" in phases:
+            records = phase_kernels()
+        launches = {}
+        if "main" in phases:
+            counts, _ = phase_main()
+            launches.update(counts)
+        if "full" in phases:
+            launches.update(phase_full())
+        if "aggregators" in phases:
+            launches.update(phase_aggregators())
+        if "profile" in phases:
+            phase_profile(os.path.join(HERE, "chiprun_out"))
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for name, r in records.items():
+        r["launches"] = launches.get(name, 0)
+    if set(PHASES) <= set(phases):
+        missing = [n for n, r in records.items() if r["launches"] < 1]
+        if missing:
+            print(f"chip_smoke: FAILED: kernels never launched on their "
+                  f"path: {missing}", file=sys.stderr)
+            return 1
+    kernels = {"kernels": list(records.values())}
+    log(card)
+    log(json.dumps(kernels))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

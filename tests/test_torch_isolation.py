@@ -1,0 +1,93 @@
+"""The port stands alone: ``blades_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and the port's entry points run on the
+card unless the caller asks for the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "blades_tpu"}
+
+
+def _port_files():
+    files = sorted((REPO / "blades_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_imports_in_the_port():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = [(str(f.relative_to(REPO)), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, blades_tpu_torch, blades_tpu_torch.parallel.streamed, "
+            "blades_tpu_torch.convert\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.parallel.streamed import streamed_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fr = FedRound(task=TaskSpec(model="mlp", input_shape=(4, 4, 1)).build(),
+                  server=Server.from_config("Median"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fr.init(0, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streamed_step(fr, client_block=2)
+    with pytest.raises(RuntimeError, match="CUDA is absent"):
+        streamed_step(fr, client_block=2, device="cuda")
+    state = fr.init(0, 4, device="cpu")
+    assert state.server.params["Dense_0.weight"].device.type == "cpu"
+
+
+def test_out_of_slice_configs_name_the_later_slice():
+    from blades_tpu_torch.adversaries import get_adversary
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.parallel.streamed import streamed_step
+
+    task = TaskSpec(model="mlp", input_shape=(4, 4, 1)).build()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        get_adversary("Noise")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Server.from_config("GeoMed")
+    fr = FedRound(task=task, server=Server.from_config("Median"),
+                  num_clients=3)
+    step = streamed_step(fr, client_block=2, device="cpu")
+    x = torch.zeros(4, 2, 4, 4, 1)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        step(fr.init(0, 4, device="cpu"), x, torch.zeros(4, 2).long(),
+             torch.full((4,), 2), torch.zeros(4, dtype=torch.bool), 0)
+
+
+def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
+    """A CUDA-only launch path: on the CPU the launcher raises, it never
+    falls back (the wrappers route CPU tensors to the plain versions
+    before they reach it)."""
+    from blades_tpu_torch.ops import _cuda
+
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        _cuda.launch_finish("fused_finish", torch.zeros(4, 8))

@@ -1,0 +1,151 @@
+"""The port's streamed round (blades_tpu_torch/parallel/streamed.py) against
+the JAX ``streamed_step`` (blades_tpu/parallel/streamed.py) over two rounds.
+
+Both sides start from the same flax-initialised parameters (carried across
+by blades_tpu_torch/convert.py), see the same numpy-made client data, and
+use the same batches and dropout masks: the test recomputes the JAX round's
+draws with the same ``jax.random.split`` chain (streamed.py's five-way
+round split, data/sampler.py's per-client and per-batch splits, and
+layers.keyed_dropout's ``fold_in``) and hands them to the port.  On the
+CPU the JAX round finishes through its chunked finish at f32 storage; the
+port finishes through the plain versions of its fused finishes, on the
+compact branch (block-aligned malicious prefix) and on the full branch.
+
+Tolerance ``rtol=1e-5, atol=1e-6`` on server parameters and metrics: the
+benign mean and variance behind the forged row, the trimmed sums and the
+row norms are f32 sums taken in different orders.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from blades_tpu.adversaries import get_adversary as jax_adversary
+from blades_tpu.core import FedRound as JaxFedRound
+from blades_tpu.core import Server as JaxServer
+from blades_tpu.core import TaskSpec as JaxTaskSpec
+from blades_tpu.parallel.streamed import streamed_step as jax_streamed_step
+from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
+from blades_tpu_torch.convert import params_from_jax, params_to_jax
+from blades_tpu_torch.core import FedRound, RoundState, Server, TaskSpec
+from blades_tpu_torch.parallel.streamed import streamed_step
+
+RTOL, ATOL = 1e-5, 1e-6
+METRICS = ("train_loss", "update_norm_mean", "agg_norm")
+
+
+def _jax_draws(key, n, lengths, batch_size, num_batches, model):
+    """The batch indices and dropout keep-masks of one JAX streamed round."""
+    k_sample, k_train, _, _, _ = jax.random.split(key, 5)
+    idx = np.zeros((n, num_batches, batch_size), np.int64)
+    widths = getattr(model, "dropout_widths", ())
+    rate = getattr(model, "dropout_rate", 0.0)
+    masks = [np.zeros((n, num_batches, batch_size, w), bool) for w in widths]
+    for i, (ks, kt) in enumerate(zip(jax.random.split(k_sample, n),
+                                     jax.random.split(k_train, n))):
+        for s, (kb, kd) in enumerate(zip(jax.random.split(ks, num_batches),
+                                         jax.random.split(kt, num_batches))):
+            idx[i, s] = np.asarray(jax.random.randint(
+                kb, (batch_size,), 0, max(int(lengths[i]), 1)))
+            for layer, w in enumerate(widths):
+                masks[layer][i, s] = np.asarray(jax.random.bernoulli(
+                    jax.random.fold_in(kd, layer), 1.0 - rate,
+                    (batch_size, w)))
+    return (torch.from_numpy(idx),
+            tuple(torch.from_numpy(m) for m in masks) or None)
+
+
+def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
+              batch_size=4, shard=8, rounds=2, adv_kw=None):
+    adv_kw = adv_kw or {}
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, shard) + shape).astype(np.float32)
+    y = rng.integers(0, 10, size=(n, shard)).astype(np.int32)
+    lengths = np.full((n,), shard, np.int32)
+    lengths[-1] = shard - 3  # one short shard: indices stay below it
+
+    spec = dict(model=model, input_shape=shape, num_classes=10, lr=0.1)
+    jfr = JaxFedRound(
+        task=JaxTaskSpec(**spec).build(),
+        server=JaxServer.from_config(aggregator=aggregator, num_byzantine=f,
+                                     lr=0.5),
+        adversary=jax_adversary({"type": adversary, **adv_kw},
+                                num_clients=n, num_byzantine=f),
+        batch_size=batch_size)
+    fr = FedRound(
+        task=TaskSpec(**spec).build(),
+        server=Server.from_config(aggregator, num_byzantine=f, lr=0.5),
+        adversary=get_adversary({"type": adversary, **adv_kw},
+                                num_clients=n, num_byzantine=f),
+        batch_size=batch_size)
+
+    jstate = jfr.init(jax.random.PRNGKey(0), n)
+    params = params_from_jax(jax.tree.map(np.asarray, jstate.server.params))
+    state = RoundState(server=fr.server.init(params, n))
+    jstep = jax_streamed_step(jfr, client_block=block,
+                              update_dtype=jnp.float32, donate=False,
+                              malicious_prefix=prefix)
+    step = streamed_step(fr, client_block=block, update_dtype=torch.float32,
+                         malicious_prefix=prefix, device="cpu")
+    jmal = jnp.arange(n) < f
+    mal = make_malicious_mask(n, f)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    out = []
+    for r, key in enumerate(jax.random.split(jax.random.PRNGKey(7), rounds)):
+        idx, masks = _jax_draws(key, n, lengths, batch_size, 1,
+                                fr.task.model)
+        jstate, jm = jstep(jstate, jnp.asarray(x), jnp.asarray(y),
+                           jnp.asarray(lengths), jmal, key)
+        state, m = step(state, xt, yt, torch.from_numpy(lengths), mal, r,
+                        batch_idx=idx, dropout_masks=masks)
+        out.append((jstate, jm, state, m))
+    return out
+
+
+def _compare(out, elided):
+    for jstate, jm, state, m in out:
+        want = np.asarray(ravel_pytree(jstate.server.params)[0])
+        got = np.asarray(ravel_pytree(params_to_jax(state.server.params))[0])
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        for k in METRICS:
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       rtol=RTOL, atol=ATOL)
+        assert int(m["round"]) == int(jm["round"])
+        if elided:
+            assert int(m["elided_lanes"]) == int(jm["elided_lanes"])
+        else:
+            assert "elided_lanes" not in m
+
+
+@pytest.mark.parametrize("branch", ["compact", "full"])
+@pytest.mark.parametrize("aggregator,adversary,adv_kw", [
+    ("Median", "ALIE", None),
+    ("Trimmedmean", "IPM", {"scale": 2.0}),
+])
+def test_mlp_two_rounds_match_jax(aggregator, adversary, adv_kw, branch):
+    n, f = 12, 4
+    prefix = f if branch == "compact" else None
+    out = _run_pair("mlp", (8, 8, 1), aggregator, adversary, n, f, prefix,
+                    block=4, adv_kw=adv_kw)
+    _compare(out, elided=prefix is not None)
+
+
+def test_unaligned_prefix_takes_the_full_branch():
+    """A prefix that is not block-aligned elides the whole blocks inside it
+    and finishes on the full matrix (the straddling block trains)."""
+    out = _run_pair("mlp", (8, 8, 1), "Median", "ALIE", 12, 5, 5, block=4,
+                    rounds=1)
+    _compare(out, elided=True)
+
+
+@pytest.mark.slow  # ~22 s on a CPU, most of it the JAX ResNet-10 compile
+def test_resnet10_round_matches_jax():
+    """16x16 inputs: at 8x8 the last stage is 1x1 and its BatchNorms over a
+    batch of 4 are too ill-conditioned for an f32 comparison (see
+    tests/test_torch_models.py)."""
+    out = _run_pair("resnet", (16, 16, 3), "Median", "ALIE", 8, 4, 4,
+                    block=4, rounds=1)
+    _compare(out, elided=True)
