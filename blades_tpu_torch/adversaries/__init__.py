@@ -1,5 +1,5 @@
-"""Adversaries: the coordinate-wise update-forging attacks of the port's
-first slice (ALIE, IPM, Adaptive)."""
+"""Adversaries: the update-forging attacks of the port (ALIE, IPM,
+Adaptive, MinMax, SignGuard, Attackclippedclustering)."""
 
 import inspect
 
@@ -11,17 +11,22 @@ from blades_tpu_torch.adversaries.base import (  # noqa: F401
 from blades_tpu_torch.adversaries.update_attacks import (  # noqa: F401
     AdaptiveAdversary,
     ALIEAdversary,
+    AttackclippedclusteringAdversary,
     IPMAdversary,
+    MinMaxAdversary,
+    SignGuardAdversary,
 )
 
 ADVERSARIES = {
     "ALIE": ALIEAdversary,
     "IPM": IPMAdversary,
     "Adaptive": AdaptiveAdversary,
+    "MinMax": MinMaxAdversary,
+    "SignGuard": SignGuardAdversary,
+    "Attackclippedclustering": AttackclippedclusteringAdversary,
 }
-_LATER = {"LabelFlip", "SignFlip", "Noise", "MinMax", "SignGuard",
-          "Attackclippedclustering", "Lazy", "DiurnalALIE", "LazyRamp",
-          "TopologyAttack"}
+_LATER = {"LabelFlip", "SignFlip", "Noise", "Lazy", "DiurnalALIE",
+          "LazyRamp", "TopologyAttack"}
 _ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
 
 

@@ -35,8 +35,8 @@ class Adversary:
     override :meth:`on_updates_ready`."""
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
-                         generator=None, aggregator=None):
-        del malicious, noise, generator, aggregator
+                         generator=None, aggregator=None, shard=None):
+        del malicious, noise, generator, aggregator, shard
         return updates
 
     @staticmethod

@@ -89,9 +89,11 @@ class Server:
         if self.momentum:
             opt["buf"] = {k: torch.zeros_like(v) for k, v in params.items()}
             opt["step"] = 0
+        device = next(iter(params.values())).device
         return ServerState(
             params=params, opt_state=opt,
-            agg_state=self.aggregator.init(FlatLayout(params).d, num_clients),
+            agg_state=self.aggregator.init(FlatLayout(params).d, num_clients,
+                                           device=device),
             round=0)
 
     def apply_aggregate(self, state: ServerState, agg: torch.Tensor,

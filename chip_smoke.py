@@ -11,10 +11,14 @@ Phases, each printing its lines before the last:
    ``sm_90a`` into ``build/``.
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
-   confined to one 512-column stripe; then one small MLP round on the card
-   against the same round on the CPU.
+   confined to one 512-column stripe, and ``row_stats_bundle`` on a grid of
+   dtypes x bundles x ragged shapes; then small MLP rounds on the card
+   against the same rounds on the CPU (Median, and each of the seven
+   row-geometry aggregators under ALIE).
 3. ``kernels``: each kernel against its plain version at the main path's
-   shapes, with its time, the plain version's time and its bound.
+   shapes, with its time, the plain version's time and its bound; for
+   ``row_stats_bundle`` the two bundles of the row-geometry round (the
+   Multikrum Gram, the GeoMed weighted sum + Gram-vector product).
 4. ``main``: the headline round -- ResNet-10, 1000 clients of CIFAR-10
    shapes, the first 250 running ALIE, exact coordinate-wise Median, bf16
    compute and storage, ``client_block=50``, ``malicious_prefix=250`` --
@@ -23,12 +27,19 @@ Phases, each printing its lines before the last:
    through the full fused finish.
 6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
    ``(1000, 1 << 20)`` f32 matrix, through the column-select kernels.
-7. ``profile`` (only when named): one more main-path round under
-   ``torch.profiler``; device time by kernel goes to
-   ``chiprun_out/profile_main.txt``.
+7. ``rowgeom``: the row-geometry round -- the ``main`` configuration with
+   ``Multikrum(num_byzantine=250)`` in place of Median, one warm-up and 2
+   timed rounds, then one round of ``GeoMed()`` -- through the pass
+   planner's ``row_stats_bundle`` calls; and the average-linkage
+   clustering loop at 1000 clients, timed.
+8. ``profile`` (only when named): one more main-path round, and one
+   Multikrum round of phase 7, under ``torch.profiler``; device time by
+   kernel goes to ``chiprun_out/profile_main.txt`` and
+   ``chiprun_out/profile_rowgeom.txt``.
 
-Launch counts are set to 0 just before each of phases 4-6 and read just
-after; a kernel of the phase that did not launch fails the run.  The last
+Launch counts are set to 0 just before each of phases 4-7 (and before
+each of the two rounds of phase 7) and read just after; a kernel of the
+phase that did not launch fails the run.  The last
 three lines are the card (``nvidia-smi``), one JSON object with every
 kernel's numbers, and ``{"ok": true, "device": ...}``.  Any failure exits
 non-zero before those lines.  Without a CUDA device, or without the
@@ -46,7 +57,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "small", "kernels", "main", "full", "aggregators")
+PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
+          "rowgeom")
 EXTRA_PHASES = ("profile",)  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -57,6 +69,7 @@ EXTRA_PHASES = ("profile",)  # run only when named
 # element for a selection).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # the Gram's bf16 products on the tensor cores
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # Order statistics, counts and flags are exact.  Values computed from the
@@ -70,8 +83,13 @@ F32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-6
 SQ_RTOL = 1e-4
 TRIM_TOL = 1e-5
+# Row statistics (sums over up to 4.9M terms, the kernel's split and order
+# against the plain chunk loop's): within 1e-4 of the magnitude of the
+# summands, |X| in place of X.
+ROW_RTOL = 1e-4
 
 TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
+ROWGEOM_ROUNDS = 2  # Multikrum rounds timed after one warm-up round
 REPS = 5          # timed launches per kernel, after one warm-up launch
 
 
@@ -172,7 +190,8 @@ def phase_build():
     ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 log(f"  ptxas: {line.strip()}")
 
 
@@ -266,12 +285,109 @@ def phase_small():
         cases += 2
     torch.cuda.synchronize()
     log(f"small: {cases} kernel-vs-plain cases agree")
+    _small_rowstats(gen)
     _small_round()
 
 
+def _abs_scales(x, kw):
+    """Per-entry magnitudes of each statistic's summands: the same bundle
+    over |X|, |v|, |w|, |g|.  An f32 sum in another order differs by a
+    small multiple of the rounding unit times these."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    akw = {k: v.abs() if torch.is_tensor(v) else v for k, v in kw.items()}
+    return rs.row_stats_bundle_plain(x.abs(), **akw)
+
+
+def rowstats_agree(got, want, x, kw, what, rtol=ROW_RTOL) -> float:
+    """Kernel vs plain: sign counts and int8 self-contractions exact, every
+    f32 sum within ``rtol`` of its summands' magnitude."""
+    import torch
+
+    check(set(got) == set(want), f"{what}: keys {sorted(got)} vs "
+          f"{sorted(want)}")
+    scales = None
+    err = 0.0
+    for k in want:
+        a, b = got[k], want[k]
+        check(a.shape == b.shape and a.dtype == torch.float32,
+              f"{what} {k}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)}")
+        if k == "signs" or (x.dtype == torch.int8 and k in ("sq", "gram")):
+            same(a, b, f"{what} {k}")
+            continue
+        if scales is None:
+            scales = _abs_scales(x, kw)
+        diff = (a.double() - b.double()).abs()
+        bad = ~(diff <= rtol * scales[k].double() + 1e-6)
+        if bool(bad.any()):
+            i = torch.nonzero(bad).flatten()[:4].tolist()
+            raise Failure(f"{what} {k}: {int(bad.sum())} entries out of "
+                          f"tolerance, e.g. {a.flatten()[i].tolist()} vs "
+                          f"{b.flatten()[i].tolist()}")
+        err = max(err, max_err(a, b))
+    return err
+
+
+ROWSTAT_BUNDLES = {
+    "sq+gram+signs": dict(sq=True, gram=True, signs=True),
+    "dots": dict(dots=True),
+    "wsum": dict(weights=True),
+    "gram_dot": dict(gram_dot=True),
+    "all": dict(sq=True, gram=True, signs=True, dots=True, weights=True,
+                gram_dot=True),
+}
+
+
+def _small_rowstats(gen):
+    """``row_stats_bundle`` against its plain version: dtype x bundle x
+    ragged rows, at an even and an odd width (the odd width loads element by
+    element), plus one wide matrix that walks many slabs per CTA."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    cases = 0
+    shapes = [(9, 1001), (77, 1001), (1000, 1000), (77, 300_002)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for rows, d in shapes:
+            if dtype == torch.int8:
+                x = torch.randint(-127, 128, (rows, d), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+            else:
+                x = torch.randn((rows, d), generator=gen,
+                                device="cuda").to(dtype)
+            x[:, ::5] = 0
+            v = torch.randn((2, d), generator=gen, device="cuda")
+            w = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
+            g = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
+            for bname, flags in ROWSTAT_BUNDLES.items():
+                kw = dict(sq=flags.get("sq", False),
+                          gram=flags.get("gram", False),
+                          signs=flags.get("signs", False),
+                          dots=v if flags.get("dots") else None,
+                          weights=w if flags.get("weights") else None,
+                          gram_dot=g if flags.get("gram_dot") else None)
+                got = rs.row_stats_bundle(x, **kw)
+                want = rs.row_stats_bundle_plain(x, **kw)
+                rowstats_agree(got, want, x, kw,
+                               f"row_stats_bundle {dtype} ({rows}, {d}) "
+                               f"{bname}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"small: {cases} row_stats_bundle kernel-vs-plain cases agree "
+        "(signs and int8 sq/gram exact)")
+
+
 def _small_round():
-    """One MLP round (f32 compute and storage, both finishes) on the card
-    against the same round on the CPU."""
+    """Small MLP rounds (f32 compute and storage) on the card against the
+    same rounds on the CPU: Median through both fused finishes, then each
+    of the seven row-geometry aggregators under ALIE through the planner
+    (GeoMed at ``maxiter=5``: its early stop compares f32 objectives
+    exactly, which reassociation can move by an iteration).  DnC and
+    FLTrust draw from each device's own generator, so for those two only
+    finiteness and the planned traversals are compared."""
     import torch
 
     from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
@@ -279,21 +395,29 @@ def _small_round():
     from blades_tpu_torch.parallel.streamed import streamed_step
 
     n, f, shape = 16, 4, (8, 8, 1)
-    fr = FedRound(task=TaskSpec(model="mlp", input_shape=shape,
-                                lr=0.1).build(),
-                  server=Server.from_config("Median", lr=0.5),
-                  adversary=get_adversary("ALIE", num_clients=n,
-                                          num_byzantine=f),
-                  batch_size=4)
     gen = torch.Generator().manual_seed(1)
     x = torch.randn((n, 8) + shape, generator=gen)
     y = torch.randint(0, 10, (n, 8), generator=gen)
     lengths = torch.full((n,), 8)
     idx = torch.randint(0, 8, (n, 1, 4), generator=gen)
-    masks = tuple(torch.rand((n, 1, 4, w), generator=gen) >= 0.2
-                  for w in fr.task.model.dropout_widths)
+    tx = torch.randn((16,) + shape, generator=gen)
+    ty = torch.randint(0, 10, (16,), generator=gen)
     mal = make_malicious_mask(n, f)
-    for prefix in (f, None):
+    task = TaskSpec(model="mlp", input_shape=shape, lr=0.1).build()
+    masks = tuple(torch.rand((n, 1, 4, w), generator=gen) >= 0.2
+                  for w in task.model.dropout_widths)
+    runs = [("Median", f), ("Median", None)] + [
+        (name, f) for name in ("Multikrum", {"type": "GeoMed", "maxiter": 5},
+                               "Signguard", "Centeredclipping",
+                               "Clippedclustering", "DnC", "FLTrust")]
+    for agg, prefix in runs:
+        name = agg if isinstance(agg, str) else agg["type"]
+        fr = FedRound(task=task,
+                      server=Server.from_config(agg, num_byzantine=f, lr=0.5),
+                      adversary=get_adversary("ALIE", num_clients=n,
+                                              num_byzantine=f),
+                      batch_size=4,
+                      trusted_data=(tx, ty) if name == "FLTrust" else None)
         out = {}
         for dev in ("cpu", "cuda"):
             state = fr.init(0, n, device=dev)
@@ -303,25 +427,35 @@ def _small_round():
             state, m = step(state, x.to(dev), y.to(dev), lengths, mal, 0,
                             batch_idx=idx, dropout_masks=masks)
             out[dev] = (state.server.params, m)
-        for k, v in out["cpu"][0].items():
-            close(out["cuda"][0][k].cpu(), v, f"small round param {k}",
-                  rtol=1e-4, atol=1e-5)
-        for k in ("train_loss", "agg_norm", "update_norm_mean"):
+        for k, v in out["cuda"][0].items():
+            check(bool(torch.isfinite(v).all()), f"small round {name} {k}")
+            if name not in ("DnC", "FLTrust"):
+                close(v.cpu(), out["cpu"][0][k], f"small round {name} "
+                      f"param {k}", rtol=1e-4, atol=1e-5)
+        keys = ("train_loss", "agg_norm", "update_norm_mean")
+        if name in ("DnC", "FLTrust"):
+            keys = ("train_loss",)
+        for k in keys:
             close(out["cuda"][1][k].cpu().reshape(1),
-                  out["cpu"][1][k].reshape(1), f"small round {k}",
+                  out["cpu"][1][k].reshape(1), f"small round {name} {k}",
                   rtol=1e-4, atol=1e-5)
-    log("small: MLP round on the card matches the CPU round "
-        "(compact and full branches)")
+        for k in ("hbm_passes", "hbm_passes_unfused"):
+            check(out["cuda"][1].get(k) == out["cpu"][1].get(k),
+                  f"small round {name} {k}: {out['cuda'][1].get(k)} vs "
+                  f"{out['cpu'][1].get(k)}")
+    log("small: MLP rounds on the card match the CPU rounds (Median on "
+        "the compact and full branches; GeoMed, DnC, Multikrum, "
+        "Centeredclipping, Signguard, Clippedclustering, FLTrust under ALIE)")
 
 
 def _record(name, source, replaces, ms, plain_ms, bytes_moved, ops, err,
-            library_ms=None):
+            library_ms=None, ops_per_s=F32_OPS_PER_S):
     """One kernel's line.  ``library_ms`` is the time of one PyTorch call
     computing the same function on the same inputs, or null where there
     is none (no call forges or sanitizes, and ``torch.median`` returns the
     lower middle value)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -429,6 +563,7 @@ def phase_kernels():
                                 per_elem * 1000 * (1 << 20), err, lib_ms)
     del x
     torch.cuda.empty_cache()
+    records.update(_bundle_records(gen, d))
     for r in records.values():
         lib = r["library_ms"]
         log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f}"
@@ -438,10 +573,68 @@ def phase_kernels():
     return records
 
 
+ROWSTATS_SRC = "blades_tpu_torch/csrc/rowstats.cu"
+ROWSTATS_TPU = "blades_tpu/ops/pallas_rowstats.py:167"
+GRAM_RECORD = "row_stats_bundle:gram"
+GEOMED_RECORD = "row_stats_bundle:wsum+gram_dot"
+
+
+def _bundle_records(gen, d):
+    """``row_stats_bundle`` at the row-geometry round's shape, (1000, d)
+    bf16: Multikrum's Gram bundle (its norms come from the round's in-place
+    pass) and GeoMed's weighted sum + Gram-vector product."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    n = 1000
+    x = (torch.randn((n, d), generator=gen, device="cuda") * 1e-3).to(
+        torch.bfloat16)
+    w = torch.full((1, n), 1.0 / n, device="cuda")
+    records = {}
+    for name, kw in ((GRAM_RECORD, dict(gram=True)),
+                     (GEOMED_RECORD, dict(weights=w, gram_dot=w))):
+        got = rs.row_stats_bundle(x, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = rs.row_stats_bundle_plain(x, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = rowstats_agree(got, want, x, kw, f"{name} (main shape)")
+        del got, want
+        ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)
+        lib_ms = None
+        if name == GRAM_RECORD:
+            # X X^T of bf16 rows with f32 output, where torch takes out_dtype.
+            try:
+                torch.mm(x[:2, :8], x[:2, :8].t(), out_dtype=torch.float32)
+            except (TypeError, RuntimeError) as e:
+                log(f"kernel {name}: library_ms null: torch.mm takes no "
+                    f"out_dtype here ({type(e).__name__}: {e})")
+            else:
+                lib_ms = timed(lambda: torch.mm(x, x.t(),
+                                                out_dtype=torch.float32), REPS)
+            records[name] = _record(
+                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
+                n * d * 2 + n * n * 4, n * (n + 1) // 2 * d * 2, err, lib_ms,
+                ops_per_s=BF16_TENSOR_OPS_PER_S)
+        else:
+            log(f"kernel {name}: library_ms null: no one PyTorch call "
+                "computes a weighted row sum and a Gram-vector product")
+            # w^T X (2nd), t = g^T X (2nd), X t (2nd), on the f32 cores.
+            records[name] = _record(
+                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
+                n * d * 2 + d * 4 + 3 * n * 4, 6 * n * d, err, lib_ms)
+    del x
+    torch.cuda.empty_cache()
+    return records
+
+
 def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
-                    profile_to=None):
-    """Build the headline configuration at ``n`` clients and run ``rounds``
-    rounds; return the per-round losses, seconds and last metrics.
+                    profile_to=None, aggregator="Median"):
+    """Build the headline configuration at ``n`` clients (with
+    ``aggregator`` in place of Median) and run ``rounds`` rounds; return
+    the per-round losses, seconds, last metrics and the step.
     ``block``, ``hw`` and ``device`` shrink it for a rehearsal.  With
     ``profile_to`` (a directory) the last round runs under
     ``torch.profiler`` and its kernel table is written there."""
@@ -458,7 +651,7 @@ def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
         task=TaskSpec(model="resnet", input_shape=(hw, hw, 3),
                       num_classes=10, lr=0.1,
                       compute_dtype="bfloat16").build(),
-        server=Server.from_config("Median", lr=0.5),
+        server=Server.from_config(aggregator, num_byzantine=f, lr=0.5),
         adversary=get_adversary("ALIE", num_clients=n, num_byzantine=f),
         batch_size=batch, num_batches_per_round=1)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -485,19 +678,20 @@ def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
         secs.append(time.perf_counter() - t0)
         if prof is not None:
             prof.__exit__(None, None, None)
-            _write_profile(prof, secs[-1], profile_to)
+            _write_profile(prof, secs[-1], profile_to,
+                           "main" if aggregator == "Median" else "rowgeom")
         losses.append(float(m["train_loss"]))
         check(math.isfinite(losses[-1]), f"round {r}: loss {losses[-1]}")
         check(math.isfinite(float(m["agg_norm"])),
               f"round {r}: agg_norm {float(m['agg_norm'])}")
     for k, v in state.server.params.items():
         check(bool(torch.isfinite(v).all()), f"non-finite parameter {k}")
-    return losses, secs, m
+    return losses, secs, m, step
 
 
-def _write_profile(prof, wall_s, out_dir):
+def _write_profile(prof, wall_s, out_dir, tag):
     """Device time by kernel over one profiled round: the table goes to
-    ``out_dir/profile_main.txt``; the device's busy share and the time by
+    ``out_dir/profile_<tag>.txt``; the device's busy share and the time by
     kind of kernel are printed."""
     from torch.autograd import DeviceType
 
@@ -531,7 +725,9 @@ def _write_profile(prof, wall_s, out_dir):
     kinds = {}
     for us, _, key in events:
         k = key.lower()
-        if "finish_kernel" in k or "finalize_kernel" in k:
+        if "rowstats" in k or "gram_" in k:
+            kind = "row statistics"
+        elif "finish_kernel" in k or "finalize_kernel" in k:
             kind = "fused finish"
         elif any(w in k for w in ("conv", "cudnn", "xmma", "gemm", "cutlass",
                                   "wgrad", "dgrad", "sm90")):
@@ -540,27 +736,30 @@ def _write_profile(prof, wall_s, out_dir):
             kind = "other"
         kinds[kind] = kinds.get(kind, 0.0) + us
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_main.txt")
+    path = os.path.join(out_dir, f"profile_{tag}.txt")
     with open(path, "w") as fh:
         fh.write(f"round wall {wall_s * 1e3:.1f} ms under the profiler, "
                  f"device busy {busy_us / 1e3:.1f} ms, kernel time summed "
                  f"{kernel_us / 1e3:.1f} ms\n")
         for us, count, key in events:
             fh.write(f"{us / 1e3:10.3f} ms {count:7d}x  {key}\n")
-    log(f"profile: round {wall_s * 1e3:.1f} ms under the profiler, device "
+    log(f"profile {tag}: round {wall_s * 1e3:.1f} ms under the profiler, device "
         f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / (wall_s * 1e3):.1f}"
         f"% of the wall), kernel time summed {kernel_us / 1e3:.1f} ms; by "
         f"kind: " + ", ".join(
             f"{k} {v / 1e3:.1f} ms" for k, v in sorted(
                 kinds.items(), key=lambda kv: -kv[1])))
     for us, count, key in events[:8]:
-        log(f"profile:   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
-    log(f"profile: table in {path}")
+        log(f"profile {tag}:   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    log(f"profile {tag}: table in {path}")
 
 
 def phase_profile(out_dir: str):
-    """One warm-up and one profiled round of the main path."""
+    """One warm-up and one profiled round of the main path, then of the
+    row-geometry round (Multikrum)."""
     _headline_round(1000, 250, 250, 2, profile_to=out_dir)
+    _headline_round(1000, 250, 250, 2, profile_to=out_dir,
+                    aggregator={"type": "Multikrum", "num_byzantine": 250})
 
 
 def phase_main():
@@ -570,7 +769,7 @@ def phase_main():
 
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    losses, secs, m = _headline_round(1000, 250, 250, 1 + TIMED_ROUNDS)
+    losses, secs, m, _ = _headline_round(1000, 250, 250, 1 + TIMED_ROUNDS)
     counts = dict(_cuda.LAUNCHES)
     rounds = 1 + TIMED_ROUNDS
     check(counts.get("fused_finish_compact", 0) == rounds,
@@ -592,7 +791,7 @@ def phase_full():
     from blades_tpu_torch.ops import _cuda
 
     _cuda.reset_launches()
-    losses, secs, m = _headline_round(200, 50, None, 1)
+    losses, secs, m, _ = _headline_round(200, 50, None, 1)
     counts = dict(_cuda.LAUNCHES)
     check(counts == {"fused_finish": 1},
           f"full: expected one full-finish launch, got {counts}")
@@ -622,6 +821,81 @@ def phase_aggregators():
     check(bool(torch.isfinite(med).all() and torch.isfinite(tm).all()),
           "aggregators: non-finite aggregate")
     log(f"aggregators: Median and Trimmedmean launches {counts}")
+    return counts
+
+
+def phase_rowgeom():
+    """The row-geometry round at 1000 clients: Multikrum (1 warm-up + 2
+    timed rounds), then one GeoMed round.  Each bundle of the planner's is
+    one ``row_stats_bundle`` launch: Multikrum's Gram and its weighted sum
+    per round; GeoMed's first bundle and one per Weiszfeld iteration."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops.clustering import agglomerative_majority
+
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    rounds = 1 + ROWGEOM_ROUNDS
+    losses, secs, m, step = _headline_round(
+        1000, 250, 250, rounds,
+        aggregator={"type": "Multikrum", "num_byzantine": 250})
+    launches = dict(_cuda.LAUNCHES)
+    check(step.passes.kernel_bundles == 2,
+          f"rowgeom: Multikrum served {step.passes.kernel_bundles} bundles "
+          "by the kernel, expected 2 (Gram, weighted sum)")
+    check(launches == {"row_stats_bundle": 2 * rounds},
+          f"rowgeom: Multikrum launches {launches} over {rounds} rounds")
+    # As the CPU tests pin against the JAX round: the in-place pass, the
+    # Gram bundle, the weighted-sum bundle.
+    check(int(m["hbm_passes"]) == 3 and int(m["hbm_passes_unfused"]) == 3,
+          f"rowgeom: hbm_passes {m['hbm_passes']} / "
+          f"{m['hbm_passes_unfused']}, expected 3 / 3")
+    check(int(m["elided_lanes"]) == 250, "rowgeom: elision did not engage")
+    counts[GRAM_RECORD] = launches["row_stats_bundle"]
+    rps = ROWGEOM_ROUNDS / sum(secs[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"rowgeom: Multikrum(250), ALIE, bf16, 1000 clients: "
+        f"{ROWGEOM_ROUNDS} timed rounds at {rps:.4f} rounds/s (round "
+        f"seconds {[round(t, 3) for t in secs]}, first is warm-up); "
+        f"train_loss {losses}; row_stats_bundle launches "
+        f"{launches['row_stats_bundle']} ({step.passes.kernel_bundles} per "
+        f"round); hbm_passes {int(m['hbm_passes'])}; peak memory "
+        f"{peak:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    losses, secs, m, step = _headline_round(1000, 250, 250, 1,
+                                            aggregator="GeoMed")
+    launches = dict(_cuda.LAUNCHES)
+    iters = step.passes.loop_iters
+    check(launches == {"row_stats_bundle": 1 + iters},
+          f"rowgeom: GeoMed launches {launches}, expected 1 + {iters} "
+          "Weiszfeld iterations")
+    check(int(m["hbm_passes"]) == 102 and int(m["hbm_passes_unfused"]) == 203,
+          f"rowgeom: GeoMed hbm_passes {m['hbm_passes']} / "
+          f"{m['hbm_passes_unfused']}, expected 102 / 203")
+    counts[GEOMED_RECORD] = launches["row_stats_bundle"]
+    log(f"rowgeom: GeoMed, ALIE, bf16, 1000 clients: one round "
+        f"{secs[0]:.3f} s ({1 / secs[0]:.4f} rounds/s), {iters} Weiszfeld "
+        f"iterations, row_stats_bundle launches "
+        f"{launches['row_stats_bundle']}; train_loss {losses}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The exact average-linkage loop (Clippedclustering) at 1000 clients:
+    # n - 2 sequential steps in eager torch, not a kernel.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    u = torch.randn((1000, 64), generator=gen, device="cuda")
+    u = u / (u * u).sum(1, keepdim=True).sqrt()
+    dist = 1.0 - (u @ u.T).clamp(-1.0, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maj = agglomerative_majority(dist, linkage="average")
+    torch.cuda.synchronize()
+    log(f"rowgeom: average-linkage clustering at 1000 clients "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (majority "
+        f"{int(maj.sum())})")
     return counts
 
 
@@ -659,23 +933,31 @@ def main(argv=None) -> int:
     card = smi()
     log(f"card: {card}")
     records = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
         if "build" in phases:
-            phase_build()
+            run("build", phase_build)
         if "small" in phases:
-            phase_small()
+            run("small", phase_small)
         if "kernels" in phases:
-            records = phase_kernels()
+            records = run("kernels", phase_kernels)
         launches = {}
         if "main" in phases:
-            counts, _ = phase_main()
-            launches.update(counts)
+            launches.update(run("main", phase_main)[0])
         if "full" in phases:
-            launches.update(phase_full())
+            launches.update(run("full", phase_full))
         if "aggregators" in phases:
-            launches.update(phase_aggregators())
+            launches.update(run("aggregators", phase_aggregators))
+        if "rowgeom" in phases:
+            launches.update(run("rowgeom", phase_rowgeom))
         if "profile" in phases:
-            phase_profile(os.path.join(HERE, "chiprun_out"))
+            run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

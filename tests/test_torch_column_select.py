@@ -89,5 +89,5 @@ def test_aggregators_route_through_column_select():
     torch.testing.assert_close(tm(x)[0], tcs.column_trimmed_mean(x, 4),
                                rtol=0, atol=0)
     torch.testing.assert_close(get_aggregator("Mean")(x)[0], x.mean(0))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="requires num_byzantine"):
         get_aggregator("Multikrum")

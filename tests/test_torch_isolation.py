@@ -73,7 +73,7 @@ def test_out_of_slice_configs_name_the_later_slice():
     with pytest.raises(NotImplementedError, match="later slice"):
         get_adversary("Noise")
     with pytest.raises(NotImplementedError, match="later slice"):
-        Server.from_config("GeoMed")
+        get_adversary("Lazy")
     fr = FedRound(task=task, server=Server.from_config("Median"),
                   num_clients=3)
     step = streamed_step(fr, client_block=2, device="cpu")

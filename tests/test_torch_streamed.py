@@ -14,6 +14,14 @@ compact branch (block-aligned malicious prefix) and on the full branch.
 Tolerance ``rtol=1e-5, atol=1e-6`` on server parameters and metrics: the
 benign mean and variance behind the forged row, the trimmed sums and the
 row norms are f32 sums taken in different orders.
+
+Row-geometry rounds (the port's planner and row-stats bundles against the
+JAX planner's chunk loop) hold ``rtol=2e-4, atol=2e-5``, as the JAX package
+holds its streamed row-geometry round against its dense one, and stamp the
+same ``hbm_passes`` / ``hbm_passes_unfused`` exactly.  GeoMed runs at
+``maxiter=5`` there: its early stop tests whether the f32 objective changed
+at all, which reassociation flips by an iteration (see
+tests/test_torch_streamed_geometry.py).
 """
 
 import jax
@@ -34,6 +42,7 @@ from blades_tpu_torch.core import FedRound, RoundState, Server, TaskSpec
 from blades_tpu_torch.parallel.streamed import streamed_step
 
 RTOL, ATOL = 1e-5, 1e-6
+RG_RTOL, RG_ATOL = 2e-4, 2e-5
 METRICS = ("train_loss", "update_norm_mean", "agg_norm")
 
 
@@ -59,7 +68,8 @@ def _jax_draws(key, n, lengths, batch_size, num_batches, model):
 
 
 def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
-              batch_size=4, shard=8, rounds=2, adv_kw=None):
+              batch_size=4, shard=8, rounds=2, adv_kw=None, fuse=True,
+              update_dtype="float32", d_chunk=1 << 17):
     adv_kw = adv_kw or {}
     rng = np.random.default_rng(0)
     x = rng.normal(size=(n, shard) + shape).astype(np.float32)
@@ -86,10 +96,13 @@ def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
     params = params_from_jax(jax.tree.map(np.asarray, jstate.server.params))
     state = RoundState(server=fr.server.init(params, n))
     jstep = jax_streamed_step(jfr, client_block=block,
-                              update_dtype=jnp.float32, donate=False,
-                              malicious_prefix=prefix)
-    step = streamed_step(fr, client_block=block, update_dtype=torch.float32,
-                         malicious_prefix=prefix, device="cpu")
+                              update_dtype=getattr(jnp, update_dtype),
+                              donate=False, malicious_prefix=prefix,
+                              fuse_rowgeom=fuse, d_chunk=d_chunk)
+    step = streamed_step(fr, client_block=block,
+                         update_dtype=getattr(torch, update_dtype),
+                         malicious_prefix=prefix, fuse_rowgeom=fuse,
+                         device="cpu")
     jmal = jnp.arange(n) < f
     mal = make_malicious_mask(n, f)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
@@ -105,14 +118,19 @@ def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
     return out
 
 
-def _compare(out, elided):
+def _compare(out, elided, rtol=RTOL, atol=ATOL, passes=False):
     for jstate, jm, state, m in out:
         want = np.asarray(ravel_pytree(jstate.server.params)[0])
         got = np.asarray(ravel_pytree(params_to_jax(state.server.params))[0])
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
         for k in METRICS:
             np.testing.assert_allclose(float(m[k]), float(jm[k]),
-                                       rtol=RTOL, atol=ATOL)
+                                       rtol=rtol, atol=atol)
+        for k in ("hbm_passes", "hbm_passes_unfused"):
+            if passes:
+                assert int(m[k]) == int(jm[k]), k
+            else:
+                assert k not in m
         assert int(m["round"]) == int(jm["round"])
         if elided:
             assert int(m["elided_lanes"]) == int(jm["elided_lanes"])
@@ -141,6 +159,101 @@ def test_unaligned_prefix_takes_the_full_branch():
     _compare(out, elided=True)
 
 
+GEOMED5 = {"type": "GeoMed", "maxiter": 5}
+
+
+@pytest.mark.parametrize("aggregator", [
+    "Multikrum", GEOMED5, "Signguard", "Centeredclipping"],
+    ids=["Multikrum", "GeoMed", "Signguard", "Centeredclipping"])
+def test_mlp_rowgeom_rounds_match_jax(aggregator):
+    """ALIE with the malicious prefix elided, two rounds (Centeredclipping's
+    momentum carries across); under Signguard ALIE negates the global first
+    half of the deviation."""
+    out = _run_pair("mlp", (8, 8, 1), aggregator, "ALIE", 12, 4, 4, block=4)
+    _compare(out, elided=True, rtol=RG_RTOL, atol=RG_ATOL, passes=True)
+    if aggregator == "Centeredclipping":
+        jstate, _, state, _ = out[-1]
+        np.testing.assert_allclose(state.server.agg_state.numpy(),
+                                   np.asarray(jstate.server.agg_state),
+                                   rtol=RG_RTOL, atol=RG_ATOL)
+
+
+def test_mlp_rowgeom_round_with_overlapping_chunks_matches_jax(monkeypatch):
+    """Column chunks of 10,000 over the MLP's 43,914 parameters: the tail
+    chunk overlaps its predecessor, the in-place pass writes back only the
+    uncovered columns, and ALIE's negated first half under Signguard spans
+    chunks by global coordinate."""
+    from blades_tpu_torch.parallel import streamed
+
+    monkeypatch.setattr(streamed, "D_CHUNK", 10_000)
+    out = _run_pair("mlp", (8, 8, 1), "Signguard", "ALIE", 12, 4, 4,
+                    block=4, rounds=1, d_chunk=10_000)
+    _compare(out, elided=True, rtol=RG_RTOL, atol=RG_ATOL, passes=True)
+
+
+@pytest.mark.parametrize("aggregator,adversary", [
+    ("Median", "MinMax"), ("Multikrum", "MinMax"), (GEOMED5, "IPM")],
+    ids=["Median-MinMax", "Multikrum-MinMax", "GeoMed-IPM"])
+def test_mlp_row_forger_and_unfused_rounds_match_jax(aggregator, adversary):
+    """A row-geometry forger before a coordinate-wise and a row-geometry
+    aggregator, and the unfused planner (one traversal per statistic)."""
+    out = _run_pair("mlp", (8, 8, 1), aggregator, adversary, 12, 4, 4,
+                    block=4, rounds=1, fuse=adversary == "MinMax")
+    _compare(out, elided=True, rtol=RG_RTOL, atol=RG_ATOL, passes=True)
+
+
+def test_every_row_geometry_aggregator_runs_streamed():
+    """Each of the seven under ALIE (FLTrust with root data) runs, stays
+    finite and stamps the JAX round's planned traversals.  DnC's and the
+    root data's draws come from each side's own generator, so only the
+    counts are compared."""
+    n, f, shape = 8, 2, (8, 8, 1)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 8) + shape).astype(np.float32)
+    y = rng.integers(0, 10, size=(n, 8)).astype(np.int32)
+    tx = rng.normal(size=(16,) + shape).astype(np.float32)
+    ty = rng.integers(0, 10, size=(16,)).astype(np.int32)
+    lengths = np.full((n,), 8, np.int32)
+    spec = dict(model="mlp", input_shape=shape, num_classes=10, lr=0.1)
+    for name in ("GeoMed", "DnC", "Multikrum", "Centeredclipping",
+                 "Signguard", "Clippedclustering", "FLTrust"):
+        agg = {"type": name}
+        if name == "DnC":
+            agg["sub_dim"] = 64
+        trusted = name == "FLTrust"
+        jfr = JaxFedRound(
+            task=JaxTaskSpec(**spec).build(),
+            server=JaxServer.from_config(aggregator=agg, num_byzantine=f),
+            adversary=jax_adversary("ALIE", num_clients=n, num_byzantine=f),
+            batch_size=4,
+            trusted_data=(jnp.asarray(tx), jnp.asarray(ty)) if trusted
+            else None)
+        fr = FedRound(
+            task=TaskSpec(**spec).build(),
+            server=Server.from_config(agg, num_byzantine=f),
+            adversary=get_adversary("ALIE", num_clients=n, num_byzantine=f),
+            batch_size=4,
+            trusted_data=(torch.from_numpy(tx), torch.from_numpy(ty).long())
+            if trusted else None)
+        jstate = jfr.init(jax.random.PRNGKey(0), n)
+        _, jm = jax_streamed_step(jfr, client_block=2, donate=False,
+                                  malicious_prefix=f)(
+            jstate, jnp.asarray(x), jnp.asarray(y), jnp.asarray(lengths),
+            jnp.arange(n) < f, jax.random.PRNGKey(1))
+        step = streamed_step(fr, client_block=2, malicious_prefix=f,
+                             device="cpu")
+        state, m = step(fr.init(0, n, device="cpu"), torch.from_numpy(x),
+                        torch.from_numpy(y).long(), torch.from_numpy(lengths),
+                        make_malicious_mask(n, f), 1)
+        assert np.isfinite(float(m["train_loss"])), name
+        assert all(bool(torch.isfinite(v).all())
+                   for v in state.server.params.values()), name
+        assert int(m["elided_lanes"]) == int(jm["elided_lanes"]) == f
+        for k in ("hbm_passes", "hbm_passes_unfused"):
+            assert int(m[k]) == int(jm[k]), (name, k)
+        assert step.passes.kernel_bundles >= 1
+
+
 @pytest.mark.slow  # ~22 s on a CPU, most of it the JAX ResNet-10 compile
 def test_resnet10_round_matches_jax():
     """16x16 inputs: at 8x8 the last stage is 1x1 and its BatchNorms over a
@@ -149,3 +262,12 @@ def test_resnet10_round_matches_jax():
     out = _run_pair("resnet", (16, 16, 3), "Median", "ALIE", 8, 4, 4,
                     block=4, rounds=1)
     _compare(out, elided=True)
+
+
+@pytest.mark.slow  # ResNet-10 compile on the JAX side, as above
+def test_resnet10_rowgeom_round_matches_jax():
+    """The row-geometry slice at ResNet-10 width (16x16 inputs): Multikrum
+    under ALIE with the prefix elided, one round."""
+    out = _run_pair("resnet", (16, 16, 3), "Multikrum", "ALIE", 8, 2, 2,
+                    block=2, rounds=1)
+    _compare(out, elided=True, rtol=RG_RTOL, atol=RG_ATOL, passes=True)
