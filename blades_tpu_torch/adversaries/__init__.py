@@ -1,5 +1,6 @@
 """Adversaries: the update-forging attacks of the port (ALIE, IPM,
-Adaptive, MinMax, SignGuard, Attackclippedclustering)."""
+Adaptive, MinMax, SignGuard, Attackclippedclustering) and the
+training-corruption attacks (LabelFlip, SignFlip)."""
 
 import inspect
 
@@ -7,6 +8,10 @@ from blades_tpu_torch.adversaries.base import (  # noqa: F401
     Adversary,
     benign_mean_std,
     make_malicious_mask,
+)
+from blades_tpu_torch.adversaries.training_attacks import (  # noqa: F401
+    LabelFlipAdversary,
+    SignFlipAdversary,
 )
 from blades_tpu_torch.adversaries.update_attacks import (  # noqa: F401
     AdaptiveAdversary,
@@ -20,20 +25,25 @@ from blades_tpu_torch.adversaries.update_attacks import (  # noqa: F401
 ADVERSARIES = {
     "ALIE": ALIEAdversary,
     "IPM": IPMAdversary,
+    "LabelFlip": LabelFlipAdversary,
+    "SignFlip": SignFlipAdversary,
     "Adaptive": AdaptiveAdversary,
     "MinMax": MinMaxAdversary,
     "SignGuard": SignGuardAdversary,
     "Attackclippedclustering": AttackclippedclusteringAdversary,
 }
-_LATER = {"LabelFlip", "SignFlip", "Noise", "Lazy", "DiurnalALIE",
-          "LazyRamp", "TopologyAttack"}
+# The reference's adversaries the port does not have yet, by either name.
+_LATER = {"Noise", "Lazy", "DiurnalALIE", "LazyRamp", "TopologyAttack",
+          "NoiseAdversary", "LazyAdversary", "DiurnalALIECampaign",
+          "LazyRampCampaign", "TopologyAttackAdversary"}
 _ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
 
 
 def get_adversary(spec, **context) -> Adversary:
-    """Resolve a name / ``{"type": ..., **kwargs}`` / instance; ``context``
-    supplies build-time knowledge (``num_clients``, ``num_byzantine``)
-    where the attack's constructor takes it."""
+    """Resolve a name / ``{"type": ..., **kwargs}`` / instance (a dotted
+    reference-style path resolves by its last part); ``context`` supplies
+    build-time knowledge (``num_clients``, ``num_byzantine``,
+    ``num_classes``) where the attack's constructor takes it."""
     if spec is None:
         return None
     if isinstance(spec, Adversary):

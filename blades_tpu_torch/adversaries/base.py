@@ -31,8 +31,18 @@ def benign_mean_std(updates: torch.Tensor, malicious: torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Adversary:
-    """Base adversary: every hook is the identity.  Update-forging attacks
-    override :meth:`on_updates_ready`."""
+    """Base adversary: every hook is the identity.  Training-corruption
+    attacks override :meth:`data_hook` / :meth:`grad_hook`, which act on a
+    whole client block (``malicious`` is the block's ``(G,)`` mask);
+    update-forging attacks override :meth:`on_updates_ready`."""
+
+    def data_hook(self, x, y, malicious):
+        del malicious
+        return x, y
+
+    def grad_hook(self, grads, malicious):
+        del malicious
+        return grads
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
@@ -51,3 +61,10 @@ def forges(adv) -> bool:
     """Whether ``adv`` rewrites the update matrix."""
     return (adv is not None
             and type(adv).on_updates_ready is not Adversary.on_updates_ready)
+
+
+def trains_corrupted(adv) -> bool:
+    """Whether ``adv`` hooks into local training."""
+    return adv is not None and (
+        type(adv).data_hook is not Adversary.data_hook
+        or type(adv).grad_hook is not Adversary.grad_hook)

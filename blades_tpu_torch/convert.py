@@ -4,7 +4,9 @@
 numpy arrays, into the port's ``{name: tensor}`` dict (torch layout);
 :func:`params_to_jax` goes the other way.  Conv kernels move between flax
 HWIO and torch OIHW, dense kernels between ``(in, out)`` and
-``(out, in)``; see :mod:`blades_tpu_torch.utils.tree` for the naming rule.
+``(out, in)``; biases (the CNN's convolutions have them) and norm scales
+keep their layout.  See :mod:`blades_tpu_torch.utils.tree` for the
+naming rule.
 """
 
 from __future__ import annotations

@@ -1,9 +1,24 @@
-"""Round state and static round config (counterpart of the fields of
-``blades_tpu/core/round.py`` that the streamed round reads, and of
-``FedRound.compute_trusted_update``).
+"""The dense federated round (counterpart of ``blades_tpu/core/round.py``):
 
-The dense ``FedRound.step`` comes with a later slice; the port's round is
-:func:`blades_tpu_torch.parallel.streamed.streamed_step`.
+    sample batches -> local rounds of every client (vmapped client blocks)
+    -> health check -> adversary forge -> robust aggregate -> server step
+
+The ``(n, d)`` f32 update matrix is the round's one large buffer; clients
+train into it in blocks of ``client_block`` (all at once when None), which
+bounds the activations of a block and changes no result, since every
+client's local round is independent.  Per-client optimizer state (client
+momentum) lives in ``RoundState.client_opt`` and is carried across rounds.
+
+Every draw of a round comes from ONE ``torch.Generator`` in a fixed order:
+the batch indices, then per block the dropout masks and augmentation
+draws, then the forge's, the trusted update's and the aggregator's.  A
+caller that must reproduce another package's draws passes them in
+(``step_prebatched(..., dropout_masks=, aug_draws=)``).
+
+Client callbacks, codecs, faults, DP, forensics, lane packing and the
+stateless or windowed client modes are not in the port yet
+(:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses them);
+the streamed round is :func:`blades_tpu_torch.parallel.streamed.streamed_step`.
 """
 
 from __future__ import annotations
@@ -13,9 +28,13 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from blades_tpu_torch.adversaries.base import forges, trains_corrupted
+from blades_tpu_torch.core.health import guard_server_state, sanitize_updates
 from blades_tpu_torch.core.server import Server, ServerState
-from blades_tpu_torch.core.task import Task
+from blades_tpu_torch.core.task import Hooks, Task
+from blades_tpu_torch.data.sampler import sample_client_batches
 from blades_tpu_torch.device import resolve_device
+from blades_tpu_torch.utils.tree import FlatLayout
 
 
 @dataclasses.dataclass
@@ -25,6 +44,28 @@ class RoundState:
 
     server: ServerState
     client_opt: Any = None
+
+
+def round_generator(seed, device) -> torch.Generator:
+    """The round's generator on ``device``, seeded with ``seed`` (an int),
+    or ``seed`` itself when it already is a generator."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _rows(t, r0, r1):
+    """Rows ``[r0, r1)`` of a tensor, or of each tensor of a tuple or
+    dict."""
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        return tuple(v[r0:r1] for v in t)
+    if isinstance(t, dict):
+        return {k: v[r0:r1] for k, v in t.items()}
+    return t[r0:r1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +87,114 @@ class FedRound:
     # aggregators (FLTrust): each round the server runs its own local round
     # on it and the result is the trusted reference update.
     trusted_data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # Clients per vmapped training block of the dense round (None = all).
+    client_block: Optional[int] = None
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
-        """Fresh parameters from ``seed`` and the server's initial state on
-        ``device`` (``None`` = the card)."""
+        """Fresh parameters from ``seed``, the server's initial state and
+        the clients' optimizer state on ``device`` (``None`` = the card)."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         params = self.task.init_params(gen, dev)
-        return RoundState(server=self.server.init(params, num_clients))
+        return RoundState(
+            server=self.server.init(params, num_clients),
+            client_opt=self.task.init_client_opt_state(params, num_clients))
+
+    def hooks(self) -> Optional[Hooks]:
+        """The adversary's training hooks, or None when it has none."""
+        if not trains_corrupted(self.adversary):
+            return None
+        return Hooks(self.adversary.data_hook, self.adversary.grad_hook)
+
+    def sample_round_batches(self, data_x, data_y, lengths, generator):
+        """The batch-sampling half of :meth:`step`: every client's
+        ``(num_batches, batch_size)`` batches, drawn from ``generator``."""
+        return sample_client_batches(generator, data_x, data_y, lengths,
+                                     self.batch_size,
+                                     self.num_batches_per_round)
+
+    def step(self, state: RoundState, data_x, data_y, lengths, malicious,
+             seed) -> Tuple[RoundState, dict]:
+        """One round over the stacked client shards ``data_x (n, shard,
+        ...)``, ``data_y (n, shard)`` with true sizes ``lengths (n,)`` and
+        the ``(n,)`` bool ``malicious`` mask; ``seed`` seeds the round's
+        generator (or is one)."""
+        dev = next(iter(state.server.params.values())).device
+        gen = round_generator(seed, dev)
+        bx, by = self.sample_round_batches(data_x, data_y, lengths, gen)
+        return self.step_prebatched(state, bx, by, malicious, gen)
+
+    def step_prebatched(self, state: RoundState, bx, by, malicious,
+                        generator=None, *, dropout_masks=None,
+                        aug_draws=None) -> Tuple[RoundState, dict]:
+        """:meth:`step` with every client's batches already drawn: ``bx
+        (n, num_batches, batch, ...)``, ``by (n, num_batches, batch)``.
+        ``dropout_masks`` (one ``(n, num_batches, batch, width)`` keep-mask
+        per dropout layer) and ``aug_draws`` (``(offsets (n, nb, B, 2),
+        flips (n, nb, B))``) replace those draws from ``generator``."""
+        params = state.server.params
+        dev = next(iter(params.values())).device
+        if isinstance(generator, int):
+            generator = round_generator(generator, dev)
+        n = bx.shape[0]
+        malicious = malicious.to(device=dev, dtype=torch.bool)
+        block = min(self.client_block or n, n)
+        hooks = self.hooks()
+        opt = state.client_opt
+        new_opt = (None if opt is None
+                   else {k: torch.empty_like(v) for k, v in opt.items()})
+        updates = torch.empty((n, FlatLayout(params).d), dtype=torch.float32,
+                              device=dev)
+        losses = torch.empty((n,), dtype=torch.float32, device=dev)
+        for r0 in range(0, n, block):
+            r1 = min(n, r0 + block)
+            _, loss, opt_b = self.task.local_round_batched(
+                params, bx[r0:r1].to(dev), by[r0:r1].to(dev),
+                opt_state=_rows(opt, r0, r1),
+                malicious=malicious[r0:r1], hooks=hooks, generator=generator,
+                dropout_masks=_rows(dropout_masks, r0, r1),
+                aug_draws=_rows(aug_draws, r0, r1), out=updates[r0:r1])
+            losses[r0:r1] = loss
+            if new_opt is not None:
+                for k, v in opt_b.items():
+                    new_opt[k][r0:r1] = v
+        k = self.num_clients
+        if k is not None and k < n:  # ghost (padding) lanes
+            updates, losses, malicious = updates[:k], losses[:k], malicious[:k]
+        return self.finish_dense(state, updates, new_opt, losses, malicious,
+                                 generator)
+
+    def finish_dense(self, state: RoundState, updates, client_opt, losses,
+                     malicious, generator=None) -> Tuple[RoundState, dict]:
+        """The aggregation tail of :meth:`step_prebatched` over the
+        assembled ``(n, d)`` update matrix: health check, forge, trusted
+        row, robust aggregate, server step and the metrics."""
+        healthy = None
+        if self.health_check:
+            updates, healthy = sanitize_updates(updates)
+        if forges(self.adversary):
+            updates = self.adversary.on_updates_ready(
+                updates, malicious, generator=generator,
+                aggregator=self.server.aggregator)
+        trusted = self.compute_trusted_update(state.server.params, generator)
+        server, agg = self.server.step(state.server, updates,
+                                       generator=generator,
+                                       trusted_update=trusted)
+        benign = (~malicious).float()
+        metrics = {
+            "train_loss": (losses * benign).sum() / benign.sum().clamp(min=1.0),
+            # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
+            # relative over millions of f32 terms.
+            "update_norm_mean": (updates * updates).sum(1).sqrt().mean(),
+            "agg_norm": (agg * agg).sum().sqrt(),
+            "round": server.round,
+        }
+        if self.health_check:
+            ok = torch.isfinite(agg).all()
+            server = guard_server_state(ok, server, state.server)
+            metrics["num_unhealthy"] = (~healthy).sum()
+            metrics["round_ok"] = ok
+        return RoundState(server=server, client_opt=client_opt), metrics
 
     def compute_trusted_update(self, global_params, generator):
         """The server's local round on its root data (FLTrust's trusted
@@ -70,3 +211,29 @@ class FedRound:
         update, _ = self.task.local_round(global_params, tx[idx].to(dev),
                                           ty[idx].to(dev), generator=generator)
         return update
+
+    @torch.no_grad()
+    def evaluate(self, state: RoundState, test_x, test_y, lengths,
+                 eval_rows: int = 2048) -> dict:
+        """Per-client evaluation of the global model over the padded test
+        shards ``test_x (n, cap, ...)``, weighted by the true sizes
+        ``lengths``; clients go through in chunks of about ``eval_rows``
+        rows.  Returns f32 scalars ``test_loss``, ``test_acc``,
+        ``test_acc_top3`` and ``num_samples``."""
+        params = state.server.params
+        dev = next(iter(params.values())).device
+        n, cap = test_x.shape[:2]
+        mask = (torch.arange(cap, device=lengths.device)[None, :]
+                < lengths[:, None])
+        chunk = max(1, eval_rows // max(cap, 1))
+        parts = []
+        for c0 in range(0, n, chunk):
+            ev = self.task.evaluate(params, test_x[c0:c0 + chunk].to(dev),
+                                    test_y[c0:c0 + chunk].to(dev),
+                                    mask[c0:c0 + chunk].to(dev))
+            parts.append(torch.stack([ev["ce_sum"], ev["top1_sum"],
+                                      ev["top3_sum"], ev["count"]]))
+        ce, top1, top3, count = torch.cat(parts, 1).sum(1)
+        total = count.clamp(min=1.0)
+        return {"test_loss": ce / total, "test_acc": top1 / total,
+                "test_acc_top3": top3 / total, "num_samples": total}

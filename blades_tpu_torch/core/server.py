@@ -96,6 +96,26 @@ class Server:
                                            device=device),
             round=0)
 
+    def step(self, state: ServerState, updates: torch.Tensor, *,
+             generator=None, trusted_update=None
+             ) -> Tuple[ServerState, torch.Tensor]:
+        """Aggregate the ``(n, d)`` update matrix and apply one optimizer
+        step: ``(new_state, aggregate)``.  A trust-bootstrapped aggregator
+        (FLTrust) takes ``trusted_update``, the server's root-data update,
+        as the matrix's last row."""
+        if getattr(self.aggregator, "expects_trusted_row", False):
+            if trusted_update is None:
+                raise ValueError(
+                    f"{type(self.aggregator).__name__} requires "
+                    "trusted_update= (the server's root-data update); "
+                    "without it the last client row would become the root "
+                    "of trust")
+            updates = torch.cat([updates, trusted_update[None, :].to(
+                updates.dtype)])
+        agg, agg_state = self.aggregator(updates, state.agg_state,
+                                         generator=generator)
+        return self.apply_aggregate(state, agg, agg_state), agg
+
     def apply_aggregate(self, state: ServerState, agg: torch.Tensor,
                         agg_state: Any = None) -> ServerState:
         """Descend on ``-agg`` (the optimizer half of a server step)."""

@@ -29,3 +29,14 @@ def gather_batches(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
     ``(G, nb, B)`` -> batches ``(G, nb, B, ...)`` and ``(G, nb, B)``."""
     rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
     return x[rows, idx], y[rows, idx]
+
+
+def sample_client_batches(generator: torch.Generator, x: torch.Tensor,
+                          y: torch.Tensor, lengths: torch.Tensor,
+                          batch_size: int, num_batches: int):
+    """The whole federation's batches for one round: ``(n, num_batches,
+    batch_size, ...)`` inputs and ``(n, num_batches, batch_size)`` labels,
+    indices drawn from ``generator`` on its own device."""
+    idx = sample_batch_indices(generator, lengths.to(generator.device),
+                               batch_size, num_batches)
+    return gather_batches(x, y, idx.to(x.device))

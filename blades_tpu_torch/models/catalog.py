@@ -1,6 +1,7 @@
 """Model catalog (counterpart of ``blades_tpu/models/catalog.py``): a name,
-matched by substring as in the reference ("resnet" -> ResNet-10), or an
-``nn.Module`` instance, resolved to a module for a given input shape."""
+matched by substring as in the reference ("resnet" -> ResNet-10, "mlp",
+"cnn"), or an ``nn.Module`` instance, resolved to a module for a given
+input shape."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import math
 
 from torch import nn
 
+from blades_tpu_torch.models.cnn import FashionCNN
 from blades_tpu_torch.models.mlp import MLP
 from blades_tpu_torch.models.resnet import ResNet10, ResNet18
 
@@ -21,10 +23,16 @@ def get_model(spec, num_classes: int = 10, input_shape=(28, 28, 1)) -> nn.Module
     name = str(spec).lower()
     if name in _RESNETS:
         return _RESNETS[name](num_classes, input_shape[-1])
+    if "cct" in name:
+        raise NotImplementedError(
+            f"model {spec!r} is not in the port yet (CCT comes with a later "
+            "slice)")
     if "resnet" in name:
         return ResNet10(num_classes, input_shape[-1])
     if "mlp" in name:
         return MLP(math.prod(input_shape), num_classes=num_classes)
+    if "cnn" in name:
+        return FashionCNN(num_classes, input_shape[-1], input_shape[:2])
     raise NotImplementedError(
-        f"model {spec!r} is not in the port yet (ResNet-10/18 and the MLP "
-        "are; the CNN and CCT come with a later slice)")
+        f"model {spec!r} is not in the port yet (ResNet-10/18, the MLP and "
+        "the CNN are)")

@@ -10,13 +10,19 @@ one-pass ``E[x^2] - mean^2`` form loses the variance to rounding when
 ``|mean| / std`` is large).  The backward is the standard BN backward
 written out (two reductions, ``dscale`` reused for the ``dx`` projection),
 saving the input ``x`` rather than ``xhat``, as
-``blades_tpu/models/layers.py`` does.  Channels are on dim 1 (NCHW).
+``blades_tpu/models/layers.py`` does.  It runs as
+:func:`blades_tpu_torch.ops.bn_backward.bn_bwd`, the two custom ops of that
+module (the CUDA kernels on the card), whose vmap rule makes a vmapped
+client block one launch of each.
+Channels are on dim 1 (NCHW).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from blades_tpu_torch.ops.bn_backward import bn_bwd
 
 
 def _dims(x: torch.Tensor):
@@ -43,6 +49,11 @@ def bn_normalize(x: torch.Tensor, eps: float):
     return (x - mean) * r, mean, r
 
 
+def _as_gncs(t: torch.Tensor) -> torch.Tensor:
+    """``(N, C, *spatial)`` -> the ops' ``(1, N, C, S)`` view."""
+    return t.reshape(t.shape[0], t.shape[1], -1).unsqueeze(0)
+
+
 class BNApply(torch.autograd.Function):
     """``y = xhat * scale + bias`` with the hand-written backward."""
 
@@ -63,17 +74,12 @@ class BNApply(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dr):
         x, mean, r, scale = ctx.saved_tensors
-        dims = _dims(dy)
-        n = dy.numel() // dy.shape[1]
-        xhat = (x - mean) * r
-        dbias = _acc(dy).sum(dims).to(dy.dtype)
-        dscale = _acc(dy * xhat).sum(dims).to(dy.dtype)
-        dxhat = dy * _bcast(scale, dy)
-        mean_dxhat = _acc(dxhat).sum(dims).to(dy.dtype) / n
-        mean_dxhat_xhat = dscale * scale / n
-        dx = r * (dxhat - _bcast(mean_dxhat, dy)
-                  - xhat * _bcast(mean_dxhat_xhat, dy))
-        return dx, dscale, dbias, None
+        vec = [v.reshape(1, -1) for v in (mean, r, scale)]
+        # torch.func.grad runs this backward with grad mode on; the ops
+        # have no backward of their own, and none is needed.
+        with torch.no_grad():
+            dx, dscale, dbias = bn_bwd(_as_gncs(x), _as_gncs(dy), *vec)
+        return dx.reshape(x.shape), dscale[0], dbias[0], None
 
 
 def bn_apply(x, scale, bias, eps: float = 1e-5):

@@ -15,6 +15,7 @@ made; :func:`reset_launches` sets every count to 0.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -123,6 +124,15 @@ def library() -> ctypes.CDLL:
         lib.bt_gram_plan.restype = i
         lib.bt_gram.argtypes = [p, i, i, ll, i, i, i, ll, p, p, p]
         lib.bt_gram.restype = i
+        lib.bt_bn_splits.argtypes = [ll, ll, ll]
+        lib.bt_bn_splits.restype = i
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        lib.bt_bn_reduce.argtypes = [p, p, i, i, i, i, i, llp, llp, pp, llp, p,
+                                     p, p, p, p]
+        lib.bt_bn_reduce.restype = i
+        lib.bt_bn_dx.argtypes = [p, p, p, i, i, i, i, i, llp, llp, llp, pp,
+                                 llp, p]
+        lib.bt_bn_dx.restype = i
         lib.bt_error_string.argtypes = [i]
         lib.bt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -313,3 +323,86 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
             out["gram"] = gram_out
     LAUNCHES[name] += 1
     return out
+
+
+BN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bn_operands(name, x, dy, vecs):
+    """Checks of the BatchNorm-backward launches: ``x`` and ``dy`` are
+    ``(G, N, C, S)`` CUDA tensors of one dtype, and the per-(client,
+    channel) vectors ``(G, C)`` tensors of that dtype; all are taken
+    through their strides, nothing is copied.  Returns the vectors'
+    pointer and stride arrays."""
+    if not (x.is_cuda and dy.is_cuda):
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
+    if x.dtype not in BN_DTYPES or dy.dtype != x.dtype:
+        raise ValueError(f"{name}: dtypes {x.dtype}/{dy.dtype} not supported "
+                         "(float32 or bfloat16, the same for x and dy)")
+    if x.dim() != 4 or dy.shape != x.shape:
+        raise ValueError(f"{name}: need x and dy of one (G, N, C, S) shape, "
+                         f"got {tuple(x.shape)} and {tuple(dy.shape)}")
+    g, _, c, _ = x.shape
+    for v in vecs:
+        if v.shape != (g, c) or v.dtype != x.dtype or v.device != x.device:
+            raise ValueError(f"{name}: per-channel operand {tuple(v.shape)} "
+                             f"{v.dtype} on {v.device}, expected {(g, c)} "
+                             f"{x.dtype} on {x.device}")
+    ptrs = (ctypes.c_void_p * len(vecs))(*(v.data_ptr() for v in vecs))
+    strides = (ctypes.c_longlong * (2 * len(vecs)))(
+        *(st for v in vecs for st in v.stride()))
+    return ptrs, strides
+
+
+def _strides(t):
+    return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _on_device(dev):
+    """The device context for a launch, a no-op when ``dev`` is current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def launch_bn_reduce(name: str, x, dy, mean, r, scale):
+    """Launch the reduction pass of ``csrc/bn_backward.cu``: per (client,
+    channel) f32 sums ``(dbias, dscale, dxhat)``, each ``(G, C)``."""
+    vp, vs = _bn_operands(name, x, dy, (mean, r, scale))
+    g, n, c, s = x.shape
+    lib = library()
+    dev = x.device
+    with _on_device(dev):
+        splits = lib.bt_bn_splits(n * s, x.stride(2), dy.stride(2))
+        part = torch.empty((g * c * splits * 3,), dtype=torch.float32,
+                           device=dev)
+        outs = [torch.empty((g, c), dtype=torch.float32, device=dev)
+                for _ in range(3)]
+        err = lib.bt_bn_reduce(
+            x.data_ptr(), dy.data_ptr(), BN_DTYPES[x.dtype], g, n, c, s,
+            _strides(x), _strides(dy), vp, vs, part.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check(lib, err, f"{name}: launch failed")
+    LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def launch_bn_dx(name: str, x, dy, mean, r, scale, mean_dxhat,
+                 mean_dxhat_xhat):
+    """Launch the dx pass of ``csrc/bn_backward.cu``: ``dx`` of ``x``'s
+    shape, dtype and (dense) strides."""
+    vp, vs = _bn_operands(name, x, dy, (mean, r, scale, mean_dxhat,
+                                        mean_dxhat_xhat))
+    g, n, c, s = x.shape
+    lib = library()
+    dev = x.device
+    with _on_device(dev):
+        dx = torch.empty_like(x)
+        err = lib.bt_bn_dx(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), BN_DTYPES[x.dtype], g,
+            n, c, s, _strides(x), _strides(dy), _strides(dx), vp, vs,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check(lib, err, f"{name}: launch failed")
+    LAUNCHES[name] += 1
+    return dx

@@ -32,8 +32,9 @@ traversals of the fused plan and of one traversal per statistic, plus one
 for the in-place pass and one for the scatter.  A row-geometry forge with
 Mean, Median or Trimmedmean finishes chunk by chunk.
 
-DP, the keyed Noise forge and ghost lanes raise ``NotImplementedError``
-(a later slice of the port).
+The adversary's training hooks (LabelFlip, SignFlip) run inside each
+block's local rounds.  DP, the keyed Noise forge, ghost lanes and client
+momentum raise ``NotImplementedError`` (a later slice of the port).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ from blades_tpu_torch.utils.tree import FlatLayout
 D_CHUNK = 1 << 17  # columns per step of the column-chunk passes
 _COORDWISE_FORGERS = (ALIEAdversary, IPMAdversary, AdaptiveAdversary)
 _LATER = ("a later slice of the port (the chunked finish with DP, the keyed "
-          "Noise forge, ghost lanes)")
+          "Noise forge, ghost lanes, client momentum)")
 
 
 def _fused_spec(fr: FedRound):
@@ -108,6 +109,7 @@ def streamed_step(
     update_dtype: torch.dtype = torch.bfloat16,
     malicious_prefix: int | None = None,
     fuse_rowgeom: bool = True,
+    d_chunk: int | None = None,
     device=None,
 ) -> Callable:
     """Build the streamed round on ``device`` (``None`` = the card).
@@ -123,11 +125,17 @@ def streamed_step(
     keep-mask per dropout layer) the mask draw.
 
     ``fuse_rowgeom=False`` runs the row-geometry statistics one traversal
-    per request (the unfused comparator).  After each row-geometry round
+    per request (the unfused comparator).  ``d_chunk`` is the column width
+    of the chunk passes (default ``D_CHUNK``).  After each row-geometry round
     ``step.passes`` holds its
     :class:`~blades_tpu_torch.parallel.streamed_geometry.PassRecorder`.
     """
     dev = resolve_device(device)
+    if fr.task.spec.momentum:
+        raise NotImplementedError(
+            "client momentum on the streamed round: " + _LATER)
+    d_chunk = d_chunk or D_CHUNK
+    hooks = fr.hooks()
     agg, adv = fr.server.aggregator, fr.adversary
     row_geom = isinstance(agg, STREAMED_ROW_AGGREGATORS)
     coord_forges = forges(adv) and isinstance(adv, _COORDWISE_FORGERS)
@@ -195,7 +203,7 @@ def streamed_step(
     def _forge_row(buf, malicious, sq, gen, recorder):
         """The row-geometry forge's statistics bundles -> the forged (d,)
         row and the post-forge row squared norms."""
-        planner = PassPlanner(buf, D_CHUNK, recorder=recorder,
+        planner = PassPlanner(buf, d_chunk, recorder=recorder,
                               fuse=fuse_rowgeom)
         forged, sq = forge_streamed(adv, buf, malicious, sq, agg, planner,
                                     generator=gen)
@@ -210,20 +218,20 @@ def streamed_step(
         trusted = fr.compute_trusted_update(state.server.params, gen)
         agg_vec, agg_state, sq = aggregate_streamed(
             agg, buf, sq, state.server.agg_state, generator=gen,
-            trusted=trusted, d_chunk=D_CHUNK, recorder=recorder,
+            trusted=trusted, d_chunk=d_chunk, recorder=recorder,
             fuse=fuse_rowgeom)
         return _serve_aggregate(state, agg_vec, malicious, losses, sq, bad,
                                 agg_state=agg_state)
 
     def _coordwise_after_forge(state, buf, malicious, losses, sq, bad,
                                recorder):
-        agg_vec = aggregate_coordwise(agg, buf, D_CHUNK, recorder=recorder)
+        agg_vec = aggregate_coordwise(agg, buf, d_chunk, recorder=recorder)
         return _serve_aggregate(state, agg_vec, malicious, losses, sq, bad)
 
     def _finish_rowgeom(state, buf, malicious, losses, gen):
         n, d = buf.shape
         recorder = PassRecorder()
-        c, _, starts = chunk_grid(d, D_CHUNK)
+        c, _, starts = chunk_grid(d, d_chunk)
         if rewrites:
             sq = torch.zeros((n,), dtype=torch.float32, device=dev)
             bad = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -301,9 +309,10 @@ def streamed_step(
                                     batch_idx[r0:r1])
             masks = (None if dropout_masks is None else
                      tuple(m[r0:r1].to(dev) for m in dropout_masks))
-            _, loss = fr.task.local_round_batched(
-                params, bx.to(dev), by.to(dev), generator=gen,
-                dropout_masks=masks, out=buf[r0 - row_shift:r1 - row_shift])
+            _, loss, _ = fr.task.local_round_batched(
+                params, bx.to(dev), by.to(dev), malicious=malicious[r0:r1],
+                hooks=hooks, generator=gen, dropout_masks=masks,
+                out=buf[r0 - row_shift:r1 - row_shift])
             losses[r0:r1] = loss
 
         if rowgeom_path:

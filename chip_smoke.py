@@ -11,18 +11,26 @@ Phases, each printing its lines before the last:
    ``sm_90a`` into ``build/``.
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
-   confined to one 512-column stripe, and ``row_stats_bundle`` on a grid of
-   dtypes x bundles x ragged shapes; then small MLP rounds on the card
-   against the same rounds on the CPU (Median, and each of the seven
-   row-geometry aggregators under ALIE).
+   confined to one 512-column stripe, ``row_stats_bundle`` on a grid of
+   dtypes x bundles x ragged shapes, and the BatchNorm-backward pair on a
+   grid of f32/bf16 x four physical layouts (the folded and the grouped
+   vmap layouts, each NCHW and channels-last) x ragged shapes; then a
+   vmapped ResNet-10 client block over two local steps with every
+   BN-backward launch audited against the plain version on its real
+   strides (12 launches of each kernel per step); then small MLP rounds
+   on the card against the same rounds on the CPU (Median, and each of
+   the seven row-geometry aggregators under ALIE).
 3. ``kernels``: each kernel against its plain version at the main path's
    shapes, with its time, the plain version's time and its bound; for
    ``row_stats_bundle`` the two bundles of the row-geometry round (the
-   Multikrum Gram, the GeoMed weighted sum + Gram-vector product).
+   Multikrum Gram, the GeoMed weighted sum + Gram-vector product); for the
+   BN pair the four stage layers of ResNet-10 at G = 50, B = 32, bf16,
+   channels-last, beside ``native_batch_norm_backward``.
 4. ``main``: the headline round -- ResNet-10, 1000 clients of CIFAR-10
    shapes, the first 250 running ALIE, exact coordinate-wise Median, bf16
    compute and storage, ``client_block=50``, ``malicious_prefix=250`` --
-   one warm-up round and 3 timed rounds through the compact fused finish.
+   one warm-up round and 3 timed rounds through the compact fused finish;
+   180 launches of each BN kernel per round.
 5. ``full``: one ResNet-10 round at 200 clients with no malicious prefix,
    through the full fused finish.
 6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
@@ -32,14 +40,22 @@ Phases, each printing its lines before the last:
    timed rounds, then one round of ``GeoMed()`` -- through the pass
    planner's ``row_stats_bundle`` calls; and the average-linkage
    clustering loop at 1000 clients, timed.
-8. ``profile`` (only when named): one more main-path round, and one
+8. ``fedavg``: the Fedavg driver through ``FedavgConfig``: the dense
+   ResNet-10 trial of ``fedavg_cifar10_resnet_noniid.yaml`` (60 clients,
+   Dirichlet 0.1, 15 SignFlip then 15 LabelFlip, Median, f32, two local
+   steps, 3 rounds and an evaluation), the 1000-client streamed trial of
+   ``fedavg_cifar10_1000clients.yaml`` (ALIE, Median, bf16, 2 rounds and
+   an evaluation), and the MLP accuracy check (test accuracy >= 0.9 after
+   3 rounds); each prints rounds/s, losses, accuracy and peak memory.
+9. ``profile`` (only when named): one more main-path round, and one
    Multikrum round of phase 7, under ``torch.profiler``; device time by
    kernel goes to ``chiprun_out/profile_main.txt`` and
    ``chiprun_out/profile_rowgeom.txt``.
 
-Launch counts are set to 0 just before each of phases 4-7 (and before
-each of the two rounds of phase 7) and read just after; a kernel of the
-phase that did not launch fails the run.  The last
+Launch counts are set to 0 just before each of phases 4-8 (and before
+each round of phase 7 and each trial of phase 8) and read just after; a
+kernel of the phase that did not launch, or launched another number of
+times than its path must, fails the run.  The last
 three lines are the card (``nvidia-smi``), one JSON object with every
 kernel's numbers, and ``{"ok": true, "device": ...}``.  Any failure exits
 non-zero before those lines.  Without a CUDA device, or without the
@@ -58,7 +74,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
-          "rowgeom")
+          "rowgeom", "fedavg")
 EXTRA_PHASES = ("profile",)  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -89,6 +105,9 @@ TRIM_TOL = 1e-5
 ROW_RTOL = 1e-4
 
 TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
+# BN-backward launches of each kernel per headline round: 750 trained
+# clients / 50 per block x 12 BN layers x 1 local step.
+BN_PER_ROUND = 15 * 12
 ROWGEOM_ROUNDS = 2  # Multikrum rounds timed after one warm-up round
 REPS = 5          # timed launches per kernel, after one warm-up launch
 
@@ -189,10 +208,20 @@ def phase_build():
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
     if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if ("entry function" in line or "registers" in line
-                    or "spill" in line):
-                log(f"  ptxas: {line.strip()}")
+        # The whole report goes to chiprun_out/ptxas.txt; the log names the
+        # kernel count and every kernel that spills.
+        text = ptxas.read_text()
+        out = os.path.join(HERE, "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "ptxas.txt"), "w") as fh:
+            fh.write(text)
+        entry, kernels = None, 0
+        for line in text.splitlines():
+            if "entry function" in line:
+                entry, kernels = line.split("'")[1], kernels + 1
+            elif "spill" in line and not line.strip().startswith("0 bytes"):
+                log(f"  ptxas: {entry}: {line.strip()}")
+        log(f"  ptxas: {kernels} kernels (report in chiprun_out/ptxas.txt)")
 
 
 def _small_matrix(gen, rows, d, dtype, poison):
@@ -286,6 +315,8 @@ def phase_small():
     torch.cuda.synchronize()
     log(f"small: {cases} kernel-vs-plain cases agree")
     _small_rowstats(gen)
+    _small_bn(gen)
+    _small_bn_vmap()
     _small_round()
 
 
@@ -448,6 +479,328 @@ def _small_round():
         "Centeredclipping, Signguard, Clippedclustering, FLTrust under ALIE)")
 
 
+# --------------------------------------------------------------------------
+# The BatchNorm-backward pair
+# --------------------------------------------------------------------------
+
+BN_SRC = "blades_tpu_torch/csrc/bn_backward.cu"
+BN_TPU = {"bn_bwd_reduce": "artifacts/perf_r4/time_bn_pallas.py:56",
+          "bn_bwd_dx": "artifacts/perf_r4/time_bn_pallas.py:76"}
+# The per-channel sums are f32 sums in another order than the plain
+# version's: within 1e-5 of the sum of their terms' magnitudes.
+BN_SUM_RTOL = 1e-5
+# ResNet-10's four stages in the main round: (C, H = W), G = 50, B = 32.
+BN_STAGES = ((64, 32), (128, 16), (256, 8), (512, 4))
+BN_LAYOUTS = ("fold", "grouped", "fold-cl", "grouped-cl")
+
+
+def _bn_operands(gen, layout, dtype, g, b, c, h, w, device="cuda"):
+    """``x``, ``dy`` as the ``(G, B, C, S)`` views of one physical layout
+    of a client block's activations -- ``fold``: (G*B, C, H, W) as
+    functorch makes it while the parameters are unbatched; ``grouped``:
+    (B, G*C, H, W), the grouped convolution's, once they are; ``-cl``:
+    channels-last strides -- and per-(client, channel) ``mean``, ``r`` and
+    ``scale`` values of the dtype."""
+    import torch
+
+    def phys():
+        shape = (g * b, c, h, w) if layout.startswith("fold") else (b, g * c, h, w)
+        t = (torch.randn(shape, generator=gen, device=device) * 1.5
+             + 0.3).to(dtype)
+        if layout.endswith("-cl"):
+            t = t.contiguous(memory_format=torch.channels_last)
+        if layout.startswith("fold"):
+            return t.view(g, b, c, h * w)
+        return t.view(b, g, c, h * w).transpose(0, 1)
+
+    x, dy = phys(), phys()
+    xf = x.float()
+    mean = xf.mean((1, 3))
+    var = (xf - mean[:, None, :, None]).square().mean((1, 3))
+    r = torch.rsqrt(var + 1e-5)
+    scale = 1.0 + 0.2 * torch.randn((g, c), generator=gen, device=device)
+    return x, dy, mean.to(dtype), r.to(dtype), scale.to(dtype)
+
+
+def _bn_coefs(sums, scale, n):
+    """``mean_dxhat`` and ``mean_dxhat_xhat`` in the compute dtype, as
+    ``BNApply.backward`` forms them from the sums."""
+    _, s_scale, s_dxhat = sums
+    dt = scale.dtype
+    return s_dxhat.to(dt) / n, s_scale.to(dt) * scale / n
+
+
+def _bn_sums_agree(got, want, x, dy, mean, r, scale, what):
+    """The kernel's three sums against the plain version's: within
+    ``BN_SUM_RTOL`` of the sums of their terms' magnitudes (the terms
+    rounded as the plain version rounds them)."""
+    import torch
+
+    xhat = (x - mean[:, None, :, None]) * r[:, None, :, None]
+    mags = (dy.float().abs().sum((1, 3)), (dy * xhat).float().abs().sum((1, 3)),
+            (dy * scale[:, None, :, None]).float().abs().sum((1, 3)))
+    err = 0.0
+    for k, (a, b, m) in enumerate(zip(got, want, mags)):
+        check(a.dtype == torch.float32 and a.shape == b.shape,
+              f"{what}: sum {k} {a.dtype} {tuple(a.shape)}")
+        bad = ~((a.double() - b.double()).abs() <= BN_SUM_RTOL * m.double())
+        if bool(bad.any()):
+            i = torch.nonzero(bad).flatten()[:4].tolist()
+            raise Failure(f"{what}: sum {k}: {int(bad.sum())} out of "
+                          f"tolerance, e.g. {a.flatten()[i].tolist()} vs "
+                          f"{b.flatten()[i].tolist()}")
+        err = max(err, max_err(a, b))
+    return err
+
+
+def _bn_agree(x, dy, mean, r, scale, what):
+    """The kernel pair against the plain pair on the same operands: the
+    sums by :func:`_bn_sums_agree`; dx, fed the same coefficients, bit for
+    bit, in the layout of ``x``."""
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    n = x.shape[1] * x.shape[3]
+    want = bn.bn_bwd_reduce_plain(x, dy, mean, r, scale)
+    err = _bn_sums_agree(bn.bn_bwd_reduce(x, dy, mean, r, scale), want, x,
+                         dy, mean, r, scale, what)
+    md, mdx = _bn_coefs(want, scale, n)
+    dx = bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx)
+    check(dx.stride() == x.stride() or not x.is_non_overlapping_and_dense(),
+          f"{what}: dx strides {dx.stride()} vs x {x.stride()}")
+    same(dx, bn.bn_bwd_dx_plain(x, dy, mean, r, scale, md, mdx), f"{what} dx")
+    return err
+
+
+def _small_bn(gen):
+    """The BatchNorm-backward pair against its plain version: f32 and bf16
+    x the four physical layouts x ragged shapes (a pair's elements in one
+    or several splits with a ragged last one, odd spatial sizes, S = 1)."""
+    import torch
+
+    shapes = [(3, 5, 7, 5, 5), (2, 9, 4, 33, 33), (4, 16, 3, 1, 1),
+              (50, 32, 8, 4, 4)]
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in BN_LAYOUTS:
+            for g, b, c, h, w in shapes:
+                ops = _bn_operands(gen, layout, dtype, g, b, c, h, w)
+                _bn_agree(*ops, f"bn pair {dtype} {layout} "
+                          f"{(g, b, c, h, w)}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"small: {cases} BatchNorm-backward kernel-vs-plain cases agree "
+        "(dx bit-exact, sums within f32 reassociation)")
+
+
+class _BnAudit:
+    """Wraps the two launchers while a vmapped block trains on the card:
+    every launch is also computed by the plain version on the same
+    physical operands (the layouts functorch and cuDNN really hand over)
+    and held to :func:`_bn_agree`'s tolerances; the strides seen are
+    kept."""
+
+    def __init__(self):
+        from blades_tpu_torch.ops import _cuda
+
+        self._cuda = _cuda
+        self.layouts = set()
+        self.err = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        from blades_tpu_torch.ops import bn_backward as bn
+
+        cu = self._cuda
+        self._saved = cu.launch_bn_reduce, cu.launch_bn_dx
+        red, dxl = self._saved
+
+        def reduce(name, x, dy, mean, r, scale):
+            out = red(name, x, dy, mean, r, scale)
+            self.layouts.add((x.dtype, tuple(x.shape), x.stride()))
+            self.err = max(self.err, _bn_sums_agree(
+                out, bn.bn_bwd_reduce_plain(x, dy, mean, r, scale), x, dy,
+                mean, r, scale, f"audit {tuple(x.shape)} {x.stride()}"))
+            self.calls += 1
+            return out
+
+        def dx(name, x, dy, *vecs):
+            out = dxl(name, x, dy, *vecs)
+            same(out, bn.bn_bwd_dx_plain(x, dy, *vecs),
+                 f"audit dx {tuple(x.shape)} {x.stride()}")
+            self.calls += 1
+            return out
+
+        cu.launch_bn_reduce, cu.launch_bn_dx = reduce, dx
+        return self
+
+    def __exit__(self, *exc):
+        self._cuda.launch_bn_reduce, self._cuda.launch_bn_dx = self._saved
+
+
+def _small_bn_vmap():
+    """Two local steps of a small ResNet-10 client block on the card --
+    step 0 with unbatched parameters, step 1 with batched ones, so both
+    physical layouts reach the ops through their vmap rule.  Every launch
+    is audited against the plain version on its own operands; each BN
+    layer must launch each kernel exactly once per step (a per-client loop
+    would launch G times); the updates are compared with the same block
+    with the plain ops in the kernels' place (on the card, cuDNN set
+    deterministic) and with the CPU's."""
+    import torch
+
+    from blades_tpu_torch.core import TaskSpec
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    g, nb, b = 3, 2, 8
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((g, nb, b, 32, 32, 3), generator=gen)
+    y = torch.randint(0, 10, (g, nb, b), generator=gen)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for cd in ("float32", "bfloat16"):
+            task = TaskSpec(model="resnet", input_shape=(32, 32, 3), lr=0.1,
+                            compute_dtype=cd).build()
+            params = task.init_params(torch.Generator().manual_seed(0))
+            out = {}
+            for run in ("cuda", "cuda-plain", "cpu"):
+                dev = run.split("-")[0]
+                saved = bn._bn_bwd_impl
+                if run.endswith("plain"):
+                    bn._bn_bwd_impl = bn.bn_bwd_plain
+                try:
+                    _cuda.reset_launches()
+                    p = {k: v.to(dev) for k, v in params.items()}
+                    if run == "cuda":
+                        with _BnAudit() as audit:
+                            upd, _, _ = task.local_round_batched(
+                                p, x.to(dev), y.to(dev))
+                            torch.cuda.synchronize()
+                    else:
+                        upd, _, _ = task.local_round_batched(
+                            p, x.to(dev), y.to(dev))
+                finally:
+                    bn._bn_bwd_impl = saved
+                out[run] = (upd.cpu(), dict(_cuda.LAUNCHES))
+            want = {"bn_bwd_reduce": 12 * nb, "bn_bwd_dx": 12 * nb}
+            check(out["cuda"][1] == want, f"bn vmap {cd}: launches "
+                  f"{out['cuda'][1]}, expected {want} (one per BN layer and "
+                  "step)")
+            check(out["cpu"][1] == {} and out["cuda-plain"][1] == {},
+                  "bn vmap: a plain path launched kernels")
+            check(audit.calls == 2 * 12 * nb, f"bn vmap {cd}: audited "
+                  f"{audit.calls} launches")
+            a = out["cuda"][0]
+            check(bool(torch.isfinite(a).all()), f"bn vmap {cd}: non-finite")
+            rel = {ref: float((a - out[ref][0]).norm() / out[ref][0].norm())
+                   for ref in ("cuda-plain", "cpu")}
+            # Two SGD steps of a freshly initialised ResNet amplify sums
+            # taken in another order (f32 about 1e-3 of the update's norm
+            # measured on the card, bf16 about 6e-2): a loose sanity guard
+            # only; the per-launch audit is the check.
+            check(rel["cuda-plain"] < 0.25, f"bn vmap {cd}: updates differ "
+                  f"from the plain ops' by {rel['cuda-plain']:.3g}")
+            strides = sorted({(s[2], s[1]) for s in audit.layouts})
+            log(f"small: ResNet-10 block (G={g}, 2 local steps, {cd}) on the "
+                f"card: 12 launches of each BN kernel per step, all "
+                f"{audit.calls} audited against the plain version (dx "
+                f"bit-exact, sums max err {audit.err:.3g}); updates differ "
+                f"from the plain ops' on the card by {rel['cuda-plain']:.3g} "
+                f"and from the CPU's by {rel['cpu']:.3g} of their norm; "
+                f"(G, N, C, S) strides seen: {strides}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _bn_records(gen):
+    """The BN pair at the main round's four stage shapes (G = 50, B = 32,
+    bf16, the one-step layout (G*B, C, H, W) channels-last, as cuDNN hands
+    bf16 activations over): time, plain time, the library's one-call
+    backward on the channels-last (B, G*C, H, W) view, and the bound.  The
+    records hold the sums over the four stages (one BN layer each); the
+    kernels' time in the NCHW layout is logged beside them."""
+    import torch
+
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    g, b = 50, 32
+    tot = {k: dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, err=0.0)
+           for k in ("bn_bwd_reduce", "bn_bwd_dx")}
+    lib_ok = True
+    for c, hw in BN_STAGES:
+        x, dy, mean, r, scale = _bn_operands(gen, "fold-cl", torch.bfloat16,
+                                             g, b, c, hw, hw)
+        n = b * hw * hw
+        elems = g * n * c
+        err = _bn_agree(x, dy, mean, r, scale, f"bn stage C={c}")
+        sums = bn.bn_bwd_reduce(x, dy, mean, r, scale)
+        md, mdx = _bn_coefs(sums, scale, n)
+        t_red = timed(lambda: bn.bn_bwd_reduce(x, dy, mean, r, scale), REPS)
+        t_dx = timed(lambda: bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx),
+                     REPS)
+        p_red = timed(lambda: bn.bn_bwd_reduce_plain(x, dy, mean, r, scale),
+                      REPS)
+        p_dx = timed(lambda: bn.bn_bwd_dx_plain(x, dy, mean, r, scale, md,
+                                                mdx), REPS)
+        # One PyTorch call computing the same backward: the library's
+        # batch-norm backward on the grouped view, saved mean / invstd in
+        # f32 (its own layout: the operands copied once, untimed).
+        cl = torch.channels_last
+        xg = x.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+            memory_format=cl)
+        dyg = dy.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+            memory_format=cl)
+        sm, si = mean.float().flatten(), r.float().flatten()
+        wt = scale.flatten()
+        l_red = l_dx = 0.0
+        if lib_ok:
+            try:
+                def lib(mask):
+                    return torch.ops.aten.native_batch_norm_backward(
+                        dyg, xg, wt, None, None, sm, si, True, 1e-5, mask)
+                l_red = timed(lambda: lib([False, True, True]), REPS)
+                l_dx = timed(lambda: lib([True, True, True]), REPS)
+            except (RuntimeError, TypeError) as e:
+                lib_ok = False
+                log(f"kernel bn: library_ms null: native_batch_norm_backward "
+                    f"refused the operands ({type(e).__name__}: {e})")
+        del xg, dyg
+        # The same operands in NCHW strides (the spatial-inner thread map).
+        xn, dyn = (t.contiguous() for t in (x, dy))
+        n_red = timed(lambda: bn.bn_bwd_reduce(xn, dyn, mean, r, scale), REPS)
+        n_dx = timed(lambda: bn.bn_bwd_dx(xn, dyn, mean, r, scale, md, mdx),
+                     REPS)
+        del xn, dyn
+        log(f"kernel bn stage C={c} {hw}x{hw} (NCHW): reduce {n_red:.3f} ms, "
+            f"dx {n_dx:.3f} ms")
+        log(f"kernel bn stage C={c} {hw}x{hw}: reduce {t_red:.3f} ms (plain "
+            f"{p_red:.3f}, library {l_red:.3f}, bound "
+            f"{elems * 4 / HBM_BYTES_PER_S * 1e3:.3f}); dx {t_dx:.3f} ms "
+            f"(plain {p_dx:.3f}, library full backward {l_dx:.3f}, bound "
+            f"{elems * 6 / HBM_BYTES_PER_S * 1e3:.3f})")
+        # Reduce: read x and dy (2 B each), write 3 (G, C) f32 sums; per
+        # element a subtract, 3 multiplies, 3 adds.  dx: read x and dy,
+        # write dx; a subtract, 4 multiplies, 2 subtracts.
+        for k, t, pt, lt, nbytes, ops in (
+                ("bn_bwd_reduce", t_red, p_red, l_red,
+                 elems * 4 + 3 * g * c * 4, 7 * elems),
+                ("bn_bwd_dx", t_dx, p_dx, l_dx, elems * 6 + 5 * g * c * 4,
+                 7 * elems)):
+            a = tot[k]
+            a["ms"] += t
+            a["plain"] += pt
+            a["lib"] += lt
+            a["bytes"] += nbytes
+            a["ops"] += ops
+            a["err"] = max(a["err"], err if k == "bn_bwd_reduce" else 0.0)
+        del x, dy
+        torch.cuda.empty_cache()
+    return {k: _record(k, BN_SRC, BN_TPU[k], a["ms"], a["plain"], a["bytes"],
+                       a["ops"], a["err"], a["lib"] if lib_ok else None)
+            for k, a in tot.items()}
+
+
 def _record(name, source, replaces, ms, plain_ms, bytes_moved, ops, err,
             library_ms=None, ops_per_s=F32_OPS_PER_S):
     """One kernel's line.  ``library_ms`` is the time of one PyTorch call
@@ -564,6 +917,7 @@ def phase_kernels():
     del x
     torch.cuda.empty_cache()
     records.update(_bundle_records(gen, d))
+    records.update(_bn_records(gen))
     for r in records.values():
         lib = r["library_ms"]
         log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f}"
@@ -727,6 +1081,8 @@ def _write_profile(prof, wall_s, out_dir, tag):
         k = key.lower()
         if "rowstats" in k or "gram_" in k:
             kind = "row statistics"
+        elif "bn_reduce" in k or "bn_dx" in k:
+            kind = "bn backward"
         elif "finish_kernel" in k or "finalize_kernel" in k:
             kind = "fused finish"
         elif any(w in k for w in ("conv", "cudnn", "xmma", "gemm", "cutlass",
@@ -772,17 +1128,18 @@ def phase_main():
     losses, secs, m, _ = _headline_round(1000, 250, 250, 1 + TIMED_ROUNDS)
     counts = dict(_cuda.LAUNCHES)
     rounds = 1 + TIMED_ROUNDS
-    check(counts.get("fused_finish_compact", 0) == rounds,
-          f"main: compact finish launched {counts} times over {rounds} rounds")
-    check(set(counts) == {"fused_finish_compact"},
-          f"main: unexpected kernels {counts}")
+    want = {"fused_finish_compact": rounds,
+            **{k: BN_PER_ROUND * rounds for k in BN_TPU}}
+    check(counts == want, f"main: launches {counts} over {rounds} rounds, "
+          f"expected {want}")
     check(int(m["elided_lanes"]) == 250, "main: elision did not engage")
     rps = TIMED_ROUNDS / sum(secs[1:])
     log(f"main: ResNet-10 x 1000 clients (250 ALIE), Median, bf16; "
         f"{TIMED_ROUNDS} timed rounds at {rps:.4f} rounds/s "
         f"(round seconds {[round(s, 3) for s in secs]}, first is warm-up)")
     log(f"main: train_loss per round {losses}; compact finish launches "
-        f"{counts['fused_finish_compact']}; peak memory "
+        f"{counts['fused_finish_compact']}, BN backward launches "
+        f"{counts['bn_bwd_reduce']} + {counts['bn_bwd_dx']}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, rps
 
@@ -793,12 +1150,13 @@ def phase_full():
     _cuda.reset_launches()
     losses, secs, m, _ = _headline_round(200, 50, None, 1)
     counts = dict(_cuda.LAUNCHES)
-    check(counts == {"fused_finish": 1},
-          f"full: expected one full-finish launch, got {counts}")
+    # 200 clients, none elided: 4 blocks of 50, 12 BN layers each.
+    want = {"fused_finish": 1, **{k: 4 * 12 for k in BN_TPU}}
+    check(counts == want, f"full: launches {counts}, expected {want}")
     check("elided_lanes" not in m, "full: elision engaged without a prefix")
     log(f"full: ResNet-10 x 200 clients, no prefix: loss {losses[0]}, "
         f"{secs[0]:.3f} s, full finish launches {counts['fused_finish']}")
-    return counts
+    return {"fused_finish": counts["fused_finish"]}
 
 
 def phase_aggregators():
@@ -845,8 +1203,10 @@ def phase_rowgeom():
     check(step.passes.kernel_bundles == 2,
           f"rowgeom: Multikrum served {step.passes.kernel_bundles} bundles "
           "by the kernel, expected 2 (Gram, weighted sum)")
-    check(launches == {"row_stats_bundle": 2 * rounds},
-          f"rowgeom: Multikrum launches {launches} over {rounds} rounds")
+    want = {"row_stats_bundle": 2 * rounds,
+            **{k: BN_PER_ROUND * rounds for k in BN_TPU}}
+    check(launches == want, f"rowgeom: Multikrum launches {launches} over "
+          f"{rounds} rounds, expected {want}")
     # As the CPU tests pin against the JAX round: the in-place pass, the
     # Gram bundle, the weighted-sum bundle.
     check(int(m["hbm_passes"]) == 3 and int(m["hbm_passes_unfused"]) == 3,
@@ -861,7 +1221,9 @@ def phase_rowgeom():
         f"seconds {[round(t, 3) for t in secs]}, first is warm-up); "
         f"train_loss {losses}; row_stats_bundle launches "
         f"{launches['row_stats_bundle']} ({step.passes.kernel_bundles} per "
-        f"round); hbm_passes {int(m['hbm_passes'])}; peak memory "
+        f"round), BN backward launches {launches['bn_bwd_reduce']} + "
+        f"{launches['bn_bwd_dx']}; hbm_passes {int(m['hbm_passes'])}; peak "
+        "memory "
         f"{peak:.2f} GiB")
 
     torch.cuda.reset_peak_memory_stats()
@@ -870,9 +1232,10 @@ def phase_rowgeom():
                                             aggregator="GeoMed")
     launches = dict(_cuda.LAUNCHES)
     iters = step.passes.loop_iters
-    check(launches == {"row_stats_bundle": 1 + iters},
-          f"rowgeom: GeoMed launches {launches}, expected 1 + {iters} "
-          "Weiszfeld iterations")
+    want = {"row_stats_bundle": 1 + iters,
+            **{k: BN_PER_ROUND for k in BN_TPU}}
+    check(launches == want, f"rowgeom: GeoMed launches {launches}, expected "
+          f"{want} (1 + {iters} Weiszfeld iterations)")
     check(int(m["hbm_passes"]) == 102 and int(m["hbm_passes_unfused"]) == 203,
           f"rowgeom: GeoMed hbm_passes {m['hbm_passes']} / "
           f"{m['hbm_passes_unfused']}, expected 102 / 203")
@@ -897,6 +1260,121 @@ def phase_rowgeom():
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms (majority "
         f"{int(maj.sum())})")
     return counts
+
+
+# The fedavg phase's trials: the reference's configuration files at one
+# point each, through FedavgConfig / Fedavg.train() / Fedavg.evaluate().
+# From blades_tpu/tuned_examples/fedavg_cifar10_resnet_noniid.yaml, with
+# num_batch_per_round 2 (so the second local step's grouped-convolution
+# layout runs at full width) and 3 rounds then one evaluation.
+DENSE_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": 60, "iid": False,
+                       "alpha": 0.1, "train_bs": 64},
+    "global_model": "resnet10",
+    "client_config": {"lr": 1.0, "num_batch_per_round": 2},
+    "server_config": {"lr": 0.1, "aggregator": {"type": "Median"},
+                      "lr_schedule": [[0, 0.1], [1500, 0.1], [2000, 0.01]]},
+    "num_malicious_clients": 15,
+    "evaluation_interval": 3,
+}
+# From blades_tpu/tuned_examples/fedavg_cifar10_1000clients.yaml at its
+# Median point: 2 rounds, one evaluation on 10 test rows per client.
+STREAMED_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": 1000, "iid": False,
+                       "alpha": 0.1, "train_bs": 32, "seed": 122},
+    "global_model": "resnet10", "compute_dtype": "bfloat16",
+    "execution": "streamed", "client_block": 25, "d_chunk": 131072,
+    "update_dtype": "bfloat16", "health_check": True,
+    "num_malicious_clients": 250, "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 0.5, "aggregator": {"type": "Median"}},
+    "client_config": {"lr": 0.1, "num_batch_per_round": 1},
+    "evaluation_interval": 2, "evaluation_num_samples": 10,
+}
+# The verification flow of .claude/skills/verify/SKILL.md: synthetic MNIST,
+# MLP, 6 clients, 2 running ALIE, Median, 3 rounds.
+MLP_TRIAL = {
+    "dataset_config": {"type": "mnist", "num_clients": 6, "train_bs": 8},
+    "global_model": "mlp", "evaluation_interval": 3,
+    "num_malicious_clients": 2, "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 1.0, "aggregator": {"type": "Median"}},
+}
+MLP_MIN_ACC = 0.9
+
+
+def _fedavg_trial(name, overrides, rounds):
+    """Build the driver from ``overrides``, run ``rounds`` rounds (the last
+    one evaluates), print rounds/s, losses, accuracy and peak memory, and
+    return the last row."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = FedavgConfig().update_from_dict(overrides).build()
+    setup_s = time.perf_counter() - t0
+    rows, secs = [], []
+    try:
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows.append(algo.train())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        streamed = algo.streamed
+    finally:
+        algo.stop()
+    last = rows[-1]
+    losses = [r["train_loss"] for r in rows]
+    check(all(math.isfinite(v) for v in losses),
+          f"fedavg {name}: train losses {losses}")
+    for k in ("test_loss", "test_acc", "test_acc_top3"):
+        check(k in last and math.isfinite(last[k]),
+              f"fedavg {name}: no finite {k} in the last row {sorted(last)}")
+    # The last round includes the evaluation; rounds/s counts the rounds
+    # before it, after the first (warm-up).
+    train_s = [r["timers"]["training_step"]["total_s"] for r in rows[-1:]][0]
+    rps = ((rounds - 1) / (train_s - rows[0]["timers"]["training_step"]
+                           ["total_s"]) if rounds > 1 else float("nan"))
+    log(f"fedavg {name}: {'streamed' if streamed else 'dense'} round, setup "
+        f"{setup_s:.1f} s, {rps:.4f} rounds/s over rounds 2-{rounds} "
+        f"(wall per train() incl. evaluation {[round(t, 3) for t in secs]}); "
+        f"train_loss {losses}; test_loss {last['test_loss']:.4f}, test_acc "
+        f"{last['test_acc']:.4f}, top-3 {last['test_acc_top3']:.4f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return last, streamed
+
+
+def phase_fedavg():
+    """The Fedavg driver on the card: the dense ResNet-10 trial under
+    SignFlip and under LabelFlip, the 1000-client streamed trial, and the
+    MLP accuracy check."""
+    from blades_tpu_torch.ops import _cuda
+
+    for adv in ("SignFlip", "LabelFlip"):
+        _cuda.reset_launches()
+        _, streamed = _fedavg_trial(
+            f"ResNet-10 x 60 {adv} Median f32",
+            {**DENSE_TRIAL, "adversary_config": {"type": adv}}, 3)
+        counts = dict(_cuda.LAUNCHES)
+        # 60 clients in blocks of 50 and 10, 12 BN layers, 2 local steps,
+        # 3 rounds; the dense Median goes through the column select.
+        want = {"column_median": 3,
+                **{k: 3 * 2 * 2 * 12 for k in BN_TPU}}
+        check(not streamed and counts == want,
+              f"fedavg {adv}: launches {counts}, expected {want} on the "
+              "dense round")
+    _cuda.reset_launches()
+    _, streamed = _fedavg_trial("ResNet-10 x 1000 ALIE Median bf16",
+                                STREAMED_TRIAL, 2)
+    counts = dict(_cuda.LAUNCHES)
+    # 750 trained clients in blocks of 25, 12 BN layers, 2 rounds.
+    want = {"fused_finish_compact": 2, **{k: 2 * 30 * 12 for k in BN_TPU}}
+    check(streamed and counts == want,
+          f"fedavg streamed: launches {counts}, expected {want}")
+    last, _ = _fedavg_trial("MLP x 6 ALIE Median", MLP_TRIAL, 3)
+    check(last["test_acc"] >= MLP_MIN_ACC,
+          f"fedavg MLP: test accuracy {last['test_acc']} < {MLP_MIN_ACC}")
 
 
 def main(argv=None) -> int:
@@ -956,6 +1434,8 @@ def main(argv=None) -> int:
             launches.update(run("aggregators", phase_aggregators))
         if "rowgeom" in phases:
             launches.update(run("rowgeom", phase_rowgeom))
+        if "fedavg" in phases:
+            run("fedavg", phase_fedavg)
         if "profile" in phases:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
     except Failure as e:
