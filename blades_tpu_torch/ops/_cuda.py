@@ -9,7 +9,8 @@ a machine without ``nvcc`` or a card imports this module and never calls
 it.
 
 ``LAUNCHES`` counts, per wrapper name, the kernel launches the wrappers
-made; :func:`reset_launches` sets every count to 0.
+made, and ``MAPS`` the BatchNorm-backward launches per (wrapper name,
+thread map); :func:`reset_launches` sets every count to 0.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +35,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+MAPS: collections.Counter = collections.Counter()
 _lib = None
 
 FORGES = {None: 0, "alie": 1, "ipm": 2, "adaptive": 3}
@@ -42,6 +46,7 @@ ROWSTATS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
     LAUNCHES.clear()
+    MAPS.clear()
 
 
 def _nvcc() -> str:
@@ -124,15 +129,10 @@ def library() -> ctypes.CDLL:
         lib.bt_gram_plan.restype = i
         lib.bt_gram.argtypes = [p, i, i, ll, i, i, i, ll, p, p, p]
         lib.bt_gram.restype = i
-        lib.bt_bn_splits.argtypes = [ll, ll, ll]
-        lib.bt_bn_splits.restype = i
         pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.bt_bn_reduce.argtypes = [p, p, i, i, i, i, i, llp, llp, pp, llp, p,
-                                     p, p, p, p]
-        lib.bt_bn_reduce.restype = i
-        lib.bt_bn_dx.argtypes = [p, p, p, i, i, i, i, i, llp, llp, llp, pp,
-                                 llp, p]
-        lib.bt_bn_dx.restype = i
+        for fn in (lib.bt_bn_reduce, lib.bt_bn_dx, lib.bt_bn_bwd):
+            fn.argtypes = [llp, pp, p]
+            fn.restype = i
         lib.bt_error_string.argtypes = [i]
         lib.bt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -325,15 +325,92 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
     return out
 
 
+# ---- the BatchNorm backward (csrc/bn_backward.cu) -------------------------
+
 BN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BN_MAPS = ("spatial", "scalar", "vector")  # the kernels' thread maps
+# Positions per split of the two scalar maps (256 threads x 16 elements;
+# 8 warps x 64 positions), and the vector map's grid: about four waves of
+# the H100's 132 SMs at two resident 256-thread CTAs each.
+_BN_SPATIAL_CHUNK, _BN_SCALAR_CHUNK = 4096, 512
+_BN_TARGET_CTAS = 4 * 2 * 132
+_BN_UNROLL, _BN_WARPS, _BN_TILE_C = 4, 8, 32
 
 
-def _bn_operands(name, x, dy, vecs):
-    """Checks of the BatchNorm-backward launches: ``x`` and ``dy`` are
-    ``(G, N, C, S)`` CUDA tensors of one dtype, and the per-(client,
-    channel) vectors ``(G, C)`` tensors of that dtype; all are taken
-    through their strides, nothing is copied.  Returns the vectors'
-    pointer and stride arrays."""
+class BnPlan(NamedTuple):
+    """How the BN-backward kernels cover a ``(G, N, C, S)`` operand set:
+    the thread map (an index into :data:`BN_MAPS`), the vector width in
+    elements, ``tc`` (vector map: lanes per position, a power of two <=
+    32), channel groups per client, splits per (client, group) and
+    positions per split."""
+    map: int
+    vec: int
+    tc: int
+    groups: int
+    splits: int
+    chunk: int
+
+    @property
+    def width(self) -> int:
+        """Channels per group: the row width of the split partials."""
+        return (self.tc * self.vec if self.map == 2
+                else _BN_TILE_C if self.map == 1 else 1)
+
+    def partials(self, g: int) -> int:
+        """f32 words of the split partials for ``g`` clients."""
+        return g * self.groups * self.splits * 3 * self.width
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def bn_plan(shape, strides, itemsize: int, offsets) -> BnPlan:
+    """The launch plan of the BN-backward kernels for operands of
+    ``shape`` (G, N, C, S) with element ``strides`` (one 4-tuple per
+    tensor: x, dy and, for the dx pass, dx), ``itemsize`` bytes per element
+    and ``offsets`` (each tensor's ``data_ptr() % 16``).  A pure function
+    of its arguments, so the split count -- and the order of the sums --
+    is fixed by the shape.
+
+    - channel stride 1 everywhere, C a multiple of the 16-byte vector
+      width, (n, s) one flat position (the n stride S times the s stride),
+      16-byte aligned pointers and client / position strides: the vector
+      map, split so the grid is about ``_BN_TARGET_CTAS`` CTAs;
+    - channel stride 1 otherwise: the scalar channel-inner map;
+    - else the spatial-inner map.
+    """
+    g, n, c, s = shape
+    length = n * s
+    if not all(st[2] == 1 for st in strides):
+        return BnPlan(0, 0, 0, c, _ceil(length, _BN_SPATIAL_CHUNK),
+                      _BN_SPATIAL_CHUNK)
+    vec = 16 // itemsize
+
+    def fits(st, off):
+        pos = st[3] if s > 1 else st[1]
+        return (off == 0 and (n == 1 or s == 1 or st[1] == s * st[3])
+                and (g == 1 or st[0] % vec == 0)
+                and (length == 1 or pos % vec == 0))
+
+    if c % vec or not all(fits(st, o) for st, o in zip(strides, offsets)):
+        return BnPlan(1, 0, 0, _ceil(c, _BN_TILE_C),
+                      _ceil(length, _BN_SCALAR_CHUNK), _BN_SCALAR_CHUNK)
+    cv = c // vec
+    tc = min(32, 1 << (cv - 1).bit_length())
+    groups = _ceil(cv, tc)
+    unit = _BN_UNROLL * _BN_WARPS * (32 // tc)  # one unrolled CTA step
+    splits = max(1, min(_ceil(length, unit),
+                        _ceil(_BN_TARGET_CTAS, g * groups)))
+    chunk = _ceil(_ceil(length, splits), unit) * unit
+    return BnPlan(2, vec, tc, groups, _ceil(length, chunk), chunk)
+
+
+def _bn_check(name, x, dy, vecs) -> None:
+    """The BN launches take ``(G, N, C, S)`` CUDA tensors ``x`` and ``dy``
+    of one dtype and per-(client, channel) ``(G, C)`` vectors of that
+    dtype, all through their strides; nothing is copied."""
     if not (x.is_cuda and dy.is_cuda):
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
     if x.dtype not in BN_DTYPES or dy.dtype != x.dtype:
@@ -348,14 +425,64 @@ def _bn_operands(name, x, dy, vecs):
             raise ValueError(f"{name}: per-channel operand {tuple(v.shape)} "
                              f"{v.dtype} on {v.device}, expected {(g, c)} "
                              f"{x.dtype} on {x.device}")
-    ptrs = (ctypes.c_void_p * len(vecs))(*(v.data_ptr() for v in vecs))
-    strides = (ctypes.c_longlong * (2 * len(vecs)))(
-        *(st for v in vecs for st in v.stride()))
-    return ptrs, strides
 
 
-def _strides(t):
-    return (ctypes.c_longlong * 4)(*t.stride())
+_NO_STRIDES = (0, 0, 0, 0)
+_NO_PLAN = (0,) * 6
+
+
+@functools.lru_cache(maxsize=1024)
+def _bn_layout(dtype, shape, strides, vstrides, offsets):
+    """The plans and the packed integers of ``bt_bn_*`` (``enum Arg`` of
+    the source) for one operand layout: ``strides`` of x, dy and dx (None
+    for the bare reduction), ``vstrides`` of the per-channel vectors,
+    ``offsets`` the tensors' ``data_ptr() % 16``.  Cached: a client block
+    meets a few layouts over and over, and building the array costs more
+    host time than the launch."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    red = bn_plan(shape, strides[:2], itemsize, offsets[:2])
+    dxp = (None if strides[2] is None
+           else bn_plan(shape, strides, itemsize, offsets))
+    vs = [st for v in vstrides for st in v]
+    args = (ctypes.c_longlong * 39)(
+        BN_DTYPES[dtype], *shape, *strides[0], *strides[1],
+        *(strides[2] or _NO_STRIDES), *vs, *[0] * (10 - len(vs)), *red,
+        *(dxp or _NO_PLAN))
+    return red, dxp, args
+
+
+def _bn_layout_of(x, dy, dx, vecs):
+    ts = (x, dy) if dx is None else (x, dy, dx)
+    return _bn_layout(x.dtype, tuple(x.shape),
+                      (x.stride(), dy.stride(), None if dx is None
+                       else dx.stride()),
+                      tuple(v.stride() for v in vecs),
+                      tuple(t.data_ptr() % 16 for t in ts))
+
+
+def _bn_ptrs(*ptrs):
+    """The 16 pointers of ``bt_bn_*`` (``enum Ptr`` of the source)."""
+    return (ctypes.c_void_p * 16)(*ptrs)
+
+
+_BN_COUNTERS: dict = {}
+
+
+def _bn_counter(dev, n: int) -> torch.Tensor:
+    """The device's ticket counters (zeros; each launch leaves them zero),
+    at least ``n``.  One buffer per device: the port launches on one
+    stream, and two streams would need a buffer each."""
+    buf = _BN_COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        size = max(n, 4096, 0 if buf is None else 2 * buf.numel())
+        buf = _BN_COUNTERS[dev] = torch.zeros((size,), dtype=torch.int32,
+                                              device=dev)
+    return buf
+
+
+def _count(name: str, plan: BnPlan) -> None:
+    LAUNCHES[name] += 1
+    MAPS[name, BN_MAPS[plan.map]] += 1
 
 
 def _on_device(dev):
@@ -366,43 +493,97 @@ def _on_device(dev):
 
 
 def launch_bn_reduce(name: str, x, dy, mean, r, scale):
-    """Launch the reduction pass of ``csrc/bn_backward.cu``: per (client,
-    channel) f32 sums ``(dbias, dscale, dxhat)``, each ``(G, C)``."""
-    vp, vs = _bn_operands(name, x, dy, (mean, r, scale))
-    g, n, c, s = x.shape
+    """Launch the reduction of ``csrc/bn_backward.cu``: per (client,
+    channel) f32 sums ``(dbias, dscale, sum dxhat)``, each ``(G, C)``."""
+    vecs = (mean, r, scale)
+    _bn_check(name, x, dy, vecs)
+    g, _, c, _ = x.shape
+    plan, _, args = _bn_layout_of(x, dy, None, vecs)
     lib = library()
     dev = x.device
     with _on_device(dev):
-        splits = lib.bt_bn_splits(n * s, x.stride(2), dy.stride(2))
-        part = torch.empty((g * c * splits * 3,), dtype=torch.float32,
-                           device=dev)
-        outs = [torch.empty((g, c), dtype=torch.float32, device=dev)
+        sums = [torch.empty((g, c), dtype=torch.float32, device=dev)
                 for _ in range(3)]
+        part = torch.empty((plan.partials(g),), dtype=torch.float32,
+                           device=dev)
         err = lib.bt_bn_reduce(
-            x.data_ptr(), dy.data_ptr(), BN_DTYPES[x.dtype], g, n, c, s,
-            _strides(x), _strides(dy), vp, vs, part.data_ptr(),
-            *(o.data_ptr() for o in outs),
+            args, _bn_ptrs(x.data_ptr(), dy.data_ptr(), None,
+                           *(v.data_ptr() for v in vecs), None, None,
+                           part.data_ptr(),
+                           _bn_counter(dev, g * plan.groups).data_ptr(),
+                           *(t.data_ptr() for t in sums)),
             torch.cuda.current_stream(dev).cuda_stream)
         _check(lib, err, f"{name}: launch failed")
-    LAUNCHES[name] += 1
-    return tuple(outs)
+    _count(name, plan)
+    return tuple(sums)
 
 
 def launch_bn_dx(name: str, x, dy, mean, r, scale, mean_dxhat,
                  mean_dxhat_xhat):
     """Launch the dx pass of ``csrc/bn_backward.cu``: ``dx`` of ``x``'s
     shape, dtype and (dense) strides."""
-    vp, vs = _bn_operands(name, x, dy, (mean, r, scale, mean_dxhat,
-                                        mean_dxhat_xhat))
-    g, n, c, s = x.shape
+    vecs = (mean, r, scale, mean_dxhat, mean_dxhat_xhat)
+    _bn_check(name, x, dy, vecs)
     lib = library()
     dev = x.device
     with _on_device(dev):
         dx = torch.empty_like(x)
-        err = lib.bt_bn_dx(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), BN_DTYPES[x.dtype], g,
-            n, c, s, _strides(x), _strides(dy), _strides(dx), vp, vs,
-            torch.cuda.current_stream(dev).cuda_stream)
+        _, plan, args = _bn_layout_of(x, dy, dx, vecs)
+        err = lib.bt_bn_dx(args, _bn_ptrs(x.data_ptr(), dy.data_ptr(),
+                                          dx.data_ptr(),
+                                          *(v.data_ptr() for v in vecs)),
+                           torch.cuda.current_stream(dev).cuda_stream)
         _check(lib, err, f"{name}: launch failed")
-    LAUNCHES[name] += 1
+    _count(name, plan)
     return dx
+
+
+def launch_bn_bwd(x, dy, mean, r, scale):
+    """The whole BN backward of one layer from one host call: the
+    reduction with its finish, then the dx pass, counted as one launch of
+    ``bn_bwd_reduce`` and one of ``bn_bwd_dx``.  Returns ``(dx, dscale,
+    dbias, scratch)``: ``dscale`` and ``dbias`` ``(G, C)`` in ``x``'s
+    dtype; :func:`bn_scratch_parts` reads the f32 sums and the
+    coefficients out of ``scratch``."""
+    vecs = (mean, r, scale)
+    _bn_check("bn_bwd", x, dy, vecs)
+    g, _, c, _ = x.shape
+    lib = library()
+    dev = x.device
+    gc = g * c
+    with _on_device(dev):
+        dx = torch.empty_like(x)
+        red, dxp, args = _bn_layout_of(x, dy, dx, vecs)
+        dscale = torch.empty((g, c), dtype=x.dtype, device=dev)
+        dbias = torch.empty((g, c), dtype=x.dtype, device=dev)
+        # Scratch, f32 words: the sums (3 G C), the coefficients (2 G C
+        # elements of the dtype, 4-byte aligned), the split partials.
+        cw = _ceil(2 * gc * x.element_size(), 4)
+        scratch = torch.empty((3 * gc + cw + red.partials(g),),
+                              dtype=torch.float32, device=dev)
+        base = scratch.data_ptr()
+        err = lib.bt_bn_bwd(
+            args, _bn_ptrs(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), mean.data_ptr(),
+                r.data_ptr(), scale.data_ptr(), None, None,
+                base + 4 * (3 * gc + cw),
+                _bn_counter(dev, g * red.groups).data_ptr(),
+                base, base + 4 * gc, base + 8 * gc, dscale.data_ptr(),
+                dbias.data_ptr(), base + 12 * gc),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check(lib, err, "bn_bwd: launch failed")
+    _count("bn_bwd_reduce", red)
+    _count("bn_bwd_dx", dxp)
+    return dx, dscale, dbias, scratch
+
+
+def bn_scratch_parts(scratch, x):
+    """``(sums, coefs)`` of a :func:`launch_bn_bwd` on ``x``: the f32 sums
+    ``(3, G, C)`` (dbias, dscale, sum dxhat) and the coefficients
+    ``(2, G, C)`` (``mean_dxhat``, ``mean_dxhat_xhat``) in ``x``'s dtype,
+    as views of ``scratch``."""
+    g, _, c, _ = x.shape
+    gc = g * c
+    cw = _ceil(2 * gc * x.element_size(), 4)
+    return (scratch[:3 * gc].view(3, g, c),
+            scratch[3 * gc:3 * gc + cw].view(x.dtype)[:2 * gc].view(2, g, c))

@@ -23,12 +23,15 @@ while the parameters are unbatched, ``(B, G*C, H, W)`` once they are,
 channels-last from cuDNN): the kernels read through strides and nothing is
 copied.  f64 runs on the CPU only (for ``gradcheck``).
 
-:func:`bn_bwd` is the whole backward as one more custom op -- the two ops
-with the coefficients ``mean_dxhat = T(sum dxhat) / n`` and
+:func:`bn_bwd` is the whole backward as one more custom op -- the two
+passes with the coefficients ``mean_dxhat = T(sum dxhat) / n`` and
 ``mean_dxhat_xhat = T(dscale) * scale / n`` between them, in the compute
 dtype T -- so that ``BNApply.backward`` crosses functorch's Python vmap
-machinery once per layer, not once per op and coefficient: that crossing
-costs more host time than the kernels take on the card.
+machinery once per layer: that crossing costs more host time than the
+kernels take on the card.  On the card it is one host call
+(``_cuda.launch_bn_bwd``): the reduction kernel forms the coefficients,
+``dscale`` and ``dbias`` in its own launch, and the dx kernel follows; no
+PyTorch elementwise op runs between them.
 """
 
 from __future__ import annotations
@@ -147,16 +150,24 @@ bn_bwd_reduce.register_vmap(_bn_bwd_reduce_vmap)
 bn_bwd_dx.register_vmap(_bn_bwd_dx_vmap)
 
 
-def _compose(reduce, dx_pass, x, dy, mean, r, scale):
-    """The backward from a reduction and a dx pass: the coefficients
-    between them in the compute dtype, as ``_bn_apply_bwd`` forms them."""
-    n = x.shape[1] * x.shape[3]
-    dt = x.dtype
-    s_bias, s_scale, s_dxhat = reduce(x, dy, mean, r, scale)
+def bn_coefs(sums, scale: Tensor, n: int):
+    """``(dscale, dbias, mean_dxhat, mean_dxhat_xhat)`` in the compute
+    dtype of ``scale`` from the f32 ``sums`` (dbias, dscale, sum dxhat), as
+    ``_bn_apply_bwd`` forms them.  The reduction kernel's finish computes
+    the same on the card, where ``/ n`` is a multiply by the f32
+    reciprocal of ``n``."""
+    s_bias, s_scale, s_dxhat = sums
+    dt = scale.dtype
     dscale = s_scale.to(dt)
-    dx = dx_pass(x, dy, mean, r, scale, s_dxhat.to(dt) / n,
-                 dscale * scale / n)
-    return dx, dscale, s_bias.to(dt)
+    return dscale, s_bias.to(dt), s_dxhat.to(dt) / n, dscale * scale / n
+
+
+def _compose(reduce, dx_pass, x, dy, mean, r, scale):
+    """The backward from a reduction and a dx pass, with the
+    coefficients of :func:`bn_coefs` between them."""
+    dscale, dbias, md, mdx = bn_coefs(reduce(x, dy, mean, r, scale), scale,
+                                      x.shape[1] * x.shape[3])
+    return dx_pass(x, dy, mean, r, scale, md, mdx), dscale, dbias
 
 
 def bn_bwd_plain(x, dy, mean, r, scale):
@@ -166,16 +177,24 @@ def bn_bwd_plain(x, dy, mean, r, scale):
 
 
 def _bn_bwd_impl(x, dy, mean, r, scale):
-    return _compose(bn_bwd_reduce, bn_bwd_dx, x, dy, mean, r, scale)
+    """What the vmap rule runs on the folded operands."""
+    return bn_bwd(x, dy, mean, r, scale)
 
 
-@torch.library.custom_op("blades_tpu_torch::bn_bwd", mutates_args=())
+@torch.library.custom_op("blades_tpu_torch::bn_bwd", mutates_args=(),
+                         device_types="cpu")
 def bn_bwd(x: Tensor, dy: Tensor, mean: Tensor, r: Tensor,
            scale: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The BatchNorm backward over ``(G, N, C, S)`` operands: ``(dx,
-    dscale (G, C), dbias (G, C))`` in ``x``'s dtype, through
-    :func:`bn_bwd_reduce` and :func:`bn_bwd_dx`."""
-    return _bn_bwd_impl(x, dy, mean, r, scale)
+    dscale (G, C), dbias (G, C))`` in ``x``'s dtype: on the CPU
+    :func:`bn_bwd_plain`, on the card the two kernels from one host
+    call."""
+    return bn_bwd_plain(x, dy, mean, r, scale)
+
+
+@bn_bwd.register_kernel("cuda")
+def _bn_bwd_cuda(x, dy, mean, r, scale):
+    return _cuda.launch_bn_bwd(x, dy, mean, r, scale)[:3]
 
 
 @bn_bwd.register_fake

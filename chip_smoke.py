@@ -12,12 +12,14 @@ Phases, each printing its lines before the last:
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
    confined to one 512-column stripe, ``row_stats_bundle`` on a grid of
-   dtypes x bundles x ragged shapes, and the BatchNorm-backward pair on a
-   grid of f32/bf16 x four physical layouts (the folded and the grouped
-   vmap layouts, each NCHW and channels-last) x ragged shapes; then a
-   vmapped ResNet-10 client block over two local steps with every
-   BN-backward launch audited against the plain version on its real
-   strides (12 launches of each kernel per step); then small MLP rounds
+   dtypes x bundles x ragged shapes, and the BatchNorm-backward kernels
+   (each pass alone and the composite ``bn_bwd``) on a grid of f32/bf16 x
+   four physical layouts (the folded and the grouped vmap layouts, each
+   NCHW and channels-last) x ragged shapes and the main round's stage
+   shapes, each checking the thread map it must take; then a vmapped
+   ResNet-10 client block over two local steps with every BN-backward
+   launch audited against the plain versions on its real strides (12
+   launches of each kernel per step); then small MLP rounds
    on the card against the same rounds on the CPU (Median, and each of
    the seven row-geometry aggregators under ALIE).
 3. ``kernels``: each kernel against its plain version at the main path's
@@ -25,12 +27,13 @@ Phases, each printing its lines before the last:
    ``row_stats_bundle`` the two bundles of the row-geometry round (the
    Multikrum Gram, the GeoMed weighted sum + Gram-vector product); for the
    BN pair the four stage layers of ResNet-10 at G = 50, B = 32, bf16,
-   channels-last, beside ``native_batch_norm_backward``.
+   channels-last, beside ``native_batch_norm_backward``.  Every time is
+   device-only (:func:`timed`); the host us per call are printed apart.
 4. ``main``: the headline round -- ResNet-10, 1000 clients of CIFAR-10
    shapes, the first 250 running ALIE, exact coordinate-wise Median, bf16
    compute and storage, ``client_block=50``, ``malicious_prefix=250`` --
    one warm-up round and 3 timed rounds through the compact fused finish;
-   180 launches of each BN kernel per round.
+   180 launches of each BN kernel per round, all on the vector map.
 5. ``full``: one ResNet-10 round at 200 clients with no malicious prefix,
    through the full fused finish.
 6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
@@ -51,6 +54,10 @@ Phases, each printing its lines before the last:
    Multikrum round of phase 7, under ``torch.profiler``; device time by
    kernel goes to ``chiprun_out/profile_main.txt`` and
    ``chiprun_out/profile_rowgeom.txt``.
+10. ``bnstages`` (only when named): the BN kernels alone at the four stage
+   shapes, device-only, beside the profiler's kernel durations and the
+   host us per call.  With ``--port DIR`` every phase drives the package
+   in DIR (another tree's), so one call can time two versions.
 
 Launch counts are set to 0 just before each of phases 4-8 (and before
 each round of phase 7 and each trial of phase 8) and read just after; a
@@ -75,7 +82,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg")
-EXTRA_PHASES = ("profile",)  # run only when named
+EXTRA_PHASES = ("profile", "bnstages")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
 # rate outside the tensor cores, which is where these kernels' arithmetic
@@ -110,6 +117,10 @@ TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
 BN_PER_ROUND = 15 * 12
 ROWGEOM_ROUNDS = 2  # Multikrum rounds timed after one warm-up round
 REPS = 5          # timed launches per kernel, after one warm-up launch
+BN_REPS = 50      # the same for the sub-millisecond BN kernels
+# torch.cuda._sleep spins for a number of clock cycles: at least this many
+# per millisecond (the H100's highest SM clock, 1.98 GHz).
+SLEEP_CYCLES_PER_MS = 2.0e6
 
 
 def log(msg: str) -> None:
@@ -178,21 +189,44 @@ def close(a, b, what: str, rtol=RTOL, atol=ATOL, forged=None,
     return max_err(a, b)
 
 
-def timed(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
-    after one warm-up run."""
+def timed(fn, reps: int, syncs: bool = False):
+    """``(device ms, host us)`` per run of ``fn`` over ``reps`` runs, after
+    one warm-up run.
+
+    Device-only: the runs are enqueued behind a ``torch.cuda._sleep`` long
+    enough for the host to enqueue them all, so the CUDA events bracket
+    device work alone, not the host's dispatch between launches.  That
+    holds when the start event is still pending once the host has
+    enqueued the end event; the sleep grows until it does.  Host us: the
+    host's seconds to enqueue one run (dispatch, wrapper, launch), from a
+    first pass without the sleep.  ``syncs``: ``fn`` synchronizes inside
+    (an ``.item()``), so nothing can be queued ahead of the device; its
+    events then include the host's gaps between runs."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = 2.0 * host_s * 1e3 + 2.0
+    for _ in range(4):
+        if not syncs:
+            torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead or syncs:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e6
+        sleep_ms *= 4
+    raise Failure("timed: the host never got ahead of the device")
 
 
 # --------------------------------------------------------------------------
@@ -524,7 +558,8 @@ def _bn_operands(gen, layout, dtype, g, b, c, h, w, device="cuda"):
 
 def _bn_coefs(sums, scale, n):
     """``mean_dxhat`` and ``mean_dxhat_xhat`` in the compute dtype, as
-    ``BNApply.backward`` forms them from the sums."""
+    ``BNApply.backward`` forms them from the sums (written out here so the
+    ``bnstages`` phase also runs on a port without ``bn_coefs``)."""
     _, s_scale, s_dxhat = sums
     dt = scale.dtype
     return s_dxhat.to(dt) / n, s_scale.to(dt) * scale / n
@@ -553,51 +588,120 @@ def _bn_sums_agree(got, want, x, dy, mean, r, scale, what):
     return err
 
 
-def _bn_agree(x, dy, mean, r, scale, what):
-    """The kernel pair against the plain pair on the same operands: the
-    sums by :func:`_bn_sums_agree`; dx, fed the same coefficients, bit for
-    bit, in the layout of ``x``."""
+def _bn_bwd_agree(x, dy, mean, r, scale, out, what):
+    """One composite launch, ``_cuda.launch_bn_bwd``'s ``(dx, dscale,
+    dbias, scratch)`` with the sums and coefficients read out of
+    ``scratch``, in three parts: the raw sums within
+    ``BN_SUM_RTOL`` of the plain sums' magnitudes; ``dscale``, ``dbias``
+    and both coefficients bit for bit against ``bn_coefs`` -- the PyTorch
+    ops ``_compose`` runs -- on the card on the kernel's own sums; dx bit
+    for bit against ``bn_bwd_dx_plain`` fed the kernel's own
+    coefficients."""
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    dx, dscale, dbias, scratch = out
+    sums, coefs = _cuda.bn_scratch_parts(scratch, x)
+    err = _bn_sums_agree(tuple(sums), bn.bn_bwd_reduce_plain(
+        x, dy, mean, r, scale), x, dy, mean, r, scale, f"{what} bwd")
+    want = bn.bn_coefs(tuple(sums), scale, x.shape[1] * x.shape[3])
+    for k, a, b in zip(("dscale", "dbias", "mean_dxhat", "mean_dxhat_xhat"),
+                       (dscale, dbias, coefs[0], coefs[1]), want):
+        check(a.dtype == b.dtype == x.dtype, f"{what} bwd {k}: {a.dtype}")
+        same(a, b, f"{what} bwd {k}")
+    same(dx, bn.bn_bwd_dx_plain(x, dy, mean, r, scale, coefs[0], coefs[1]),
+         f"{what} bwd dx")
+    return err
+
+
+def _bn_agree(x, dy, mean, r, scale, what, want_map=None):
+    """The kernels against the plain versions on the same operands: the
+    single reduction's sums by :func:`_bn_sums_agree`; the single dx pass,
+    fed the same coefficients, bit for bit in the layout of ``x``; the
+    composite by :func:`_bn_bwd_agree`.  With ``want_map``, every launch
+    must have taken that thread map."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
     from blades_tpu_torch.ops import bn_backward as bn
 
     n = x.shape[1] * x.shape[3]
+    before = dict(_cuda.MAPS)
     want = bn.bn_bwd_reduce_plain(x, dy, mean, r, scale)
     err = _bn_sums_agree(bn.bn_bwd_reduce(x, dy, mean, r, scale), want, x,
                          dy, mean, r, scale, what)
     md, mdx = _bn_coefs(want, scale, n)
     dx = bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx)
-    check(dx.stride() == x.stride() or not x.is_non_overlapping_and_dense(),
+    # dx takes x's strides where x is dense (empty_like's layout).
+    check(dx.stride() == torch.empty_like(x).stride(),
           f"{what}: dx strides {dx.stride()} vs x {x.stride()}")
     same(dx, bn.bn_bwd_dx_plain(x, dy, mean, r, scale, md, mdx), f"{what} dx")
+    err = max(err, _bn_bwd_agree(x, dy, mean, r, scale,
+                                 _cuda.launch_bn_bwd(x, dy, mean, r, scale),
+                                 what))
+    if want_map is not None:
+        took = {k: v - before.get(k, 0) for k, v in _cuda.MAPS.items()
+                if v != before.get(k, 0)}
+        check(took == {("bn_bwd_reduce", want_map): 2,
+                       ("bn_bwd_dx", want_map): 2},
+              f"{what}: thread maps {took}, expected {want_map}")
     return err
 
 
 def _small_bn(gen):
-    """The BatchNorm-backward pair against its plain version: f32 and bf16
-    x the four physical layouts x ragged shapes (a pair's elements in one
-    or several splits with a ragged last one, odd spatial sizes, S = 1)."""
+    """The BatchNorm-backward kernels against their plain versions: f32
+    and bf16 x the four physical layouts x ragged shapes (a pair's
+    elements in one or several splits with a ragged last one, odd spatial
+    sizes, S = 1, C of 8, 24 and 40 -- the vector map at widths that are
+    not a multiple of 32 -- and one client of 32 x 32 x 32 positions) and
+    the main round's four stage shapes; then a base pointer one element
+    off alignment.  The NCHW stage shapes take the spatial-inner map, the
+    channels-last ones and C of 8, 24, 40 the vector map, the offset view
+    the scalar channel-inner map."""
     import torch
 
+    from blades_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
     shapes = [(3, 5, 7, 5, 5), (2, 9, 4, 33, 33), (4, 16, 3, 1, 1),
-              (50, 32, 8, 4, 4)]
+              (50, 32, 8, 4, 4), (3, 4, 24, 5, 5), (4, 2, 40, 6, 6),
+              (1, 32, 64, 32, 32)]
+    stages = [(50, 32, c, hw, hw) for c, hw in BN_STAGES]
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for layout in BN_LAYOUTS:
-            for g, b, c, h, w in shapes:
-                ops = _bn_operands(gen, layout, dtype, g, b, c, h, w)
-                _bn_agree(*ops, f"bn pair {dtype} {layout} "
-                          f"{(g, b, c, h, w)}")
+            cl = layout.endswith("-cl")
+            for shp in shapes + stages:
+                g, b, c, h, w = shp
+                want_map = None
+                if shp in stages:
+                    want_map = "vector" if cl else "spatial"
+                elif c in (8, 24, 40) and cl:
+                    want_map = "vector"
+                ops = _bn_operands(gen, layout, dtype, *shp)
+                _bn_agree(*ops, f"bn {dtype} {layout} {shp}", want_map)
                 cases += 1
+                del ops
+        # x[..., 1:, :]: channel 1 onward, 2 or 4 bytes off alignment.
+        x, dy, mean, r, scale = _bn_operands(gen, "fold-cl", dtype, 4, 8, 33,
+                                             6, 6)
+        cut = [v[:, 1:].contiguous() for v in (mean, r, scale)]
+        _bn_agree(x[..., 1:, :], dy[..., 1:, :], *cut,
+                  f"bn {dtype} offset view", "scalar")
+        cases += 1
     torch.cuda.synchronize()
     log(f"small: {cases} BatchNorm-backward kernel-vs-plain cases agree "
-        "(dx bit-exact, sums within f32 reassociation)")
+        "(single passes and the composite: dx, dscale, dbias and the "
+        "coefficients bit-exact, sums within f32 reassociation); launches "
+        f"by thread map {dict(sorted(_cuda.MAPS.items()))}")
 
 
 class _BnAudit:
-    """Wraps the two launchers while a vmapped block trains on the card:
-    every launch is also computed by the plain version on the same
-    physical operands (the layouts functorch and cuDNN really hand over)
-    and held to :func:`_bn_agree`'s tolerances; the strides seen are
-    kept."""
+    """Wraps the three launchers while a vmapped block trains on the card:
+    every launch is also held against the plain versions on the same
+    physical operands (the layouts functorch and cuDNN really hand over),
+    the composite's by :func:`_bn_bwd_agree`; the strides seen are kept.
+    ``calls`` counts kernel launches (two per composite)."""
 
     def __init__(self):
         from blades_tpu_torch.ops import _cuda
@@ -611,8 +715,8 @@ class _BnAudit:
         from blades_tpu_torch.ops import bn_backward as bn
 
         cu = self._cuda
-        self._saved = cu.launch_bn_reduce, cu.launch_bn_dx
-        red, dxl = self._saved
+        self._saved = cu.launch_bn_reduce, cu.launch_bn_dx, cu.launch_bn_bwd
+        red, dxl, bwdl = self._saved
 
         def reduce(name, x, dy, mean, r, scale):
             out = red(name, x, dy, mean, r, scale)
@@ -630,11 +734,21 @@ class _BnAudit:
             self.calls += 1
             return out
 
-        cu.launch_bn_reduce, cu.launch_bn_dx = reduce, dx
+        def bwd(x, dy, mean, r, scale):
+            out = bwdl(x, dy, mean, r, scale)
+            self.layouts.add((x.dtype, tuple(x.shape), x.stride()))
+            self.err = max(self.err, _bn_bwd_agree(
+                x, dy, mean, r, scale, out,
+                f"audit {tuple(x.shape)} {x.stride()}"))
+            self.calls += 2
+            return out
+
+        cu.launch_bn_reduce, cu.launch_bn_dx, cu.launch_bn_bwd = reduce, dx, bwd
         return self
 
     def __exit__(self, *exc):
-        self._cuda.launch_bn_reduce, self._cuda.launch_bn_dx = self._saved
+        cu = self._cuda
+        cu.launch_bn_reduce, cu.launch_bn_dx, cu.launch_bn_bwd = self._saved
 
 
 def _small_bn_vmap():
@@ -682,7 +796,8 @@ def _small_bn_vmap():
                             p, x.to(dev), y.to(dev))
                 finally:
                     bn._bn_bwd_impl = saved
-                out[run] = (upd.cpu(), dict(_cuda.LAUNCHES))
+                out[run] = (upd.cpu(), dict(_cuda.LAUNCHES),
+                            dict(_cuda.MAPS))
             want = {"bn_bwd_reduce": 12 * nb, "bn_bwd_dx": 12 * nb}
             check(out["cuda"][1] == want, f"bn vmap {cd}: launches "
                   f"{out['cuda'][1]}, expected {want} (one per BN layer and "
@@ -704,22 +819,155 @@ def _small_bn_vmap():
             strides = sorted({(s[2], s[1]) for s in audit.layouts})
             log(f"small: ResNet-10 block (G={g}, 2 local steps, {cd}) on the "
                 f"card: 12 launches of each BN kernel per step, all "
-                f"{audit.calls} audited against the plain version (dx "
-                f"bit-exact, sums max err {audit.err:.3g}); updates differ "
-                f"from the plain ops' on the card by {rel['cuda-plain']:.3g} "
-                f"and from the CPU's by {rel['cpu']:.3g} of their norm; "
-                f"(G, N, C, S) strides seen: {strides}")
+                f"{audit.calls} audited against the plain version (dx, "
+                f"dscale, dbias and the coefficients bit-exact, sums max err "
+                f"{audit.err:.3g}); thread maps {out['cuda'][2]}; updates "
+                f"differ from the plain ops' on the card by "
+                f"{rel['cuda-plain']:.3g} and from the CPU's by "
+                f"{rel['cpu']:.3g} of their norm; (G, N, C, S) strides seen: "
+                f"{strides}")
     finally:
         torch.backends.cudnn.deterministic = det
 
 
+def _bn_stage_times(x, dy, mean, r, scale, reps=BN_REPS):
+    """Device-only ms and host us per call (:func:`timed`) at one stage
+    shape (``x``, ``dy`` the ``(G, B, C, S)`` channels-last view of the
+    one-step layout): the single reduction and dx pass, the composite
+    ``bn_bwd`` called directly and through ``torch.func.vmap`` as
+    ``BNApply.backward`` calls it in a client block, the same kernels on
+    NCHW copies (the spatial-inner map), and the library's batch-norm
+    backward on the channels-last (B, G*C, H, W) view -- dscale/dbias
+    alone and the full backward -- with saved mean / invstd in f32 (its
+    own layout: the operands copied once, untimed).  Uses only what every
+    version of the port has, so the ``bnstages`` phase times a parent
+    tree's kernels the same way."""
+    import torch
+    from torch.func import vmap
+
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    g, b, c, s = x.shape
+    n = b * s
+    md, mdx = _bn_coefs(bn.bn_bwd_reduce(x, dy, mean, r, scale), scale, n)
+    t = {}
+    t["reduce"] = timed(lambda: bn.bn_bwd_reduce(x, dy, mean, r, scale), reps)
+    t["dx"] = timed(lambda: bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx),
+                    reps)
+    t["bwd"] = timed(lambda: bn.bn_bwd(x, dy, mean, r, scale), reps)
+    s1 = scale[:1]
+    vfn = vmap(lambda a, d, m, rr: bn.bn_bwd(a, d, m, rr, s1))
+    vargs = (x[:, None], dy[:, None], mean[:, None], r[:, None])
+    t["bwd_vmap"] = timed(lambda: vfn(*vargs), reps)
+    xn, dyn = (u.contiguous() for u in (x, dy))
+    t["nchw_reduce"] = timed(lambda: bn.bn_bwd_reduce(xn, dyn, mean, r,
+                                                      scale), reps)
+    t["nchw_dx"] = timed(lambda: bn.bn_bwd_dx(xn, dyn, mean, r, scale, md,
+                                              mdx), reps)
+    del xn, dyn
+    hw = int(round(s ** 0.5))
+    cl = torch.channels_last
+    xg = x.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+        memory_format=cl)
+    dyg = dy.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+        memory_format=cl)
+    sm, si = mean.float().flatten(), r.float().flatten()
+    wt = scale.flatten()
+
+    def lib(mask):
+        return torch.ops.aten.native_batch_norm_backward(
+            dyg, xg, wt, None, None, sm, si, True, 1e-5, mask)
+
+    t["lib_reduce"] = timed(lambda: lib([False, True, True]), reps)
+    t["lib_full"] = timed(lambda: lib([True, True, True]), reps)
+    return t
+
+
+def _bn_profiled(x, dy, mean, r, scale, reps=20):
+    """Device us per call of the single reduction and dx pass by
+    ``torch.profiler``'s kernel records (every kernel whose name holds
+    ``bn_reduce`` / ``bn_dx``), the cross-check of :func:`timed`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    n = x.shape[1] * x.shape[3]
+    md, mdx = _bn_coefs(bn.bn_bwd_reduce(x, dy, mean, r, scale), scale, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bn.bn_bwd_reduce(x, dy, mean, r, scale)
+        for _ in range(reps):
+            bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx)
+        torch.cuda.synchronize()
+    us = {"reduce": 0.0, "dx": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        k = e.key.lower()
+        if "bn_reduce" in k:
+            us["reduce"] += t
+        elif "bn_dx" in k:
+            us["dx"] += t
+    return {k: v / reps for k, v in us.items()}
+
+
+def _bn_stage_line(c, hw, t, prof_us=None, plain=None):
+    """One stage's log line from :func:`_bn_stage_times`."""
+    bound_red = 50 * 32 * hw * hw * c * 4 / HBM_BYTES_PER_S * 1e3
+    line = (f"kernel bn stage C={c} {hw}x{hw}: device-only reduce "
+            f"{t['reduce'][0]:.4f} ms, dx {t['dx'][0]:.4f} ms (bounds "
+            f"{bound_red:.4f} / {1.5 * bound_red:.4f}), composite bn_bwd "
+            f"{t['bwd'][0]:.4f} ms; library dscale/dbias "
+            f"{t['lib_reduce'][0]:.4f}, full backward {t['lib_full'][0]:.4f}; "
+            f"NCHW reduce {t['nchw_reduce'][0]:.4f}, dx {t['nchw_dx'][0]:.4f}; "
+            f"host us per call: reduce {t['reduce'][1]:.1f}, dx "
+            f"{t['dx'][1]:.1f}, bn_bwd {t['bwd'][1]:.1f}, vmapped bn_bwd "
+            f"(one BN layer of a block) {t['bwd_vmap'][1]:.1f}, library "
+            f"{t['lib_full'][1]:.1f}")
+    if prof_us is not None:
+        line += (f"; profiler device us per call: reduce "
+                 f"{prof_us['reduce']:.2f}, dx {prof_us['dx']:.2f}")
+    if plain is not None:
+        line += f"; plain reduce {plain[0]:.3f} ms, dx {plain[1]:.3f} ms"
+    return line
+
+
+def phase_bnstages():
+    """The BN kernels alone at the main round's four stage shapes (G = 50,
+    B = 32, bf16, channels-last), device-only, with the profiler's kernel
+    durations beside the event times and the host us per call; run it
+    with ``--port`` on another tree's package to compare two versions of
+    the kernels in one call."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tot = {}
+    for c, hw in BN_STAGES:
+        ops = _bn_operands(gen, "fold-cl", torch.bfloat16, 50, 32, c, hw, hw)
+        t = _bn_stage_times(*ops)
+        log(_bn_stage_line(c, hw, t, _bn_profiled(*ops)))
+        for k, v in t.items():
+            tot[k] = tot.get(k, 0.0) + v[0]
+        del ops
+        torch.cuda.empty_cache()
+    log("bnstages: device-only ms summed over the four stages: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tot.items()))
+
+
 def _bn_records(gen):
-    """The BN pair at the main round's four stage shapes (G = 50, B = 32,
-    bf16, the one-step layout (G*B, C, H, W) channels-last, as cuDNN hands
-    bf16 activations over): time, plain time, the library's one-call
-    backward on the channels-last (B, G*C, H, W) view, and the bound.  The
-    records hold the sums over the four stages (one BN layer each); the
-    kernels' time in the NCHW layout is logged beside them."""
+    """The BN kernels at the main round's four stage shapes (G = 50,
+    B = 32, bf16, the one-step layout (G*B, C, H, W) channels-last, as
+    cuDNN hands bf16 activations over): each checked against the plain
+    versions, then timed device-only beside the plain versions, the
+    library's backward and the bound.  The records hold the sums over the
+    four stages (one BN layer each); the rest is logged per stage."""
     import torch
 
     from blades_tpu_torch.ops import bn_backward as bn
@@ -727,77 +975,42 @@ def _bn_records(gen):
     g, b = 50, 32
     tot = {k: dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, err=0.0)
            for k in ("bn_bwd_reduce", "bn_bwd_dx")}
-    lib_ok = True
+    pair = lib_full = 0.0
     for c, hw in BN_STAGES:
-        x, dy, mean, r, scale = _bn_operands(gen, "fold-cl", torch.bfloat16,
-                                             g, b, c, hw, hw)
+        x, dy, mean, r, scale = ops = _bn_operands(
+            gen, "fold-cl", torch.bfloat16, g, b, c, hw, hw)
         n = b * hw * hw
         elems = g * n * c
-        err = _bn_agree(x, dy, mean, r, scale, f"bn stage C={c}")
-        sums = bn.bn_bwd_reduce(x, dy, mean, r, scale)
-        md, mdx = _bn_coefs(sums, scale, n)
-        t_red = timed(lambda: bn.bn_bwd_reduce(x, dy, mean, r, scale), REPS)
-        t_dx = timed(lambda: bn.bn_bwd_dx(x, dy, mean, r, scale, md, mdx),
-                     REPS)
-        p_red = timed(lambda: bn.bn_bwd_reduce_plain(x, dy, mean, r, scale),
-                      REPS)
-        p_dx = timed(lambda: bn.bn_bwd_dx_plain(x, dy, mean, r, scale, md,
-                                                mdx), REPS)
-        # One PyTorch call computing the same backward: the library's
-        # batch-norm backward on the grouped view, saved mean / invstd in
-        # f32 (its own layout: the operands copied once, untimed).
-        cl = torch.channels_last
-        xg = x.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
-            memory_format=cl)
-        dyg = dy.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
-            memory_format=cl)
-        sm, si = mean.float().flatten(), r.float().flatten()
-        wt = scale.flatten()
-        l_red = l_dx = 0.0
-        if lib_ok:
-            try:
-                def lib(mask):
-                    return torch.ops.aten.native_batch_norm_backward(
-                        dyg, xg, wt, None, None, sm, si, True, 1e-5, mask)
-                l_red = timed(lambda: lib([False, True, True]), REPS)
-                l_dx = timed(lambda: lib([True, True, True]), REPS)
-            except (RuntimeError, TypeError) as e:
-                lib_ok = False
-                log(f"kernel bn: library_ms null: native_batch_norm_backward "
-                    f"refused the operands ({type(e).__name__}: {e})")
-        del xg, dyg
-        # The same operands in NCHW strides (the spatial-inner thread map).
-        xn, dyn = (t.contiguous() for t in (x, dy))
-        n_red = timed(lambda: bn.bn_bwd_reduce(xn, dyn, mean, r, scale), REPS)
-        n_dx = timed(lambda: bn.bn_bwd_dx(xn, dyn, mean, r, scale, md, mdx),
-                     REPS)
-        del xn, dyn
-        log(f"kernel bn stage C={c} {hw}x{hw} (NCHW): reduce {n_red:.3f} ms, "
-            f"dx {n_dx:.3f} ms")
-        log(f"kernel bn stage C={c} {hw}x{hw}: reduce {t_red:.3f} ms (plain "
-            f"{p_red:.3f}, library {l_red:.3f}, bound "
-            f"{elems * 4 / HBM_BYTES_PER_S * 1e3:.3f}); dx {t_dx:.3f} ms "
-            f"(plain {p_dx:.3f}, library full backward {l_dx:.3f}, bound "
-            f"{elems * 6 / HBM_BYTES_PER_S * 1e3:.3f})")
+        err = _bn_agree(*ops, f"bn stage C={c}", "vector")
+        md, mdx = _bn_coefs(bn.bn_bwd_reduce_plain(*ops), scale, n)
+        p_red = timed(lambda: bn.bn_bwd_reduce_plain(*ops), REPS)[0]
+        p_dx = timed(lambda: bn.bn_bwd_dx_plain(*ops, md, mdx), REPS)[0]
+        t = _bn_stage_times(*ops)
+        log(_bn_stage_line(c, hw, t, plain=(p_red, p_dx)))
+        pair += t["bwd"][0]
+        lib_full += t["lib_full"][0]
         # Reduce: read x and dy (2 B each), write 3 (G, C) f32 sums; per
         # element a subtract, 3 multiplies, 3 adds.  dx: read x and dy,
         # write dx; a subtract, 4 multiplies, 2 subtracts.
-        for k, t, pt, lt, nbytes, ops in (
-                ("bn_bwd_reduce", t_red, p_red, l_red,
+        for k, tk, pt, lk, nbytes, nops in (
+                ("bn_bwd_reduce", "reduce", p_red, "lib_reduce",
                  elems * 4 + 3 * g * c * 4, 7 * elems),
-                ("bn_bwd_dx", t_dx, p_dx, l_dx, elems * 6 + 5 * g * c * 4,
-                 7 * elems)):
+                ("bn_bwd_dx", "dx", p_dx, "lib_full",
+                 elems * 6 + 5 * g * c * 4, 7 * elems)):
             a = tot[k]
-            a["ms"] += t
+            a["ms"] += t[tk][0]
             a["plain"] += pt
-            a["lib"] += lt
+            a["lib"] += t[lk][0]
             a["bytes"] += nbytes
-            a["ops"] += ops
+            a["ops"] += nops
             a["err"] = max(a["err"], err if k == "bn_bwd_reduce" else 0.0)
-        del x, dy
+        del x, dy, ops
         torch.cuda.empty_cache()
+    log(f"kernel bn: the composite bn_bwd over the four stages {pair:.4f} ms "
+        f"device-only against native_batch_norm_backward's full backward "
+        f"{lib_full:.4f} ms")
     return {k: _record(k, BN_SRC, BN_TPU[k], a["ms"], a["plain"], a["bytes"],
-                       a["ops"], a["err"], a["lib"] if lib_ok else None)
+                       a["ops"], a["err"], a["lib"])
             for k, a in tot.items()}
 
 
@@ -850,7 +1063,7 @@ def phase_kernels():
                 forged=want[3], bf16=True)
     close(got[1], want[1], "compact sq (main shape)", rtol=SQ_RTOL)
     ms = timed(lambda: ff.fused_finish_compact(
-        x, forged_mult=250, forge=forge, agg=agg), REPS)
+        x, forged_mult=250, forge=forge, agg=agg), REPS)[0]
     nbytes = 750 * d * 2 + 2 * d * 4 + 750 * 5
     # Per element: mean 1, variance 3, row norm 2, selection 1.
     records["fused_finish_compact"] = _record(
@@ -875,7 +1088,9 @@ def phase_kernels():
                 bf16=True)
     close(got[1], want[1], "full sq (main shape)", rtol=SQ_RTOL,
           forged=fw.square().sum().reshape(1), bf16=True)
-    ms = timed(lambda: ff.fused_finish(x, mal, forge=forge, agg=agg), REPS)
+    # The wrapper counts the active rows on the host (one .item()).
+    ms = timed(lambda: ff.fused_finish(x, mal, forge=forge, agg=agg), REPS,
+               syncs=True)[0]
     # The forged rows replace the malicious ones, so the function reads
     # only the 750 benign rows (and the mask).
     nbytes = 750 * d * 2 + 1000 + d * 4 + 1000 * 5
@@ -906,12 +1121,12 @@ def phase_kernels():
         else:
             err = close(got, want, f"{name} (main shape)", rtol=TRIM_TOL,
                         atol=TRIM_TOL)
-        ms = timed(lambda: fn(x), REPS)
+        ms = timed(lambda: fn(x), REPS)[0]
         lib_ms = None
         if name == "column_median":
             # On NaN-free columns the midpoint median is the 0.5 quantile
             # with linear interpolation: one PyTorch call, the yardstick.
-            lib_ms = timed(lambda: torch.quantile(x, 0.5, dim=0), REPS)
+            lib_ms = timed(lambda: torch.quantile(x, 0.5, dim=0), REPS)[0]
         records[name] = _record(name, SRC, replaces, ms, plain_ms, nbytes,
                                 per_elem * 1000 * (1 << 20), err, lib_ms)
     del x
@@ -956,7 +1171,7 @@ def _bundle_records(gen, d):
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = rowstats_agree(got, want, x, kw, f"{name} (main shape)")
         del got, want
-        ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)
+        ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)[0]
         lib_ms = None
         if name == GRAM_RECORD:
             # X X^T of bf16 rows with f32 output, where torch takes out_dtype.
@@ -967,7 +1182,8 @@ def _bundle_records(gen, d):
                     f"out_dtype here ({type(e).__name__}: {e})")
             else:
                 lib_ms = timed(lambda: torch.mm(x, x.t(),
-                                                out_dtype=torch.float32), REPS)
+                                                out_dtype=torch.float32),
+                               REPS)[0]
             records[name] = _record(
                 name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
                 n * d * 2 + n * n * 4, n * (n + 1) // 2 * d * 2, err, lib_ms,
@@ -1132,6 +1348,10 @@ def phase_main():
             **{k: BN_PER_ROUND * rounds for k in BN_TPU}}
     check(counts == want, f"main: launches {counts} over {rounds} rounds, "
           f"expected {want}")
+    maps = dict(_cuda.MAPS)
+    want_maps = {(k, "vector"): BN_PER_ROUND * rounds for k in BN_TPU}
+    check(maps == want_maps, f"main: BN launches by thread map {maps}, "
+          f"expected {want_maps} (all on the vector map)")
     check(int(m["elided_lanes"]) == 250, "main: elision did not engage")
     rps = TIMED_ROUNDS / sum(secs[1:])
     log(f"main: ResNet-10 x 1000 clients (250 ALIE), Median, bf16; "
@@ -1139,7 +1359,8 @@ def phase_main():
         f"(round seconds {[round(s, 3) for s in secs]}, first is warm-up)")
     log(f"main: train_loss per round {losses}; compact finish launches "
         f"{counts['fused_finish_compact']}, BN backward launches "
-        f"{counts['bn_bwd_reduce']} + {counts['bn_bwd_dx']}; peak memory "
+        f"{counts['bn_bwd_reduce']} + {counts['bn_bwd_dx']}, all on the "
+        f"vector map; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, rps
 
@@ -1364,6 +1585,8 @@ def phase_fedavg():
         check(not streamed and counts == want,
               f"fedavg {adv}: launches {counts}, expected {want} on the "
               "dense round")
+        log(f"fedavg {adv}: BN launches by thread map "
+            f"{dict(_cuda.MAPS)}")
     _cuda.reset_launches()
     _, streamed = _fedavg_trial("ResNet-10 x 1000 ALIE Median bf16",
                                 STREAMED_TRIAL, 2)
@@ -1382,6 +1605,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                          f"{','.join(PHASES + EXTRA_PHASES)}")
+    ap.add_argument("--port", default=HERE,
+                    help="the directory holding the blades_tpu_torch "
+                         "package to drive (default: beside this script); "
+                         "another tree's, to time its kernels in the same "
+                         "call")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -1397,7 +1625,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this smoke runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(args.port))
     try:
         import blades_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1438,6 +1666,8 @@ def main(argv=None) -> int:
             run("fedavg", phase_fedavg)
         if "profile" in phases:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
+        if "bnstages" in phases:
+            run("bnstages", phase_bnstages)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
