@@ -14,7 +14,7 @@
 // int8 input: the self-contractions (sq, gram) are exact integer sums,
 // rounded to f32 once; everything else casts the values to f32.
 //
-// Bound on the H100 at the streamed round's shape (1000, 4,903,242) bf16:
+// Bound on the H100 at the streamed round's shape (1000, 4,903,424) bf16:
 // one read of the matrix, 9.81 GB over 3.35 TB/s = 2.9 ms, for every
 // bundle but the Gram.  The Gram's operations, counting its symmetric half,
 // are n(n+1)/2 * d * 2 = 4.9e12, at 989 TFLOP/s bf16 = 5.0 ms: the Gram
@@ -32,9 +32,9 @@
 //    X_slab t into per-CTA row partials.  A second kernel reduces the
 //    partials in CTA order: deterministic, no float atomics; sign counts
 //    and int8 norms are integers throughout.
-//  - Gram (gram_mma_kernel for bf16 and int8, gram_f32_kernel for f32): a
-//    tiled product over the (i <= j) tiles of the upper triangle, the
-//    d-reduction split across CTAs in whole waves.  bf16 uses mma.sync
+//  - Gram (gram_mma_kernel for int8 and unaligned bf16, gram_f32_kernel
+//    for f32): a tiled product over the (i <= j) tiles of the upper
+//    triangle, the d-reduction split across CTAs in whole waves.  bf16 uses mma.sync
 //    m16n8k16 with f32 accumulation (a bf16 x bf16 product is exact in
 //    f32, so this is the same function up to the order of the sums); int8
 //    uses m16n8k32 with int32 accumulation over spans of at most 65536
@@ -49,13 +49,17 @@
 //    result is exactly symmetric.  This reads the matrix once per tile
 //    row it meets (the L2 cache serves most of it, since the CTAs of one
 //    split walk the same columns together).
-//  - Rows need not be aligned to anything: a 4-byte cp.async serves rows
-//    whose length in bytes is a multiple of 4 (every f32 matrix, bf16 with
-//    even d, int8 with d % 4 == 0); other widths load element by element.
-//    The round's rows (9,806,484 bytes) are 4- but not 16-byte aligned,
-//    which also rules out TMA (its row strides are multiples of 16 bytes).
-//    wgmma, and 16-byte loads of realigned rows, are the next steps.
+//  - Gram of bf16 rows that are 16-byte aligned (gram_wgmma_kernel, below):
+//    TMA loads into a shared-memory ring and wgmma on the tensor cores.
+//    The streamed round's row-geometry buffer is (n, d_alloc), d_alloc
+//    the model width rounded up to 512 columns as the JAX package
+//    allocates it, so its rows are; ops/_cuda.py::gram_route picks it.
+//  - Otherwise rows need not be aligned to anything: a 4-byte cp.async
+//    serves rows whose length in bytes is a multiple of 4 (every f32
+//    matrix, bf16 with even d, int8 with d % 4 == 0); other widths load
+//    element by element.
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -586,6 +590,240 @@ __global__ void __launch_bounds__(kThreads) gram_f32_kernel(GramArgs a) {
     for (int j = 0; j < 4; ++j) out[(ty + 16 * i) * kF32Tile + tx + 16 * j] = acc[i][j];
 }
 
+// --------------------------------------------------------------------------
+// Gram on Hopper: TMA + wgmma (bf16 rows 16-byte aligned)
+// --------------------------------------------------------------------------
+//
+// Replaces the Gram of blades_tpu/ops/pallas_rowstats.py:98
+// (_rowstats_kernel, want_gram) for bf16 matrices whose rows are 16-byte
+// aligned: the streamed round's (1000, d_alloc) buffer, padded as the JAX
+// package pads it (d_alloc a multiple of 512).  Bound on the H100 at
+// (1000, 4,903,424): n (n + 1) / 2 * d * 2 = 4.9e12 operations over 989
+// TFLOP/s = 4.96 ms; the 36 whole upper-triangle tiles do 5.78e12, 5.85 ms.
+//
+// Design: the same 128 x 128 upper-triangle tiles, d-splits and
+// (splits, npairs, 128, 128) f32 partials as gram_mma_kernel, so
+// gram_finalize and the split search are shared.  One 2-D TMA descriptor
+// over the (rows, d) matrix loads 128-row x 64-column boxes (128-byte rows,
+// 128-byte swizzle) into a kWgStages-deep ring of 32 KB stages (a diagonal
+// tile loads one box and reads it as both operands); the rows >= rows and
+// columns >= d come in as zeros from TMA's out-of-bounds fill, so nothing
+// is masked here.  Warpgroup 2 is the producer (one thread issues the
+// loads); warpgroups 0 and 1 each own a 64-row half of the tile and run
+// wgmma m64n128k16 on K-major A and B straight from shared memory, with
+// full / empty mbarriers per stage.  The tensor cores' f32 accumulation
+// truncates (see the Gram note above), so every kWgFlush stages (256
+// columns) a consumer waits for its wgmma groups, adds the accumulator into
+// a separate f32 sum with ordinary rounding, and restarts it.
+//
+// Likely next limit: every CTA streams its two 128-row tiles through
+// shared memory, so a Gram moves 64 tile-loads x 128 rows x 9.8 MB = 80 GB
+// from L2 into shared memory; L2's rate, not the tensor cores, probably
+// caps this design.  A 2-CTA cluster multicasting the shared tile (or a
+// 128 x 256 tile) would halve that traffic.
+
+constexpr int kWgTile = 128;      // tile side (rows of X per operand)
+constexpr int kWgK = 64;          // columns per stage: one 128-byte swizzle row
+constexpr int kWgStages = 5;
+constexpr int kWgFlush = 4;       // stages (256 columns) per wgmma accumulation
+// Stages one CTA walks at most (32,768 columns).  The CTAs that share a
+// tile row drift apart over a long span (a diagonal tile loads half as
+// much a stage), and the L2 cache then serves fewer of one CTA's rows to
+// the others: at the round's shape the wave-filling 11 splits give each
+// CTA 6,966 stages, and on the H100 a cap of 512 (154 splits, still
+// whole waves) ran faster than 256, 1024, 2048 or none (PERF.md §6).
+constexpr long long kWgMaxStages = 512;
+constexpr int kWgBox = kWgTile * kWgK * 2;  // bytes of one operand box
+constexpr int kWgConsumers = 256;           // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // + the producer warpgroup
+constexpr int kWgSmem = kWgStages * 2 * kWgBox + 1024 + 2 * kWgStages * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Wait for the phase of parity `parity` of the mbarrier `bar` to complete.
+// The spin stays inside the asm: a loop the compiler sees would put the
+// wgmma that follows on a divergent path, and ptxas then serializes every
+// wgmma (its warning C7518).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// One box of `tmap` at (column c, row r) into shared memory at dst,
+// completing on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tmap, uint32_t bar,
+                                            int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+// The wgmma descriptor of a K-major operand under 128-byte swizzle at
+// shared address `addr`: 8-row groups 1024 bytes apart (SBO), LBO unused
+// (1), layout 1 = 128-byte swizzle.  A k16 step within the 64-column
+// swizzle row adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulator across the
+// asynchronous wgmma's fence, commit and wait.
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32, 64 registers a thread) (+)= A (64 x 16) B^T, A and B
+// K-major bf16 tiles in shared memory under 128-byte swizzle; `accumulate`
+// 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gram_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, GramArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle wants 1024-byte aligned boxes.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + kWgStages * 2 * kWgBox;  // kWgStages mbarriers
+  const uint32_t empty = full + kWgStages * 8;          // kWgStages mbarriers
+
+  const int p = blockIdx.x % a.npairs;
+  const long long split = blockIdx.x / a.npairs;
+  int ti, tj;
+  pair_tiles(p, a.nt, &ti, &tj);
+  const bool diag = ti == tj;
+  const long long k0 = split * a.span;
+  const long long k1 = k0 + a.span < a.d ? k0 + a.span : a.d;
+  const int nk = static_cast<int>((k1 - k0 + kWgK - 1) / kWgK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The warpgroup, known to the compiler as uniform across each warp.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.  The span is a multiple of
+    // kWgK, so no box reaches past this split's columns but at d.
+    if (threadIdx.x == kWgConsumers) {
+      const uint32_t bytes = diag ? kWgBox : 2 * kWgBox;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kWgStages;
+        mbar_wait(empty + 8 * s, ((kt / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        const int col = static_cast<int>(k0 + static_cast<long long>(kt) * kWgK);
+        const uint32_t dst = base + s * 2 * kWgBox;
+        tma_load_2d(dst, &tmap, full + 8 * s, col, ti * kWgTile);
+        if (!diag) tma_load_2d(dst + kWgBox, &tmap, full + 8 * s, col, tj * kWgTile);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg computes rows [64 wg, 64 wg + 64) of the tile
+    // against all 128 of the other operand.
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    int held = -1;  // the stage an unfinished wgmma group still reads
+    int fresh = 1;  // the next wgmma starts a new accumulation
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kWgStages;
+      mbar_wait(full + 8 * s, (kt / kWgStages) & 1);
+      const uint32_t a_tile = base + s * 2 * kWgBox;
+      const uint32_t b_tile = diag ? a_tile : a_tile + kWgBox;
+      const uint64_t da = wg_desc(a_tile + wg * 64 * 128), db = wg_desc(b_tile);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kWgK / 16; ++k)  // 32 bytes = 2 descriptor units a step
+        wgmma_m64n128k16(acc, da + 2 * k, db + 2 * k, k > 0 || !fresh);
+      wgmma_commit();
+      if ((kt + 1) % kWgFlush == 0 || kt + 1 == nk) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (held >= 0) mbar_arrive(empty + 8 * (held % kWgStages));
+        mbar_arrive(empty + 8 * s);
+        held = -1;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+        fresh = 1;
+      } else {
+        wgmma_wait<1>();  // every group but this stage's has finished
+        if (held >= 0) mbar_arrive(empty + 8 * (held % kWgStages));
+        held = kt;
+        fresh = 0;
+      }
+    }
+    // Accumulator layout of m64nNk16: register 4j + e of thread (warp w,
+    // lane l) holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) +
+    // e % 2.
+    const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+    float* out = static_cast<float*>(a.part) +
+                 (static_cast<size_t>(split) * a.npairs + p) * kWgTile * kWgTile;
+    const int r = wg * 64 + 16 * w + l / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * (l % 4);
+      *reinterpret_cast<float2*>(out + r * kWgTile + c) = make_float2(tot[4 * j], tot[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + (r + 8) * kWgTile + c) =
+          make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+    }
+  }
+}
+
 // out[i, j] = sum over splits, in split order, of the upper-triangle entry
 // (min(i, j), max(i, j)).
 template <typename Acc, typename Sum>
@@ -641,6 +879,60 @@ int sm_count() {
 
 bool rows_aligned(const void* x, int dtype, long long d) {
   return (d * elem_size(dtype)) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that nothing new
+// is linked.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The TMA descriptor of a row-major (rows, d) bf16 matrix in 128-row x
+// 64-column boxes, 128-byte swizzle, zero fill out of bounds.  Needs d % 8
+// == 0 and a 16-byte-aligned base (TMA's row stride is a multiple of 16
+// bytes).
+cudaError_t gram_tmap(const void* x, int rows, long long d, CUtensorMap* map) {
+  if (d % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return cudaErrorInvalidValue;
+  EncodeTiledFn fn;
+  cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {kWgK, kWgTile};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t gram_wgmma_setup(int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(gram_wgmma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gram_wgmma_kernel, kWgThreads,
+                                                       kWgSmem);
 }
 
 template <typename T, typename Acc>
@@ -735,14 +1027,22 @@ int bt_rowstats(const void* x, int dtype, int rows, long long d, long long d_tru
   return static_cast<int>(e);
 }
 
-// Gram geometry for (dtype, rows, d): the tile side, the upper-triangle
-// tile count, the d-splits (one wave of CTAs where d allows) and the
-// columns per split.
-int bt_gram_plan(int dtype, int rows, long long d, int* tile, int* npairs, int* splits,
-                 long long* span) {
+// Gram geometry for (dtype, route, rows, d): the tile side, the
+// upper-triangle tile count, the d-splits (whole waves of CTAs where d
+// allows; on route 1 also at most kWgMaxStages stages a CTA) and the
+// columns per split, a multiple of the kernel's stage depth.  route 1 is gram_wgmma_kernel (bf16 only), 0 the kernel of the
+// dtype.
+int bt_gram_plan(int dtype, int route, int rows, long long d, int* tile, int* npairs,
+                 int* splits, long long* span) {
   int per_sm = 0;
   cudaError_t e;
-  if (dtype == 0) {
+  int bke = kRowB / elem_size(dtype);
+  if (route == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    *tile = kWgTile;
+    bke = kWgK;
+    e = gram_wgmma_setup(&per_sm);
+  } else if (dtype == 0) {
     *tile = kF32Tile;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_f32_kernel, kThreads,
                                                       kF32Stages * 2 * kF32Tile * kTStride);
@@ -755,7 +1055,6 @@ int bt_gram_plan(int dtype, int rows, long long d, int* tile, int* npairs, int* 
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int nt = (rows + *tile - 1) / *tile;
   *npairs = nt * (nt + 1) / 2;
-  const int bke = kRowB / elem_size(dtype);
   const long long nkb = (d + bke - 1) / bke;
   // Splits that fill whole waves of resident CTAs best (ties: fewer).
   const long long resident = static_cast<long long>(per_sm) * sm_count();
@@ -774,15 +1073,19 @@ int bt_gram_plan(int dtype, int rows, long long d, int* tile, int* npairs, int* 
     const long long need = (d + kInt8Span - 1) / kInt8Span;
     if (s < need) s = need;
   }
+  if (route == 1) {  // a whole multiple of the wave-filling split count
+    const long long per = (nkb + s - 1) / s;
+    if (per > kWgMaxStages) s *= (per + kWgMaxStages - 1) / kWgMaxStages;
+  }
   *span = (nkb + s - 1) / s * bke;
   *splits = static_cast<int>((d + *span - 1) / *span);
   return 0;
 }
 
-// The Gram: the tile kernel into `part`, then the split reduction into the
-// (rows, rows) f32 output.
-int bt_gram(const void* x, int dtype, int rows, long long d, int tile, int npairs, int splits,
-            long long span, void* part, float* out, void* stream) {
+// The Gram: the tile kernel of `route` (as in bt_gram_plan) into `part`,
+// then the split reduction into the (rows, rows) f32 output.
+int bt_gram(const void* x, int dtype, int route, int rows, long long d, int tile, int npairs,
+            int splits, long long span, void* part, float* out, void* stream) {
   GramArgs a;
   a.x = x;
   a.rows = rows;
@@ -794,13 +1097,20 @@ int bt_gram(const void* x, int dtype, int rows, long long d, int tile, int npair
   a.aligned = rows_aligned(x, dtype, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = npairs * splits;
-  if (dtype == 0)
+  if (route == 1) {
+    if (dtype != 1 || tile != kWgTile) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap map;
+    cudaError_t me = gram_tmap(x, rows, d, &map);
+    if (me != cudaSuccess) return static_cast<int>(me);
+    gram_wgmma_kernel<<<grid, kWgThreads, kWgSmem, st>>>(map, a);
+  } else if (dtype == 0) {
     gram_f32_kernel<<<grid, kThreads, kF32Stages * 2 * kF32Tile * kTStride, st>>>(a);
-  else if (dtype == 1)
+  } else if (dtype == 1) {
     gram_mma_kernel<uint16_t, float>
         <<<grid, kThreads, kMmaStages * 2 * kMmaTile * kTStride, st>>>(a);
-  else
+  } else {
     gram_mma_kernel<int8_t, int><<<grid, kThreads, kMmaStages * 2 * kMmaTile * kTStride, st>>>(a);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long total = static_cast<long long>(rows) * rows;

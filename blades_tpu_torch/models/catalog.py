@@ -1,7 +1,8 @@
 """Model catalog (counterpart of ``blades_tpu/models/catalog.py``): a name,
 matched by substring as in the reference ("resnet" -> ResNet-10, "mlp",
 "cnn"), or an ``nn.Module`` instance, resolved to a module for a given
-input shape."""
+input shape.  The reference's deeper ResNets are named exactly and raise
+until the port has them, so none of them falls through to ResNet-10."""
 
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ from blades_tpu_torch.models.mlp import MLP
 from blades_tpu_torch.models.resnet import ResNet10, ResNet18
 
 _RESNETS = {"resnet10": ResNet10, "resnet18": ResNet18}
+# The reference's other exact names (blades_tpu/models/catalog.py:29-36):
+# each builds its own network there, so here each raises rather than
+# reaching the "resnet" substring rule.
+_LATER_RESNETS = ("resnet34", "resnet50", "resnet101", "resnet152")
 
 
 def get_model(spec, num_classes: int = 10, input_shape=(28, 28, 1)) -> nn.Module:
@@ -23,6 +28,10 @@ def get_model(spec, num_classes: int = 10, input_shape=(28, 28, 1)) -> nn.Module
     name = str(spec).lower()
     if name in _RESNETS:
         return _RESNETS[name](num_classes, input_shape[-1])
+    if name in _LATER_RESNETS:
+        raise NotImplementedError(
+            f"model {spec!r} is not in the port yet (the Bottleneck ResNets "
+            "and ResNet-34 come with ROADMAP Queue A 6)")
     if "cct" in name:
         raise NotImplementedError(
             f"model {spec!r} is not in the port yet (CCT comes with a later "

@@ -10,7 +10,8 @@ it.
 
 ``LAUNCHES`` counts, per wrapper name, the kernel launches the wrappers
 made, and ``MAPS`` the BatchNorm-backward launches per (wrapper name,
-thread map); :func:`reset_launches` sets every count to 0.
+thread map) and the Gram launches per (wrapper name, ``gram:`` + route);
+:func:`reset_launches` sets every count to 0.
 """
 
 from __future__ import annotations
@@ -125,9 +126,9 @@ def library() -> ctypes.CDLL:
         lib.bt_rowstats.argtypes = [p, i, i, ll, ll, i, i, p, i, p, i, i, p, p,
                                     p, i, i, i, i, p, p, p, p, p]
         lib.bt_rowstats.restype = i
-        lib.bt_gram_plan.argtypes = [i, i, ll, ip, ip, ip, llp]
+        lib.bt_gram_plan.argtypes = [i, i, i, ll, ip, ip, ip, llp]
         lib.bt_gram_plan.restype = i
-        lib.bt_gram.argtypes = [p, i, i, ll, i, i, i, ll, p, p, p]
+        lib.bt_gram.argtypes = [p, i, i, i, ll, i, i, i, ll, p, p, p]
         lib.bt_gram.restype = i
         pp = ctypes.POINTER(ctypes.c_void_p)
         for fn in (lib.bt_bn_reduce, lib.bt_bn_dx, lib.bt_bn_bwd):
@@ -239,6 +240,19 @@ def _weights(name, m, cols, dev):
     return m.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def gram_route(dtype: torch.dtype, d: int, address: int) -> str:
+    """The Gram kernel for a ``(rows, d)`` matrix of ``dtype`` at device
+    ``address``: ``wgmma`` (``gram_wgmma_kernel``, TMA-fed) for bf16 rows
+    that are 16-byte aligned -- ``d % 8 == 0`` and a 16-byte-aligned base,
+    as TMA's row stride must be -- else ``mma`` (``gram_mma_kernel``: int8,
+    unaligned bf16) or ``f32`` (``gram_f32_kernel``)."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.bfloat16 and d % 8 == 0 and address % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
 def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
                     gram: bool = False, signs: bool = False, dots=None,
                     weights=None, gram_dot=None, d_true=None) -> dict:
@@ -303,9 +317,11 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
             if wsum_out is not None:
                 out["wsum"] = wsum_out[:, :d_true]
         if gram:
+            route = gram_route(x.dtype, d, x.data_ptr())
+            rc = int(route == "wgmma")  # bt_gram's route code
             tile, npairs, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
             span = ctypes.c_longlong()
-            _check(lib, lib.bt_gram_plan(dt, rows, d, ctypes.byref(tile),
+            _check(lib, lib.bt_gram_plan(dt, rc, rows, d, ctypes.byref(tile),
                                          ctypes.byref(npairs),
                                          ctypes.byref(splits),
                                          ctypes.byref(span)),
@@ -315,12 +331,13 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
                 dtype=torch.int32 if dt == 2 else torch.float32, device=dev)
             gram_out = torch.empty((rows, rows), dtype=torch.float32,
                                    device=dev)
-            _check(lib, lib.bt_gram(x.data_ptr(), dt, rows, d, tile.value,
-                                    npairs.value, splits.value, span.value,
-                                    part.data_ptr(), gram_out.data_ptr(),
-                                    stream),
+            _check(lib, lib.bt_gram(x.data_ptr(), dt, rc, rows, d,
+                                    tile.value, npairs.value, splits.value,
+                                    span.value, part.data_ptr(),
+                                    gram_out.data_ptr(), stream),
                    f"{name}: Gram launch failed")
             out["gram"] = gram_out
+            MAPS[name, "gram:" + route] += 1
     LAUNCHES[name] += 1
     return out
 

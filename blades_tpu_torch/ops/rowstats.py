@@ -22,7 +22,11 @@ which walks the columns in chunks with the reference planner's chunk math
 
 int8 input (the wire-domain payload): ``sq`` and ``gram`` are exact integer
 sums rounded to f32 once; every other statistic casts the values to f32.
-No row or column padding: the kernels mask their own ragged edges.
+Nothing is padded or copied here: the streamed round hands over its
+``(n, d_alloc)`` buffer, zero past ``d_true`` as the JAX package allocates
+it, whose rows are 16-byte aligned, and the Gram of such bf16 rows takes
+the TMA + wgmma kernel (``_cuda.gram_route``); the other kernels mask
+their own ragged edges.
 """
 
 from __future__ import annotations

@@ -19,7 +19,11 @@ the full matrix goes through ``fused_finish``.
 
 The row-geometry aggregators (GeoMed, Multikrum, DnC, Centeredclipping,
 Signguard, Clippedclustering, FLTrust) and forges (MinMax, SignGuard,
-Attackclippedclustering) take the full matrix instead: a column-chunk pass
+Attackclippedclustering) take the full matrix instead, allocated as the
+JAX package allocates it: ``(n, d_alloc)`` with ``d_alloc`` the model
+width ``d`` rounded up to a multiple of 512, clients training into the
+first ``d`` columns and the padding columns zero throughout, so that every
+row starts 16-byte aligned for the row-stats kernels.  A column-chunk pass
 sanitizes and applies a coordinate-wise forge IN PLACE (writing back only
 each chunk's not-yet-covered columns) and accumulates the row norms; a
 row-geometry forge then computes its forged row through the pass planner
@@ -55,6 +59,7 @@ from blades_tpu_torch.data.sampler import gather_batches, sample_batch_indices
 from blades_tpu_torch.device import resolve_device
 from blades_tpu_torch.ops.aggregators import Mean, Median, Trimmedmean
 from blades_tpu_torch.ops.fused_finish import fused_finish, fused_finish_compact
+from blades_tpu_torch.ops.keys import STRIPE
 from blades_tpu_torch.ops.layout import ChunkInfo
 from blades_tpu_torch.parallel.streamed_geometry import (
     STREAMED_ROW_AGGREGATORS,
@@ -181,7 +186,7 @@ def streamed_step(
             metrics["round_ok"] = ok
         return server, metrics
 
-    def _rowgeom_mat_chunk(buf, sq, bad, malicious, noise, i, start, c):
+    def _rowgeom_mat_chunk(buf, sq, bad, malicious, noise, d, i, start, c):
         """Sanitize and forge chunk ``i`` in place: write back only its
         not-yet-covered columns, and accumulate their squared norms."""
         raw = buf[:, start:start + c]
@@ -193,17 +198,16 @@ def streamed_step(
             chunk = adv.on_updates_ready(
                 chunk, malicious, aggregator=agg,
                 noise=None if noise is None else noise[start:start + c],
-                shard=ChunkInfo(global_d=buf.shape[1], width=c, start=start,
-                                index=i))
+                shard=ChunkInfo(global_d=d, width=c, start=start, index=i))
         lo = max(i * c - start, 0)  # the tail chunk overlaps its predecessor
         fresh = chunk[:, lo:]
         sq += (fresh * fresh).sum(1)
         raw[:, lo:] = fresh.to(buf.dtype)
 
-    def _forge_row(buf, malicious, sq, gen, recorder):
+    def _forge_row(buf, malicious, sq, gen, d, recorder):
         """The row-geometry forge's statistics bundles -> the forged (d,)
         row and the post-forge row squared norms."""
-        planner = PassPlanner(buf, d_chunk, recorder=recorder,
+        planner = PassPlanner(buf, d_chunk, d=d, recorder=recorder,
                               fuse=fuse_rowgeom)
         forged, sq = forge_streamed(adv, buf, malicious, sq, agg, planner,
                                     generator=gen)
@@ -213,23 +217,26 @@ def streamed_step(
         """The forged row's columns into the malicious rows of one chunk."""
         buf[rows, start:start + c] = forged[start:start + c].to(buf.dtype)
 
-    def _rowgeom_aggregate(state, buf, malicious, losses, sq, bad, gen,
+    def _rowgeom_aggregate(state, buf, malicious, losses, sq, bad, gen, d,
                            recorder):
         trusted = fr.compute_trusted_update(state.server.params, gen)
         agg_vec, agg_state, sq = aggregate_streamed(
             agg, buf, sq, state.server.agg_state, generator=gen,
-            trusted=trusted, d_chunk=d_chunk, recorder=recorder,
+            trusted=trusted, d_chunk=d_chunk, d=d, recorder=recorder,
             fuse=fuse_rowgeom)
         return _serve_aggregate(state, agg_vec, malicious, losses, sq, bad,
                                 agg_state=agg_state)
 
-    def _coordwise_after_forge(state, buf, malicious, losses, sq, bad,
+    def _coordwise_after_forge(state, buf, malicious, losses, sq, bad, d,
                                recorder):
-        agg_vec = aggregate_coordwise(agg, buf, d_chunk, recorder=recorder)
+        agg_vec = aggregate_coordwise(agg, buf, d_chunk, d=d,
+                                      recorder=recorder)
         return _serve_aggregate(state, agg_vec, malicious, losses, sq, bad)
 
-    def _finish_rowgeom(state, buf, malicious, losses, gen):
-        n, d = buf.shape
+    def _finish_rowgeom(state, buf, malicious, losses, gen, d):
+        """The row-geometry finish over the ``(n, d_alloc)`` buffer; every
+        pass is bounded to the model width ``d``."""
+        n = buf.shape[0]
         recorder = PassRecorder()
         c, _, starts = chunk_grid(d, d_chunk)
         if rewrites:
@@ -238,21 +245,22 @@ def streamed_step(
             noise = (torch.rand((d,), generator=gen, device=dev)
                      if isinstance(adv, AdaptiveAdversary) else None)
             for i, start in enumerate(starts):
-                _rowgeom_mat_chunk(buf, sq, bad, malicious, noise, i, start, c)
+                _rowgeom_mat_chunk(buf, sq, bad, malicious, noise, d, i,
+                                   start, c)
         else:
             sq, bad = None, torch.zeros((n,), dtype=torch.bool, device=dev)
         if row_forges:
-            forged, sq = _forge_row(buf, malicious, sq, gen, recorder)
+            forged, sq = _forge_row(buf, malicious, sq, gen, d, recorder)
             rows = malicious.nonzero().flatten()
             for start in starts:
                 _scatter_chunk(buf, forged, rows, start, c)
         if row_geom:
             server, metrics = _rowgeom_aggregate(state, buf, malicious,
-                                                 losses, sq, bad, gen,
+                                                 losses, sq, bad, gen, d,
                                                  recorder)
         else:
             server, metrics = _coordwise_after_forge(state, buf, malicious,
-                                                     losses, sq, bad,
+                                                     losses, sq, bad, d,
                                                      recorder)
         fixed = int(rewrites) + int(row_forges)
         metrics["hbm_passes"] = recorder.executed + fixed
@@ -297,7 +305,10 @@ def streamed_step(
 
         params = state.server.params
         d = FlatLayout(params).d
-        shape = (n - row_shift, d)
+        # The row-geometry buffer is padded to the JAX package's 512-column
+        # stripes; training writes only its first d columns.
+        d_alloc = -(-d // STRIPE) * STRIPE if rowgeom_path else d
+        shape = (n - row_shift, d_alloc)
         # Compact: training writes every row.  Otherwise elided rows stay
         # zero (finite, and the forge replaces them).
         buf = (torch.empty(shape, dtype=update_dtype, device=dev) if compact
@@ -312,12 +323,12 @@ def streamed_step(
             _, loss, _ = fr.task.local_round_batched(
                 params, bx.to(dev), by.to(dev), malicious=malicious[r0:r1],
                 hooks=hooks, generator=gen, dropout_masks=masks,
-                out=buf[r0 - row_shift:r1 - row_shift])
+                out=buf[r0 - row_shift:r1 - row_shift, :d])
             losses[r0:r1] = loss
 
         if rowgeom_path:
             server, metrics = _finish_rowgeom(state, buf, malicious, losses,
-                                              gen)
+                                              gen, d)
         else:
             noise = (torch.rand((d,), generator=gen, device=dev)
                      if forge is not None and forge[0] == "adaptive"

@@ -27,6 +27,12 @@ Each is a full traversal of a ~10 GB matrix, so they run on a lifecycle:
    BOUND, as the reference's trace-time count does; ``kernel_bundles`` and
    ``loop_iters`` count what actually ran.
 
+The buffer may carry zero padding columns past the model width ``d``
+(the streamed round allocates ``(n, d_alloc)``, ``d_alloc`` a multiple of
+512, as the JAX package does): every chunk pass, forge and scatter is
+bounded to ``d``, and the row-stats kernel reads the whole padded buffer
+with ``d_true = d``, its rows 16-byte aligned.
+
 Row-norm clipping never rewrites the matrix: every aggregator applies its
 per-row scales inside the passes, with the constants, selection logic and
 empty-mask degradation of the dense versions in
@@ -145,16 +151,20 @@ class PassPlanner:
     """Batch statistic requests into single traversals of ``buf``.
 
     Args:
-        buf: ``(n, d)`` update matrix in its storage dtype.
+        buf: ``(n, d_alloc)`` update matrix in its storage dtype.  Columns
+            past ``d`` are zero padding: the chunk loop never reads them
+            and the kernel reads them harmlessly.
         c: column-chunk width of the chunk loop.
+        d: true model width (default ``buf.shape[1]``).
         recorder: optional :class:`PassRecorder`.
         fuse: ``False`` runs one traversal per request.
     """
 
-    def __init__(self, buf: torch.Tensor, c: int, *,
+    def __init__(self, buf: torch.Tensor, c: int, *, d: Optional[int] = None,
                  recorder: Optional[PassRecorder] = None, fuse: bool = True):
         self.buf = buf
-        self.n, self.d = buf.shape
+        self.n = buf.shape[0]
+        self.d = int(d) if d is not None else buf.shape[1]
         self.c = min(int(c), self.d)
         self.recorder = recorder
         self.fuse = fuse
@@ -254,10 +264,14 @@ class PassPlanner:
             vals = [r.kw[key] for r in reqs if r.kind == kind]
             return torch.stack(vals) if vals else None
 
+        dots = stacked("dots", "v")
+        pad = self.buf.shape[1] - self.d
+        if dots is not None and pad:  # (R, d) -> (R, d_alloc), zeros
+            dots = torch.nn.functional.pad(dots, (0, pad))
         out = row_stats_bundle(
             self.buf, sq="sq" in kinds, gram="gram" in kinds,
-            signs="signs" in kinds, dots=stacked("dots", "v"),
-            weights=stacked("wsum", "w"), gram_dot=stacked("gram_dot", "w"))
+            signs="signs" in kinds, dots=dots, weights=stacked("wsum", "w"),
+            gram_dot=stacked("gram_dot", "w"), d_true=self.d)
         if self.recorder is not None:
             self.recorder.kernel_bundles += 1
         seen = {"dots": 0, "wsum": 0, "gram_dot": 0}
@@ -351,11 +365,13 @@ class PassPlanner:
 
 
 def aggregate_coordwise(agg, buf: torch.Tensor, c: int, *,
+                        d: Optional[int] = None,
                         recorder: Optional[PassRecorder] = None
                         ) -> torch.Tensor:
-    """Mean / Median / Trimmedmean of the buffer chunk by chunk: the finish
-    of a round whose row-geometry forge is already in the buffer."""
-    p = PassPlanner(buf, c, recorder=recorder)
+    """Mean / Median / Trimmedmean of the buffer's first ``d`` columns
+    (default all) chunk by chunk: the finish of a round whose row-geometry
+    forge is already in the buffer."""
+    p = PassPlanner(buf, c, d=d, recorder=recorder)
     h = p.coordwise(agg)
     p.execute()
     return h.value
@@ -369,8 +385,9 @@ def aggregate_coordwise(agg, buf: torch.Tensor, c: int, *,
 def forge_streamed(adv, buf, malicious, sq, aggregator,
                    planner: PassPlanner, *, generator=None, draws=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forged ``(d,)`` row of a row-geometry attack on the buffer, and
-    the row squared norms (not yet reflecting the forged rows).
+    """The forged ``(d,)`` row of a row-geometry attack on the buffer
+    (``d = planner.d``, the true width), and the row squared norms (not
+    yet reflecting the forged rows).
 
     Mirrors the dense ``on_updates_ready`` with the matrix geometry taken
     as planner bundles: MinMax takes its benign mean/std, the Gram and
@@ -425,7 +442,7 @@ def forge_streamed(adv, buf, malicious, sq, aggregator,
         pl_.execute()
         forged = adv.forged_row(
             mean, q[:, None] * q[None, :] * h_g.value, h_c2m.value * q,
-            benign, lambda i: buf[i].float() * q[i])
+            benign, lambda i: buf[i, :pl_.d].float() * q[i])
         return forged, sq
 
     raise NotImplementedError(f"no streamed forge for {type(adv).__name__}")
@@ -617,6 +634,7 @@ def aggregate_streamed(
     draws=None,
     trusted: Optional[torch.Tensor] = None,
     d_chunk: int = 1 << 17,
+    d: Optional[int] = None,
     recorder: Optional[PassRecorder] = None,
     fuse: bool = True,
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
@@ -624,17 +642,19 @@ def aggregate_streamed(
 
     Args:
         agg: an instance of one of ``STREAMED_ROW_AGGREGATORS``.
-        buf: ``(n, d)`` post-forge update matrix in its storage dtype.
+        buf: ``(n, d_alloc)`` post-forge update matrix in its storage
+            dtype; columns past ``d`` are zero padding.
         sq: ``(n,)`` f32 row squared norms of ``buf``, or ``None``: the
             norms request then fuses into the first statistics bundle.
         state: the aggregator state (``ServerState.agg_state``).
         generator / draws: DnC's column subsamples (drawn when absent).
         trusted: the server's root-data update (FLTrust).
+        d: true model width (default ``buf.shape[1]``).
         recorder / fuse: see :class:`PassPlanner`.
 
     Returns ``(aggregate (d,) f32, new_state, sq (n,) f32)``.
     """
-    pl_ = PassPlanner(buf, d_chunk, recorder=recorder, fuse=fuse)
+    pl_ = PassPlanner(buf, d_chunk, d=d, recorder=recorder, fuse=fuse)
     if isinstance(agg, GeoMed):
         out, sq = _geomed(agg, pl_, sq)
         return out, state, sq

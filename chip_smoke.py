@@ -12,7 +12,9 @@ Phases, each printing its lines before the last:
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
    confined to one 512-column stripe, ``row_stats_bundle`` on a grid of
-   dtypes x bundles x ragged shapes, and the BatchNorm-backward kernels
+   dtypes x bundles x ragged shapes and the Gram on each of its routes
+   (TMA + wgmma for bf16 rows that are 16-byte aligned, ragged edges and a
+   zero-padded buffer included), and the BatchNorm-backward kernels
    (each pass alone and the composite ``bn_bwd``) on a grid of f32/bf16 x
    four physical layouts (the folded and the grouped vmap layouts, each
    NCHW and channels-last) x ragged shapes and the main round's stage
@@ -24,8 +26,11 @@ Phases, each printing its lines before the last:
    the seven row-geometry aggregators under ALIE).
 3. ``kernels``: each kernel against its plain version at the main path's
    shapes, with its time, the plain version's time and its bound; for
-   ``row_stats_bundle`` the two bundles of the row-geometry round (the
-   Multikrum Gram, the GeoMed weighted sum + Gram-vector product); for the
+   ``row_stats_bundle`` the two bundles of the row-geometry round on its
+   padded ``(1000, d_alloc)`` buffer (the Multikrum Gram, with the old
+   route on the unpadded matrix and ``torch.mm`` on both beside it, and
+   the Gram at three more shapes; the GeoMed weighted sum + Gram-vector
+   product); for the
    BN pair the four stage layers of ResNet-10 at G = 50, B = 32, bf16,
    channels-last, beside ``native_batch_norm_backward``.  Every time is
    device-only (:func:`timed`); the host us per call are printed apart.
@@ -41,7 +46,9 @@ Phases, each printing its lines before the last:
 7. ``rowgeom``: the row-geometry round -- the ``main`` configuration with
    ``Multikrum(num_byzantine=250)`` in place of Median, one warm-up and 2
    timed rounds, then one round of ``GeoMed()`` -- through the pass
-   planner's ``row_stats_bundle`` calls; and the average-linkage
+   planner's ``row_stats_bundle`` calls, on a ``(1000, d_alloc)`` buffer,
+   the Multikrum Gram once per round on the TMA + wgmma route; and the
+   average-linkage
    clustering loop at 1000 clients, timed.
 8. ``fedavg``: the Fedavg driver through ``FedavgConfig``: the dense
    ResNet-10 trial of ``fedavg_cifar10_resnet_noniid.yaml`` (60 clients,
@@ -110,6 +117,11 @@ TRIM_TOL = 1e-5
 # against the plain chunk loop's): within 1e-4 of the magnitude of the
 # summands, |X| in place of X.
 ROW_RTOL = 1e-4
+
+# ResNet-10's width, and the row-geometry round's buffer width: padded to
+# 512-column stripes, as the JAX package allocates it.
+RESNET10_D = 4_903_242
+ROWGEOM_D_ALLOC = -(-RESNET10_D // 512) * 512
 
 TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
 # BN-backward launches of each kernel per headline round: 750 trained
@@ -349,6 +361,7 @@ def phase_small():
     torch.cuda.synchronize()
     log(f"small: {cases} kernel-vs-plain cases agree")
     _small_rowstats(gen)
+    _small_gram_routes(gen)
     _small_bn(gen)
     _small_bn_vmap()
     _small_round()
@@ -443,6 +456,82 @@ def _small_rowstats(gen):
     torch.cuda.synchronize()
     log(f"small: {cases} row_stats_bundle kernel-vs-plain cases agree "
         "(signs and int8 sq/gram exact)")
+
+
+def _gram_routes() -> dict:
+    """``row_stats_bundle``'s Gram launches so far, by route."""
+    from blades_tpu_torch.ops import _cuda
+
+    return {k[1]: v for k, v in _cuda.MAPS.items()
+            if k[0] == "row_stats_bundle" and k[1].startswith("gram:")}
+
+
+def _gram_routes_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in _gram_routes().items()
+            if v != before.get(k, 0)}
+
+
+# bf16 shapes for the TMA + wgmma Gram: rows not a multiple of 128 and
+# widths not a multiple of 64, so TMA's zero fill covers both edges.
+GRAM_WGMMA_SHAPES = ((9, 1008), (77, 1000), (1000, 1000), (77, 300_008),
+                     (130, 4104))
+
+
+def _small_gram_routes(gen):
+    """The Gram's routes against the plain version: ``gram:wgmma`` on bf16
+    rows that are 16-byte aligned (the shapes above, and a zero-padded
+    ``(n, d_alloc)`` buffer read with ``d_true < d_alloc`` as the
+    row-geometry round reads its buffer), and ``gram:mma`` on an aligned
+    width at a 2-byte offset.  Each case's Gram must take its route once
+    and the other never."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    cases = []
+    for rows, d in GRAM_WGMMA_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x[:, ::5] = 0
+        cases.append((f"({rows}, {d})", x, d, "gram:wgmma"))
+    n, d_true = 130, 4000
+    xp = torch.zeros((n, -(-d_true // 512) * 512), dtype=torch.bfloat16,
+                     device="cuda")
+    xp[:, :d_true] = torch.randn((n, d_true), generator=gen, device="cuda")
+    cases.append((f"padded {tuple(xp.shape)}, d_true {d_true}", xp, d_true,
+                  "gram:wgmma"))
+    flat = torch.randn((77 * 1000 + 1,), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cases.append(("(77, 1000) at a 2-byte offset", flat[1:].view(77, 1000),
+                  1000, "gram:mma"))
+    count = 0
+    for what, x, d_true, route in cases:
+        rows, d = x.shape
+        v = torch.randn((2, d), generator=gen, device="cuda")
+        v[:, d_true:] = 0
+        w = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
+        for bname in ("sq+gram+signs", "all"):
+            flags = ROWSTAT_BUNDLES[bname]
+            kw = dict(sq=True, gram=True, signs=True,
+                      dots=v if flags.get("dots") else None,
+                      weights=w if flags.get("weights") else None,
+                      gram_dot=w if flags.get("gram_dot") else None,
+                      d_true=d_true)
+            before = _gram_routes()
+            got = rs.row_stats_bundle(x, **kw)
+            took = _gram_routes_since(before)
+            check(took == {route: 1}, f"gram route {what} {bname}: took "
+                  f"{took}, expected {{{route!r}: 1}}")
+            if "wsum" in got:
+                check(got["wsum"].shape == (2, d_true),
+                      f"gram route {what}: wsum {tuple(got['wsum'].shape)}")
+            rowstats_agree(got, rs.row_stats_bundle_plain(x, **kw), x, kw,
+                           f"gram route {what} {bname}")
+            count += 1
+    torch.cuda.synchronize()
+    log(f"small: {count} Gram route cases agree with the plain version "
+        f"({len(GRAM_WGMMA_SHAPES) + 1} shapes on gram:wgmma, one on "
+        "gram:mma)")
 
 
 def _small_round():
@@ -1040,7 +1129,7 @@ def phase_kernels():
     from blades_tpu_torch.ops import column_select as cs
     from blades_tpu_torch.ops import fused_finish as ff
 
-    d = 4_903_242
+    d = RESNET10_D
     z = ALIEAdversary(num_clients=1000, num_byzantine=250).z_max
     forge, agg = ("alie", z), ("median",)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1132,6 +1221,7 @@ def phase_kernels():
     del x
     torch.cuda.empty_cache()
     records.update(_bundle_records(gen, d))
+    _gram_shapes()
     records.update(_bn_records(gen))
     for r in records.values():
         lib = r["library_ms"]
@@ -1143,47 +1233,81 @@ def phase_kernels():
 
 
 ROWSTATS_SRC = "blades_tpu_torch/csrc/rowstats.cu"
-ROWSTATS_TPU = "blades_tpu/ops/pallas_rowstats.py:167"
+ROWSTATS_TPU = "blades_tpu/ops/pallas_rowstats.py:98"
 GRAM_RECORD = "row_stats_bundle:gram"
 GEOMED_RECORD = "row_stats_bundle:wsum+gram_dot"
 
 
+def _mm_ms(a):
+    """Device ms of ``torch.mm(a, a.t(), out_dtype=float32)`` (X X^T of bf16
+    rows with f32 output), or None where torch takes no ``out_dtype``."""
+    import torch
+
+    try:
+        torch.mm(a[:2, :8], a[:2, :8].t(), out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        log(f"kernel {GRAM_RECORD}: library_ms null: torch.mm takes no "
+            f"out_dtype here ({type(e).__name__}: {e})")
+        return None
+    return timed(lambda: torch.mm(a, a.t(), out_dtype=torch.float32),
+                 REPS)[0]
+
+
 def _bundle_records(gen, d):
-    """``row_stats_bundle`` at the row-geometry round's shape, (1000, d)
-    bf16: Multikrum's Gram bundle (its norms come from the round's in-place
-    pass) and GeoMed's weighted sum + Gram-vector product."""
+    """``row_stats_bundle`` at the row-geometry round's operand: the
+    ``(1000, d_alloc)`` bf16 buffer, zero past ``d``, read with ``d_true =
+    d``.  Multikrum's Gram bundle (its norms come from the round's in-place
+    pass; the TMA + wgmma route) and GeoMed's weighted sum + Gram-vector
+    product.  Beside the Gram: its old route on the unpadded ``(1000, d)``
+    matrix (``gram:mma``, the rows 4- but not 16-byte aligned) and
+    ``torch.mm`` on both operands."""
     import torch
 
     from blades_tpu_torch.ops import rowstats as rs
 
-    n = 1000
-    x = (torch.randn((n, d), generator=gen, device="cuda") * 1e-3).to(
-        torch.bfloat16)
+    n, d_alloc = 1000, -(-d // 512) * 512
+    x = torch.zeros((n, d_alloc), dtype=torch.bfloat16, device="cuda")
+    for r0 in range(0, n, 100):  # f32 draws a block of rows at a time
+        x[r0:r0 + 100, :d] = (torch.randn((100, d), generator=gen,
+                                          device="cuda") * 1e-3).to(x.dtype)
     w = torch.full((1, n), 1.0 / n, device="cuda")
     records = {}
-    for name, kw in ((GRAM_RECORD, dict(gram=True)),
-                     (GEOMED_RECORD, dict(weights=w, gram_dot=w))):
+    for name, kw in ((GRAM_RECORD, dict(gram=True, d_true=d)),
+                     (GEOMED_RECORD, dict(weights=w, gram_dot=w, d_true=d))):
+        before = _gram_routes()
         got = rs.row_stats_bundle(x, **kw)
+        took = _gram_routes_since(before)
+        want_route = {"gram:wgmma": 1} if name == GRAM_RECORD else {}
+        check(took == want_route, f"{name} (main shape): Gram routes {took}, "
+              f"expected {want_route}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = rs.row_stats_bundle_plain(x, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = rowstats_agree(got, want, x, kw, f"{name} (main shape)")
-        del got, want
+        del got
         ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)[0]
-        lib_ms = None
         if name == GRAM_RECORD:
-            # X X^T of bf16 rows with f32 output, where torch takes out_dtype.
-            try:
-                torch.mm(x[:2, :8], x[:2, :8].t(), out_dtype=torch.float32)
-            except (TypeError, RuntimeError) as e:
-                log(f"kernel {name}: library_ms null: torch.mm takes no "
-                    f"out_dtype here ({type(e).__name__}: {e})")
-            else:
-                lib_ms = timed(lambda: torch.mm(x, x.t(),
-                                                out_dtype=torch.float32),
-                               REPS)[0]
+            lib_ms = _mm_ms(x)
+            xu = x[:, :d].contiguous()
+            before = _gram_routes()
+            old = rs.row_stats_bundle(xu, gram=True)
+            took = _gram_routes_since(before)
+            check(took == {"gram:mma": 1}, f"{name} unpadded: Gram routes "
+                  f"{took}, expected {{'gram:mma': 1}}")
+            old_err = rowstats_agree(old, want, x, kw,
+                                     f"{name} old route (unpadded)")
+            del old
+            old_ms = timed(lambda: rs.row_stats_bundle(xu, gram=True),
+                           REPS)[0]
+            lib_old = _mm_ms(xu)
+            del xu
+            log(f"kernel {name}: gram:wgmma on ({n}, {d_alloc}) {ms:.3f} ms "
+                f"({_gram_rates(n, d_alloc, ms)}), torch.mm {lib_ms} ms; "
+                f"gram:mma on the unpadded ({n}, {d}) "
+                f"{old_ms:.3f} ms (max_abs_err {old_err:.3g}), torch.mm "
+                f"{lib_old} ms")
             records[name] = _record(
                 name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
                 n * d * 2 + n * n * 4, n * (n + 1) // 2 * d * 2, err, lib_ms,
@@ -1194,10 +1318,59 @@ def _bundle_records(gen, d):
             # w^T X (2nd), t = g^T X (2nd), X t (2nd), on the f32 cores.
             records[name] = _record(
                 name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
-                n * d * 2 + d * 4 + 3 * n * 4, 6 * n * d, err, lib_ms)
+                n * d * 2 + d * 4 + 3 * n * 4, 6 * n * d, err)
+        del want
     del x
     torch.cuda.empty_cache()
     return records
+
+
+# (rows, d) beside the round's operand for the Gram's TMA + wgmma route:
+# one tile row, so every tile is diagonal and loads one operand box a
+# stage (half the bytes per operation); a fifth of the width; and an
+# operand that fits the 50 MB L2.
+GRAM_SHAPES = ((128, ROWGEOM_D_ALLOC), (1000, 1 << 20), (1000, 16_384))
+
+
+def _gram_rates(rows, d, ms) -> str:
+    """The rates of a ``(rows, d)`` Gram on the TMA + wgmma route taking
+    ``ms``: the operations of its whole 128 x 128 tiles, and the bytes they
+    load into shared memory (a diagonal tile one 128-row box a stage,
+    another tile two)."""
+    nt = -(-rows // 128)
+    npairs = nt * (nt + 1) // 2
+    ops = npairs * 128 * 128 * 2 * d
+    fill = (nt + 2 * (npairs - nt)) * 128 * d * 2
+    return (f"{ops / ms / 1e9:.1f} TFLOP/s over the whole tiles, "
+            f"{fill / ms / 1e9:.2f} TB/s into shared memory")
+
+
+def _gram_shapes():
+    """The Gram's TMA + wgmma route alone at :data:`GRAM_SHAPES`, beside
+    ``torch.mm``: the rate of the whole tiles' operations and of the bytes
+    the tiles move into shared memory, to place the kernel's limit against
+    the round's operand (the ``row_stats_bundle:gram`` record)."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for rows, d in GRAM_SHAPES:
+        x = torch.empty((rows, d), dtype=torch.bfloat16, device="cuda")
+        for r0 in range(0, rows, 100):
+            x[r0:r0 + 100] = (torch.randn((min(100, rows - r0), d),
+                                          generator=gen, device="cuda")
+                              * 1e-3).to(x.dtype)
+        before = _gram_routes()
+        ms = timed(lambda: rs.row_stats_bundle(x, gram=True), 4 * REPS)[0]
+        took = _gram_routes_since(before)
+        check(set(took) == {"gram:wgmma"}, f"gram shape ({rows}, {d}): "
+              f"routes {took}")
+        log(f"kernel gram shape ({rows}, {d}), {rows * d * 2 / 1e6:.0f} MB: "
+            f"gram:wgmma {ms:.4f} ms, {_gram_rates(rows, d, ms)}; torch.mm "
+            f"{_mm_ms(x)} ms")
+        del x
+        torch.cuda.empty_cache()
 
 
 def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
@@ -1403,11 +1576,34 @@ def phase_aggregators():
     return counts
 
 
+class _BufferSpy:
+    """Records ``(buf.shape, d)`` of every buffer the streamed round hands
+    its row-geometry aggregator."""
+
+    def __enter__(self):
+        from blades_tpu_torch.parallel import streamed
+
+        self.mod, self.real = streamed, streamed.aggregate_streamed
+        self.seen = []
+
+        def spy(agg, buf, *args, **kw):
+            self.seen.append((tuple(buf.shape), kw.get("d")))
+            return self.real(agg, buf, *args, **kw)
+
+        streamed.aggregate_streamed = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.aggregate_streamed = self.real
+
+
 def phase_rowgeom():
     """The row-geometry round at 1000 clients: Multikrum (1 warm-up + 2
     timed rounds), then one GeoMed round.  Each bundle of the planner's is
     one ``row_stats_bundle`` launch: Multikrum's Gram and its weighted sum
-    per round; GeoMed's first bundle and one per Weiszfeld iteration."""
+    per round; GeoMed's first bundle and one per Weiszfeld iteration.  The
+    buffer is ``(1000, d_alloc)``, and Multikrum's Gram takes the TMA +
+    wgmma route once per round."""
     import torch
 
     from blades_tpu_torch.ops import _cuda
@@ -1417,10 +1613,18 @@ def phase_rowgeom():
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     rounds = 1 + ROWGEOM_ROUNDS
-    losses, secs, m, step = _headline_round(
-        1000, 250, 250, rounds,
-        aggregator={"type": "Multikrum", "num_byzantine": 250})
+    with _BufferSpy() as spy:
+        losses, secs, m, step = _headline_round(
+            1000, 250, 250, rounds,
+            aggregator={"type": "Multikrum", "num_byzantine": 250})
     launches = dict(_cuda.LAUNCHES)
+    routes = _gram_routes()
+    want_buf = [((1000, ROWGEOM_D_ALLOC), RESNET10_D)] * rounds
+    check(spy.seen == want_buf, f"rowgeom: Multikrum buffers (shape, d) "
+          f"{spy.seen}, expected {want_buf}")
+    check(routes == {"gram:wgmma": rounds}, f"rowgeom: Multikrum Gram "
+          f"routes {routes} over {rounds} rounds, expected "
+          f"{{'gram:wgmma': {rounds}}}")
     check(step.passes.kernel_bundles == 2,
           f"rowgeom: Multikrum served {step.passes.kernel_bundles} bundles "
           "by the kernel, expected 2 (Gram, weighted sum)")
@@ -1434,7 +1638,7 @@ def phase_rowgeom():
           f"rowgeom: hbm_passes {m['hbm_passes']} / "
           f"{m['hbm_passes_unfused']}, expected 3 / 3")
     check(int(m["elided_lanes"]) == 250, "rowgeom: elision did not engage")
-    counts[GRAM_RECORD] = launches["row_stats_bundle"]
+    counts[GRAM_RECORD] = routes["gram:wgmma"]
     rps = ROWGEOM_ROUNDS / sum(secs[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"rowgeom: Multikrum(250), ALIE, bf16, 1000 clients: "
@@ -1442,10 +1646,9 @@ def phase_rowgeom():
         f"seconds {[round(t, 3) for t in secs]}, first is warm-up); "
         f"train_loss {losses}; row_stats_bundle launches "
         f"{launches['row_stats_bundle']} ({step.passes.kernel_bundles} per "
-        f"round), BN backward launches {launches['bn_bwd_reduce']} + "
-        f"{launches['bn_bwd_dx']}; hbm_passes {int(m['hbm_passes'])}; peak "
-        "memory "
-        f"{peak:.2f} GiB")
+        f"round; Gram {routes}), buffer {spy.seen[0][0]}, BN backward "
+        f"launches {launches['bn_bwd_reduce']} + {launches['bn_bwd_dx']}; "
+        f"hbm_passes {int(m['hbm_passes'])}; peak memory {peak:.2f} GiB")
 
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -1457,6 +1660,8 @@ def phase_rowgeom():
             **{k: BN_PER_ROUND for k in BN_TPU}}
     check(launches == want, f"rowgeom: GeoMed launches {launches}, expected "
           f"{want} (1 + {iters} Weiszfeld iterations)")
+    check(_gram_routes() == {}, f"rowgeom: GeoMed launched a Gram "
+          f"{_gram_routes()}")
     check(int(m["hbm_passes"]) == 102 and int(m["hbm_passes_unfused"]) == 203,
           f"rowgeom: GeoMed hbm_passes {m['hbm_passes']} / "
           f"{m['hbm_passes_unfused']}, expected 102 / 203")

@@ -21,8 +21,11 @@ import torch
 from torch.func import functional_call, grad, vmap
 
 from blades_tpu.core import TaskSpec as JaxTaskSpec
+from blades_tpu.models.catalog import _RESNETS as JAX_RESNETS
+from blades_tpu.models.catalog import ModelCatalog
 from blades_tpu_torch.convert import params_from_jax, params_to_jax
 from blades_tpu_torch.core import TaskSpec
+from blades_tpu_torch.models.catalog import get_model
 from blades_tpu_torch.models.layers import BNApply, bn_apply
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -133,3 +136,20 @@ def test_bn_vmap_matches_loop():
     batched = vmap(grad(loss), in_dims=(None, 0))(scale, xs)
     looped = torch.stack([grad(loss)(scale, x) for x in xs])
     torch.testing.assert_close(batched, looped, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_RESNETS))
+def test_resnet_names_resolve_to_their_own_depth(name):
+    """Every exact ResNet name of the reference builds, in the port, a
+    model with the reference's parameter count, or raises: none falls
+    through to another depth (the "resnet" substring rule is ResNet-10)."""
+    try:
+        model = get_model(name, num_classes=10, input_shape=(32, 32, 3))
+    except NotImplementedError as e:
+        assert "Queue A 6" in str(e)
+        return
+    shapes = jax.eval_shape(
+        ModelCatalog.get_model(name, num_classes=10).init,
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3), jnp.float32))
+    want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in model.parameters()) == want

@@ -216,3 +216,170 @@ def test_check_applicable_raises_like_jax():
             JG.check_applicable(getattr(JA, name)(**kw), 10)
         with pytest.raises(ValueError):
             TG.check_applicable(getattr(TA, name)(**kw), 10)
+
+
+# ---------------------------------------------------------------------------
+# The JAX buffer contract: a (n, d_alloc) buffer, zero past the true width d
+# ---------------------------------------------------------------------------
+
+D_ALLOC = 512  # D rounded up to the JAX package's 512-column stripes
+
+
+def _padded(b):
+    out = np.zeros((b.shape[0], D_ALLOC), b.dtype)
+    out[:, :D] = b
+    return out
+
+
+def _request(planner, kind, w, v, mal):
+    if kind == "sq":
+        return planner.sq_norms()
+    if kind == "gram":
+        return planner.gram()
+    if kind == "signs":
+        return planner.sign_counts()
+    if kind == "dots":
+        return planner.dots(v)
+    if kind == "wsum":
+        return planner.weighted_sum(w)
+    if kind == "gram_dot":
+        return planner.gram_dot(w)
+    return planner.col_mean_std(mal)
+
+
+@pytest.mark.parametrize("kind", ["sq", "gram", "signs", "dots", "wsum",
+                                  "gram_dot", "mean_std"])
+def test_padded_planner_matches_jax(kind):
+    """``PassPlanner(buf, c, d=d)`` on a zero-padded ``(n, d_alloc)``
+    buffer: the port's plain path against the JAX planner on the same
+    buffer, its Pallas row-stats kernel in interpret mode for the kernel
+    kinds (fed the whole padded buffer with ``d_true = d``) and its chunk
+    loop for the benign column moments.  Every result has the true width."""
+    b = _padded(_buf(seed=8))
+    rng = np.random.default_rng(9)
+    w = (rng.random(N) + 0.1).astype(np.float32)
+    v = rng.normal(size=(D,)).astype(np.float32)
+    mal = np.arange(N) < 2
+    jp = JG.PassPlanner(jnp.asarray(b), C, d=D, use_kernel=True,
+                        interpret=True)
+    jh = _request(jp, kind, jnp.asarray(w), jnp.asarray(v), jnp.asarray(mal))
+    jp.execute()
+    tp = TG.PassPlanner(torch.from_numpy(b), C, d=D)
+    th = _request(tp, kind, torch.from_numpy(w), torch.from_numpy(v),
+                  torch.from_numpy(mal))
+    tp.execute()
+    got = th.value if kind != "mean_std" else torch.stack(th.value)
+    want = np.asarray(jh.value if kind != "mean_std" else jnp.stack(jh.value))
+    assert tuple(got.shape) == want.shape
+    if kind in ("wsum", "mean_std"):
+        assert got.shape[-1] == D
+    if kind == "signs":
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got.numpy().sum(1) == D).all()
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name,kw", [AGGREGATORS[1], AGGREGATORS[0]],
+                         ids=["Multikrum", "GeoMed"])
+def test_aggregate_streamed_padded_equals_unpadded(name, kw):
+    b = _buf(seed=10)
+    outs = []
+    for buf, d in ((b, None), (_padded(b), D)):
+        rec = TG.PassRecorder()
+        agg = getattr(TA, name)(**kw)
+        out, _, sq = TG.aggregate_streamed(agg, torch.from_numpy(buf), None,
+                                           agg.init(D, N), d_chunk=C, d=d,
+                                           recorder=rec)
+        outs.append((out, sq, rec))
+    (u, usq, urec), (p, psq, prec) = outs
+    assert tuple(p.shape) == (D,)
+    np.testing.assert_allclose(p.numpy(), u.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(psq.numpy(), usq.numpy(), rtol=1e-6)
+    assert ((prec.executed, prec.unfused, prec.kernel_bundles)
+            == (urec.executed, urec.unfused, urec.kernel_bundles))
+
+
+@pytest.mark.parametrize("adv,agg", [("MinMaxAdversary", "Multikrum"),
+                                     ("AttackclippedclusteringAdversary",
+                                      "Clippedclustering")],
+                         ids=["MinMax", "Attackclippedclustering"])
+def test_forge_streamed_padded_equals_unpadded(adv, agg):
+    """The forged row has the true width on a padded buffer (the
+    Attackclippedclustering forge reads one stored row directly)."""
+    b = _buf(seed=12)
+    mal = torch.from_numpy(np.arange(N) < 3)
+    kw = dict(num_byzantine=2) if agg == "Multikrum" else {}
+    rows = []
+    for buf, d in ((b, None), (_padded(b), D)):
+        planner = TG.PassPlanner(torch.from_numpy(buf), C, d=d)
+        forged, _ = TG.forge_streamed(getattr(TU, adv)(), torch.from_numpy(buf),
+                                      mal, None, getattr(TA, agg)(**kw),
+                                      planner)
+        rows.append(forged)
+    assert tuple(rows[1].shape) == (D,)
+    np.testing.assert_allclose(rows[1].numpy(), rows[0].numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("aggregator,adversary", [("Multikrum", "ALIE"),
+                                                  ("Median", "MinMax")],
+                         ids=["Multikrum-ALIE", "Median-MinMax"])
+def test_rowgeom_round_allocates_the_padded_buffer(monkeypatch, aggregator,
+                                                   adversary):
+    """The MLP's row-geometry round trains into the first d columns of a
+    ``(n, d_alloc)`` buffer, d_alloc = d rounded up to 512, and the forge's
+    scatter and the in-place pass leave the padding columns zero."""
+    from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.parallel import streamed
+
+    seen = []
+
+    def spy(real):
+        def wrapped(agg, buf, *args, d=None, **kw):
+            seen.append((tuple(buf.shape), d, buf[:, d:].abs().max().item(),
+                         buf[:, :d].abs().max().item()))
+            return real(agg, buf, *args, d=d, **kw)
+        return wrapped
+
+    monkeypatch.setattr(streamed, "aggregate_streamed",
+                        spy(streamed.aggregate_streamed))
+    monkeypatch.setattr(streamed, "aggregate_coordwise",
+                        spy(streamed.aggregate_coordwise))
+    n, f, shape = 8, 2, (8, 8, 1)
+    fr = FedRound(
+        task=TaskSpec(model="mlp", input_shape=shape, num_classes=10,
+                      lr=0.1).build(),
+        server=Server.from_config(aggregator, num_byzantine=f),
+        adversary=get_adversary(adversary, num_clients=n, num_byzantine=f),
+        batch_size=4)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(n, 8) + shape).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=(n, 8))).long()
+    step = streamed.streamed_step(fr, client_block=2, malicious_prefix=f,
+                                  device="cpu")
+    _, m = step(fr.init(0, n, device="cpu"), x, y,
+                torch.full((n,), 8), make_malicious_mask(n, f), 1)
+    assert np.isfinite(float(m["train_loss"]))
+    d = sum(p.numel() for p in fr.init(0, n, device="cpu").server.params
+            .values())
+    d_alloc = -(-d // 512) * 512
+    assert d_alloc != d  # the MLP's 43,914 parameters: 118 padding columns
+    assert len(seen) == 1
+    buf_shape, d_seen, pad_max, body_max = seen[0]
+    assert buf_shape == (n, d_alloc) and d_seen == d
+    assert pad_max == 0.0 and body_max > 0.0
+
+
+def test_gram_route_takes_wgmma_only_for_aligned_bf16_rows():
+    from blades_tpu_torch.ops._cuda import gram_route
+
+    bf16 = torch.bfloat16
+    assert gram_route(bf16, 4_903_424, 0) == "wgmma"  # the padded round
+    assert gram_route(bf16, 1008, 1 << 20) == "wgmma"
+    assert gram_route(bf16, 4_903_242, 0) == "mma"    # 9,806,484-byte rows
+    assert gram_route(bf16, 1004, 0) == "mma"         # 8-byte-aligned rows
+    assert gram_route(bf16, 1008, 8) == "mma"         # an unaligned base
+    assert gram_route(torch.int8, 1024, 0) == "mma"   # the wire domain
+    assert gram_route(torch.float32, 1024, 0) == "f32"
