@@ -10,7 +10,8 @@ it.
 
 ``LAUNCHES`` counts, per wrapper name, the kernel launches the wrappers
 made, and ``MAPS`` the BatchNorm-backward launches per (wrapper name,
-thread map) and the Gram launches per (wrapper name, ``gram:`` + route);
+thread map), the Gram launches per (wrapper name, ``gram:`` + route) and
+the finish launches per (wrapper name, ``finish:`` + route);
 :func:`reset_launches` sets every count to 0.
 """
 
@@ -115,10 +116,10 @@ def library() -> ctypes.CDLL:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         llp = ctypes.POINTER(ctypes.c_longlong)
-        lib.bt_finish_plan.argtypes = [i, i, ll, ip, ip, ip]
+        lib.bt_finish_plan.argtypes = [i, i, i, ll, ip, ip, ip]
         lib.bt_finish_plan.restype = i
-        lib.bt_finish.argtypes = [p, i, i, ll, p, p, p, p, p, p, p, p, i, i, i,
-                                  i, i, i, i, i, i, i, f,
+        lib.bt_finish.argtypes = [p, i, i, i, ll, p, p, p, p, p, p, p, p, i,
+                                  i, i, i, i, i, i, i, i,
                                   ctypes.POINTER(ctypes.c_float), p]
         lib.bt_finish.restype = i
         lib.bt_rowstats_plan.argtypes = [i, i, ll, i, i, i, i, ip, ip, ip]
@@ -163,16 +164,48 @@ def forge_constants(forge) -> list:
     return [p - 1.0, 1.0 / p - 1.0, 1.0 - 1.0 / p, 1.0 - p, p, p]
 
 
+FINISH_ROUTES = {"bitserial": 0, "radix": 1}  # bt_finish's route codes
+RADIX_SMEM_CAP = 226 * 1024  # kRSmemCap in csrc/fused_finish.cu
+
+
+def radix_smem(rows: int, stages: int) -> int:
+    """Dynamic shared memory of ``radix_kernel`` over ``rows`` rows with a
+    ring of ``stages`` slabs, laid out as ``RSmem`` lays it out: the ring of
+    32-column bf16 slabs, the 256-bin x 32-column histogram, three int
+    arrays and two byte arrays a row, and the per-warp and per-column
+    reduction buffers (16 warps, 10 column fields)."""
+    cols, bins, warps, fields = 32, 256, 16, 10
+    total = (stages * rows * cols * 2 + bins * cols * 4 + 3 * rows * 4
+             + 5 * warps * cols * 4 + fields * cols * 4 + 2 * rows)
+    return -(-total // 16) * 16
+
+
+def finish_route(dtype: torch.dtype, d: int, address: int, rows: int) -> str:
+    """The finish kernel for a ``(rows, d)`` matrix of ``dtype`` at device
+    ``address``: ``radix`` (``radix_kernel``: 16-byte ``cp.async`` slabs,
+    two 8-bit digit passes) for bf16 rows that are 16-byte aligned --
+    ``d % 8 == 0`` and a 16-byte-aligned base -- and few enough that a
+    two-slab ring of them fits one CTA's shared memory (1,317 rows); else
+    ``bitserial`` (``finish_kernel``: f32, unaligned bf16, more rows)."""
+    if (dtype == torch.bfloat16 and d % 8 == 0 and address % 16 == 0
+            and radix_smem(rows, 2) <= RADIX_SMEM_CAP):
+        return "radix"
+    return "bitserial"
+
+
 def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
                   mult: int = 0, forge=None, agg=("median",),
                   sanitize: bool = False, compact: bool = False,
                   want_sq: bool = True, want_forged: bool = False):
-    """Launch the finish kernel on ``x`` (rows, d) and return
-    ``(agg (d,), sq (rows,) or None, bad (rows,) bool, forged (d,) or None)``.
+    """Launch the finish kernel of :func:`finish_route` on ``x`` (rows, d)
+    and return ``(agg (d,), sq (rows,) or None, bad (rows,) bool, forged
+    (d,) or None)``.
 
     ``active`` (rows,) bool selects the rows the statistics and the order
-    statistics read (None = every row); ``mult`` counts the forged row's
-    virtual multiplicity.  Raises on a tensor the kernel does not take.
+    statistics read (None = every row); the forged row's virtual
+    multiplicity is then the inactive row count, formed on the device with
+    the ranks, so nothing here waits for the device.  Without ``active``
+    it is ``mult``.  Raises on a tensor the kernel does not take.
     """
     if not x.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor")
@@ -195,17 +228,17 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
             raise ValueError(f"{name}: forge_noise must be ({d},), got "
                              f"{tuple(noise.shape)}")
         nz = noise.to(device=dev, dtype=torch.float32).contiguous()
-    na = rows if act is None else int(act.sum().item())
-    n_true = na + mult
     k_cut = int(agg[1]) if agg[0] == "trimmed" else 0
     dtype = 1 if x.dtype == torch.bfloat16 else 0
+    route = finish_route(x.dtype, d, x.data_ptr(), rows)
 
     lib = library()
-    cols, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    geom, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
-        _check(lib, lib.bt_finish_plan(dtype, rows, d, ctypes.byref(cols),
-                                       ctypes.byref(smem), ctypes.byref(grid)),
-               f"{name}: no launch geometry for {rows} rows")
+        _check(lib, lib.bt_finish_plan(dtype, FINISH_ROUTES[route], rows, d,
+                                       ctypes.byref(geom), ctypes.byref(smem),
+                                       ctypes.byref(grid)),
+               f"{name}: no {route} launch geometry for {rows} rows")
         g = grid.value
         agg_out = torch.empty((d,), dtype=torch.float32, device=dev)
         forged = (torch.empty((d,), dtype=torch.float32, device=dev)
@@ -218,14 +251,14 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
         fc = (ctypes.c_float * 6)(*forge_constants(forge))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bt_finish(
-            x.data_ptr(), dtype, rows, d, _ptr(act), _ptr(nz),
-            agg_out.data_ptr(), _ptr(forged), _ptr(sq), bad.data_ptr(),
-            _ptr(sq_part), bad_part.data_ptr(), cols.value, g, smem.value,
-            mult, n_true, FORGES[None if forge is None else forge[0]],
-            AGGS[agg[0]], k_cut, int(sanitize), int(compact),
-            float(max(na, 1)), fc, stream)
-        _check(lib, err, f"{name}: launch failed")
+            x.data_ptr(), dtype, FINISH_ROUTES[route], rows, d, _ptr(act),
+            _ptr(nz), agg_out.data_ptr(), _ptr(forged), _ptr(sq),
+            bad.data_ptr(), _ptr(sq_part), bad_part.data_ptr(), geom.value, g,
+            smem.value, mult, FORGES[None if forge is None else forge[0]],
+            AGGS[agg[0]], k_cut, int(sanitize), int(compact), fc, stream)
+        _check(lib, err, f"{name}: {route} launch failed")
     LAUNCHES[name] += 1
+    MAPS[name, "finish:" + route] += 1
     return agg_out, sq, bad.bool(), forged
 
 

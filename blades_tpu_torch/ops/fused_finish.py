@@ -9,8 +9,13 @@ Counterpart of ``blades_tpu/ops/pallas_round.py``.  Two entry points:
 - :func:`fused_finish` over the full ``(n, d)`` matrix with a ``malicious``
   mask: the forged row replaces the malicious rows (forge optional).
 
-On a CUDA tensor each launches the hand-written kernel of
-``csrc/fused_finish.cu`` (built on first use) or raises.  On a CPU tensor
+On a CUDA tensor each launches a hand-written kernel of
+``csrc/fused_finish.cu`` (built on first use) or raises: the radix route
+for bf16 rows that are 16-byte aligned (``d % 8 == 0``; the streamed round
+pads its buffer so) and few enough to fit its shared memory (1,317), the
+bit-serial route otherwise
+(:func:`blades_tpu_torch.ops._cuda.finish_route`).  Neither waits for the
+device.  On a CPU tensor
 each runs its plain PyTorch version, :func:`fused_finish_compact_plain` /
 :func:`fused_finish_plain`, which also serve as the kernel's yardstick on
 the card: they walk the columns in chunks of ``1 << 17`` so their workspace
@@ -255,17 +260,18 @@ def fused_finish_compact(
 
 
 def _check_full(updates, malicious, forge_noise, forge, agg):
-    """Check the arguments; return ``(active, mult)``: the rows the
-    statistics read (None = all) and the forged row's multiplicity."""
+    """Check the arguments' shapes; return ``active``, the rows the
+    statistics read (None = all, when nothing is forged).  The forged row's
+    multiplicity is the count of the other rows; nothing here reads the
+    mask's values, so the card's wrapper does not wait for the device."""
     _check_matrix(updates)
     if tuple(malicious.shape) != (updates.shape[0],):
         raise ValueError(f"malicious mask must be ({updates.shape[0]},), got "
                          f"{tuple(malicious.shape)}")
     _check_args(updates.shape[0], updates.shape[1], forge, agg, forge_noise)
     if forge is None:
-        return None, 0
-    mal = malicious.to(device=updates.device, dtype=torch.bool)
-    return ~mal, int(mal.sum())
+        return None
+    return ~malicious.to(device=updates.device, dtype=torch.bool)
 
 
 def fused_finish_plain(
@@ -278,7 +284,8 @@ def fused_finish_plain(
     sanitize: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_finish`."""
-    active, mult = _check_full(updates, malicious, forge_noise, forge, agg)
+    active = _check_full(updates, malicious, forge_noise, forge, agg)
+    mult = 0 if active is None else int((~active).sum())
     agg_vec, sq, bad, _ = _finish_plain(updates, active, mult, forge, agg,
                                         sanitize, forge_noise, compact=False)
     return agg_vec, sq, bad
@@ -302,8 +309,8 @@ def fused_finish(
     if not updates.is_cuda:
         return fused_finish_plain(updates, malicious, forge_noise,
                                   forge=forge, agg=agg, sanitize=sanitize)
-    active, mult = _check_full(updates, malicious, forge_noise, forge, agg)
+    active = _check_full(updates, malicious, forge_noise, forge, agg)
     agg_vec, sq, bad, _ = _cuda.launch_finish(
-        "fused_finish", updates, active=active, noise=forge_noise, mult=mult,
+        "fused_finish", updates, active=active, noise=forge_noise,
         forge=forge, agg=agg, sanitize=sanitize, compact=False)
     return agg_vec, sq, bad

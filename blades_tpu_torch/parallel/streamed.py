@@ -6,7 +6,11 @@ buffer in the storage dtype (bf16 by default): each block's updates are
 written into its rows in place, leaf by leaf, which the port does to keep
 a single copy of the matrix.  The round then finishes in ONE kernel over
 the buffer (:mod:`blades_tpu_torch.ops.fused_finish`): sanitize, forge,
-aggregate and row norms.
+aggregate and row norms.  The buffer is ``(rows, d_alloc)``, the model
+width ``d`` rounded up to a multiple of 512 as the JAX package allocates
+it whenever its fused finish runs, so a bf16 buffer of up to 1,317 rows
+takes the finish's radix route (more rows take the bit-serial one); the
+aggregate and the forged row are sliced back to ``d``.
 
 ``malicious_prefix`` is the caller's promise that the malicious mask marks
 exactly the first ``malicious_prefix`` lanes.  When the adversary forges
@@ -305,14 +309,20 @@ def streamed_step(
 
         params = state.server.params
         d = FlatLayout(params).d
-        # The row-geometry buffer is padded to the JAX package's 512-column
-        # stripes; training writes only its first d columns.
-        d_alloc = -(-d // STRIPE) * STRIPE if rowgeom_path else d
+        # Padded to the JAX package's 512-column stripes on both paths, so
+        # every row starts 16-byte aligned; training writes only the first
+        # d columns.
+        d_alloc = -(-d // STRIPE) * STRIPE
         shape = (n - row_shift, d_alloc)
-        # Compact: training writes every row.  Otherwise elided rows stay
-        # zero (finite, and the forge replaces them).
-        buf = (torch.empty(shape, dtype=update_dtype, device=dev) if compact
-               else torch.zeros(shape, dtype=update_dtype, device=dev))
+        # Compact: training writes every row's first d columns, and the
+        # padding is zeroed here (a NaN left in it would flag a healthy row
+        # in the last sanitize stripe and corrupt its norm).  Otherwise
+        # elided rows stay zero (finite, and the forge replaces them).
+        if compact:
+            buf = torch.empty(shape, dtype=update_dtype, device=dev)
+            buf[:, d:].zero_()
+        else:
+            buf = torch.zeros(shape, dtype=update_dtype, device=dev)
         losses = torch.zeros((n,), dtype=torch.float32, device=dev)
         for b in range(skip_blocks, n // client_block):
             r0, r1 = b * client_block, (b + 1) * client_block
@@ -330,13 +340,16 @@ def streamed_step(
             server, metrics = _finish_rowgeom(state, buf, malicious, losses,
                                               gen, d)
         else:
-            noise = (torch.rand((d,), generator=gen, device=dev)
-                     if forge is not None and forge[0] == "adaptive"
-                     else None)
+            noise = None
+            if forge is not None and forge[0] == "adaptive":
+                # Zero over the padding, whose all-zero columns forge to 0.
+                noise = torch.zeros((d_alloc,), device=dev)
+                noise[:d] = torch.rand((d,), generator=gen, device=dev)
             if compact:
                 agg_vec, sq_b, bad_b, forged = fused_finish_compact(
                     buf, noise, forged_mult=malicious_prefix, forge=forge,
                     agg=aspec, sanitize=fr.health_check)
+                agg_vec, forged = agg_vec[:d], forged[:d]
                 fsq = (forged * forged).sum()
                 sq = torch.cat([fsq.expand(malicious_prefix), sq_b])
                 bad = torch.cat([torch.zeros((malicious_prefix,),
@@ -346,6 +359,7 @@ def streamed_step(
                 agg_vec, sq, bad = fused_finish(buf, malicious, noise,
                                                 forge=forge, agg=aspec,
                                                 sanitize=fr.health_check)
+                agg_vec = agg_vec[:d]
             server, metrics = _serve_aggregate(state, agg_vec, malicious,
                                                losses, sq, bad)
         del buf

@@ -11,7 +11,12 @@ Phases, each printing its lines before the last:
    ``sm_90a`` into ``build/``.
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
-   confined to one 512-column stripe, ``row_stats_bundle`` on a grid of
+   confined to one 512-column stripe -- the two fused finishes on both of
+   their routes (bf16 rows of 3000 columns on the radix route, of 2999 on
+   the bit-serial one, f32 on the bit-serial one; the route of every call
+   checked) and on tie-heavy matrices (a few bf16 levels, signed zeros
+   and all-equal columns, exponents spread over 2**+-40) --
+   ``row_stats_bundle`` on a grid of
    dtypes x bundles x ragged shapes and the Gram on each of its routes
    (TMA + wgmma for bf16 rows that are 16-byte aligned, ragged edges and a
    zero-padded buffer included), and the BatchNorm-backward kernels
@@ -25,7 +30,10 @@ Phases, each printing its lines before the last:
    on the card against the same rounds on the CPU (Median, and each of
    the seven row-geometry aggregators under ALIE).
 3. ``kernels``: each kernel against its plain version at the main path's
-   shapes, with its time, the plain version's time and its bound; for
+   shapes, with its time, the plain version's time and its bound; for the
+   two finishes the padded ``(750, d_alloc)`` and ``(1000, d_alloc)``
+   buffers on the radix route, with the bit-serial route on the unpadded
+   matrices beside them in the same call; for
    ``row_stats_bundle`` the two bundles of the row-geometry round on its
    padded ``(1000, d_alloc)`` buffer (the Multikrum Gram, with the old
    route on the unpadded matrix and ``torch.mm`` on both beside it, and
@@ -37,10 +45,12 @@ Phases, each printing its lines before the last:
 4. ``main``: the headline round -- ResNet-10, 1000 clients of CIFAR-10
    shapes, the first 250 running ALIE, exact coordinate-wise Median, bf16
    compute and storage, ``client_block=50``, ``malicious_prefix=250`` --
-   one warm-up round and 3 timed rounds through the compact fused finish;
+   one warm-up round and 3 timed rounds through the compact fused finish
+   on its ``(750, d_alloc)`` buffer, on the radix route;
    180 launches of each BN kernel per round, all on the vector map.
 5. ``full``: one ResNet-10 round at 200 clients with no malicious prefix,
-   through the full fused finish.
+   through the full fused finish on a ``(200, d_alloc)`` buffer, on the
+   radix route.
 6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
    ``(1000, 1 << 20)`` f32 matrix, through the column-select kernels.
 7. ``rowgeom``: the row-geometry round -- the ``main`` configuration with
@@ -118,10 +128,11 @@ TRIM_TOL = 1e-5
 # summands, |X| in place of X.
 ROW_RTOL = 1e-4
 
-# ResNet-10's width, and the row-geometry round's buffer width: padded to
-# 512-column stripes, as the JAX package allocates it.
+# ResNet-10's width, and the streamed round's buffer width (both the fused
+# finish's and the row-geometry round's): padded to 512-column stripes, as
+# the JAX package allocates it.
 RESNET10_D = 4_903_242
-ROWGEOM_D_ALLOC = -(-RESNET10_D // 512) * 512
+RESNET10_D_ALLOC = -(-RESNET10_D // 512) * 512
 
 TIMED_ROUNDS = 3  # main-path rounds timed after one warm-up round
 # BN-backward launches of each kernel per headline round: 750 trained
@@ -184,15 +195,16 @@ def same(a, b, what: str) -> float:
 
 def close(a, b, what: str, rtol=RTOL, atol=ATOL, forged=None,
           bf16=False) -> float:
-    """``|a - b| <= atol + rtol |b|``; with ``forged`` under bf16 storage
-    the slack grows by one bf16 ulp of the forged value, per column."""
+    """``|a - b| <= atol + rtol |b|`` (equal infinities agree); with
+    ``forged`` under bf16 storage the slack grows by one bf16 ulp of the
+    forged value, per column."""
     import torch
 
     a, b = a.double(), b.double()
     slack = atol + rtol * b.abs()
     if bf16 and forged is not None:
         slack = slack + 2.0 ** -7 * forged.double().abs() + 2.0 ** -6 * b.abs()
-    bad = ~((a - b).abs() <= slack) & ~(a.isnan() & b.isnan())
+    bad = ~((a - b).abs() <= slack) & ~(a.isnan() & b.isnan()) & ~(a == b)
     if bool(bad.any()):
         i = torch.nonzero(bad).flatten()[:5].tolist()
         raise Failure(f"{what}: {int(bad.sum())} values out of tolerance, "
@@ -270,10 +282,43 @@ def phase_build():
         log(f"  ptxas: {kernels} kernels (report in chiprun_out/ptxas.txt)")
 
 
-def _small_matrix(gen, rows, d, dtype, poison):
+# Matrices of the finish's small cases: unit-scale draws, and tie-heavy
+# ones -- a few bf16 levels (long runs of equal keys across both trimmed
+# cuts), +0 / -0 mixed with all-equal columns (where ALIE's forged value
+# equals every key, so the forged key is the k-th key), and exponents
+# spread over 2**-40..2**40 with infinities and NaNs of both signs, some
+# columns mostly NaN or -inf (the no-forge median only:
+# sums at that spread cancel, so only order statistics compare exactly).
+SMALL_KINDS = ("randn", "levels", "zeros", "spread")
+
+
+def _small_matrix(gen, kind, rows, d, dtype, poison):
     import torch
 
-    x = torch.randn((rows, d), generator=gen, device="cuda") * 0.05
+    dev = "cuda"
+    if kind == "randn":
+        x = torch.randn((rows, d), generator=gen, device=dev) * 0.05
+    elif kind == "levels":
+        lv = torch.tensor([-0.5, -0.125, 0.0, 0.125, 0.25], device=dev)
+        x = lv[torch.randint(0, 5, (rows, d), generator=gen, device=dev)]
+    elif kind == "zeros":
+        x = torch.zeros((rows, d), device=dev)
+        x[torch.rand((rows, d), generator=gen, device=dev) < 0.5] = -0.0
+        x[:, 1::3] = 0.375
+    else:
+        e = torch.randint(-40, 40, (rows, d), generator=gen, device=dev)
+        x = torch.randn((rows, d), generator=gen, device=dev) * torch.exp2(
+            e.float())
+        x[0, 3] = float("inf")
+        x[1, 4] = -float("inf")
+        # NaN of both signs, and columns whose middle falls among NaNs of
+        # either sign or among -infs (the digit buckets NaN shares).
+        h = rows // 2 + 2
+        x[6, 20], x[7, 21] = float("nan"), -float("nan")
+        x[:h, 22] = -float("nan")
+        x[:h, 23] = float("nan")
+        x[:h, 24] = -float("inf")
+        x[:, 25] = -float("nan")
     if poison:
         x[2, 600] = float("nan")      # stripe 1 only
         x[5, 7] = float("inf")        # stripe 0 only
@@ -281,69 +326,142 @@ def _small_matrix(gen, rows, d, dtype, poison):
     return x.to(dtype).contiguous()
 
 
+def _finish_routes() -> dict:
+    """The finish launches so far, by (wrapper name, route)."""
+    from blades_tpu_torch.ops import _cuda
+
+    return {k: v for k, v in _cuda.MAPS.items() if k[1].startswith("finish:")}
+
+
+def _took_route(before: dict, name: str, route: str, what: str) -> None:
+    took = {k: v - before.get(k, 0) for k, v in _finish_routes().items()
+            if v != before.get(k, 0)}
+    check(took == {(name, "finish:" + route): 1},
+          f"{what}: finish routes {took}, expected {route} once")
+
+
+# (dtype, d) of the finish's small cases and the route each must take:
+# bf16 rows of 3000 columns are 16-byte aligned (radix), of 2999 not.
+SMALL_FINISH = (("float32", 3000, "bitserial"), ("bfloat16", 3000, "radix"),
+                ("bfloat16", 2999, "bitserial"))
+
+
+def _small_finish(gen) -> int:
+    """Both finishes against their plain versions on every forge x
+    aggregator x sanitize x rows case of :data:`SMALL_FINISH` and
+    :data:`SMALL_KINDS`: bad flags and the no-forge median bit-exact,
+    the rest within :func:`close`; each call's route checked."""
+    import torch
+
+    forges = [None, ("alie", 0.7), ("ipm", 1.5), ("adaptive", 2.0)]
+    aggs = [("mean",), ("median",), ("trimmed", 3)]
+    cases = 0
+    for kind in SMALL_KINDS:
+        for dt, d, route in SMALL_FINISH:
+            dtype = getattr(torch, dt)
+            bf16 = dtype == torch.bfloat16
+            for sanitize in (False, True):
+                for rows in (37, 40):
+                    x = _small_matrix(gen, kind, rows, d, dtype, sanitize)
+                    noise = torch.rand((d,), generator=gen, device="cuda")
+                    mal = torch.rand((rows,), generator=gen,
+                                     device="cuda") < 0.3
+                    for forge in forges:
+                        for agg in aggs:
+                            if kind == "spread" and (
+                                    forge is not None or agg[0] != "median"):
+                                continue  # exact medians only
+                            cases += _small_finish_case(
+                                x, mal, noise, forge, agg, sanitize, bf16,
+                                route, f"{kind} {dt} d={d} rows={rows} "
+                                f"san={sanitize} forge={forge} agg={agg}")
+    return cases
+
+
+def _small_finish_rows(gen) -> int:
+    """The radix route's row capacity: ``_cuda.radix_smem``'s count of the
+    rows that fit (1,317) agrees with the kernel's launch plan, and aligned
+    bf16 matrices of that many rows take the radix route while one row more,
+    and 1,400 rows, take the bit-serial route, each against its plain
+    version (ALIE under Median and Trimmedmean, sanitize on)."""
+    import ctypes
+
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    cap = max(r for r in range(1, 4096)
+              if _cuda.radix_smem(r, 2) <= _cuda.RADIX_SMEM_CAP)
+    lib = _cuda.library()
+    outs = [ctypes.c_int() for _ in range(3)]
+    for rows, fits in ((cap, True), (cap + 1, False)):
+        err = lib.bt_finish_plan(1, _cuda.FINISH_ROUTES["radix"], rows, 1024,
+                                 *[ctypes.byref(o) for o in outs])
+        check((err == 0) == fits, f"radix plan for {rows} rows: error {err}, "
+              f"radix_smem says {'fits' if fits else 'does not fit'}")
+    cases = 0
+    for rows, route in ((cap, "radix"), (cap + 1, "bitserial"),
+                        (1400, "bitserial")):
+        x = _small_matrix(gen, "randn", rows, 1024, torch.bfloat16, True)
+        mal = torch.rand((rows,), generator=gen, device="cuda") < 0.3
+        for agg in (("median",), ("trimmed", rows // 5)):
+            cases += _small_finish_case(
+                x, mal, None, ("alie", 0.7), agg, True, True, route,
+                f"bf16 d=1024 rows={rows} agg={agg}")
+    log(f"small: the radix route fits {cap} rows, as its launch plan does; "
+        f"{cap} aligned bf16 rows take finish:radix, {cap + 1} and 1400 "
+        "finish:bitserial, all agreeing with the plain version")
+    return cases
+
+
+def _small_finish_case(x, mal, noise, forge, agg, sanitize, bf16, route,
+                       tag) -> int:
+    from blades_tpu_torch.ops import fused_finish as ff
+
+    nz = noise if forge and forge[0] == "adaptive" else None
+    before = _finish_routes()
+    got = ff.fused_finish(x, mal, nz, forge=forge, agg=agg, sanitize=sanitize)
+    _took_route(before, "fused_finish", route, f"full {tag}")
+    want = ff.fused_finish_plain(x, mal, nz, forge=forge, agg=agg,
+                                 sanitize=sanitize)
+    same(got[2], want[2], f"full bad {tag}")
+    fw = None
+    if forge is not None:
+        fw = ff.fused_finish_compact_plain(
+            x[~mal], nz, forged_mult=1, forge=forge, agg=("mean",),
+            sanitize=sanitize)[3]
+    if forge is None and agg[0] == "median":
+        same(got[0], want[0], f"full agg {tag}")
+    else:
+        close(got[0], want[0], f"full agg {tag}", forged=fw, bf16=bf16)
+    close(got[1], want[1], f"full sq {tag}", rtol=SQ_RTOL,
+          forged=None if fw is None else fw.square().sum().reshape(1),
+          bf16=bf16)
+    if forge is None:
+        return 1
+    mult = 9
+    before = _finish_routes()
+    got = ff.fused_finish_compact(x, nz, forged_mult=mult, forge=forge,
+                                  agg=agg, sanitize=sanitize)
+    _took_route(before, "fused_finish_compact", route, f"compact {tag}")
+    want = ff.fused_finish_compact_plain(x, nz, forged_mult=mult, forge=forge,
+                                         agg=agg, sanitize=sanitize)
+    same(got[2], want[2], f"compact bad {tag}")
+    close(got[3], want[3], f"compact forged {tag}", forged=want[3], bf16=bf16)
+    close(got[0], want[0], f"compact agg {tag}", forged=want[3], bf16=bf16)
+    close(got[1], want[1], f"compact sq {tag}", rtol=SQ_RTOL)
+    return 2
+
+
 def phase_small():
     """Every wrapper against its plain version on small shapes."""
     import torch
 
     from blades_tpu_torch.ops import column_select as cs
-    from blades_tpu_torch.ops import fused_finish as ff
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = 3000  # six stripes, the last ragged
-    forges = [None, ("alie", 0.7), ("ipm", 1.5), ("adaptive", 2.0)]
-    aggs = [("mean",), ("median",), ("trimmed", 3)]
-    cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        bf16 = dtype == torch.bfloat16
-        for sanitize in (False, True):
-            for rows in (37, 40):
-                x = _small_matrix(gen, rows, d, dtype, sanitize)
-                noise = torch.rand((d,), generator=gen, device="cuda")
-                mal = torch.rand((rows,), generator=gen,
-                                 device="cuda") < 0.3
-                for forge in forges:
-                    for agg in aggs:
-                        tag = f"{dtype} rows={rows} san={sanitize} " \
-                              f"forge={forge} agg={agg}"
-                        nz = noise if forge and forge[0] == "adaptive" \
-                            else None
-                        got = ff.fused_finish(x, mal, nz, forge=forge,
-                                              agg=agg, sanitize=sanitize)
-                        want = ff.fused_finish_plain(
-                            x, mal, nz, forge=forge, agg=agg,
-                            sanitize=sanitize)
-                        same(got[2], want[2], f"full bad {tag}")
-                        fw = None
-                        if forge is not None:
-                            fw = ff.fused_finish_compact_plain(
-                                x[~mal], nz, forged_mult=1, forge=forge,
-                                agg=("mean",), sanitize=sanitize)[3]
-                        if forge is None and agg[0] == "median":
-                            same(got[0], want[0], f"full agg {tag}")
-                        else:
-                            close(got[0], want[0], f"full agg {tag}",
-                                  forged=fw, bf16=bf16)
-                        close(got[1], want[1], f"full sq {tag}",
-                              rtol=SQ_RTOL, forged=None if fw is None
-                              else fw.square().sum().reshape(1), bf16=bf16)
-                        if forge is None:
-                            cases += 1
-                            continue
-                        mult = 9
-                        got = ff.fused_finish_compact(
-                            x, nz, forged_mult=mult, forge=forge, agg=agg,
-                            sanitize=sanitize)
-                        want = ff.fused_finish_compact_plain(
-                            x, nz, forged_mult=mult, forge=forge, agg=agg,
-                            sanitize=sanitize)
-                        same(got[2], want[2], f"compact bad {tag}")
-                        close(got[3], want[3], f"compact forged {tag}",
-                              forged=want[3], bf16=bf16)
-                        close(got[0], want[0], f"compact agg {tag}",
-                              forged=want[3], bf16=bf16)
-                        close(got[1], want[1], f"compact sq {tag}",
-                              rtol=SQ_RTOL)
-                        cases += 2
+    cases = _small_finish(gen) + _small_finish_rows(gen)
     # Column selects: NaNs of both signs, ties across the cuts, odd/even n.
     for rows in (33, 34):
         x = torch.randn((rows, d), generator=gen, device="cuda")
@@ -1121,6 +1239,118 @@ def _record(name, source, replaces, ms, plain_ms, bytes_moved, ops, err,
 SRC = "blades_tpu_torch/csrc/fused_finish.cu"
 
 
+def _padded_rows(gen, rows, d):
+    """A ``(rows, d_alloc)`` bf16 matrix as the streamed round allocates
+    it: random updates of scale 1e-3 in the first ``d`` columns (drawn a
+    block of rows at a time), zero past them."""
+    import torch
+
+    x = torch.zeros((rows, -(-d // 512) * 512), dtype=torch.bfloat16,
+                    device="cuda")
+    for r0 in range(0, rows, 100):
+        x[r0:r0 + 100, :d] = (torch.randn((min(100, rows - r0), d),
+                                          generator=gen, device="cuda")
+                              * 1e-3).to(x.dtype)
+    return x
+
+
+def _finish_agree(got, want, name, what, fw=None):
+    """A finish against its plain version at the main shape: bad flags
+    bit-exact, the aggregate within one bf16 ulp of the forged row, the
+    row norms within ``SQ_RTOL``; returns the aggregate's max abs err."""
+    same(got[2], want[2], f"{name} bad ({what})")
+    if name == "fused_finish_compact":
+        fw = want[3]
+        close(got[3], want[3], f"{name} forged ({what})", forged=fw,
+              bf16=True)
+    err = close(got[0], want[0], f"{name} agg ({what})", forged=fw,
+                bf16=True)
+    close(got[1], want[1], f"{name} sq ({what})", rtol=SQ_RTOL,
+          forged=None if name == "fused_finish_compact"
+          else fw.square().sum().reshape(1), bf16=True)
+    return err
+
+
+def _finish_record(name, x, d, forge, fn, plain, replaces, small_bytes,
+                   benign=0):
+    """One finish at the main path's shape: ``fn`` on the padded buffer
+    ``x`` must take the radix route once and agree with ``plain``; then,
+    in the same call, the bit-serial route on the unpadded ``x[:, :d]``
+    (checked against the plain version too, and logged beside it).  The
+    bound counts the rows the function reads (``benign``: the forged rows
+    it skips), each once, and its outputs at the padded width."""
+    import torch
+
+    from blades_tpu_torch.ops import fused_finish as ff
+
+    rows, d_alloc = x.shape
+    before = _finish_routes()
+    got = fn(x)
+    _took_route(before, name, "radix", f"{name} (main shape)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(x)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fw = None
+    if name == "fused_finish":  # the forged row of the benign rows
+        fw = ff.fused_finish_compact_plain(
+            x[benign:], forged_mult=benign, forge=forge, agg=("mean",))[3]
+    err = _finish_agree(got, want, name, "radix, padded", fw)
+    del got
+    ms = timed(lambda: fn(x), REPS)[0]
+    xu = x[:, :d].contiguous()
+    before = _finish_routes()
+    old = fn(xu)
+    _took_route(before, name, "bitserial", f"{name} unpadded")
+    cut = tuple(w[:d] if w is not None and w.shape[0] == d_alloc else w
+                for w in want)
+    old_err = _finish_agree(old, cut, name, "bitserial, unpadded",
+                            None if fw is None else fw[:d])
+    del old
+    old_ms = timed(lambda: fn(xu), REPS)[0]
+    del xu
+    read = (rows - benign) * d_alloc * 2
+    log(f"kernel {name}: finish:radix on ({rows}, {d_alloc}) {ms:.3f} ms "
+        f"({read / ms / 1e9:.2f} TB/s of rows read); finish:bitserial on the "
+        f"unpadded ({rows}, {d}) {old_ms:.3f} ms (max_abs_err {old_err:.3g} "
+        f"vs plain); plain {plain_ms:.1f} ms")
+    # Per element: mean 1, variance 3, row norm 2, selection 1.
+    return _record(name, SRC, replaces, ms, plain_ms, read + small_bytes,
+                   7 * (rows - benign) * d_alloc, err)
+
+
+def _finish_phases(x, forge):
+    """Where the radix route's time goes, on the main path's (750, d_alloc)
+    buffer: device-only ms with parts of the work switched off through the
+    launcher's options -- Mean without row norms (the load and sum pass
+    alone, whose rate bounds the slab loop's streaming), Mean with them,
+    Median without and with them (the digit select), and the compact finish
+    under ALIE with Median and with Trimmedmean (250 cut)."""
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import fused_finish as ff
+
+    name = "finish:radix phases"
+    cases = {
+        "mean": lambda: _cuda.launch_finish(name, x, agg=("mean",),
+                                            want_sq=False),
+        "mean+norms": lambda: _cuda.launch_finish(name, x, agg=("mean",)),
+        "median": lambda: _cuda.launch_finish(name, x, agg=("median",),
+                                              want_sq=False),
+        "median+norms": lambda: _cuda.launch_finish(name, x,
+                                                    agg=("median",)),
+        "alie+median": lambda: ff.fused_finish_compact(
+            x, forged_mult=250, forge=forge, agg=("median",)),
+        "alie+trimmed": lambda: ff.fused_finish_compact(
+            x, forged_mult=250, forge=forge, agg=("trimmed", 250)),
+    }
+    ms = {k: timed(fn, REPS)[0] for k, fn in cases.items()}
+    rate = x.numel() * 2 / ms["mean"] / 1e9
+    log(f"kernel {name} on {tuple(x.shape)}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; the mean pass reads the rows at {rate:.2f} TB/s")
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -1135,58 +1365,33 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(2)
     records = {}
 
-    # 1. The compact finish over the benign rows, as the main path calls it.
-    x = (torch.randn((750, d), generator=gen, device="cuda") * 1e-3).to(
-        torch.bfloat16)
-    got = ff.fused_finish_compact(x, forged_mult=250, forge=forge, agg=agg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = ff.fused_finish_compact_plain(x, forged_mult=250, forge=forge,
-                                         agg=agg)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    same(got[2], want[2], "compact bad (main shape)")
-    close(got[3], want[3], "compact forged (main shape)", forged=want[3],
-          bf16=True)
-    err = close(got[0], want[0], "compact agg (main shape)",
-                forged=want[3], bf16=True)
-    close(got[1], want[1], "compact sq (main shape)", rtol=SQ_RTOL)
-    ms = timed(lambda: ff.fused_finish_compact(
-        x, forged_mult=250, forge=forge, agg=agg), REPS)[0]
-    nbytes = 750 * d * 2 + 2 * d * 4 + 750 * 5
-    # Per element: mean 1, variance 3, row norm 2, selection 1.
-    records["fused_finish_compact"] = _record(
-        "fused_finish_compact", SRC, "blades_tpu/ops/pallas_round.py:502",
-        ms, plain_ms, nbytes, 7 * 750 * d, err)
-    del x, got, want
+    # 1. The compact finish over the benign rows, as the main path calls it:
+    # the (750, d_alloc) buffer, zero past d, on the radix route; beside it
+    # the bit-serial route on the unpadded (750, d) matrix, whose rows are
+    # not 16-byte aligned.
+    x = _padded_rows(gen, 750, d)
+    records["fused_finish_compact"] = _finish_record(
+        "fused_finish_compact", x, d, forge, lambda m: ff.fused_finish_compact(
+            m, forged_mult=250, forge=forge, agg=agg),
+        lambda m: ff.fused_finish_compact_plain(
+            m, forged_mult=250, forge=forge, agg=agg),
+        "blades_tpu/ops/pallas_round.py:502", 750 * 5 + 2 * x.shape[1] * 4)
+    _finish_phases(x, forge)
+    del x
+    torch.cuda.empty_cache()
 
-    # 2. The full finish over all 1000 rows, the first 250 forged.
-    x = (torch.randn((1000, d), generator=gen, device="cuda") * 1e-3).to(
-        torch.bfloat16)
+    # 2. The full finish over all 1000 rows of the padded buffer, the
+    # first 250 forged; the wrapper does not wait for the device.
+    x = _padded_rows(gen, 1000, d)
     mal = torch.arange(1000, device="cuda") < 250
-    got = ff.fused_finish(x, mal, forge=forge, agg=agg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = ff.fused_finish_plain(x, mal, forge=forge, agg=agg)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    fw = ff.fused_finish_compact_plain(x[250:], forged_mult=250,
-                                       forge=forge, agg=agg)[3]
-    same(got[2], want[2], "full bad (main shape)")
-    err = close(got[0], want[0], "full agg (main shape)", forged=fw,
-                bf16=True)
-    close(got[1], want[1], "full sq (main shape)", rtol=SQ_RTOL,
-          forged=fw.square().sum().reshape(1), bf16=True)
-    # The wrapper counts the active rows on the host (one .item()).
-    ms = timed(lambda: ff.fused_finish(x, mal, forge=forge, agg=agg), REPS,
-               syncs=True)[0]
-    # The forged rows replace the malicious ones, so the function reads
-    # only the 750 benign rows (and the mask).
-    nbytes = 750 * d * 2 + 1000 + d * 4 + 1000 * 5
-    records["fused_finish"] = _record(
-        "fused_finish", SRC, "blades_tpu/ops/pallas_round.py:628", ms,
-        plain_ms, nbytes, 7 * 750 * d, err)
-    del x, got, want, fw
+    records["fused_finish"] = _finish_record(
+        "fused_finish", x, d, forge,
+        lambda m: ff.fused_finish(m, mal, forge=forge, agg=agg),
+        lambda m: ff.fused_finish_plain(m, mal, forge=forge, agg=agg),
+        "blades_tpu/ops/pallas_round.py:628",
+        1000 + 1000 * 5 + x.shape[1] * 4, benign=250)
+    del x
+    torch.cuda.empty_cache()
 
     # 3-4. The column selects on a (1000, 1 << 20) f32 matrix.
     x = torch.randn((1000, 1 << 20), generator=gen, device="cuda")
@@ -1329,7 +1534,7 @@ def _bundle_records(gen, d):
 # one tile row, so every tile is diagonal and loads one operand box a
 # stage (half the bytes per operation); a fifth of the width; and an
 # operand that fits the 50 MB L2.
-GRAM_SHAPES = ((128, ROWGEOM_D_ALLOC), (1000, 1 << 20), (1000, 16_384))
+GRAM_SHAPES = ((128, RESNET10_D_ALLOC), (1000, 1 << 20), (1000, 16_384))
 
 
 def _gram_rates(rows, d, ms) -> str:
@@ -1472,7 +1677,8 @@ def _write_profile(prof, wall_s, out_dir, tag):
             kind = "row statistics"
         elif "bn_reduce" in k or "bn_dx" in k:
             kind = "bn backward"
-        elif "finish_kernel" in k or "finalize_kernel" in k:
+        elif ("finish_kernel" in k or "radix_kernel" in k
+              or "finalize_kernel" in k):
             kind = "fused finish"
         elif any(w in k for w in ("conv", "cudnn", "xmma", "gemm", "cutlass",
                                   "wgrad", "dgrad", "sm90")):
@@ -1514,24 +1720,32 @@ def phase_main():
 
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    losses, secs, m, _ = _headline_round(1000, 250, 250, 1 + TIMED_ROUNDS)
+    with _FinishSpy() as spy:
+        losses, secs, m, _ = _headline_round(1000, 250, 250,
+                                             1 + TIMED_ROUNDS)
     counts = dict(_cuda.LAUNCHES)
     rounds = 1 + TIMED_ROUNDS
+    want_buf = [("fused_finish_compact", (750, RESNET10_D_ALLOC))] * rounds
+    check(spy.seen == want_buf, f"main: finish buffers {spy.seen}, "
+          f"expected {want_buf} (padded to 512-column stripes)")
     want = {"fused_finish_compact": rounds,
             **{k: BN_PER_ROUND * rounds for k in BN_TPU}}
     check(counts == want, f"main: launches {counts} over {rounds} rounds, "
           f"expected {want}")
     maps = dict(_cuda.MAPS)
-    want_maps = {(k, "vector"): BN_PER_ROUND * rounds for k in BN_TPU}
-    check(maps == want_maps, f"main: BN launches by thread map {maps}, "
-          f"expected {want_maps} (all on the vector map)")
+    want_maps = {("fused_finish_compact", "finish:radix"): rounds,
+                 **{(k, "vector"): BN_PER_ROUND * rounds for k in BN_TPU}}
+    check(maps == want_maps, f"main: launches by route and thread map "
+          f"{maps}, expected {want_maps} (the finish on the radix route, "
+          "the BN kernels all on the vector map)")
     check(int(m["elided_lanes"]) == 250, "main: elision did not engage")
     rps = TIMED_ROUNDS / sum(secs[1:])
     log(f"main: ResNet-10 x 1000 clients (250 ALIE), Median, bf16; "
         f"{TIMED_ROUNDS} timed rounds at {rps:.4f} rounds/s "
         f"(round seconds {[round(s, 3) for s in secs]}, first is warm-up)")
     log(f"main: train_loss per round {losses}; compact finish launches "
-        f"{counts['fused_finish_compact']}, BN backward launches "
+        f"{counts['fused_finish_compact']} (all finish:radix), BN backward "
+        f"launches "
         f"{counts['bn_bwd_reduce']} + {counts['bn_bwd_dx']}, all on the "
         f"vector map; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1542,11 +1756,18 @@ def phase_full():
     from blades_tpu_torch.ops import _cuda
 
     _cuda.reset_launches()
-    losses, secs, m, _ = _headline_round(200, 50, None, 1)
+    with _FinishSpy() as spy:
+        losses, secs, m, _ = _headline_round(200, 50, None, 1)
     counts = dict(_cuda.LAUNCHES)
+    want_buf = [("fused_finish", (200, RESNET10_D_ALLOC))]
+    check(spy.seen == want_buf, f"full: finish buffers {spy.seen}, "
+          f"expected {want_buf}")
     # 200 clients, none elided: 4 blocks of 50, 12 BN layers each.
     want = {"fused_finish": 1, **{k: 4 * 12 for k in BN_TPU}}
     check(counts == want, f"full: launches {counts}, expected {want}")
+    routes = _finish_routes()
+    check(routes == {("fused_finish", "finish:radix"): 1},
+          f"full: finish routes {routes}, expected radix once")
     check("elided_lanes" not in m, "full: elision engaged without a prefix")
     log(f"full: ResNet-10 x 200 clients, no prefix: loss {losses[0]}, "
         f"{secs[0]:.3f} s, full finish launches {counts['fused_finish']}")
@@ -1574,6 +1795,34 @@ def phase_aggregators():
           "aggregators: non-finite aggregate")
     log(f"aggregators: Median and Trimmedmean launches {counts}")
     return counts
+
+
+class _FinishSpy:
+    """Records ``(wrapper name, buf.shape)`` of every buffer the streamed
+    round hands its fused finish."""
+
+    NAMES = ("fused_finish", "fused_finish_compact")
+
+    def __enter__(self):
+        from blades_tpu_torch.parallel import streamed
+
+        self.mod = streamed
+        self.real = {k: getattr(streamed, k) for k in self.NAMES}
+        self.seen = []
+
+        def spy(name):
+            def wrapped(buf, *args, **kw):
+                self.seen.append((name, tuple(buf.shape)))
+                return self.real[name](buf, *args, **kw)
+            return wrapped
+
+        for k in self.NAMES:
+            setattr(streamed, k, spy(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.real.items():
+            setattr(self.mod, k, v)
 
 
 class _BufferSpy:
@@ -1619,7 +1868,7 @@ def phase_rowgeom():
             aggregator={"type": "Multikrum", "num_byzantine": 250})
     launches = dict(_cuda.LAUNCHES)
     routes = _gram_routes()
-    want_buf = [((1000, ROWGEOM_D_ALLOC), RESNET10_D)] * rounds
+    want_buf = [((1000, RESNET10_D_ALLOC), RESNET10_D)] * rounds
     check(spy.seen == want_buf, f"rowgeom: Multikrum buffers (shape, d) "
           f"{spy.seen}, expected {want_buf}")
     check(routes == {"gram:wgmma": rounds}, f"rowgeom: Multikrum Gram "
@@ -1800,6 +2049,9 @@ def phase_fedavg():
     want = {"fused_finish_compact": 2, **{k: 2 * 30 * 12 for k in BN_TPU}}
     check(streamed and counts == want,
           f"fedavg streamed: launches {counts}, expected {want}")
+    routes = _finish_routes()
+    check(routes == {("fused_finish_compact", "finish:radix"): 2},
+          f"fedavg streamed: finish routes {routes}, expected radix twice")
     last, _ = _fedavg_trial("MLP x 6 ALIE Median", MLP_TRIAL, 3)
     check(last["test_acc"] >= MLP_MIN_ACC,
           f"fedavg MLP: test accuracy {last['test_acc']} < {MLP_MIN_ACC}")

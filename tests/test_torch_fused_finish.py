@@ -192,6 +192,83 @@ def test_compact_equals_full_with_prefix():
         _close(sq_f[:mult], (f_c * f_c).sum().expand(mult))
 
 
+def _tie_matrix(kind, seed, rows, dtype):
+    """Tie-heavy ``(torch, jax)`` copies of one matrix: ``levels`` draws
+    from five bf16-exact values (long runs of equal keys across both
+    trimmed cuts); ``zeros`` mixes +0 and -0 with all-equal columns, where
+    ALIE's forged value equals every key, so the forged key is the k-th
+    key.  Rows 2 and 5 carry a NaN and an inf inside one stripe each."""
+    rng = np.random.default_rng(seed)
+    if kind == "levels":
+        lv = np.array([-0.5, -0.125, 0.0, 0.125, 0.25], np.float32)
+        x = lv[rng.integers(0, 5, size=(rows, D))]
+    else:
+        x = np.where(rng.random((rows, D)) < 0.5, np.float32(-0.0),
+                     np.float32(0.0)).astype(np.float32)
+        x[:, 1::3] = 0.375
+    x[2, 600], x[5, 7] = np.nan, np.inf
+    t = torch.from_numpy(x)
+    if dtype == "bf16":
+        return t.to(torch.bfloat16), jnp.asarray(x).astype(jnp.bfloat16)
+    return t, jnp.asarray(x)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("agg", [("median",), ("trimmed", 3)],
+                         ids=lambda a: a[0])
+@pytest.mark.parametrize("kind", ["levels", "zeros"])
+@pytest.mark.parametrize("branch", ["compact", "full"])
+def test_tie_heavy_matches_pallas(branch, kind, agg, dtype):
+    """Ties, signed zeros, all-equal columns and non-finite rows under
+    sanitize, through both finishes against the Pallas kernels: bad flags
+    bit-exact, and the no-forge median too; the rest within the module's
+    tolerances."""
+    n = 17
+    xt, xj = _tie_matrix(kind, 40 + n, n, dtype)
+    forge = ("alie", 0.7)
+    if branch == "compact":
+        a_t, sq_t, bad_t, f_t = tff.fused_finish_compact(
+            xt, forged_mult=6, forge=forge, agg=agg, sanitize=True)
+        a_j, sq_j, bad_j, f_j = jax_compact(
+            xj, forged_mult=6, forge=forge, agg=agg, sanitize=True,
+            interpret=True)
+        _close(f_t, f_j, dtype, f_t)
+        _close(a_t, a_j, dtype, f_t)
+    else:
+        mal = np.arange(n) < 4
+        a_t, sq_t, bad_t = tff.fused_finish(
+            xt, torch.from_numpy(mal), forge=None, agg=agg, sanitize=True)
+        a_j, sq_j, bad_j = jax_fused(xj, jnp.asarray(mal), forge=None,
+                                     agg=agg, sanitize=True, interpret=True)
+        if agg[0] == "median":  # exact order statistics
+            np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+        else:
+            _close(a_t, a_j)
+    _close(sq_t, sq_j)
+    np.testing.assert_array_equal(bad_t.numpy(), np.asarray(bad_j))
+    assert bad_t.nonzero().flatten().tolist() == [2, 5]
+
+
+@pytest.mark.parametrize("dtype,d,address,rows,route", [
+    (torch.bfloat16, 4_903_424, 0, 750, "radix"),      # the padded round
+    (torch.bfloat16, 4_903_424, 0, 1000, "radix"),     # the full finish
+    (torch.bfloat16, 3000, 1 << 20, 40, "radix"),
+    (torch.bfloat16, 1024, 0, 1317, "radix"),          # the most that fit
+    (torch.bfloat16, 1024, 0, 1318, "bitserial"),      # one row too many
+    (torch.bfloat16, 4_903_424, 0, 1600, "bitserial"),  # ResNet-10 x 1600
+    (torch.bfloat16, 4_903_242, 0, 750, "bitserial"),  # 9,806,484-byte rows
+    (torch.bfloat16, 1004, 0, 40, "bitserial"),        # 8-byte-aligned rows
+    (torch.bfloat16, 1008, 8, 40, "bitserial"),        # an unaligned base
+    (torch.float32, 1024, 0, 40, "bitserial"),         # f32: the column selects
+])
+def test_finish_route_takes_radix_only_for_aligned_bf16_rows(dtype, d,
+                                                             address, rows,
+                                                             route):
+    from blades_tpu_torch.ops._cuda import finish_route
+
+    assert finish_route(dtype, d, address, rows) == route
+
+
 def test_rejects_bad_arguments():
     x = torch.zeros(6, 8)
     with pytest.raises(ValueError, match="requires a forge"):

@@ -151,6 +151,47 @@ def test_mlp_two_rounds_match_jax(aggregator, adversary, adv_kw, branch):
     _compare(out, elided=prefix is not None)
 
 
+@pytest.mark.parametrize("branch", ["compact", "full"])
+def test_coordwise_round_finishes_on_the_padded_buffer(monkeypatch, branch):
+    """The fused finish gets a ``(rows, d_alloc)`` buffer, d_alloc = d
+    rounded up to 512 as the JAX package allocates it, with zero padding
+    columns -- the compact branch's buffer comes from ``torch.empty``, here
+    filled with NaN so that a pad left unzeroed would show -- and the
+    round still matches the JAX round (the MLP's d = 43,914 is not a
+    multiple of 512)."""
+    from blades_tpu_torch.parallel import streamed
+
+    real_empty = torch.empty
+
+    def nan_empty(*args, **kw):
+        t = real_empty(*args, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    seen = []
+
+    def spy(name):
+        real = getattr(streamed, name)
+
+        def wrapped(buf, *args, **kw):
+            seen.append((name, tuple(buf.shape), bool(torch.isfinite(
+                buf).all()), float(buf[:, 43_914:].abs().max())))
+            return real(buf, *args, **kw)
+        return wrapped
+
+    for name in ("fused_finish", "fused_finish_compact"):
+        monkeypatch.setattr(streamed, name, spy(name))
+    n, f = 12, 4
+    out = _run_pair("mlp", (8, 8, 1), "Median", "ALIE", n, f,
+                    f if branch == "compact" else None, block=4, rounds=1)
+    _compare(out, elided=branch == "compact")
+    d = sum(p.numel() for p in out[0][2].server.params.values())
+    assert d == 43_914
+    name = "fused_finish_compact" if branch == "compact" else "fused_finish"
+    rows = n - f if branch == "compact" else n
+    assert seen == [(name, (rows, 44_032), True, 0.0)]
+
+
 def test_unaligned_prefix_takes_the_full_branch():
     """A prefix that is not block-aligned elides the whole blocks inside it
     and finishes on the full matrix (the straddling block trains)."""
