@@ -21,9 +21,12 @@
 // bundle is bound by operations.
 //
 // Design:
-//  - Row statistics (rowstats_kernel, 512 threads): each CTA walks column
-//    slabs of `rowb` bytes per row (16-128, as wide as lets every row of
-//    the slab sit in shared memory).  The slab is
+//  - Row statistics of rows that are 16-byte aligned, at any row count
+//    (rowstats_ring_kernel, below): the slab's rows stream through a ring
+//    of row groups that overlaps the HBM read with the passes.
+//  - Row statistics of other rows (rowstats_kernel, 512 threads): each CTA
+//    walks column slabs of `rowb` bytes per row (16-128, as wide as lets
+//    every row of the slab sit in shared memory).  The slab is
 //    loaded once with cp.async; a column pass (threads over 16-byte quads,
 //    shuffles then warps summed in a fixed order) forms the weighted row sums
 //    w^T X_slab -- written out for `wsum`, kept in shared memory as
@@ -54,7 +57,8 @@
 //    The streamed round's row-geometry buffer is (n, d_alloc), d_alloc
 //    the model width rounded up to 512 columns as the JAX package
 //    allocates it, so its rows are; ops/_cuda.py::gram_route picks it.
-//  - Otherwise rows need not be aligned to anything: a 4-byte cp.async
+//  - Otherwise (rowstats_kernel, the mma and f32 Grams) rows need not be
+//    aligned to anything: a 4-byte cp.async
 //    serves rows whose length in bytes is a multiple of 4 (every f32
 //    matrix, bf16 with even d, int8 with d % 4 == 0); other widths load
 //    element by element.
@@ -843,6 +847,388 @@ __global__ void gram_finalize(const Acc* part, int rows, int tile, int nt, int n
 }
 
 // --------------------------------------------------------------------------
+// Row statistics on Hopper: a ring of row groups (rows 16-byte aligned)
+// --------------------------------------------------------------------------
+//
+// Replaces the row statistics of blades_tpu/ops/pallas_rowstats.py:98
+// (_rowstats_kernel: sq, signs, dots, wsum, gram_dot) for matrices whose
+// rows are 16-byte aligned -- d * sizeof(T) % 16 == 0 and a 16-byte-aligned
+// base: f32 with d % 4 == 0, bf16 with d % 8 == 0, int8 with d % 16 == 0 --
+// at any row count.  The streamed round's (n, d_alloc) buffer is such a
+// matrix (ops/_cuda.py::rowstats_route).  Bound on the H100: one read of
+// the matrix, 9.81 GB at (1000, 4,903,424) bf16 over 3.35 TB/s = 2.93 ms.
+//
+// Design.  Each CTA (512 threads, one per SM) walks column slabs of `rowb`
+// bytes per row.  A slab's rows stream through a shared-memory ring of
+// `ahead` + 1 row groups (`gh` rows each) filled by 16-byte cp.async.cg,
+// `ahead` groups in flight while one is computed: the HBM read overlaps
+// the passes, and the ring runs on from one slab into the next.  The ring's
+// position is kept in counters, not divided out of a load index (a 64-bit
+// division per group in every thread cost more than the passes).  Thread
+// (quad qq, row lane rl) owns quad qq of rows rl, rl + 512 / qpr, ... of
+// every group, so a warp reads 512 contiguous bytes of the ring, and works
+// on kRgIlp of its rows side by side.
+//  - Column pass (w^T X_slab for each column-pass vector, kRgVecs a sweep):
+//    register accumulators across every group of the slab, then one
+//    reduction across the slab -- lanes of a quad by shuffles, warps in a
+//    fixed order -- written out as `wsum` and kept in shared memory as
+//    t = g^T X_slab for `gram_dot`.  A gram_dot vector that is the same
+//    tensor as a wsum vector (gsrc) takes no pass of its own: its t is that
+//    wsum, bit for bit.
+//  - Row pass (sq, sign counts, dots): on each group as it arrives, the
+//    quads of a row summed by shuffles, one lane adding into the row's
+//    per-CTA partial.
+//  - gram_dot needs t over all rows before X_slab t: a further sweep over
+//    the slab's groups, loaded again through the ring from L2 (132 slabs of
+//    1000 rows x 256 B are 34 MB of the 50 MB L2), so HBM reads the matrix
+//    once.
+//  - Per-row partials live in shared memory when they fit, else in the
+//    per-CTA global partials (no row cap); rowstats_finalize sums them in
+//    CTA order.  Deterministic, no float atomics; sign counts and int8
+//    norms are integers (int8: at most kInt8Span columns per CTA).
+// The geometry (ops/_cuda.py: RING_ROWB, RING_GH, RING_AHEAD) was chosen by
+// timing the round's bundles on the H100 (chip_smoke.py's ringsweep and
+// kernels phases; PERF.md section 6).  Measured there and dropped: keeping
+// the slab resident in shared memory for the gram_dot sweep (it fits only
+// narrower slabs with fewer groups in flight), a TMA producer warp with
+// mbarriers in place of the block's cp.async (its loads read slower), two
+// CTAs an SM (register spills), and the gram_dot sweep reading the slab
+// from L2 into registers (exposed latency).  GeoMed's bundle is bound by
+// the passes' instruction issue at one CTA of 16 warps an SM, not by HBM.
+
+constexpr int kRgThreads = 512;
+constexpr int kRgWarps = kRgThreads / 32;
+constexpr int kRgVecs = 2;   // column-pass vectors per sweep
+constexpr int kRgMaxG = 16;  // gram_dot vectors per launch
+constexpr int kRgIlp = 8;    // rows a thread computes side by side
+
+struct RingArgs {
+  const unsigned char* x;
+  int rows;
+  long long d;
+  int sq_mode;     // 0 none, 1 f32 partial (fp[0]), 2 int partial (ip[0])
+  int want_signs;
+  const float* v;  // (R, d)
+  int R;
+  const float* u;  // (U, rows): the column-pass vectors, the W wsum ones first
+  int U, W, G;
+  int gsrc[kRgMaxG];  // gram_dot k takes t from column-pass vector gsrc[k]
+  float* wsum;        // (W, d)
+  float* fpart;       // (grid, rows, KF): [sq], dots R, gram_dot G
+  int* ipart;         // (grid, rows, 3): int8 sq, pos, neg
+  int KF;
+  int qpr_shift;   // log2 of the 16-byte quads per slab row
+  int gh;          // rows per group, a multiple of kRgIlp * (kRgThreads >> qpr_shift)
+  int ahead;       // groups in flight; the ring holds ahead + 1
+  int part_smem;
+  int probe;       // kernels' phase timing: 1 the loads alone, 2 the passes alone
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// Wait until at most n committed groups are pending (n above 7 waits for
+// 7: longer than asked, never shorter).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// Each of kRgIlp sums over the lanes of its row (the qpr lanes next to
+// each other), the shuffles of the rows interleaved.
+template <typename V>
+__device__ __forceinline__ void row_sums(V (&x)[kRgIlp], int qpr) {
+  for (int off = 1; off < qpr; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < kRgIlp; ++i) x[i] += __shfl_xor_sync(0xffffffffu, x[i], off);
+}
+
+// The column pass over kRgIlp rows: acc[v][j] += wv[i][v] * x[i][j] for
+// the first NV vectors (NV a constant, so the unrolled loop has no branch).
+template <int NV, typename T>
+__device__ __forceinline__ void col_accum(float (&acc)[kRgVecs][16 / sizeof(T)],
+                                          const uint32_t (&wd)[kRgIlp][4],
+                                          const float (&wv)[kRgIlp][kRgVecs]) {
+  constexpr int epw = 4 / sizeof(T), per = 4 * epw;
+#pragma unroll
+  for (int i = 0; i < kRgIlp; ++i)
+#pragma unroll
+    for (int j = 0; j < per; ++j) {
+      const float f = unpack<T>(wd[i][j / epw], j % epw);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) acc[v][j] = fmaf(wv[i][v], f, acc[v][j]);
+    }
+}
+
+// kRgIlp 16-byte quads (one per row) dotted with the same per = 16 /
+// sizeof(T) entries of a slab-wide f32 vector in shared memory (16-byte
+// aligned).
+template <typename T>
+__device__ __forceinline__ void quad_dots(const uint32_t (&wd)[kRgIlp][4], const float* vec,
+                                          float (&out)[kRgIlp]) {
+  constexpr int epw = 4 / sizeof(T), per = 4 * epw;
+  float vv[per];
+#pragma unroll
+  for (int j4 = 0; j4 < per / 4; ++j4) {
+    const float4 f = reinterpret_cast<const float4*>(vec)[j4];
+    vv[4 * j4] = f.x;
+    vv[4 * j4 + 1] = f.y;
+    vv[4 * j4 + 2] = f.z;
+    vv[4 * j4 + 3] = f.w;
+  }
+#pragma unroll
+  for (int i = 0; i < kRgIlp; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < per; ++j) acc = fmaf(unpack<T>(wd[i][j / epw], j % epw), vv[j], acc);
+    out[i] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRgThreads, 1) rowstats_ring_kernel(const __grid_constant__ RingArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int epw = 4 / sizeof(T), per = 4 * epw;  // columns per word, per quad
+  const int qpr = 1 << a.qpr_shift, rowb = qpr * 16, C = qpr * per;
+  const int rps = kRgThreads >> a.qpr_shift;  // rows per sweep of the block
+  const int gh = a.gh, rpt = gh / rps;        // rows per group, per thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qq = tid & (qpr - 1), rl = tid >> a.qpr_shift;
+  const int rows = a.rows, R = a.R, U = a.U, W = a.W, G = a.G, KF = a.KF;
+  const int P = a.ahead, S = P + 1;
+  const long long rowbytes = a.d * static_cast<long long>(sizeof(T));
+  const long long nslab = (a.d + C - 1) / C;
+  const int ng = (rows + gh - 1) / gh;
+  const int ncs = (U + kRgVecs - 1) / kRgVecs;
+  const int nsw = (ncs > 1 ? ncs : 1) + (G > 0 ? 1 : 0);
+  const int lps = nsw * ng;  // loads per slab
+  const int stage_bytes = gh * rowb;
+  const bool want_ip = a.sq_mode == 2 || a.want_signs;
+  const bool row_pass = a.sq_mode || a.want_signs || R;
+  const int doff = a.sq_mode == 1 ? 1 : 0, goff = doff + R;
+  const int wrow = (warp * 32) >> a.qpr_shift;  // the warp's first row lane
+
+  unsigned char* ring = smem;
+  float* vs = reinterpret_cast<float*>(smem + static_cast<size_t>(S) * stage_bytes);  // (R, C)
+  float* ts = vs + R * C;                                        // (G, C)
+  float* red = ts + G * C;                                       // (kRgVecs, kRgWarps, C)
+  float* fp;
+  int* ip;
+  if (a.part_smem) {
+    fp = red + (U ? kRgVecs * kRgWarps * C : 0);  // (rows, KF)
+    ip = reinterpret_cast<int*>(fp + static_cast<size_t>(rows) * KF);  // (rows, 3)
+  } else {
+    fp = a.fpart + static_cast<size_t>(blockIdx.x) * rows * KF;
+    ip = a.ipart + static_cast<size_t>(blockIdx.x) * rows * 3;
+  }
+  for (int i = tid; i < rows * KF; i += kRgThreads) fp[i] = 0.f;
+  if (want_ip)
+    for (int i = tid; i < rows * 3; i += kRgThreads) ip[i] = 0;
+
+  const long long my_slabs =
+      blockIdx.x < nslab ? (nslab - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  // The loads, in order: for each of this CTA's slabs, lps groups (group
+  // j % ng), each into the next stage of the ring; rows >= rows and quads
+  // past d are zero-filled.  The position is kept as counters: a 64-bit
+  // division per step, in every thread, cost more than the passes.
+  long long is_sl = 0;   // slab of the next load to issue
+  int is_j = 0, is_g = 0, is_st = 0;  // its load within the slab, group, stage
+  const long long row_step = rps * rowbytes;
+  auto issue = [&]() {  // always commits: every step has one group to wait for
+    if (is_sl < my_slabs) {
+      const long long cb =
+          (blockIdx.x + is_sl * gridDim.x) * static_cast<long long>(rowb) + qq * 16;
+      const bool col_ok = cb < rowbytes;
+      unsigned char* dst = ring + static_cast<size_t>(is_st) * stage_bytes + rl * rowb + qq * 16;
+      int r = is_g * gh + rl;
+      const unsigned char* src = a.x + static_cast<long long>(r) * rowbytes + cb;
+      for (int i = 0; i < rpt && a.probe != 2; ++i, r += rps, src += row_step, dst += rps * rowb) {
+        const bool ok = col_ok && r < rows;
+        cp_async16(dst, ok ? static_cast<const void*>(src) : static_cast<const void*>(a.x), ok);
+      }
+      if (++is_st == S) is_st = 0;
+      if (++is_g == ng) is_g = 0;
+      if (++is_j == lps) {
+        is_j = 0;
+        ++is_sl;
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int p = 0; p < P; ++p) issue();
+  int cs = 0;  // the stage of the next load to consume
+  for (long long sl = 0; sl < my_slabs; ++sl) {
+    const long long col0 = (blockIdx.x + sl * gridDim.x) * static_cast<long long>(C);
+    const int ncols = static_cast<int>(a.d - col0 < C ? a.d - col0 : C);
+    if (R) {
+      __syncthreads();  // the previous slab's row pass is done with vs
+      for (int i = tid; i < R * C; i += kRgThreads) {
+        const int k = i / C, c = i - k * C;
+        vs[i] = c < ncols ? a.v[k * a.d + col0 + c] : 0.f;
+      }  // visible after the first group's __syncthreads
+    }
+    for (int sw = 0; sw < nsw; ++sw) {
+      const int ub = sw * kRgVecs;  // this sweep's column-pass vectors
+      const int nv = sw < ncs ? (U - ub < kRgVecs ? U - ub : kRgVecs) : 0;
+      const bool first = sw == 0, gd = G > 0 && sw == nsw - 1;
+      float acc[kRgVecs][per];
+#pragma unroll
+      for (int v = 0; v < kRgVecs; ++v)
+#pragma unroll
+        for (int j = 0; j < per; ++j) acc[v][j] = 0.f;
+      for (int g = 0; g < ng; ++g) {
+        cp_async_wait_dyn(P - 1);  // this load has landed (this thread's part)
+        __syncthreads();           // ... every thread's; the stage P ahead is free
+        issue();
+        const int st = cs;
+        if (++cs == S) cs = 0;
+        if (a.probe == 1) continue;
+        // kRgIlp rows at a time, their sums and shuffles side by side; a
+        // warp stops at the first block of rows past the last row.
+        const unsigned char* base = ring + static_cast<size_t>(st) * stage_bytes + rl * rowb + qq * 16;
+        for (int i0 = 0; i0 < rpt && wrow + g * gh + i0 * rps < rows; i0 += kRgIlp) {
+          uint32_t wd[kRgIlp][4];
+          int rr[kRgIlp];
+          bool own[kRgIlp];
+#pragma unroll
+          for (int i = 0; i < kRgIlp; ++i) {
+            const uint4 q = *reinterpret_cast<const uint4*>(base + (i0 + i) * rps * rowb);
+            wd[i][0] = q.x;
+            wd[i][1] = q.y;
+            wd[i][2] = q.z;
+            wd[i][3] = q.w;
+            rr[i] = g * gh + rl + (i0 + i) * rps;  // rows past the end read zeros
+            own[i] = rr[i] < rows && qq == 0;
+          }
+          if (nv) {
+            float wv[kRgIlp][kRgVecs];
+#pragma unroll
+            for (int i = 0; i < kRgIlp; ++i)
+#pragma unroll
+              for (int v = 0; v < kRgVecs; ++v)
+                wv[i][v] = v < nv && rr[i] < rows
+                               ? __ldg(a.u + static_cast<long long>(ub + v) * rows + rr[i])
+                               : 0.f;
+            if (nv == 1)
+              col_accum<1, T>(acc, wd, wv);
+            else
+              col_accum<kRgVecs, T>(acc, wd, wv);
+          }
+          if (first && row_pass) {
+            if (a.sq_mode || a.want_signs) {
+              float fsq[kRgIlp];
+              int isq[kRgIlp], pn[kRgIlp];  // pos + (neg << 16)
+#pragma unroll
+              for (int i = 0; i < kRgIlp; ++i) {
+                fsq[i] = 0.f;
+                isq[i] = pn[i] = 0;
+#pragma unroll
+                for (int j = 0; j < per; ++j) {
+                  const float f = unpack<T>(wd[i][j / epw], j % epw);
+                  if constexpr (std::is_same<T, int8_t>::value) {
+                    const int iv = static_cast<int>(f);
+                    isq[i] += iv * iv;
+                  } else {
+                    fsq[i] = fmaf(f, f, fsq[i]);
+                  }
+                  pn[i] += (f > 0.f ? 1 : 0) + (f < 0.f ? 1 << 16 : 0);
+                }
+              }
+              if (a.sq_mode == 1) {
+                row_sums(fsq, qpr);
+#pragma unroll
+                for (int i = 0; i < kRgIlp; ++i)
+                  if (own[i]) fp[rr[i] * KF] += fsq[i];
+              }
+              if (a.sq_mode == 2) {
+                row_sums(isq, qpr);
+#pragma unroll
+                for (int i = 0; i < kRgIlp; ++i)
+                  if (own[i]) ip[rr[i] * 3] += isq[i];
+              }
+              if (a.want_signs) {
+                row_sums(pn, qpr);
+#pragma unroll
+                for (int i = 0; i < kRgIlp; ++i)
+                  if (own[i]) {
+                    ip[rr[i] * 3 + 1] += pn[i] & 0xFFFF;
+                    ip[rr[i] * 3 + 2] += pn[i] >> 16;
+                  }
+              }
+            }
+            for (int k = 0; k < R; ++k) {
+              float dsum[kRgIlp];
+              quad_dots<T>(wd, vs + k * C + qq * per, dsum);
+              row_sums(dsum, qpr);
+#pragma unroll
+              for (int i = 0; i < kRgIlp; ++i)
+                if (own[i]) fp[rr[i] * KF + doff + k] += dsum[i];
+            }
+          }
+          if (gd) {
+            for (int k = 0; k < G; ++k) {
+              float dsum[kRgIlp];
+              quad_dots<T>(wd, ts + k * C + qq * per, dsum);
+              row_sums(dsum, qpr);
+#pragma unroll
+              for (int i = 0; i < kRgIlp; ++i)
+                if (own[i]) fp[rr[i] * KF + goff + k] += dsum[i];
+            }
+          }
+        }
+      }
+      if (nv && a.probe != 1) {
+        // The column sums across the slab: lanes of a quad, then warps in
+        // order; written as wsum and kept as t for the gram_dot vectors
+        // that take this one.
+        for (int off = qpr; off < 32; off <<= 1)
+#pragma unroll
+          for (int v = 0; v < kRgVecs; ++v)
+#pragma unroll
+            for (int j = 0; j < per; ++j) acc[v][j] += __shfl_xor_sync(0xffffffffu, acc[v][j], off);
+        if (lane < qpr) {
+#pragma unroll
+          for (int v = 0; v < kRgVecs; ++v)
+            if (v < nv)
+#pragma unroll
+              for (int j = 0; j < per; ++j) red[(v * kRgWarps + warp) * C + qq * per + j] = acc[v][j];
+        }
+        __syncthreads();
+        for (int i = tid; i < nv * C; i += kRgThreads) {
+          const int v = i / C, c = i - v * C, u = ub + v;
+          float tot = 0.f;
+          for (int w8 = 0; w8 < kRgWarps; ++w8) tot += red[(v * kRgWarps + w8) * C + c];
+          if (u < W && c < ncols) a.wsum[static_cast<long long>(u) * a.d + col0 + c] = tot;
+          for (int k = 0; k < G; ++k)
+            if (a.gsrc[k] == u) ts[k * C + c] = tot;
+        }
+        __syncthreads();  // t is complete; red is free again
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (a.part_smem) {
+    __syncthreads();
+    float* fo = a.fpart + static_cast<size_t>(blockIdx.x) * rows * KF;
+    for (int i = tid; i < rows * KF; i += kRgThreads) fo[i] = fp[i];
+    if (want_ip) {
+      int* io = a.ipart + static_cast<size_t>(blockIdx.x) * rows * 3;
+      for (int i = tid; i < rows * 3; i += kRgThreads) io[i] = ip[i];
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // Host side
 // --------------------------------------------------------------------------
 
@@ -868,6 +1254,28 @@ cudaError_t rowstats_occupancy(int smem, int* per_sm) {
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, rowstats_kernel<T>, kRsThreads,
                                                        smem);
+}
+
+// Dynamic shared memory of rowstats_ring_kernel: the ring of ahead + 1
+// groups, the dots and gram_dot vectors of a slab, the column reduction
+// buffer, and (part_smem) the per-row partials.  ops/_cuda.py::ring_smem
+// mirrors it.
+size_t ring_smem(int rows, int esize, int rowb, int gh, int ahead, int R, int U, int G, int KF,
+                 int want_ip, int part_smem) {
+  const size_t C = static_cast<size_t>(rowb / esize);
+  size_t s = static_cast<size_t>(ahead + 1) * gh * rowb + static_cast<size_t>(R + G) * C * 4 +
+             (U ? static_cast<size_t>(kRgVecs) * kRgWarps * C * 4 : 0);
+  if (part_smem) s += static_cast<size_t>(rows) * (KF + (want_ip ? 3 : 0)) * 4;
+  return s;
+}
+
+template <typename T>
+cudaError_t ring_occupancy(int smem, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(rowstats_ring_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, rowstats_ring_kernel<T>,
+                                                       kRgThreads, smem);
 }
 
 int sm_count() {
@@ -945,17 +1353,32 @@ cudaError_t gram_mma_setup(int* per_sm) {
                                                        smem);
 }
 
+// The partial reduction of either row-statistics kernel, when any row
+// statistic is asked for.
+cudaError_t rowstats_finish(const float* fpart, const int* ipart, int grid, int rows, int KF,
+                            int sq_mode, int want_signs, int R, int G, long long d_true,
+                            float* sq_out, float* signs_out, float* dots_out, float* gd_out,
+                            cudaStream_t st) {
+  if (!(sq_mode || want_signs || R || G)) return cudaSuccess;
+  rowstats_finalize<<<(rows + 255) / 256, 256, 0, st>>>(fpart, ipart, grid, rows, KF, sq_mode,
+                                                        want_signs, R, G, d_true, sq_out,
+                                                        signs_out, dots_out, gd_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch geometry of the row statistics for (dtype, rows, d) with R dots
-// vectors, W + G weight vectors and KF float partials per row: the slab
-// bytes per row (the widest slab that fits: on the H100 at the round's
-// shape a wider slab beat narrower ones with more CTAs per SM, and
+// Launch geometry of the slab kernel (rowstats_kernel: rows that are not
+// 16-byte aligned) for (dtype, rows, d) with R dots vectors, W + G weight
+// vectors and KF float partials per row: the slab bytes per row (the
+// widest slab that fits: on the H100 at the round's shape a wider slab beat
+// narrower ones with more CTAs per SM, and with its 4-byte loads
 // double-buffering inside a CTA did not pay), the dynamic shared memory
 // and the CTA count.  dtype 0 = f32, 1 = bf16, 2 = int8.  Returns a
-// cudaError_t (cudaErrorInvalidValue when the rows do not fit).
+// cudaError_t (cudaErrorInvalidValue when the rows do not fit: the kernel
+// holds every row of a slab in one CTA's shared memory).
 int bt_rowstats_plan(int dtype, int rows, long long d, int R, int W, int G, int KF, int* rowb,
                      int* smem, int* grid) {
   const int es = elem_size(dtype);
@@ -986,8 +1409,93 @@ int bt_rowstats_plan(int dtype, int rows, long long d, int R, int W, int G, int 
   return 0;
 }
 
-// The row statistics: the slab kernel, then (when any row statistic is
-// asked for) the partial reduction.  Null outputs are not asked for.
+// Launch geometry of rowstats_ring_kernel for (dtype, rows, d) with R
+// dots vectors, U column-pass vectors, G gram_dot vectors and KF float
+// partials per row (want_ip: integer partials too); `geom` is (rowb, gh,
+// ahead, part_smem), as ops/_cuda.py::ring_plan chooses it.  Checks the geometry and returns the dynamic shared memory and the
+// CTA count (a cudaError_t: cudaErrorInvalidValue for a geometry or a
+// matrix the kernel does not take).
+int bt_rowstats_ring_plan(int dtype, int rows, long long d, int R, int U, int G, int KF,
+                          int want_ip, const int* geom, int* smem, int* grid) {
+  const int es = elem_size(dtype);
+  const int rowb = geom[0], gh = geom[1], ahead = geom[2], part_smem = geom[3];
+  if (rowb < 16 || rowb > 512 || (rowb & (rowb - 1)) || (d * es) % 16 || rows < 1 ||
+      G > kRgMaxG || ahead < 1 || ahead > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rps = kRgThreads / (rowb / 16);
+  if (gh < kRgIlp * rps || gh % (kRgIlp * rps)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t need = ring_smem(rows, es, rowb, gh, ahead, R, U, G, KF, want_ip, part_smem);
+  if (need > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  *smem = static_cast<int>(need);
+  int per_sm = 0;
+  cudaError_t e = dtype == 0   ? ring_occupancy<float>(*smem, &per_sm)
+                  : dtype == 1 ? ring_occupancy<uint16_t>(*smem, &per_sm)
+                               : ring_occupancy<int8_t>(*smem, &per_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long nslab = (d + rowb / es - 1) / (rowb / es);
+  long long g = static_cast<long long>(per_sm) * sm_count();
+  if (dtype == 2) {  // int32 row partials: at most kInt8Span columns per CTA
+    const long long need8 = (d + kInt8Span - 1) / kInt8Span;
+    if (g < need8) g = need8;
+  }
+  if (g > nslab) g = nslab;
+  *grid = static_cast<int>(g < 1 ? 1 : g);
+  return 0;
+}
+
+// The row statistics of 16-byte-aligned rows: rowstats_ring_kernel with
+// the geometry of bt_rowstats_ring_plan (geom[4]: the probe flag), then the
+// partial reduction.  u is (U, rows), its first W rows the wsum weights;
+// gram_dot k takes t from row gsrc[k] of u.  Null outputs are not asked
+// for.
+int bt_rowstats_ring(const void* x, int dtype, int rows, long long d, long long d_true,
+                     int want_sq, int want_signs, const float* v, int R, const float* u, int U,
+                     int W, int G, const int* gsrc, float* wsum, float* fpart, int* ipart, int KF,
+                     const int* geom, int smem, int grid, float* sq_out, float* signs_out,
+                     float* dots_out, float* gd_out, void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 || G > kRgMaxG || W > U)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RingArgs a;
+  a.x = static_cast<const unsigned char*>(x);
+  a.rows = rows;
+  a.d = d;
+  a.sq_mode = want_sq ? (dtype == 2 ? 2 : 1) : 0;
+  a.want_signs = want_signs;
+  a.v = v;
+  a.R = R;
+  a.u = u;
+  a.U = U;
+  a.W = W;
+  a.G = G;
+  for (int k = 0; k < kRgMaxG; ++k) {
+    a.gsrc[k] = k < G ? gsrc[k] : -1;
+    if (k < G && (gsrc[k] < 0 || gsrc[k] >= U)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.wsum = wsum;
+  a.fpart = fpart;
+  a.ipart = ipart;
+  a.KF = KF;
+  a.qpr_shift = log2i(geom[0] / 16);
+  a.gh = geom[1];
+  a.ahead = geom[2];
+  a.part_smem = geom[3];
+  a.probe = geom[4];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    rowstats_ring_kernel<float><<<grid, kRgThreads, smem, st>>>(a);
+  else if (dtype == 1)
+    rowstats_ring_kernel<uint16_t><<<grid, kRgThreads, smem, st>>>(a);
+  else
+    rowstats_ring_kernel<int8_t><<<grid, kRgThreads, smem, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(rowstats_finish(fpart, ipart, grid, rows, KF, a.sq_mode, want_signs,
+                                          R, G, d_true, sq_out, signs_out, dots_out, gd_out, st));
+}
+
+// The row statistics of any other rows: the slab kernel, then the partial
+// reduction.  Null outputs are not asked for.
 int bt_rowstats(const void* x, int dtype, int rows, long long d, long long d_true, int want_sq,
                 int want_signs, const float* v, int R, const float* w, int W, int G,
                 float* wsum, float* fpart, int* ipart, int KF, int rowb, int smem, int grid,
@@ -1018,13 +1526,8 @@ int bt_rowstats(const void* x, int dtype, int rows, long long d, long long d_tru
     rowstats_kernel<int8_t><<<grid, kRsThreads, smem, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (a.sq_mode || want_signs || R || G) {
-    rowstats_finalize<<<(rows + 255) / 256, 256, 0, st>>>(fpart, ipart, grid, rows, KF,
-                                                          a.sq_mode, want_signs, R, G, d_true,
-                                                          sq_out, signs_out, dots_out, gd_out);
-    e = cudaGetLastError();
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(rowstats_finish(fpart, ipart, grid, rows, KF, a.sq_mode, want_signs,
+                                          R, G, d_true, sq_out, signs_out, dots_out, gd_out, st));
 }
 
 // Gram geometry for (dtype, route, rows, d): the tile side, the

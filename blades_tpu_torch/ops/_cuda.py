@@ -10,8 +10,9 @@ it.
 
 ``LAUNCHES`` counts, per wrapper name, the kernel launches the wrappers
 made, and ``MAPS`` the BatchNorm-backward launches per (wrapper name,
-thread map), the Gram launches per (wrapper name, ``gram:`` + route) and
-the finish launches per (wrapper name, ``finish:`` + route);
+thread map), the Gram launches per (wrapper name, ``gram:`` + route), the
+row-statistics launches per (wrapper name, ``rowstats:`` + route) and the
+finish launches per (wrapper name, ``finish:`` + route);
 :func:`reset_launches` sets every count to 0.
 """
 
@@ -127,6 +128,13 @@ def library() -> ctypes.CDLL:
         lib.bt_rowstats.argtypes = [p, i, i, ll, ll, i, i, p, i, p, i, i, p, p,
                                     p, i, i, i, i, p, p, p, p, p]
         lib.bt_rowstats.restype = i
+        lib.bt_rowstats_ring_plan.argtypes = [i, i, ll, i, i, i, i, i, ip, ip,
+                                              ip]
+        lib.bt_rowstats_ring_plan.restype = i
+        lib.bt_rowstats_ring.argtypes = [p, i, i, ll, ll, i, i, p, i, p, i, i,
+                                         i, ip, p, p, p, i, ip, i, i, p, p, p,
+                                         p, p]
+        lib.bt_rowstats_ring.restype = i
         lib.bt_gram_plan.argtypes = [i, i, i, ll, ip, ip, ip, llp]
         lib.bt_gram_plan.restype = i
         lib.bt_gram.argtypes = [p, i, i, i, ll, i, i, i, ll, p, p, p]
@@ -286,15 +294,125 @@ def gram_route(dtype: torch.dtype, d: int, address: int) -> str:
     return "mma"
 
 
+ROWSTATS_ROUTES = {"slab": 0, "ring": 1}
+RING_SMEM_CAP = 232_448  # kSmemMax in csrc/rowstats.cu: 227 KB a block
+# kRgThreads, kRgWarps, kRgVecs, kRgIlp
+_RING_THREADS, _RING_WARPS, _RING_VECS, _RING_ILP = 512, 16, 2, 8
+RING_MAX_G = 16  # kRgMaxG
+# The ring's default geometry: bytes of a slab row, rows per group, groups
+# in flight (chosen on the H100, PERF.md section 6).
+RING_ROWB, RING_GH, RING_AHEAD = 256, 256, 2
+
+
+class RingPlan(NamedTuple):
+    """How ``rowstats_ring_kernel`` covers a matrix: bytes per slab row,
+    rows per group, groups in flight (the ring holds one more), whether the
+    per-row partials sit in shared memory, and the dynamic shared memory
+    in bytes."""
+    rowb: int
+    gh: int
+    ahead: int
+    part_smem: int
+    smem: int
+
+
+def rowstats_route(dtype: torch.dtype, d: int, address: int,
+                   rows: int) -> str:
+    """The row-statistics kernel for a ``(rows, d)`` matrix of ``dtype`` at
+    device ``address``: ``ring`` (``rowstats_ring_kernel``: row groups
+    through a 16-byte ``cp.async`` ring, any row count) for rows that are
+    16-byte aligned -- ``d * itemsize % 16 == 0`` and a 16-byte-aligned
+    base: f32 with ``d % 4 == 0``, bf16 with ``d % 8 == 0``, int8 with
+    ``d % 16 == 0`` -- else ``slab`` (``rowstats_kernel``, which holds every
+    row of a slab in one CTA's shared memory).  ``rows`` does not move the
+    choice: the ring takes any height."""
+    del rows
+    esize = torch.empty((), dtype=dtype).element_size()
+    if (d * esize) % 16 == 0 and address % 16 == 0:
+        return "ring"
+    return "slab"
+
+
+def ring_smem(rows: int, esize: int, rowb: int, gh: int, ahead: int,
+              R: int, U: int, G: int, KF: int, want_ip: bool,
+              part_smem: bool) -> int:
+    """Dynamic shared memory of ``rowstats_ring_kernel``, laid out as the
+    kernel lays it out (``ring_smem`` of the source): ``ahead + 1`` groups
+    of ``gh`` rows x ``rowb`` bytes, the slab's ``R`` dots and ``G`` gram_dot
+    vectors and the column reduction buffer (f32 per slab column), and with
+    ``part_smem`` the per-row partials (``KF`` floats, 3 ints with
+    ``want_ip``)."""
+    cols = rowb // esize
+    total = ((ahead + 1) * gh * rowb + (R + G) * cols * 4
+             + (_RING_VECS * _RING_WARPS * cols * 4 if U else 0))
+    if part_smem:
+        total += rows * (KF + (3 if want_ip else 0)) * 4
+    return total
+
+
+def ring_plan(dtype: torch.dtype, rows: int, R: int, U: int, G: int,
+              KF: int, want_ip: bool, *, rowb: int = RING_ROWB,
+              gh: int = RING_GH, ahead: int = RING_AHEAD) -> RingPlan:
+    """The geometry of ``rowstats_ring_kernel`` for ``rows`` rows of
+    ``dtype`` with ``R`` dots vectors, ``U`` column-pass vectors, ``G``
+    gram_dot vectors and ``KF`` float partials a row: ``rowb`` bytes a slab
+    row, ``gh`` rows a group (rounded to whole units of ``kRgIlp`` sweeps
+    of the block, and no more units than ``rows`` needs), ``ahead`` groups
+    in flight (fewer when the vectors leave no room); the per-row partials
+    in shared memory when they fit beside the ring.  A pure function of
+    its arguments.  Raises when the vectors alone leave no room."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    unit = _RING_ILP * _RING_THREADS // (rowb // 16)
+    gh = max(unit, min(gh, -(-rows // unit) * unit) // unit * unit)
+    stage = gh * rowb
+    # The vectors and buffers without the ring (ahead + 1 = 0 groups), and
+    # the per-row partials alone.
+    base = ring_smem(rows, esize, rowb, gh, -1, R, U, G, KF, want_ip, False)
+    part = ring_smem(rows, esize, rowb, gh, -1, 0, 0, 0, KF, want_ip, True)
+    while ahead > 1 and base + (ahead + 1) * stage > RING_SMEM_CAP:
+        ahead -= 1
+    if base + (ahead + 1) * stage > RING_SMEM_CAP:
+        raise ValueError(f"row statistics: {R} dots and {G} gram_dot "
+                         "vectors leave no room for the ring")
+    part_smem = base + part + (ahead + 1) * stage <= RING_SMEM_CAP
+    return RingPlan(rowb, gh, ahead, int(part_smem),
+                    ring_smem(rows, esize, rowb, gh, ahead, R, U, G, KF,
+                              want_ip, part_smem))
+
+
+def _ring_vectors(name, w, g, shared):
+    """The ring kernel's column-pass vectors ``(U, rows)`` -- the wsum
+    weights, then each gram_dot vector that shares none -- and, per
+    gram_dot vector, the row of them its ``t`` comes from."""
+    W, G = w.shape[0], g.shape[0]
+    if shared is None:
+        shared = [-1] * G
+    shared = [int(j) for j in shared]
+    if len(shared) != G or not all(-1 <= j < W for j in shared):
+        raise ValueError(f"{name}: gram_dot_shared {shared} must give, for "
+                         f"each of {G} gram_dot vectors, a weights row "
+                         f"below {W} or -1")
+    own = [k for k in range(G) if shared[k] < 0]
+    u = torch.cat([w, g[own]]) if own else w
+    gsrc = [j if j >= 0 else W + own.index(k) for k, j in enumerate(shared)]
+    return u.contiguous(), gsrc
+
+
 def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
                     gram: bool = False, signs: bool = False, dots=None,
-                    weights=None, gram_dot=None, d_true=None) -> dict:
+                    weights=None, gram_dot=None, gram_dot_shared=None,
+                    d_true=None, geometry=None, probe: int = 0) -> dict:
     """Launch the row-statistics kernels of ``csrc/rowstats.cu`` on ``x``
     (rows, d) and return the requested statistics (see
-    :func:`blades_tpu_torch.ops.rowstats.row_stats_bundle`): the slab
-    kernel for everything but the Gram, the tile kernel for the Gram, each
-    followed by its deterministic reduction.  Raises on a tensor the
-    kernels do not take."""
+    :func:`blades_tpu_torch.ops.rowstats.row_stats_bundle`): the kernel of
+    :func:`rowstats_route` for everything but the Gram, the tile kernel of
+    :func:`gram_route` for the Gram, each followed by its deterministic
+    reduction.  ``gram_dot_shared[k] = j`` says gram_dot vector k is
+    weights row j: the ring route then takes one column pass for both.
+    ``geometry`` (keywords of :func:`ring_plan`) and ``probe`` (1: the
+    ring's loads without its passes, 2: its passes without its loads; the
+    results are then meaningless) serve measurements.  Raises on a tensor
+    the kernels do not take."""
     if not x.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor")
     if x.dim() != 2 or not x.is_contiguous() or x.shape[0] < 1:
@@ -316,15 +434,41 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if sq or signs or R or W or G:
+            route = rowstats_route(x.dtype, d, x.data_ptr(), rows)
             kf = (1 if sq and dt != 2 else 0) + R + G
-            rowb, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-            err = lib.bt_rowstats_plan(dt, rows, d, R, W, G, kf,
-                                       ctypes.byref(rowb), ctypes.byref(smem),
-                                       ctypes.byref(grid))
-            if err == 1:  # cudaErrorInvalidValue: the slab does not fit
-                raise ValueError(f"{name}: {rows} rows do not fit one CTA's "
-                                 "shared memory")
-            _check(lib, err, f"{name}: no launch geometry")
+            want_ip = bool(signs or (sq and dt == 2))
+            smem, grid = ctypes.c_int(), ctypes.c_int()
+            if route == "ring":
+                if G > RING_MAX_G:
+                    raise ValueError(f"{name}: at most {RING_MAX_G} gram_dot "
+                                     f"vectors a launch, got {G}")
+                u, gsrc = _ring_vectors(name, w, g, gram_dot_shared)
+                U = u.shape[0]
+                plan = ring_plan(x.dtype, rows, R, U, G, kf, want_ip,
+                                 **(geometry or {}))
+                geom = (ctypes.c_int * 5)(plan.rowb, plan.gh, plan.ahead,
+                                          plan.part_smem, int(probe))
+                _check(lib, lib.bt_rowstats_ring_plan(
+                    dt, rows, d, R, U, G, kf, int(want_ip), geom,
+                    ctypes.byref(smem), ctypes.byref(grid)),
+                    f"{name}: no ring geometry {plan} for ({rows}, {d})")
+                if smem.value != plan.smem:
+                    raise RuntimeError(f"{name}: the kernel lays out "
+                                       f"{smem.value} bytes, ring_smem "
+                                       f"{plan.smem}")
+            else:
+                rowb = ctypes.c_int()
+                err = lib.bt_rowstats_plan(dt, rows, d, R, W, G, kf,
+                                           ctypes.byref(rowb),
+                                           ctypes.byref(smem),
+                                           ctypes.byref(grid))
+                if err == 1:  # cudaErrorInvalidValue: the slab does not fit
+                    raise ValueError(
+                        f"{name}: {rows} rows of {d} x {x.dtype} are not "
+                        "16-byte aligned (the ring route's condition), and "
+                        "the slab route for such rows holds every row of a "
+                        "slab in one CTA's shared memory: they do not fit")
+                _check(lib, err, f"{name}: no launch geometry")
             gr = grid.value
             fpart = torch.empty((gr, rows, max(kf, 1)), dtype=torch.float32,
                                 device=dev)
@@ -335,14 +479,24 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
             dots_out = torch.empty((rows, R), **f32) if R else None
             gd_out = torch.empty((rows, G), **f32) if G else None
             wsum_out = torch.empty((W, d), **f32) if W else None
-            wg = torch.cat([w, g]) if W + G else None
-            err = lib.bt_rowstats(
-                x.data_ptr(), dt, rows, d, d_true, int(sq), int(signs),
-                _ptr(v) if R else None, R, _ptr(wg), W, G, _ptr(wsum_out),
-                fpart.data_ptr(), ipart.data_ptr(), kf, rowb.value,
-                smem.value, gr, _ptr(sq_out), _ptr(signs_out),
-                _ptr(dots_out), _ptr(gd_out), stream)
-            _check(lib, err, f"{name}: row-statistics launch failed")
+            if route == "ring":
+                err = lib.bt_rowstats_ring(
+                    x.data_ptr(), dt, rows, d, d_true, int(sq), int(signs),
+                    _ptr(v) if R else None, R, _ptr(u) if U else None, U, W,
+                    G, (ctypes.c_int * max(G, 1))(*gsrc), _ptr(wsum_out),
+                    fpart.data_ptr(), ipart.data_ptr(), kf, geom,
+                    smem.value, gr, _ptr(sq_out), _ptr(signs_out),
+                    _ptr(dots_out), _ptr(gd_out), stream)
+            else:
+                wg = torch.cat([w, g]) if W + G else None
+                err = lib.bt_rowstats(
+                    x.data_ptr(), dt, rows, d, d_true, int(sq), int(signs),
+                    _ptr(v) if R else None, R, _ptr(wg), W, G,
+                    _ptr(wsum_out), fpart.data_ptr(), ipart.data_ptr(), kf,
+                    rowb.value, smem.value, gr, _ptr(sq_out),
+                    _ptr(signs_out), _ptr(dots_out), _ptr(gd_out), stream)
+            _check(lib, err, f"{name}: {route} row-statistics launch failed")
+            MAPS[name, "rowstats:" + route] += 1
             for key, val in (("sq", sq_out), ("signs", signs_out),
                              ("dots", dots_out), ("gram_dot", gd_out)):
                 if val is not None:

@@ -24,14 +24,21 @@ int8 input (the wire-domain payload): ``sq`` and ``gram`` are exact integer
 sums rounded to f32 once; every other statistic casts the values to f32.
 Nothing is padded or copied here: the streamed round hands over its
 ``(n, d_alloc)`` buffer, zero past ``d_true`` as the JAX package allocates
-it, whose rows are 16-byte aligned, and the Gram of such bf16 rows takes
-the TMA + wgmma kernel (``_cuda.gram_route``); the other kernels mask
-their own ragged edges.
+it, whose rows are 16-byte aligned.  The statistics of such rows take the
+ring kernel at any row count (``_cuda.rowstats_route``), and the Gram of
+such bf16 rows the TMA + wgmma kernel (``_cuda.gram_route``); the other
+kernels mask their own ragged edges.
+
+``gram_dot_shared`` tells the kernel which gram_dot vectors ARE weights
+rows (the pass planner knows it by object identity: GeoMed's and
+Centeredclipping's iterates ask for both with one vector): the column
+sum over such a vector is taken once, written as ``wsum`` and used as the
+gram_dot's ``t``, bit for bit what two passes give.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -41,7 +48,15 @@ from blades_tpu_torch.ops.keys import CHUNK
 DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
-def _check(buf, sq, gram, signs, dots, weights, gram_dot):
+def _check(buf, sq, gram, signs, dots, weights, gram_dot, gram_dot_shared):
+    if gram_dot_shared is not None:
+        g = 0 if gram_dot is None else gram_dot.shape[0]
+        w = 0 if weights is None else weights.shape[0]
+        if (len(gram_dot_shared) != g
+                or not all(-1 <= int(j) < w for j in gram_dot_shared)):
+            raise ValueError(f"gram_dot_shared {list(gram_dot_shared)} must "
+                             f"give, for each of {g} gram_dot vectors, a "
+                             f"weights row below {w} or -1")
     if buf.dim() != 2 or buf.shape[0] < 1:
         raise ValueError(f"need a (n >= 1, d) matrix, got {tuple(buf.shape)}")
     if buf.dtype not in DTYPES:
@@ -61,10 +76,11 @@ def row_stats_bundle_plain(
     dots: Optional[torch.Tensor] = None,
     weights: Optional[torch.Tensor] = None,
     gram_dot: Optional[torch.Tensor] = None,
+    gram_dot_shared: Optional[Sequence[int]] = None,
     d_true: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of :func:`row_stats_bundle`."""
-    _check(buf, sq, gram, signs, dots, weights, gram_dot)
+    _check(buf, sq, gram, signs, dots, weights, gram_dot, gram_dot_shared)
     n, d = buf.shape
     d_true = d if d_true is None else int(d_true)
     dev = buf.device
@@ -97,7 +113,11 @@ def row_stats_bundle_plain(
         if w is not None:
             wsum[:, c0:c1] = w @ xc
         if g is not None:
-            gd_acc += xc @ (g @ xc).T
+            t = g @ xc
+            for k, j in enumerate(gram_dot_shared or ()):
+                if j >= 0:
+                    t[k] = wsum[j, c0:c1]
+            gd_acc += xc @ t.T
     out = {}
     if sq:
         out["sq"] = sq_acc.float()
@@ -123,6 +143,7 @@ def row_stats_bundle(
     dots: Optional[torch.Tensor] = None,
     weights: Optional[torch.Tensor] = None,
     gram_dot: Optional[torch.Tensor] = None,
+    gram_dot_shared: Optional[Sequence[int]] = None,
     d_true: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Compute a statistics bundle of ``buf`` in one call.
@@ -134,6 +155,8 @@ def row_stats_bundle(
         dots: ``(R, d)`` vectors to dot every row against.
         weights: ``(W, n)`` row weights for weighted row sums.
         gram_dot: ``(G, n)`` row weights for ``(buf buf^T) w``.
+        gram_dot_shared: for each gram_dot vector, the index of the
+            ``weights`` row it is (one column pass serves both), or -1.
         d_true: true model width (zero counts and the weighted sums' width);
             defaults to ``buf.shape[1]``.
 
@@ -144,8 +167,9 @@ def row_stats_bundle(
     if not buf.is_cuda:
         return row_stats_bundle_plain(
             buf, sq=sq, gram=gram, signs=signs, dots=dots, weights=weights,
-            gram_dot=gram_dot, d_true=d_true)
-    _check(buf, sq, gram, signs, dots, weights, gram_dot)
+            gram_dot=gram_dot, gram_dot_shared=gram_dot_shared, d_true=d_true)
+    _check(buf, sq, gram, signs, dots, weights, gram_dot, gram_dot_shared)
     return _cuda.launch_rowstats(
         "row_stats_bundle", buf.contiguous(), sq=sq, gram=gram, signs=signs,
-        dots=dots, weights=weights, gram_dot=gram_dot, d_true=d_true)
+        dots=dots, weights=weights, gram_dot=gram_dot,
+        gram_dot_shared=gram_dot_shared, d_true=d_true)

@@ -268,10 +268,19 @@ class PassPlanner:
         pad = self.buf.shape[1] - self.d
         if dots is not None and pad:  # (R, d) -> (R, d_alloc), zeros
             dots = torch.nn.functional.pad(dots, (0, pad))
+        # A gram_dot vector that IS a weighted-sum vector (GeoMed's and
+        # Centeredclipping's iterates) shares its column pass: known by
+        # identity, so nothing waits for the device to compare values.
+        ws = [r.kw["w"] for r in reqs if r.kind == "wsum"]
+        shared = tuple(next((j for j, w in enumerate(ws) if w is r.kw["w"]),
+                            -1)
+                       for r in reqs if r.kind == "gram_dot")
         out = row_stats_bundle(
             self.buf, sq="sq" in kinds, gram="gram" in kinds,
             signs="signs" in kinds, dots=dots, weights=stacked("wsum", "w"),
-            gram_dot=stacked("gram_dot", "w"), d_true=self.d)
+            gram_dot=stacked("gram_dot", "w"),
+            gram_dot_shared=shared if any(j >= 0 for j in shared) else None,
+            d_true=self.d)
         if self.recorder is not None:
             self.recorder.kernel_bundles += 1
         seen = {"dots": 0, "wsum": 0, "gram_dot": 0}

@@ -17,7 +17,10 @@ Phases, each printing its lines before the last:
    checked) and on tie-heavy matrices (a few bf16 levels, signed zeros
    and all-equal columns, exponents spread over 2**+-40) --
    ``row_stats_bundle`` on a grid of
-   dtypes x bundles x ragged shapes and the Gram on each of its routes
+   dtypes x bundles x ragged shapes on both row-statistics routes (the
+   ring for 16-byte-aligned rows, 6,000 rows among them, the slab kernel
+   for the rest; every call's route checked, two launches bit-identical,
+   a shared weight vector bit-identical to two) and the Gram on each of its routes
    (TMA + wgmma for bf16 rows that are 16-byte aligned, ragged edges and a
    zero-padded buffer included), and the BatchNorm-backward kernels
    (each pass alone and the composite ``bn_bwd``) on a grid of f32/bf16 x
@@ -34,11 +37,13 @@ Phases, each printing its lines before the last:
    two finishes the padded ``(750, d_alloc)`` and ``(1000, d_alloc)``
    buffers on the radix route, with the bit-serial route on the unpadded
    matrices beside them in the same call; for
-   ``row_stats_bundle`` the two bundles of the row-geometry round on its
+   ``row_stats_bundle`` the bundles of the row-geometry round on its
    padded ``(1000, d_alloc)`` buffer (the Multikrum Gram, with the old
    route on the unpadded matrix and ``torch.mm`` on both beside it, and
-   the Gram at three more shapes; the GeoMed weighted sum + Gram-vector
-   product); for the
+   the Gram at three more shapes; GeoMed's weighted sum + Gram-vector
+   product, the weighted sum alone, sign counts and dots on the ring
+   route, each beside the slab route on the unpadded matrix, and the
+   ring's time by part of its work); for the
    BN pair the four stage layers of ResNet-10 at G = 50, B = 32, bf16,
    channels-last, beside ``native_batch_norm_backward``.  Every time is
    device-only (:func:`timed`); the host us per call are printed apart.
@@ -57,7 +62,9 @@ Phases, each printing its lines before the last:
    ``Multikrum(num_byzantine=250)`` in place of Median, one warm-up and 2
    timed rounds, then one round of ``GeoMed()`` -- through the pass
    planner's ``row_stats_bundle`` calls, on a ``(1000, d_alloc)`` buffer,
-   the Multikrum Gram once per round on the TMA + wgmma route; and the
+   the Multikrum Gram once per round on the TMA + wgmma route, the row
+   statistics on the ring route (once per Multikrum round, 1 + iterations
+   per GeoMed round, never the slab route); and the
    average-linkage
    clustering loop at 1000 clients, timed.
 8. ``fedavg``: the Fedavg driver through ``FedavgConfig``: the dense
@@ -67,14 +74,20 @@ Phases, each printing its lines before the last:
    ``fedavg_cifar10_1000clients.yaml`` (ALIE, Median, bf16, 2 rounds and
    an evaluation), and the MLP accuracy check (test accuracy >= 0.9 after
    3 rounds); each prints rounds/s, losses, accuracy and peak memory.
-9. ``profile`` (only when named): one more main-path round, and one
-   Multikrum round of phase 7, under ``torch.profiler``; device time by
-   kernel goes to ``chiprun_out/profile_main.txt`` and
-   ``chiprun_out/profile_rowgeom.txt``.
+9. ``profile`` (only when named): one more main-path round, one
+   Multikrum round of phase 7 and one GeoMed round, under
+   ``torch.profiler``; device time by kernel goes to
+   ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
+   ``profile_geomed.txt``.
 10. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
+11. ``ringsweep`` (only when named): the row-statistics ring across
+   geometries (slab bytes, group rows, groups in flight) for the four
+   bundles the planner issues on the row-geometry round's buffer; the
+   table goes to
+   ``chiprun_out/ringsweep.txt``.
 
 Launch counts are set to 0 just before each of phases 4-8 (and before
 each round of phase 7 and each trial of phase 8) and read just after; a
@@ -99,7 +112,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg")
-EXTRA_PHASES = ("profile", "bnstages")  # run only when named
+EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
 # rate outside the tensor cores, which is where these kernels' arithmetic
@@ -536,44 +549,126 @@ ROWSTAT_BUNDLES = {
 }
 
 
+def _rowstats_routes() -> dict:
+    """``row_stats_bundle``'s row-statistics launches so far, by route."""
+    from blades_tpu_torch.ops import _cuda
+
+    return {k[1]: v for k, v in _cuda.MAPS.items()
+            if k[0] == "row_stats_bundle" and k[1].startswith("rowstats:")}
+
+
+def _rowstats_took(before: dict, route: str, what: str) -> None:
+    took = {k: v - before.get(k, 0) for k, v in _rowstats_routes().items()
+            if v != before.get(k, 0)}
+    check(took == {route: 1}, f"{what}: row-statistics routes {took}, "
+          f"expected {{{route!r}: 1}}")
+
+
+def _aligned16(x) -> bool:
+    """The ring route's condition, written out: rows of a whole number of
+    16-byte quads on a 16-byte-aligned base."""
+    return (x.shape[1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+
+
+def _same_outputs(a, b, what):
+    check(set(a) == set(b), f"{what}: keys {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        same(a[k], b[k], f"{what} {k}")
+
+
+# (rows, d) of row_stats_bundle's small cases: widths whose rows are not
+# 16-byte aligned at any dtype (1001: element by element; 300_002: 4-byte
+# loads), and aligned ones (1000 x f32 / bf16, 1024 and 300_016 at every
+# dtype), so every dtype meets both routes.  ROWSTATS_TALL: above the slab
+# route's cap of about 4,820 rows.
+ROWSTATS_SHAPES = ((9, 1001), (77, 1001), (1000, 1000), (77, 300_002),
+                   (1000, 1024), (77, 300_016))
+ROWSTATS_TALL = (6000, 1024)
+
+
+def _rowstats_inputs(gen, dtype, rows, d):
+    import torch
+
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (rows, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    else:
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    x[:, ::5] = 0
+    v = torch.randn((2, d), generator=gen, device="cuda")
+    w = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
+    g = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
+    return x, v, w, g
+
+
 def _small_rowstats(gen):
     """``row_stats_bundle`` against its plain version: dtype x bundle x
-    ragged rows, at an even and an odd width (the odd width loads element by
-    element), plus one wide matrix that walks many slabs per CTA."""
+    ragged rows on both of its routes (``rowstats:ring`` for rows that are
+    16-byte aligned, ``rowstats:slab`` for the rest; the route of every
+    call checked), each bundle launched twice and the two launches
+    bit-identical; a 6,000-row bf16 matrix on the ring route; a shared
+    weight vector (``gram_dot_shared``) against the same values passed as
+    two vectors, bit-identical; and the slab route's cap, which must raise
+    naming its cause."""
     import torch
 
     from blades_tpu_torch.ops import rowstats as rs
 
-    cases = 0
-    shapes = [(9, 1001), (77, 1001), (1000, 1000), (77, 300_002)]
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for rows, d in shapes:
-            if dtype == torch.int8:
-                x = torch.randint(-127, 128, (rows, d), generator=gen,
-                                  device="cuda", dtype=torch.int8)
-            else:
-                x = torch.randn((rows, d), generator=gen,
-                                device="cuda").to(dtype)
-            x[:, ::5] = 0
-            v = torch.randn((2, d), generator=gen, device="cuda")
-            w = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
-            g = torch.rand((2, rows), generator=gen, device="cuda") + 0.1
-            for bname, flags in ROWSTAT_BUNDLES.items():
-                kw = dict(sq=flags.get("sq", False),
-                          gram=flags.get("gram", False),
-                          signs=flags.get("signs", False),
-                          dots=v if flags.get("dots") else None,
-                          weights=w if flags.get("weights") else None,
-                          gram_dot=g if flags.get("gram_dot") else None)
-                got = rs.row_stats_bundle(x, **kw)
-                want = rs.row_stats_bundle_plain(x, **kw)
-                rowstats_agree(got, want, x, kw,
-                               f"row_stats_bundle {dtype} ({rows}, {d}) "
-                               f"{bname}")
-                cases += 1
+    cases = {"ring": 0, "slab": 0}
+    shapes = [(dt, rows, d) for dt in (torch.float32, torch.bfloat16,
+                                       torch.int8)
+              for rows, d in ROWSTATS_SHAPES]
+    shapes.append((torch.bfloat16,) + ROWSTATS_TALL)
+    for dtype, rows, d in shapes:
+        x, v, w, g = _rowstats_inputs(gen, dtype, rows, d)
+        route = "rowstats:ring" if _aligned16(x) else "rowstats:slab"
+        for bname, flags in ROWSTAT_BUNDLES.items():
+            kw = dict(sq=flags.get("sq", False),
+                      gram=flags.get("gram", False),
+                      signs=flags.get("signs", False),
+                      dots=v if flags.get("dots") else None,
+                      weights=w if flags.get("weights") else None,
+                      gram_dot=g if flags.get("gram_dot") else None)
+            what = f"row_stats_bundle {dtype} ({rows}, {d}) {bname}"
+            before = _rowstats_routes()
+            got = rs.row_stats_bundle(x, **kw)
+            _rowstats_took(before, route, what)
+            want = rs.row_stats_bundle_plain(x, **kw)
+            rowstats_agree(got, want, x, kw, what)
+            _same_outputs(got, rs.row_stats_bundle(x, **kw), f"{what}: two "
+                          "launches")
+            cases[route.split(":")[1]] += 1
+        if route == "rowstats:ring":
+            # GeoMed's bundle: one vector for wsum and gram_dot, the second
+            # gram_dot vector its own.
+            shared = rs.row_stats_bundle(x, weights=w, gram_dot=w,
+                                         gram_dot_shared=(0, 1))
+            apart = rs.row_stats_bundle(x, weights=w, gram_dot=w.clone())
+            _same_outputs(shared, apart, f"row_stats_bundle {dtype} ({rows}, "
+                          f"{d}): shared weight vectors against two passes")
+            mixed = rs.row_stats_bundle(x, sq=True, weights=w[:1],
+                                        gram_dot=torch.cat([w[:1], g[1:]]),
+                                        gram_dot_shared=(0, -1))
+            kw = dict(sq=True, weights=w[:1],
+                      gram_dot=torch.cat([w[:1], g[1:]]))
+            rowstats_agree(mixed, rs.row_stats_bundle_plain(x, **kw), x, kw,
+                           f"row_stats_bundle {dtype} ({rows}, {d}) one "
+                           "shared, one own gram_dot vector")
+        del x
+    # Unaligned rows above the slab route's cap raise, naming the cause.
+    x, _, w, _ = _rowstats_inputs(gen, torch.bfloat16, ROWSTATS_TALL[0], 1001)
+    try:
+        rs.row_stats_bundle(x, weights=w)
+        raise Failure("row_stats_bundle: 6000 unaligned rows did not raise")
+    except ValueError as e:
+        check("16-byte aligned" in str(e), f"slab cap message: {e}")
+    del x
     torch.cuda.synchronize()
-    log(f"small: {cases} row_stats_bundle kernel-vs-plain cases agree "
-        "(signs and int8 sq/gram exact)")
+    log(f"small: {cases['ring']} row_stats_bundle cases on rowstats:ring "
+        f"(including {ROWSTATS_TALL}) and {cases['slab']} on rowstats:slab "
+        "agree with the plain version (signs and int8 sq/gram exact), each "
+        "bit-identical over two launches; shared weight vectors "
+        "bit-identical to two passes; 6000 unaligned rows raise")
 
 
 def _gram_routes() -> dict:
@@ -1441,6 +1536,7 @@ ROWSTATS_SRC = "blades_tpu_torch/csrc/rowstats.cu"
 ROWSTATS_TPU = "blades_tpu/ops/pallas_rowstats.py:98"
 GRAM_RECORD = "row_stats_bundle:gram"
 GEOMED_RECORD = "row_stats_bundle:wsum+gram_dot"
+WSUM_RECORD = "row_stats_bundle:wsum"
 
 
 def _mm_ms(a):
@@ -1458,76 +1554,233 @@ def _mm_ms(a):
                  REPS)[0]
 
 
-def _bundle_records(gen, d):
-    """``row_stats_bundle`` at the row-geometry round's operand: the
-    ``(1000, d_alloc)`` bf16 buffer, zero past ``d``, read with ``d_true =
-    d``.  Multikrum's Gram bundle (its norms come from the round's in-place
-    pass; the TMA + wgmma route) and GeoMed's weighted sum + Gram-vector
-    product.  Beside the Gram: its old route on the unpadded ``(1000, d)``
-    matrix (``gram:mma``, the rows 4- but not 16-byte aligned) and
-    ``torch.mm`` on both operands."""
+def _round_buffer(gen, d):
+    """The row-geometry round's operand: the ``(1000, d_alloc)`` bf16
+    buffer, zero past ``d``, random updates of scale 1e-3 before it."""
     import torch
-
-    from blades_tpu_torch.ops import rowstats as rs
 
     n, d_alloc = 1000, -(-d // 512) * 512
     x = torch.zeros((n, d_alloc), dtype=torch.bfloat16, device="cuda")
     for r0 in range(0, n, 100):  # f32 draws a block of rows at a time
         x[r0:r0 + 100, :d] = (torch.randn((100, d), generator=gen,
                                           device="cuda") * 1e-3).to(x.dtype)
-    w = torch.full((1, n), 1.0 / n, device="cuda")
+    return x
+
+
+def _ring_bundles(x, d, gen):
+    """The four bundles the planner issues on the round's buffer, as
+    ``name -> (kwargs on x, kwargs on x[:, :d], operations, bytes)``:
+    GeoMed's / Centeredclipping's weighted sum + Gram-vector product of
+    one vector (the planner marks it shared), every defense's last
+    weighted sum, Signguard's sign counts and FLTrust's / Centeredclipping's
+    dots.  The operations are those of the function on the true width
+    (w^T X once for both, X t: 2 n d each; two compares a sign count; a
+    product and an add a dot); the bytes read X once, the vectors once,
+    and write the outputs."""
+    import torch
+
+    n = x.shape[0]
+    w = torch.rand((1, n), generator=gen, device="cuda") + 0.5
+    w = w / w.sum()
+    v = torch.zeros((1, x.shape[1]), device="cuda")
+    v[:, :d] = torch.randn((1, d), generator=gen, device="cuda") * 1e-3
+    vu = v[:, :d].contiguous()
+    xb = n * d * 2
+    return {
+        GEOMED_RECORD: (dict(weights=w, gram_dot=w, gram_dot_shared=(0,),
+                             d_true=d),
+                        dict(weights=w, gram_dot=w), 4 * n * d,
+                        xb + n * 4 + d * 4 + n * 4),
+        WSUM_RECORD: (dict(weights=w, d_true=d), dict(weights=w), 2 * n * d,
+                      xb + n * 4 + d * 4),
+        "row_stats_bundle:signs": (dict(signs=True, d_true=d),
+                                   dict(signs=True), 2 * n * d,
+                                   xb + n * 12),
+        "row_stats_bundle:dots": (dict(dots=v, d_true=d), dict(dots=vu),
+                                  2 * n * d, xb + d * 4 + n * 4),
+    }
+
+
+def _bundle_records(gen, d):
+    """``row_stats_bundle`` at the row-geometry round's operand: the
+    ``(1000, d_alloc)`` bf16 buffer, zero past ``d``, read with ``d_true =
+    d``.  Multikrum's Gram bundle (its norms come from the round's in-place
+    pass; the TMA + wgmma route), beside its old route on the unpadded
+    ``(1000, d)`` matrix (``gram:mma``, the rows 4- but not 16-byte
+    aligned) and ``torch.mm`` on both operands; then the four row-statistic
+    bundles the planner issues on ``rowstats:ring``, each beside
+    ``rowstats:slab`` on the unpadded matrix in the same call, and where
+    the ring's time goes (:func:`_ring_phases`)."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    n = 1000
+    x = _round_buffer(gen, d)
+    d_alloc = x.shape[1]
+    xu = x[:, :d].contiguous()
     records = {}
-    for name, kw in ((GRAM_RECORD, dict(gram=True, d_true=d)),
-                     (GEOMED_RECORD, dict(weights=w, gram_dot=w, d_true=d))):
-        before = _gram_routes()
+    kw = dict(gram=True, d_true=d)
+    before = _gram_routes()
+    got = rs.row_stats_bundle(x, **kw)
+    took = _gram_routes_since(before)
+    check(took == {"gram:wgmma": 1}, f"{GRAM_RECORD} (main shape): Gram "
+          f"routes {took}, expected {{'gram:wgmma': 1}}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = rs.row_stats_bundle_plain(x, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = rowstats_agree(got, want, x, kw, f"{GRAM_RECORD} (main shape)")
+    del got
+    ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)[0]
+    lib_ms = _mm_ms(x)
+    before = _gram_routes()
+    old = rs.row_stats_bundle(xu, gram=True)
+    took = _gram_routes_since(before)
+    check(took == {"gram:mma": 1}, f"{GRAM_RECORD} unpadded: Gram routes "
+          f"{took}, expected {{'gram:mma': 1}}")
+    old_err = rowstats_agree(old, want, x, kw,
+                             f"{GRAM_RECORD} old route (unpadded)")
+    del old, want
+    old_ms = timed(lambda: rs.row_stats_bundle(xu, gram=True), REPS)[0]
+    lib_old = _mm_ms(xu)
+    log(f"kernel {GRAM_RECORD}: gram:wgmma on ({n}, {d_alloc}) {ms:.3f} ms "
+        f"({_gram_rates(n, d_alloc, ms)}), torch.mm {lib_ms} ms; "
+        f"gram:mma on the unpadded ({n}, {d}) "
+        f"{old_ms:.3f} ms (max_abs_err {old_err:.3g}), torch.mm "
+        f"{lib_old} ms")
+    records[GRAM_RECORD] = _record(
+        GRAM_RECORD, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
+        n * d * 2 + n * n * 4, n * (n + 1) // 2 * d * 2, err, lib_ms,
+        ops_per_s=BF16_TENSOR_OPS_PER_S)
+
+    for name, (kw, kwu, ops, nbytes) in _ring_bundles(x, d, gen).items():
+        before = _rowstats_routes()
         got = rs.row_stats_bundle(x, **kw)
-        took = _gram_routes_since(before)
-        want_route = {"gram:wgmma": 1} if name == GRAM_RECORD else {}
-        check(took == want_route, f"{name} (main shape): Gram routes {took}, "
-              f"expected {want_route}")
+        _rowstats_took(before, "rowstats:ring", f"{name} (main shape)")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = rs.row_stats_bundle_plain(x, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = rowstats_agree(got, want, x, kw, f"{name} (main shape)")
+        _same_outputs(got, rs.row_stats_bundle(x, **kw),
+                      f"{name} (main shape): two launches")
         del got
         ms = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)[0]
-        if name == GRAM_RECORD:
-            lib_ms = _mm_ms(x)
-            xu = x[:, :d].contiguous()
-            before = _gram_routes()
-            old = rs.row_stats_bundle(xu, gram=True)
-            took = _gram_routes_since(before)
-            check(took == {"gram:mma": 1}, f"{name} unpadded: Gram routes "
-                  f"{took}, expected {{'gram:mma': 1}}")
-            old_err = rowstats_agree(old, want, x, kw,
-                                     f"{name} old route (unpadded)")
-            del old
-            old_ms = timed(lambda: rs.row_stats_bundle(xu, gram=True),
-                           REPS)[0]
-            lib_old = _mm_ms(xu)
-            del xu
-            log(f"kernel {name}: gram:wgmma on ({n}, {d_alloc}) {ms:.3f} ms "
-                f"({_gram_rates(n, d_alloc, ms)}), torch.mm {lib_ms} ms; "
-                f"gram:mma on the unpadded ({n}, {d}) "
-                f"{old_ms:.3f} ms (max_abs_err {old_err:.3g}), torch.mm "
-                f"{lib_old} ms")
-            records[name] = _record(
-                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
-                n * d * 2 + n * n * 4, n * (n + 1) // 2 * d * 2, err, lib_ms,
-                ops_per_s=BF16_TENSOR_OPS_PER_S)
-        else:
-            log(f"kernel {name}: library_ms null: no one PyTorch call "
-                "computes a weighted row sum and a Gram-vector product")
-            # w^T X (2nd), t = g^T X (2nd), X t (2nd), on the f32 cores.
-            records[name] = _record(
-                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
-                n * d * 2 + d * 4 + 3 * n * 4, 6 * n * d, err)
-        del want
+        before = _rowstats_routes()
+        old = rs.row_stats_bundle(xu, **kwu)
+        _rowstats_took(before, "rowstats:slab", f"{name} unpadded")
+        old_err = rowstats_agree(old, want, xu, kwu,
+                                 f"{name} old route (unpadded)")
+        del old, want
+        old_ms = timed(lambda: rs.row_stats_bundle(xu, **kwu), REPS)[0]
+        rec = _record(name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms, nbytes,
+                      ops, err)
+        log(f"kernel {name}: rowstats:ring on ({n}, {d_alloc}) {ms:.3f} ms "
+            f"({n * d_alloc * 2 / ms / 1e9:.2f} TB/s of rows read; bound "
+            f"{rec['bound_ms']:.3f} ms); rowstats:slab on the unpadded "
+            f"({n}, {d}) {old_ms:.3f} ms (max_abs_err {old_err:.3g}); "
+            f"plain {plain_ms:.1f} ms; library_ms null: no one PyTorch call "
+            "computes this bundle")
+        if name in (GEOMED_RECORD, WSUM_RECORD):
+            records[name] = rec
+    del xu
+    torch.cuda.empty_cache()
+    _ring_phases(x, d, gen)
     del x
     torch.cuda.empty_cache()
     return records
+
+
+def _ring_phases(x, d, gen):
+    """Where ``rowstats:ring``'s time goes on the round's buffer: device-only
+    ms of the ring's loads alone (one sweep, then GeoMed's two), the
+    weighted sum (the loads and the column pass) and GeoMed's bundle (and
+    its gram_dot sweep), each of those two also with its passes alone (on
+    whatever the ring holds, no loads)."""
+    from blades_tpu_torch.ops import _cuda
+
+    name = "rowstats:ring phases"
+    kws = _ring_bundles(x, d, gen)
+    wsum, geomed = kws[WSUM_RECORD][0], kws[GEOMED_RECORD][0]
+    cases = {
+        "loads": (wsum, 1),
+        "wsum passes": (wsum, 2),
+        "wsum": (wsum, 0),
+        "geomed loads": (geomed, 1),
+        "geomed passes": (geomed, 2),
+        "geomed": (geomed, 0),
+    }
+    ms = {k: timed(lambda kw=kw, p=p: _cuda.launch_rowstats(
+        name, x, probe=p, **kw), REPS)[0] for k, (kw, p) in cases.items()}
+    rate = x.numel() * 2 / ms["loads"] / 1e9
+    log(f"kernel {name} on {tuple(x.shape)}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; the loads alone read the rows at {rate:.2f} TB/s; geometry "
+        f"{_cuda.ring_plan(x.dtype, x.shape[0], 0, 1, 1, 1, False)}")
+
+
+# Geometries the ``ringsweep`` phase times: bytes a slab row, rows a group,
+# groups in flight.
+RING_SWEEP = dict(rowb=(128, 256, 512), gh=(64, 128, 256, 512),
+                  ahead=(1, 2, 3, 4))
+
+
+def phase_ringsweep(out_dir: str):
+    """``rowstats:ring`` across geometries on the round's buffer: the four
+    bundles of :func:`_ring_bundles`, each checked against the plain
+    version and timed device-only; the table goes to
+    ``out_dir/ringsweep.txt``, the fastest three of each bundle and the
+    default geometry's time to the log."""
+    import itertools
+
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import rowstats as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    d = RESNET10_D
+    x = _round_buffer(gen, d)
+    lines = []
+    # (R, U, G, KF, integer partials) of each bundle, for its plans.
+    shapes = {GEOMED_RECORD: (0, 1, 1, 1, False), WSUM_RECORD: (0, 1, 0, 0, False),
+              "row_stats_bundle:signs": (0, 0, 0, 0, True),
+              "row_stats_bundle:dots": (1, 0, 0, 1, False)}
+    for name, (kw, _, _, _) in _ring_bundles(x, d, gen).items():
+        want = rs.row_stats_bundle_plain(x, **kw)
+        rows, seen = [], set()
+        for rowb, gh, ahead in itertools.product(*RING_SWEEP.values()):
+            try:
+                plan = _cuda.ring_plan(x.dtype, x.shape[0], *shapes[name],
+                                       rowb=rowb, gh=gh, ahead=ahead)
+            except ValueError:  # two groups of this size do not fit
+                continue
+            if plan in seen:
+                continue
+            seen.add(plan)
+            geo = dict(rowb=rowb, gh=gh, ahead=ahead)
+            got = _cuda.launch_rowstats("ringsweep", x, geometry=geo, **kw)
+            rowstats_agree(got, want, x, kw, f"ringsweep {name} {plan}")
+            del got
+            ms = timed(lambda: _cuda.launch_rowstats(
+                "ringsweep", x, geometry=geo, **kw), REPS)[0]
+            rows.append((ms, plan))
+        rows.sort(key=lambda r: r[0])
+        for ms, plan in rows:
+            lines.append(f"{name} {ms:.4f} ms {plan}")
+        default = timed(lambda: rs.row_stats_bundle(x, **kw), REPS)[0]
+        log(f"ringsweep {name}: default geometry {default:.4f} ms; fastest "
+            + "; ".join(f"{ms:.4f} ms ({x.numel() * 2 / ms / 1e9:.2f} TB/s) "
+                        f"{plan}" for ms, plan in rows[:3]))
+        del want
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ringsweep.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    log(f"ringsweep: {len(lines)} geometries, table in "
+        f"{os.path.join(out_dir, 'ringsweep.txt')}")
 
 
 # (rows, d) beside the round's operand for the Gram's TMA + wgmma route:
@@ -1579,13 +1832,14 @@ def _gram_shapes():
 
 
 def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
-                    profile_to=None, aggregator="Median"):
+                    profile_to=None, aggregator="Median", tag=None):
     """Build the headline configuration at ``n`` clients (with
     ``aggregator`` in place of Median) and run ``rounds`` rounds; return
     the per-round losses, seconds, last metrics and the step.
     ``block``, ``hw`` and ``device`` shrink it for a rehearsal.  With
     ``profile_to`` (a directory) the last round runs under
-    ``torch.profiler`` and its kernel table is written there."""
+    ``torch.profiler`` and its kernel table is written there as
+    ``profile_<tag>.txt``."""
     import torch
 
     from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
@@ -1626,8 +1880,7 @@ def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
         secs.append(time.perf_counter() - t0)
         if prof is not None:
             prof.__exit__(None, None, None)
-            _write_profile(prof, secs[-1], profile_to,
-                           "main" if aggregator == "Median" else "rowgeom")
+            _write_profile(prof, secs[-1], profile_to, tag)
         losses.append(float(m["train_loss"]))
         check(math.isfinite(losses[-1]), f"round {r}: loss {losses[-1]}")
         check(math.isfinite(float(m["agg_norm"])),
@@ -1707,10 +1960,13 @@ def _write_profile(prof, wall_s, out_dir, tag):
 
 def phase_profile(out_dir: str):
     """One warm-up and one profiled round of the main path, then of the
-    row-geometry round (Multikrum)."""
-    _headline_round(1000, 250, 250, 2, profile_to=out_dir)
+    row-geometry round (Multikrum), then of a GeoMed round."""
+    _headline_round(1000, 250, 250, 2, profile_to=out_dir, tag="main")
     _headline_round(1000, 250, 250, 2, profile_to=out_dir,
-                    aggregator={"type": "Multikrum", "num_byzantine": 250})
+                    aggregator={"type": "Multikrum", "num_byzantine": 250},
+                    tag="rowgeom")
+    _headline_round(1000, 250, 250, 2, profile_to=out_dir,
+                    aggregator="GeoMed", tag="geomed")
 
 
 def phase_main():
@@ -1868,12 +2124,17 @@ def phase_rowgeom():
             aggregator={"type": "Multikrum", "num_byzantine": 250})
     launches = dict(_cuda.LAUNCHES)
     routes = _gram_routes()
+    rs_routes = _rowstats_routes()
     want_buf = [((1000, RESNET10_D_ALLOC), RESNET10_D)] * rounds
     check(spy.seen == want_buf, f"rowgeom: Multikrum buffers (shape, d) "
           f"{spy.seen}, expected {want_buf}")
     check(routes == {"gram:wgmma": rounds}, f"rowgeom: Multikrum Gram "
           f"routes {routes} over {rounds} rounds, expected "
           f"{{'gram:wgmma': {rounds}}}")
+    check(rs_routes == {"rowstats:ring": rounds}, f"rowgeom: Multikrum "
+          f"row-statistics routes {rs_routes} over {rounds} rounds, expected "
+          f"{{'rowstats:ring': {rounds}}} (the weighted sum; the Gram "
+          "bundle holds no row statistic)")
     check(step.passes.kernel_bundles == 2,
           f"rowgeom: Multikrum served {step.passes.kernel_bundles} bundles "
           "by the kernel, expected 2 (Gram, weighted sum)")
@@ -1888,6 +2149,7 @@ def phase_rowgeom():
           f"{m['hbm_passes_unfused']}, expected 3 / 3")
     check(int(m["elided_lanes"]) == 250, "rowgeom: elision did not engage")
     counts[GRAM_RECORD] = routes["gram:wgmma"]
+    counts[WSUM_RECORD] = rs_routes["rowstats:ring"]
     rps = ROWGEOM_ROUNDS / sum(secs[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"rowgeom: Multikrum(250), ALIE, bf16, 1000 clients: "
@@ -1895,7 +2157,8 @@ def phase_rowgeom():
         f"seconds {[round(t, 3) for t in secs]}, first is warm-up); "
         f"train_loss {losses}; row_stats_bundle launches "
         f"{launches['row_stats_bundle']} ({step.passes.kernel_bundles} per "
-        f"round; Gram {routes}), buffer {spy.seen[0][0]}, BN backward "
+        f"round; Gram {routes}, row statistics {rs_routes}), buffer "
+        f"{spy.seen[0][0]}, BN backward "
         f"launches {launches['bn_bwd_reduce']} + {launches['bn_bwd_dx']}; "
         f"hbm_passes {int(m['hbm_passes'])}; peak memory {peak:.2f} GiB")
 
@@ -1911,14 +2174,19 @@ def phase_rowgeom():
           f"{want} (1 + {iters} Weiszfeld iterations)")
     check(_gram_routes() == {}, f"rowgeom: GeoMed launched a Gram "
           f"{_gram_routes()}")
+    rs_routes = _rowstats_routes()
+    check(rs_routes == {"rowstats:ring": 1 + iters}, f"rowgeom: GeoMed "
+          f"row-statistics routes {rs_routes}, expected {{'rowstats:ring': "
+          f"{1 + iters}}} (1 + {iters} Weiszfeld iterations)")
     check(int(m["hbm_passes"]) == 102 and int(m["hbm_passes_unfused"]) == 203,
           f"rowgeom: GeoMed hbm_passes {m['hbm_passes']} / "
           f"{m['hbm_passes_unfused']}, expected 102 / 203")
-    counts[GEOMED_RECORD] = launches["row_stats_bundle"]
+    counts[GEOMED_RECORD] = rs_routes["rowstats:ring"]
     log(f"rowgeom: GeoMed, ALIE, bf16, 1000 clients: one round "
         f"{secs[0]:.3f} s ({1 / secs[0]:.4f} rounds/s), {iters} Weiszfeld "
         f"iterations, row_stats_bundle launches "
-        f"{launches['row_stats_bundle']}; train_loss {losses}; peak memory "
+        f"{launches['row_stats_bundle']} ({rs_routes}); train_loss "
+        f"{losses}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # The exact average-linkage loop (Clippedclustering) at 1000 clients:
@@ -2125,6 +2393,9 @@ def main(argv=None) -> int:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
         if "bnstages" in phases:
             run("bnstages", phase_bnstages)
+        if "ringsweep" in phases:
+            run("ringsweep", phase_ringsweep,
+                os.path.join(HERE, "chiprun_out"))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

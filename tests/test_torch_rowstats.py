@@ -121,3 +121,171 @@ def test_bad_bundles_raise():
         row_stats_bundle(x.double(), sq=True)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         _cuda.launch_rowstats("row_stats_bundle", x, sq=True)
+
+
+# ---- the ring route (rowstats_ring_kernel): route, plan, tall matrices ----
+
+
+@pytest.mark.parametrize("dtype,d,address,rows,route", [
+    (torch.bfloat16, 4_903_424, 0, 1000, "ring"),     # the padded round
+    (torch.bfloat16, 4_903_424, 0, 20_000, "ring"),   # no row cap
+    (torch.bfloat16, 1008, 1 << 20, 5000, "ring"),
+    (torch.bfloat16, 4_903_242, 0, 1000, "slab"),     # 9,806,484-byte rows
+    (torch.bfloat16, 1004, 0, 40, "slab"),            # 8-byte-aligned rows
+    (torch.bfloat16, 1008, 8, 40, "slab"),            # an unaligned base
+    (torch.float32, 1024, 0, 1000, "ring"),
+    (torch.float32, 1022, 0, 9, "slab"),
+    (torch.float32, 1024, 4, 9, "slab"),
+    (torch.int8, 1040, 16, 77, "ring"),               # the wire domain
+    (torch.int8, 1000, 0, 1000, "slab"),              # 1000 % 16 == 8
+])
+def test_rowstats_route_takes_ring_only_for_16_byte_aligned_rows(dtype, d,
+                                                                 address,
+                                                                 rows, route):
+    assert _cuda.rowstats_route(dtype, d, address, rows) == route
+
+
+# (R dots, U column-pass vectors, G gram_dot vectors, KF float partials,
+# integer partials) of the planner's bundles and of the widest smoke bundle.
+RING_BUNDLES = {
+    "geomed": (0, 1, 1, 1, False),
+    "wsum": (0, 1, 0, 0, False),
+    "signs": (0, 0, 0, 0, True),
+    "sq+dots": (1, 0, 0, 2, False),
+    "all": (2, 4, 2, 5, True),
+}
+
+
+@pytest.mark.parametrize("bundle", sorted(RING_BUNDLES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_ring_plan_fits_shared_memory_at_any_row_count(dtype, bundle):
+    """The mirror of the kernel's shared-memory layout stays under the
+    227 KB a block may use from 1 to 20,000 rows: past what fits, the
+    per-row partials move to global memory, never the cap."""
+    R, U, G, KF, want_ip = RING_BUNDLES[bundle]
+    esize = torch.empty((), dtype=dtype).element_size()
+    moved = False
+    for rows in range(1, 20_001):
+        p = _cuda.ring_plan(dtype, rows, R, U, G, KF, want_ip)
+        assert p.smem <= _cuda.RING_SMEM_CAP, (rows, p)
+        assert p.smem == _cuda.ring_smem(rows, esize, p.rowb, p.gh, p.ahead,
+                                         R, U, G, KF, want_ip, p.part_smem)
+        assert p.ahead >= 1
+        unit = 8 * 512 // (p.rowb // 16)  # kRgIlp sweeps of the block
+        assert p.gh % unit == 0 and p.gh >= unit
+        moved |= not p.part_smem
+    # 20,000 rows of partials never fit beside the ring (a weighted sum
+    # alone keeps none).
+    assert moved == bool(KF or want_ip)
+
+
+def test_plain_version_honours_the_shared_weight_map():
+    _, _, tx = _matrix("float32", seed=11)
+    _, w, g = _vectors(seed=12)
+    tw = torch.from_numpy(w)
+    gd = torch.stack([tw[0], torch.from_numpy(g)[1]])
+    shared = row_stats_bundle(tx, weights=tw, gram_dot=gd,
+                              gram_dot_shared=(0, -1))
+    apart = row_stats_bundle(tx, weights=tw, gram_dot=gd)
+    for k in apart:
+        assert torch.equal(shared[k], apart[k]), k
+    with pytest.raises(ValueError, match="gram_dot_shared"):
+        row_stats_bundle(tx, weights=tw, gram_dot=gd, gram_dot_shared=(2, -1))
+    with pytest.raises(ValueError, match="gram_dot_shared"):
+        row_stats_bundle(tx, weights=tw, gram_dot=gd, gram_dot_shared=(0,))
+
+
+TALL_N, TALL_D, TALL_C = 5000, 96, 40  # above the slab route's ~4,820 rows
+
+
+def _tall(dtype, seed):
+    rng = np.random.default_rng(seed)
+    b = (rng.normal(size=(TALL_N, TALL_D)) + 0.3).astype(np.float32)
+    b[:, ::7] = 0.0
+    b[-200:] = -3.0 * b[:200] + rng.normal(size=(200, TALL_D))
+    if dtype == "float32":
+        return jnp.asarray(b), torch.from_numpy(b)
+    return (jnp.asarray(b, jnp.bfloat16),
+            torch.from_numpy(b).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_5000_rows_geomed_matches_the_jax_planner(dtype):
+    """GeoMed over 5,000 rows, a height the JAX planner serves by its chunk
+    loop and the port's kernel route must serve too."""
+    from blades_tpu.ops import aggregators as JA
+    from blades_tpu.parallel import streamed_geometry as JG
+    from blades_tpu_torch.ops import aggregators as TA
+    from blades_tpu_torch.parallel import streamed_geometry as TG
+
+    jb, tb = _tall(dtype, seed=21)
+    ja, ta = JA.GeoMed(maxiter=5), TA.GeoMed(maxiter=5)
+    jrec, trec = JG.PassRecorder(), TG.PassRecorder()
+    jout, _, jsq = JG.aggregate_streamed(ja, jb, None, ja.init(TALL_D, TALL_N),
+                                         d_chunk=TALL_C, recorder=jrec)
+    tout, _, tsq = TG.aggregate_streamed(ta, tb, None, ta.init(TALL_D, TALL_N),
+                                         d_chunk=TALL_C, recorder=trec)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=TOL,
+                               atol=2e-5)
+    np.testing.assert_allclose(tsq.numpy(), np.asarray(jsq), rtol=1e-5)
+    assert (trec.executed, trec.unfused) == (jrec.executed, jrec.unfused)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_5000_rows_bundle_matches_the_jax_planner(dtype):
+    """A weighted sum + norms + sign counts bundle over 5,000 rows through
+    both planners."""
+    from blades_tpu.parallel import streamed_geometry as JG
+    from blades_tpu_torch.parallel import streamed_geometry as TG
+
+    jb, tb = _tall(dtype, seed=22)
+    w = np.random.default_rng(23).uniform(0.1, 1.0, TALL_N).astype(np.float32)
+    jp, tp = JG.PassPlanner(jb, TALL_C), TG.PassPlanner(tb, TALL_C)
+    jh = (jp.weighted_sum(jnp.asarray(w)), jp.sq_norms(), jp.sign_counts())
+    th = (tp.weighted_sum(torch.from_numpy(w)), tp.sq_norms(),
+          tp.sign_counts())
+    jp.execute()
+    tp.execute()
+    for j, t, name in zip(jh, th, ("wsum", "sq", "signs")):
+        got, want = t.value.numpy(), np.asarray(j.value)
+        assert got.shape == want.shape, name
+        if name == "signs":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["GeoMed", "Centeredclipping"])
+def test_planner_hands_a_shared_weight_vector_over_once(monkeypatch, name):
+    """GeoMed's and Centeredclipping's iterates ask for a weighted sum and a
+    Gram-vector product of ONE vector: the planner marks the gram_dot row
+    as that weights row (by identity, with no device sync), and the
+    aggregate is bit-identical to the one without the mark."""
+    from blades_tpu_torch.ops import aggregators as TA
+    from blades_tpu_torch.parallel import streamed_geometry as TG
+
+    _, tb = _tall("float32", seed=24)
+    tb = tb[:64]
+    real = TG.row_stats_bundle
+    seen = []
+
+    def spy(buf, **kw):
+        seen.append(kw.get("gram_dot_shared"))
+        return real(buf, **kw)
+
+    def strip(buf, **kw):
+        kw.pop("gram_dot_shared", None)
+        return real(buf, **kw)
+
+    outs = []
+    for fn in (spy, strip):
+        monkeypatch.setattr(TG, "row_stats_bundle", fn)
+        agg = (TA.GeoMed(maxiter=3) if name == "GeoMed"
+               else TA.Centeredclipping())
+        out, _, _ = TG.aggregate_streamed(agg, tb, None, agg.init(TALL_D, 64),
+                                          d_chunk=TALL_C)
+        outs.append(out)
+    assert (0,) in seen and all(s in (None, (0,)) for s in seen)
+    assert seen.count((0,)) >= (3 if name == "GeoMed" else 1)
+    assert torch.equal(outs[0], outs[1])
