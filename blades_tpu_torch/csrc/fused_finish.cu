@@ -1,14 +1,14 @@
 // Fused streamed-round finish and exact column order statistics for Hopper.
 //
-// One kernel source serves four wrappers (blades_tpu_torch/ops/):
+// One kernel source serves two wrappers (blades_tpu_torch/ops/):
 //
 //   fused_finish_compact  replaces blades_tpu/ops/pallas_round.py
 //                         _fused_finish_compact_jit / _compact_kernel
 //   fused_finish          replaces pallas_round.py fused_finish / _fused_kernel
-//   column_median         replaces blades_tpu/ops/pallas_select.py
-//                         column_median / _median_kernel
-//   column_trimmed_mean   replaces pallas_select.py column_trimmed_mean /
-//                         _trimmed_mean_kernel
+//
+// The column selects (pallas_select.py column_median / column_trimmed_mean)
+// have their own kernel, csrc/column_select.cu; chip_smoke.py still times
+// this source's bit-serial route on them beside it.
 //
 // What it computes, per column of a row-major (rows, d) matrix of bf16 or
 // f32 values: stripe-local sanitize (a row holding a non-finite value inside
@@ -31,8 +31,8 @@
 //  - radix (radix_kernel, below finish_kernel): bf16 rows that are 16-byte
 //    aligned, as the streamed round's padded buffer is.  Two 8-bit digit
 //    passes select the order statistics; see its own note.
-//  - bitserial (finish_kernel): f32 storage (the column selects, f32
-//    rounds) and unaligned bf16 rows.
+//  - bitserial (finish_kernel): f32 storage (f32 rounds) and unaligned
+//    bf16 rows.
 //
 // Bound on the H100: the bytes of one read of the matrix (bf16: 2 B per
 // element) against 3.35 TB/s, unless the radix select's compare-and-count

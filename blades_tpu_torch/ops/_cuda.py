@@ -11,9 +11,10 @@ it.
 ``LAUNCHES`` counts, per wrapper name, the kernel launches the wrappers
 made, and ``MAPS`` the BatchNorm-backward launches per (wrapper name,
 thread map), the Gram launches per (wrapper name, ``gram:`` + route), the
-row-statistics launches per (wrapper name, ``rowstats:`` + route) and the
-finish launches per (wrapper name, ``finish:`` + route);
-:func:`reset_launches` sets every count to 0.
+row-statistics launches per (wrapper name, ``rowstats:`` + route), the
+finish launches per (wrapper name, ``finish:`` + route) and the column
+selects per (wrapper name, ``select:radix``); :func:`reset_launches` sets
+every count to 0.
 """
 
 from __future__ import annotations
@@ -139,6 +140,11 @@ def library() -> ctypes.CDLL:
         lib.bt_gram_plan.restype = i
         lib.bt_gram.argtypes = [p, i, i, i, ll, i, i, i, ll, p, p, p]
         lib.bt_gram.restype = i
+        lib.bt_select_plan.argtypes = [i, ll, i, i, i, i, i, ip, ip]
+        lib.bt_select_plan.restype = i
+        lib.bt_select.argtypes = [p, i, ll, i, i, i, i, i, i, i, i, i, i, p,
+                                  p]
+        lib.bt_select.restype = i
         pp = ctypes.POINTER(ctypes.c_void_p)
         for fn in (lib.bt_bn_reduce, lib.bt_bn_dx, lib.bt_bn_bwd):
             fn.argtypes = [llp, pp, p]
@@ -268,6 +274,145 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
     LAUNCHES[name] += 1
     MAPS[name, "finish:" + route] += 1
     return agg_out, sq, bad.bool(), forged
+
+
+# ---- the column selects (csrc/column_select.cu) ----------------------------
+
+SELECT_AGGS = {"median": 1, "trimmed": 2}  # bt_select's agg codes
+SELECT_SMEM_CAP = 232_448  # kSmemCap in csrc/column_select.cu: 227 KB a block
+# kCols, kBins, kWarps, kFields, kList, kMaxAhead of the source.
+_SEL_COLS, _SEL_BINS, _SEL_WARPS, _SEL_FIELDS, _SEL_LIST = 32, 256, 16, 8, 16
+SELECT_MAX_AHEAD = 16
+SELECT_PACKED_ROWS = 65_536  # kPackedRows: fewer rows pack two counts a word
+SELECT_FEW_ROWS = 64  # kFewRows: up to this many rows, ranks by counting
+# The default geometry: rows per group, groups in flight, and the fewest
+# groups in flight a resident slab may leave (four 8 KB groups: 32 KB a CTA
+# in flight, about what one SM's share of HBM's rate needs).
+SELECT_GH, SELECT_AHEAD, SELECT_RESIDENT_AHEAD = 64, 8, 4
+
+
+class SelectPlan(NamedTuple):
+    """How ``select_kernel`` covers a ``(rows, d)`` f32 matrix: bytes per
+    ``cp.async`` (16, 8 or 4), rows per group, groups the ring holds,
+    groups in flight, whether every group of a slab stays in the ring
+    (``resident``; else each pass streams the slab again), and the dynamic
+    shared memory in bytes."""
+    vec: int
+    gh: int
+    stages: int
+    ahead: int
+    resident: int
+    smem: int
+
+
+def select_vec(d: int, address: int) -> int:
+    """Bytes per copy of ``select_kernel`` for f32 rows of ``d`` columns at
+    device ``address``: 16 when the rows are 16-byte aligned (``d % 4 ==
+    0`` and a 16-byte-aligned base), 8 when they are 8-byte aligned (``d``
+    even, as the dense ResNet-10 trial's ``d % 4 == 2``), else 4."""
+    if d % 4 == 0 and address % 16 == 0:
+        return 16
+    if d % 2 == 0 and address % 8 == 0:
+        return 8
+    return 4
+
+
+def select_smem(stages: int, gh: int, blocks: int = 0) -> int:
+    """Dynamic shared memory of ``select_kernel``, laid out as ``Layout``
+    of the source lays it out: ``stages`` groups of ``gh`` rows x 32 f32
+    columns, the 256-bin x 32-column histogram, two per-warp column
+    buffers, the per-column select state and, on the resident plan, two
+    candidate masks of ``blocks`` 32-row blocks x 32 columns and two short
+    key lists of 16 keys x 32 columns with their lengths."""
+    lists = 2 * _SEL_LIST + 2 if blocks else 0
+    return 4 * _SEL_COLS * (stages * gh + _SEL_BINS + 2 * _SEL_WARPS
+                            + _SEL_FIELDS + 2 * blocks + lists)
+
+
+def select_plan(rows: int, d: int, address: int, *, gh: int = SELECT_GH,
+                ahead: int = SELECT_AHEAD, resident=None) -> SelectPlan:
+    """The geometry of ``select_kernel`` for ``rows`` rows of ``d`` f32
+    columns at device ``address``: the copy width of :func:`select_vec`;
+    resident (the ring holds a slab's ``ceil(rows / gh)`` groups and
+    ``ahead`` more of the next slab, fewer where room is short) when at
+    least ``SELECT_RESIDENT_AHEAD`` groups in flight fit beside them and
+    the masks and lists (up to 1,152 rows at the defaults; up to 64 rows
+    in one group the kernel counts ranks and needs neither), else
+    streaming (a ring of ``ahead + 1`` groups).  ``resident`` True / False
+    asks for one.  A pure function of its arguments.  Raises only when a
+    ring of two groups of ``gh`` rows does not fit, or a resident slab is
+    asked for that does not fit: any row count has a plan at the default
+    ``gh``."""
+    if rows < 1 or d < 1:
+        raise ValueError(f"column select: need rows >= 1 and d >= 1, got "
+                         f"({rows}, {d})")
+    if not 1 <= ahead <= SELECT_MAX_AHEAD or gh < 1 or gh & (gh - 1):
+        raise ValueError(f"column select: ahead {ahead} outside 1.."
+                         f"{SELECT_MAX_AHEAD}, or gh {gh} not a power of two")
+    stage = 4 * _SEL_COLS * gh
+    ng, nb = -(-rows // gh), -(-rows // 32)
+    smax = (SELECT_SMEM_CAP - select_smem(0, gh)) // stage
+    if smax < 2:
+        raise ValueError(f"column select: groups of {gh} rows leave no room "
+                         "for a ring of two in 227 KB")
+    rmax = (SELECT_SMEM_CAP - select_smem(0, gh, nb)) // stage
+    fits = (ng + min(ahead, SELECT_RESIDENT_AHEAD) <= rmax
+            and rows < SELECT_PACKED_ROWS)
+    if resident is None:
+        resident = fits
+    elif resident and not fits:
+        raise ValueError(f"column select: {rows} rows in {ng} groups of {gh} "
+                         "do not stay resident in 227 KB")
+    if resident:
+        ahead = min(ahead, rmax - ng)
+        stages = ng + ahead
+        if rows <= min(SELECT_FEW_ROWS, gh):
+            nb = 0  # ranks by counting: no masks, no lists
+    else:
+        ahead, nb = min(ahead, smax - 1), 0
+        stages = ahead + 1
+    return SelectPlan(select_vec(d, address), gh, stages, ahead,
+                      int(resident), select_smem(stages, gh, nb))
+
+
+def launch_select(name: str, x: torch.Tensor, agg, *, geometry=None,
+                  probe: int = 0) -> torch.Tensor:
+    """Launch ``csrc/column_select.cu`` on the contiguous f32 ``x`` (rows,
+    d) and return the ``(d,)`` median (``agg=("median",)``) or trimmed mean
+    (``("trimmed", k)``) of its columns.  ``geometry`` (keywords of
+    :func:`select_plan`) and ``probe`` (1: the loads without the passes,
+    2: the passes without the loads; the result is then meaningless) serve
+    measurements.  Raises on a tensor the kernel does not take."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor")
+    if (x.dim() != 2 or not x.is_contiguous() or x.dtype != torch.float32
+            or x.shape[0] < 1):
+        raise ValueError(f"{name}: need a contiguous (rows >= 1, d) float32 "
+                         f"matrix, got {tuple(x.shape)} {x.dtype}")
+    rows, d = x.shape
+    k_cut = int(agg[1]) if agg[0] == "trimmed" else 0
+    plan = select_plan(rows, d, x.data_ptr(), **(geometry or {}))
+    lib = library()
+    dev = x.device
+    smem, grid = ctypes.c_int(), ctypes.c_int()
+    with _on_device(dev):
+        _check(lib, lib.bt_select_plan(rows, d, plan.vec, plan.gh,
+                                       plan.stages, plan.ahead, plan.resident,
+                                       ctypes.byref(smem), ctypes.byref(grid)),
+               f"{name}: no select geometry {plan} for ({rows}, {d})")
+        if smem.value != plan.smem:
+            raise RuntimeError(f"{name}: the kernel lays out {smem.value} "
+                               f"bytes, select_smem {plan.smem}")
+        out = torch.empty((d,), dtype=torch.float32, device=dev)
+        _check(lib, lib.bt_select(
+            x.data_ptr(), rows, d, plan.vec, plan.gh, plan.stages, plan.ahead,
+            plan.resident, SELECT_AGGS[agg[0]], k_cut, int(probe), smem.value,
+            grid.value, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream),
+            f"{name}: select launch failed")
+    LAUNCHES[name] += 1
+    MAPS[name, "select:radix"] += 1
+    return out
 
 
 def _weights(name, m, cols, dev):

@@ -2,10 +2,10 @@
 trimmed mean of an ``(n, d)`` matrix.
 
 Counterpart of ``blades_tpu/ops/pallas_select.py``.  On a CUDA tensor each
-function launches the kernel of ``csrc/fused_finish.cu`` with the forge and
-the row norms compiled out (built on first use) or raises; on a CPU tensor
-it runs its plain PyTorch version, which also serves as the kernel's
-yardstick on the card.
+function launches the radix select of ``csrc/column_select.cu``
+(``ops/_cuda.py::launch_select``, route ``select:radix``, any row count;
+built on first use) or raises; on a CPU tensor it runs its plain PyTorch
+version, which also serves as the kernel's yardstick on the card.
 
 Exactness: the selected values are exact order statistics of monotone keys
 (NaN of either sign sorts last and comes back as a canonical NaN), so the
@@ -49,9 +49,7 @@ def column_median(x: torch.Tensor) -> torch.Tensor:
         return column_median_plain(x)
     _check(x)
     x = x if x.dtype == torch.float32 else x.float()
-    out, _, _, _ = _cuda.launch_finish("column_median", x.contiguous(),
-                                       agg=("median",), want_sq=False)
-    return out
+    return _cuda.launch_select("column_median", x.contiguous(), ("median",))
 
 
 def _check_trim(x: torch.Tensor, k_cut: int) -> None:
@@ -78,6 +76,5 @@ def column_trimmed_mean(x: torch.Tensor, k_cut: int) -> torch.Tensor:
         return column_trimmed_mean_plain(x, k_cut)
     _check_trim(x, k_cut)
     x = x if x.dtype == torch.float32 else x.float()
-    out, _, _, _ = _cuda.launch_finish("column_trimmed_mean", x.contiguous(),
-                                       agg=("trimmed", k_cut), want_sq=False)
-    return out
+    return _cuda.launch_select("column_trimmed_mean", x.contiguous(),
+                               ("trimmed", k_cut))

@@ -15,8 +15,14 @@ Phases, each printing its lines before the last:
    their routes (bf16 rows of 3000 columns on the radix route, of 2999 on
    the bit-serial one, f32 on the bit-serial one; the route of every call
    checked) and on tie-heavy matrices (a few bf16 levels, signed zeros
-   and all-equal columns, exponents spread over 2**+-40) --
-   ``row_stats_bundle`` on a grid of
+   and all-equal columns, exponents spread over 2**+-40) -- the column
+   selects on their radix route (``select:radix``) at 1 to 6,000 rows
+   (the 64-row group and the last resident row count, each +-1) and 3000,
+   3002 and 2999 columns (16-, 8- and 4-byte copies; the route and copy
+   width of every call checked, two launches bit-identical; the median
+   bit-exact, the trimmed mean at cut 1 and (n-1)//2 within ``TRIM_TOL``)
+   on matrices with ties, NaN of both signs, +-inf, all-equal columns and
+   columns whose middle falls among NaNs -- ``row_stats_bundle`` on a grid of
    dtypes x bundles x ragged shapes on both row-statistics routes (the
    ring for 16-byte-aligned rows, 6,000 rows among them, the slab kernel
    for the rest; every call's route checked, two launches bit-identical,
@@ -36,7 +42,11 @@ Phases, each printing its lines before the last:
    shapes, with its time, the plain version's time and its bound; for the
    two finishes the padded ``(750, d_alloc)`` and ``(1000, d_alloc)``
    buffers on the radix route, with the bit-serial route on the unpadded
-   matrices beside them in the same call; for
+   matrices beside them in the same call; for the column selects the
+   ``(1000, 1 << 20)`` f32 matrix and the dense ResNet-10 trial's
+   ``(60, 4,903,242)`` one on ``select:radix``, each beside the bit-serial
+   ``finish_kernel`` and ``torch.quantile`` on the same matrix, with the
+   radix route's loads alone, passes alone and streaming plan; for
    ``row_stats_bundle`` the bundles of the row-geometry round on its
    padded ``(1000, d_alloc)`` buffer (the Multikrum Gram, with the old
    route on the unpadded matrix and ``torch.mm`` on both beside it, and
@@ -57,7 +67,7 @@ Phases, each printing its lines before the last:
    through the full fused finish on a ``(200, d_alloc)`` buffer, on the
    radix route.
 6. ``aggregators``: the ``Median`` and ``Trimmedmean`` aggregators on a
-   ``(1000, 1 << 20)`` f32 matrix, through the column-select kernels.
+   ``(1000, 1 << 20)`` f32 matrix, each through ``select:radix`` once.
 7. ``rowgeom``: the row-geometry round -- the ``main`` configuration with
    ``Multikrum(num_byzantine=250)`` in place of Median, one warm-up and 2
    timed rounds, then one round of ``GeoMed()`` -- through the pass
@@ -70,7 +80,8 @@ Phases, each printing its lines before the last:
 8. ``fedavg``: the Fedavg driver through ``FedavgConfig``: the dense
    ResNet-10 trial of ``fedavg_cifar10_resnet_noniid.yaml`` (60 clients,
    Dirichlet 0.1, 15 SignFlip then 15 LabelFlip, Median, f32, two local
-   steps, 3 rounds and an evaluation), the 1000-client streamed trial of
+   steps, 3 rounds and an evaluation; the Median on ``select:radix``
+   once a round), the 1000-client streamed trial of
    ``fedavg_cifar10_1000clients.yaml`` (ALIE, Median, bf16, 2 rounds and
    an evaluation), and the MLP accuracy check (test accuracy >= 0.9 after
    3 rounds); each prints rounds/s, losses, accuracy and peak memory.
@@ -466,29 +477,110 @@ def _small_finish_case(x, mal, noise, forge, agg, sanitize, bf16, route,
     return 2
 
 
+# (d, bytes per copy) of the column selects' small cases: f32 rows of 3000
+# columns are 16-byte aligned, of 3002 (d % 4 == 2, as the dense ResNet-10
+# trial's) 8-byte aligned, of 2999 only 4-byte aligned.
+SMALL_SELECT_D = ((3000, 16), (3002, 8), (2999, 4))
+
+
+def _select_rows():
+    """Row counts of the column selects' small cases: tiny, odd and even,
+    the 64-row group boundary +-1, the last row count the resident plan
+    takes and one more (the streaming plan), 1000, and 6,000 (above the
+    bit-serial kernel's cap of about 4,870)."""
+    from blades_tpu_torch.ops import _cuda
+
+    gh = _cuda.SELECT_GH
+    res = max(r for r in range(1, 4096)
+              if _cuda.select_plan(r, 8, 0).resident)
+    return (1, 2, 33, 34, gh - 1, gh, gh + 1, res, res + 1, 1000, 6000)
+
+
+def _select_matrix(gen, rows, d):
+    """Unit-scale draws in the first half of the columns, half-integer
+    levels (long duplicate runs across both cuts) in the second; NaN of
+    both signs and +-inf in a few rows, all-equal columns, a signed-zero
+    column, and columns whose middle falls among NaNs of either sign or
+    among -infs."""
+    import torch
+
+    x = torch.randn((rows, d), generator=gen, device="cuda")
+    x[:, d // 2:] = torch.round(x[:, d // 2:] * 2) / 2
+    h = rows // 2 + 1
+    nan = float("nan")
+    x[1 % rows, :40] = nan
+    x[3 % rows, 20:60] = -nan
+    x[4 % rows, 100:110] = float("inf")
+    x[0, 110:120] = -float("inf")
+    x[:, 130] = 0.375
+    x[:, 131] = -0.0
+    x[:h, 132] = 0.0
+    x[:h, 140] = -nan
+    x[:h, 141] = nan
+    x[:h, 142] = -float("inf")
+    x[:, 143] = -nan
+    x[:, d - 1] = 1.5  # the ragged last slab
+    return x.contiguous()
+
+
+def _select_took(before: dict, name: str, x, vec: int, what: str) -> None:
+    """The select launches since ``before``: ``select:radix`` once, on the
+    plan of ``vec``-byte copies for ``x``."""
+    from blades_tpu_torch.ops import _cuda
+
+    took = {k: v - before.get(k, 0) for k, v in _cuda.MAPS.items()
+            if v != before.get(k, 0)}
+    check(took == {(name, "select:radix"): 1},
+          f"{what}: select routes {took}, expected select:radix once")
+    plan = _cuda.select_plan(*x.shape, x.data_ptr())
+    check(plan.vec == vec, f"{what}: {plan.vec}-byte copies, expected {vec}")
+
+
+def _small_select(gen) -> int:
+    """Both column selects on ``select:radix`` against their plain
+    versions at every row count of :func:`_select_rows` and every width of
+    :data:`SMALL_SELECT_D`: the median bit-exact, the trimmed mean (cut 1
+    and ``(n-1)//2``) within ``TRIM_TOL``; each call's route and copy
+    width checked, and a second launch bit-identical to the first."""
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import column_select as cs
+
+    cases = 0
+    for rows in _select_rows():
+        for d, vec in SMALL_SELECT_D:
+            x = _select_matrix(gen, rows, d)
+            calls = [("column_median", cs.column_median,
+                      cs.column_median_plain)]
+            for k in sorted({1, (rows - 1) // 2}):
+                if 1 <= k and rows > 2 * k:
+                    calls.append((
+                        "column_trimmed_mean",
+                        lambda a, k=k: cs.column_trimmed_mean(a, k),
+                        lambda a, k=k: cs.column_trimmed_mean_plain(a, k)))
+            for name, fn, plain in calls:
+                tag = f"{name} rows={rows} d={d}"
+                before = dict(_cuda.MAPS)
+                got = fn(x)
+                _select_took(before, name, x, vec, tag)
+                same(fn(x), got, f"{tag}: two launches")
+                want = plain(x)
+                if name == "column_median":
+                    same(got, want, tag)
+                else:
+                    close(got, want, tag, rtol=TRIM_TOL, atol=TRIM_TOL)
+                cases += 1
+    log(f"small: {cases} column-select cases on select:radix (rows "
+        f"{_select_rows()}, d {[d for d, _ in SMALL_SELECT_D]}) agree with "
+        "the plain versions; two launches bit-identical")
+    return cases
+
+
 def phase_small():
     """Every wrapper against its plain version on small shapes."""
     import torch
 
-    from blades_tpu_torch.ops import column_select as cs
-
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = 3000  # six stripes, the last ragged
-    cases = _small_finish(gen) + _small_finish_rows(gen)
-    # Column selects: NaNs of both signs, ties across the cuts, odd/even n.
-    for rows in (33, 34):
-        x = torch.randn((rows, d), generator=gen, device="cuda")
-        x = torch.round(x * 2) / 2  # long duplicate runs
-        x[1, :40] = float("nan")
-        x[3, 20:60] = -float("nan")
-        x[4, 100:110] = float("inf")
-        same(cs.column_median(x), cs.column_median_plain(x),
-             f"column_median rows={rows}")
-        close(cs.column_trimmed_mean(x, 5),
-              cs.column_trimmed_mean_plain(x, 5),
-              f"column_trimmed_mean rows={rows}", rtol=TRIM_TOL,
-              atol=TRIM_TOL)
-        cases += 2
+    cases = _small_finish(gen) + _small_finish_rows(gen) + _small_select(gen)
     torch.cuda.synchronize()
     log(f"small: {cases} kernel-vs-plain cases agree")
     _small_rowstats(gen)
@@ -1451,7 +1543,6 @@ def phase_kernels():
     import torch
 
     from blades_tpu_torch.adversaries import ALIEAdversary
-    from blades_tpu_torch.ops import column_select as cs
     from blades_tpu_torch.ops import fused_finish as ff
 
     d = RESNET10_D
@@ -1488,38 +1579,11 @@ def phase_kernels():
     del x
     torch.cuda.empty_cache()
 
-    # 3-4. The column selects on a (1000, 1 << 20) f32 matrix.
-    x = torch.randn((1000, 1 << 20), generator=gen, device="cuda")
-    nbytes = 1000 * (1 << 20) * 4 + (1 << 20) * 4
-    # Per element: one compare for the median, a compare and an add for
-    # the trimmed mean.
-    for name, fn, plain, replaces, per_elem in (
-            ("column_median", cs.column_median, cs.column_median_plain,
-             "blades_tpu/ops/pallas_select.py:206", 1),
-            ("column_trimmed_mean", lambda a: cs.column_trimmed_mean(a, 250),
-             lambda a: cs.column_trimmed_mean_plain(a, 250),
-             "blades_tpu/ops/pallas_select.py:220", 2)):
-        got = fn(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = plain(x)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if name == "column_median":
-            err = same(got, want, f"{name} (main shape)")
-        else:
-            err = close(got, want, f"{name} (main shape)", rtol=TRIM_TOL,
-                        atol=TRIM_TOL)
-        ms = timed(lambda: fn(x), REPS)[0]
-        lib_ms = None
-        if name == "column_median":
-            # On NaN-free columns the midpoint median is the 0.5 quantile
-            # with linear interpolation: one PyTorch call, the yardstick.
-            lib_ms = timed(lambda: torch.quantile(x, 0.5, dim=0), REPS)[0]
-        records[name] = _record(name, SRC, replaces, ms, plain_ms, nbytes,
-                                per_elem * 1000 * (1 << 20), err, lib_ms)
-    del x
-    torch.cuda.empty_cache()
+    # 3-4. The column selects on a (1000, 1 << 20) f32 matrix (rows 16-byte
+    # aligned) and on the dense ResNet-10 trial's (60, 4,903,242) update
+    # matrix (d % 4 == 2: 8-byte copies).
+    records.update(_select_records(gen, 1000, 1 << 20, 16, ""))
+    records.update(_select_records(gen, 60, d, 8, ":dense_trial"))
     records.update(_bundle_records(gen, d))
     _gram_shapes()
     records.update(_bn_records(gen))
@@ -1530,6 +1594,90 @@ def phase_kernels():
             f"{'none' if lib is None else f'{lib:.3f} ms'}), max_abs_err "
             f"{r['max_abs_err']:.3g} vs plain")
     return records
+
+
+SELECT_SRC = "blades_tpu_torch/csrc/column_select.cu"
+SELECT_TPU = {"column_median": "blades_tpu/ops/pallas_select.py:206",
+              "column_trimmed_mean": "blades_tpu/ops/pallas_select.py:220"}
+
+
+def _select_records(gen, rows, d, vec, suffix):
+    """Both column selects on a ``(rows, d)`` f32 matrix: ``select:radix``
+    (``vec``-byte copies) against the plain version, timed beside the
+    bit-serial ``finish_kernel`` on the same matrix (checked too) and, for
+    the median, ``torch.quantile``; then the new kernel's time by part of
+    its work (``probe=1`` the loads alone, ``probe=2`` the passes alone)
+    and on the streaming plan where the resident one runs.  Returns the
+    records, named with ``suffix``, of the functions the main path runs
+    at this shape: both at (1000, 1 << 20), the median at the dense
+    trial's shape."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.ops import column_select as cs
+
+    x = torch.randn((rows, d), generator=gen, device="cuda")
+    nbytes = rows * d * 4 + d * 4
+    k = rows // 4
+    out = {}
+    for name, agg, fn, plain in (
+            ("column_median", ("median",), cs.column_median,
+             cs.column_median_plain),
+            ("column_trimmed_mean", ("trimmed", k),
+             lambda a: cs.column_trimmed_mean(a, k),
+             lambda a: cs.column_trimmed_mean_plain(a, k))):
+        tag = f"{name} ({rows}, {d})"
+        before = dict(_cuda.MAPS)
+        got = fn(x)
+        _select_took(before, name, x, vec, tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bits_fn = lambda: _cuda.launch_finish(  # noqa: E731
+            "finish:bitserial select", x, agg=agg, want_sq=False)[0]
+        old = bits_fn()
+        if name == "column_median":
+            err = same(got, want, tag)
+            same(old, want, f"{tag}, bit-serial")
+        else:
+            err = close(got, want, tag, rtol=TRIM_TOL, atol=TRIM_TOL)
+            close(old, want, f"{tag}, bit-serial", rtol=TRIM_TOL,
+                  atol=TRIM_TOL)
+        del want, old
+        ms = timed(lambda: fn(x), REPS)[0]
+        old_ms = timed(bits_fn, REPS)[0]
+        lib_ms = None
+        if name == "column_median":
+            # On NaN-free columns the midpoint median is the 0.5 quantile
+            # with linear interpolation: one PyTorch call, the yardstick.
+            lib_ms = timed(lambda: torch.quantile(x, 0.5, dim=0), REPS)[0]
+        plan = _cuda.select_plan(rows, d, x.data_ptr())
+        part = {p: timed(lambda p=p: _cuda.launch_select(
+            "select:radix phases", x, agg, probe=p), REPS)[0] for p in (1, 2)}
+        alt = ""
+        if plan.resident:
+            alt_ms = timed(lambda: _cuda.launch_select(
+                "select:radix phases", x, agg,
+                geometry=dict(resident=False)), REPS)[0]
+            alt = f", streaming plan {alt_ms:.3f} ms"
+        # Per element: at least one compare for the median, a compare and
+        # an add for the trimmed mean.
+        rec = _record(name + suffix, SELECT_SRC, SELECT_TPU[name], ms,
+                      plain_ms, nbytes, (1 if name == "column_median" else 2)
+                      * rows * d, err, lib_ms)
+        log(f"kernel {tag}: select:radix {ms:.3f} ms ({plan}), bit-serial "
+            f"{old_ms:.3f} ms, torch.quantile "
+            f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+            f"{rec['bound_ms']:.3f} ms; select:radix phases: loads alone "
+            f"{part[1]:.3f} ms ({rows * d * 4 / part[1] / 1e9:.2f} TB/s), "
+            f"passes alone {part[2]:.3f} ms{alt}")
+        if suffix == "" or name == "column_median":
+            out[name + suffix] = rec
+    del x
+    torch.cuda.empty_cache()
+    return out
 
 
 ROWSTATS_SRC = "blades_tpu_torch/csrc/rowstats.cu"
@@ -2047,6 +2195,10 @@ def phase_aggregators():
     counts = dict(_cuda.LAUNCHES)
     check(counts == {"column_median": 1, "column_trimmed_mean": 1},
           f"aggregators: launches {counts}")
+    routes = dict(_cuda.MAPS)
+    check(routes == {("column_median", "select:radix"): 1,
+                     ("column_trimmed_mean", "select:radix"): 1},
+          f"aggregators: routes {routes}, expected select:radix each once")
     check(bool(torch.isfinite(med).all() and torch.isfinite(tm).all()),
           "aggregators: non-finite aggregate")
     log(f"aggregators: Median and Trimmedmean launches {counts}")
@@ -2294,6 +2446,7 @@ def phase_fedavg():
     MLP accuracy check."""
     from blades_tpu_torch.ops import _cuda
 
+    dense = 0
     for adv in ("SignFlip", "LabelFlip"):
         _cuda.reset_launches()
         _, streamed = _fedavg_trial(
@@ -2307,6 +2460,12 @@ def phase_fedavg():
         check(not streamed and counts == want,
               f"fedavg {adv}: launches {counts}, expected {want} on the "
               "dense round")
+        selects = {k: v for k, v in _cuda.MAPS.items()
+                   if k[0] == "column_median"}
+        check(selects == {("column_median", "select:radix"): 3},
+              f"fedavg {adv}: column_median routes {selects}, expected "
+              "select:radix 3 times")
+        dense += 3
         log(f"fedavg {adv}: BN launches by thread map "
             f"{dict(_cuda.MAPS)}")
     _cuda.reset_launches()
@@ -2323,6 +2482,7 @@ def phase_fedavg():
     last, _ = _fedavg_trial("MLP x 6 ALIE Median", MLP_TRIAL, 3)
     check(last["test_acc"] >= MLP_MIN_ACC,
           f"fedavg MLP: test accuracy {last['test_acc']} < {MLP_MIN_ACC}")
+    return {"column_median:dense_trial": dense}
 
 
 def main(argv=None) -> int:
@@ -2388,7 +2548,7 @@ def main(argv=None) -> int:
         if "rowgeom" in phases:
             launches.update(run("rowgeom", phase_rowgeom))
         if "fedavg" in phases:
-            run("fedavg", phase_fedavg)
+            launches.update(run("fedavg", phase_fedavg))
         if "profile" in phases:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
         if "bnstages" in phases:
