@@ -1,5 +1,5 @@
-"""Adversaries: the update-forging attacks of the port (ALIE, IPM,
-Adaptive, MinMax, SignGuard, Attackclippedclustering) and the
+"""Adversaries: the update-forging attacks of the port (ALIE, IPM, Noise,
+Adaptive, MinMax, SignGuard, Lazy, Attackclippedclustering) and the
 training-corruption attacks (LabelFlip, SignFlip)."""
 
 import inspect
@@ -18,7 +18,9 @@ from blades_tpu_torch.adversaries.update_attacks import (  # noqa: F401
     ALIEAdversary,
     AttackclippedclusteringAdversary,
     IPMAdversary,
+    LazyAdversary,
     MinMaxAdversary,
+    NoiseAdversary,
     SignGuardAdversary,
 )
 
@@ -27,15 +29,17 @@ ADVERSARIES = {
     "IPM": IPMAdversary,
     "LabelFlip": LabelFlipAdversary,
     "SignFlip": SignFlipAdversary,
+    "Noise": NoiseAdversary,
     "Adaptive": AdaptiveAdversary,
     "MinMax": MinMaxAdversary,
     "SignGuard": SignGuardAdversary,
     "Attackclippedclustering": AttackclippedclusteringAdversary,
+    "Lazy": LazyAdversary,
 }
 # The reference's adversaries the port does not have yet, by either name.
-_LATER = {"Noise", "Lazy", "DiurnalALIE", "LazyRamp", "TopologyAttack",
-          "NoiseAdversary", "LazyAdversary", "DiurnalALIECampaign",
-          "LazyRampCampaign", "TopologyAttackAdversary"}
+_LATER = {"DiurnalALIE", "LazyRamp", "TopologyAttack",
+          "DiurnalALIECampaign", "LazyRampCampaign",
+          "TopologyAttackAdversary"}
 _ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
 
 

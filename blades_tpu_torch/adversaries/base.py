@@ -18,14 +18,15 @@ def make_malicious_mask(num_clients: int, num_byzantine: int,
 def benign_mean_std(updates: torch.Tensor, malicious: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and unbiased (ddof=1) std over benign rows.  Select-masked, so
-    a non-finite malicious row cannot reach the benign statistics."""
+    a non-finite malicious row cannot reach the benign statistics.  The
+    benign count stays on the device (no host sync)."""
     w = (~malicious).to(updates.dtype)
-    nb = max(float(w.sum()), 1.0)
+    nb = w.sum().clamp(min=1.0)
     zero = torch.zeros_like(updates)
     xs = torch.where(malicious[:, None], zero, updates)
     mean = xs.sum(0) / nb
     var = (torch.where(malicious[:, None], zero, (updates - mean) ** 2)
-           .sum(0) / max(nb - 1.0, 1.0))
+           .sum(0) / (nb - 1.0).clamp(min=1.0))
     return mean, torch.sqrt(var)
 
 

@@ -1,11 +1,12 @@
-"""Update-forging attacks (counterpart of the ALIE / IPM / Adaptive /
-MinMax / SignGuard / Attackclippedclustering subset of
+"""Update-forging attacks (counterpart of the ALIE / IPM / Noise /
+Adaptive / MinMax / SignGuard / Lazy / Attackclippedclustering subset of
 ``blades_tpu/adversaries/update_attacks.py``).
 
-Each reads the benign rows' statistics and writes one forged row into the
+Each reads the benign rows' statistics and writes forged rows into the
 malicious lanes.  Random inputs are arguments (``noise``: Adaptive's
-per-coordinate uniforms, SignGuard's ``(rank, uniforms)``), drawn by the
-caller from its generator, never inside a kernel.  ``shard`` (a
+per-coordinate uniforms, Noise's ``(rows, c)`` normals, Lazy's ``(lane
+scores, normals)``, SignGuard's ``(rank, uniforms)``), drawn by the
+caller from its generator when absent, never inside a kernel.  ``shard`` (a
 :class:`~blades_tpu_torch.ops.layout.ChunkInfo`) tells a coordinate-wise
 forge which global columns a column chunk holds.
 
@@ -111,6 +112,67 @@ class AdaptiveAdversary(Adversary):
             torch.where(mean > 0, torch.where(mn > 0, pos_pos, pos_neg),
                         mean))
         return self.scatter_forged(updates, forged, malicious)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseAdversary(Adversary):
+    """Pure Gaussian rows ``N(mean, std)``, independent per malicious lane
+    and coordinate.  ``noise`` is the ``(rows, c)`` standard normals;
+    without it they are drawn from ``generator``."""
+
+    mean: float = 0.1
+    std: float = 0.1
+
+    def on_updates_ready(self, updates, malicious, *, noise=None,
+                         generator=None, aggregator=None, shard=None):
+        del aggregator, shard
+        z = noise if noise is not None else torch.randn(
+            updates.shape, generator=generator, device=updates.device)
+        forged = self.mean + self.std * z.to(updates.dtype)
+        return torch.where(malicious[:, None], forged, updates)
+
+
+@dataclasses.dataclass(frozen=True)
+class LazyAdversary(Adversary):
+    """Lazy / free-riding clients (BLADE-FL): ``mode="copy"`` sends
+    ``copy_scale`` times the benign row of the highest lane score (one
+    victim a call) plus Gaussian camouflage of std ``noise_std``;
+    ``mode="replay"`` (in a synchronous round) scales the lane's own row
+    by ``copy_scale`` and adds the camouflage.  ``noise`` is ``(scores
+    (rows,) uniforms, (rows, c) standard normals)``; without it both are
+    drawn from ``generator``.  The streamed round has no formulation for
+    it, as in the JAX package."""
+
+    mode: str = "copy"
+    copy_scale: float = 1.0
+    noise_std: float = 1e-3
+
+    def __post_init__(self):
+        if self.mode not in ("copy", "replay"):
+            raise ValueError(
+                f"LazyAdversary mode must be 'copy' or 'replay', got "
+                f"{self.mode!r}")
+
+    @staticmethod
+    def draw(shape, generator, device=None):
+        """The attack's random inputs for ``(rows, c)`` updates."""
+        return (torch.rand((shape[0],), generator=generator, device=device),
+                torch.randn(shape, generator=generator, device=device))
+
+    def on_updates_ready(self, updates, malicious, *, noise=None,
+                         generator=None, aggregator=None, shard=None):
+        del aggregator, shard
+        scores, z = noise if noise is not None else self.draw(
+            updates.shape, generator, updates.device)
+        camo = self.noise_std * z.to(updates.dtype)
+        if self.mode == "copy":
+            neg_inf = torch.tensor(-math.inf, device=updates.device)
+            victim = torch.where(~malicious, scores.to(updates.device),
+                                 neg_inf).argmax()
+            forged = self.copy_scale * updates[victim][None, :] + camo
+        else:
+            forged = self.copy_scale * updates + camo
+        return torch.where(malicious[:, None], forged, updates)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,7 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (codecs, faults, DP, async, meshes, ...) raises
+have yet (codecs, faults, async, meshes, ...) raises
 ``NotImplementedError`` naming it when it is set to anything but the
 reference's default; an unknown key raises ``KeyError``.
 """
@@ -48,13 +48,14 @@ _FIELDS = {
     "execution": "auto", "client_block": 50, "d_chunk": 1 << 17,
     "update_dtype": "bfloat16", "health_check": False,
     "fltrust_root_size": 100,
+    # Per-client DP (FedavgDPConfig sets both from its privacy budget).
+    "dp_clip_threshold": None, "dp_noise_factor": None,
 }
 
 # The reference's other fields, with its defaults: setting one to another
 # value raises NotImplementedError (a later slice of the port).
 _LATER = {
     "clip_gradient_norm": None, "client_callbacks": None,
-    "dp_clip_threshold": None, "dp_noise_factor": None,
     "rounds_per_dispatch": 1, "chained_dispatch": False,
     "donate_buffers": True, "prefetch": "auto", "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
@@ -98,11 +99,14 @@ def _dataset_name(dataset) -> Optional[str]:
 class FedavgConfig:
     """Builder for :class:`~blades_tpu_torch.algorithms.fedavg.Fedavg`."""
 
+    # A subclass's own fields and their defaults (FedavgDPConfig's budget).
+    _EXTRA_FIELDS: Dict[str, Any] = {}
+
     def __init__(self, algo_class=None):
         from blades_tpu_torch.algorithms import fedavg as _fedavg
 
         self.algo_class = algo_class or _fedavg.Fedavg
-        for k, v in _FIELDS.items():
+        for k, v in {**_FIELDS, **self._EXTRA_FIELDS}.items():
             setattr(self, k, copy.deepcopy(v))
         self._frozen = False
         # Fields validate() inferred from the dataset, reset when the
@@ -118,7 +122,7 @@ class FedavgConfig:
                     f"config field {k!r} is not in the port yet (a later "
                     "slice)")
             return
-        if k not in _FIELDS:
+        if k not in _FIELDS and k not in self._EXTRA_FIELDS:
             raise KeyError(f"unknown config key {k!r}")
         if k == "dataset":
             if "input_shape" in self._inferred:
@@ -179,7 +183,7 @@ class FedavgConfig:
     # -- dict shim -----------------------------------------------------------
 
     def keys(self):
-        return list(_FIELDS)
+        return list(_FIELDS) + list(self._EXTRA_FIELDS)
 
     def __getitem__(self, k):
         return getattr(self, k)
@@ -248,6 +252,9 @@ class FedavgConfig:
         if self.client_block < 1:
             raise ValueError(f"client_block must be >= 1, got "
                              f"{self.client_block}")
+        if self.dp_clip_threshold is not None and self.dp_clip_threshold <= 0:
+            raise ValueError("dp_clip_threshold must be > 0, got "
+                             f"{self.dp_clip_threshold}")
         if (self.evaluation_num_samples is not None
                 and self.evaluation_num_samples < 1):
             raise ValueError("evaluation_num_samples must be >= 1 (or None "
@@ -308,7 +315,9 @@ class FedavgConfig:
             batch_size=self.train_batch_size,
             num_batches_per_round=self.num_batch_per_round,
             num_clients=self.num_clients, health_check=self.health_check,
-            client_block=self.client_block)
+            client_block=self.client_block,
+            dp_clip_threshold=self.dp_clip_threshold,
+            dp_noise_factor=self.dp_noise_factor)
 
     def build(self, device=None):
         """Validate, freeze and build the driver on ``device`` (``None`` =

@@ -10,17 +10,20 @@ def _fedavg():
     return Fedavg, FedavgConfig
 
 
-ALGORITHMS = {"FEDAVG": _fedavg}
-_LATER = {"FEDAVG_DP"}
+def _fedavg_dp():
+    from blades_tpu_torch.algorithms.fedavg import Fedavg
+    from blades_tpu_torch.algorithms.fedavg_dp import FedavgDPConfig
+
+    return Fedavg, FedavgDPConfig
+
+
+ALGORITHMS = {"FEDAVG": _fedavg, "FEDAVG_DP": _fedavg_dp}
 
 
 def get_algorithm_class(name: str, return_config: bool = False):
     """The driver class of ``name`` (with a fresh config when
     ``return_config``)."""
     key = name.upper()
-    if key in _LATER:
-        raise NotImplementedError(f"{name} is not in the port yet (a later "
-                                  "slice)")
     if key not in ALGORITHMS:
         raise KeyError(f"unknown algorithm {name!r}; known: "
                        f"{sorted(ALGORITHMS)}")

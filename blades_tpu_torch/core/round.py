@@ -1,7 +1,7 @@
 """The dense federated round (counterpart of ``blades_tpu/core/round.py``):
 
     sample batches -> local rounds of every client (vmapped client blocks)
-    -> health check -> adversary forge -> robust aggregate -> server step
+    -> health check -> DP -> adversary forge -> robust aggregate -> server step
 
 The ``(n, d)`` f32 update matrix is the round's one large buffer; clients
 train into it in blocks of ``client_block`` (all at once when None), which
@@ -11,11 +11,17 @@ momentum) lives in ``RoundState.client_opt`` and is carried across rounds.
 
 Every draw of a round comes from ONE ``torch.Generator`` in a fixed order:
 the batch indices, then per block the dropout masks and augmentation
-draws, then the forge's, the trusted update's and the aggregator's.  A
-caller that must reproduce another package's draws passes them in
-(``step_prebatched(..., dropout_masks=, aug_draws=)``).
+draws, then the DP noise, the forge's, the trusted update's and the
+aggregator's.  A caller that must reproduce another package's draws
+passes them in (``step_prebatched(..., dropout_masks=, aug_draws=,
+forge_noise=, dp_noise=)``).
 
-Client callbacks, codecs, faults, DP, forensics, lane packing and the
+Per-client DP (``dp_clip_threshold``, ``dp_noise_factor``) clips each row
+to the threshold and adds Gaussian noise of std ``noise_factor *
+threshold`` after the health check and before the forge, as the
+reference's DP client does in honest training.
+
+Client callbacks, codecs, faults, forensics, lane packing and the
 stateless or windowed client modes are not in the port yet
 (:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses them);
 the streamed round is :func:`blades_tpu_torch.parallel.streamed.streamed_step`.
@@ -34,6 +40,7 @@ from blades_tpu_torch.core.server import Server, ServerState
 from blades_tpu_torch.core.task import Hooks, Task
 from blades_tpu_torch.data.sampler import sample_client_batches
 from blades_tpu_torch.device import resolve_device
+from blades_tpu_torch.ops.layout import clip_rows_to_norm
 from blades_tpu_torch.utils.tree import FlatLayout
 
 
@@ -89,6 +96,10 @@ class FedRound:
     trusted_data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     # Clients per vmapped training block of the dense round (None = all).
     client_block: Optional[int] = None
+    # Per-client DP: clip each update row to this L2 norm, then add
+    # Gaussian noise of std dp_noise_factor * dp_clip_threshold.
+    dp_clip_threshold: Optional[float] = None
+    dp_noise_factor: Optional[float] = None
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
         """Fresh parameters from ``seed``, the server's initial state and
@@ -126,12 +137,16 @@ class FedRound:
 
     def step_prebatched(self, state: RoundState, bx, by, malicious,
                         generator=None, *, dropout_masks=None,
-                        aug_draws=None) -> Tuple[RoundState, dict]:
+                        aug_draws=None, forge_noise=None,
+                        dp_noise=None) -> Tuple[RoundState, dict]:
         """:meth:`step` with every client's batches already drawn: ``bx
         (n, num_batches, batch, ...)``, ``by (n, num_batches, batch)``.
         ``dropout_masks`` (one ``(n, num_batches, batch, width)`` keep-mask
         per dropout layer) and ``aug_draws`` (``(offsets (n, nb, B, 2),
-        flips (n, nb, B))``) replace those draws from ``generator``."""
+        flips (n, nb, B))``) replace those draws from ``generator``;
+        ``forge_noise`` (the adversary's ``noise=``) and ``dp_noise``
+        (``(k, d)`` standard normals, ``k`` the true federation size)
+        replace the finish's."""
         params = state.server.params
         dev = next(iter(params.values())).device
         if isinstance(generator, int):
@@ -162,19 +177,22 @@ class FedRound:
         if k is not None and k < n:  # ghost (padding) lanes
             updates, losses, malicious = updates[:k], losses[:k], malicious[:k]
         return self.finish_dense(state, updates, new_opt, losses, malicious,
-                                 generator)
+                                 generator, forge_noise=forge_noise,
+                                 dp_noise=dp_noise)
 
     def finish_dense(self, state: RoundState, updates, client_opt, losses,
-                     malicious, generator=None) -> Tuple[RoundState, dict]:
+                     malicious, generator=None, *, forge_noise=None,
+                     dp_noise=None) -> Tuple[RoundState, dict]:
         """The aggregation tail of :meth:`step_prebatched` over the
-        assembled ``(n, d)`` update matrix: health check, forge, trusted
-        row, robust aggregate, server step and the metrics."""
+        assembled ``(n, d)`` update matrix: health check, DP, forge,
+        trusted row, robust aggregate, server step and the metrics."""
         healthy = None
         if self.health_check:
             updates, healthy = sanitize_updates(updates)
+        updates = self.apply_dp(updates, dp_noise, generator)
         if forges(self.adversary):
             updates = self.adversary.on_updates_ready(
-                updates, malicious, generator=generator,
+                updates, malicious, noise=forge_noise, generator=generator,
                 aggregator=self.server.aggregator)
         trusted = self.compute_trusted_update(state.server.params, generator)
         server, agg = self.server.step(state.server, updates,
@@ -195,6 +213,22 @@ class FedRound:
             metrics["num_unhealthy"] = (~healthy).sum()
             metrics["round_ok"] = ok
         return RoundState(server=server, client_opt=client_opt), metrics
+
+    def apply_dp(self, updates, noise=None, generator=None):
+        """Per-client DP: clip each row of ``updates`` (n, d) to
+        ``dp_clip_threshold``, then add ``dp_noise_factor *
+        dp_clip_threshold`` times ``noise`` (``(n, d)`` standard normals,
+        drawn from ``generator`` when None).  The identity without DP.
+        Runs before the forge: malicious rows are overwritten after it."""
+        if self.dp_clip_threshold is None:
+            return updates
+        clipped = clip_rows_to_norm(updates, self.dp_clip_threshold)
+        if self.dp_noise_factor is not None:
+            sigma = self.dp_noise_factor * self.dp_clip_threshold
+            z = noise if noise is not None else torch.randn(
+                updates.shape, generator=generator, device=updates.device)
+            clipped = clipped + sigma * z.to(updates.device)
+        return clipped
 
     def compute_trusted_update(self, global_params, generator):
         """The server's local round on its root data (FLTrust's trusted

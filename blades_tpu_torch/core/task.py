@@ -147,6 +147,7 @@ class Task:
         aug_draws=None,
         out: Optional[torch.Tensor] = None,
         out_dtype: Optional[torch.dtype] = None,
+        sq_out: Optional[torch.Tensor] = None,
     ):
         """A client block's local rounds: ``(G, nb, B, ...)`` batches ->
         ``(updates (G, d), losses (G,), opt_state)``.
@@ -162,6 +163,9 @@ class Task:
         With ``out`` (a ``(G, d)`` view of the round's update buffer) the
         updates are written into it in place, leaf by leaf, and ``out`` is
         returned; this saves the block's f32 ``(G, d)`` concatenation.
+        With ``sq_out`` (a ``(G,)`` f32 tensor) each update's f32 squared
+        norm, taken before the cast to ``out``'s dtype, is added into it
+        leaf by leaf (what the streamed round's DP clip needs).
         """
         g_count, nb = batches_x.shape[:2]
         shape = (g_count, nb, batches_x.shape[2])
@@ -206,9 +210,11 @@ class Task:
                               dtype=out_dtype or torch.float32,
                               device=batches_x.device)
         for lf in layout.leaves:
-            upd = params[lf.name] - global_params[lf.name]
-            out[:, lf.offset:lf.offset + lf.size] = layout.flat_leaf(
-                lf, upd, batch_dims=1).to(out.dtype)
+            upd = layout.flat_leaf(
+                lf, params[lf.name] - global_params[lf.name], batch_dims=1)
+            if sq_out is not None:
+                sq_out += (upd * upd).sum(1)
+            out[:, lf.offset:lf.offset + lf.size] = upd.to(out.dtype)
         return out, torch.stack(losses, 1).mean(1), opt_state
 
     def local_round(self, global_params, batches_x, batches_y, *,

@@ -207,6 +207,48 @@ def finish_route(dtype: torch.dtype, d: int, address: int, rows: int) -> str:
     return "bitserial"
 
 
+BITSERIAL_THREADS = 256  # kThreads in csrc/fused_finish.cu
+BITSERIAL_COLS = (64, 32, 16, 8)  # pick_cols' slab widths, widest first
+BITSERIAL_TWO_CTA = 110 * 1024  # a slab this small leaves room for two CTAs
+BITSERIAL_SMEM_CAP = 226 * 1024  # the one-CTA cap of pick_cols
+
+
+def bitserial_smem(rows: int, cols: int, esize: int) -> int:
+    """Dynamic shared memory of ``finish_kernel`` over ``rows`` rows of a
+    ``cols``-column slab of ``esize``-byte elements, laid out as ``Smem``
+    lays it out: the slab (rows padded to an odd word stride), two int or
+    float arrays a row, the count and reduction buffers (4 and 3 words a
+    thread), the forged slab row and two byte arrays a row."""
+    stride = cols + 4 // esize
+    total = -(-rows * stride * esize // 16) * 16
+    total += 2 * rows * 4 + 7 * BITSERIAL_THREADS * 4 + cols * 4 + 2 * rows
+    return -(-total // 16) * 16
+
+
+def bitserial_plan(rows: int, esize: int) -> int:
+    """``pick_cols``: the widest slab whose shared memory leaves room for
+    two CTAs an SM, else 8 columns where they fit one CTA, else 0 (the
+    rows do not fit: ``bt_finish_plan`` refuses them)."""
+    for cols in BITSERIAL_COLS:
+        if bitserial_smem(rows, cols, esize) <= BITSERIAL_TWO_CTA:
+            return cols
+    return 8 if bitserial_smem(rows, 8, esize) <= BITSERIAL_SMEM_CAP else 0
+
+
+def finish_fits(dtype: torch.dtype, rows: int) -> bool:
+    """Whether the fused finish's kernel takes a ``(rows, d_alloc)``
+    buffer of ``dtype`` as the streamed round allocates it (``d_alloc`` a
+    multiple of 512 and a fresh, 16-byte-aligned allocation): on the
+    radix route, or else on the bit-serial one.  A pure function of shape
+    and dtype, the same on the CPU and on the card; the streamed round
+    sends every other buffer to its chunked finish."""
+    if finish_route(dtype, 512, 0, rows) == "radix":
+        return True
+    esize = 2 if dtype == torch.bfloat16 else 4
+    return dtype in (torch.float32, torch.bfloat16) and bitserial_plan(
+        rows, esize) > 0
+
+
 def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
                   mult: int = 0, forge=None, agg=("median",),
                   sanitize: bool = False, compact: bool = False,

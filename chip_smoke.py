@@ -85,23 +85,39 @@ Phases, each printing its lines before the last:
    ``fedavg_cifar10_1000clients.yaml`` (ALIE, Median, bf16, 2 rounds and
    an evaluation), and the MLP accuracy check (test accuracy >= 0.9 after
    3 rounds); each prints rounds/s, losses, accuracy and peak memory.
-9. ``profile`` (only when named): one more main-path round, one
+9. ``chunked``: the streamed round's chunked finish and its route gate:
+   the gate's Python plan mirrors against ``bt_finish_plan`` on both sides
+   of each cap (radix bf16 1,317 rows; bit-serial f32 4,874, bf16 7,473);
+   through ``FedavgConfig`` / ``FedavgDPConfig`` -> ``Fedavg.train()``, the
+   1000-client streamed trial with 250 ``Noise`` clients (elided) and the
+   same trial under DP (ALIE, epsilon 10), 2 rounds each, each round on
+   ``finish:chunked`` over the full ``(1000, d_alloc)`` buffer with
+   ``select:radix`` once per column chunk (38 a round) and the first round
+   bit-exact against the plain chunked finish; ``fedavg_dp.yaml``'s dense
+   MLP trial (60 clients, Mean, 3 rounds); an f32 streamed MLP round at
+   6,000 clients (above the old 4,874-row cap) on ``finish:chunked``,
+   bit-exact against its plain version; then, device-only, the chunked
+   finish's ms on the main buffer beside the fused full and compact
+   finishes, and one chunk's ``select:radix`` beside its plain version
+   and ``torch.quantile``.
+10. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-10. ``bnstages`` (only when named): the BN kernels alone at the four stage
+11. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-11. ``ringsweep`` (only when named): the row-statistics ring across
+12. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-8 (and before
-each round of phase 7 and each trial of phase 8) and read just after; a
+Launch counts are set to 0 just before each of phases 4-9 (and before
+each round of phase 7 and each trial of phases 8 and 9) and read just
+after; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
 three lines are the card (``nvidia-smi``), one JSON object with every
@@ -122,7 +138,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
-          "rowgeom", "fedavg")
+          "rowgeom", "fedavg", "chunked")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -2038,6 +2054,27 @@ def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
     return losses, secs, m, step
 
 
+def _busy_us(prof) -> float:
+    """Device busy time of a profile: the union of the device events'
+    intervals (events on different streams may overlap, so their sum can
+    exceed the wall)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    return busy_us
+
+
 def _write_profile(prof, wall_s, out_dir, tag):
     """Device time by kernel over one profiled round: the table goes to
     ``out_dir/profile_<tag>.txt``; the device's busy share and the time by
@@ -2057,20 +2094,7 @@ def _write_profile(prof, wall_s, out_dir, tag):
             events.append((us, e.count, e.key))
     events.sort(reverse=True)
     kernel_us = sum(us for us, _, _ in events)
-    # Busy time: the union of the device events' intervals (events on
-    # different streams may overlap, so the sum can exceed the wall).
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, cur_start, cur_end = 0.0, None, None
-    for a, b in spans:
-        if cur_end is None or a > cur_end:
-            if cur_end is not None:
-                busy_us += cur_end - cur_start
-            cur_start, cur_end = a, b
-        else:
-            cur_end = max(cur_end, b)
-    if cur_end is not None:
-        busy_us += cur_end - cur_start
+    busy_us = _busy_us(prof)
     kinds = {}
     for us, _, key in events:
         k = key.lower()
@@ -2396,18 +2420,21 @@ MLP_TRIAL = {
 MLP_MIN_ACC = 0.9
 
 
-def _fedavg_trial(name, overrides, rounds):
-    """Build the driver from ``overrides``, run ``rounds`` rounds (the last
-    one evaluates), print rounds/s, losses, accuracy and peak memory, and
-    return the last row."""
+def _fedavg_trial(name, overrides, rounds, config_cls=None, on_build=None):
+    """Build ``Fedavg`` from ``overrides`` (through ``config_cls``, default
+    ``FedavgConfig``), hand it to ``on_build`` before its first round, run
+    ``rounds`` rounds (the last one evaluates), print rounds/s, losses,
+    accuracy and peak memory, and return the last row."""
     import torch
 
     from blades_tpu_torch.algorithms import FedavgConfig
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    algo = FedavgConfig().update_from_dict(overrides).build()
+    algo = (config_cls or FedavgConfig)().update_from_dict(overrides).build()
     setup_s = time.perf_counter() - t0
+    if on_build is not None:
+        on_build(algo)
     rows, secs = [], []
     try:
         for _ in range(rounds):
@@ -2485,6 +2512,346 @@ def phase_fedavg():
     return {"column_median:dense_trial": dense}
 
 
+# The chunked finish's trials: fedavg_cifar10_1000clients.yaml's Median
+# point with the Noise forge of fedavg_cifar10_resnet_noniid.yaml:43
+# (elided, as ALIE is), and fedavg_dp.yaml's budget (epsilon 10, its middle
+# grid point) on the same 1000-client streamed configuration under ALIE.
+NOISE_TRIAL = {**STREAMED_TRIAL, "adversary_config": {"type": "Noise"}}
+DP_STREAMED_TRIAL = {**STREAMED_TRIAL, "dp_epsilon": 10.0, "dp_delta": 1e-6,
+                     "dp_clip_threshold": 1.0}
+# fedavg_dp.yaml at its epsilon-10, seed-121 point: MNIST, 60 clients, the
+# MLP, Mean, 3 rounds (its evaluation at round 3).
+DENSE_DP_TRIAL = {
+    "dataset_config": {"type": "mnist", "num_clients": 60, "seed": 121},
+    "global_model": "mlp", "evaluation_interval": 3, "dp_epsilon": 10.0,
+    "dp_delta": 1e-6, "dp_clip_threshold": 1.0,
+    "server_config": {"lr": 1.0, "aggregator": {"type": "Mean"}},
+}
+RESNET10_CHUNKS = -(-RESNET10_D // 131_072)  # 38 column chunks a round
+OLD_CAP_CLIENTS = 6_000  # f32 rows; the bit-serial finish takes 4,874
+
+
+class _ChunkedSpy:
+    """Wraps a streamed step's chunked finish (``step.finish``): records
+    each buffer's shape, hands every call a replayable draws provider
+    (chunk ``i``'s draws from a generator seeded by its kind and ``i``),
+    and keeps the first call's inputs and result for :meth:`check_plain`."""
+
+    KINDS = {"dp": 1, "noise": 2, "adaptive": 3}
+
+    def __init__(self, step):
+        self.step, self.real = step, step.finish
+        self.shapes, self.first = [], None
+        step.finish = self
+
+    def draws(self, kind, i, shape):
+        import torch
+
+        g = torch.Generator(device="cuda").manual_seed(
+            1000 * self.KINDS[kind] + i)
+        fn = torch.rand if kind == "adaptive" else torch.randn
+        return fn(shape, generator=g, device="cuda")
+
+    def __call__(self, server_state, buf, malicious, losses, row_norms=None,
+                 *, d=None, draws=None):
+        self.shapes.append(tuple(buf.shape))
+        out = self.real(server_state, buf, malicious, losses, row_norms,
+                        d=d, draws=self.draws)
+        if self.first is None:
+            self.first = ((server_state, buf, malicious, losses, row_norms),
+                          d, out)
+        return out
+
+    def check_plain(self, what):
+        """The first round's finish again on its buffer with the Median's
+        plain version in place of ``select:radix``: the server parameters
+        (``params + agg``) bit-exact, the metrics within ``RTOL``.  Returns
+        the seconds the plain finish took."""
+        import torch
+
+        from blades_tpu_torch.ops import aggregators
+        from blades_tpu_torch.ops.column_select import column_median_plain
+
+        args, d, (server, m) = self.first
+        kernel = aggregators.column_median
+        aggregators.column_median = column_median_plain
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pserver, pm = self.real(*args, d=d, draws=self.draws)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            aggregators.column_median = kernel
+        for k, v in server.params.items():
+            same(v, pserver.params[k], f"{what}: parameter {k} against the "
+                 "plain chunked finish")
+        for k in ("update_norm_mean", "agg_norm"):
+            close(m[k].reshape(1), pm[k].reshape(1), f"{what}: {k}")
+        self.first = None
+        return plain_s
+
+
+def _gate_vs_plan():
+    """The streamed round's route gate (``_cuda.finish_fits`` and its
+    Python mirrors of the two plans) against ``bt_finish_plan`` on both
+    sides of each cap: the radix route's 1,317 bf16 rows, the bit-serial
+    route's 4,874 f32 and 7,473 bf16 rows (slab width and shared memory
+    equal too)."""
+    import ctypes
+
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    cases = ([(torch.bfloat16, "radix", r) for r in (1316, 1317, 1318)]
+             + [(torch.float32, "bitserial", r)
+                for r in (4873, 4874, 4875, OLD_CAP_CLIENTS)]
+             + [(torch.bfloat16, "bitserial", r) for r in (7472, 7473, 7474)])
+    for dtype, route, rows in cases:
+        esize = 2 if dtype == torch.bfloat16 else 4
+        geom, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.bt_finish_plan(int(esize == 2), _cuda.FINISH_ROUTES[route],
+                                 rows, RESNET10_D_ALLOC, ctypes.byref(geom),
+                                 ctypes.byref(smem), ctypes.byref(grid))
+        if route == "radix":
+            fits = _cuda.radix_smem(rows, 2) <= _cuda.RADIX_SMEM_CAP
+        else:
+            cols = _cuda.bitserial_plan(rows, esize)
+            fits = cols > 0
+            if err == 0:
+                check(geom.value == cols and smem.value
+                      == _cuda.bitserial_smem(rows, cols, esize),
+                      f"gate: bit-serial plan at {rows} rows of {dtype}: "
+                      f"{geom.value} columns, {smem.value} B on the card, "
+                      f"{cols} / {_cuda.bitserial_smem(rows, cols, esize)} "
+                      "in Python")
+        check((err == 0) == fits, f"gate: {route} plan at {rows} rows of "
+              f"{dtype}: the card says {'fits' if err == 0 else 'no'} "
+              f"(error {err}), Python {'fits' if fits else 'no'}")
+    for dtype, last in ((torch.float32, 4874), (torch.bfloat16, 7473)):
+        check(_cuda.finish_fits(dtype, last)
+              and not _cuda.finish_fits(dtype, last + 1),
+              f"gate: finish_fits({dtype}) flips elsewhere than {last}")
+    log(f"chunked: the gate agrees with bt_finish_plan at {len(cases)} row "
+        "counts around the caps (radix bf16 1,317; bit-serial f32 4,874, "
+        "bf16 7,473)")
+
+
+def _chunked_counts(what, rounds, chunks, trained_blocks, bn_layers=12):
+    """The launches of ``rounds`` chunked rounds: ``select:radix`` once per
+    chunk, the BN pair per trained block and layer, no fused finish."""
+    from blades_tpu_torch.ops import _cuda
+
+    counts = dict(_cuda.LAUNCHES)
+    want = {"column_median": rounds * chunks}
+    if trained_blocks:
+        want.update({k: rounds * trained_blocks * bn_layers for k in BN_TPU})
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    routes = {k: v for k, v in _cuda.MAPS.items()
+              if k[0] == "column_median"}
+    check(routes == {("column_median", "select:radix"): rounds * chunks},
+          f"{what}: column_median routes {routes}, expected select:radix "
+          f"{rounds * chunks} times")
+    return counts["column_median"]
+
+
+def _chunked_trial(name, overrides, config_cls=None):
+    """One 1000-client ResNet-10 trial through ``Fedavg.train()``: 2
+    rounds, each on the chunked finish over the full (1000, d_alloc)
+    buffer, the first held against the plain chunked finish."""
+    from blades_tpu_torch.ops import _cuda
+
+    spies = []
+    _cuda.reset_launches()
+    _fedavg_trial(name, overrides, 2, config_cls,
+                  on_build=lambda algo: spies.append(
+                      (algo._step, _ChunkedSpy(algo._step))))
+    step, spy = spies[0]
+    # 750 trained clients in blocks of 25, 12 BN layers, 2 rounds.
+    n = _chunked_counts(f"chunked {name}", 2, RESNET10_CHUNKS, 30)
+    check(step.routes == {"chunked": 2},
+          f"chunked {name}: routes {dict(step.routes)}")
+    want = [(1000, RESNET10_D_ALLOC)] * 2
+    check(spy.shapes == want, f"chunked {name}: finish buffers "
+          f"{spy.shapes}, expected {want}")
+    plain_s = spy.check_plain(f"chunked {name}")
+    log(f"chunked {name}: finish:chunked twice, select:radix {n} launches "
+        f"({RESNET10_CHUNKS} a round); round 1 bit-exact against the plain "
+        f"chunked finish ({plain_s:.2f} s)")
+    return n
+
+
+def _old_cap_round():
+    """An f32 streamed round of 6,000 MLP clients (ALIE, Median, no
+    malicious prefix, so the buffer holds all 6,000 rows): above the
+    bit-serial finish's 4,874 f32 rows, where the round raised; it takes
+    the chunked finish and agrees with its plain version."""
+    import torch
+
+    from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel.streamed import streamed_step
+    from blades_tpu_torch.utils.tree import FlatLayout
+
+    n, f = OLD_CAP_CLIENTS, OLD_CAP_CLIENTS // 4
+    fr = FedRound(
+        task=TaskSpec(model="mlp", input_shape=(28, 28, 1)).build(),
+        server=Server.from_config("Median", num_byzantine=f, lr=1.0),
+        adversary=get_adversary("ALIE", num_clients=n, num_byzantine=f),
+        batch_size=8)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((n, 8, 28, 28, 1), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (n, 8), generator=gen, device="cuda")
+    state = fr.init(0, n)
+    d = FlatLayout(state.server.params).d
+    chunks = -(-d // 131_072)
+    step = streamed_step(fr, client_block=500, update_dtype=torch.float32,
+                         d_chunk=131_072)
+    spy = _ChunkedSpy(step)
+    check(not _cuda.finish_fits(torch.float32, n), "chunked: the gate "
+          f"takes {n} f32 rows on the fused kernel")
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, x, y, torch.full((n,), 8, device="cuda"),
+                    make_malicious_mask(n, f, device="cuda"), 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _chunked_counts("chunked old cap", 1, chunks, 0)
+    check(step.routes == {"chunked": 1} and spy.shapes == [
+        (n, -(-d // 512) * 512)], f"chunked old cap: routes "
+        f"{dict(step.routes)}, buffers {spy.shapes}")
+    check(math.isfinite(float(m["agg_norm"])), "chunked old cap: agg_norm "
+          f"{float(m['agg_norm'])}")
+    spy.check_plain("chunked old cap")
+    log(f"chunked: f32 MLP round at {n} clients (d = {d}, {chunks} chunks) "
+        f"on finish:chunked in {secs:.2f} s, select:radix {launches} "
+        "launches, bit-exact against the plain chunked finish")
+    return launches
+
+
+def _busy_ms(fn, reps: int = 3) -> float:
+    """Device busy ms per call of ``fn``, from ``torch.profiler`` over
+    ``reps`` calls after a warm-up call (for a function of more launches
+    than the launch queue holds, which :func:`timed` cannot put behind a
+    sleep)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = _busy_us(prof) / 1e3 / reps
+    check(busy > 0, "busy_ms: the profiler saw no device time")
+    return busy
+
+
+def _chunked_times(card):
+    """Device-only ms of the chunked finish beside the fused finishes on
+    the main path's buffer, and of one chunk's ``select:radix``; returns
+    the record of the per-chunk select."""
+    import torch
+
+    from blades_tpu_torch.adversaries import get_adversary
+    from blades_tpu_torch.core import FedRound, Server, TaskSpec
+    from blades_tpu_torch.ops import column_select as cs
+    from blades_tpu_torch.ops import fused_finish as ff
+    from blades_tpu_torch.parallel.streamed import (
+        generator_draws,
+        streamed_step,
+    )
+
+    d, n, f = RESNET10_D, 1000, 250
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    buf = _padded_rows(gen, n, d)
+    mal = torch.arange(n, device="cuda") < f
+    losses = torch.ones((n,), device="cuda")
+    task = TaskSpec(model="resnet", input_shape=(32, 32, 3),
+                    compute_dtype="bfloat16").build()
+    ms = {}
+    for adv in ("ALIE", "Noise"):
+        fr = FedRound(task=task, server=Server.from_config(
+            "Median", num_byzantine=f, lr=0.5),
+            adversary=get_adversary(adv, num_clients=n, num_byzantine=f))
+        state = fr.init(0, n)
+        step = streamed_step(fr, client_block=50, d_chunk=131_072)
+        draws = generator_draws(gen)
+
+        def fn(step=step, state=state, draws=draws):
+            return step.finish(state.server, buf, mal, losses, d=d,
+                               draws=draws)
+        ms[f"chunked {adv}"] = _busy_ms(fn)
+        ms[f"chunked {adv} (events, host gaps included)"] = timed(
+            fn, 3, syncs=True)[0]
+    z = get_adversary("ALIE", num_clients=n, num_byzantine=f).z_max
+    forge = ("alie", z)
+    ms["fused full ALIE"] = timed(lambda: ff.fused_finish(
+        buf, mal, forge=forge, agg=("median",)), REPS)[0]
+    ms["fused compact ALIE (750 rows)"] = timed(
+        lambda: ff.fused_finish_compact(buf[f:], forged_mult=f, forge=forge,
+                                        agg=("median",)), REPS)[0]
+    log(f"chunked: finish ms per round on the (1000, {RESNET10_D_ALLOC}) "
+        "bf16 buffer, Median, device-only (the chunked finish: device busy "
+        "under torch.profiler, its ~1,000 launches a call outrun the launch "
+        "queue that timed() needs; the fused finishes: timed()): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
+    # One chunk as the chunked finish hands it to the Median: a contiguous
+    # f32 (1000, 131072) copy.
+    chunk = torch.empty((n, 131_072), dtype=torch.float32, device="cuda")
+    chunk.copy_(buf[:, :131_072])
+    del buf
+    torch.cuda.empty_cache()
+    got = cs.column_median(chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cs.column_median_plain(chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = same(got, want, "chunked: column_median of one chunk")
+    sel_ms = timed(lambda: cs.column_median(chunk), REPS)[0]
+    lib_ms = timed(lambda: torch.quantile(chunk, 0.5, dim=0), REPS)[0]
+    rec = _record("column_median:chunked", SELECT_SRC,
+                  SELECT_TPU["column_median"], sel_ms, plain_ms,
+                  chunk.numel() * 4 + chunk.shape[1] * 4, chunk.numel(), err,
+                  lib_ms)
+    log(f"chunked: select:radix on one (1000, 131072) f32 chunk "
+        f"{sel_ms:.3f} ms (x {RESNET10_CHUNKS} = "
+        f"{sel_ms * RESNET10_CHUNKS:.1f} ms a round), plain {plain_ms:.1f} "
+        f"ms, torch.quantile {lib_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms"
+        f" [{card}]")
+    return rec
+
+
+def phase_chunked(card):
+    """The chunked finish (``step.finish``) and its route gate: the Noise
+    and DP trials at full width through ``Fedavg.train()``, the dense
+    FEDAVG_DP trial, the f32 round above the old row cap, the gate against
+    the card's plan, and the times."""
+    from blades_tpu_torch.algorithms import FedavgDPConfig
+    from blades_tpu_torch.ops import _cuda
+
+    _gate_vs_plan()
+    launches = _chunked_trial("ResNet-10 x 1000 Noise Median bf16",
+                              NOISE_TRIAL)
+    launches += _chunked_trial("ResNet-10 x 1000 ALIE Median bf16 DP eps 10",
+                               DP_STREAMED_TRIAL, FedavgDPConfig)
+    _cuda.reset_launches()
+    _, streamed = _fedavg_trial("FEDAVG_DP MLP x 60 Mean eps 10",
+                                DENSE_DP_TRIAL, 3, FedavgDPConfig)
+    check(not streamed and dict(_cuda.LAUNCHES) == {},
+          f"chunked dense DP: streamed={streamed}, launches "
+          f"{dict(_cuda.LAUNCHES)} (the MLP's Mean launches none)")
+    launches += _old_cap_round()
+    rec = _chunked_times(card)
+    return {"column_median:chunked": launches}, {rec["name"]: rec}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2549,6 +2916,10 @@ def main(argv=None) -> int:
             launches.update(run("rowgeom", phase_rowgeom))
         if "fedavg" in phases:
             launches.update(run("fedavg", phase_fedavg))
+        if "chunked" in phases:
+            counts, recs = run("chunked", phase_chunked, card)
+            launches.update(counts)
+            records.update(recs)
         if "profile" in phases:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
         if "bnstages" in phases:

@@ -100,7 +100,7 @@ def test_client_momentum_and_training_attacks_run_dense():
     ({"num_devices": 4}, NotImplementedError),
     ({"client_config": {"clip_gradient_norm": 1.0}}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
-    ({"adversary_config": {"type": "Noise"}}, NotImplementedError),
+    ({"adversary_config": {"type": "DiurnalALIE"}}, NotImplementedError),
     ({"global_model": "cct"}, NotImplementedError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),
@@ -139,8 +139,9 @@ def test_reference_defaults_of_later_fields_are_accepted():
         FedavgConfig().update_from_dict(
             {**MLP_RUN, "execution": "streamed",
              "client_config": {"momentum": 0.9}}).validate()
-    with pytest.raises(NotImplementedError):
-        get_algorithm_class("FEDAVG_DP")
+    cls, cfg = get_algorithm_class("FEDAVG_DP", return_config=True)
+    assert cls is get_algorithm_class("FEDAVG")
+    assert (cfg.dp_clip_threshold, cfg.dp_epsilon) == (1.0, 1.0)
 
 
 def test_driver_needs_the_card_unless_cpu_is_asked(monkeypatch):

@@ -74,22 +74,37 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    from blades_tpu_torch.adversaries import get_adversary
+    """The campaign adversaries and streamed client momentum still name
+    the later slice; Noise, Lazy and ghost lanes on the streamed
+    coordinate-wise round (the chunked finish) run now."""
+    from blades_tpu_torch.adversaries import (
+        LazyAdversary,
+        NoiseAdversary,
+        get_adversary,
+    )
     from blades_tpu_torch.core import FedRound, Server, TaskSpec
     from blades_tpu_torch.parallel.streamed import streamed_step
 
     task = TaskSpec(model="mlp", input_shape=(4, 4, 1)).build()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_adversary("Noise")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_adversary("Lazy")
+    for name in ("DiurnalALIE", "LazyRamp", "TopologyAttack"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            get_adversary(name)
+    assert isinstance(get_adversary("Noise"), NoiseAdversary)
+    assert get_adversary({"type": "Lazy", "mode": "replay"}).mode == "replay"
+    assert isinstance(get_adversary("LazyAdversary"), LazyAdversary)
     fr = FedRound(task=task, server=Server.from_config("Median"),
                   num_clients=3)
     step = streamed_step(fr, client_block=2, device="cpu")
     x = torch.zeros(4, 2, 4, 4, 1)
+    _, m = step(fr.init(0, 4, device="cpu"), x, torch.zeros(4, 2).long(),
+                torch.full((4,), 2), torch.zeros(4, dtype=torch.bool), 0)
+    assert step.routes == {"chunked": 1} and int(m["round"]) == 1
+    momentum = TaskSpec(model="mlp", input_shape=(4, 4, 1),
+                        momentum=0.9).build()
     with pytest.raises(NotImplementedError, match="later slice"):
-        step(fr.init(0, 4, device="cpu"), x, torch.zeros(4, 2).long(),
-             torch.full((4,), 2), torch.zeros(4, dtype=torch.bool), 0)
+        streamed_step(FedRound(task=momentum,
+                               server=Server.from_config("Median")),
+                      client_block=2, device="cpu")
 
 
 def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
