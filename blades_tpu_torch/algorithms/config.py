@@ -20,6 +20,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 from blades_tpu_torch.adversaries import get_adversary
+from blades_tpu_torch.core.callbacks import ClippingCallback, get_callback
 from blades_tpu_torch.core.round import FedRound
 from blades_tpu_torch.core.server import Server
 from blades_tpu_torch.core.task import TaskSpec
@@ -39,6 +40,9 @@ _FIELDS = {
     "global_model": "mlp", "num_classes": 10, "input_shape": None,
     "client_lr": 0.1, "client_momentum": 0.0, "num_batch_per_round": 1,
     "train_batch_size": 32,
+    # Benign gradient clipping and the client callback chain ({"type":
+    # ...} specs), composed before the adversary's hooks.
+    "clip_gradient_norm": None, "client_callbacks": None,
     "aggregator": {"type": "Mean"}, "server_lr": 0.1, "server_momentum": 0.0,
     "server_dampening": 0.0, "server_weight_decay": 0.0, "lr_schedule": None,
     "num_malicious_clients": 0, "adversary_config": None,
@@ -48,6 +52,9 @@ _FIELDS = {
     "execution": "auto", "client_block": 50, "d_chunk": 1 << 17,
     "update_dtype": "bfloat16", "health_check": False,
     "fltrust_root_size": 100,
+    # FL rounds per train() call (one result row); each round draws from
+    # its own round seed, so the chained and unchained forms are one.
+    "rounds_per_dispatch": 1, "chained_dispatch": False,
     # Per-client DP (FedavgDPConfig sets both from its privacy budget).
     "dp_clip_threshold": None, "dp_noise_factor": None,
 }
@@ -55,8 +62,6 @@ _FIELDS = {
 # The reference's other fields, with its defaults: setting one to another
 # value raises NotImplementedError (a later slice of the port).
 _LATER = {
-    "clip_gradient_norm": None, "client_callbacks": None,
-    "rounds_per_dispatch": 1, "chained_dispatch": False,
     "donate_buffers": True, "prefetch": "auto", "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
     "client_packing": "off", "state_store": "resident", "state_window": None,
@@ -160,8 +165,11 @@ class FedavgConfig:
             num_batch_per_round=num_batch_per_round,
             train_batch_size=train_batch_size)
 
-    def client(self, *, lr=None, momentum=None):
-        return self._set(client_lr=lr, client_momentum=momentum)
+    def client(self, *, lr=None, momentum=None, clip_gradient_norm=None,
+               callbacks=None):
+        return self._set(client_lr=lr, client_momentum=momentum,
+                         clip_gradient_norm=clip_gradient_norm,
+                         client_callbacks=callbacks)
 
     def adversary(self, *, num_malicious_clients=None, adversary_config=None):
         return self._set(num_malicious_clients=num_malicious_clients,
@@ -249,6 +257,9 @@ class FedavgConfig:
                              f"'float32', got {self.compute_dtype!r}")
         if self.d_chunk < 1024:
             raise ValueError(f"d_chunk must be >= 1024, got {self.d_chunk}")
+        if int(self.rounds_per_dispatch) < 1:
+            raise ValueError("rounds_per_dispatch must be >= 1, got "
+                             f"{self.rounds_per_dispatch}")
         if self.client_block < 1:
             raise ValueError(f"client_block must be >= 1, got "
                              f"{self.client_block}")
@@ -261,6 +272,7 @@ class FedavgConfig:
                              "for the full per-client shard), got "
                              f"{self.evaluation_num_samples}")
         self.get_adversary()  # an attack the port lacks fails here
+        self.get_client_callbacks()  # so does an unknown callback
 
     def freeze(self) -> None:
         self._frozen = True
@@ -289,6 +301,14 @@ class FedavgConfig:
             weight_decay=self.server_weight_decay,
             lr_schedule_points=self.lr_schedule)
 
+    def get_client_callbacks(self) -> tuple:
+        """The callback chain: the ``client_callbacks`` specs, then a
+        :class:`ClippingCallback` when ``clip_gradient_norm`` is set."""
+        cbs = [get_callback(s) for s in (self.client_callbacks or [])]
+        if self.clip_gradient_norm:
+            cbs.append(ClippingCallback(float(self.clip_gradient_norm)))
+        return tuple(cbs)
+
     def get_adversary(self):
         return get_adversary(
             self.adversary_config, num_clients=self.num_clients,
@@ -316,6 +336,7 @@ class FedavgConfig:
             num_batches_per_round=self.num_batch_per_round,
             num_clients=self.num_clients, health_check=self.health_check,
             client_block=self.client_block,
+            client_callbacks=self.get_client_callbacks(),
             dp_clip_threshold=self.dp_clip_threshold,
             dp_noise_factor=self.dp_noise_factor)
 

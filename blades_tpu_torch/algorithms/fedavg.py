@@ -1,7 +1,10 @@
 """Fedavg driver (counterpart of ``blades_tpu/algorithms/fedavg.py``).
 
-``train()`` runs one round and returns the result row, with the periodic
-evaluation folded in; ``evaluate()`` is the weighted per-client evaluation.
+``train()`` runs one dispatch of ``rounds_per_dispatch`` rounds and returns
+its result row, with the periodic evaluation folded in (``train_raw()`` /
+``finalize_row()`` split off the fetch of the metrics);
+``evaluate()`` is the weighted per-client evaluation;
+``save_checkpoint()`` / ``load_checkpoint()`` hold the resident state.
 Setup builds the dataset (numpy, then onto the device), the malicious mask
 (the first ``num_malicious_clients`` lanes), the initial state, and picks
 the round: the dense :meth:`FedRound.step`, or the streamed round
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -36,6 +40,8 @@ from blades_tpu_torch.parallel.streamed_geometry import (
     STREAMED_ROW_AGGREGATORS,
     STREAMED_ROW_FORGERS,
 )
+from blades_tpu_torch.utils.async_metrics import DEVICE_METRICS_KEY
+from blades_tpu_torch.utils.async_metrics import fetch as fetch_tree
 from blades_tpu_torch.utils.timers import Timers
 from blades_tpu_torch.utils.tree import FlatLayout
 
@@ -93,6 +99,7 @@ class Fedavg:
         else:
             self._step = self.fed_round.step
         self.timers = Timers(sync=dev.type == "cuda")
+        self._chunk = max(1, int(cfg.rounds_per_dispatch))
         self._iteration = 0
         self._rounds_since_eval = 0
         self._last_eval: Dict = {}
@@ -195,26 +202,36 @@ class Fedavg:
         return self._streamed
 
     def train(self) -> Dict:
-        """One round, plus the evaluation when its interval is due; returns
-        the result row."""
-        seed = self.round_seed(self._iteration)
+        """One dispatch (``rounds_per_dispatch`` FL rounds, 1 by default),
+        plus the evaluation when its cadence is due; returns the result
+        row."""
+        return self.finalize_row(self.train_raw())
+
+    def train_raw(self) -> Dict:
+        """:meth:`train` without the fetch of the round's scalar metrics:
+        they stay device tensors under ``DEVICE_METRICS_KEY`` until
+        :meth:`finalize_row` (or
+        :func:`~blades_tpu_torch.utils.async_metrics.flush_rows`, which
+        batches the copy over rows) turns the row into its host form.  On
+        the card the ``training_step`` timer still syncs the device at the
+        end of the dispatch, so deferring saves copies, not syncs."""
+        raw = {}
         with self.timers.time("training_step"):
-            self.state, m = self._step(self.state, *self._train,
-                                       self.malicious, seed)
-            metrics = {k: (v.item() if torch.is_tensor(v) else v)
-                       for k, v in m.items()}
-        self._iteration += 1
-        self._rounds_since_eval += 1
+            # Each round draws from its own round seed, so K rounds of one
+            # dispatch are exactly K single-round dispatches.
+            for _ in range(self._chunk):
+                seed = self.round_seed(self._iteration)
+                self.state, m = self._step(self.state, *self._train,
+                                           self.malicious, seed)
+                self._iteration += 1
+                for k, v in m.items():
+                    raw.setdefault(k, []).append(v)
+        self._rounds_since_eval += self._chunk
         row = {"training_iteration": self._iteration,
+               DEVICE_METRICS_KEY: raw,
                "timers": self.timers.summary()}
-        for k in ("train_loss", "agg_norm", "update_norm_mean"):
-            row[k] = float(metrics[k])
-        for k in ("hbm_passes", "hbm_passes_unfused", "elided_lanes"):
-            if k in metrics:
-                row[k] = int(metrics[k])
-        if self.config.health_check:
-            row["num_unhealthy"] = int(metrics["num_unhealthy"])
-            row["round_ok"] = bool(metrics["round_ok"])
+        # The rounds-since-eval cadence: a rounds_per_dispatch that does
+        # not divide the interval still evaluates.
         if (self.config.evaluation_interval
                 and self._rounds_since_eval >= self.config.evaluation_interval):
             self._rounds_since_eval = 0
@@ -222,6 +239,61 @@ class Fedavg:
         elif self._last_eval:
             row.update(self._last_eval)
         return row
+
+    def finalize_row(self, row: Dict) -> Dict:
+        """A (possibly deferred) row's metrics in host form: the scalars of
+        the dispatch's last round, the health counts reduced over all of
+        its rounds (a lane that went non-finite mid-dispatch shows even if
+        the last round recovered)."""
+        raw = row.pop(DEVICE_METRICS_KEY, None)
+        if raw is None:
+            return row
+        raw = fetch_tree(raw)
+        for k in ("train_loss", "agg_norm", "update_norm_mean"):
+            row[k] = float(raw[k][-1])
+        for k in ("hbm_passes", "hbm_passes_unfused", "elided_lanes"):
+            if k in raw:
+                row[k] = int(raw[k][-1])
+        if self.config.health_check:
+            row["num_unhealthy"] = int(sum(raw["num_unhealthy"]))
+            row["round_ok"] = bool(all(raw["round_ok"]))
+        return row
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save_checkpoint(self, checkpoint_dir: str) -> str:
+        """Write the resident state into ``checkpoint_dir``: the round
+        counter, the eval cadence and the last evaluation, the
+        :class:`~blades_tpu_torch.core.round.RoundState` (server parameters
+        and optimizer state, aggregator state, client optimizer rows) and
+        the config.  The round generators are pure in ``(seed, round)``,
+        and neither round keeps state between rounds outside the
+        ``RoundState``, so nothing else is needed to replay the run."""
+        path = Path(checkpoint_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "iteration": self._iteration,
+            "rounds_since_eval": self._rounds_since_eval,
+            "last_eval": dict(self._last_eval),
+            "state": self.state,
+            "config_dict": {k: v for k, v in self.config.items()
+                            if not callable(v)},
+        }
+        file = path / "algorithm_state.pkl"
+        torch.save(payload, file)
+        return str(file)
+
+    def load_checkpoint(self, checkpoint_path: str) -> None:
+        """Restore what :meth:`save_checkpoint` wrote (a checkpoint
+        directory or its file) onto this driver's device."""
+        p = Path(checkpoint_path)
+        if p.is_dir():
+            p = p / "algorithm_state.pkl"
+        payload = torch.load(p, map_location=self.device, weights_only=False)
+        self._iteration = payload["iteration"]
+        self._rounds_since_eval = payload["rounds_since_eval"]
+        self._last_eval = dict(payload["last_eval"])
+        self.state = payload["state"]
 
     def evaluate(self) -> Dict:
         """Weighted per-client evaluation of the global model."""
@@ -232,7 +304,8 @@ class Fedavg:
         return dict(self._last_eval)
 
     def stop(self) -> None:
-        """Release the run's device memory."""
+        """Release the run's device memory (idempotent)."""
         self.state = self._train = self._test = self._step = None
+        self.malicious = self.fed_round = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

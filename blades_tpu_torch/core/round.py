@@ -21,8 +21,10 @@ to the threshold and adds Gaussian noise of std ``noise_factor *
 threshold`` after the health check and before the forge, as the
 reference's DP client does in honest training.
 
-Client callbacks, codecs, faults, forensics, lane packing and the
-stateless or windowed client modes are not in the port yet
+Client callbacks (``client_callbacks``, :mod:`blades_tpu_torch.core.callbacks`)
+compose with the adversary's training hooks, callbacks first.  Codecs,
+faults, forensics, lane packing and the stateless or windowed client modes
+are not in the port yet
 (:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses them);
 the streamed round is :func:`blades_tpu_torch.parallel.streamed.streamed_step`.
 """
@@ -35,6 +37,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from blades_tpu_torch.adversaries.base import forges, trains_corrupted
+from blades_tpu_torch.core.callbacks import CallbackChain, overrides
 from blades_tpu_torch.core.health import guard_server_state, sanitize_updates
 from blades_tpu_torch.core.server import Server, ServerState
 from blades_tpu_torch.core.task import Hooks, Task
@@ -100,6 +103,9 @@ class FedRound:
     # Gaussian noise of std dp_noise_factor * dp_clip_threshold.
     dp_clip_threshold: Optional[float] = None
     dp_noise_factor: Optional[float] = None
+    # Client callback chain (ClientCallback instances), applied to every
+    # lane before the adversary's hooks.
+    client_callbacks: Tuple = ()
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
         """Fresh parameters from ``seed``, the server's initial state and
@@ -112,10 +118,29 @@ class FedRound:
             client_opt=self.task.init_client_opt_state(params, num_clients))
 
     def hooks(self) -> Optional[Hooks]:
-        """The adversary's training hooks, or None when it has none."""
-        if not trains_corrupted(self.adversary):
-            return None
-        return Hooks(self.adversary.data_hook, self.adversary.grad_hook)
+        """The client callback chain composed with the adversary's
+        training hooks (callbacks first, as the reference appends the
+        attack callback last), or None when neither has any."""
+        adv = self.adversary if trains_corrupted(self.adversary) else None
+        if not self.client_callbacks:
+            return None if adv is None else Hooks(adv.data_hook,
+                                                  adv.grad_hook)
+        chain = CallbackChain(tuple(self.client_callbacks))
+        for hook in ("on_round_begin", "on_round_end"):
+            if overrides(chain, hook):
+                raise NotImplementedError(
+                    f"a client callback's {hook} is not in the port yet "
+                    "(no ported callback has one)")
+
+        def data(x, y, malicious):
+            x, y = chain.on_batch_begin(x, y, malicious)
+            return (x, y) if adv is None else adv.data_hook(x, y, malicious)
+
+        def grad(grads, malicious):
+            grads = chain.on_backward_end(grads, malicious)
+            return grads if adv is None else adv.grad_hook(grads, malicious)
+
+        return Hooks(data, grad)
 
     def sample_round_batches(self, data_x, data_y, lengths, generator):
         """The batch-sampling half of :meth:`step`: every client's

@@ -41,9 +41,10 @@ from blades_tpu_torch.utils.tree import FlatLayout
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
-#: Per-block adversary hooks: ``data(x, y, malicious) -> (x, y)`` and
-#: ``grad(grads, malicious) -> grads`` over a client block, ``malicious``
-#: the block's ``(G,)`` bool mask.
+#: Per-block training hooks (the client callbacks, then the adversary's):
+#: ``data(x, y, malicious) -> (x, y)`` and ``grad(grads, malicious) ->
+#: grads`` over a client block, ``malicious`` the block's ``(G,)`` bool
+#: mask.
 Hooks = namedtuple("Hooks", ["data", "grad"])
 
 
@@ -155,7 +156,7 @@ class Task:
         ``opt_state`` is the block's momentum traces (``{name: (G,
         *shape)}``, required under client momentum) and comes back
         advanced.  ``hooks`` with the block's ``malicious (G,)`` mask are
-        the adversary's training hooks.  ``dropout_masks`` (one ``(G, nb,
+        the training hooks (:class:`Hooks`).  ``dropout_masks`` (one ``(G, nb,
         B, width)`` bool keep-mask per dropout layer) and ``aug_draws``
         (``(offsets (G, nb, B, 2), flips (G, nb, B))``) replace the draws
         from ``generator``.

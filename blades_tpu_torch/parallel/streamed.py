@@ -72,8 +72,8 @@ traversals of the fused plan and of one traversal per statistic, plus one
 for the in-place pass and one for the scatter.  A row-geometry forge with
 Mean, Median or Trimmedmean finishes chunk by chunk.
 
-The adversary's training hooks (LabelFlip, SignFlip) run inside each
-block's local rounds.  Client momentum raises ``NotImplementedError`` (a
+The training hooks (the client callbacks, then LabelFlip's or SignFlip's)
+run inside each block's local rounds.  Client momentum raises ``NotImplementedError`` (a
 later slice of the port); the Lazy forge has no streamed formulation, and
 ghost lanes enter no row-geometry round, as in the JAX package.
 """

@@ -1,14 +1,18 @@
-"""Command line of the port (counterpart of ``blades_tpu/train.py``'s
-``run`` subcommand):
+"""Command line of the port (counterpart of ``blades_tpu/train.py``):
 
+    python -m blades_tpu_torch.train file blades_tpu/tuned_examples/fedavg_dp.yaml
     python -m blades_tpu_torch.train run FEDAVG --rounds 3 \\
         --config-json '{"dataset_config": {"type": "mnist", "num_clients": 6}}'
 
-runs one algorithm with flat or nested config overrides on the card
-(``--device cpu`` for the CPU), prints one line per round and writes the
-result rows to ``<storage-path>/<algo>_run/result.json`` (one JSON object
-per line) beside ``params.json`` (the overrides).  The ``file``
-subcommand and its grids come with a later slice.
+``file`` runs every trial of an experiment file's grids, ``run`` one
+algorithm with flat or nested config overrides (as the experiment
+``<algo>_run``); both go through
+:func:`~blades_tpu_torch.tune.sweep.run_experiments`, on the card unless
+``--device cpu`` is given.  Each trial writes ``params.json`` and
+``result.json`` (one JSON row per dispatch) under
+``<storage-path>/<experiment>/<trial>/``; the best trial's test accuracy is
+printed last.  The JAX command's flags for subsystems the port does not
+have yet are absent, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -16,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
 
 
 def main(argv=None) -> int:
@@ -24,44 +27,82 @@ def main(argv=None) -> int:
         prog="blades_tpu_torch.train",
         description="Byzantine-robust FL training on the card (PyTorch/CUDA)")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    p_run = sub.add_parser("run", help="run one algorithm with overrides")
-    p_run.add_argument("algo", help="FEDAVG")
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--storage-path", default="~/blades_tpu_results")
+    common.add_argument("--metrics-every", type=int, default=1, metavar="N",
+                        help="fetch the rounds' scalar metrics N rows at a "
+                        "time (flushed before checkpoints)")
+    common.add_argument("--device", default=None,
+                        help="torch device (default: the card)")
+    common.add_argument("-v", "--verbose", action="count", default=1)
+
+    p_file = sub.add_parser("file", parents=[common],
+                            help="run experiments from a YAML grid file")
+    p_file.add_argument("experiment_file")
+    p_file.add_argument("--checkpoint-freq", type=int, default=0)
+    p_file.add_argument("--checkpoint-at-end", action="store_true")
+    p_file.add_argument("--checkpoint-keep-num", type=int, default=None,
+                        help="keep only the N best periodic checkpoints")
+    p_file.add_argument("--checkpoint-score-attr",
+                        default="training_iteration",
+                        help="result key ranking checkpoints for "
+                        "--checkpoint-keep-num (e.g. test_acc)")
+    p_file.add_argument("--resume", action="store_true",
+                        help="skip finished trials, restore in-flight ones "
+                        "from their latest checkpoint")
+    p_file.add_argument("--max-rounds", type=int, default=None,
+                        help="override every experiment's "
+                        "training_iteration")
+    p_file.add_argument("--max-failures", type=int, default=0,
+                        help="retry a crashed trial from its latest "
+                        "checkpoint up to N times, then mark it failed and "
+                        "keep sweeping")
+    p_file.add_argument("--preempt-after", type=int, default=None,
+                        metavar="N",
+                        help="raise a SimulatedPreemption once, the first "
+                        "time a trial finishes round N (between its row "
+                        "write and its checkpoint save)")
+
+    p_run = sub.add_parser("run", parents=[common],
+                           help="run one algorithm with overrides")
+    p_run.add_argument("algo", help="FEDAVG or FEDAVG_DP")
     p_run.add_argument("--config-json", default="{}",
                        help="flat/nested config overrides as JSON, e.g. "
                        "'{\"dataset_config\": {\"type\": \"mnist\"}}'")
     p_run.add_argument("--rounds", type=int, default=100)
-    p_run.add_argument("--storage-path", default="~/blades_tpu_results")
-    p_run.add_argument("--device", default=None,
-                       help="torch device (default: the card)")
     args = parser.parse_args(argv)
 
-    from blades_tpu_torch.algorithms import get_algorithm_class
+    from blades_tpu_torch.tune import (
+        load_experiments_from_file,
+        run_experiments,
+    )
 
-    overrides = json.loads(args.config_json)
-    _, config = get_algorithm_class(args.algo, return_config=True)
-    config.update_from_dict(overrides)
-    algo = config.build(device=args.device)
-    out = Path(args.storage_path).expanduser() / f"{args.algo.lower()}_run"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "params.json").write_text(json.dumps(overrides, indent=1))
-    best = None
-    try:
-        with open(out / "result.json", "w") as fh:
-            for _ in range(args.rounds):
-                row = algo.train()
-                fh.write(json.dumps(row) + "\n")
-                fh.flush()
-                acc = row.get("test_acc")
-                if acc is not None:
-                    best = acc if best is None else max(best, acc)
-                print(f"round {row['training_iteration']}: train_loss "
-                      f"{row['train_loss']:.4f}"
-                      + ("" if acc is None else f" test_acc {acc:.4f}"),
-                      flush=True)
-    finally:
-        algo.stop()
-    if best is not None:
-        print(f"best test_acc={best:.4f}")
+    common_kw = dict(storage_path=args.storage_path, verbose=args.verbose,
+                     metrics_every=args.metrics_every, device=args.device)
+    if args.cmd == "file":
+        summaries = run_experiments(
+            load_experiments_from_file(args.experiment_file),
+            checkpoint_freq=args.checkpoint_freq,
+            checkpoint_at_end=args.checkpoint_at_end,
+            checkpoint_keep_num=args.checkpoint_keep_num,
+            checkpoint_score_attr=args.checkpoint_score_attr,
+            resume=args.resume, max_rounds_override=args.max_rounds,
+            max_failures=args.max_failures,
+            preempt_after=args.preempt_after, **common_kw)
+    else:
+        experiments = {f"{args.algo.lower()}_run": {
+            "run": args.algo,
+            "stop": {"training_iteration": args.rounds},
+            "config": json.loads(args.config_json),
+        }}
+        summaries = run_experiments(experiments, **common_kw)
+    best = max((s for s in summaries if s["evaluated"]),
+               key=lambda s: s["best_test_acc"], default=None)
+    if best:
+        print(f"best trial: {best['trial']} "
+              f"test_acc={best['best_test_acc']:.4f}")
+    elif summaries:
+        print("best trial: no trial evaluated")
     return 0
 
 

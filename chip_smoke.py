@@ -100,24 +100,55 @@ Phases, each printing its lines before the last:
    finish's ms on the main buffer beside the fused full and compact
    finishes, and one chunk's ``select:radix`` beside its plain version
    and ``torch.quantile``.
-10. ``profile`` (only when named): one more main-path round, one
+10. ``sweep``: the ``file`` entry point, ``blades_tpu_torch.train.main(
+   ["file", fedavg_cifar10_1000clients.yaml, "--max-rounds", "2", ...])``
+   (the YAML read as a data file): three trials (Mean, Median,
+   Trimmedmean) of 1000 clients, 250 ALIE elided, bf16, streamed, each on
+   ``finish:radix`` once a round, finite losses, ``round_ok``, the rows
+   verified and the device memory back near its baseline after each
+   trial's ``stop()``; ``local20_cnn_fashion_mnist.yaml`` for 2 rounds (20
+   clipped local steps, the dense Median on ``select:radix``); then the
+   Median point again through ``run_experiments`` with a checkpoint every
+   round and a preemption after round 2 (one retry): the parameters
+   restored from round 1's checkpoint bit-identical to those saved, the
+   rows without gap or duplicate, round 2's ``train_loss`` and
+   ``agg_norm`` equal to the straight run's.  Every finish and select of
+   these runs, and the grid's first-round BN launches, are held against
+   the plain versions on their own operands as the path runs
+   (``_PathAudit``, ``_BnAudit``).
+11. ``resnet34``: the DnC point of ``fedavg_cifar100_resnet34.yaml``
+   through ``run_experiments``, one dispatch of its 10 rounds
+   (``rounds_per_dispatch``): ResNet-34 x 1000 clients of CIFAR-100 shapes,
+   200 Adaptive elided, f32 compute, the bf16 ``(1000, 21,328,384)``
+   buffer, ``client_block`` 50 (25 only if 50 runs out of memory), with
+   peak memory, rounds/s and the launches a round (DnC's weighted sum on
+   ``rowstats:ring``, every one held against the plain version over
+   column slices of the buffer; the BN pair, the first round's launches
+   audited); then one dense round of ResNet-50 at 20 clients of CIFAR-10
+   shapes in bf16, every BN-backward launch at its Bottleneck shapes and
+   the Median's select audited against the plain versions, the BN
+   launches on the vector map.  The audits' seconds are taken out of the
+   rounds/s and their allocations out of the peaks these phases report.
+12. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-11. ``bnstages`` (only when named): the BN kernels alone at the four stage
+13. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-12. ``ringsweep`` (only when named): the row-statistics ring across
+14. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-9 (and before
-each round of phase 7 and each trial of phases 8 and 9) and read just
-after; a
+Launch counts are set to 0 just before each of phases 4-11 (and before
+each round of phase 7 and each trial of phases 8 to 11) and read just
+after; each path's count goes to its own record (``column_median:local20``,
+``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``, ...),
+timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
 three lines are the card (``nvidia-smi``), one JSON object with every
@@ -129,6 +160,8 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -138,7 +171,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
-          "rowgeom", "fedavg", "chunked")
+          "rowgeom", "fedavg", "chunked", "sweep", "resnet34")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -1106,20 +1139,94 @@ def _small_bn(gen):
         f"by thread map {dict(sorted(_cuda.MAPS.items()))}")
 
 
+# Seconds spent in audits inside a path's run, and the path's peak device
+# memory up to the last audit: a phase takes the one out of its rounds/s
+# and keeps the audits' own allocations out of the peak it reports.
+AUDIT = {"s": 0.0, "peak": 0}
+
+
+@contextlib.contextmanager
+def _aside():
+    """An audit's work inside a path's run, set aside from the path: the
+    launch counts and routes restored to what they were before it (its
+    own launches, made to compare or to time, count for nothing), its
+    seconds added to ``AUDIT["s"]``, and the allocator's peak kept in
+    ``AUDIT["peak"]`` before it and reset after it.  Run the work in a
+    function called inside the block, so its tensors are freed before the
+    reset."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    AUDIT["peak"] = max(AUDIT["peak"], torch.cuda.max_memory_allocated())
+    launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.clear()
+        _cuda.LAUNCHES.update(launches)
+        _cuda.MAPS.clear()
+        _cuda.MAPS.update(maps)
+        torch.cuda.reset_peak_memory_stats()
+        AUDIT["s"] += time.perf_counter() - t0
+
+
+def _reset_peak():
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    AUDIT["peak"] = 0
+
+
+def _peak():
+    """The path's peak device memory since :func:`_reset_peak`, the
+    audits' allocations left out."""
+    import torch
+
+    return max(AUDIT["peak"], torch.cuda.max_memory_allocated())
+
+
 class _BnAudit:
     """Wraps the three launchers while a vmapped block trains on the card:
     every launch is also held against the plain versions on the same
     physical operands (the layouts functorch and cuDNN really hand over),
     the composite's by :func:`_bn_bwd_agree`; the strides seen are kept.
-    ``calls`` counts kernel launches (two per composite)."""
+    ``calls`` counts the kernel launches audited (two per composite):
+    with ``limit``, the first ``limit`` of them, the later ones pass
+    through unaudited.  With ``key``, the first launch at each operand
+    layout also times the single kernels, the plain versions and the
+    library's backward on its operands, and :meth:`records` turns the
+    audited launches into the path's records.  The audit's own work is
+    set aside (:func:`_aside`)."""
 
-    def __init__(self):
+    def __init__(self, limit=None, key=None):
         from blades_tpu_torch.ops import _cuda
 
         self._cuda = _cuda
         self.layouts = set()
         self.err = 0.0
         self.calls = 0
+        self.limit, self.key = limit, key
+        self.tally, self.times = {}, {}
+
+    def _due(self, n):
+        return self.limit is None or self.calls + n <= self.limit
+
+    def _note(self, x, dy, mean, r, scale, kernels):
+        """Tally the launch's layout for the records; time it the first
+        time it is seen."""
+        lay = (x.dtype, tuple(x.shape), x.stride())
+        self.layouts.add(lay)
+        if self.key is None:
+            return
+        for k in kernels:
+            self.tally[k, lay] = self.tally.get((k, lay), 0) + 1
+        if lay not in self.times:
+            self.times[lay] = _bn_launch_times(self._saved, x, dy, mean, r,
+                                               scale)
 
     def __enter__(self):
         from blades_tpu_torch.ops import bn_backward as bn
@@ -1130,27 +1237,42 @@ class _BnAudit:
 
         def reduce(name, x, dy, mean, r, scale):
             out = red(name, x, dy, mean, r, scale)
-            self.layouts.add((x.dtype, tuple(x.shape), x.stride()))
-            self.err = max(self.err, _bn_sums_agree(
-                out, bn.bn_bwd_reduce_plain(x, dy, mean, r, scale), x, dy,
-                mean, r, scale, f"audit {tuple(x.shape)} {x.stride()}"))
-            self.calls += 1
+            if self._due(1):
+                def audit():
+                    self._note(x, dy, mean, r, scale, ("bn_bwd_reduce",))
+                    self.err = max(self.err, _bn_sums_agree(
+                        out, bn.bn_bwd_reduce_plain(x, dy, mean, r, scale),
+                        x, dy, mean, r, scale,
+                        f"audit {tuple(x.shape)} {x.stride()}"))
+                with _aside():
+                    audit()
+                self.calls += 1
             return out
 
         def dx(name, x, dy, *vecs):
             out = dxl(name, x, dy, *vecs)
-            same(out, bn.bn_bwd_dx_plain(x, dy, *vecs),
-                 f"audit dx {tuple(x.shape)} {x.stride()}")
-            self.calls += 1
+            if self._due(1):
+                def audit():
+                    self._note(x, dy, *vecs[:3], ("bn_bwd_dx",))
+                    same(out, bn.bn_bwd_dx_plain(x, dy, *vecs),
+                         f"audit dx {tuple(x.shape)} {x.stride()}")
+                with _aside():
+                    audit()
+                self.calls += 1
             return out
 
         def bwd(x, dy, mean, r, scale):
             out = bwdl(x, dy, mean, r, scale)
-            self.layouts.add((x.dtype, tuple(x.shape), x.stride()))
-            self.err = max(self.err, _bn_bwd_agree(
-                x, dy, mean, r, scale, out,
-                f"audit {tuple(x.shape)} {x.stride()}"))
-            self.calls += 2
+            if self._due(2):
+                def audit():
+                    self._note(x, dy, mean, r, scale,
+                               ("bn_bwd_reduce", "bn_bwd_dx"))
+                    self.err = max(self.err, _bn_bwd_agree(
+                        x, dy, mean, r, scale, out,
+                        f"audit {tuple(x.shape)} {x.stride()}"))
+                with _aside():
+                    audit()
+                self.calls += 2
             return out
 
         cu.launch_bn_reduce, cu.launch_bn_dx, cu.launch_bn_bwd = reduce, dx, bwd
@@ -1159,6 +1281,73 @@ class _BnAudit:
     def __exit__(self, *exc):
         cu = self._cuda
         cu.launch_bn_reduce, cu.launch_bn_dx, cu.launch_bn_bwd = self._saved
+
+    def records(self, rounds):
+        """Each kernel's record on the path, from the launches audited over
+        ``rounds`` rounds: every time, byte and operation count is a round's
+        -- each layout's single-launch figure times its audited launches,
+        over ``rounds`` -- as the kernel's launches on this path add up."""
+        out = {}
+        for k in BN_TPU:
+            tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0)
+            for (kk, lay), n in self.tally.items():
+                if kk != k:
+                    continue
+                for f, v in self.times[lay][k].items():
+                    tot[f] += n * v / rounds
+            out[f"{k}:{self.key}"] = _record(
+                f"{k}:{self.key}", BN_SRC, BN_TPU[k], tot["ms"], tot["plain"],
+                tot["bytes"], tot["ops"],
+                self.err if k == "bn_bwd_reduce" else 0.0, tot["lib"])
+        return out
+
+
+def _bn_launch_times(launchers, x, dy, mean, r, scale):
+    """One launch's figures at a layout a path hands the kernels, on its
+    own operands (``x``, ``dy`` the ``(G, B, C, S)`` views): device-only
+    ms of the single reduction and dx pass (``launchers``: the unwrapped
+    ones), the plain versions' ms, and the library's batch-norm backward
+    on a channels-last ``(B, G*C, H, W)`` copy -- dscale/dbias beside the
+    reduction, the full backward beside dx -- with the bytes and
+    operations of :func:`_bn_records`."""
+    import torch
+
+    from blades_tpu_torch.ops import bn_backward as bn
+
+    red, dxl, _ = launchers
+    g, b, c, s = x.shape
+    n, elems, isz = b * s, x.numel(), x.element_size()
+    md, mdx = _bn_coefs(red("bn_bwd_reduce", x, dy, mean, r, scale), scale,
+                        n)
+    t = {"bn_bwd_reduce": dict(
+            ms=timed(lambda: red("bn_bwd_reduce", x, dy, mean, r, scale),
+                     BN_REPS)[0],
+            plain=timed(lambda: bn.bn_bwd_reduce_plain(x, dy, mean, r, scale),
+                        REPS)[0],
+            bytes=elems * 2 * isz + 3 * g * c * 4, ops=7 * elems),
+         "bn_bwd_dx": dict(
+            ms=timed(lambda: dxl("bn_bwd_dx", x, dy, mean, r, scale, md, mdx),
+                     BN_REPS)[0],
+            plain=timed(lambda: bn.bn_bwd_dx_plain(x, dy, mean, r, scale, md,
+                                                   mdx), REPS)[0],
+            bytes=elems * 3 * isz + 5 * g * c * 4, ops=7 * elems)}
+    hw = int(round(s ** 0.5))
+    cl = torch.channels_last
+    xg = x.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+        memory_format=cl)
+    dyg = dy.transpose(0, 1).reshape(b, g * c, hw, hw).contiguous(
+        memory_format=cl)
+    sm, si, wt = mean.float().flatten(), r.float().flatten(), scale.flatten()
+
+    def lib(mask):
+        return torch.ops.aten.native_batch_norm_backward(
+            dyg, xg, wt, None, None, sm, si, True, 1e-5, mask)
+
+    t["bn_bwd_reduce"]["lib"] = timed(lambda: lib([False, True, True]),
+                                      BN_REPS)[0]
+    t["bn_bwd_dx"]["lib"] = timed(lambda: lib([True, True, True]),
+                                  BN_REPS)[0]
+    return t
 
 
 def _small_bn_vmap():
@@ -1440,6 +1629,7 @@ def _record(name, source, replaces, ms, plain_ms, bytes_moved, ops, err,
 
 
 SRC = "blades_tpu_torch/csrc/fused_finish.cu"
+COMPACT_TPU = "blades_tpu/ops/pallas_round.py:502"
 
 
 def _padded_rows(gen, rows, d):
@@ -1577,7 +1767,7 @@ def phase_kernels():
             m, forged_mult=250, forge=forge, agg=agg),
         lambda m: ff.fused_finish_compact_plain(
             m, forged_mult=250, forge=forge, agg=agg),
-        "blades_tpu/ops/pallas_round.py:502", 750 * 5 + 2 * x.shape[1] * 4)
+        COMPACT_TPU, 750 * 5 + 2 * x.shape[1] * 4)
     _finish_phases(x, forge)
     del x
     torch.cuda.empty_cache()
@@ -1765,6 +1955,30 @@ def _ring_bundles(x, d, gen):
     }
 
 
+def _bundle_library_ms(name, x, kw):
+    """``(ms, text)`` of the one PyTorch call computing a bundle, where
+    there is one: the weighted sum ``w @ X`` and the dots ``X @ v`` as
+    ``torch.mm`` of bf16 operands with f32 output (the f32 vector rounded
+    to bf16, as the matrix product takes one dtype); ``(None, why)`` for
+    the others."""
+    import torch
+
+    if name == WSUM_RECORD:
+        a, b, what = kw["weights"].to(x.dtype), x, "w @ X"
+    elif name == "row_stats_bundle:dots":
+        a, b, what = x, kw["dots"].to(x.dtype).t(), "X @ v"
+    else:
+        return None, "library_ms null: no one PyTorch call computes this " \
+            "bundle"
+    try:
+        torch.mm(a[:1, :8], b[:8, :1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        return None, (f"library_ms null: torch.mm takes no out_dtype here "
+                      f"({type(e).__name__})")
+    ms = timed(lambda: torch.mm(a, b, out_dtype=torch.float32), REPS)[0]
+    return ms, f"library {ms:.3f} ms (torch.mm {what}, bf16, f32 out)"
+
+
 def _bundle_records(gen, d):
     """``row_stats_bundle`` at the row-geometry round's operand: the
     ``(1000, d_alloc)`` bf16 buffer, zero past ``d``, read with ``d_true =
@@ -1840,14 +2054,14 @@ def _bundle_records(gen, d):
                                  f"{name} old route (unpadded)")
         del old, want
         old_ms = timed(lambda: rs.row_stats_bundle(xu, **kwu), REPS)[0]
+        lib_ms, lib = _bundle_library_ms(name, x, kw)
         rec = _record(name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms, nbytes,
-                      ops, err)
+                      ops, err, lib_ms)
         log(f"kernel {name}: rowstats:ring on ({n}, {d_alloc}) {ms:.3f} ms "
             f"({n * d_alloc * 2 / ms / 1e9:.2f} TB/s of rows read; bound "
             f"{rec['bound_ms']:.3f} ms); rowstats:slab on the unpadded "
             f"({n}, {d}) {old_ms:.3f} ms (max_abs_err {old_err:.3g}); "
-            f"plain {plain_ms:.1f} ms; library_ms null: no one PyTorch call "
-            "computes this bundle")
+            f"plain {plain_ms:.1f} ms; {lib}")
         if name in (GEOMED_RECORD, WSUM_RECORD):
             records[name] = rec
     del xu
@@ -2852,6 +3066,640 @@ def phase_chunked(card):
     return {"column_median:chunked": launches}, {rec["name"]: rec}
 
 
+# The sweep phase's experiment files, read as data (nothing is imported
+# from the JAX package): the 1000-client streamed grid (Mean, Median,
+# Trimmedmean), the 20-local-step CNN with benign clipping and a dense
+# Median, and the ResNet-34 grid (DnC, FLTrust) of 1000 clients.
+TUNED = os.path.join(HERE, "blades_tpu", "tuned_examples")
+SWEEP_YAML = os.path.join(TUNED, "fedavg_cifar10_1000clients.yaml")
+LOCAL20_YAML = os.path.join(TUNED, "local20_cnn_fashion_mnist.yaml")
+RESNET34_YAML = os.path.join(TUNED, "fedavg_cifar100_resnet34.yaml")
+SWEEP_ROUNDS = 2
+RESNET34_ROUNDS = 10  # one dispatch: the file's rounds_per_dispatch
+# client_block values the resnet34 phase tries, in order: the file's
+# default first; a smaller one only when the larger runs out of memory.
+RESNET34_BLOCKS = (50, 25)
+# BatchStatsNorm layers of a client's local step: ResNet-34 (stem, 16
+# blocks x 2, 3 projection shortcuts), ResNet-50 (stem, 16 Bottlenecks x
+# 3, 4 shortcuts).
+RESNET34_BN_LAYERS = 36
+RESNET50_BN_LAYERS = 53
+# The sweep grid's trials: 750 trained clients in blocks of 25, 12 BN
+# layers a step; the BN launches of its first round are audited.
+SWEEP_BN_ROUND = 30 * 12
+SWEEP_BN_AUDIT = 2 * SWEEP_BN_ROUND
+# Columns of the ResNet-34 buffer the weighted-sum audit takes at a time.
+WSUM_SLICE = 1 << 20
+# Round 2 of the kill-and-resume rerun against the straight run's round 2:
+# equal (cuDNN's algorithms are left as the driver picks them).
+RESUME_TOL = 0.0
+
+
+def _work_dir(name):
+    """A fresh directory under the git-ignored ``build/`` for a phase's
+    trial files (checkpoints are too large to keep beside the logs)."""
+    import shutil
+
+    d = os.path.join(HERE, "build", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+class _TrialSpy:
+    """Records each ``Fedavg`` trial the sweep runner builds: launches
+    by kernel and by route from its build to its ``stop()``, its rounds,
+    whether it streamed and its finish routes, the peak device memory
+    (:func:`_peak`), the seconds of audits inside it, and the memory still
+    allocated after ``stop()``; keeps a host copy of the server parameters
+    each checkpoint saved and each restore loaded."""
+
+    def __init__(self):
+        self.trials, self.saved, self.loaded = [], {}, []
+
+    def __enter__(self):
+        import torch
+
+        from blades_tpu_torch.algorithms import fedavg
+        from blades_tpu_torch.ops import _cuda
+
+        cls = fedavg.Fedavg
+        self._cls = cls
+        self._orig = cls.__init__, cls.stop, cls.save_checkpoint, \
+            cls.load_checkpoint
+        init, stop, save, load = self._orig
+        spy = self
+
+        def host_params(algo):
+            return {k: v.detach().cpu().clone()
+                    for k, v in algo.state.server.params.items()}
+
+        def _init(algo, *a, **kw):
+            torch.cuda.synchronize()
+            _reset_peak()
+            init(algo, *a, **kw)
+            _cuda.reset_launches()
+            algo._spy_t0 = time.perf_counter()
+            algo._spy_audit = AUDIT["s"]
+
+        def _stop(algo):
+            if getattr(algo, "_spy_t0", None) is not None:
+                torch.cuda.synchronize()
+                spy.trials.append(dict(
+                    rounds=algo.iteration, streamed=algo.streamed,
+                    routes=dict(getattr(algo._step, "routes", {}) or {}),
+                    passes=getattr(getattr(algo._step, "passes", None),
+                                   "kernel_bundles", None),
+                    launches=dict(_cuda.LAUNCHES), maps=dict(_cuda.MAPS),
+                    peak=_peak(), timers=algo.timers.summary(),
+                    audit_s=AUDIT["s"] - algo._spy_audit,
+                    wall=time.perf_counter() - algo._spy_t0))
+                algo._spy_t0 = None
+                stop(algo)
+                spy.trials[-1]["after_stop"] = torch.cuda.memory_allocated()
+            else:
+                stop(algo)
+
+        def _save(algo, path):
+            spy.saved[algo.iteration] = host_params(algo)
+            return save(algo, path)
+
+        def _load(algo, path):
+            load(algo, path)
+            spy.loaded.append((algo.iteration, host_params(algo)))
+
+        cls.__init__, cls.stop = _init, _stop
+        cls.save_checkpoint, cls.load_checkpoint = _save, _load
+        return self
+
+    def __exit__(self, *exc):
+        cls = self._cls
+        (cls.__init__, cls.stop, cls.save_checkpoint,
+         cls.load_checkpoint) = self._orig
+
+
+def _train_rps(what, t):
+    """``(rounds/s, text)`` of a trial over its training steps, the audits'
+    seconds inside them taken out."""
+    train_s = t["timers"]["training_step"]["total_s"]
+    net = train_s - t["audit_s"]
+    check(net > 0, f"{what}: training steps {train_s:.3f} s, audits "
+          f"{t['audit_s']:.3f} s")
+    rps = t["rounds"] / net
+    return rps, (f"{rps:.4f} rounds/s over its training steps ({train_s:.2f}"
+                 f" s, of which {t['audit_s']:.2f} s of audits taken out)")
+
+
+class _PathAudit:
+    """Holds a kernel against its plain version at every launch a path
+    makes, on the path's own operands, while the path runs: wraps the
+    wrapper where the path's module bound it -- ``finish``: the streamed
+    round's ``fused_finish_compact``; ``select``: the dense aggregators'
+    ``column_median``; ``wsum``: the row-geometry planner's
+    ``row_stats_bundle`` (weighted-sum bundles).  The tolerances are those
+    of the kernels phase.  The first launch under each key
+    (``key()``, read at the call) is also timed -- the kernel, the plain
+    version and the library call on the same operands -- into that key's
+    record (a round's times: each of these paths launches the kernel once
+    a round).  All of it is set aside (:func:`_aside`)."""
+
+    TARGETS = {
+        "finish": ("blades_tpu_torch.parallel.streamed",
+                   "fused_finish_compact"),
+        "select": ("blades_tpu_torch.ops.aggregators", "column_median"),
+        "wsum": ("blades_tpu_torch.parallel.streamed_geometry",
+                 "row_stats_bundle"),
+    }
+
+    def __init__(self, kind, key):
+        self.kind = kind
+        self.key = key if callable(key) else (lambda: key)
+        self.records, self.calls, self.shapes = {}, 0, set()
+
+    def __enter__(self):
+        modname, attr = self.TARGETS[self.kind]
+        self._mod = importlib.import_module(modname)
+        self._attr = attr
+        self._orig = orig = getattr(self._mod, attr)
+        check_fn = getattr(self, "_" + self.kind)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            key = self.key()
+            with _aside():
+                check_fn(key, orig, out, a, kw)
+            self.calls += 1
+            return out
+
+        setattr(self._mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._mod, self._attr, self._orig)
+
+    def _keep(self, key, err, rec):
+        """The key's record: made at its first launch, its error the
+        largest over every launch."""
+        if key not in self.records:
+            self.records[key] = rec()
+        r = self.records[key]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def _finish(self, key, orig, out, a, kw):
+        import torch
+
+        from blades_tpu_torch.ops import fused_finish as ff
+
+        x = a[0]
+        noise = a[1] if len(a) > 1 else kw.get("forge_noise")
+        self.shapes.add((tuple(x.shape), x.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ff.fused_finish_compact_plain(*a, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _finish_agree(out, want, "fused_finish_compact",
+                            f"{key}, launch {self.calls + 1}")
+        del want
+        rows, d_alloc = x.shape
+        # As the kernels phase counts the compact finish: the rows read
+        # once, the row norms and flags, the aggregate and the forged row
+        # written, the noise read; per element 7 operations.
+        nbytes = (rows * d_alloc * x.element_size() + rows * 5
+                  + 2 * d_alloc * 4 + (0 if noise is None
+                                       else noise.numel() * 4))
+        self._keep(key, err, lambda: _record(
+            key, SRC, COMPACT_TPU, timed(lambda: orig(*a, **kw), REPS)[0],
+            plain_ms, nbytes, 7 * rows * d_alloc, err))
+
+    def _select(self, key, orig, out, a, kw):
+        import torch
+
+        from blades_tpu_torch.ops import column_select as cs
+
+        x = a[0]
+        self.shapes.add((tuple(x.shape), x.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cs.column_median_plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = same(out, want, f"{key} {tuple(x.shape)}, launch "
+                   f"{self.calls + 1}")
+        del want
+        rows, d = x.shape
+
+        def rec():
+            # On NaN-free columns the midpoint median is the 0.5 quantile
+            # with linear interpolation: one PyTorch call.
+            xf = x.float()
+            return _record(
+                key, SELECT_SRC, SELECT_TPU["column_median"],
+                timed(lambda: orig(x), REPS)[0], plain_ms,
+                rows * d * x.element_size() + d * 4, rows * d, err,
+                timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0])
+
+        self._keep(key, err, rec)
+
+    def _wsum(self, key, orig, out, a, kw):
+        """The weighted sums over column slices of the buffer: a weighted
+        sum is computed column by column, so the plain version on each
+        slice is the plain version on the whole, without its whole-buffer
+        temporaries (the buffer is tens of GB)."""
+        import torch
+
+        from blades_tpu_torch.ops import rowstats as rs
+
+        x = a[0]
+        w = kw.get("weights")
+        asked = {k for k, v in kw.items()
+                 if k != "d_true" and v is not None and v is not False}
+        check(asked == {"weights"}, f"{key}: the audit takes weighted-sum "
+              f"bundles, got {sorted(asked)}")
+        d = kw.get("d_true") or x.shape[1]
+        self.shapes.add((tuple(x.shape), x.dtype))
+        got = out["wsum"]
+        check(tuple(got.shape) == (w.shape[0], d), f"{key}: wsum "
+              f"{tuple(got.shape)}")
+        err, plain_s = 0.0, 0.0
+        for c0 in range(0, d, WSUM_SLICE):
+            c1 = min(c0 + WSUM_SLICE, d)
+            xs = x[:, c0:c1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = rs.row_stats_bundle_plain(xs, weights=w)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            err = max(err, rowstats_agree(
+                {"wsum": got[:, c0:c1]}, want, xs, {"weights": w},
+                f"{key} columns {c0}:{c1}, launch {self.calls + 1}"))
+        n = x.shape[0]
+
+        def rec():
+            lib_ms, _ = _bundle_library_ms(WSUM_RECORD, x, kw)
+            return _record(key, ROWSTATS_SRC, ROWSTATS_TPU,
+                           timed(lambda: orig(*a, **kw), REPS)[0],
+                           plain_s * 1e3, n * d * x.element_size() + n * 4
+                           + d * 4, 2 * n * d, err, lib_ms)
+
+        self._keep(key, err, rec)
+
+
+def _rows(storage, exp, idx):
+    """A trial's result rows, after ``verify_result_rounds``."""
+    from blades_tpu_torch.tune.sweep import verify_result_rounds
+
+    path = os.path.join(storage, exp, f"{exp}_{idx:05d}", "result.json")
+    its = verify_result_rounds(path)
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh]
+    check([r["training_iteration"] for r in rows] == its, f"{path}: rows")
+    return rows
+
+
+def _trial_checks(what, trial, rows, rounds, baseline):
+    """Finite losses, ``round_ok`` where the health check ran, the rounds,
+    and the device memory back near ``baseline`` after stop (within 256
+    MiB: the libraries' workspaces stay; a trial's state is gigabytes)."""
+    losses = [r["train_loss"] for r in rows]
+    check(trial["rounds"] == rounds and len(rows) >= 1,
+          f"{what}: {trial['rounds']} rounds, {len(rows)} rows")
+    check(all(math.isfinite(v) for v in losses),
+          f"{what}: train losses {losses}")
+    check(all(r.get("round_ok", True) for r in rows),
+          f"{what}: round_ok {[r.get('round_ok') for r in rows]}")
+    check(trial["after_stop"] <= baseline + (256 << 20),
+          f"{what}: {trial['after_stop'] / 2**30:.2f} GiB still allocated "
+          f"after stop() (baseline {baseline / 2**30:.2f} GiB)")
+    return losses
+
+
+def _sweep_main(storage, baseline):
+    """``train.main(["file", fedavg_cifar10_1000clients.yaml, ...])``:
+    three trials of 2 rounds, each on ``finish:radix`` once a round, every
+    finish held against the plain version and the first round's BN
+    launches audited."""
+    from blades_tpu_torch import train
+
+    aggs = ("Mean", "Median", "Trimmedmean")
+    with _TrialSpy() as spy, _PathAudit(
+            "finish", lambda: f"fused_finish_compact:sweep_"
+            f"{aggs[len(spy.trials)].lower()}") as fin, _BnAudit(
+                limit=SWEEP_BN_AUDIT, key="sweep") as bn_audit:
+        t0 = time.perf_counter()
+        rc = train.main(["file", SWEEP_YAML, "--max-rounds",
+                         str(SWEEP_ROUNDS), "--storage-path", storage])
+        secs = time.perf_counter() - t0
+    check(rc == 0 and len(spy.trials) == 3,
+          f"sweep: rc {rc}, {len(spy.trials)} trials")
+    check(fin.calls == 3 * SWEEP_ROUNDS and bn_audit.calls == SWEEP_BN_AUDIT,
+          f"sweep: {fin.calls} finishes and {bn_audit.calls} BN launches "
+          "audited")
+    counts, out = {}, {}
+    for i, (agg, t) in enumerate(zip(aggs, spy.trials)):
+        what = f"sweep {agg}"
+        rows = _rows(storage, "fedavg_cifar10_1000clients", i)
+        losses = _trial_checks(what, t, rows, SWEEP_ROUNDS, baseline)
+        want = {"fused_finish_compact": SWEEP_ROUNDS,
+                **{k: SWEEP_ROUNDS * SWEEP_BN_ROUND for k in BN_TPU}}
+        check(t["streamed"] and t["launches"] == want,
+              f"{what}: launches {t['launches']}, expected {want}")
+        routes = {k: v for k, v in t["maps"].items()
+                  if k[0] == "fused_finish_compact"}
+        check(routes == {("fused_finish_compact", "finish:radix"):
+                         SWEEP_ROUNDS} and t["routes"] == {
+                             "fused_compact": SWEEP_ROUNDS},
+              f"{what}: finish routes {routes}, {t['routes']}")
+        key = f"fused_finish_compact:sweep_{agg.lower()}"
+        counts[key] = t["launches"]["fused_finish_compact"]
+        for k in BN_TPU:
+            counts[f"{k}:sweep"] = (counts.get(f"{k}:sweep", 0)
+                                    + t["launches"][k])
+        log(f"sweep {agg}: streamed, finish:radix {SWEEP_ROUNDS} launches "
+            f"(once a round), each against the plain version (max_abs_err "
+            f"{fin.records[key]['max_abs_err']:.3g}); train_loss {losses}, "
+            f"agg_norm {[r['agg_norm'] for r in rows]}, round_ok "
+            f"{[r['round_ok'] for r in rows]}; {_train_rps(what, t)[1]}, "
+            f"trial wall {t['wall']:.1f} s, peak {t['peak'] / 2**30:.2f} GiB,"
+            f" {t['after_stop'] / 2**20:.0f} MiB allocated after stop()")
+        out[agg] = rows
+    log(f"sweep: file fedavg_cifar10_1000clients.yaml --max-rounds "
+        f"{SWEEP_ROUNDS}: 3 trials in {secs:.1f} s, result rows verified; "
+        f"finish operands {sorted(fin.shapes)}; the first round's "
+        f"{bn_audit.calls} BN launches audited (dx bit-exact, sums max err "
+        f"{bn_audit.err:.3g}, layouts {len(bn_audit.layouts)})")
+    return out, counts, {**fin.records, **bn_audit.records(1)}
+
+
+def _sweep_local20(storage, baseline):
+    """``local20_cnn_fashion_mnist.yaml`` for 2 rounds: 20 clipped local
+    steps of the CNN, then the dense Median on ``select:radix``, each
+    select bit-exact against the plain version."""
+    from blades_tpu_torch import train
+    from blades_tpu_torch.core import callbacks
+
+    calls = [0]
+    clip = callbacks.ClippingCallback.on_backward_end
+
+    def counted(self, grads, malicious):
+        calls[0] += 1
+        return clip(self, grads, malicious)
+
+    key = "column_median:local20"
+    callbacks.ClippingCallback.on_backward_end = counted
+    try:
+        with _TrialSpy() as spy, _PathAudit("select", key) as sel:
+            rc = train.main(["file", LOCAL20_YAML, "--max-rounds",
+                             str(SWEEP_ROUNDS), "--storage-path", storage])
+    finally:
+        callbacks.ClippingCallback.on_backward_end = clip
+    check(rc == 0 and len(spy.trials) == 1,
+          f"sweep local20: rc {rc}, {len(spy.trials)} trials")
+    t = spy.trials[0]
+    rows = _rows(storage, "local20_cnn_fashion_mnist", 0)
+    losses = _trial_checks("sweep local20", t, rows, SWEEP_ROUNDS, baseline)
+    want = {"column_median": SWEEP_ROUNDS}
+    check(not t["streamed"] and t["launches"] == want and t["maps"] == {
+        ("column_median", "select:radix"): SWEEP_ROUNDS}
+        and sel.calls == SWEEP_ROUNDS,
+        f"sweep local20: launches {t['launches']} by route {t['maps']}, "
+        f"{sel.calls} audited, expected select:radix {SWEEP_ROUNDS} times")
+    # 60 clients in blocks of 50 and 10, 20 local steps, 2 rounds.
+    check(calls[0] == SWEEP_ROUNDS * 2 * 20,
+          f"sweep local20: the clipping callback ran {calls[0]} times")
+    log(f"sweep local20: dense CNN x 60, 20 clipped local steps a round "
+        f"({calls[0]} block calls of the clipping callback), Median on "
+        f"select:radix once a round on {sorted(sel.shapes)}, bit-exact "
+        f"against the plain version each time; train_loss {losses}; "
+        f"{_train_rps('sweep local20', t)[1]}, peak "
+        f"{t['peak'] / 2**30:.2f} GiB")
+    return {key: t["launches"]["column_median"]}, sel.records
+
+
+def _sweep_resume(storage, straight):
+    """The Median point again through ``run_experiments`` with a
+    checkpoint every round and a preemption after round 2 (one retry): the
+    retry restores round 1's checkpoint and reruns round 2."""
+    import torch
+
+    from blades_tpu_torch.tune import load_experiments_from_file
+    from blades_tpu_torch.tune.sweep import run_experiments
+
+    key = "fused_finish_compact:resume"
+    exps = load_experiments_from_file(SWEEP_YAML)
+    exps["fedavg_cifar10_1000clients"]["config"]["server_config"][
+        "aggregator"] = {"type": "Median"}
+    with _TrialSpy() as spy, _PathAudit("finish", key) as fin:
+        (summary,) = run_experiments(
+            exps, storage_path=storage, verbose=0, checkpoint_freq=1,
+            preempt_after=SWEEP_ROUNDS, max_failures=1,
+            retry_backoff_base=0.0, max_rounds_override=SWEEP_ROUNDS)
+    check("status" not in summary and summary["rounds"] == SWEEP_ROUNDS,
+          f"sweep resume: summary {summary}")
+    rows = _rows(storage, "fedavg_cifar10_1000clients", 0)
+    check([r["training_iteration"] for r in rows] == [1, 2],
+          f"sweep resume: rounds {[r['training_iteration'] for r in rows]}")
+    err = open(os.path.join(summary["dir"], "error.txt")).read()
+    check("SimulatedPreemption" in err, "sweep resume: no preemption logged")
+    check(len(spy.trials) == 2 and len(spy.loaded) == 1
+          and spy.loaded[0][0] == 1,
+          f"sweep resume: {len(spy.trials)} builds, restores "
+          f"{[it for it, _ in spy.loaded]}")
+    saved, restored = spy.saved[1], spy.loaded[0][1]
+    for k, v in saved.items():
+        check(torch.equal(v, restored[k]),
+              f"sweep resume: parameter {k} restored from ckpt_000001 "
+              "differs from the one saved")
+    launches = sum(tr["launches"].get("fused_finish_compact", 0)
+                   for tr in spy.trials)
+    # Rounds 1 and 2, then round 2 again after the restore.
+    check(launches == SWEEP_ROUNDS + 1 and fin.calls == launches,
+          f"sweep resume: {launches} finishes, {fin.calls} audited")
+    diffs = {k: abs(rows[1][k] - straight[1][k])
+             for k in ("train_loss", "agg_norm")}
+    log(f"sweep resume: preempted after round 2, restored round 1's "
+        f"checkpoint ({len(saved)} parameters bit-identical to those "
+        f"saved), reran round 2: rows [1, 2] verified; {launches} finishes "
+        f"on finish:radix, each against the plain version; round 2 "
+        f"train_loss {rows[1]['train_loss']!r} / agg_norm "
+        f"{rows[1]['agg_norm']!r} against the straight run's "
+        f"{straight[1]['train_loss']!r} / {straight[1]['agg_norm']!r} "
+        f"(difference {diffs})")
+    check(all(v <= RESUME_TOL * max(1.0, abs(straight[1][k]))
+              for k, v in diffs.items()),
+          f"sweep resume: round 2 differs from the straight run by {diffs}")
+    return {key: launches}, fin.records
+
+
+def phase_sweep(card):
+    """The ``file`` entry point on the card: the 1000-client grid, the
+    clipped CNN, and kill-and-resume of the Median point.  Returns the
+    launches and records of each path, under its own key."""
+    import torch
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    counts, records = {}, {}
+    rows, c, r = _sweep_main(_work_dir("sweep_file"), baseline)
+    counts.update(c)
+    records.update(r)
+    for c, r in (_sweep_local20(_work_dir("sweep_local20"), baseline),
+                 _sweep_resume(_work_dir("sweep_resume"), rows["Median"])):
+        counts.update(c)
+        records.update(r)
+    log(f"sweep: [{card}]")
+    return counts, records
+
+
+def _resnet34_trial(storage, block):
+    """The DnC point of ``fedavg_cifar100_resnet34.yaml`` through
+    ``run_experiments``: one dispatch of 10 rounds at ``client_block``,
+    every weighted sum held against the plain version and the first
+    round's BN launches audited."""
+    from blades_tpu_torch.tune import load_experiments_from_file
+    from blades_tpu_torch.tune.sweep import run_experiments
+
+    exps = load_experiments_from_file(RESNET34_YAML)
+    cfg = exps["fedavg_cifar100_resnet34"]["config"]
+    cfg["server_config"]["aggregator"] = {"type": "DnC"}
+    cfg["client_block"] = block
+    trained = (1000 - 200) // block
+    with _TrialSpy() as spy, _PathAudit(
+            "wsum", "row_stats_bundle:wsum:resnet34") as ws, _BnAudit(
+                limit=2 * trained * RESNET34_BN_LAYERS,
+                key="resnet34") as bn_audit:
+        (summary,) = run_experiments(
+            exps, storage_path=storage, verbose=0,
+            max_rounds_override=RESNET34_ROUNDS)
+    return summary, spy.trials[0], ws, bn_audit
+
+
+def _resnet50_round(card):
+    """One dense round of ResNet-50 at 20 clients of CIFAR-10 shapes in
+    bf16, every BN-backward launch and the Median's select audited against
+    the plain versions."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    cfg = FedavgConfig().update_from_dict({
+        "dataset_config": {"type": "cifar10", "num_clients": 20,
+                           "train_bs": 32},
+        "global_model": "resnet50", "compute_dtype": "bfloat16",
+        "execution": "dense", "evaluation_interval": 1,
+        "server_config": {"lr": 0.1, "aggregator": {"type": "Median"}}})
+    _reset_peak()
+    algo = cfg.build()
+    try:
+        _cuda.reset_launches()
+        audit0 = AUDIT["s"]
+        with _BnAudit(key="resnet50") as audit, _PathAudit(
+                "select", "column_median:resnet50") as sel:
+            t0 = time.perf_counter()
+            row = algo.train()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        audit_s = AUDIT["s"] - audit0
+    finally:
+        algo.stop()
+    launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+    want = {"column_median": 1,
+            **{k: RESNET50_BN_LAYERS for k in BN_TPU}}
+    check(launches == want, f"resnet50: launches {launches}, expected {want}")
+    bn_maps = {k: v for k, v in maps.items() if k[0] in BN_TPU}
+    check(bn_maps == {(k, "vector"): RESNET50_BN_LAYERS for k in BN_TPU},
+          f"resnet50: BN launches by thread map {bn_maps}, expected all "
+          "on the vector map")
+    check(audit.calls == 2 * RESNET50_BN_LAYERS and sel.calls == 1,
+          f"resnet50: audited {audit.calls} BN launches, {sel.calls} "
+          "selects")
+    check(math.isfinite(row["train_loss"]) and math.isfinite(
+        row["test_acc"]), f"resnet50: row {row}")
+    chans = sorted({s[1][2] for s in audit.layouts})
+    log(f"resnet50: one dense round, 20 clients, bf16: {secs - audit_s:.2f} "
+        f"s (evaluation included; {audit_s:.2f} s of audits taken out), "
+        f"train_loss {row['train_loss']:.4f}, test_acc "
+        f"{row['test_acc']:.4f}; BN launches {launches['bn_bwd_reduce']} + "
+        f"{launches['bn_bwd_dx']} ({RESNET50_BN_LAYERS} layers, channels "
+        f"{chans}), all on the vector map, every launch audited (dx "
+        f"bit-exact, sums max err {audit.err:.3g}); Median on select:radix "
+        f"once on {sorted(sel.shapes)}, bit-exact against the plain "
+        f"version; peak {_peak() / 2**30:.2f} GiB [{card}]")
+    counts = {f"{k}:resnet50": launches[k] for k in BN_TPU}
+    counts["column_median:resnet50"] = launches["column_median"]
+    return counts, {**audit.records(1), **sel.records}
+
+
+def phase_resnet34(card):
+    """The ResNet-34 grid's DnC point at full size for one dispatch of 10
+    rounds, then one dense ResNet-50 round.  Returns the launches and
+    records of each path, under its own key."""
+    storage = _work_dir("resnet34")
+    tried = []
+    for block in RESNET34_BLOCKS:
+        summary, t, ws, bn_audit = _resnet34_trial(storage, block)
+        tried.append((block, t["peak"], summary.get("error")))
+        if "status" not in summary:
+            break
+        check("OutOfMemoryError" in summary["error"],
+              f"resnet34: block {block} failed: {summary['error']}")
+        log(f"resnet34: client_block {block} ran out of device memory "
+            f"(peak {t['peak'] / 2**30:.2f} GiB before the failure)")
+    check("status" not in summary,
+          f"resnet34: no client_block of {RESNET34_BLOCKS} fit: {tried}")
+    rows = _rows(storage, "fedavg_cifar100_resnet34", 0)
+    check([r["training_iteration"] for r in rows] == [RESNET34_ROUNDS],
+          f"resnet34: rows {[r['training_iteration'] for r in rows]}, "
+          "expected one row at round 10")
+    losses = [r["train_loss"] for r in rows]
+    check(all(math.isfinite(v) for v in losses)
+          and math.isfinite(rows[0]["agg_norm"]),
+          f"resnet34: row {rows[0]}")
+    trained = (1000 - 200) // block
+    want = {"row_stats_bundle": RESNET34_ROUNDS,
+            **{k: RESNET34_ROUNDS * trained * RESNET34_BN_LAYERS
+               for k in BN_TPU}}
+    check(t["streamed"] and t["launches"] == want and t["passes"] == 1,
+          f"resnet34: launches {t['launches']} (bundles a round "
+          f"{t['passes']}), expected {want}")
+    rs_routes = {k: v for k, v in t["maps"].items()
+                 if k[0] == "row_stats_bundle"}
+    check(rs_routes == {("row_stats_bundle", "rowstats:ring"):
+                        RESNET34_ROUNDS},
+          f"resnet34: row-statistics routes {rs_routes}")
+    check(ws.calls == RESNET34_ROUNDS
+          and bn_audit.calls == 2 * trained * RESNET34_BN_LAYERS,
+          f"resnet34: {ws.calls} weighted sums and {bn_audit.calls} BN "
+          "launches audited")
+    bn_maps = {k: v for k, v in t["maps"].items() if k[0] in BN_TPU}
+    wkey = "row_stats_bundle:wsum:resnet34"
+    rps, rps_text = _train_rps("resnet34", t)
+    log(f"resnet34: fedavg_cifar100_resnet34.yaml DnC point, ResNet-34 x "
+        f"1000 clients (200 Adaptive, elided), CIFAR-100 shapes, f32 "
+        f"compute, bf16 buffer {sorted(ws.shapes)}, client_block {block}, "
+        f"rounds_per_dispatch 10: one dispatch of {RESNET34_ROUNDS} rounds, "
+        f"{rps_text} (trial wall {t['wall']:.1f} s); peak memory "
+        f"{t['peak'] / 2**30:.2f} GiB; blocks tried (block, peak GiB): "
+        f"{[(b, round(p / 2**30, 2)) for b, p, _ in tried]}; train_loss "
+        f"{losses}, agg_norm {rows[0]['agg_norm']}; launches a round: "
+        f"row_stats_bundle {t['launches']['row_stats_bundle'] // RESNET34_ROUNDS}"
+        f" (rowstats:ring, DnC's weighted sum; all {ws.calls} against the "
+        f"plain version, max_abs_err {ws.records[wkey]['max_abs_err']:.3g}),"
+        f" BN {t['launches']['bn_bwd_reduce'] // RESNET34_ROUNDS} + "
+        f"{t['launches']['bn_bwd_dx'] // RESNET34_ROUNDS} (thread maps "
+        f"{bn_maps}; the first round's {bn_audit.calls} audited: dx "
+        f"bit-exact, sums max err {bn_audit.err:.3g}, layouts "
+        f"{len(bn_audit.layouts)}) [{card}]")
+    counts = {wkey: t["launches"]["row_stats_bundle"],
+              **{f"{k}:resnet34": t["launches"][k] for k in BN_TPU}}
+    records = {**ws.records, **bn_audit.records(1)}
+    c, r = _resnet50_round(card)
+    counts.update(c)
+    records.update(r)
+    return counts, records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2916,10 +3764,12 @@ def main(argv=None) -> int:
             launches.update(run("rowgeom", phase_rowgeom))
         if "fedavg" in phases:
             launches.update(run("fedavg", phase_fedavg))
-        if "chunked" in phases:
-            counts, recs = run("chunked", phase_chunked, card)
-            launches.update(counts)
-            records.update(recs)
+        for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
+                         ("resnet34", phase_resnet34)):
+            if name in phases:
+                counts, recs = run(name, fn, card)
+                launches.update(counts)
+                records.update(recs)
         if "profile" in phases:
             run("profile", phase_profile, os.path.join(HERE, "chiprun_out"))
         if "bnstages" in phases:

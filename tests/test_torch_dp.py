@@ -388,11 +388,13 @@ def test_fedavg_dp_runs_from_the_command_line(tmp_path, capsys):
                "--storage-path", str(tmp_path),
                "--config-json", json.dumps(DP_RUN)])
     assert rc == 0
+    # The JAX command's layout: <storage>/<algo>_run/<algo>_run_00000/.
     rows = [json.loads(line) for line in
-            (tmp_path / "fedavg_dp_run" / "result.json").read_text()
-            .splitlines()]
+            (tmp_path / "fedavg_dp_run" / "fedavg_dp_run_00000"
+             / "result.json").read_text().splitlines()]
     assert len(rows) == 2 and np.isfinite(rows[-1]["test_acc"])
-    assert "round 2" in capsys.readouterr().out
+    assert "== trial fedavg_dp_run_00000: 2 rounds ==" in \
+        capsys.readouterr().out
 
 
 # -- Noise and Lazy through Fedavg.train() ------------------------------------
@@ -452,5 +454,6 @@ def test_noise_and_lazy_run_from_the_command_line(tmp_path, adversary,
     assert main(["run", "FEDAVG", "--rounds", "2", "--device", "cpu",
                  "--storage-path", str(tmp_path),
                  "--config-json", json.dumps(run)]) == 0
-    rows = (tmp_path / "fedavg_run" / "result.json").read_text().splitlines()
+    rows = (tmp_path / "fedavg_run" / "fedavg_run_00000" / "result.json"
+            ).read_text().splitlines()
     assert len(rows) == 2

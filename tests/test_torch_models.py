@@ -27,6 +27,7 @@ from blades_tpu_torch.convert import params_from_jax, params_to_jax
 from blades_tpu_torch.core import TaskSpec
 from blades_tpu_torch.models.catalog import get_model
 from blades_tpu_torch.models.layers import BNApply, bn_apply
+from blades_tpu_torch.utils.tree import FlatLayout
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -141,15 +142,211 @@ def test_bn_vmap_matches_loop():
 @pytest.mark.parametrize("name", sorted(JAX_RESNETS))
 def test_resnet_names_resolve_to_their_own_depth(name):
     """Every exact ResNet name of the reference builds, in the port, a
-    model with the reference's parameter count, or raises: none falls
-    through to another depth (the "resnet" substring rule is ResNet-10)."""
-    try:
+    model with the reference's parameter count: none falls through to
+    another depth (the "resnet" substring rule is ResNet-10)."""
+    with torch.device("meta"):
         model = get_model(name, num_classes=10, input_shape=(32, 32, 3))
-    except NotImplementedError as e:
-        assert "Queue A 6" in str(e)
-        return
     shapes = jax.eval_shape(
         ModelCatalog.get_model(name, num_classes=10).init,
         jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3), jnp.float32))
     want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
     assert sum(p.numel() for p in model.parameters()) == want
+
+
+@pytest.mark.parametrize("name,num_classes", [
+    ("resnet34", 100), ("resnet50", 10), ("resnet101", 10),
+    ("resnet152", 10)])
+def test_deep_resnet_flat_layout_matches_jax(name, num_classes):
+    """The flat layout of the deeper ResNets against ``jax.eval_shape`` of
+    the flax model: every leaf's path, in order (two-digit block indices
+    sort as strings, ``BasicBlock_10`` before ``BasicBlock_2``), its shape
+    in flax layout, and d (ResNet-34 on CIFAR-100: 21,328,292)."""
+    with torch.device("meta"):
+        model = get_model(name, num_classes, (32, 32, 3))
+    layout = FlatLayout(dict(model.named_parameters()))
+    shapes = jax.eval_shape(
+        ModelCatalog.get_model(name, num_classes=num_classes).init,
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3), jnp.float32))
+    flat = jax.tree_util.tree_flatten_with_path(shapes["params"])[0]
+    want = [(tuple(k.key for k in path), tuple(s.shape)) for path, s in flat]
+    got = [(lf.path, tuple(lf.shape[p] for p in lf.perm) if lf.perm
+            else tuple(lf.shape)) for lf in layout.leaves]
+    assert got == want
+    assert layout.d == sum(int(np.prod(s)) for _, s in want)
+    if name == "resnet34":
+        assert layout.d == 21_328_292
+        names = [lf.path[0] for lf in layout.leaves]
+        assert names.index("BasicBlock_10") < names.index("BasicBlock_2")
+
+
+@pytest.mark.parametrize("in_ch,filters,stride", [(16, 8, 2), (32, 8, 1)],
+                         ids=["projection", "identity"])
+def test_bottleneck_matches_flax(in_ch, filters, stride):
+    """One Bottleneck (expansion 4), with a projection shortcut and with
+    the identity one: outputs and the gradients of a random projection of
+    them with respect to the parameters and the input, on the same
+    weights, within the module's tolerance."""
+    from blades_tpu.models.resnet import Bottleneck as JaxBottleneck
+    from blades_tpu_torch.models.resnet import Bottleneck
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, 8, 8, in_ch)).astype(np.float32)
+    jblock = JaxBottleneck(filters, stride)
+    jparams = jblock.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+    jout = jblock.apply({"params": jparams}, jnp.asarray(x))
+    r = rng.normal(size=jout.shape).astype(np.float32)
+
+    def jloss(p, xx):
+        return (jblock.apply({"params": p}, xx) * r).sum()
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+
+    block = Bottleneck(in_ch, filters, stride)
+    assert [n for n, _ in block.named_children()] == [
+        "Conv_0", "BatchStatsNorm_0", "Conv_1", "BatchStatsNorm_1", "Conv_2",
+        "BatchStatsNorm_2"] + (["Conv_3", "BatchStatsNorm_3"]
+                               if stride != 1 or in_ch != 4 * filters else [])
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    rt = torch.from_numpy(r).permute(0, 3, 1, 2)
+
+    def loss(p, xx):
+        return (functional_call(block, p, (xx.permute(0, 3, 1, 2),))
+                * rt).sum()
+
+    xt = torch.from_numpy(x)
+    out = functional_call(block, params, (xt.permute(0, 3, 1, 2),))
+    _close(out.permute(0, 2, 3, 1).detach(), jout)
+    gp, gx = grad(loss, argnums=(0, 1))(params, xt)
+    _close(gx, jgx)
+    got = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(gp)))
+    for path, w in jax.tree_util.tree_leaves_with_path(
+            jax.tree.map(np.asarray, jgp)):
+        _close(got[path], w)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("model", ["resnet34", "resnet50"])
+def test_deep_resnet_logits_and_grads_match_flax(model):
+    """ResNet-34 / ResNet-50 at 32x32, batch 8, on the same weights: each
+    side's f32 logits and gradients against an f64 run of the port.  At
+    these depths the f32 gradients of both frameworks lie 0.4-3% (relative
+    L2) from the f64 run, each side in its own direction (measured on the
+    CPU), so both are held to 5e-2 of it; the logits to 1e-3."""
+    shape = (32, 32, 3)
+    spec = dict(model=model, input_shape=shape, num_classes=10)
+    jtask = JaxTaskSpec(**spec).build()
+    jparams = jtask.init_params(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(8,) + shape).astype(np.float32)
+    y = rng.integers(0, 10, size=(8,)).astype(np.int32)
+    dkey = jax.random.PRNGKey(3)
+    jlogits = np.asarray(jtask.apply(jparams, jnp.asarray(x), train=True,
+                                     dropout_key=dkey))
+    jgrads = jax.grad(lambda p: jtask.loss_fn(
+        p, jnp.asarray(x), jnp.asarray(y), dkey))(jparams)
+    task = TaskSpec(**spec).build()
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = {k: v.to(dt) for k, v in params.items()}
+        xt, yt = torch.from_numpy(x).to(dt), torch.from_numpy(y).long()
+        logits = functional_call(task.model, p, (xt,)).detach().double()
+        g = grad(task.loss_fn)(p, xt, yt, None)
+        flat = params_to_jax({k: v.double() for k, v in g.items()})
+        out[dt] = (logits.numpy(), np.concatenate([
+            np.asarray(v, np.float64).ravel()
+            for v in jax.tree_util.tree_leaves(flat)]))
+    jg = np.concatenate([np.asarray(v, np.float64).ravel()
+                         for v in jax.tree_util.tree_leaves(jgrads)])
+    l64, g64 = out[torch.float64]
+    for logits, grads in ((jlogits, jg), out[torch.float32]):
+        assert _rel(logits, l64) < 1e-3
+        assert _rel(grads, g64) < 5e-2
+
+
+# The BatchStatsNorm outputs of each block kind that go straight into a
+# ReLU (the last main-branch norm and the shortcut's are summed first).
+RELU_NORMS = {"BasicBlock": ("BatchStatsNorm_0",),
+              "Bottleneck": ("BatchStatsNorm_0", "BatchStatsNorm_1")}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("model", ["resnet34", "resnet50"])
+def test_deep_resnet_blocks_match_flax_at_their_widths(model):
+    """Every block of ResNet-34 / ResNet-50 on its own, at its real widths
+    and strides, fed the activation the port's full forward hands it (32x32
+    inputs, batch 8), against the flax block on the same weights: the
+    output within the module's tolerance, and each parameter leaf's and the
+    input's gradient of a random projection within 1e-4 relative L2.
+
+    The whole-model check above cannot be tightened against JAX: its
+    BatchStatsNorm keeps the statistics and the backward sums in f32 even
+    under x64 (a JAX x64 run lies 4e-3 / 3e-2 from the port's f64 run,
+    measured on the CPU).  Per block the two f32 runs agree to about 3e-6,
+    except where a ReLU input lies so close to 0 that the two sides' f32
+    roundings put it on opposite sides of the kink: that block's gradients
+    then differ by up to 6e-3 (measured), a fact of f32 and not of the
+    architecture.  Such a block (a sign that differs at a ReLU input, read
+    from both sides' intermediates) is held to 1e-2, and at least half of
+    the blocks must be free of it, so the tight bound has teeth."""
+    from blades_tpu.models import resnet as jres
+
+    shape = (32, 32, 3)
+    spec = dict(model=model, input_shape=shape, num_classes=10)
+    jparams = JaxTaskSpec(**spec).build().init_params(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(8,) + shape).astype(np.float32)
+    net = TaskSpec(**spec).build().model
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    inputs = {}
+    hooks = [getattr(net, n).register_forward_pre_hook(
+        lambda m, a, n=n: inputs.__setitem__(n, a[0].detach().clone()))
+        for n in net.block_names]
+    functional_call(net, params, (torch.from_numpy(x),))
+    for h in hooks:
+        h.remove()
+    clean = 0
+    for name in net.block_names:
+        blk, xin = getattr(net, name), inputs[name]
+        kind = type(blk).__name__
+        conv = blk.Conv_1 if kind == "Bottleneck" else blk.Conv_0
+        jblock = getattr(jres, kind)(blk.Conv_0.out_channels, conv.stride[0])
+        jp = jax.tree.map(np.asarray, jparams[name])
+        xj = jnp.asarray(xin.permute(0, 2, 3, 1).numpy())
+        jout, inter = jblock.apply({"params": jp}, xj,
+                                   capture_intermediates=True,
+                                   mutable=["intermediates"])
+        r = rng.normal(size=jout.shape).astype(np.float32)
+        jgp, jgx = jax.grad(
+            lambda p, xx: (jblock.apply({"params": p}, xx) * r).sum(),
+            argnums=(0, 1))(jp, xj)
+        bp = {k.split(".", 1)[1]: v for k, v in params.items()
+              if k.split(".", 1)[0] == name}
+        rt = torch.from_numpy(r).permute(0, 3, 1, 2)
+        norms = {}
+        hooks = [getattr(blk, m).register_forward_hook(
+            lambda mod, a, out, m=m: norms.__setitem__(m, out.detach()))
+            for m in RELU_NORMS[kind]]
+        out = functional_call(blk, bp, (xin,)).detach().permute(0, 2, 3, 1)
+        for h in hooks:
+            h.remove()
+        _close(out, jout)
+        gp, gx = grad(lambda p, xx: (functional_call(blk, p, (xx,))
+                                     * rt).sum(), argnums=(0, 1))(bp, xin)
+        pairs = [(gx.permute(0, 2, 3, 1).numpy(), np.asarray(jgx))]
+        got = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(gp)))
+        pairs += [(np.asarray(got[path]), np.asarray(w)) for path, w in
+                  jax.tree_util.tree_leaves_with_path(jgp)]
+        flips = sum(int(((np.asarray(inter["intermediates"][m]["__call__"][0])
+                          > 0) != (norms[m].permute(0, 2, 3, 1).numpy() > 0))
+                        .sum()) for m in RELU_NORMS[kind])
+        flips += int(((np.asarray(jout) > 0) != (out.numpy() > 0)).sum())
+        clean += flips == 0
+        worst = max(_rel(a.astype(np.float64), b.astype(np.float64))
+                    for a, b in pairs)
+        assert worst < (1e-4 if flips == 0 else 1e-2), (name, flips, worst)
+    assert clean >= len(net.block_names) / 2
