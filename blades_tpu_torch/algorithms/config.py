@@ -245,10 +245,6 @@ class FedavgConfig:
         if self.execution not in ("auto", "dense", "streamed"):
             raise ValueError("execution must be auto|dense|streamed, got "
                              f"{self.execution!r}")
-        if self.client_momentum and self.execution == "streamed":
-            raise NotImplementedError(
-                "client momentum on the streamed round is not in the port "
-                "yet (a later slice); use execution='dense'")
         if str(self.update_dtype) not in ("bfloat16", "float32"):
             raise ValueError("update_dtype must be 'bfloat16' or 'float32', "
                              f"got {self.update_dtype!r}")

@@ -142,10 +142,8 @@ class Fedavg:
                           (Mean, Median, Trimmedmean) + STREAMED_ROW_AGGREGATORS):
             return False
         adv = fr.adversary
-        if forges(adv) and not isinstance(
-                adv, _COORDWISE_FORGERS + STREAMED_ROW_FORGERS):
-            return False
-        return not fr.task.spec.momentum
+        return not forges(adv) or isinstance(
+            adv, _COORDWISE_FORGERS + STREAMED_ROW_FORGERS)
 
     def _use_streamed(self) -> bool:
         cfg = self.config

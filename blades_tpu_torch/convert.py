@@ -4,7 +4,8 @@
 numpy arrays, into the port's ``{name: tensor}`` dict (torch layout);
 :func:`params_to_jax` goes the other way.  Conv kernels move between flax
 HWIO and torch OIHW, dense kernels between ``(in, out)`` and
-``(out, in)``; biases (the CNN's convolutions have them) and norm scales
+``(out, in)``; biases (the CNN's convolutions have them), norm scales,
+CCT's ``pos_embed`` and its attention kernels (stored in flax's layout)
 keep their layout.  See :mod:`blades_tpu_torch.utils.tree` for the
 naming rule.
 """

@@ -166,9 +166,10 @@ class FedRound:
                         dp_noise=None) -> Tuple[RoundState, dict]:
         """:meth:`step` with every client's batches already drawn: ``bx
         (n, num_batches, batch, ...)``, ``by (n, num_batches, batch)``.
-        ``dropout_masks`` (one ``(n, num_batches, batch, width)`` keep-mask
-        per dropout layer) and ``aug_draws`` (``(offsets (n, nb, B, 2),
-        flips (n, nb, B))``) replace those draws from ``generator``;
+        ``dropout_masks`` (one ``(n, num_batches, *site_shape)`` keep-mask
+        per dropout site, as ``Task.draw_dropout_masks`` draws them) and
+        ``aug_draws`` (``(offsets (n, nb, B, 2), flips (n, nb, B))``)
+        replace those draws from ``generator``;
         ``forge_noise`` (the adversary's ``noise=``) and ``dp_noise``
         (``(k, d)`` standard normals, ``k`` the true federation size)
         replace the finish's."""

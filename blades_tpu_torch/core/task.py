@@ -80,19 +80,31 @@ class Task:
                     device=None) -> Dict[str, torch.Tensor]:
         """Fresh parameters drawn from ``generator`` (a CPU generator) as
         flax initialises them: lecun-normal kernels (truncated at two
-        standard deviations), zero biases, unit norm scales."""
+        standard deviations; the fan-in of a flax-layout kernel is its
+        module's ``kernel_fan_in``), zero biases, unit norm scales, and
+        CCT's ``pos_embed`` from ``truncated_normal(0.2)`` (a normal of
+        std 0.2 cut at two of them)."""
+        fan_ins = {f"{m}.weight": mod.kernel_fan_in
+                   for m, mod in self.model.named_modules()
+                   if hasattr(mod, "kernel_fan_in")}
         params = {}
         for name, p in self.model.named_parameters():
             t = torch.empty(p.shape, dtype=torch.float32)
-            if name.endswith("weight") and p.dim() > 1:
-                fan_in = math.prod(p.shape[1:])
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and p.dim() > 1:
+                fan_in = fan_ins.get(name, math.prod(p.shape[1:]))
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-            elif name.endswith("weight"):
+            elif leaf == "weight":
                 t.fill_(1.0)
-            else:
+            elif leaf == "bias":
                 t.zero_()
+            elif leaf == "pos_embed":
+                nn.init.trunc_normal_(t, 0.0, 0.2, -0.4, 0.4,
+                                      generator=generator)
+            else:
+                raise ValueError(f"no initializer for parameter {name!r}")
             params[name] = t.to(device) if device is not None else t
         return params
 
@@ -115,15 +127,21 @@ class Task:
         return ce.clamp(0.0, self.spec.loss_clamp)
 
     def draw_dropout_masks(self, generator, shape, device):
-        """Keep-masks ``(*shape, width)`` per dropout layer, or None."""
-        rate = getattr(self.model, "dropout_rate", 0.0)
-        if not rate:
+        """One keep-mask per dropout site of the model, for batches of
+        ``shape`` (G, nb, B): ``(G, nb, *site_shape)``, kept with
+        probability ``1 - rate``, in site order; or None.  A model states
+        its sites as ``dropout_sites(B) -> ((site_shape, rate), ...)``
+        (the MLP's ``((B, width), rate)`` per layer; CCT's ``(q, kv)``
+        attention masks and ``(B,)`` stochastic-depth draws)."""
+        sites_of = getattr(self.model, "dropout_sites", None)
+        sites = sites_of(shape[-1]) if sites_of is not None else ()
+        if not sites:
             return None
         if generator is None:
             raise ValueError("train-mode dropout needs a generator")
-        return tuple(torch.rand(shape + (w,), generator=generator,
-                                device=device) >= rate
-                     for w in self.model.dropout_widths)
+        return tuple(torch.rand(tuple(shape[:-1]) + tuple(s),
+                                generator=generator, device=device) >= rate
+                     for s, rate in sites)
 
     def draw_augment(self, generator, shape, device):
         """The augmentation's draws ``(offsets (*shape, 2), flips
@@ -157,7 +175,8 @@ class Task:
         *shape)}``, required under client momentum) and comes back
         advanced.  ``hooks`` with the block's ``malicious (G,)`` mask are
         the training hooks (:class:`Hooks`).  ``dropout_masks`` (one ``(G, nb,
-        B, width)`` bool keep-mask per dropout layer) and ``aug_draws``
+        *site_shape)`` bool keep-mask per dropout site, as
+        :meth:`draw_dropout_masks` draws them) and ``aug_draws``
         (``(offsets (G, nb, B, 2), flips (G, nb, B))``) replace the draws
         from ``generator``.
 
@@ -222,8 +241,8 @@ class Task:
                     generator=None, dropout_masks=None, out_dtype=None):
         """One client's local round from a fresh optimizer state:
         ``(nb, B, ...)`` batches -> ``(update (d,), mean loss)``;
-        ``dropout_masks`` holds one ``(nb, B, width)`` keep-mask per
-        dropout layer."""
+        ``dropout_masks`` holds one ``(nb, *site_shape)`` keep-mask per
+        dropout site."""
         masks = (None if dropout_masks is None
                  else tuple(m[None] for m in dropout_masks))
         upd, loss, _ = self.local_round_batched(

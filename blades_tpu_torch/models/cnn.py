@@ -33,6 +33,11 @@ class FashionCNN(nn.Module):
         self.Dense_1 = nn.Linear(600, 120)
         self.Dense_2 = nn.Linear(120, num_classes)
 
+    def dropout_sites(self, batch: int):
+        """``(shape, rate)`` of the dropout layer's keep-mask for one
+        client's step on a batch of ``batch``."""
+        return (((batch, 600), self.dropout_rate),)
+
     def forward(self, x, dropout_masks=None):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         x = F.max_pool2d(torch.relu(self.Conv_0(x)), 2, 2)

@@ -24,6 +24,14 @@ class MLP(nn.Module):
         self.Dense_1 = nn.Linear(hidden1, hidden2)
         self.Dense_2 = nn.Linear(hidden2, num_classes)
 
+    def dropout_sites(self, batch: int):
+        """``(shape, rate)`` of each dropout layer's keep-mask for one
+        client's step on a batch of ``batch``."""
+        if not self.dropout_rate:
+            return ()
+        return tuple(((batch, w), self.dropout_rate)
+                     for w in self.dropout_widths)
+
     def _drop(self, x, masks, i):
         if masks is None or self.dropout_rate == 0.0:
             return x

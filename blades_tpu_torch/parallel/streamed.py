@@ -73,9 +73,13 @@ for the in-place pass and one for the scatter.  A row-geometry forge with
 Mean, Median or Trimmedmean finishes chunk by chunk.
 
 The training hooks (the client callbacks, then LabelFlip's or SignFlip's)
-run inside each block's local rounds.  Client momentum raises ``NotImplementedError`` (a
-later slice of the port); the Lazy forge has no streamed formulation, and
-ghost lanes enter no row-geometry round, as in the JAX package.
+run inside each block's local rounds.  Under client momentum each block
+takes its rows of the per-client traces (``RoundState.client_opt``, one
+row per data row), runs its local round from them and writes the
+advanced traces back in place, as the JAX package's ``_train_block``
+does with its donated traces; elided blocks never train, so their traces
+stay as they are.  The Lazy forge has no streamed formulation, and ghost
+lanes enter no row-geometry round, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -184,8 +188,8 @@ def streamed_step(
     and ``seed`` seeds the round's generator (batch indices, dropout
     masks, the forges', DP's and DnC's draws, the trusted update's
     batches).  ``batch_idx (n, num_batches, batch_size)`` replaces the
-    index draw, ``dropout_masks`` (one ``(n, num_batches, batch_size,
-    width)`` bool keep-mask per dropout layer) the mask draw, and
+    index draw, ``dropout_masks`` (one ``(n, num_batches, *site_shape)``
+    bool keep-mask per dropout site) the mask draw, and
     ``draws(kind, i, shape)`` the per-chunk draws of the chunked finish
     and of the row-geometry round's in-place pass (``kind`` ``"dp"`` or
     ``"noise"``: standard normals; ``"adaptive"``: the chunked finish's
@@ -204,10 +208,7 @@ def streamed_step(
     when the round draws, under DP, Noise or Adaptive).
     """
     dev = resolve_device(device)
-    if fr.task.spec.momentum:
-        raise NotImplementedError(
-            "client momentum on the streamed round is not in the port yet "
-            "(a later slice)")
+    momentum = bool(fr.task.spec.momentum)
     d_chunk = d_chunk or D_CHUNK
     hooks = fr.hooks()
     agg, adv = fr.server.aggregator, fr.adversary
@@ -457,6 +458,13 @@ def streamed_step(
                     "would enter the row geometry; pick a client_block "
                     "that divides num_clients")
             check_applicable(agg, n)
+        opt = state.client_opt
+        if momentum:
+            rows = {v.shape[0] for v in (opt or {}).values()}
+            if rows != {n}:
+                raise ValueError(
+                    f"client momentum needs one trace row per data row "
+                    f"({n}), got state.client_opt rows {sorted(rows)}")
         malicious = malicious.to(device=dev, dtype=torch.bool)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -518,12 +526,18 @@ def streamed_step(
                                     batch_idx[r0:r1])
             masks = (None if dropout_masks is None else
                      tuple(m[r0:r1].to(dev) for m in dropout_masks))
-            _, loss, _ = fr.task.local_round_batched(
-                params, bx.to(dev), by.to(dev), malicious=malicious[r0:r1],
+            _, loss, opt_b = fr.task.local_round_batched(
+                params, bx.to(dev), by.to(dev),
+                opt_state=(None if not momentum else
+                           {k: v[r0:r1] for k, v in opt.items()}),
+                malicious=malicious[r0:r1],
                 hooks=hooks, generator=gen, dropout_masks=masks,
                 out=buf[r0 - row_shift:r1 - row_shift, :d],
                 sq_out=None if sq_rows is None else sq_rows[r0:r1])
             losses[r0:r1] = loss
+            if momentum:  # the block's advanced traces, in place
+                for k, v in opt_b.items():
+                    opt[k][r0:r1] = v
         row_norms = None if sq_rows is None else sq_rows.sqrt()
 
         if rowgeom_path:
@@ -543,7 +557,7 @@ def streamed_step(
         del buf
         if skip_blocks:
             metrics["elided_lanes"] = skip_blocks * client_block
-        return RoundState(server=server, client_opt=state.client_opt), metrics
+        return RoundState(server=server, client_opt=opt), metrics
 
     step.finish = finish
     step.routes = collections.Counter()

@@ -15,9 +15,12 @@ reference's can be compared coordinate by coordinate:
   weight is transposed).
 
 A torch parameter name ``"A.B.weight"`` maps to the flax path
-``("A", "B", "kernel")`` for 4-D (conv) and 2-D (dense) weights and to
-``("A", "B", "scale")`` for a 1-D (normalisation) weight; ``bias`` keeps
-its name.  Module names in the port's models equal flax's auto-names.
+``("A", "B", "kernel")`` for a weight of two or more dimensions and to
+``("A", "B", "scale")`` for a 1-D (normalisation) weight; ``bias`` and any
+other leaf name (CCT's root-level ``pos_embed``) keep their names.  Only
+4-D and 2-D weights change layout; the others (the attention kernels of
+:class:`~blades_tpu_torch.models.cct.DenseGeneral`) are stored in flax's.
+Module names in the port's models equal flax's auto-names.
 """
 
 from __future__ import annotations
@@ -36,14 +39,14 @@ def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
     *mods, leaf = name.split(".")
     if leaf == "weight":
         leaf = "scale" if ndim == 1 else "kernel"
-    elif leaf != "bias":
+    elif leaf in ("kernel", "scale"):
         raise ValueError(f"no flax counterpart for parameter {name!r}")
     return tuple(mods) + (leaf,)
 
 
 def torch_name(path: Tuple[str, ...]) -> str:
     """Inverse of :func:`flax_path`."""
-    leaf = "bias" if path[-1] == "bias" else "weight"
+    leaf = "weight" if path[-1] in ("kernel", "scale") else path[-1]
     return ".".join(path[:-1] + (leaf,))
 
 

@@ -83,8 +83,12 @@ Phases, each printing its lines before the last:
    steps, 3 rounds and an evaluation; the Median on ``select:radix``
    once a round), the 1000-client streamed trial of
    ``fedavg_cifar10_1000clients.yaml`` (ALIE, Median, bf16, 2 rounds and
-   an evaluation), and the MLP accuracy check (test accuracy >= 0.9 after
-   3 rounds); each prints rounds/s, losses, accuracy and peak memory.
+   an evaluation), the same trial with client momentum 0.9 (still
+   ``finish:radix`` once a round; the 250 elided lanes' traces stay zero,
+   every trained lane's move; round 1's ``agg_norm`` equal to the
+   momentum-free run's, round 2's not), and the MLP accuracy check (test
+   accuracy >= 0.9 after 3 rounds); each prints rounds/s, losses,
+   accuracy and peak memory.
 9. ``chunked``: the streamed round's chunked finish and its route gate:
    the gate's Python plan mirrors against ``bt_finish_plan`` on both sides
    of each cap (radix bf16 1,317 rows; bit-serial f32 4,874, bf16 7,473);
@@ -129,24 +133,39 @@ Phases, each printing its lines before the last:
    the Median's select audited against the plain versions, the BN
    launches on the vector map.  The audits' seconds are taken out of the
    rounds/s and their allocations out of the peaks these phases report.
-12. ``profile`` (only when named): one more main-path round, one
+12. ``cct``: ``blades_tpu_torch.train.main(["file",
+   fedavg_cct_cifar10.yaml, "--max-rounds", "3", ...])`` on a copy of the
+   file whose evaluation runs at round 3 and whose health check is on:
+   its six points (Mean, Median, Clippedclustering x ALIE, IPM(100)), the
+   catalog's ``cct_2_3x2_32`` (d = 284,491) x 60 clients of CIFAR-10
+   shapes, 12 malicious, train_bs 64, the dense f32 round; each trial's
+   rows verified, finite losses, ``round_ok``, a finite test accuracy,
+   ``select:radix`` once a Median round on the (60, 284,491) matrix and
+   no kernel in the others, rounds/s, setup seconds and peak memory; then
+   one dense Median round (60 clients, 12 ALIE) of ``cct_7_3x1_32_c100``
+   on CIFAR-100 shapes (d = 3,788,645, blocks of 10) and of
+   ``cvt_7_4_32`` (d = 3,721,995).  Every select of the phase is held
+   bit-exact against the plain version on the path's own operands
+   (``_PathAudit``).
+13. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-13. ``bnstages`` (only when named): the BN kernels alone at the four stage
+14. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-14. ``ringsweep`` (only when named): the row-statistics ring across
+15. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-11 (and before
-each round of phase 7 and each trial of phases 8 to 11) and read just
+Launch counts are set to 0 just before each of phases 4-12 (and before
+each round of phase 7 and each trial of phases 8 to 12) and read just
 after; each path's count goes to its own record (``column_median:local20``,
+``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``, ...),
 timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
@@ -171,7 +190,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
-          "rowgeom", "fedavg", "chunked", "sweep", "resnet34")
+          "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -2634,10 +2653,12 @@ MLP_TRIAL = {
 MLP_MIN_ACC = 0.9
 
 
-def _fedavg_trial(name, overrides, rounds, config_cls=None, on_build=None):
+def _fedavg_trial(name, overrides, rounds, config_cls=None, on_build=None,
+                  on_done=None):
     """Build ``Fedavg`` from ``overrides`` (through ``config_cls``, default
     ``FedavgConfig``), hand it to ``on_build`` before its first round, run
-    ``rounds`` rounds (the last one evaluates), print rounds/s, losses,
+    ``rounds`` rounds (the last one evaluates), hand the driver and its
+    rows to ``on_done`` before ``stop()``, print rounds/s, losses,
     accuracy and peak memory, and return the last row."""
     import torch
 
@@ -2658,6 +2679,8 @@ def _fedavg_trial(name, overrides, rounds, config_cls=None, on_build=None):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         streamed = algo.streamed
+        if on_done is not None:
+            on_done(algo, rows)
     finally:
         algo.stop()
     last = rows[-1]
@@ -2710,8 +2733,10 @@ def phase_fedavg():
         log(f"fedavg {adv}: BN launches by thread map "
             f"{dict(_cuda.MAPS)}")
     _cuda.reset_launches()
+    plain = []
     _, streamed = _fedavg_trial("ResNet-10 x 1000 ALIE Median bf16",
-                                STREAMED_TRIAL, 2)
+                                STREAMED_TRIAL, 2,
+                                on_done=lambda a, rows: plain.extend(rows))
     counts = dict(_cuda.LAUNCHES)
     # 750 trained clients in blocks of 25, 12 BN layers, 2 rounds.
     want = {"fused_finish_compact": 2, **{k: 2 * 30 * 12 for k in BN_TPU}}
@@ -2720,10 +2745,63 @@ def phase_fedavg():
     routes = _finish_routes()
     check(routes == {("fused_finish_compact", "finish:radix"): 2},
           f"fedavg streamed: finish routes {routes}, expected radix twice")
+    _momentum_trial(plain, want)
     last, _ = _fedavg_trial("MLP x 6 ALIE Median", MLP_TRIAL, 3)
     check(last["test_acc"] >= MLP_MIN_ACC,
           f"fedavg MLP: test accuracy {last['test_acc']} < {MLP_MIN_ACC}")
     return {"column_median:dense_trial": dense}
+
+
+def _momentum_trial(plain, want):
+    """The streamed trial again with client momentum 0.9: the same launches
+    and ``finish:radix`` once a round, the elided lanes' traces still zero
+    and every trained lane's moved, round 1 equal to the momentum-free
+    run's (the traces start at zero; one local step) and round 2 not."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    seen = {}
+
+    def done(algo, rows):
+        opt = algo.state.client_opt
+        f = rows[-1]["elided_lanes"]
+        seen["elided"] = f
+        seen["zero"] = all(not bool(v[:f].any()) for v in opt.values())
+        moved = torch.zeros(opt[next(iter(opt))].shape[0] - f,
+                            dtype=torch.bool, device=algo.device)
+        for v in opt.values():
+            moved |= (v[f:].flatten(1) != 0).any(1)
+        seen["moved"] = bool(moved.all())
+        seen["bytes"] = sum(v.numel() * v.element_size()
+                            for v in opt.values())
+        seen["rows"] = rows
+        seen["peak"] = torch.cuda.max_memory_allocated()
+
+    _cuda.reset_launches()
+    overrides = {**STREAMED_TRIAL, "client_config": {
+        **STREAMED_TRIAL["client_config"], "momentum": 0.9}}
+    _, streamed = _fedavg_trial("ResNet-10 x 1000 ALIE Median bf16 client "
+                                "momentum 0.9", overrides, 2, on_done=done)
+    counts = dict(_cuda.LAUNCHES)
+    check(streamed and counts == want,
+          f"fedavg momentum: launches {counts}, expected {want}")
+    routes = _finish_routes()
+    check(routes == {("fused_finish_compact", "finish:radix"): 2},
+          f"fedavg momentum: finish routes {routes}, expected radix twice")
+    check(seen["zero"] and seen["moved"],
+          f"fedavg momentum: the {seen['elided']} elided lanes' traces zero "
+          f"{seen['zero']}, every trained lane's moved {seen['moved']}")
+    a = [r["agg_norm"] for r in seen["rows"]]
+    b = [r["agg_norm"] for r in plain]
+    check(abs(a[0] - b[0]) <= 1e-5 * abs(b[0])
+          and abs(a[1] - b[1]) > 1e-3 * abs(b[1]),
+          f"fedavg momentum: agg_norm {a} against the momentum-free {b}: "
+          "round 1 must agree, round 2 must not")
+    log(f"fedavg momentum: streamed, finish:radix once a round; traces "
+        f"{seen['bytes'] / 1e9:.2f} GB f32 (the {seen['elided']} elided "
+        f"lanes' zero, every trained lane's moved); agg_norm {a} against "
+        f"the momentum-free run's {b}; peak {seen['peak'] / 2**30:.2f} GiB")
 
 
 # The chunked finish's trials: fedavg_cifar10_1000clients.yaml's Median
@@ -3137,7 +3215,10 @@ class _TrialSpy:
         def _init(algo, *a, **kw):
             torch.cuda.synchronize()
             _reset_peak()
+            t0 = time.perf_counter()
             init(algo, *a, **kw)
+            torch.cuda.synchronize()
+            algo._spy_setup = time.perf_counter() - t0
             _cuda.reset_launches()
             algo._spy_t0 = time.perf_counter()
             algo._spy_audit = AUDIT["s"]
@@ -3153,6 +3234,7 @@ class _TrialSpy:
                     launches=dict(_cuda.LAUNCHES), maps=dict(_cuda.MAPS),
                     peak=_peak(), timers=algo.timers.summary(),
                     audit_s=AUDIT["s"] - algo._spy_audit,
+                    setup=algo._spy_setup,
                     wall=time.perf_counter() - algo._spy_t0))
                 algo._spy_t0 = None
                 stop(algo)
@@ -3700,6 +3782,157 @@ def phase_resnet34(card):
     return counts, records
 
 
+# The cct phase: fedavg_cct_cifar10.yaml (the catalog's "cct", i.e.
+# cct_2_3x2_32, d = 284,491; 60 clients of CIFAR-10 shapes, 12 malicious,
+# train_bs 64, the dense f32 round) at its six points, 3 rounds each, its
+# evaluation moved from round 50 to round 3 and the health check on (so
+# each row carries round_ok); then one dense Median round of each of two
+# deeper zoo members at full width: (name, dataset, d, client_block).
+# cct_7_3x1_32's one tokenizer stage leaves 256 tokens: its attention
+# weights are 64 x 4 x 256 x 256 f32 a client and layer (64 MiB), so it
+# trains 10 clients a block (the default 50 ran out of the 80 GB).
+CCT_YAML = os.path.join(TUNED, "fedavg_cct_cifar10.yaml")
+CCT_ROUNDS = 3
+CCT_D = 284_491
+CCT_ZOO = (("cct_7_3x1_32_c100", "cifar100", 3_788_645, 10),
+           ("cvt_7_4_32", "cifar10", 3_721_995, 50))
+
+
+def _cct_grid(storage, baseline):
+    """``train.main(["file", fedavg_cct_cifar10.yaml, ...])``: six trials
+    of 3 rounds; every Median select held bit-exact against the plain
+    version on the path's own operands."""
+    import torch
+
+    from blades_tpu_torch import train
+    from blades_tpu_torch.tune import expand_grid, load_experiments_from_file
+
+    with open(CCT_YAML) as fh:
+        text = fh.read()
+    check(text.count("    evaluation_interval: 50\n") == 1,
+          "cct: fedavg_cct_cifar10.yaml has no single evaluation_interval")
+    path = os.path.join(storage, "fedavg_cct_cifar10.yaml")
+    with open(path, "w") as fh:
+        fh.write(text.replace(
+            "    evaluation_interval: 50\n",
+            f"    evaluation_interval: {CCT_ROUNDS}\n"
+            "    health_check: true\n"))
+    spec = load_experiments_from_file(path)["fedavg_cct_cifar10"]
+    points = [(t["server_config"]["aggregator"]["type"],
+               t["adversary_config"]["type"])
+              for t in expand_grid(spec["config"])]
+    check(len(points) == 6, f"cct: grid points {points}")
+    key = "column_median:cct"
+    with _TrialSpy() as spy, _PathAudit("select", key) as sel:
+        t0 = time.perf_counter()
+        rc = train.main(["file", path, "--max-rounds", str(CCT_ROUNDS),
+                         "--storage-path", storage])
+        secs = time.perf_counter() - t0
+    check(rc == 0 and len(spy.trials) == 6,
+          f"cct: rc {rc}, {len(spy.trials)} trials")
+    medians = 0
+    for i, ((agg, adv), t) in enumerate(zip(points, spy.trials)):
+        what = f"cct {agg} {adv}"
+        rows = _rows(storage, "fedavg_cct_cifar10", i)
+        losses = _trial_checks(what, t, rows, CCT_ROUNDS, baseline)
+        acc = rows[-1].get("test_acc", float("nan"))
+        check(math.isfinite(acc) and all(r.get("round_ok") is True
+                                         for r in rows),
+              f"{what}: test_acc {acc}, round_ok "
+              f"{[r.get('round_ok') for r in rows]}")
+        n = CCT_ROUNDS if agg == "Median" else 0
+        want = {"column_median": n} if n else {}
+        maps = {("column_median", "select:radix"): n} if n else {}
+        check(not t["streamed"] and t["launches"] == want
+              and t["maps"] == maps,
+              f"{what}: launches {t['launches']} by route {t['maps']}, "
+              f"expected {maps} on the dense round")
+        medians += n
+        log(f"{what}: dense, select:radix {n} launches; train_loss "
+            f"{losses}, round_ok {[r.get('round_ok') for r in rows]}, "
+            f"test_acc {acc:.4f} at round {CCT_ROUNDS}; "
+            f"{_train_rps(what, t)[1]}, setup {t['setup']:.2f} s, trial "
+            f"wall {t['wall']:.1f} s, peak {t['peak'] / 2**30:.2f} GiB")
+    check(sel.calls == medians
+          and sel.shapes == {((60, CCT_D), torch.float32)},
+          f"cct: {sel.calls} selects audited on {sorted(sel.shapes)}, "
+          f"expected {medians} on (60, {CCT_D}) f32")
+    log(f"cct: file fedavg_cct_cifar10.yaml --max-rounds {CCT_ROUNDS}: 6 "
+        f"trials in {secs:.1f} s, result rows verified; {sel.calls} Median "
+        f"selects, each bit-exact against the plain version")
+    return {key: medians}, sel.records
+
+
+def _cct_zoo_round(name, dataset, d, block, card):
+    """One dense round of ``name`` at full width: 60 clients of
+    ``dataset`` shapes in blocks of ``block``, 12 ALIE, Median on
+    ``select:radix`` audited, and an evaluation."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.utils.tree import FlatLayout
+
+    cfg = FedavgConfig().update_from_dict({
+        "dataset_config": {"type": dataset, "num_clients": 60,
+                           "train_bs": 64},
+        "global_model": name, "execution": "dense", "client_block": block,
+        "evaluation_interval": 1, "num_malicious_clients": 12,
+        "adversary_config": {"type": "ALIE"},
+        "server_config": {"lr": 0.1, "aggregator": {"type": "Median"}}})
+    torch.cuda.synchronize()
+    _reset_peak()
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    setup = time.perf_counter() - t0
+    key = f"column_median:{name}"
+    try:
+        width = FlatLayout(algo.state.server.params).d
+        _cuda.reset_launches()
+        audit0 = AUDIT["s"]
+        with _PathAudit("select", key) as sel:
+            t0 = time.perf_counter()
+            row = algo.train()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        audit_s = AUDIT["s"] - audit0
+    finally:
+        algo.stop()
+    launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+    check(width == d, f"{name}: d = {width}, expected {d}")
+    check(launches == {"column_median": 1}
+          and maps == {("column_median", "select:radix"): 1}
+          and sel.calls == 1, f"{name}: launches {launches} by route "
+          f"{maps}, {sel.calls} audited")
+    check(math.isfinite(row["train_loss"]) and math.isfinite(
+        row["test_acc"]), f"{name}: row {row}")
+    log(f"cct {name}: one dense round, 60 clients of {dataset} shapes in "
+        f"blocks of {block}, d = {width}: {secs - audit_s:.2f} s "
+        f"(evaluation included; {audit_s:.2f} s of audits taken out), setup "
+        f"{setup:.2f} s, "
+        f"train_loss {row['train_loss']:.4f}, test_acc "
+        f"{row['test_acc']:.4f}; Median on select:radix once on "
+        f"{sorted(sel.shapes)}, bit-exact against the plain version; peak "
+        f"{_peak() / 2**30:.2f} GiB [{card}]")
+    return {key: launches["column_median"]}, sel.records
+
+
+def phase_cct(card):
+    """The CCT grid through ``file``, then one dense round of each deeper
+    zoo member.  Returns the launches and records of each path."""
+    import torch
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    counts, records = _cct_grid(_work_dir("cct"), baseline)
+    for name, dataset, d, block in CCT_ZOO:
+        c, r = _cct_zoo_round(name, dataset, d, block, card)
+        counts.update(c)
+        records.update(r)
+    log(f"cct: [{card}]")
+    return counts, records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3765,7 +3998,7 @@ def main(argv=None) -> int:
         if "fedavg" in phases:
             launches.update(run("fedavg", phase_fedavg))
         for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
-                         ("resnet34", phase_resnet34)):
+                         ("resnet34", phase_resnet34), ("cct", phase_cct)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

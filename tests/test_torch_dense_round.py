@@ -10,7 +10,8 @@ local step, the augmentation's ``k_aug`` split and crop/flip draws, and
 ``keyed_dropout``'s ``fold_in`` masks.  The cases cover Mean, Median,
 Trimmedmean and Multikrum under SignFlip, LabelFlip and ALIE, client
 momentum 0.9 (its per-client traces compared too), the health check, the
-MLP, the CNN and ResNet-10 with CIFAR crop + flip over two local steps.
+MLP, the CNN, ResNet-10 with CIFAR crop + flip over two local steps, and
+a narrow CCT registered in both packages.
 
 Tolerances: the MLP ``rtol=1e-5, atol=1e-6`` (f32 sums in other orders);
 the convolutional models ``rtol=1e-4`` as tests/test_torch_models.py holds
@@ -30,9 +31,13 @@ from blades_tpu.adversaries import get_adversary as jax_adversary
 from blades_tpu.core import FedRound as JaxFedRound
 from blades_tpu.core import Server as JaxServer
 from blades_tpu.core import TaskSpec as JaxTaskSpec
+from blades_tpu.models import register_model as jax_register_model
+from blades_tpu.models.cct import CCT as JaxCCT
 from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
 from blades_tpu_torch.convert import params_from_jax, params_to_jax
 from blades_tpu_torch.core import FedRound, RoundState, Server, TaskSpec
+from blades_tpu_torch.models import register_model
+from blades_tpu_torch.models.cct import CCT
 from blades_tpu_torch.utils.tree import FlatLayout
 
 METRICS = ("train_loss", "update_norm_mean", "agg_norm")
@@ -164,6 +169,24 @@ def test_cnn_dense_rounds_match_jax():
     out = _run("cnn", (12, 12, 1), "Median", "LabelFlip", momentum=0.9,
                nb=2)
     _compare(out, 1e-4, 1e-4, 0.9)
+
+
+def test_cct_dense_rounds_match_jax():
+    """A narrow CCT (embed 32, two layers, two heads, 16x16 inputs: 16
+    tokens) registered in both packages through ``register_model``, two
+    rounds of Median under ALIE.  Attention dropout and stochastic depth
+    are off: the JAX round draws its masks inside ``jit``, where they
+    cannot be recorded (tests/test_torch_cct.py holds the masked model)."""
+    kw = dict(embed_dim=32, num_layers=2, num_heads=2, attn_dropout=0.0,
+              stochastic_depth=0.0)
+    jax_register_model("cct_narrow_round", lambda num_classes=10: JaxCCT(
+        num_classes=num_classes, **kw))
+    register_model("cct_narrow_round",
+                   lambda num_classes=10, input_shape=None: CCT(
+                       num_classes=num_classes, input_shape=input_shape, **kw))
+    out = _run("cct_narrow_round", (16, 16, 3), "Median", "ALIE")
+    assert out[0][2].server.params["pos_embed"].shape == (1, 16, 32)
+    _compare(out, 1e-4, 1e-5, 0.0)
 
 
 def test_resnet10_dense_round_matches_jax():

@@ -112,13 +112,30 @@ def test_client_momentum_and_training_attacks_run_dense():
     algo.stop()
 
 
+def test_client_momentum_runs_streamed():
+    """``execution: streamed`` with client momentum: the traces advance for
+    the trained lanes and stay zero for the two elided ALIE lanes."""
+    run = {**MLP_RUN, "client_config": {"momentum": 0.9},
+           "execution": "streamed", "client_block": 2,
+           "evaluation_interval": 2}
+    algo = FedavgConfig().update_from_dict(run).build(device="cpu")
+    rows = [algo.train() for _ in range(2)]
+    assert algo.streamed and rows[1]["elided_lanes"] == 2
+    traces = torch.cat([v.flatten(1) for v in
+                        algo.state.client_opt.values()], 1)
+    assert traces.shape[0] == 6
+    assert not traces[:2].any() and bool((traces[2:] != 0).any(1).all())
+    assert np.isfinite(rows[1]["test_acc"])
+    algo.stop()
+
+
 @pytest.mark.parametrize("override,error", [
     ({"codec_config": {"type": "quant", "bits": 8}}, NotImplementedError),
     ({"num_devices": 4}, NotImplementedError),
     ({"client_packing": 2}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
     ({"adversary_config": {"type": "DiurnalALIE"}}, NotImplementedError),
-    ({"global_model": "cct"}, NotImplementedError),
+    ({"forensics": True}, NotImplementedError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),
 ])
@@ -152,10 +169,10 @@ def test_reference_defaults_of_later_fields_are_accepted():
     cfg = FedavgConfig().update_from_dict(
         {**MLP_RUN, "rounds_per_dispatch": 1, "forensics": False})
     assert cfg.validate() is None
-    with pytest.raises(NotImplementedError, match="client momentum"):
-        FedavgConfig().update_from_dict(
-            {**MLP_RUN, "execution": "streamed",
-             "client_config": {"momentum": 0.9}}).validate()
+    # Client momentum runs on the streamed round too.
+    assert FedavgConfig().update_from_dict(
+        {**MLP_RUN, "execution": "streamed",
+         "client_config": {"momentum": 0.9}}).validate() is None
     cls, cfg = get_algorithm_class("FEDAVG_DP", return_config=True)
     assert cls is get_algorithm_class("FEDAVG")
     assert (cfg.dp_clip_threshold, cfg.dp_epsilon) == (1.0, 1.0)

@@ -80,9 +80,10 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """The campaign adversaries and streamed client momentum still name
-    the later slice; Noise, Lazy and ghost lanes on the streamed
-    coordinate-wise round (the chunked finish) run now."""
+    """The campaign adversaries still name the later slice; Noise, Lazy
+    and ghost lanes on the streamed coordinate-wise round (the chunked
+    finish) run now, and so does streamed client momentum, which needs one
+    trace row per data row."""
     from blades_tpu_torch.adversaries import (
         LazyAdversary,
         NoiseAdversary,
@@ -107,10 +108,15 @@ def test_out_of_slice_configs_name_the_later_slice():
     assert step.routes == {"chunked": 1} and int(m["round"]) == 1
     momentum = TaskSpec(model="mlp", input_shape=(4, 4, 1),
                         momentum=0.9).build()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        streamed_step(FedRound(task=momentum,
-                               server=Server.from_config("Median")),
-                      client_block=2, device="cpu")
+    mfr = FedRound(task=momentum, server=Server.from_config("Median"))
+    step = streamed_step(mfr, client_block=2, device="cpu")
+    args = (x, torch.zeros(4, 2).long(), torch.full((4,), 2),
+            torch.zeros(4, dtype=torch.bool), 0)
+    state, _ = step(mfr.init(0, 4, device="cpu"), *args)
+    assert all(v.shape[0] == 4 for v in state.client_opt.values())
+    assert any(v.any() for v in state.client_opt.values())
+    with pytest.raises(ValueError, match="one trace row per data row"):
+        step(mfr.init(0, 3, device="cpu"), *args)
 
 
 def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():

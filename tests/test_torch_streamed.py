@@ -40,6 +40,7 @@ from blades_tpu_torch.adversaries import get_adversary, make_malicious_mask
 from blades_tpu_torch.convert import params_from_jax, params_to_jax
 from blades_tpu_torch.core import FedRound, RoundState, Server, TaskSpec
 from blades_tpu_torch.parallel.streamed import streamed_step
+from blades_tpu_torch.utils.tree import FlatLayout
 
 RTOL, ATOL = 1e-5, 1e-6
 RG_RTOL, RG_ATOL = 2e-4, 2e-5
@@ -69,7 +70,7 @@ def _jax_draws(key, n, lengths, batch_size, num_batches, model):
 
 def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
               batch_size=4, shard=8, rounds=2, adv_kw=None, fuse=True,
-              update_dtype="float32", d_chunk=1 << 17):
+              update_dtype="float32", d_chunk=1 << 17, momentum=0.0):
     adv_kw = adv_kw or {}
     rng = np.random.default_rng(0)
     x = rng.normal(size=(n, shard) + shape).astype(np.float32)
@@ -77,7 +78,8 @@ def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
     lengths = np.full((n,), shard, np.int32)
     lengths[-1] = shard - 3  # one short shard: indices stay below it
 
-    spec = dict(model=model, input_shape=shape, num_classes=10, lr=0.1)
+    spec = dict(model=model, input_shape=shape, num_classes=10, lr=0.1,
+                momentum=momentum)
     jfr = JaxFedRound(
         task=JaxTaskSpec(**spec).build(),
         server=JaxServer.from_config(aggregator=aggregator, num_byzantine=f,
@@ -94,7 +96,8 @@ def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
 
     jstate = jfr.init(jax.random.PRNGKey(0), n)
     params = params_from_jax(jax.tree.map(np.asarray, jstate.server.params))
-    state = RoundState(server=fr.server.init(params, n))
+    state = RoundState(server=fr.server.init(params, n),
+                       client_opt=fr.task.init_client_opt_state(params, n))
     jstep = jax_streamed_step(jfr, client_block=block,
                               update_dtype=getattr(jnp, update_dtype),
                               donate=False, malicious_prefix=prefix,
@@ -114,7 +117,11 @@ def _run_pair(model, shape, aggregator, adversary, n, f, prefix, block,
                            jnp.asarray(lengths), jmal, key)
         state, m = step(state, xt, yt, torch.from_numpy(lengths), mal, r,
                         batch_idx=idx, dropout_masks=masks)
-        out.append((jstate, jm, state, m))
+        # The round advances the traces in place: keep this round's.
+        kept = state if not momentum else RoundState(
+            server=state.server,
+            client_opt={k: v.clone() for k, v in state.client_opt.items()})
+        out.append((jstate, jm, kept, m))
     return out
 
 
@@ -296,6 +303,47 @@ def test_every_row_geometry_aggregator_runs_streamed():
 
 
 @pytest.mark.slow  # ~22 s on a CPU, most of it the JAX ResNet-10 compile
+def _jax_traces(opt):
+    """The JAX momentum traces as one ``(n, d)`` array in ravel order."""
+    trace = opt[0].trace
+    n = jax.tree.leaves(trace)[0].shape[0]
+    return np.stack([np.asarray(ravel_pytree(
+        jax.tree.map(lambda t: t[i], trace))[0]) for i in range(n)])
+
+
+@pytest.mark.parametrize("branch", ["compact", "full"])
+def test_client_momentum_rounds_match_jax(branch):
+    """Client momentum 0.9 on the streamed round: three chained MLP rounds
+    under ALIE with a malicious prefix (elided blocks: on the compact
+    branch the whole prefix, on the full one its first block).  Server
+    parameters, metrics and every client's trace agree with the JAX
+    streamed round's; the elided lanes' traces stay zero on both sides."""
+    n, f = 12, 4
+    block = 4 if branch == "compact" else 3
+    out = _run_pair("mlp", (8, 8, 1), "Median", "ALIE", n, f, f, block,
+                    rounds=3, momentum=0.9)
+    _compare(out, elided=True)
+    elided = (f // block) * block
+    for jstate, _, state, _ in out:
+        layout = FlatLayout(state.server.params)
+        got = torch.cat([layout.flat_leaf(lf, state.client_opt[lf.name],
+                                          batch_dims=1)
+                         for lf in layout.leaves], 1).numpy()
+        want = _jax_traces(jstate.client_opt)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        assert not got[:elided].any() and not want[:elided].any()
+        assert np.abs(got[elided:]).max(1).min() > 0  # trained lanes move
+    # Momentum moved the second and third rounds (the first is plain SGD:
+    # the traces start at zero and there is one local step).
+    plain = _run_pair("mlp", (8, 8, 1), "Median", "ALIE", n, f, f, block,
+                      rounds=3)
+    for r, ((_, _, state, _), (_, _, p_state, _)) in enumerate(
+            zip(out, plain)):
+        same = all(torch.equal(state.server.params[k], v)
+                   for k, v in p_state.server.params.items())
+        assert same == (r == 0), r
+
+
 def test_resnet10_round_matches_jax():
     """16x16 inputs: at 8x8 the last stage is 1x1 and its BatchNorms over a
     batch of 4 are too ill-conditioned for an f32 comparison (see

@@ -6,8 +6,9 @@ JAX package's.
   example and on PyYAML's YAML 1.1 resolver edge cases, and refuses what
   it does not take by name.
 - Each tuned example expands to JAX's trials, in JAX's order; every grid
-  point of the eleven runnable ones resolves through the port's config
-  and round (on the meta device), and CCT and the 8-device mesh raise.
+  point of the twelve runnable ones (CCT's among them) resolves through
+  the port's config and round (on the meta device), and the 8-device
+  mesh raises.
 - A two-point MLP grid through ``train.main(["file", ...])`` on the CPU
   writes the JAX command's layout and trial names, rows whose keys are
   JAX's, and reaches test accuracy > 0.9 on both sides.
@@ -46,8 +47,7 @@ from blades_tpu_torch.tune.sweep import (
 
 REPO = Path(__file__).resolve().parents[1]
 TUNED = sorted((REPO / "blades_tpu" / "tuned_examples").glob("*.yaml"))
-NOT_RUNNABLE = {"fedavg_cct_cifar10": "cct",
-                "fedavg_cifar10_1000clients_mesh": "num_devices"}
+NOT_RUNNABLE = {"fedavg_cifar10_1000clients_mesh": "num_devices"}
 RUNNABLE = [p for p in TUNED if p.stem not in NOT_RUNNABLE]
 # The JAX package's per-trial metrics stream (metrics.jsonl and its
 # schema), not in the port.
