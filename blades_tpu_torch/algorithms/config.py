@@ -8,9 +8,10 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (codecs, faults, async, meshes, ...) raises
-``NotImplementedError`` naming it when it is set to anything but the
-reference's default; an unknown key raises ``KeyError``.
+have yet (async, meshes, forensics, ...) raises ``NotImplementedError``
+naming it when it is set to anything but the reference's default; an
+unknown key raises ``KeyError``.  ``validate()`` refuses the codec, fault
+and wire-domain combinations the reference refuses, with its reasons.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 from blades_tpu_torch.adversaries import get_adversary
+from blades_tpu_torch.comm import get_codec
 from blades_tpu_torch.core.callbacks import ClippingCallback, get_callback
 from blades_tpu_torch.core.round import FedRound
 from blades_tpu_torch.core.server import Server
 from blades_tpu_torch.core.task import TaskSpec
+from blades_tpu_torch.faults import FaultInjector
 
 _INPUT_SHAPES = {
     "mnist": (28, 28, 1),
@@ -57,6 +60,9 @@ _FIELDS = {
     "rounds_per_dispatch": 1, "chained_dispatch": False,
     # Per-client DP (FedavgDPConfig sets both from its privacy budget).
     "dp_clip_threshold": None, "dp_noise_factor": None,
+    # The fault injector's and the update codec's specs ({"type": ...}
+    # for the codec) and the aggregation domain ("f32" | "wire").
+    "fault_config": None, "codec_config": None, "agg_domain": "f32",
 }
 
 # The reference's other fields, with its defaults: setting one to another
@@ -66,8 +72,7 @@ _LATER = {
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
     "client_packing": "off", "state_store": "resident", "state_window": None,
     "state_dir": None, "data_store": "resident", "data_dir": None,
-    "eval_chunk_clients": 256, "fault_config": None, "codec_config": None,
-    "agg_domain": "f32", "async_config": None, "forensics": False,
+    "eval_chunk_clients": 256, "async_config": None, "forensics": False,
     "ledger": False, "ledger_dir": None, "watchdog_rules": None,
     "control_config": None, "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1, "topology_config": None,
@@ -185,8 +190,17 @@ class FedavgConfig:
                          d_chunk=d_chunk, update_dtype=update_dtype,
                          compute_dtype=compute_dtype)
 
-    def fault_tolerance(self, *, health_check=None):
-        return self._set(health_check=health_check)
+    def fault_tolerance(self, *, health_check=None, faults=None):
+        """The in-round health check and the fault injector's spec
+        (``faults=``, the keywords of
+        :class:`~blades_tpu_torch.faults.FaultInjector`)."""
+        return self._set(health_check=health_check, fault_config=faults)
+
+    def communication(self, *, codec=None, agg_domain=None):
+        """The uplink codec (``codec=``, e.g. ``{"type": "topk",
+        "topk_ratio": 0.01}``) and the aggregation domain (``"f32"`` or
+        ``"wire"``: a quant payload stays packed through the defenses)."""
+        return self._set(codec_config=codec, agg_domain=agg_domain)
 
     # -- dict shim -----------------------------------------------------------
 
@@ -269,6 +283,64 @@ class FedavgConfig:
                              f"{self.evaluation_num_samples}")
         self.get_adversary()  # an attack the port lacks fails here
         self.get_client_callbacks()  # so does an unknown callback
+        self._validate_comm_and_faults()
+
+    def _validate_comm_and_faults(self) -> None:
+        """The reference's checks of ``fault_config``, ``codec_config``
+        and ``agg_domain`` (meshes are refused by name elsewhere)."""
+        for spec, what, build in (
+                (self.fault_config, "fault injection (fault_config)",
+                 self.get_fault_injector),
+                (self.codec_config, "update codecs (codec_config)",
+                 self.get_codec)):
+            if not spec:
+                continue
+            build()  # a bad spec fails here
+            if self.execution == "streamed":
+                raise ValueError(
+                    f"{what} is only formulated for the dense round: the "
+                    "streamed path never materialises the full (n, d) "
+                    "matrix it needs; use execution='dense' (or 'auto' "
+                    "within the dense budget)")
+        if self.agg_domain not in ("f32", "wire"):
+            raise ValueError(f"agg_domain must be 'f32' or 'wire', got "
+                             f"{self.agg_domain!r}")
+        if self.agg_domain != "wire":
+            return
+        codec = self.get_codec()
+        if codec is None or not codec.supports_deferred:
+            raise ValueError(
+                "agg_domain='wire' needs a deferrable codec (identity or "
+                "quant int8/int4): the defense statistics traverse the "
+                f"packed wire payload, and "
+                f"{'no codec' if codec is None else repr(codec.name)} has "
+                "no packed-integer matrix to aggregate; set "
+                ".communication(codec={'type': 'quant', ...}) or keep "
+                "agg_domain='f32'")
+        for knob, why, flip in (
+                (self.fault_config, "fault injection",
+                 ".fault_tolerance(faults=None)"),
+                (self.health_check, "the in-round health check",
+                 ".fault_tolerance(health_check=False)"),
+                (self.dp_clip_threshold, "client DP",
+                 "dp_clip_threshold=None")):
+            if knob:
+                raise ValueError(
+                    f"agg_domain='wire' x {why} is an unsupported pair: "
+                    "that stage rewrites or inspects dense f32 rows the "
+                    f"wire domain never materializes; set {flip}, or run "
+                    "under .communication(agg_domain='f32')")
+        from blades_tpu_torch.parallel.streamed_geometry import (
+            WIRE_AGGREGATORS,
+        )
+
+        agg = self.get_server().aggregator
+        if not isinstance(agg, WIRE_AGGREGATORS):
+            raise ValueError(
+                f"aggregator {type(agg).__name__} has no wire-domain "
+                "formulation (aggregate_wire covers "
+                f"{sorted(c.__name__ for c in WIRE_AGGREGATORS)}); use "
+                "agg_domain='f32'")
 
     def freeze(self) -> None:
         self._frozen = True
@@ -305,6 +377,23 @@ class FedavgConfig:
             cbs.append(ClippingCallback(float(self.clip_gradient_norm)))
         return tuple(cbs)
 
+    def get_fault_injector(self):
+        """The :class:`~blades_tpu_torch.faults.FaultInjector` of
+        ``fault_config`` (None when off); its seed defaults to the trial
+        seed, so a seed grid sweeps the failure realizations too."""
+        if not self.fault_config:
+            return None
+        spec = dict(self.fault_config)
+        spec.setdefault("seed", int(self.seed))
+        return FaultInjector(**spec)
+
+    def get_codec(self):
+        """The :class:`~blades_tpu_torch.comm.CodecConfig` of
+        ``codec_config`` (None when off)."""
+        if not self.codec_config:
+            return None
+        return get_codec(self.codec_config)
+
     def get_adversary(self):
         return get_adversary(
             self.adversary_config, num_clients=self.num_clients,
@@ -334,7 +423,9 @@ class FedavgConfig:
             client_block=self.client_block,
             client_callbacks=self.get_client_callbacks(),
             dp_clip_threshold=self.dp_clip_threshold,
-            dp_noise_factor=self.dp_noise_factor)
+            dp_noise_factor=self.dp_noise_factor,
+            faults=self.get_fault_injector(), codec=self.get_codec(),
+            agg_domain=self.agg_domain, agg_d_chunk=self.d_chunk)
 
     def build(self, device=None):
         """Validate, freeze and build the driver on ``device`` (``None`` =

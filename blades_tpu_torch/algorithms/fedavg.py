@@ -10,7 +10,15 @@ Setup builds the dataset (numpy, then onto the device), the malicious mask
 the round: the dense :meth:`FedRound.step`, or the streamed round
 (:func:`blades_tpu_torch.parallel.streamed.streamed_step`) when
 ``execution="streamed"``, or under ``"auto"`` when the dense f32 ``(n, d)``
-update matrix would take more than 3/8 of the device's memory.
+update matrix would take more than 3/8 of the device's memory (a codec or
+the fault injector needs the dense round, and then raises there).
+
+Rows of a codec run carry ``comm_bytes_up``, ``codec_bits``,
+``comm_compression_ratio``, ``agg_domain`` and ``agg_domain_bits``, and in
+the wire domain ``dequant_rows`` and ``hbm_passes``; rows of a fault run
+``num_participating``, ``num_dropped``, ``num_straggled``, ``fault_seed``
+and, with stragglers, ``staleness_mean`` / ``staleness_max``.
+Checkpoints carry the residual and the stale ring in the ``RoundState``.
 
 Each round draws from a ``torch.Generator`` seeded by
 ``SeedSequence([seed, round])``, so a run is reproducible per seed on one
@@ -151,7 +159,17 @@ class Fedavg:
             return cfg.execution == "streamed"
         if not self._streamed_supported():
             return False
-        return cfg.num_clients * self._num_params * 4 > self.dense_matrix_limit()
+        if cfg.num_clients * self._num_params * 4 <= self.dense_matrix_limit():
+            return False
+        if cfg.fault_config or cfg.codec_config:
+            what = ("fault injection" if cfg.fault_config
+                    else "the update codec")
+            raise ValueError(
+                f"{what} needs the dense round but 'auto' execution "
+                "resolved to streaming (the dense (n, d) matrix would "
+                f"strain device memory at num_clients={cfg.num_clients}); "
+                f"shrink the federation for this pass or disable {what}")
+        return True
 
     def _streamed_block(self) -> int:
         """The largest divisor of num_clients no larger than client_block
@@ -249,9 +267,27 @@ class Fedavg:
         raw = fetch_tree(raw)
         for k in ("train_loss", "agg_norm", "update_norm_mean"):
             row[k] = float(raw[k][-1])
-        for k in ("hbm_passes", "hbm_passes_unfused", "elided_lanes"):
+        for k in ("hbm_passes", "hbm_passes_unfused", "elided_lanes",
+                  "dequant_rows"):
             if k in raw:
                 row[k] = int(raw[k][-1])
+        codec = self.fed_round.codec
+        if codec is not None:
+            # Static per round, from the config alone.
+            row.update(codec.round_metrics(self.config.num_clients,
+                                           self._num_params))
+            domain = self.fed_round.agg_domain
+            row["agg_domain"] = domain
+            row["agg_domain_bits"] = (codec.storage_bits
+                                      if domain == "wire" else 32)
+        faults = self.fed_round.faults
+        if faults is not None:
+            for k in ("num_participating", "num_straggled", "num_dropped"):
+                row[k] = int(raw[k][-1])
+            row["fault_seed"] = int(faults.seed)
+            if "staleness_mean" in raw:
+                row["staleness_mean"] = float(raw["staleness_mean"][-1])
+                row["staleness_max"] = int(raw["staleness_max"][-1])
         if self.config.health_check:
             row["num_unhealthy"] = int(sum(raw["num_unhealthy"]))
             row["round_ok"] = bool(all(raw["round_ok"]))
@@ -291,7 +327,19 @@ class Fedavg:
         self._iteration = payload["iteration"]
         self._rounds_since_eval = payload["rounds_since_eval"]
         self._last_eval = dict(payload["last_eval"])
-        self.state = payload["state"]
+        state = payload["state"]
+        # A checkpoint of a run without stragglers or error feedback,
+        # resumed under them: start the ring or the residual cold (zeros),
+        # as a fresh init does.
+        rows = self.config.num_clients
+        fr = self.fed_round
+        if getattr(state, "stale", None) is None and fr.faults is not None:
+            state = dataclasses.replace(state, stale=fr.faults.init_stale_buffer(
+                rows, self._num_params, self.device))
+        if getattr(state, "residual", None) is None and fr.codec is not None:
+            state = dataclasses.replace(state, residual=fr.codec.init_residual(
+                rows, self._num_params, self.device))
+        self.state = state
 
     def evaluate(self) -> Dict:
         """Weighted per-client evaluation of the global model."""

@@ -22,9 +22,22 @@ threshold`` after the health check and before the forge, as the
 reference's DP client does in honest training.
 
 Client callbacks (``client_callbacks``, :mod:`blades_tpu_torch.core.callbacks`)
-compose with the adversary's training hooks, callbacks first.  Codecs,
-faults, forensics, lane packing and the stateless or windowed client modes
-are not in the port yet
+compose with the adversary's training hooks, callbacks first.
+
+An update codec (``codec``, :mod:`blades_tpu_torch.comm.codecs`) runs on
+the matrix as the updates leave the clients, before fault injection and
+forging; the fault injector (``faults``,
+:mod:`blades_tpu_torch.faults.injector`) as they arrive at the server,
+before the health check.  Under ``agg_domain="wire"`` a quant codec's
+payload stays packed: the forge reads the decoded matrix, its rows
+re-enter the int8 wire, and the server aggregates the packed payload
+(:meth:`~blades_tpu_torch.core.server.Server.step_wire`).  The codec's
+rounding uniforms come from a generator of their own
+(:func:`~blades_tpu_torch.comm.codecs.codec_generator`) and the faults'
+from ``(fault seed, round)``, so neither moves the round's other draws;
+``step_prebatched(..., codec_draws=, fault_realization=)`` replaces them.
+Forensics, lane packing and the stateless or windowed client modes are
+not in the port yet
 (:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses them);
 the streamed round is :func:`blades_tpu_torch.parallel.streamed.streamed_step`.
 """
@@ -37,23 +50,38 @@ from typing import Any, Optional, Tuple
 import torch
 
 from blades_tpu_torch.adversaries.base import forges, trains_corrupted
+from blades_tpu_torch.adversaries.update_attacks import (
+    ALIEAdversary,
+    IPMAdversary,
+)
+from blades_tpu_torch.comm.codecs import codec_generator, dequantize
 from blades_tpu_torch.core.callbacks import CallbackChain, overrides
 from blades_tpu_torch.core.health import guard_server_state, sanitize_updates
 from blades_tpu_torch.core.server import Server, ServerState
 from blades_tpu_torch.core.task import Hooks, Task
 from blades_tpu_torch.data.sampler import sample_client_batches
 from blades_tpu_torch.device import resolve_device
-from blades_tpu_torch.ops.layout import clip_rows_to_norm
+from blades_tpu_torch.ops.layout import ChunkInfo, clip_rows_to_norm
 from blades_tpu_torch.utils.tree import FlatLayout
+
+# Forges the wire round runs column chunk by column chunk on the decoded
+# payload (deterministic and coordinate-wise); any other forge reads the
+# whole decoded matrix at once.
+_CHUNKED_WIRE_FORGERS = (ALIEAdversary, IPMAdversary)
 
 
 @dataclasses.dataclass
 class RoundState:
-    """Training state: the server's state and the per-client optimizer
-    state (``None`` under plain local SGD, which keeps none)."""
+    """Training state: the server's state, the per-client optimizer state
+    (``None`` under plain local SGD, which keeps none), the fault
+    injector's ``(staleness, n, d)`` stale-update ring and the top-k
+    codec's ``(n, d)`` error-feedback residual (each ``None`` when off, so
+    the state of a codec- and fault-free run is unchanged)."""
 
     server: ServerState
     client_opt: Any = None
+    stale: Any = None
+    residual: Any = None
 
 
 def round_generator(seed, device) -> torch.Generator:
@@ -106,16 +134,33 @@ class FedRound:
     # Client callback chain (ClientCallback instances), applied to every
     # lane before the adversary's hooks.
     client_callbacks: Tuple = ()
+    # Fault injector (faults.FaultInjector) and update codec
+    # (comm.CodecConfig); None keeps the round unchanged.
+    faults: Any = None
+    codec: Any = None
+    # "f32" decodes the codec's payload before the defenses; "wire" keeps
+    # a quant payload packed through them (Server.step_wire), whose
+    # statistics walk column chunks of agg_d_chunk.
+    agg_domain: str = "f32"
+    agg_d_chunk: int = 1 << 17
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
-        """Fresh parameters from ``seed``, the server's initial state and
-        the clients' optimizer state on ``device`` (``None`` = the card)."""
+        """Fresh parameters from ``seed``, the server's initial state, the
+        clients' optimizer state and (when configured) the stale ring and
+        the residual on ``device`` (``None`` = the card)."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         params = self.task.init_params(gen, dev)
+        # The ring's and the residual's rows match the matrix after the
+        # ghost lanes are sliced off.
+        rows, d = self.num_clients or num_clients, FlatLayout(params).d
         return RoundState(
             server=self.server.init(params, num_clients),
-            client_opt=self.task.init_client_opt_state(params, num_clients))
+            client_opt=self.task.init_client_opt_state(params, num_clients),
+            stale=(None if self.faults is None
+                   else self.faults.init_stale_buffer(rows, d, dev)),
+            residual=(None if self.codec is None
+                      else self.codec.init_residual(rows, d, dev)))
 
     def hooks(self) -> Optional[Hooks]:
         """The client callback chain composed with the adversary's
@@ -163,7 +208,8 @@ class FedRound:
     def step_prebatched(self, state: RoundState, bx, by, malicious,
                         generator=None, *, dropout_masks=None,
                         aug_draws=None, forge_noise=None,
-                        dp_noise=None) -> Tuple[RoundState, dict]:
+                        dp_noise=None, codec_draws=None,
+                        fault_realization=None) -> Tuple[RoundState, dict]:
         """:meth:`step` with every client's batches already drawn: ``bx
         (n, num_batches, batch, ...)``, ``by (n, num_batches, batch)``.
         ``dropout_masks`` (one ``(n, num_batches, *site_shape)`` keep-mask
@@ -172,7 +218,10 @@ class FedRound:
         replace those draws from ``generator``;
         ``forge_noise`` (the adversary's ``noise=``) and ``dp_noise``
         (``(k, d)`` standard normals, ``k`` the true federation size)
-        replace the finish's."""
+        replace the finish's; ``codec_draws`` (the quant codec's ``(k, d)``
+        uniforms) and ``fault_realization`` (``(participation, straggled,
+        corrupted)`` ``(k,)`` masks) replace the codec's and the fault
+        injector's."""
         params = state.server.params
         dev = next(iter(params.values())).device
         if isinstance(generator, int):
@@ -202,19 +251,50 @@ class FedRound:
         k = self.num_clients
         if k is not None and k < n:  # ghost (padding) lanes
             updates, losses, malicious = updates[:k], losses[:k], malicious[:k]
+        residual = state.residual
+        if self.codec is not None:
+            cgen = (None if codec_draws is not None or generator is None
+                    else codec_generator(generator))
+            if self.agg_domain == "wire":
+                q, scales, residual = self.codec.decode_deferred(
+                    updates, residual, draws=codec_draws, generator=cgen)
+                if scales is not None:
+                    del updates  # the f32 matrix goes: only q lives on
+                    return self._finish_wire(
+                        state, q, scales, residual, new_opt, losses,
+                        malicious, generator, forge_noise=forge_noise)
+                updates = q  # the identity wire is the f32 matrix
+            else:
+                updates, residual = self.codec.encode_decode(
+                    updates, residual, draws=codec_draws, generator=cgen,
+                    out=updates)
+        participation = straggled = None
+        stale = state.stale
+        if self.faults is not None:
+            updates, stale, participation, straggled, _ = self.faults.inject(
+                updates, stale, int(state.server.round),
+                realization=fault_realization)
         return self.finish_dense(state, updates, new_opt, losses, malicious,
                                  generator, forge_noise=forge_noise,
-                                 dp_noise=dp_noise)
+                                 dp_noise=dp_noise,
+                                 participation=participation,
+                                 straggled=straggled, stale=stale,
+                                 residual=residual)
 
     def finish_dense(self, state: RoundState, updates, client_opt, losses,
                      malicious, generator=None, *, forge_noise=None,
-                     dp_noise=None) -> Tuple[RoundState, dict]:
+                     dp_noise=None, participation=None, straggled=None,
+                     stale=None, residual=None) -> Tuple[RoundState, dict]:
         """The aggregation tail of :meth:`step_prebatched` over the
         assembled ``(n, d)`` update matrix: health check, DP, forge,
-        trusted row, robust aggregate, server step and the metrics."""
+        trusted row, robust aggregate, server step and the metrics.
+        ``participation`` / ``straggled`` are the fault injector's masks:
+        the server aggregates the participants, and the loss and norm
+        summaries cover them; ``stale`` and ``residual`` are carried into
+        the new state."""
         healthy = None
         if self.health_check:
-            updates, healthy = sanitize_updates(updates)
+            updates, healthy = sanitize_updates(updates, participation)
         updates = self.apply_dp(updates, dp_noise, generator)
         if forges(self.adversary):
             updates = self.adversary.on_updates_ready(
@@ -223,22 +303,108 @@ class FedRound:
         trusted = self.compute_trusted_update(state.server.params, generator)
         server, agg = self.server.step(state.server, updates,
                                        generator=generator,
-                                       trusted_update=trusted)
+                                       trusted_update=trusted,
+                                       participation=participation)
         benign = (~malicious).float()
+        # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
+        # relative over millions of f32 terms.
+        norms = (updates * updates).sum(1).sqrt()
+        if participation is None:
+            update_norm_mean = norms.mean()
+        else:
+            # A dropped lane's numbers never reached the server.
+            p = participation.float()
+            benign = benign * p
+            update_norm_mean = (norms * p).sum() / p.sum().clamp(min=1.0)
         metrics = {
             "train_loss": (losses * benign).sum() / benign.sum().clamp(min=1.0),
-            # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
-            # relative over millions of f32 terms.
-            "update_norm_mean": (updates * updates).sum(1).sqrt().mean(),
+            "update_norm_mean": update_norm_mean,
             "agg_norm": (agg * agg).sum().sqrt(),
             "round": server.round,
         }
+        if self.faults is not None:
+            metrics["num_participating"] = participation.sum()
+            metrics["num_dropped"] = (~participation).sum()
+            metrics["num_straggled"] = straggled.sum()
+            if self.faults.needs_stale_buffer:
+                # A straggler delivered the update of `staleness` rounds
+                # ago, every other participant a fresh one (age 0).
+                age = straggled.float() * float(self.faults.staleness)
+                metrics["staleness_mean"] = (
+                    age.sum() / participation.float().sum().clamp(min=1.0))
+                metrics["staleness_max"] = age.max()
         if self.health_check:
             ok = torch.isfinite(agg).all()
             server = guard_server_state(ok, server, state.server)
             metrics["num_unhealthy"] = (~healthy).sum()
             metrics["round_ok"] = ok
-        return RoundState(server=server, client_opt=client_opt), metrics
+        return RoundState(server=server, client_opt=client_opt, stale=stale,
+                          residual=residual), metrics
+
+    def _finish_wire(self, state: RoundState, q, scales, residual,
+                     client_opt, losses, malicious, generator=None, *,
+                     forge_noise=None) -> Tuple[RoundState, dict]:
+        """The wire-domain tail of :meth:`step_prebatched` over the packed
+        payload ``(q, scales)``: the forge reads the decoded matrix
+        post-codec and its rows re-enter the int8 wire
+        (``requantize_rows``: deterministic round-to-nearest), then the
+        server aggregates the payload.  ALIE and IPM (and the identity
+        forge of an adversary that forges nothing) run column chunk by
+        column chunk, so only one decoded chunk and the forged rows are
+        ever f32; any other forge reads the whole decoded matrix.  The
+        metrics add the planner's ``hbm_passes`` and the ``dequant_rows``
+        decoded (the forge's full read included)."""
+        from blades_tpu_torch.parallel.streamed_geometry import PassRecorder
+
+        n = q.shape[0]
+        d = FlatLayout(state.server.params).d
+        dequant_extra = 0
+        if self.adversary is not None:
+            adv, agg = self.adversary, self.server.aggregator
+            idx = malicious.nonzero().flatten()
+            if not forges(adv) or isinstance(adv, _CHUNKED_WIRE_FORGERS):
+                c = min(self.agg_d_chunk, d)
+                forged = torch.empty((idx.numel(), d), dtype=torch.float32,
+                                     device=q.device)
+                for i, c0 in enumerate(range(0, d, c)):
+                    c1 = min(c0 + c, d)
+                    dec = dequantize(q[:, c0:c1], scales)
+                    if forges(adv):
+                        dec = adv.on_updates_ready(
+                            dec, malicious, generator=generator,
+                            aggregator=agg, shard=ChunkInfo(
+                                global_d=d, width=c1 - c0, start=c0,
+                                index=i))
+                    forged[:, c0:c1] = dec[idx]
+                    del dec
+            else:
+                dec = adv.on_updates_ready(
+                    dequantize(q, scales, d), malicious, noise=forge_noise,
+                    generator=generator, aggregator=agg)
+                forged = dec[idx]
+                del dec
+            self.codec.requantize_into(q, scales, idx, forged)
+            del forged
+            dequant_extra = n
+        trusted = self.compute_trusted_update(state.server.params, generator)
+        recorder = PassRecorder()
+        server, agg, sq = self.server.step_wire(
+            state.server, q, scales, d=d, generator=generator,
+            trusted_update=trusted, d_chunk=self.agg_d_chunk,
+            recorder=recorder)
+        benign = (~malicious).float()
+        metrics = {
+            "train_loss": (losses * benign).sum() / benign.sum().clamp(min=1.0),
+            # The decoded rows' norms from the statistics bundle.
+            "update_norm_mean": sq.clamp(min=0.0).sqrt().mean(),
+            "agg_norm": (agg * agg).sum().sqrt(),
+            "round": server.round,
+            "hbm_passes": recorder.executed,
+            "hbm_passes_unfused": recorder.unfused,
+            "dequant_rows": recorder.dequant_rows + dequant_extra,
+        }
+        return RoundState(server=server, client_opt=client_opt,
+                          stale=state.stale, residual=residual), metrics
 
     def apply_dp(self, updates, noise=None, generator=None):
         """Per-client DP: clip each row of ``updates`` (n, d) to

@@ -97,12 +97,14 @@ class Server:
             round=0)
 
     def step(self, state: ServerState, updates: torch.Tensor, *,
-             generator=None, trusted_update=None
+             generator=None, trusted_update=None, participation=None
              ) -> Tuple[ServerState, torch.Tensor]:
         """Aggregate the ``(n, d)`` update matrix and apply one optimizer
         step: ``(new_state, aggregate)``.  A trust-bootstrapped aggregator
         (FLTrust) takes ``trusted_update``, the server's root-data update,
-        as the matrix's last row."""
+        as the matrix's last row.  ``participation`` (the fault
+        injector's ``(n,)`` mask) routes through the aggregator's
+        ``masked_call``; the trusted row always participates."""
         if getattr(self.aggregator, "expects_trusted_row", False):
             if trusted_update is None:
                 raise ValueError(
@@ -112,9 +114,35 @@ class Server:
                     "of trust")
             updates = torch.cat([updates, trusted_update[None, :].to(
                 updates.dtype)])
-        agg, agg_state = self.aggregator(updates, state.agg_state,
-                                         generator=generator)
+        if participation is None:
+            agg, agg_state = self.aggregator(updates, state.agg_state,
+                                             generator=generator)
+        else:
+            part = participation.to(device=updates.device, dtype=torch.bool)
+            if updates.shape[0] == part.shape[0] + 1:
+                part = torch.cat([part, part.new_ones((1,))])
+            agg, agg_state = self.aggregator.masked_call(
+                updates, part, state.agg_state, generator=generator)
         return self.apply_aggregate(state, agg, agg_state), agg
+
+    def step_wire(self, state: ServerState, q: torch.Tensor, scales, *,
+                  d: Optional[int] = None, generator=None,
+                  trusted_update=None, d_chunk: int = 1 << 17,
+                  recorder=None):
+        """:meth:`step` on a packed wire payload (``agg_domain="wire"``):
+        the aggregate of ``q`` (int8, ``d`` true columns) scaled row-wise
+        by ``scales``, by
+        :func:`~blades_tpu_torch.parallel.streamed_geometry.aggregate_wire`
+        without the dense f32 matrix.  Returns ``(new_state, aggregate,
+        sq)``, ``sq`` the decoded rows' squared norms.  FLTrust's trusted
+        row is passed beside the payload (it never rides the wire)."""
+        from blades_tpu_torch.parallel.streamed_geometry import aggregate_wire
+
+        agg, agg_state, sq = aggregate_wire(
+            self.aggregator, q, scales, state=state.agg_state,
+            generator=generator, trusted=trusted_update, d_chunk=d_chunk,
+            d=d, recorder=recorder)
+        return self.apply_aggregate(state, agg, agg_state), agg, sq
 
     def apply_aggregate(self, state: ServerState, agg: torch.Tensor,
                         agg_state: Any = None) -> ServerState:

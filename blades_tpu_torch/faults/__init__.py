@@ -1,3 +1,5 @@
-"""Host-level fault handling of the sweep runner (counterpart of
-``blades_tpu/faults/``; the in-round fault injector is not in the port
-yet)."""
+"""Faults (counterpart of ``blades_tpu/faults/``): the in-round fault
+injector (:mod:`~blades_tpu_torch.faults.injector`) and the sweep
+runner's host-level fault handling (:mod:`~blades_tpu_torch.faults.host`)."""
+
+from blades_tpu_torch.faults.injector import FaultInjector  # noqa: F401

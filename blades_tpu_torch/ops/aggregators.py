@@ -14,6 +14,19 @@ reference semantics the streamed planner
 :mod:`blades_tpu_torch.ops.column_select`: the CUDA kernel on a CUDA
 tensor, the plain version on a CPU tensor.  DnC's column subsamples are
 an input (``draws``) or come from the caller's ``torch.Generator``.
+
+Partial participation (the fault injector's ``(n,)`` participation mask):
+``masked_call`` takes the dense ``__call__`` when every lane participates
+(a host branch, bit-identical to the dense call) and ``_masked``
+otherwise: Mean, Median, Trimmedmean, DnC, Multikrum and FLTrust have
+exact masked formulations whose counts follow the participating count
+``m``; the rest impute dropped rows with the participants' coordinate-wise
+median and run the dense call.  The participants' median and trimmed mean
+compact the participating rows and take the column selects (the CUDA
+kernel on a card), as ``sort`` of the +inf-padded matrix would give them;
+a column whose compacted result is NaN (a participant's NaN reached the
+middle) is recomputed from the padded sort, whose +inf pad sorts below
+NaN, so that the JAX result stands there too.
 """
 
 from __future__ import annotations
@@ -44,6 +57,53 @@ class Aggregator:
         del generator, draws
         return self.aggregate(updates), state
 
+    def masked_call(self, updates: torch.Tensor, participation: torch.Tensor,
+                    state=(), *, generator=None, draws=None):
+        """Aggregate over the lanes where ``participation`` (n,) is True:
+        the dense call itself when every lane participates."""
+        if bool(participation.all()):
+            return self(updates, state, generator=generator, draws=draws)
+        return self._masked(updates, participation, state,
+                            generator=generator, draws=draws)
+
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        """Dropped rows imputed with the participants' coordinate-wise
+        median (a robust center: the active mean is corruptible), then the
+        dense call."""
+        fill = participant_median(updates, participation)
+        filled = torch.where(participation[:, None], updates, fill[None, :])
+        return self(filled, state, generator=generator, draws=draws)
+
+
+def _fix_nan_columns(out, x, mask, padded):
+    """Recompute from ``padded(x[:, cols], mask)`` the columns where the
+    compacted ``out`` is NaN (a host read of their count)."""
+    bad = torch.isnan(out).nonzero().flatten()
+    if bad.numel():
+        out[bad] = padded(x.index_select(1, bad), mask).to(out.dtype)
+    return out
+
+
+def participant_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``masked.masked_median(x, mask)`` through the column median of the
+    participating rows."""
+    mask = masked._nonempty(mask)
+    rows = x.index_select(0, mask.nonzero().flatten())
+    return _fix_nan_columns(column_median(rows), x, mask,
+                            masked.masked_median)
+
+
+def participant_trimmed_mean(x: torch.Tensor, mask: torch.Tensor,
+                             k: int) -> torch.Tensor:
+    """``masked.masked_trimmed_mean(x, mask, k)`` through the column
+    trimmed mean of the participating rows (``2k`` below their count)."""
+    mask = masked._nonempty(mask)
+    rows = x.index_select(0, mask.nonzero().flatten())
+    return _fix_nan_columns(
+        column_trimmed_mean(rows, k), x, mask,
+        lambda xc, mc: masked.masked_trimmed_mean(xc, mc, k))
+
 
 @dataclasses.dataclass(frozen=True)
 class Mean(Aggregator):
@@ -52,6 +112,10 @@ class Mean(Aggregator):
     def aggregate(self, updates):
         return updates.mean(0)
 
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        return masked.masked_mean(updates, participation), state
+
 
 @dataclasses.dataclass(frozen=True)
 class Median(Aggregator):
@@ -59,6 +123,10 @@ class Median(Aggregator):
 
     def aggregate(self, updates):
         return column_median(updates)
+
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        return participant_median(updates, participation), state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +149,14 @@ class Trimmedmean(Aggregator):
             raise ValueError(
                 f"Trimmedmean needs > 2*num_excluded={2 * k} clients, got {n}")
         return column_trimmed_mean(updates, k)
+
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        """The trim count clamped to ``(m - 1) // 2`` of the participating
+        count ``m``, so one lane always survives the trim."""
+        m = int(masked._nonempty(participation).sum())
+        k = min(self.num_excluded, max((m - 1) // 2, 0))
+        return participant_trimmed_mean(updates, participation, k), state
 
 
 def _empty(state) -> bool:
@@ -175,6 +251,34 @@ class DnC(Aggregator):
         subs = torch.stack([updates[:, i] for i in idx])
         return masked.masked_mean(updates, self.select(subs, keep)), state
 
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        """The keep count ``clip(m - filter_frac * f, 1, m)`` of the
+        participating count ``m``; dropped lanes are zeroed out of the
+        centered subsample (they cannot steer the singular vector) and
+        score +inf (they never rank into the keep set)."""
+        n, d = updates.shape
+        part = participation.to(updates.device)
+        m = int(part.sum())
+        keep = min(max(m - int(self.filter_frac * self.num_byzantine), 1), m)
+        idx = draws if draws is not None else self.draw(
+            d, generator, updates.device)
+        benign = torch.zeros((n,), dtype=torch.bool, device=updates.device)
+        inf = torch.tensor(float("inf"), device=updates.device)
+        for i in idx.to(updates.device):
+            sub = updates[:, i]
+            centered = torch.where(part[:, None],
+                                   sub - masked.masked_mean(sub, part),
+                                   torch.zeros_like(sub))
+            v = torch.linalg.svd(centered, full_matrices=False)[2][0]
+            s = (centered @ v) ** 2
+            rank = torch.argsort(torch.argsort(torch.where(part, s, inf),
+                                               stable=True), stable=True)
+            benign |= (rank < keep) & part
+        if not bool(benign.any()):
+            benign = part
+        return masked.masked_mean(updates, benign), state
+
 
 def _krum_mask(sq, g, f: int, k: int) -> torch.Tensor:
     """Multi-Krum's selection from row squared norms and the Gram matrix:
@@ -212,6 +316,33 @@ class Multikrum(Aggregator):
         mask = _krum_mask(sq, updates @ updates.T, self.num_byzantine,
                           self.k)
         return masked.masked_mean(updates, mask)
+
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        """Neighbour and selection counts of the participating count
+        ``m``: score = sum of the ``max(m - f - 2, 1)`` smallest squared
+        distances to other participants (dropped lanes are +inf in the
+        distance matrix); the mean of the ``min(k, m)`` lowest-scoring
+        participants."""
+        n = updates.shape[0]
+        part = participation.to(updates.device)
+        m = int(part.sum())
+        q = max(m - self.num_byzantine - 2, 1)
+        sq = (updates * updates).sum(1)
+        d2 = (sq[:, None] + sq[None, :] - 2.0 * (updates @ updates.T)
+              ).clamp(min=0.0)
+        out = ~part
+        eye = torch.eye(n, dtype=torch.bool, device=updates.device)
+        d2 = d2.masked_fill(eye | out[:, None] | out[None, :], float("inf"))
+        sortd = torch.sort(d2, dim=1).values
+        neigh = torch.arange(n, device=updates.device)[None, :] < q
+        # where, not a product: 0 * inf in the padded tail would be NaN.
+        scores = torch.where(neigh, sortd, torch.zeros_like(sortd)).sum(1)
+        rank = torch.argsort(torch.argsort(scores, stable=True), stable=True)
+        mask = (rank < min(self.k, m)) & part
+        if not bool(mask.any()):
+            mask = part
+        return masked.masked_mean(updates, mask), state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,6 +482,20 @@ class FLTrust(Aggregator):
         rescaled = clients * (s_norm / c_norm)[:, None]
         return ((trust[:, None] * rescaled).sum(0)
                 / trust.sum().clamp(min=1e-12))
+
+    def _masked(self, updates, participation, state=(), *, generator=None,
+                draws=None):
+        """A dropped client gets trust 0.  ``participation`` covers the
+        appended trusted row too (the server's own row participates)."""
+        server, clients = updates[-1], updates[:-1]
+        part = participation[:-1].to(updates.device)
+        s_norm = row_norms(server[None])[0]
+        c_norm = row_norms(clients).clamp(min=1e-12)
+        cos = (clients @ server) / (c_norm * s_norm.clamp(min=1e-12))
+        trust = torch.relu(cos) * part.to(cos.dtype)
+        rescaled = clients * (s_norm / c_norm)[:, None]
+        return ((trust[:, None] * rescaled).sum(0)
+                / trust.sum().clamp(min=1e-12)), state
 
 
 AGGREGATORS = {

@@ -46,6 +46,20 @@ overwriting ones are idempotent).
 Keyed draws are inputs or come from the caller's ``torch.Generator``:
 DnC's column subsamples (``draws``) and SignGuard-attack's permutation and
 uniforms (``draws``).
+
+Wire-domain aggregation (``row_scale=``): the planner also serves a
+packed int8 payload ``q`` with per-row f32 scales ``s``, whose logical
+matrix is ``s[:, None] * q``.  Each statistic applies the scales
+algebraically at its own size: the passes run on ``q`` and ``sq``, the
+Gram, dots, gram_dot and gathers are scaled after them (``s_i^2``,
+``s_i s_j``, ``s_i``); weighted sums and gram_dot fold one ``S`` into
+their weights, masked medians into their row scale; the chunk-only
+``mean_std`` and ``coordwise`` scale each in-flight slice.  On the card
+the int8 statistics take the ring (``rowstats:ring``) and the Gram
+``gram:mma``; :func:`aggregate_wire` runs every one of
+:data:`WIRE_AGGREGATORS` so, and Median / Trimmedmean decode each chunk
+for ``select:radix``, ranking the values decode-then-f32 would rank.  The
+recorder's ``dequant_rows`` counts the full-width f32 rows decoded.
 """
 
 from __future__ import annotations
@@ -68,8 +82,11 @@ from blades_tpu_torch.ops.aggregators import (
     DnC,
     FLTrust,
     GeoMed,
+    Mean,
+    Median,
     Multikrum,
     Signguard,
+    Trimmedmean,
     _krum_mask,
 )
 from blades_tpu_torch.ops.rowstats import row_stats_bundle
@@ -80,6 +97,9 @@ STREAMED_ROW_AGGREGATORS = (
 )
 STREAMED_ROW_FORGERS = (MinMaxAdversary, SignGuardAdversary,
                         AttackclippedclusteringAdversary)
+# Everything aggregate_wire serves from a packed payload: the row-geometry
+# seven plus the coordinate-wise three.
+WIRE_AGGREGATORS = STREAMED_ROW_AGGREGATORS + (Mean, Median, Trimmedmean)
 
 
 def chunk_grid(d: int, c: int):
@@ -113,17 +133,23 @@ class PassRecorder:
     the loop's iteration bound (a planned upper bound, as the reference
     counts a traced loop).  ``kernel_bundles`` counts the bundles the
     row-stats kernel served and ``loop_iters`` the iterations loops ran.
+    ``dequant_rows`` counts the full-width f32 rows a wire-domain planner
+    decodes (weighted sums, medians and coordwise 1 each, mean and std 2,
+    a gather its share of the width, rounded up), as the reference does.
     """
 
     def __init__(self):
         self.executed = 0
         self.unfused = 0
+        self.dequant_rows = 0
         self.kernel_bundles = 0
         self.loop_iters = 0
 
-    def count(self, executed: int, unfused: int, mult: int = 1) -> None:
+    def count(self, executed: int, unfused: int, mult: int = 1,
+              dequant: int = 0) -> None:
         self.executed += executed * mult
         self.unfused += unfused * mult
+        self.dequant_rows += dequant * mult
 
 
 class PassHandle:
@@ -158,17 +184,22 @@ class PassPlanner:
         d: true model width (default ``buf.shape[1]``).
         recorder: optional :class:`PassRecorder`.
         fuse: ``False`` runs one traversal per request.
+        row_scale: ``(n,)`` f32 scales of a packed wire payload: the
+            logical matrix is then ``row_scale[:, None] * buf``.
     """
 
     def __init__(self, buf: torch.Tensor, c: int, *, d: Optional[int] = None,
-                 recorder: Optional[PassRecorder] = None, fuse: bool = True):
+                 recorder: Optional[PassRecorder] = None, fuse: bool = True,
+                 row_scale: Optional[torch.Tensor] = None):
         self.buf = buf
         self.n = buf.shape[0]
         self.d = int(d) if d is not None else buf.shape[1]
         self.c = min(int(c), self.d)
         self.recorder = recorder
         self.fuse = fuse
+        self.row_scale = row_scale
         self._pending: List[_Req] = []
+        self._folded: dict = {}
         self._mult = 1
 
     # -- requests -----------------------------------------------------------
@@ -194,16 +225,28 @@ class PassPlanner:
         """``buf @ v`` ``(n,)`` for a ``(d,)`` vector."""
         return self._req("dots", v=v)
 
+    def _fold(self, w: torch.Tensor) -> torch.Tensor:
+        """``w * row_scale``, one tensor per ``w`` until the next execute,
+        so that a weighted sum and a gram_dot of one vector still share
+        their column pass (the kernel knows the pair by identity)."""
+        if self.row_scale is None:
+            return w
+        if id(w) not in self._folded:
+            self._folded[id(w)] = (w, w * self.row_scale)
+        return self._folded[id(w)][1]
+
     def weighted_sum(self, w: torch.Tensor) -> PassHandle:
-        """``w @ buf`` ``(d,)``."""
-        return self._req("wsum", w=w)
+        """``w @ buf`` ``(d,)``; under ``row_scale`` the scales fold into
+        ``w`` (the output is the decoded row)."""
+        return self._req("wsum", w=self._fold(w))
 
     def gram_dot(self, w: torch.Tensor) -> PassHandle:
         """``(buf @ buf.T) @ w`` ``(n,)`` without the Gram: per chunk
         ``C_new @ (C.T @ w)``.  ``buf @ wavg(w) = gram_dot(w) / w.sum()``,
         so the traversal that yields an iterate's center also yields every
-        distance to it."""
-        return self._req("gram_dot", w=w)
+        distance to it.  Under ``row_scale`` one ``S`` folds into ``w``
+        here and the other scales the output."""
+        return self._req("gram_dot", w=self._fold(w))
 
     def gather(self, idx: torch.Tensor) -> PassHandle:
         """``buf[:, idx]`` ``(n, m)`` f32 (chunk loop)."""
@@ -217,6 +260,8 @@ class PassPlanner:
                       row_scale: torch.Tensor) -> PassHandle:
         """Coordinate-wise median over the selected rows of
         ``buf * row_scale`` ``(d,)``."""
+        if self.row_scale is not None:
+            row_scale = row_scale * self.row_scale
         return self._req("masked_median", mask=mask, row_scale=row_scale)
 
     def coordwise(self, agg) -> PassHandle:
@@ -246,6 +291,7 @@ class PassPlanner:
     def execute(self) -> None:
         """Run every pending request: ONE traversal when fused."""
         reqs, self._pending = self._pending, []
+        self._folded = {}
         if not reqs:
             return
         groups = [reqs] if self.fuse else [[r] for r in reqs]
@@ -254,8 +300,39 @@ class PassPlanner:
                 self._run_kernel(group)
             else:
                 self._run_chunked(group)
+        dequant = 0
+        if self.row_scale is not None:
+            self._apply_row_scale(reqs)
+            dequant = sum(self._dequant_rows(r) for r in reqs)
         if self.recorder is not None:
-            self.recorder.count(len(groups), len(reqs), self._mult)
+            self.recorder.count(len(groups), len(reqs), self._mult,
+                                dequant=dequant)
+
+    def _apply_row_scale(self, reqs) -> None:
+        """Scale the statistics the passes took of the stored payload;
+        the folded kinds carried their ``S`` in, the chunk-only row
+        materializers scaled each slice."""
+        s = self.row_scale
+        for r in reqs:
+            v = r.handle.value
+            if r.kind == "sq":
+                r.handle.value = v * (s * s)
+            elif r.kind == "gram":
+                r.handle.value = v * (s[:, None] * s[None, :])
+            elif r.kind in ("dots", "gram_dot"):
+                r.handle.value = v * s
+            elif r.kind == "gather":
+                r.handle.value = v * s[:, None]
+
+    def _dequant_rows(self, r: _Req) -> int:
+        """Full-width f32 rows request ``r`` decodes from the payload."""
+        if r.kind in ("wsum", "masked_median", "coordwise"):
+            return 1
+        if r.kind == "mean_std":
+            return 2
+        if r.kind == "gather":
+            return -(-self.n * int(r.kw["idx"].shape[0]) // self.d)
+        return 0
 
     def _run_kernel(self, reqs) -> None:
         kinds = {r.kind for r in reqs}
@@ -354,6 +431,8 @@ class PassPlanner:
             vals = chunk.index_select(1, pos.clamp(0, c - 1))
             return torch.where(inside[None, :], vals, acc)
         if kind == "mean_std":
+            if self.row_scale is not None:  # decode the in-flight slice
+                chunk = chunk * self.row_scale[:, None]
             mean_acc, std_acc = acc
             w = (~r.kw["malicious"]).float()
             nb = w.sum().clamp(min=1.0)
@@ -368,6 +447,8 @@ class PassPlanner:
                 chunk * r.kw["row_scale"][:, None], r.kw["mask"])
             return acc
         if kind == "coordwise":
+            if self.row_scale is not None:  # decode the in-flight slice
+                chunk = chunk * self.row_scale[:, None]
             acc[start:start + c] = r.kw["agg"].aggregate(chunk)
             return acc
         raise ValueError(f"unknown request kind {kind!r}")
@@ -646,6 +727,7 @@ def aggregate_streamed(
     d: Optional[int] = None,
     recorder: Optional[PassRecorder] = None,
     fuse: bool = True,
+    planner: Optional[PassPlanner] = None,
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run a row-geometry aggregator over the streamed buffer.
 
@@ -660,10 +742,14 @@ def aggregate_streamed(
         trusted: the server's root-data update (FLTrust).
         d: true model width (default ``buf.shape[1]``).
         recorder / fuse: see :class:`PassPlanner`.
+        planner: a planner over ``buf`` to use instead (the wire domain's,
+            with its row scales); ``d_chunk``, ``d``, ``recorder`` and
+            ``fuse`` are then its own.
 
     Returns ``(aggregate (d,) f32, new_state, sq (n,) f32)``.
     """
-    pl_ = PassPlanner(buf, d_chunk, d=d, recorder=recorder, fuse=fuse)
+    pl_ = planner or PassPlanner(buf, d_chunk, d=d, recorder=recorder,
+                                 fuse=fuse)
     if isinstance(agg, GeoMed):
         out, sq = _geomed(agg, pl_, sq)
         return out, state, sq
@@ -685,3 +771,53 @@ def aggregate_streamed(
         return out, state, sq
     raise NotImplementedError(
         f"no streamed formulation for {type(agg).__name__}")
+
+
+def aggregate_wire(
+    agg,
+    q: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    *,
+    state: Any = (),
+    generator: Optional[torch.Generator] = None,
+    draws=None,
+    trusted: Optional[torch.Tensor] = None,
+    d_chunk: int = 1 << 17,
+    d: Optional[int] = None,
+    recorder: Optional[PassRecorder] = None,
+    fuse: bool = True,
+) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Aggregate a packed wire payload without the dense f32 matrix.
+
+    Args:
+        agg: an instance of one of :data:`WIRE_AGGREGATORS`.
+        q: ``(n, d_alloc)`` payload, int8 under the quant codecs (zero past
+            ``d``), or the f32 updates when ``scales`` is None (the
+            identity wire: the plain statistics).
+        scales: ``(n,)`` f32 row scales, or None.
+        state / generator / draws / trusted: as :func:`aggregate_streamed`.
+        d: true model width (default ``q.shape[1]``).
+
+    Returns ``(aggregate (d,) f32, new_state, sq (n,) f32)``, ``sq`` the
+    decoded rows' squared norms.  Against decode-then-f32: Median and
+    Trimmedmean rank the same decoded values and are exact; Mean and the
+    row-geometry seven differ by f32 reassociation.
+    """
+    pl_ = PassPlanner(q, d_chunk, d=d, recorder=recorder, fuse=fuse,
+                      row_scale=scales)
+    if isinstance(agg, (Mean, Median, Trimmedmean)):
+        n = pl_.n
+        h_sq = pl_.sq_norms()
+        if isinstance(agg, Mean):
+            h_out = pl_.weighted_sum(torch.full(
+                (n,), 1.0 / n, dtype=torch.float32, device=q.device))
+        else:
+            h_out = pl_.coordwise(agg)
+        pl_.execute()  # the norms and the aggregate: ONE traversal
+        return h_out.value, state, h_sq.value
+    if isinstance(agg, STREAMED_ROW_AGGREGATORS):
+        return aggregate_streamed(agg, q, None, state, generator=generator,
+                                  draws=draws, trusted=trusted,
+                                  planner=pl_)
+    raise NotImplementedError(
+        f"no wire-domain formulation for {type(agg).__name__}")

@@ -147,26 +147,45 @@ Phases, each printing its lines before the last:
    ``cvt_7_4_32`` (d = 3,721,995).  Every select of the phase is held
    bit-exact against the plain version on the path's own operands
    (``_PathAudit``).
-13. ``profile`` (only when named): one more main-path round, one
+13. ``wire``: the update codecs, the wire domain and the fault
+   injector through ``FedavgConfig`` -> ``Fedavg.train()``: the dense
+   round at ``fedavg_cifar10_1000clients.yaml``'s widths (ResNet-10 x
+   1000 clients of CIFAR-10 shapes, 250 ALIE, bf16 compute) under quant
+   int8 on the wire, Multikrum and Median for 2 rounds, GeoMed for 1:
+   every int8 bundle of the planner (the Gram on ``gram:mma``, the rest
+   on ``rowstats:ring``, never ``rowstats:slab``) and every select of the
+   Median's decoded chunks (38 a round) held against the plain version,
+   each round's aggregate against the port's decode-then-f32 aggregate of
+   the same payload, the peak memory; the same round at 500 clients in
+   the wire and the f32 domain, in turns (rounds/s); the dense 60-client
+   ResNet-10 trial of ``fedavg_cifar10_resnet_noniid.yaml`` under top-k
+   1% + error feedback, killed after round 2 and resumed (residual,
+   parameters and rows bit-identical to the straight run), and under the
+   fault injector with the health check (round 1 at full participation,
+   rounds 2-3 with dropout, each Median on ``select:radix``); the MLP
+   flow's test accuracy >= 0.9 under top-k 2% (round 6) and quant int8
+   on the wire (round 3).
+14. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-14. ``bnstages`` (only when named): the BN kernels alone at the four stage
+15. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-15. ``ringsweep`` (only when named): the row-statistics ring across
+16. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-12 (and before
-each round of phase 7 and each trial of phases 8 to 12) and read just
+Launch counts are set to 0 just before each of phases 4-13 (and before
+each round of phase 7 and each trial of phases 8 to 13) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
-``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``, ...),
+``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
+``row_stats_bundle:gram:int8:wire``, ...),
 timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
@@ -190,7 +209,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
-          "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct")
+          "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
+          "wire")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -3933,6 +3953,464 @@ def phase_cct(card):
     return counts, records
 
 
+# The wire phase.  Part 1: the dense round at the widths of
+# fedavg_cifar10_1000clients.yaml (ResNet-10, d = 4,903,242, x 1000 clients
+# of CIFAR-10 shapes, 250 ALIE, bf16 compute, client_block 25, d_chunk
+# 131,072) under the quant int8 codec on the wire, through
+# FedavgConfig -> Fedavg.train(): Multikrum and Median for 2 rounds each,
+# GeoMed for 1, the last round evaluating 10 test rows a client.  The
+# health check is off: the wire domain refuses it (as the JAX config does).
+WIRE_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": 1000, "iid": False,
+                       "alpha": 0.1, "train_bs": 32, "seed": 122},
+    "global_model": "resnet10", "compute_dtype": "bfloat16",
+    "execution": "dense", "client_block": 25, "d_chunk": 131072,
+    "num_malicious_clients": 250, "adversary_config": {"type": "ALIE"},
+    "client_config": {"lr": 0.1, "num_batch_per_round": 1},
+    "evaluation_num_samples": 10,
+    "codec_config": {"type": "quant", "bits": 8}, "agg_domain": "wire",
+}
+WIRE_AGGS = (("Multikrum", 2), ("Median", 2), ("GeoMed", 1))
+WIRE_CHUNKS = -(-RESNET10_D // 131072)  # the Median's decoded chunks
+WIRE_BN_ROUND = 1000 // 25 * 12  # every lane trains on the dense round
+# The domain A/B: the same round at 500 clients (125 ALIE), where the f32
+# domain's dense ALIE forge and Multikrum fit beside the (n, d) matrix
+# (at 1000 clients their whole-matrix temporaries do not).
+WIRE_AB_CLIENTS = 500
+# Decode-then-f32 against the wire: f32 sums in another order (the scale
+# algebra is exact on the int8 grid), as the JAX package's own wire tests
+# hold them (WIRE_RTOL there).
+WIRE_RTOL = 1e-4
+# GeoMed replayed with the wire run's iteration count: when its median sits
+# on the 250 identical forged rows, their distances to it come from the
+# Gram algebra (sq - 2 gd / W + ...) by cancellation, so the 1/distance
+# weights of two f32 orders differ at that noise and the medians by up to
+# ~3e-4 of its scale (seen on the CPU at 20 MLP clients, 5 of them ALIE).
+WIRE_GEOMED_RTOL = 1e-3
+INT8_TENSOR_OPS_PER_S = 1979e12  # the int8 Gram's products
+GRAM8_RECORD = "row_stats_bundle:gram:int8:wire"
+WSUM8_RECORD = "row_stats_bundle:wsum:int8:wire"
+GEOMED8_RECORD = "row_stats_bundle:wsum+gram_dot:int8:wire"
+# Part 2: the dense trial of fedavg_cifar10_resnet_noniid.yaml (60 clients,
+# f32) under ALIE: top-k 1% + error feedback, and the fault injector with
+# the health check (full participation in round 1, dropout 0.3 from round
+# 2 by its schedule).
+WIRE_FAULTS = {"dropout_rate": 0.0, "dropout_schedule": [[1, 0.3]],
+               "num_stragglers": 1, "staleness": 2, "corrupt_rate": 0.2,
+               "corrupt_mode": "nan"}
+# Part 3: the verification flow's MLP (MLP_TRIAL) under top-k 2% and under
+# quant int8 on the wire.  Measured on the CPU (both packages, seeds 122, 1,
+# 2, 3): quant int8 on the wire reaches 0.93-1.0 at round 3, top-k 2%
+# 0.70-0.82 in the JAX package and 0.71-0.88 in the port at round 3, both
+# >= 0.9 from round 5 or 6; so top-k is read at round 6.
+WIRE_MLP = (("top-k 2%", {"codec_config": {"type": "topk",
+                                           "topk_ratio": 0.02}}, 6),
+            ("quant int8 wire", {"codec_config": {"type": "quant",
+                                                  "bits": 8},
+                                 "agg_domain": "wire"}, 3))
+
+
+class _WireAudit:
+    """While a wire trial runs: every ``row_stats_bundle`` launch of the
+    planner (int8 payload) against the plain version on the same operands
+    (sq, Gram and signs bit-exact, f32 sums within ``ROW_RTOL`` of their
+    summands), its first launch of each kind timed into that kind's record
+    (the Gram alone, the weighted sum alone, GeoMed's shared weighted sum
+    + Gram-vector product); and every ``aggregate_wire`` against the
+    port's decode-then-f32 aggregate of the same payload (into a padded f32
+    buffer: Median exact, the rest within ``WIRE_RTOL``; GeoMed with the
+    wire run's iteration count, its early stop off).  All of it set aside
+    (:func:`_aside`)."""
+
+    def __init__(self):
+        self.records, self.calls, self.aggs, self.err = {}, 0, 0, 0.0
+        self.agg_err = {}
+
+    def __enter__(self):
+        from blades_tpu_torch.parallel import streamed_geometry as sg
+
+        self._sg = sg
+        self._orig = sg.row_stats_bundle, sg.aggregate_wire
+        rsb, agw = self._orig
+
+        def bundle(*a, **kw):
+            out = rsb(*a, **kw)
+            with _aside():
+                self._bundle(rsb, out, a, kw)
+            self.calls += 1
+            return out
+
+        def aggregate(agg, q, scales, **kw):
+            out = agw(agg, q, scales, **kw)
+            with _aside():
+                self._aggregate(agg, q, scales, out, kw)
+            self.aggs += 1
+            return out
+
+        sg.row_stats_bundle, sg.aggregate_wire = bundle, aggregate
+        return self
+
+    def __exit__(self, *exc):
+        self._sg.row_stats_bundle, self._sg.aggregate_wire = self._orig
+
+    def _bundle(self, orig, out, a, kw):
+        import torch
+
+        from blades_tpu_torch.ops import rowstats as rs
+
+        x = a[0]
+        check(x.dtype == torch.int8 and x.shape[1] % 16 == 0,
+              f"wire: a {x.dtype} {tuple(x.shape)} bundle on the wire")
+        want = rs.row_stats_bundle_plain(x, **kw)
+        asked = sorted(k for k, v in kw.items()
+                       if k != "d_true" and v is not None and v is not False)
+        err = rowstats_agree(out, want, x, kw, f"wire bundle {asked}, "
+                             f"launch {self.calls + 1}")
+        self.err = max(self.err, err)
+        del want
+        n, dp = x.shape
+        d = kw.get("d_true") or dp
+        w = kw.get("weights")
+        if kw.get("gram"):
+            name, call = GRAM8_RECORD, dict(gram=True, d_true=d)
+        elif kw.get("gram_dot") is not None:
+            name, call = GEOMED8_RECORD, dict(
+                weights=w, gram_dot=w, gram_dot_shared=(0,), d_true=d)
+        elif w is not None:
+            name, call = WSUM8_RECORD, dict(weights=w, d_true=d)
+        else:
+            return
+        if name in self.records:
+            r = self.records[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            return
+        ms = timed(lambda: orig(x, **call), REPS)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs.row_stats_bundle_plain(x, **call)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lib = None
+        if name == GRAM8_RECORD:
+            # X X^T of the int8 rows with int32 sums: where its sums do
+            # not wrap, the same function.
+            try:
+                g = torch._int_mm(x, x.t())
+                exact = torch.equal(g.double(), rs.row_stats_bundle_plain(
+                    x, gram=True)["gram"].double())
+                lib = timed(lambda: torch._int_mm(x, x.t()), REPS)[0]
+                log(f"wire: torch._int_mm(q, q.T) {lib:.3f} ms, "
+                    f"{'equal to' if exact else 'NOT equal to (int32 wraps)'}"
+                    " the exact Gram")
+                if not exact:
+                    lib = None
+            except RuntimeError as e:
+                log(f"wire: torch._int_mm does not take {tuple(x.shape)}: "
+                    f"{e}")
+            self.records[name] = _record(
+                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
+                n * dp + n * n * 4, 2 * n * n * dp, err, lib,
+                ops_per_s=INT8_TENSOR_OPS_PER_S)
+        else:
+            k = 4 if name == GEOMED8_RECORD else 2
+            self.records[name] = _record(
+                name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
+                n * dp + d * 4 + n * 4 * (k // 2), k * n * d, err, None)
+        log(f"wire: {name} {tuple(x.shape)} int8: {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms, bound {self.records[name]['bound_ms']:.3f}"
+            f" ms by {self.records[name]['bound_by']})")
+
+    def _aggregate(self, agg, q, scales, out, kw):
+        """Runs with the planner's own ``row_stats_bundle`` and the
+        select module's own ``column_median``, so that no audit sees the
+        f32 reference's launches."""
+        sg = self._sg
+        wrapped, sg.row_stats_bundle = sg.row_stats_bundle, self._orig[0]
+        try:
+            self._decoded(sg, agg, q, scales, out, kw)
+        finally:
+            sg.row_stats_bundle = wrapped
+
+    def _decoded(self, sg, agg, q, scales, out, kw):
+        import torch
+
+        from blades_tpu_torch.comm.codecs import dequantize
+        from blades_tpu_torch.ops import aggregators as ta
+        from blades_tpu_torch.ops import column_select as cs
+
+        d, c = kw["d"], kw["d_chunk"]
+        n = q.shape[0]
+        dec = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        for r0 in range(0, n, 100):
+            dec[r0:r0 + 100, :d] = dequantize(q[r0:r0 + 100],
+                                              scales[r0:r0 + 100], d)
+        name = type(agg).__name__
+        got, _, sq = out
+        if isinstance(agg, ta.Median):
+            want = torch.cat([cs.column_median(dec[:, c0:c0 + c][:, :max(
+                0, d - c0)].contiguous()) for c0 in range(0, d, c)])
+            self.agg_err[name] = same(got, want, "wire Median vs "
+                                      "decode-then-f32")
+            return
+        rtol = WIRE_RTOL
+        if isinstance(agg, ta.GeoMed):
+            agg = ta.GeoMed(maxiter=kw["recorder"].loop_iters,
+                            eps=agg.eps, ftol=-1.0)
+            rtol = WIRE_GEOMED_RTOL
+        want, _, want_sq = sg.aggregate_streamed(
+            agg, dec, None, kw.get("state", ()), d_chunk=c, d=d)
+        del dec
+        err = float((got - want).abs().max()) / (
+            float(want.abs().max()) + 1e-30)
+        check(err <= rtol, f"wire {name}: the aggregate differs from "
+              f"decode-then-f32 by {err:.3g} of its scale")
+        sq_err = float(((sq - want_sq).abs() / want_sq.abs().clamp(
+            min=1e-30)).max())
+        check(sq_err <= ROW_RTOL, f"wire {name}: row norms differ by "
+              f"{sq_err:.3g}")
+        self.agg_err[name] = max(self.agg_err.get(name, 0.0), err)
+
+
+def _wire_trial(what, overrides, rounds):
+    """Build, run ``rounds`` rounds (the last evaluating), stop: ``(rows,
+    launches, maps, peak bytes, setup s, rounds/s over rounds 2..)``; the
+    audits' seconds are taken out of the rounds/s, their allocations out
+    of the peak."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _reset_peak()
+    t0 = time.perf_counter()
+    algo = FedavgConfig().update_from_dict(
+        {**overrides, "evaluation_interval": rounds}).build()
+    setup = time.perf_counter() - t0
+    _cuda.reset_launches()
+    rows, audit_s = [], []
+    try:
+        for _ in range(rounds):
+            a0 = AUDIT["s"]
+            rows.append(algo.train())
+            audit_s.append(AUDIT["s"] - a0)
+        check(not algo.streamed, f"{what}: not the dense round")
+    finally:
+        algo.stop()
+    launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+    losses = [r["train_loss"] for r in rows]
+    check(all(math.isfinite(v) for v in losses)
+          and math.isfinite(rows[-1]["test_acc"]),
+          f"{what}: train losses {losses}, test_acc "
+          f"{rows[-1].get('test_acc')}")
+    rps = float("nan")
+    if rounds > 1:  # round 1 warms up; the last one also evaluates
+        step = [r["timers"]["training_step"]["total_s"] for r in rows]
+        rps = (rounds - 1) / (step[-1] - step[0] - sum(audit_s[1:]))
+    return rows, launches, maps, _peak(), setup, rps
+
+
+def _wire_full(card):
+    """Part 1: the 1000-client wire rounds, every int8 bundle, select and
+    aggregate audited."""
+    counts, records = {}, {}
+    ring = {"Multikrum": 0, "GeoMed": 0}
+    for agg, rounds in WIRE_AGGS:
+        what = f"wire ResNet-10 x 1000 ALIE {agg} quant int8"
+        with _WireAudit() as audit, _PathAudit(
+                "select", "column_median:wire") as sel:
+            rows, launches, maps, peak, setup, rps = _wire_trial(
+                what, {**WIRE_TRIAL, "server_config": {
+                    "lr": 0.5, "aggregator": {"type": agg}}}, rounds)
+        bn = {k: rounds * WIRE_BN_ROUND for k in BN_TPU}
+        rsb = {k[1]: v for k, v in maps.items()
+               if k[0] == "row_stats_bundle"}
+        if agg == "Median":
+            want = {"column_median": rounds * WIRE_CHUNKS, **bn}
+            check(launches == want and sel.calls == rounds * WIRE_CHUNKS
+                  and maps.get(("column_median", "select:radix"))
+                  == rounds * WIRE_CHUNKS,
+                  f"{what}: launches {launches} by route {maps}, "
+                  f"{sel.calls} selects audited; expected {want}")
+            counts["column_median:wire"] = launches["column_median"]
+            records.update(sel.records)
+        else:
+            per = 2 if agg == "Multikrum" else None
+            check(set(launches) == {"row_stats_bundle", *BN_TPU}
+                  and all(launches[k] == v for k, v in bn.items())
+                  and (per is None
+                       or launches["row_stats_bundle"] == per * rounds)
+                  and rsb.get("rowstats:ring") == (
+                      launches["row_stats_bundle"])
+                  and rsb.get("gram:mma", 0) == (
+                      rounds if agg == "Multikrum" else 0)
+                  and "rowstats:slab" not in rsb
+                  and audit.calls == launches["row_stats_bundle"],
+                  f"{what}: launches {launches}, row statistics by route "
+                  f"{rsb}, {audit.calls} bundles audited")
+            ring[agg] = rsb["rowstats:ring"]
+            if agg == "Multikrum":
+                counts[GRAM8_RECORD] = rsb["gram:mma"]
+        check(audit.aggs == rounds, f"{what}: {audit.aggs} aggregates "
+              "held against decode-then-f32")
+        records.update(audit.records)
+        dq = [r["dequant_rows"] for r in rows]
+        log(f"{what}: setup {setup:.1f} s, {rps:.4f} rounds/s over rounds "
+            f"2-{rounds} (audits out), train_loss "
+            f"{[r['train_loss'] for r in rows]}, test_acc "
+            f"{rows[-1]['test_acc']:.4f}; agg_domain_bits "
+            f"{rows[-1]['agg_domain_bits']}, comm_bytes_up "
+            f"{rows[-1]['comm_bytes_up']} (x{rows[-1]['comm_compression_ratio']}"
+            f"), dequant_rows {dq}, hbm_passes {rows[-1]['hbm_passes']}; "
+            f"launches {launches} by route {maps}; {audit.calls} int8 "
+            f"bundles against the plain version (max err {audit.err:.3g}),"
+            f" aggregate against decode-then-f32: {audit.agg_err}; peak "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+    counts[WSUM8_RECORD] = ring["Multikrum"]
+    counts[GEOMED8_RECORD] = ring["GeoMed"]
+    return counts, records
+
+
+def _wire_ab(card):
+    """The wire and the f32 domain on one round configuration at
+    ``WIRE_AB_CLIENTS`` clients, Multikrum: rounds/s, in turns."""
+    n = WIRE_AB_CLIENTS
+    base = {**WIRE_TRIAL,
+            "dataset_config": {**WIRE_TRIAL["dataset_config"],
+                               "num_clients": n},
+            "num_malicious_clients": n // 4,
+            "server_config": {"lr": 0.5, "aggregator": {"type": "Multikrum"}}}
+    out = {}
+    for domain in ("wire", "f32", "f32", "wire"):
+        rows, _, _, peak, _, rps = _wire_trial(
+            f"wire A/B {domain}", {**base, "agg_domain": domain}, 3)
+        out.setdefault(domain, []).append((rps, peak))
+    log(f"wire A/B: ResNet-10 x {n} ({n // 4} ALIE), Multikrum, quant int8, "
+        f"rounds/s over rounds 2-3 (in turns wire, f32, f32, wire): wire "
+        f"{[round(r, 4) for r, _ in out['wire']]}, f32 "
+        f"{[round(r, 4) for r, _ in out['f32']]}; peak GiB wire "
+        f"{[round(p / 2**30, 2) for _, p in out['wire']]}, f32 "
+        f"{[round(p / 2**30, 2) for _, p in out['f32']]} [{card}]")
+
+
+def _wire_topk(storage, card):
+    """Part 2a: top-k 1% + EF on the 60-client dense trial, 3 rounds
+    straight; then a run checkpointed at round 1 and killed after round 2,
+    resumed from the checkpoint by a fresh driver: parameters, residual
+    and rows equal the straight run's bit for bit (cuDNN's deterministic
+    algorithms asked for, for both)."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+
+    cfg = {**DENSE_TRIAL, "adversary_config": {"type": "ALIE"},
+           "codec_config": {"type": "topk", "topk_ratio": 0.01}}
+
+    def build():
+        return FedavgConfig().update_from_dict(cfg).build()
+
+    def drop(r):
+        return {k: v for k, v in r.items() if k != "timers"}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ck = os.path.join(storage, "ckpt_topk")
+    try:
+        algo = build()
+        straight = [drop(algo.train()) for _ in range(3)]
+        params = {k: v.clone() for k, v in algo.state.server.params.items()}
+        residual = algo.state.residual.clone()
+        algo.stop()
+        algo = build()
+        algo.train()
+        algo.save_checkpoint(ck)
+        algo.train()  # round 2, then the trial 'dies'
+        algo.stop()
+        algo = build()
+        algo.load_checkpoint(ck)
+        resumed = [drop(algo.train()) for _ in range(2)]
+        same_res = torch.equal(algo.state.residual, residual)
+        same_par = all(torch.equal(algo.state.server.params[k], v)
+                       for k, v in params.items())
+        nz = int((residual != 0).sum())
+        algo.stop()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    del params, residual
+    check(all(math.isfinite(r["train_loss"]) for r in straight),
+          f"wire top-k: rows {straight}")
+    log(f"wire top-k 1% + EF, ResNet-10 x 60 ALIE Median f32: train_loss "
+        f"{[r['train_loss'] for r in straight]}, test_acc "
+        f"{straight[-1]['test_acc']:.4f}, comm_bytes_up "
+        f"{straight[-1]['comm_bytes_up']} "
+        f"(x{straight[-1]['comm_compression_ratio']}); residual nonzero "
+        f"entries {nz}; killed after round 2 and resumed from round 1: "
+        f"residual equal {same_res}, parameters equal {same_par}, rows 2-3 "
+        f"equal {resumed == straight[1:]} [{card}]")
+    check(same_res and same_par and resumed == straight[1:],
+          "wire top-k: the resumed run differs from the straight one")
+
+
+def _wire_faults(card):
+    """Part 2b: the fault injector on the 60-client dense trial with the
+    health check: round 1 at full participation (the dense Median on
+    ``select:radix``), rounds 2-3 with dropout (the participants
+    compacted, ``select:radix`` on them)."""
+    key = "column_median:faults"
+    with _PathAudit("select", key) as sel:
+        rows, launches, maps, peak, setup, rps = _wire_trial(
+            "wire faults", {**DENSE_TRIAL, "adversary_config":
+                            {"type": "ALIE"}, "health_check": True,
+                            "fault_config": WIRE_FAULTS}, 3)
+    part = [r["num_participating"] for r in rows]
+    check(part[0] == 60 and all(p < 60 for p in part[1:])
+          and all(r["round_ok"] for r in rows),
+          f"wire faults: participation {part}, round_ok "
+          f"{[r['round_ok'] for r in rows]}")
+    check(launches.get("column_median") == 3 and sel.calls == 3
+          and maps.get(("column_median", "select:radix")) == 3,
+          f"wire faults: launches {launches} by route {maps}")
+    log(f"wire faults {WIRE_FAULTS}, ResNet-10 x 60 ALIE Median f32, "
+        f"health check: participating {part}, dropped "
+        f"{[r['num_dropped'] for r in rows]}, straggled "
+        f"{[r['num_straggled'] for r in rows]}, unhealthy "
+        f"{[r['num_unhealthy'] for r in rows]}, staleness_mean "
+        f"{[r['staleness_mean'] for r in rows]}; selects on "
+        f"{sorted(sel.shapes)}, each bit-exact against the plain version; "
+        f"train_loss {[r['train_loss'] for r in rows]}, test_acc "
+        f"{rows[-1]['test_acc']:.4f}; {rps:.4f} rounds/s, peak "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    return {key: launches["column_median"]}, sel.records
+
+
+def _wire_mlp():
+    """Part 3: the verification flow's MLP under top-k and on the wire."""
+    for what, extra, rounds in WIRE_MLP:
+        rows, _, _, _, _, _ = _wire_trial(f"wire MLP {what}",
+                                          {**MLP_TRIAL, **extra}, rounds)
+        acc = rows[-1]["test_acc"]
+        log(f"wire MLP x 6 ALIE Median {what}: test_acc {acc:.4f} at round "
+            f"{rounds}")
+        check(acc >= MLP_MIN_ACC, f"wire MLP {what}: test accuracy {acc} "
+              f"< {MLP_MIN_ACC} at round {rounds}")
+
+
+def phase_wire(card):
+    """The update codecs, the wire domain and the fault injector on the
+    card.  Returns the launches and records of each path."""
+    import torch
+
+    torch.cuda.empty_cache()
+    counts, records = _wire_full(card)
+    _wire_ab(card)
+    _wire_topk(_work_dir("wire"), card)
+    c, r = _wire_faults(card)
+    counts.update(c)
+    records.update(r)
+    _wire_mlp()
+    return counts, records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3998,7 +4476,8 @@ def main(argv=None) -> int:
         if "fedavg" in phases:
             launches.update(run("fedavg", phase_fedavg))
         for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
-                         ("resnet34", phase_resnet34), ("cct", phase_cct)):
+                         ("resnet34", phase_resnet34), ("cct", phase_cct),
+                         ("wire", phase_wire)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

@@ -130,7 +130,7 @@ def test_client_momentum_runs_streamed():
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"codec_config": {"type": "quant", "bits": 8}}, NotImplementedError),
+    ({"state_store": "host"}, NotImplementedError),
     ({"num_devices": 4}, NotImplementedError),
     ({"client_packing": 2}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),

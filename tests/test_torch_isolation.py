@@ -40,6 +40,8 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/tune/sweep.py",
             "blades_tpu_torch/tune/yaml_subset.py",
             "blades_tpu_torch/faults/host.py",
+            "blades_tpu_torch/faults/injector.py",
+            "blades_tpu_torch/comm/codecs.py",
             "blades_tpu_torch/core/callbacks.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -54,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.ops.bn_backward, "
             "blades_tpu_torch.adversaries.training_attacks, "
             "blades_tpu_torch.tune.sweep, blades_tpu_torch.tune.yaml_subset, "
-            "blades_tpu_torch.faults.host, blades_tpu_torch.core.callbacks\n"
+            "blades_tpu_torch.faults.host, blades_tpu_torch.core.callbacks, "
+            "blades_tpu_torch.faults.injector, blades_tpu_torch.comm.codecs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

@@ -215,6 +215,39 @@ def test_file_command_writes_the_jax_layout_rows_and_accuracy(tmp_path,
         assert rows[-1]["test_acc"] > 0.9 and jrows[-1]["test_acc"] > 0.9
 
 
+@pytest.mark.parametrize("extra", [
+    {"codec_config": {"type": "quant", "bits": 8}, "agg_domain": "wire"},
+    {"fault_config": {"dropout_rate": 0.3, "num_stragglers": 1,
+                      "staleness": 2, "dropout_schedule": [[1, 0.5]]},
+     "health_check": True},
+], ids=["codec", "faults"])
+def test_codec_and_fault_trials_run_through_file(tmp_path, extra):
+    """A YAML trial with ``codec_config`` (on the wire) and one with
+    ``fault_config`` (its schedule a YAML list of lists) resolve and run
+    through ``file``, as the JAX command takes them, their rows carrying
+    the JAX rows' keys."""
+    config = {**MLP_GRID["mlp_grid"]["config"], **extra}
+    config["server_config"] = {"lr": 1.0, "aggregator": {"type": "Median"}}
+    grid = {"mlp_grid": {**MLP_GRID["mlp_grid"], "config": config,
+                         "stop": {"training_iteration": 2}}}
+    path = _write_grid(tmp_path, grid)
+    spec = load_experiments_from_file(path)["mlp_grid"]
+    assert spec == jax_load(str(path))["mlp_grid"]
+    (trial,) = expand_grid(spec["config"])
+    resolve_trial(spec["run"], trial)
+    ours, theirs = tmp_path / "port", tmp_path / "jax"
+    assert train.main(["file", str(path), "--device", "cpu",
+                       "--storage-path", str(ours)]) == 0
+    assert jax_train.main(["file", str(path), "--storage-path", str(theirs),
+                           "--no-cost-analysis", "--no-lanes"]) == 0
+    rows, jrows = _rows(ours, drop=()), _rows(theirs, drop=())
+    assert [r["training_iteration"] for r in rows] == [1, 2]
+    for r, jr in zip(rows, jrows):
+        assert set(r) <= set(jr)
+    key = "agg_domain" if "codec_config" in extra else "fault_seed"
+    assert rows[-1][key] == jrows[-1][key]
+
+
 def test_best_trial_line_says_when_no_trial_was_evaluated(tmp_path, capsys):
     """Two rounds of the grid whose evaluation falls due at round 3: no
     row holds a test accuracy, so no trial is named best at 0."""
