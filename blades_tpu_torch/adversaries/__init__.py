@@ -1,6 +1,7 @@
 """Adversaries: the update-forging attacks of the port (ALIE, IPM, Noise,
-Adaptive, MinMax, SignGuard, Lazy, Attackclippedclustering) and the
-training-corruption attacks (LabelFlip, SignFlip)."""
+Adaptive, MinMax, SignGuard, Lazy, Attackclippedclustering), the campaign
+attacks scheduled over the async engine's virtual ticks (DiurnalALIE,
+LazyRamp) and the training-corruption attacks (LabelFlip, SignFlip)."""
 
 import inspect
 
@@ -8,6 +9,10 @@ from blades_tpu_torch.adversaries.base import (  # noqa: F401
     Adversary,
     benign_mean_std,
     make_malicious_mask,
+)
+from blades_tpu_torch.adversaries.campaigns import (  # noqa: F401
+    DiurnalALIECampaign,
+    LazyRampCampaign,
 )
 from blades_tpu_torch.adversaries.training_attacks import (  # noqa: F401
     LabelFlipAdversary,
@@ -35,11 +40,11 @@ ADVERSARIES = {
     "SignGuard": SignGuardAdversary,
     "Attackclippedclustering": AttackclippedclusteringAdversary,
     "Lazy": LazyAdversary,
+    "DiurnalALIE": DiurnalALIECampaign,
+    "LazyRamp": LazyRampCampaign,
 }
 # The reference's adversaries the port does not have yet, by either name.
-_LATER = {"DiurnalALIE", "LazyRamp", "TopologyAttack",
-          "DiurnalALIECampaign", "LazyRampCampaign",
-          "TopologyAttackAdversary"}
+_LATER = {"TopologyAttack", "TopologyAttackAdversary"}
 _ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
 
 

@@ -137,8 +137,9 @@ class LazyAdversary(Adversary):
     """Lazy / free-riding clients (BLADE-FL): ``mode="copy"`` sends
     ``copy_scale`` times the benign row of the highest lane score (one
     victim a call) plus Gaussian camouflage of std ``noise_std``;
-    ``mode="replay"`` (in a synchronous round) scales the lane's own row
-    by ``copy_scale`` and adds the camouflage.  ``noise`` is ``(scores
+    ``mode="replay"`` scales the lane's own row by ``copy_scale`` and adds
+    the camouflage; under the buffered-async cycle that row was computed
+    against the oldest retained params version (``wants_stale_replay``).  ``noise`` is ``(scores
     (rows,) uniforms, (rows, c) standard normals)``; without it both are
     drawn from ``generator``.  The streamed round has no formulation for
     it, as in the JAX package."""
@@ -152,6 +153,12 @@ class LazyAdversary(Adversary):
             raise ValueError(
                 f"LazyAdversary mode must be 'copy' or 'replay', got "
                 f"{self.mode!r}")
+
+    @property
+    def wants_stale_replay(self) -> bool:
+        """The async cycle computes a replaying lane's events against the
+        oldest params version its history ring retains."""
+        return self.mode == "replay"
 
     @staticmethod
     def draw(shape, generator, device=None):

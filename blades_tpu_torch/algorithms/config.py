@@ -8,10 +8,12 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (async, meshes, forensics, ...) raises ``NotImplementedError``
-naming it when it is set to anything but the reference's default; an
-unknown key raises ``KeyError``.  ``validate()`` refuses the codec, fault
-and wire-domain combinations the reference refuses, with its reasons.
+have yet (meshes, forensics, the ledger, ...) raises
+``NotImplementedError`` naming it when it is set to anything but the
+reference's default; an unknown key raises ``KeyError``.  ``validate()``
+refuses the codec, fault, wire-domain, buffered-async, participation-
+window and data-store combinations the reference refuses, with its
+reasons.
 """
 
 from __future__ import annotations
@@ -63,21 +65,30 @@ _FIELDS = {
     # The fault injector's and the update codec's specs ({"type": ...}
     # for the codec) and the aggregation domain ("f32" | "wire").
     "fault_config": None, "codec_config": None, "agg_domain": "f32",
+    # Buffered-async arrivals (AsyncSpec knobs, execution="async").
+    "async_config": None,
+    # The participation window: the cohort size (None = every client, 0 =
+    # stateless clients), where the off-cohort state rows live and the
+    # disk store's directory; the training-data store and its directory;
+    # the streaming evaluation's chunk; cohort staging ("auto" = on the
+    # card, True / "on", False / "off").
+    "state_store": "resident", "state_window": None, "state_dir": None,
+    "data_store": "resident", "data_dir": None, "eval_chunk_clients": 256,
+    "prefetch": "auto",
 }
 
 # The reference's other fields, with its defaults: setting one to another
 # value raises NotImplementedError (a later slice of the port).
 _LATER = {
-    "donate_buffers": True, "prefetch": "auto", "mxu_finish": None,
+    "donate_buffers": True, "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
-    "client_packing": "off", "state_store": "resident", "state_window": None,
-    "state_dir": None, "data_store": "resident", "data_dir": None,
-    "eval_chunk_clients": 256, "async_config": None, "forensics": False,
+    "client_packing": "off", "forensics": False,
     "ledger": False, "ledger_dir": None, "watchdog_rules": None,
     "control_config": None, "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1, "topology_config": None,
 }
-_LATER_EXECUTION = ("dsharded", "async", "hier", "gossip")
+_LATER_EXECUTION = ("dsharded", "hier", "gossip")
+_EXECUTIONS = ("auto", "dense", "streamed", "async")
 
 _NESTED = {
     "dataset_config": {"type": "dataset", "num_clients": "num_clients",
@@ -185,10 +196,46 @@ class FedavgConfig:
                          evaluation_num_samples=num_samples)
 
     def resources(self, *, execution=None, client_block=None, d_chunk=None,
-                  update_dtype=None, compute_dtype=None):
+                  update_dtype=None, compute_dtype=None, state_store=None,
+                  window=None, state_dir=None, data_store=None,
+                  data_dir=None, eval_chunk_clients=None):
+        """``window`` is the participation window's cohort size (0 =
+        stateless clients), ``state_store`` where the off-cohort state
+        rows live (``resident`` | ``host`` | ``disk``, in ``state_dir``);
+        ``data_store`` (``resident`` | ``memmap``, in ``data_dir``) the
+        training shards' store, and ``eval_chunk_clients`` the streaming
+        evaluation's chunk under ``memmap``."""
+        if window is not None:
+            self._set(state_window=int(window))
         return self._set(execution=execution, client_block=client_block,
                          d_chunk=d_chunk, update_dtype=update_dtype,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, state_store=state_store,
+                         state_dir=state_dir, data_store=data_store,
+                         data_dir=data_dir,
+                         eval_chunk_clients=eval_chunk_clients)
+
+    def arrivals(self, *, rate=None, rate_schedule=None, slow_fraction=None,
+                 slow_factor=None, agg_every=None, buffer_capacity=None,
+                 staleness_cap=None, weight_schedule=None, weight_power=None,
+                 weight_cutoff=None, seed=None, max_ticks_per_cycle=None,
+                 ticks_per_sec=None):
+        """The buffered-async arrival spec
+        (:class:`~blades_tpu_torch.arrivals.AsyncSpec`) for
+        ``execution="async"``, merged into ``async_config``."""
+        spec = dict(self.async_config or {})
+        for k, v in (("rate", rate), ("rate_schedule", rate_schedule),
+                     ("slow_fraction", slow_fraction),
+                     ("slow_factor", slow_factor), ("agg_every", agg_every),
+                     ("buffer_capacity", buffer_capacity),
+                     ("staleness_cap", staleness_cap),
+                     ("weight_schedule", weight_schedule),
+                     ("weight_power", weight_power),
+                     ("weight_cutoff", weight_cutoff), ("seed", seed),
+                     ("max_ticks_per_cycle", max_ticks_per_cycle),
+                     ("ticks_per_sec", ticks_per_sec)):
+            if v is not None:
+                spec[k] = v
+        return self._set(async_config=spec or None)
 
     def fault_tolerance(self, *, health_check=None, faults=None):
         """The in-round health check and the fault injector's spec
@@ -256,9 +303,9 @@ class FedavgConfig:
             raise NotImplementedError(
                 f"execution={self.execution!r} is not in the port yet (a "
                 "later slice); the port runs 'auto', 'dense' and 'streamed'")
-        if self.execution not in ("auto", "dense", "streamed"):
-            raise ValueError("execution must be auto|dense|streamed, got "
-                             f"{self.execution!r}")
+        if self.execution not in _EXECUTIONS:
+            raise ValueError("execution must be auto|dense|streamed|async, "
+                             f"got {self.execution!r}")
         if str(self.update_dtype) not in ("bfloat16", "float32"):
             raise ValueError("update_dtype must be 'bfloat16' or 'float32', "
                              f"got {self.update_dtype!r}")
@@ -281,9 +328,161 @@ class FedavgConfig:
             raise ValueError("evaluation_num_samples must be >= 1 (or None "
                              "for the full per-client shard), got "
                              f"{self.evaluation_num_samples}")
-        self.get_adversary()  # an attack the port lacks fails here
+        adv = self.get_adversary()  # an attack the port lacks fails here
         self.get_client_callbacks()  # so does an unknown callback
         self._validate_comm_and_faults()
+        self._validate_async()
+        self._validate_window()
+        if getattr(adv, "requires_virtual_time", False) \
+                and self.execution != "async":
+            raise ValueError(
+                f"adversary {self.adversary_config.get('type')!r} is a "
+                "campaign attack scheduled over virtual arrival time; "
+                f"execution={self.execution!r} has no tick clock -- set "
+                ".resources(execution='async')")
+
+    def _validate_async(self) -> None:
+        """The reference's checks of ``async_config`` and
+        ``execution='async'``."""
+        if self.async_config and self.execution != "async":
+            raise ValueError(
+                "async_config is set but execution="
+                f"{self.execution!r}: the arrival spec only drives the "
+                "buffered-async path -- set .resources(execution='async') "
+                "or drop .arrivals(...)")
+        if self.execution != "async":
+            return
+        spec = self.get_async_spec()  # a bad knob fails here
+        if spec.agg_every > self.num_clients:
+            raise ValueError(
+                f"async agg_every={spec.agg_every} > num_clients="
+                f"{self.num_clients}: a cycle aggregates at most one "
+                "event per client")
+        for knob, why, flip in (
+                (self.codec_config, "update codecs",
+                 ".communication(codec=None)"),
+                (self.agg_domain != "f32", "wire-domain aggregation",
+                 ".communication(agg_domain='f32')"),
+                (int(self.rounds_per_dispatch or 1) != 1,
+                 "rounds_per_dispatch > 1", "rounds_per_dispatch=1"),
+                (self.chained_dispatch, "chained_dispatch",
+                 "chained_dispatch=False"),
+                (self.health_check, "the in-round health check",
+                 ".fault_tolerance(health_check=False)"),
+                (self.dp_clip_threshold, "client DP",
+                 "dp_clip_threshold=None")):
+            if knob:
+                raise ValueError(
+                    f"execution='async' x {why} is an unsupported pair: "
+                    "the buffered cycle aggregates arrival EVENTS, not the "
+                    "lockstep (n, d) round that stage is formulated over "
+                    f"-- set {flip}, or use a synchronous execution path")
+        injector = self.get_fault_injector()
+        if injector is not None and injector.num_stragglers:
+            raise ValueError(
+                "execution='async' subsumes the straggler fault process "
+                "(staleness is first-class in the arrival model); set "
+                "num_stragglers=0 -- dropout and corruption compose with "
+                "async arrivals as-is")
+
+    def _validate_window(self) -> None:
+        """The reference's checks of the participation window, the state
+        store and the data store."""
+        from blades_tpu_torch.data.store import DATA_STORE_BACKENDS
+        from blades_tpu_torch.state.store import STORE_BACKENDS
+
+        if self.state_store not in STORE_BACKENDS:
+            raise ValueError(f"state_store must be one of {STORE_BACKENDS}, "
+                             f"got {self.state_store!r}")
+        w = self.state_window
+        if w is not None and (not isinstance(w, int) or isinstance(w, bool)
+                              or w < 0):
+            raise ValueError(
+                f"state_window must be None, 0 (stateless) or a positive "
+                f"cohort size, got {w!r}")
+        if (w is None and self.state_store != "resident"
+                and self.execution != "async"):
+            raise ValueError(
+                f"state_store={self.state_store!r} needs a participation "
+                "window: set .resources(window=...) -- without one there "
+                "is no cohort to stage (the async path alone windows by "
+                "its event batch instead)")
+        if w == 0:
+            if self.state_store != "resident":
+                raise ValueError(
+                    "window=0 is the STATELESS degenerate case -- clients "
+                    "keep no state, so there is nothing for a "
+                    f"{self.state_store!r} store to hold; drop state_store "
+                    "or use window >= 1")
+            codec = self.get_codec()
+            if codec is not None and codec.needs_residual:
+                raise ValueError(
+                    "window=0 (stateless clients) cannot compose with a "
+                    "top-k error-feedback codec: the EF residual is "
+                    "persistent per-client state by definition")
+            if self.execution not in ("auto", "dense"):
+                raise ValueError(
+                    "window=0 (stateless clients) is formulated for the "
+                    f"dense round only; execution={self.execution!r} "
+                    "carries its own per-client state threading")
+        if w is not None and w >= 1:
+            if w > self.num_clients:
+                raise ValueError(
+                    f"window={w} > num_clients={self.num_clients}: the "
+                    "cohort samples without replacement from the "
+                    "registered population")
+            if self.execution not in ("auto", "dense"):
+                raise ValueError(
+                    "the participation-window store is formulated for the "
+                    "dense single-card round (the cohort matrix is "
+                    f"(window, d)); execution={self.execution!r} has no "
+                    "windowed formulation -- drop the window or use "
+                    "execution='dense'")
+            for knob, why, flip in (
+                    (self.fault_config, "fault injection (the straggler "
+                     "ring and participation mask are keyed by lane, not "
+                     "registered id)", ".fault_tolerance(faults=None)"),
+                    (self.agg_domain != "f32", "wire-domain aggregation",
+                     ".communication(agg_domain='f32')"),
+                    (int(self.rounds_per_dispatch or 1) != 1,
+                     "rounds_per_dispatch > 1 (cohort staging happens "
+                     "between dispatches)", "rounds_per_dispatch=1"),
+                    (self.chained_dispatch, "chained_dispatch",
+                     "chained_dispatch=False")):
+                if knob:
+                    raise ValueError(
+                        f"state_window={w} x {why} is an unsupported pair "
+                        f"-- set {flip}, or run without the participation "
+                        "window")
+        if self.data_store not in DATA_STORE_BACKENDS:
+            raise ValueError(
+                f"data_store must be one of {DATA_STORE_BACKENDS}, got "
+                f"{self.data_store!r}")
+        if self.data_store == "memmap":
+            ooc_async = (self.execution == "async"
+                         and self.state_store != "resident")
+            if not ((w is not None and w >= 1) or ooc_async):
+                raise ValueError(
+                    "data_store='memmap' needs a per-cohort staging path: "
+                    "set .resources(window=...) >= 1 (windowed dense) or "
+                    "execution='async' with an out-of-core state_store -- "
+                    "the full-participation rounds hold the whole "
+                    "partition on the card and never stage cohort data")
+        elif self.data_dir:
+            raise ValueError(
+                "data_dir is set but data_store='resident' -- set "
+                ".resources(data_store='memmap') (data_dir names the "
+                "memmap backend's live shard directory) or drop data_dir")
+        if (not isinstance(self.eval_chunk_clients, int)
+                or isinstance(self.eval_chunk_clients, bool)
+                or self.eval_chunk_clients < 1):
+            raise ValueError(
+                f"eval_chunk_clients must be an int >= 1, got "
+                f"{self.eval_chunk_clients!r}")
+        if self.prefetch not in ("auto", True, False, "on", "off"):
+            raise ValueError(
+                "prefetch must be 'auto', True / 'on' or False / 'off', "
+                f"got {self.prefetch!r}")
 
     def _validate_comm_and_faults(self) -> None:
         """The reference's checks of ``fault_config``, ``codec_config``
@@ -387,6 +586,21 @@ class FedavgConfig:
         spec.setdefault("seed", int(self.seed))
         return FaultInjector(**spec)
 
+    def get_async_spec(self):
+        """The :class:`~blades_tpu_torch.arrivals.AsyncSpec` of
+        ``async_config`` (None unless ``execution="async"``); its seed
+        defaults to the trial seed."""
+        if self.execution != "async":
+            return None
+        from blades_tpu_torch.arrivals import AsyncSpec
+
+        spec = dict(self.async_config or {})
+        spec.setdefault("seed", int(self.seed))
+        if spec.get("rate_schedule") is not None:
+            spec["rate_schedule"] = tuple(
+                tuple(p) for p in spec["rate_schedule"])
+        return AsyncSpec(**spec)
+
     def get_codec(self):
         """The :class:`~blades_tpu_torch.comm.CodecConfig` of
         ``codec_config`` (None when off)."""
@@ -425,7 +639,8 @@ class FedavgConfig:
             dp_clip_threshold=self.dp_clip_threshold,
             dp_noise_factor=self.dp_noise_factor,
             faults=self.get_fault_injector(), codec=self.get_codec(),
-            agg_domain=self.agg_domain, agg_d_chunk=self.d_chunk)
+            agg_domain=self.agg_domain, agg_d_chunk=self.d_chunk,
+            stateless_clients=self.state_window == 0)
 
     def build(self, device=None):
         """Validate, freeze and build the driver on ``device`` (``None`` =

@@ -13,12 +13,30 @@ the round: the dense :meth:`FedRound.step`, or the streamed round
 update matrix would take more than 3/8 of the device's memory (a codec or
 the fault injector needs the dense round, and then raises there).
 
+Under ``execution="async"`` one ``train()`` is one buffered-async cycle
+(:class:`~blades_tpu_torch.arrivals.AsyncEngine`); its rows carry the
+ingest digest (``tick``, ``staleness_mean`` / ``_max`` / ``_hist``,
+``buffer_fill``, ``buffer_overflow``, ``arrivals_dropped``,
+``arrival_seed``, ``cycle_ticks``, ``arrivals_quarantined``) and
+``updates_per_sec``, and ``RoundState.arrivals`` carries the params
+ring.  Under a participation window (``state_window >= 1``) each round
+runs the dense round over a sampled cohort whose state rows come from a
+:mod:`~blades_tpu_torch.state` store, staged by a
+:class:`~blades_tpu_torch.state.StatePrefetcher`; its rows carry
+``state_store``, ``cohort_size``, ``state_stage_ms``,
+``state_bytes_staged`` and ``state_peak_hbm_bytes``, and with a data
+store ``data_store``, ``data_stage_ms``, ``data_bytes_staged`` (and
+``eval_chunks`` where the memmap data store streams the evaluation).
+``state_window=0`` runs stateless clients.
+
 Rows of a codec run carry ``comm_bytes_up``, ``codec_bits``,
 ``comm_compression_ratio``, ``agg_domain`` and ``agg_domain_bits``, and in
 the wire domain ``dequant_rows`` and ``hbm_passes``; rows of a fault run
 ``num_participating``, ``num_dropped``, ``num_straggled``, ``fault_seed``
 and, with stragglers, ``staleness_mean`` / ``staleness_max``.
-Checkpoints carry the residual and the stale ring in the ``RoundState``.
+Checkpoints carry the residual and the stale ring in the ``RoundState``,
+the async engine's host state, and a windowed store's rows as shard
+files (``client_state/``).
 
 Each round draws from a ``torch.Generator`` seeded by
 ``SeedSequence([seed, round])``, so a run is reproducible per seed on one
@@ -28,16 +46,25 @@ device (the draws are not the JAX package's).
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from blades_tpu_torch.adversaries import make_malicious_mask
 from blades_tpu_torch.adversaries.base import forges
+from blades_tpu_torch.arrivals import AsyncEngine
+from blades_tpu_torch.arrivals.engine import opt_to_rows, rows_to_opt
 from blades_tpu_torch.data.datasets import DatasetCatalog
+from blades_tpu_torch.data.store import make_data_store
+from blades_tpu_torch.data.stream import (
+    DataPrefetcher,
+    make_chunk_evaluator,
+    streaming_evaluate,
+)
 from blades_tpu_torch.device import resolve_device
 from blades_tpu_torch.ops.aggregators import Mean, Median, Trimmedmean
 from blades_tpu_torch.parallel.streamed import (
@@ -48,8 +75,15 @@ from blades_tpu_torch.parallel.streamed_geometry import (
     STREAMED_ROW_AGGREGATORS,
     STREAMED_ROW_FORGERS,
 )
+from blades_tpu_torch.state import (
+    StatePrefetcher,
+    make_store,
+    read_checkpoint_rows,
+    sample_cohort,
+)
 from blades_tpu_torch.utils.async_metrics import DEVICE_METRICS_KEY
 from blades_tpu_torch.utils.async_metrics import fetch as fetch_tree
+from blades_tpu_torch.utils.seeds import seed_of
 from blades_tpu_torch.utils.timers import Timers
 from blades_tpu_torch.utils.tree import FlatLayout
 
@@ -82,23 +116,81 @@ class Fedavg:
             self.fed_round = self._attach_root_data(self.fed_round)
         self.malicious = make_malicious_mask(
             cfg.num_clients, cfg.num_malicious_clients, device=dev)
-        self.state = self.fed_round.init(cfg.seed, cfg.num_clients,
-                                         device=dev)
+        self._malicious_host = (np.arange(cfg.num_clients)
+                                < cfg.num_malicious_clients)
+        # Out-of-core client state: a participation window, or an async
+        # run whose event cohort's rows live behind a host / disk store.
+        # Then the per-client stacks are never made whole.
+        sw = cfg.state_window
+        self._windowed = sw is not None and sw >= 1
+        ooc_async = (cfg.execution == "async"
+                     and cfg.state_store != "resident")
+        cohort = self._windowed or ooc_async
+        self._state_store = None
+        self._state_pf = None
+        self._window_prev = None
+        self._async = None
+        self._data_store = None
+        self._data_pf = None
+        self._eval_chunks = 0
+        template = None
+        if cohort:
+            rows = (int(sw) if self._windowed
+                    else cfg.get_async_spec().agg_every)
+            self.state, template = self.fed_round.init_windowed(
+                cfg.seed, rows, device=dev)
+        else:
+            self.state = self.fed_round.init(cfg.seed, cfg.num_clients,
+                                             device=dev)
         self._num_params = FlatLayout(self.state.server.params).d
 
         train = self.dataset.train
-        x = torch.from_numpy(train.x)
-        self._streamed = self._use_streamed()
-        cd = self.fed_round.task.compute_dtype
-        if self._streamed and cd is not None:
-            # bf16 compute casts the inputs down anyway: keep the resident
-            # training images in that dtype (half the memory at 1000
-            # CIFAR clients, which the bf16 update matrix needs back).
-            x = x.to(cd)
-        self._train = (x.to(dev), torch.from_numpy(train.y).long().to(dev),
-                       torch.from_numpy(train.lengths).long().to(dev))
-        self._test = self._test_arrays()
-        if self._streamed:
+        self._host_train = (train.x, train.y, train.lengths)
+        self._streamed = (not cohort and cfg.execution != "async"
+                          and self._use_streamed())
+        if cohort:
+            # The shards stay on the host; each cohort's rows are
+            # gathered through the data store.
+            self._train = None
+            self._data_store = make_data_store(
+                cfg.data_store, self._host_train, directory=cfg.data_dir,
+                device=dev)
+            self._data_pf = DataPrefetcher(self._data_store)
+        else:
+            x = torch.from_numpy(train.x)
+            cd = self.fed_round.task.compute_dtype
+            if self._streamed and cd is not None:
+                # bf16 compute casts the inputs down anyway: keep the
+                # resident training images in that dtype (half the memory
+                # at 1000 CIFAR clients, which the bf16 update matrix
+                # needs back).
+                x = x.to(cd)
+            self._train = (x.to(dev),
+                           torch.from_numpy(train.y).long().to(dev),
+                           torch.from_numpy(train.lengths).long().to(dev))
+        # The memmap data plane keeps the test stack on the host too and
+        # evaluates it in chunks.
+        self._streaming_eval = (self._data_store is not None
+                                and self._data_store.backend == "memmap")
+        self._test = self._test_arrays(host=self._streaming_eval)
+        if cfg.execution == "async":
+            if ooc_async:
+                self._state_store = make_store(
+                    cfg.state_store, cfg.num_clients, template,
+                    directory=cfg.state_dir, device=dev)
+            self._async = AsyncEngine(
+                self.fed_round, cfg.get_async_spec(), cfg.num_clients,
+                train_seed=int(cfg.seed),
+                fault_injector=cfg.get_fault_injector(),
+                state_store=self._state_store, data_store=self._data_pf,
+                client_block=max(1, int(cfg.client_block)))
+            self.state = dataclasses.replace(
+                self.state, arrivals=self._async.init_history(
+                    self.state.server.params))
+            self._step = None
+        elif self._windowed:
+            self._setup_windowed_pipeline(template)
+        elif self._streamed:
             self._step = streamed_step(
                 self.fed_round, client_block=self._streamed_block(),
                 update_dtype=_DTYPES[str(cfg.update_dtype)],
@@ -112,10 +204,37 @@ class Fedavg:
         self._rounds_since_eval = 0
         self._last_eval: Dict = {}
 
-    def _test_arrays(self):
-        """The per-client test shards on the device, each subsampled to
-        ``evaluation_num_samples`` rows (a seeded random subset of the
-        client's true rows, as the reference draws it)."""
+    def _setup_windowed_pipeline(self, template) -> None:
+        """The participation window on one card: each round gathers the
+        sampled cohort's state and data rows, runs the dense round over
+        them and scatters the state rows back, while the prefetcher
+        stages the next cohort (``prefetch``: on the card by default,
+        forced either way by ``True`` / ``"on"`` or ``False`` /
+        ``"off"``; the values are the same)."""
+        cfg = self.config
+        n, w = cfg.num_clients, int(cfg.state_window)
+        self._state_store = make_store(
+            cfg.state_store, n, template, directory=cfg.state_dir,
+            device=self.device)
+        self._state_pf = StatePrefetcher(
+            self._state_store, self._data_pf, self._malicious_host,
+            lambda r: sample_cohort(self.round_seed(r), n, w),
+            device=self.device, async_staging=self._resolve_prefetch())
+        self._step = self.fed_round.step
+
+    def _resolve_prefetch(self) -> bool:
+        want = self.config.prefetch
+        if want in (False, "off"):
+            return False
+        if want in (True, "on"):
+            return True
+        return self.device.type == "cuda"
+
+    def _test_arrays(self, host: bool = False):
+        """The per-client test shards on the device (on the host with
+        ``host``), each subsampled to ``evaluation_num_samples`` rows (a
+        seeded random subset of the client's true rows, as the reference
+        draws it)."""
         cfg = self.config
         test = self.dataset.test
         tx, ty, tln = test.x, test.y, test.lengths
@@ -132,6 +251,8 @@ class Fedavg:
                 tx, pick.reshape((n, cap) + (1,) * (tx.ndim - 2)), axis=1)
             ty = np.take_along_axis(ty, pick, axis=1)
             tln = np.minimum(tln, cap)
+        if host:
+            return tx, ty, tln
         dev = self.device
         return (torch.from_numpy(np.ascontiguousarray(tx)).to(dev),
                 torch.from_numpy(np.ascontiguousarray(ty)).long().to(dev),
@@ -203,8 +324,7 @@ class Fedavg:
 
     def round_seed(self, r: int) -> int:
         """The seed of round ``r``'s generator."""
-        ss = np.random.SeedSequence([int(self.config.seed), int(r)])
-        return int(ss.generate_state(1, dtype=np.uint64)[0] >> 1)
+        return seed_of(self.config.seed, r)
 
     # -- the trainable surface ----------------------------------------------
 
@@ -232,13 +352,24 @@ class Fedavg:
         the card the ``training_step`` timer still syncs the device at the
         end of the dispatch, so deferring saves copies, not syncs."""
         raw = {}
+        t0 = time.perf_counter()
         with self.timers.time("training_step"):
             # Each round draws from its own round seed, so K rounds of one
             # dispatch are exactly K single-round dispatches.
             for _ in range(self._chunk):
-                seed = self.round_seed(self._iteration)
-                self.state, m = self._step(self.state, *self._train,
-                                           self.malicious, seed)
+                if self._async is not None:
+                    # One buffered-async cycle; its draws are pure in
+                    # (seed, tick, client), so no seed chain advances.
+                    self.state, m = self._async.run_cycle(
+                        self.state, None if self._train is None
+                        else self._train[:2], self._malicious_host,
+                        self._host_train[2])
+                elif self._state_pf is not None:
+                    m = self._windowed_round()
+                else:
+                    seed = self.round_seed(self._iteration)
+                    self.state, m = self._step(self.state, *self._train,
+                                               self.malicious, seed)
                 self._iteration += 1
                 for k, v in m.items():
                     raw.setdefault(k, []).append(v)
@@ -246,6 +377,29 @@ class Fedavg:
         row = {"training_iteration": self._iteration,
                DEVICE_METRICS_KEY: raw,
                "timers": self.timers.summary()}
+        if self._async is not None:
+            info = self._async.last_info
+            for k in ("tick", "staleness_max", "buffer_fill",
+                      "arrivals_dropped", "buffer_overflow", "arrival_seed",
+                      "cycle_ticks", "arrivals_quarantined"):
+                row[k] = int(info[k])
+            row["staleness_mean"] = float(info["staleness_mean"])
+            row["staleness_hist"] = list(info["staleness_hist"])
+            elapsed = max(time.perf_counter() - t0, 1e-9)
+            row["updates_per_sec"] = round(info["events"] / elapsed, 3)
+        if self._state_store is not None:
+            stats = (self._state_pf.stats if self._state_pf is not None
+                     else self._async.store_stats)
+            row["state_store"] = self._state_store.backend
+            row["cohort_size"] = self._cohort_size()
+            row["state_stage_ms"] = round(stats.last_stage_ms, 3)
+            row["state_bytes_staged"] = int(stats.last_bytes_staged)
+            row["state_peak_hbm_bytes"] = int(stats.peak_hbm_bytes)
+        if self._data_store is not None:
+            dstats = self._data_pf.stats
+            row["data_store"] = self._data_store.backend
+            row["data_stage_ms"] = round(dstats.last_stage_ms, 3)
+            row["data_bytes_staged"] = int(dstats.last_bytes_staged)
         # The rounds-since-eval cadence: a rounds_per_dispatch that does
         # not divide the interval still evaluates.
         if (self.config.evaluation_interval
@@ -255,6 +409,65 @@ class Fedavg:
         elif self._last_eval:
             row.update(self._last_eval)
         return row
+
+    def _cohort_size(self) -> int:
+        return (int(self.config.state_window) if self._state_pf is not None
+                else int(self._async.agg_every))
+
+    def _windowed_round(self) -> Dict:
+        """One participation-window round: take the staged cohort (state
+        rows, shards, malicious mask), run the dense round over it, then
+        start staging the next cohort (it leaves this cohort's ids out)
+        and queue this one's rows for the store.  Returns the device
+        metrics."""
+        r = self._iteration
+        ids, rows, data, mal = self._state_pf.take(r, self._window_prev)
+        state = dataclasses.replace(
+            self.state, client_opt=rows_to_opt(self.fed_round, self.state,
+                                               rows),
+            residual=rows.get("residual"),
+            cohort=torch.as_tensor(ids))
+        self.state, m = self._step(state, *data, mal, self.round_seed(r))
+        out = opt_to_rows(self.state, {})
+        if self.state.residual is not None:
+            out["residual"] = self.state.residual
+        self._state_pf.stage(r + 1, prev_ids=ids)
+        self._state_pf.writeback(ids, out)
+        self._window_prev = (ids, out)
+        return m
+
+    @property
+    def state_summary(self) -> Optional[Dict]:
+        """The client-state store's digest (backend, window, row and total
+        bytes, peak), or None without one."""
+        if self._state_store is None:
+            return None
+        stats = (self._state_pf.stats if self._state_pf is not None
+                 else self._async.store_stats)
+        return {
+            "backend": self._state_store.backend,
+            "window": self._cohort_size(),
+            "n_registered": self._state_store.n_registered,
+            "row_bytes": int(self._state_store.row_bytes),
+            "total_bytes": int(self._state_store.total_bytes()),
+            "peak_hbm_bytes": int(stats.peak_hbm_bytes),
+        }
+
+    @property
+    def data_summary(self) -> Optional[Dict]:
+        """The data store's digest, or None on the resident data plane."""
+        if self._data_store is None:
+            return None
+        stats = self._data_pf.stats
+        return {
+            "backend": self._data_store.backend,
+            "n_clients": int(self._data_store.n_clients),
+            "row_bytes": int(self._data_store.row_bytes),
+            "total_bytes": int(self._data_store.total_bytes()),
+            "last_stage_ms": round(stats.last_stage_ms, 3),
+            "last_bytes_staged": int(stats.last_bytes_staged),
+            "eval_chunks": int(self._eval_chunks),
+        }
 
     def finalize_row(self, row: Dict) -> Dict:
         """A (possibly deferred) row's metrics in host form: the scalars of
@@ -273,17 +486,24 @@ class Fedavg:
                 row[k] = int(raw[k][-1])
         codec = self.fed_round.codec
         if codec is not None:
-            # Static per round, from the config alone.
-            row.update(codec.round_metrics(self.config.num_clients,
-                                           self._num_params))
+            # Static per round, from the config alone; under a window only
+            # the cohort sends.
+            uplink = (int(self.config.state_window)
+                      if self._state_pf is not None
+                      else self.config.num_clients)
+            row.update(codec.round_metrics(uplink, self._num_params))
             domain = self.fed_round.agg_domain
             row["agg_domain"] = domain
             row["agg_domain_bits"] = (codec.storage_bits
                                       if domain == "wire" else 32)
         faults = self.fed_round.faults
         if faults is not None:
-            for k in ("num_participating", "num_straggled", "num_dropped"):
-                row[k] = int(raw[k][-1])
+            # An async cycle has no participation mask (a dropped arrival
+            # never reaches the buffer): the seed alone.
+            if "num_participating" in raw:
+                for k in ("num_participating", "num_straggled",
+                          "num_dropped"):
+                    row[k] = int(raw[k][-1])
             row["fault_seed"] = int(faults.seed)
             if "staleness_mean" in raw:
                 row["staleness_mean"] = float(raw["staleness_mean"][-1])
@@ -299,19 +519,40 @@ class Fedavg:
         """Write the resident state into ``checkpoint_dir``: the round
         counter, the eval cadence and the last evaluation, the
         :class:`~blades_tpu_torch.core.round.RoundState` (server parameters
-        and optimizer state, aggregator state, client optimizer rows) and
-        the config.  The round generators are pure in ``(seed, round)``,
-        and neither round keeps state between rounds outside the
-        ``RoundState``, so nothing else is needed to replay the run."""
+        and optimizer state, aggregator state, client optimizer rows, the
+        async params ring) and the config; the async engine's host state
+        (``arrivals``); a windowed store's rows as shard files under
+        ``client_state/`` (the write-backs flushed first).  The round and
+        event generators are pure in ``(seed, round)`` and ``(seed, tick,
+        client)``, so nothing else is needed to replay the run."""
         path = Path(checkpoint_dir)
         path.mkdir(parents=True, exist_ok=True)
+        state = self.state
+        if self._state_store is not None:
+            if self._state_pf is not None:
+                self._state_pf.flush()
+            state = dataclasses.replace(state, client_opt=None,
+                                        residual=None, cohort=None)
+            self._state_store.save(path / "client_state")
         payload = {
             "iteration": self._iteration,
             "rounds_since_eval": self._rounds_since_eval,
             "last_eval": dict(self._last_eval),
-            "state": self.state,
+            "state": state,
             "config_dict": {k: v for k, v in self.config.items()
                             if not callable(v)},
+            "state_store": None if self._state_store is None else {
+                "backend": self._state_store.backend,
+                "window": self._cohort_size(),
+                "n_registered": self._state_store.n_registered,
+                "template": dict(zip(self._state_store.names,
+                                     self._state_store._template))},
+            "data_store": None if self._data_store is None else {
+                "backend": self._data_store.backend,
+                "dir": getattr(self._data_store, "directory", None),
+                "n_clients": int(self._data_store.n_clients)},
+            "arrivals": (None if self._async is None
+                         else self._async.host_state()),
         }
         file = path / "algorithm_state.pkl"
         torch.save(payload, file)
@@ -328,29 +569,106 @@ class Fedavg:
         self._rounds_since_eval = payload["rounds_since_eval"]
         self._last_eval = dict(payload["last_eval"])
         state = payload["state"]
+        for k in ("arrivals", "cohort"):  # checkpoints before these fields
+            if not hasattr(state, k):
+                setattr(state, k, None)
+        state = self._restore_client_rows(state, payload, p.parent)
+        if self._async is not None:
+            if payload.get("arrivals"):
+                self._async.restore_host_state(payload["arrivals"])
+            else:
+                warnings.warn(
+                    "resumed a checkpoint without the async engine's host "
+                    "state under execution='async': the arrival clock "
+                    "restarts (the traffic is not the original run's)",
+                    stacklevel=2)
+                self._async.cold_reset(self._iteration)
+            if state.arrivals is None:
+                state = dataclasses.replace(
+                    state, arrivals=self._async.init_history(
+                        state.server.params))
         # A checkpoint of a run without stragglers or error feedback,
         # resumed under them: start the ring or the residual cold (zeros),
         # as a fresh init does.
         rows = self.config.num_clients
         fr = self.fed_round
-        if getattr(state, "stale", None) is None and fr.faults is not None:
+        if (self._state_store is None and getattr(state, "stale", None)
+                is None and fr.faults is not None):
             state = dataclasses.replace(state, stale=fr.faults.init_stale_buffer(
                 rows, self._num_params, self.device))
-        if getattr(state, "residual", None) is None and fr.codec is not None:
+        if (self._state_store is None and getattr(state, "residual", None)
+                is None and fr.codec is not None):
             state = dataclasses.replace(state, residual=fr.codec.init_residual(
                 rows, self._num_params, self.device))
         self.state = state
 
+    def _restore_client_rows(self, state, payload, ckpt_dir: Path):
+        """The client rows of a checkpoint into this run's layout: a
+        store's shard files into this run's store (or, without one, into
+        the resident stacks), and a resident checkpoint's stacks into
+        this run's store."""
+        saved = payload.get("state_store")
+        store = self._state_store
+        if store is not None:
+            if self._state_pf is not None:
+                self._state_pf.invalidate()
+            self._window_prev = None
+            if saved is not None:
+                store.load(ckpt_dir / "client_state")
+            else:
+                rows = {}
+                layout = FlatLayout(state.server.params)
+                if state.client_opt is not None and "client_opt" in \
+                        store.names:
+                    rows["client_opt"] = layout.ravel_rows(state.client_opt)
+                if state.residual is not None and "residual" in store.names:
+                    rows["residual"] = state.residual
+                if rows:
+                    store.scatter(np.arange(store.n_registered), rows)
+            return dataclasses.replace(state, client_opt=None, residual=None,
+                                       cohort=None)
+        if saved is not None:
+            rows = read_checkpoint_rows(ckpt_dir / "client_state",
+                                        saved["template"],
+                                        saved["n_registered"])
+            dev = self.device
+            if "client_opt" in rows:
+                state = dataclasses.replace(
+                    state, client_opt=FlatLayout(
+                        state.server.params).unravel_rows(
+                            rows["client_opt"].to(dev)))
+            if "residual" in rows:
+                state = dataclasses.replace(
+                    state, residual=rows["residual"].to(dev))
+            state = dataclasses.replace(state, cohort=None)
+        return state
+
     def evaluate(self) -> Dict:
-        """Weighted per-client evaluation of the global model."""
+        """Weighted per-client evaluation of the global model (under the
+        memmap data store, streamed in ``eval_chunk_clients`` chunks)."""
         with self.timers.time("evaluate"):
-            ev = self.fed_round.evaluate(self.state, *self._test)
+            if self._streaming_eval:
+                ev, self._eval_chunks = streaming_evaluate(
+                    make_chunk_evaluator(self.fed_round.task),
+                    self.state.server.params, self._test,
+                    self.config.eval_chunk_clients, device=self.device)
+            else:
+                ev = self.fed_round.evaluate(self.state, *self._test)
             self._last_eval = {k: float(ev[k]) for k in
                                ("test_loss", "test_acc", "test_acc_top3")}
+            if self._streaming_eval:
+                self._last_eval["eval_chunks"] = int(self._eval_chunks)
         return dict(self._last_eval)
 
     def stop(self) -> None:
-        """Release the run's device memory (idempotent)."""
+        """Release the run's device memory and its stores (idempotent)."""
+        if self._state_pf is not None:
+            self._state_pf.close()
+        for store in (self._state_store, self._data_pf):
+            if store is not None:
+                store.close()
+        self._state_pf = self._state_store = self._data_pf = None
+        self._data_store = self._window_prev = None
         self.state = self._train = self._test = self._step = None
         self.malicious = self.fed_round = None
         if self.device.type == "cuda":

@@ -185,6 +185,15 @@ class CodecConfig:
         return torch.zeros((num_clients, num_params), dtype=torch.float32,
                            device=device)
 
+    def init_residual_row(self, num_params: int) -> torch.Tensor:
+        """One client's zero ``(d,)`` f32 residual row: the
+        participation-window store's template
+        (:func:`~blades_tpu_torch.state.store.client_state_template`), so
+        under a windowed store only the cohort's rows are ever gathered
+        into ``RoundState.residual``.  Callers gate on
+        :attr:`needs_residual`."""
+        return torch.zeros((num_params,), dtype=torch.float32)
+
     # -- the transform -------------------------------------------------------
 
     def encode_decode(self, updates: torch.Tensor, residual=None, *,

@@ -36,10 +36,14 @@ rounding uniforms come from a generator of their own
 (:func:`~blades_tpu_torch.comm.codecs.codec_generator`) and the faults'
 from ``(fault seed, round)``, so neither moves the round's other draws;
 ``step_prebatched(..., codec_draws=, fault_realization=)`` replaces them.
-Forensics, lane packing and the stateless or windowed client modes are
-not in the port yet
-(:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses them);
-the streamed round is :func:`blades_tpu_torch.parallel.streamed.streamed_step`.
+Under a participation window the round runs over the sampled cohort's
+rows (``client_opt`` / ``residual`` hold the cohort's, ``cohort`` its
+ids; :meth:`init_windowed`), and ``stateless_clients`` starts every lane
+from a fresh optimizer state.  Forensics and lane packing are not in the
+port yet (:class:`~blades_tpu_torch.algorithms.config.FedavgConfig`
+refuses them); the streamed round is
+:func:`blades_tpu_torch.parallel.streamed.streamed_step`, the
+buffered-async cycle :mod:`blades_tpu_torch.arrivals.cycle`.
 """
 
 from __future__ import annotations
@@ -76,12 +80,21 @@ class RoundState:
     (``None`` under plain local SGD, which keeps none), the fault
     injector's ``(staleness, n, d)`` stale-update ring and the top-k
     codec's ``(n, d)`` error-feedback residual (each ``None`` when off, so
-    the state of a codec- and fault-free run is unchanged)."""
+    the state of a codec- and fault-free run is unchanged).
+
+    ``arrivals`` is the buffered-async ``(H+1, d)`` params-history ring
+    (row ``j`` the global parameters of ``j`` versions ago;
+    :mod:`blades_tpu_torch.arrivals`) and ``cohort`` the participation
+    window's ``(window,)`` registered ids, whose rows ``client_opt`` and
+    ``residual`` then hold (:mod:`blades_tpu_torch.state`); both ``None``
+    when off."""
 
     server: ServerState
     client_opt: Any = None
     stale: Any = None
     residual: Any = None
+    arrivals: Any = None
+    cohort: Any = None
 
 
 def round_generator(seed, device) -> torch.Generator:
@@ -143,6 +156,10 @@ class FedRound:
     # statistics walk column chunks of agg_d_chunk.
     agg_domain: str = "f32"
     agg_d_chunk: int = 1 << 17
+    # Stateless clients (the participation window's window=0 case): every
+    # round starts each lane from a fresh optimizer state instead of the
+    # carried one.  False keeps the round unchanged.
+    stateless_clients: bool = False
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
         """Fresh parameters from ``seed``, the server's initial state, the
@@ -161,6 +178,21 @@ class FedRound:
                    else self.faults.init_stale_buffer(rows, d, dev)),
             residual=(None if self.codec is None
                       else self.codec.init_residual(rows, d, dev)))
+
+    def init_windowed(self, seed: int, window: int, device=None):
+        """:meth:`init` for a participation-window run: the per-client
+        stacks are not made (the store holds them).  Returns ``(state,
+        template)``: ``state`` carries the server alone, its aggregator
+        state sized to ``window`` (the matrix it aggregates every round),
+        and ``template`` is one client's persistent row
+        (:func:`~blades_tpu_torch.state.store.client_state_template`)."""
+        from blades_tpu_torch.state.store import client_state_template
+
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        params = self.task.init_params(gen, dev)
+        return (RoundState(server=self.server.init(params, window)),
+                client_state_template(self, params))
 
     def hooks(self) -> Optional[Hooks]:
         """The client callback chain composed with the adversary's
@@ -231,6 +263,9 @@ class FedRound:
         block = min(self.client_block or n, n)
         hooks = self.hooks()
         opt = state.client_opt
+        if self.stateless_clients:
+            # Every lane starts from a fresh optimizer state.
+            opt = self.task.init_client_opt_state(params, n)
         new_opt = (None if opt is None
                    else {k: torch.empty_like(v) for k, v in opt.items()})
         updates = torch.empty((n, FlatLayout(params).d), dtype=torch.float32,
@@ -339,7 +374,8 @@ class FedRound:
             metrics["num_unhealthy"] = (~healthy).sum()
             metrics["round_ok"] = ok
         return RoundState(server=server, client_opt=client_opt, stale=stale,
-                          residual=residual), metrics
+                          residual=residual,
+                          cohort=getattr(state, "cohort", None)), metrics
 
     def _finish_wire(self, state: RoundState, q, scales, residual,
                      client_opt, losses, malicious, generator=None, *,
@@ -404,7 +440,8 @@ class FedRound:
             "dequant_rows": recorder.dequant_rows + dequant_extra,
         }
         return RoundState(server=server, client_opt=client_opt,
-                          stale=state.stale, residual=residual), metrics
+                          stale=state.stale, residual=residual,
+                          cohort=getattr(state, "cohort", None)), metrics
 
     def apply_dp(self, updates, noise=None, generator=None):
         """Per-client DP: clip each row of ``updates`` (n, d) to

@@ -125,6 +125,31 @@ class Server:
                 updates, part, state.agg_state, generator=generator)
         return self.apply_aggregate(state, agg, agg_state), agg
 
+    def step_buffered(self, state: ServerState, updates: torch.Tensor, *,
+                      staleness, generator=None, trusted_update=None,
+                      schedule: str = "polynomial", power: float = 0.5,
+                      cutoff: int = 16
+                      ) -> Tuple[ServerState, torch.Tensor]:
+        """:meth:`step` for a buffered-async aggregation batch: the ``(K,
+        d)`` rows are scaled by the mean-normalized staleness weight
+        ``w(k) / mean(w)`` before the aggregator runs (``staleness`` the
+        ``(K,)`` ints ``server_version - pulled version``), so Mean
+        returns the staleness-weighted average.  Under ``constant`` the
+        scale is exactly 1 and the rows pass unscaled: this is
+        :meth:`step`, bit for bit.  No participation mask: every buffered
+        row was delivered."""
+        from blades_tpu_torch.arrivals.weights import (
+            normalized_row_scale,
+            staleness_weights,
+        )
+
+        if schedule != "constant":
+            w = staleness_weights(schedule, staleness, power=power,
+                                  cutoff=cutoff).to(updates.device)
+            updates = updates * normalized_row_scale(w)[:, None]
+        return self.step(state, updates, generator=generator,
+                         trusted_update=trusted_update)
+
     def step_wire(self, state: ServerState, q: torch.Tensor, scales, *,
                   d: Optional[int] = None, generator=None,
                   trusted_update=None, d_chunk: int = 1 << 17,

@@ -167,6 +167,7 @@ class Task:
         out: Optional[torch.Tensor] = None,
         out_dtype: Optional[torch.dtype] = None,
         sq_out: Optional[torch.Tensor] = None,
+        lane_params: bool = False,
     ):
         """A client block's local rounds: ``(G, nb, B, ...)`` batches ->
         ``(updates (G, d), losses (G,), opt_state)``.
@@ -186,10 +187,18 @@ class Task:
         With ``sq_out`` (a ``(G,)`` f32 tensor) each update's f32 squared
         norm, taken before the cast to ``out``'s dtype, is added into it
         leaf by leaf (what the streamed round's DP clip needs).
+
+        With ``lane_params`` every leaf of ``global_params`` carries the
+        block's lane axis (``{name: (G, *shape)}``): each lane starts from
+        its own parameters (the buffered-async cycle's per-event pulled
+        version) and its update is taken against them.  Without it the
+        block shares one unbatched ``global_params``, as before.
         """
         g_count, nb = batches_x.shape[:2]
         shape = (g_count, nb, batches_x.shape[2])
-        layout = FlatLayout(global_params)
+        layout = FlatLayout(
+            {k: v[0] for k, v in global_params.items()} if lane_params
+            else global_params)
         masks = dropout_masks
         if masks is None:
             masks = self.draw_dropout_masks(generator, shape, batches_x.device)
@@ -202,7 +211,7 @@ class Task:
         if hooks is not None and malicious is None:
             raise ValueError("adversary hooks need the block's malicious mask")
         lr = self.spec.lr
-        params, batched = global_params, False
+        params, batched = global_params, bool(lane_params)
         losses = []
         for s in range(nb):
             x, y = batches_x[:, s], batches_y[:, s]

@@ -28,8 +28,9 @@ import bisect
 import dataclasses
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
+
+from blades_tpu_torch.utils.seeds import generator_of
 
 _CORRUPT_FILL = {
     "nan": float("nan"),
@@ -42,6 +43,8 @@ _CORRUPT_FILL = {
 # Salt of the fault generator's seed: the round generator is seeded from
 # (seed, round) too, and the fault stream must not be it.
 _FAULT_STREAM = 0xFA17
+# The per-tick stream of the buffered-async engine.
+_FAULT_TICK_STREAM = 0xFA18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +132,7 @@ class FaultInjector:
         config, so each process's realization is independent of the
         others' settings.  The draws come from a CPU generator seeded from
         ``(seed, round)`` alone."""
-        ss = np.random.SeedSequence([int(self.seed), int(round_idx),
-                                     _FAULT_STREAM])
-        gen = torch.Generator().manual_seed(
-            int(ss.generate_state(1, dtype=np.uint64)[0] >> 1))
+        gen = generator_of(self.seed, round_idx, _FAULT_STREAM)
         u_drop, u_strag, u_corr = (torch.rand((n,), generator=gen)
                                    for _ in range(3))
         participation = u_drop >= self.dropout_rate_at(round_idx)
@@ -150,6 +150,18 @@ class FaultInjector:
         if self.corrupt_rate > 0.0:
             corrupted = (u_corr < self.corrupt_rate) & participation
         return participation, straggled, corrupted
+
+    def realize_tick(self, n: int, tick: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One virtual tick's ``(dropped, corrupted)`` ``(n,)`` bool masks
+        over arrivals (the buffered-async engine's per-tick counterpart
+        of :meth:`realize`): a CPU generator seeded from ``(seed, tick)``
+        alone draws the dropout uniforms, then the corruption ones; the
+        dropout rate is the schedule's at ``tick``."""
+        gen = generator_of(self.seed, tick, _FAULT_TICK_STREAM)
+        u_drop, u_corr = (torch.rand((n,), generator=gen) for _ in range(2))
+        return (u_drop < self.dropout_rate_at(tick),
+                u_corr < self.corrupt_rate)
 
     def inject(self, updates: torch.Tensor, stale, round_idx: int, *,
                realization=None):

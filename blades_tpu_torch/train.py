@@ -3,6 +3,10 @@
     python -m blades_tpu_torch.train file blades_tpu/tuned_examples/fedavg_dp.yaml
     python -m blades_tpu_torch.train run FEDAVG --rounds 3 \\
         --config-json '{"dataset_config": {"type": "mnist", "num_clients": 6}}'
+    python -m blades_tpu_torch.train run FEDAVG --execution async \\
+        --arrivals-json '{"rate": 0.25, "agg_every": 16}'
+    python -m blades_tpu_torch.train run FEDAVG --window 100 \\
+        --state-store host --data-store memmap
 
 ``file`` runs every trial of an experiment file's grids, ``run`` one
 algorithm with flat or nested config overrides (as the experiment
@@ -70,6 +74,32 @@ def main(argv=None) -> int:
                        help="flat/nested config overrides as JSON, e.g. "
                        "'{\"dataset_config\": {\"type\": \"mnist\"}}'")
     p_run.add_argument("--rounds", type=int, default=100)
+    p_run.add_argument("--execution", default=None,
+                       choices=("auto", "dense", "streamed", "async"),
+                       help="execution path; 'async' runs buffered-async "
+                       "cycles (a Poisson arrival process, clients training "
+                       "against the version they pulled, staleness-weighted "
+                       "aggregation every K buffered arrivals)")
+    p_run.add_argument("--arrivals-json", default=None, metavar="SPEC",
+                       help="the async arrival spec as JSON (AsyncSpec "
+                       "knobs, e.g. '{\"rate\": 0.25, \"agg_every\": "
+                       "16}'; the seed defaults to the trial seed)")
+    p_run.add_argument("--state-store", default=None,
+                       choices=("resident", "host", "disk"),
+                       help="where the off-cohort client state rows live; "
+                       "'host' / 'disk' need --window (or --execution "
+                       "async)")
+    p_run.add_argument("--window", type=int, default=None, metavar="W",
+                       help="participation window: clients sampled into "
+                       "each round's cohort (0 = stateless clients)")
+    p_run.add_argument("--data-store", default=None,
+                       choices=("resident", "memmap"),
+                       help="the training shards' store; 'memmap' keeps "
+                       "them in CRC-checked disk shards and gathers each "
+                       "cohort's rows")
+    p_run.add_argument("--data-dir", default=None, metavar="DIR",
+                       help="the memmap data store's shard directory (a "
+                       "verified set is reused, a broken one rebuilt)")
     args = parser.parse_args(argv)
 
     from blades_tpu_torch.tune import (
@@ -90,10 +120,20 @@ def main(argv=None) -> int:
             max_failures=args.max_failures,
             preempt_after=args.preempt_after, **common_kw)
     else:
+        run_config = json.loads(args.config_json)
+        for key, value in (("execution", args.execution),
+                           ("state_store", args.state_store),
+                           ("state_window", args.window),
+                           ("data_store", args.data_store),
+                           ("data_dir", args.data_dir)):
+            if value is not None:
+                run_config[key] = value
+        if args.arrivals_json is not None:
+            run_config["async_config"] = json.loads(args.arrivals_json)
         experiments = {f"{args.algo.lower()}_run": {
             "run": args.algo,
             "stop": {"training_iteration": args.rounds},
-            "config": json.loads(args.config_json),
+            "config": run_config,
         }}
         summaries = run_experiments(experiments, **common_kw)
     best = max((s for s in summaries if s["evaluated"]),

@@ -231,8 +231,9 @@ def run_experiments(
     = the card); returns one summary per trial (``trial``, ``rounds``,
     ``wall_s``, ``rounds_per_sec``, ``best_test_acc`` (0.0 until a row
     holds a ``test_acc``; ``evaluated`` says whether one did), ``final``,
-    ``dir``, and ``status`` / ``error`` for a trial that failed, ``resumed`` for
-    one that was restored or skipped).
+    ``dir``, ``state_store`` / ``data_store`` (the stores' digests) where a
+    trial has them, and ``status`` / ``error`` for a trial that failed,
+    ``resumed`` for one that was restored or skipped).
 
     ``resume``: a trial whose ``result.json`` reached the stop round is
     skipped; one in flight restores its latest checkpoint and appends.
@@ -420,6 +421,12 @@ def run_experiments(
                 "final": dict(algo._last_eval),
                 "dir": str(tdir), "timers": algo.timers.summary(),
             }
+            # The out-of-core stores' digests (backend, window, bytes,
+            # staging peak; the data store's last gather and eval chunks).
+            for key, block in (("state_store", algo.state_summary),
+                               ("data_store", algo.data_summary)):
+                if block:
+                    summary[key] = block
             algo.stop()
             if failed_error is not None:
                 summary["status"] = "ERROR"

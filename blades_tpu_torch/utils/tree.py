@@ -114,3 +114,31 @@ class FlatLayout:
                 out[lf.name] = seg.reshape(fshape).permute(
                     _inverse(lf.perm)).contiguous()
         return out
+
+    def ravel_rows(self, params: Dict[str, torch.Tensor],
+                   out: torch.Tensor = None) -> torch.Tensor:
+        """:meth:`ravel` over a leading row axis: ``{name: (G, *shape)}``
+        -> ``(G, d)`` (written into ``out`` when given)."""
+        g = next(iter(params.values())).shape[0]
+        if out is None:
+            out = torch.empty((g, self.d), dtype=torch.float32,
+                              device=next(iter(params.values())).device)
+        for lf in self.leaves:
+            out[:, lf.offset:lf.offset + lf.size] = self.flat_leaf(
+                lf, params[lf.name], batch_dims=1)
+        return out
+
+    def unravel_rows(self, mat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Inverse of :meth:`ravel_rows`: ``(G, d)`` -> ``{name: (G,
+        *shape)}`` in torch layout (contiguous copies)."""
+        g, out = mat.shape[0], {}
+        for lf in self.leaves:
+            seg = mat[:, lf.offset:lf.offset + lf.size]
+            if lf.perm is None:
+                out[lf.name] = seg.reshape((g,) + tuple(lf.shape)).clone()
+            else:
+                fshape = tuple(lf.shape[p] for p in lf.perm)
+                perm = (0,) + tuple(p + 1 for p in _inverse(lf.perm))
+                out[lf.name] = seg.reshape((g,) + fshape).permute(
+                    perm).contiguous()
+        return out

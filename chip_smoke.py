@@ -165,27 +165,55 @@ Phases, each printing its lines before the last:
    rounds 2-3 with dropout, each Median on ``select:radix``); the MLP
    flow's test accuracy >= 0.9 under top-k 2% (round 6) and quant int8
    on the wire (round 3).
-14. ``profile`` (only when named): one more main-path round, one
+14. ``async``: buffered-async execution through ``FedavgConfig`` ->
+   ``Fedavg.train()`` at ResNet-10 x 1000 registered clients of CIFAR-10
+   shapes (``fedavg_cifar10_1000clients.yaml``'s partition, batch 32, one
+   local step, bf16 compute, 250 malicious, events in blocks of 25):
+   K = 100 events a cycle from a buffer of 200, ring depth 8, polynomial
+   staleness weights, rate 0.05 with the slowest fifth at a quarter of
+   it.  Three trials: ALIE + Median for 4 cycles, then killed after cycle
+   2 and resumed from its checkpoint (cycles 3-4, parameters, the params
+   ring and the engine's host state equal to the straight run's);
+   DiurnalALIE (8-tick days) + Trimmedmean with dropout 0.3 from the tick
+   that ended the first cycle, 3 cycles; Lazy replay + Mean, 2 cycles, its
+   malicious events reading ring row 8.  Every select (``select:radix`` on
+   the staleness-scaled ``(100, 4,903,242)`` rows, once a Median or
+   Trimmedmean cycle) and every BN launch (per-lane parameters from step
+   0, 48 of each kernel a cycle) held against the plain versions; cycles/s,
+   ``updates_per_sec``, staleness histograms and peak memory printed.
+15. ``window``: the participation window through ``Fedavg.train()``:
+   ResNet-10, 1000 registered clients, cohorts of 100, client momentum
+   0.9, ALIE + Median, 3 rounds on the ``host`` store (19.6 GB of
+   momentum rows in pinned host memory) and 3 on the ``resident`` store,
+   in turns, their parameters equal bit for bit (cuDNN deterministic in
+   this phase); then 200 registered clients on the ``disk`` store and the
+   ``memmap`` data store, evaluation in chunks of 64, killed after round 2
+   and resumed from the 3.9 GB shard checkpoint, round 3 equal to a
+   straight run's.  Every select and BN launch held against the plain
+   versions; ``state_stage_ms``, ``state_bytes_staged``,
+   ``state_peak_hbm_bytes``, rounds/s and peak memory printed.
+16. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-15. ``bnstages`` (only when named): the BN kernels alone at the four stage
+17. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-16. ``ringsweep`` (only when named): the row-statistics ring across
+18. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-13 (and before
-each round of phase 7 and each trial of phases 8 to 13) and read just
+Launch counts are set to 0 just before each of phases 4-15 (and before
+each round of phase 7 and each trial of phases 8 to 15) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
-``row_stats_bundle:gram:int8:wire``, ...),
+``row_stats_bundle:gram:int8:wire``, ``column_median:async``,
+``bn_bwd_dx:window``, ...),
 timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
@@ -210,7 +238,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire")
+          "wire", "async", "window")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -3309,6 +3337,7 @@ class _PathAudit:
         "finish": ("blades_tpu_torch.parallel.streamed",
                    "fused_finish_compact"),
         "select": ("blades_tpu_torch.ops.aggregators", "column_median"),
+        "trim": ("blades_tpu_torch.ops.aggregators", "column_trimmed_mean"),
         "wsum": ("blades_tpu_torch.parallel.streamed_geometry",
                  "row_stats_bundle"),
     }
@@ -3402,6 +3431,29 @@ class _PathAudit:
                 timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0])
 
         self._keep(key, err, rec)
+
+    def _trim(self, key, orig, out, a, kw):
+        """The trimmed means, within ``TRIM_TOL`` (f32 sums of the kept
+        values in another order); no single PyTorch call computes one."""
+        import torch
+
+        from blades_tpu_torch.ops import column_select as cs
+
+        x, k = a[0], a[1]
+        self.shapes.add((tuple(x.shape), x.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cs.column_trimmed_mean_plain(x, k)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = close(out, want, f"{key} {tuple(x.shape)} k={k}, launch "
+                    f"{self.calls + 1}", rtol=TRIM_TOL, atol=TRIM_TOL)
+        del want
+        rows, d = x.shape
+        self._keep(key, err, lambda: _record(
+            key, SELECT_SRC, SELECT_TPU["column_trimmed_mean"],
+            timed(lambda: orig(x, k), REPS)[0], plain_ms,
+            rows * d * x.element_size() + d * 4, rows * d, err))
 
     def _wsum(self, key, orig, out, a, kw):
         """The weighted sums over column slices of the buffer: a weighted
@@ -4410,6 +4462,452 @@ def phase_wire(card):
     _wire_mlp()
     return counts, records
 
+# The async phase's base configuration: ResNet-10 x 1000 registered
+# clients of CIFAR-10 shapes, batch 32, one local step, bf16 compute, 250
+# malicious (the prefix), blocks of 25 events; K = 100 events a cycle from
+# a buffer of 200, ring depth H = 8, polynomial staleness weights (power
+# 0.5), rate 0.05 with the slowest fifth at a quarter of it.
+ASYNC_H = 8
+ASYNC_K = 100
+ASYNC_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": 1000, "iid": False,
+                       "alpha": 0.1, "train_bs": 32, "seed": 122},
+    "global_model": "resnet10", "compute_dtype": "bfloat16",
+    "execution": "async", "client_block": 25,
+    "async_config": {"rate": 0.05, "slow_fraction": 0.2, "slow_factor": 0.25,
+                     "agg_every": ASYNC_K, "buffer_capacity": 200,
+                     "staleness_cap": ASYNC_H,
+                     "weight_schedule": "polynomial", "weight_power": 0.5},
+    "num_malicious_clients": 250, "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 0.5, "aggregator": {"type": "Median"}},
+    "client_config": {"lr": 0.1, "num_batch_per_round": 1},
+    "evaluation_interval": 0, "evaluation_num_samples": 10,
+}
+# BN-backward launches of each kernel a cycle: K events in blocks of 25,
+# 12 BN layers, one local step (every event trains).
+ASYNC_BN_CYCLE = ASYNC_K // 25 * 12
+
+
+@contextlib.contextmanager
+def _shared_datasets():
+    """The phase's drivers share one build of each dataset (a 1000-client
+    CIFAR-10 partition takes seconds on the host; its arrays are never
+    written, so the drivers' rounds are unchanged)."""
+    from blades_tpu_torch.data.datasets import DatasetCatalog
+
+    orig, cache = DatasetCatalog.__dict__["get_dataset"], {}
+
+    def get_dataset(spec, **overrides):
+        key = json.dumps([spec, overrides], sort_keys=True, default=str)
+        if key not in cache:
+            cache[key] = orig.__func__(spec, **overrides)
+        return cache[key]
+
+    DatasetCatalog.get_dataset = staticmethod(get_dataset)
+    try:
+        yield
+    finally:
+        DatasetCatalog.get_dataset = orig
+
+
+def _bn_layouts(audit):
+    """One line per operand layout a BN audit timed: shape, strides, the
+    launches of each kernel there, and the single launch's ms of the
+    reduction and of dx beside the library's backward."""
+    out = []
+    for lay, t in sorted(audit.times.items(), key=lambda kv: str(kv[0])):
+        dtype, shape, stride = lay
+        n = audit.tally.get(("bn_bwd_reduce", lay), 0)
+        out.append(
+            f"{str(dtype).split('.')[-1]} {shape} strides {stride} x{n}: "
+            f"reduce {t['bn_bwd_reduce']['ms']:.4f} ms (library "
+            f"{t['bn_bwd_reduce']['lib']:.4f}), dx {t['bn_bwd_dx']['ms']:.4f}"
+            f" ms (library full backward {t['bn_bwd_dx']['lib']:.4f})")
+    return "; ".join(out)
+
+
+def _async_driver(overrides):
+    from blades_tpu_torch.algorithms import FedavgConfig
+
+    return FedavgConfig().update_from_dict({**ASYNC_TRIAL,
+                                            **overrides}).build()
+
+
+def _host_state(algo):
+    return ({k: v.detach().cpu().clone()
+             for k, v in algo.state.server.params.items()},
+            algo.state.arrivals.detach().cpu().clone(),
+            algo._async.host_state())
+
+
+def _cycles(algo, n):
+    """``n`` cycles: their rows and the seconds of each, the audits'
+    seconds inside them taken out."""
+    import torch
+
+    rows, secs = [], []
+    for _ in range(n):
+        a0 = AUDIT["s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(algo.train())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0 - (AUDIT["s"] - a0))
+    return rows, secs
+
+
+def _same_state(a, b, what):
+    """Parameters, ring and host state equal bit for bit."""
+    import torch
+
+    for k, v in a[0].items():
+        check(torch.equal(v, b[0][k]), f"{what}: parameter {k} differs")
+    check(torch.equal(a[1], b[1]), f"{what}: the params ring differs")
+    check(a[2] == b[2], f"{what}: host state {a[2]} vs {b[2]}")
+
+
+def _async_log(what, rows, secs, peak, card):
+    cps = len(secs) / sum(secs)
+    log(f"async {what}: {cps:.4f} cycles/s ({[round(t, 3) for t in secs]} s "
+        f"a cycle, audits out), updates_per_sec "
+        f"{[r['updates_per_sec'] for r in rows]} (audits in), ticks "
+        f"{[r['tick'] for r in rows]}, staleness_hist "
+        f"{[r['staleness_hist'] for r in rows]}, staleness_mean "
+        f"{[r['staleness_mean'] for r in rows]}, buffer_fill "
+        f"{[r['buffer_fill'] for r in rows]}, overflow "
+        f"{[r['buffer_overflow'] for r in rows]}, dropped "
+        f"{[r['arrivals_dropped'] for r in rows]}; train_loss "
+        f"{[r['train_loss'] for r in rows]}, agg_norm "
+        f"{[r['agg_norm'] for r in rows]}; peak {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["agg_norm"])
+              for r in rows), f"async {what}: non-finite losses")
+
+
+def _async_median(card, work):
+    """Trial 1: ALIE + Median, 4 cycles straight; then 2 cycles, a
+    checkpoint, a fresh driver restored from it and 2 more: equal to the
+    straight run's cycles 3-4, parameters, ring and host state."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    algo = _async_driver({})
+    _cuda.reset_launches()
+    rows, secs = _cycles(algo, 4)
+    ev = algo.evaluate()
+    check(math.isfinite(ev["test_acc"]), f"async: test_acc {ev}")
+    straight = _host_state(algo)
+    peak = _peak()
+    algo.stop()
+    _async_log("ALIE + Median, straight", rows, secs, peak, card)
+    log(f"async ALIE + Median: test_acc {ev['test_acc']:.4f} after 4 cycles")
+    first = _async_driver({})
+    _cycles(first, 2)
+    first.save_checkpoint(os.path.join(work, "ckpt"))
+    first.stop()
+    resumed = _async_driver({})
+    resumed.load_checkpoint(os.path.join(work, "ckpt"))
+    again, _ = _cycles(resumed, 2)
+    got = _host_state(resumed)
+    resumed.stop()
+    launches = dict(_cuda.LAUNCHES)
+    _same_state(got, straight, "async kill-and-resume")
+    for a, b in zip(again, rows[2:]):
+        for k in ("train_loss", "agg_norm", "tick", "staleness_hist"):
+            check(a[k] == b[k], f"async resume: cycle "
+                  f"{a['training_iteration']} {k} {a[k]} vs {b[k]}")
+    log(f"async kill-and-resume: killed after cycle 2, restored from its "
+        f"checkpoint (ring {tuple(got[1].shape)} f32, host state "
+        f"{len(got[2]['buffer'])} buffered events), cycles 3-4 equal to the "
+        f"straight run's: parameters, ring and host state bit for bit, "
+        f"train_loss {[r['train_loss'] for r in again]}")
+    torch.cuda.empty_cache()
+    return launches, rows[0]["tick"]
+
+
+def _async_diurnal(card, first_tick):
+    """Trial 2: DiurnalALIE (period 8 ticks) + Trimmedmean, dropout 0.3
+    from the tick that ended trial 1's first cycle, 3 cycles."""
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    algo = _async_driver({
+        "adversary_config": {"type": "DiurnalALIE", "period": 8},
+        "server_config": {"lr": 0.5, "aggregator": {
+            "type": "Trimmedmean", "num_byzantine": 25}},
+        "fault_config": {"dropout_rate": 0.0,
+                         "dropout_schedule": [[first_tick, 0.3]]}})
+    _cuda.reset_launches()
+    rows, secs = _cycles(algo, 3)
+    peak = _peak()
+    algo.stop()
+    dropped = [r["arrivals_dropped"] for r in rows]
+    check(dropped[0] == 0 and dropped[-1] > 0,
+          f"async DiurnalALIE: arrivals dropped {dropped} (dropout from "
+          f"tick {first_tick})")
+    _async_log(f"DiurnalALIE + Trimmedmean(k=26), dropout 0.3 from tick "
+               f"{first_tick}", rows, secs, peak, card)
+    return dict(_cuda.LAUNCHES)
+
+
+def _async_lazy(card):
+    """Trial 3: Lazy replay + Mean, 2 cycles: malicious events train
+    against ring row H."""
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    algo = _async_driver({
+        "adversary_config": {"type": "Lazy", "mode": "replay"},
+        "server_config": {"lr": 0.5, "aggregator": {"type": "Mean"}}})
+    _cuda.reset_launches()
+    read, rows, secs = [], [], []
+    for _ in range(2):
+        r, t = _cycles(algo, 1)
+        rows += r
+        secs += t
+        eng = algo._async
+        mal = algo._malicious_host[eng.last_clients]
+        ring = eng._cycle.last_ring_rows
+        check((ring[mal] == ASYNC_H).all() and (
+            ring[~mal] == eng.last_staleness[~mal].clip(0, ASYNC_H)).all(),
+              f"async Lazy: ring rows {ring.tolist()} for malicious "
+              f"{mal.tolist()}")
+        read.append((int(mal.sum()), sorted(set(ring[~mal].tolist()))))
+    peak = _peak()
+    algo.stop()
+    _async_log("Lazy replay + Mean", rows, secs, peak, card)
+    log(f"async Lazy replay: malicious events per cycle read ring row "
+        f"{ASYNC_H}, the others their own version: (malicious events, rows "
+        f"the benign ones read) {read}")
+    return dict(_cuda.LAUNCHES)
+
+
+def phase_async(card):
+    """Buffered-async execution through ``Fedavg.train()`` at ResNet-10 x
+    1000 registered clients: three trials, every select and BN launch
+    held against the plain versions as the path runs."""
+    import torch
+
+    torch.cuda.empty_cache()
+    work = _work_dir("async")
+    counts = {}
+    with _shared_datasets(), _BnAudit(key="async") as bn_audit:
+        with _PathAudit("select", "column_median:async") as sel:
+            launches, first_tick = _async_median(card, work)
+        cycles = 8  # 4 straight, 2 before the kill, 2 after the restore
+        want = {"column_median": cycles,
+                **{k: cycles * ASYNC_BN_CYCLE for k in BN_TPU}}
+        check(launches == want and sel.calls == cycles,
+              f"async Median: launches {launches}, {sel.calls} audited, "
+              f"expected {want}")
+        counts["column_median:async"] = launches["column_median"]
+        with _PathAudit("trim", "column_trimmed_mean:async") as trim:
+            launches = _async_diurnal(card, first_tick)
+        want = {"column_trimmed_mean": 3,
+                **{k: 3 * ASYNC_BN_CYCLE for k in BN_TPU}}
+        check(launches == want and trim.calls == 3,
+              f"async DiurnalALIE: launches {launches}, expected {want}")
+        counts["column_trimmed_mean:async"] = launches["column_trimmed_mean"]
+        launches = _async_lazy(card)
+        want = {k: 2 * ASYNC_BN_CYCLE for k in BN_TPU}
+        check(launches == want, f"async Lazy: launches {launches}, expected "
+              f"{want}")
+    total = cycles + 3 + 2
+    for k in BN_TPU:
+        counts[f"{k}:async"] = total * ASYNC_BN_CYCLE
+    check(bn_audit.calls == 2 * total * ASYNC_BN_CYCLE,
+          f"async: {bn_audit.calls} BN launches audited")
+    log(f"async: selects on {sorted(sel.shapes | trim.shapes)}, each "
+        f"against the plain version (median bit-exact, trimmed mean max err "
+        f"{trim.records['column_trimmed_mean:async']['max_abs_err']:.3g}); "
+        f"{bn_audit.calls} BN launches with per-lane parameters from step 0 "
+        f"audited (dx bit-exact, sums max err {bn_audit.err:.3g}, layouts "
+        f"{len(bn_audit.layouts)}) [{card}]")
+    log(f"async BN layouts: {_bn_layouts(bn_audit)}")
+    return counts, {**sel.records, **trim.records,
+                    **bn_audit.records(total)}
+
+
+WINDOW_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": 1000, "iid": False,
+                       "alpha": 0.1, "train_bs": 32, "seed": 122},
+    "global_model": "resnet10", "compute_dtype": "bfloat16",
+    "client_block": 25, "state_window": 100,
+    "num_malicious_clients": 250, "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 0.5, "aggregator": {"type": "Median"}},
+    "client_config": {"lr": 0.1, "momentum": 0.9, "num_batch_per_round": 1},
+    "evaluation_interval": 0,
+}
+WINDOW_ROUNDS = 3
+WINDOW_BN_ROUND = 100 // 25 * 12
+
+
+def _window_driver(overrides):
+    from blades_tpu_torch.algorithms import FedavgConfig
+
+    return FedavgConfig().update_from_dict({**WINDOW_TRIAL,
+                                            **overrides}).build()
+
+
+def _window_log(what, rows, secs, peak, card):
+    log(f"window {what}: {len(secs) / sum(secs):.4f} rounds/s "
+        f"({[round(t, 3) for t in secs]} s a round, audits out); "
+        f"state_stage_ms {[r['state_stage_ms'] for r in rows]}, "
+        f"state_bytes_staged {[r['state_bytes_staged'] for r in rows]}, "
+        f"state_peak_hbm_bytes {rows[-1]['state_peak_hbm_bytes']}, "
+        f"data_stage_ms {[r['data_stage_ms'] for r in rows]}; train_loss "
+        f"{[r['train_loss'] for r in rows]}; peak {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    check(all(math.isfinite(r["train_loss"]) for r in rows),
+          f"window {what}: non-finite losses")
+
+
+def _window_pair(card):
+    """The host store and the resident store, in turns, 3 rounds each:
+    their parameters equal bit for bit."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    host = _window_driver({"state_store": "host"})
+    resident = _window_driver({"state_store": "resident"})
+    _cuda.reset_launches()
+    out = {"host": ([], []), "resident": ([], [])}
+    for _ in range(WINDOW_ROUNDS):
+        for name, algo in (("host", host), ("resident", resident)):
+            rows, secs = _cycles(algo, 1)
+            out[name][0].extend(rows)
+            out[name][1].extend(secs)
+    peak = _peak()
+    launches = dict(_cuda.LAUNCHES)
+    for k, v in host.state.server.params.items():
+        check(torch.equal(v, resident.state.server.params[k]),
+              f"window: parameter {k} differs between the host and the "
+              "resident store")
+    pinned = host._state_store.total_bytes()
+    host.stop()
+    resident.stop()
+    for name in ("host", "resident"):
+        _window_log(f"{name} store", *out[name], peak, card)
+    log(f"window: host store ({pinned / 1e9:.2f} GB of momentum rows in "
+        f"pinned host memory) and resident store, in turns: parameters "
+        f"equal bit for bit after {WINDOW_ROUNDS} rounds")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _window_disk(card, work):
+    """200 registered clients, the disk store, the memmap data store,
+    evaluation in chunks of 64: killed after round 2 and resumed from the
+    shard checkpoint, round 3 equal to a straight run's."""
+    import shutil
+
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    def build(tag):
+        return _window_driver({
+            "dataset_config": {**WINDOW_TRIAL["dataset_config"],
+                               "num_clients": 200},
+            "num_malicious_clients": 50, "state_store": "disk",
+            "state_dir": os.path.join(work, tag), "data_store": "memmap",
+            "data_dir": os.path.join(work, "shards"),
+            "eval_chunk_clients": 64, "evaluation_interval": WINDOW_ROUNDS})
+
+    _reset_peak()
+    _cuda.reset_launches()
+    straight = build("live_a")
+    rows, secs = _cycles(straight, WINDOW_ROUNDS)
+    want = {k: v.detach().cpu().clone()
+            for k, v in straight.state.server.params.items()}
+    peak = _peak()
+    straight.stop()
+    shutil.rmtree(os.path.join(work, "live_a"), ignore_errors=True)
+    _window_log("disk store x 200, memmap data, straight", rows, secs, peak,
+                card)
+    check(rows[-1]["eval_chunks"] == 4
+          and math.isfinite(rows[-1]["test_acc"]),
+          f"window disk: eval_chunks {rows[-1].get('eval_chunks')}, test_acc "
+          f"{rows[-1].get('test_acc')}")
+    first = build("live_b")
+    _cycles(first, 2)
+    t0 = time.perf_counter()
+    first.save_checkpoint(os.path.join(work, "ckpt"))
+    save_s = time.perf_counter() - t0
+    first.stop()
+    shutil.rmtree(os.path.join(work, "live_b"), ignore_errors=True)
+    shards = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                 os.walk(os.path.join(work, "ckpt", "client_state"))
+                 for f in fs)
+    resumed = build("live_c")
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(os.path.join(work, "ckpt"))
+    load_s = time.perf_counter() - t0
+    (last,), _ = _cycles(resumed, 1)
+    for k, v in resumed.state.server.params.items():
+        check(torch.equal(v.cpu(), want[k]),
+              f"window disk resume: parameter {k} differs from the straight "
+              "run's")
+    check(last["train_loss"] == rows[-1]["train_loss"]
+          and last["test_acc"] == rows[-1]["test_acc"],
+          f"window disk resume: round 3 {last['train_loss']} / "
+          f"{last['test_acc']} vs {rows[-1]['train_loss']} / "
+          f"{rows[-1]['test_acc']}")
+    resumed.stop()
+    log(f"window disk: killed after round 2, {shards / 1e9:.2f} GB of shard "
+        f"checkpoint written in {save_s:.1f} s and restored in {load_s:.1f} "
+        f"s; round 3 equal to the straight run's (parameters bit for bit, "
+        f"train_loss {last['train_loss']!r}, test_acc {last['test_acc']!r}, "
+        f"evaluated in {last['eval_chunks']} chunks)")
+    return dict(_cuda.LAUNCHES)
+
+
+def phase_window(card):
+    """The participation window through ``Fedavg.train()``: ResNet-10 x
+    1000 registered clients, cohorts of 100, client momentum, ALIE +
+    Median, every select and BN launch held against the plain versions.
+    cuDNN runs deterministic algorithms here, so two runs can be compared
+    bit for bit."""
+    import torch
+
+    torch.cuda.empty_cache()
+    work = _work_dir("window")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        with _shared_datasets(), \
+                _PathAudit("select", "column_median:window") as sel, \
+                _BnAudit(key="window") as bn_audit:
+            pair = _window_pair(card)
+            disk = _window_disk(card, work)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+    rounds = 2 * WINDOW_ROUNDS
+    want = {"column_median": rounds,
+            **{k: rounds * WINDOW_BN_ROUND for k in BN_TPU}}
+    check(pair == want, f"window pair: launches {pair}, expected {want}")
+    want_disk = {"column_median": 2 * WINDOW_ROUNDS,
+                 **{k: 2 * WINDOW_ROUNDS * WINDOW_BN_ROUND for k in BN_TPU}}
+    check(disk == want_disk, f"window disk: launches {disk}, expected "
+          f"{want_disk}")
+    total = rounds + 2 * WINDOW_ROUNDS
+    check(sel.calls == total and bn_audit.calls == 2 * total
+          * WINDOW_BN_ROUND, f"window: {sel.calls} selects and "
+          f"{bn_audit.calls} BN launches audited")
+    log(f"window: selects on {sorted(sel.shapes)}, each bit-exact against "
+        f"the plain version; {bn_audit.calls} BN launches audited (dx "
+        f"bit-exact, sums max err {bn_audit.err:.3g}) [{card}]")
+    log(f"window BN layouts: {_bn_layouts(bn_audit)}")
+    counts = {"column_median:window": total,
+              **{f"{k}:window": total * WINDOW_BN_ROUND for k in BN_TPU}}
+    return counts, {**sel.records, **bn_audit.records(total)}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4477,7 +4975,8 @@ def main(argv=None) -> int:
             launches.update(run("fedavg", phase_fedavg))
         for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
                          ("resnet34", phase_resnet34), ("cct", phase_cct),
-                         ("wire", phase_wire)):
+                         ("wire", phase_wire), ("async", phase_async),
+                         ("window", phase_window)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

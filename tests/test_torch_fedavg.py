@@ -130,11 +130,11 @@ def test_client_momentum_runs_streamed():
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"state_store": "host"}, NotImplementedError),
+    ({"ledger": True}, NotImplementedError),
     ({"num_devices": 4}, NotImplementedError),
     ({"client_packing": 2}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
-    ({"adversary_config": {"type": "DiurnalALIE"}}, NotImplementedError),
+    ({"adversary_config": {"type": "TopologyAttack"}}, NotImplementedError),
     ({"forensics": True}, NotImplementedError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),

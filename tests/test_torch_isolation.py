@@ -42,7 +42,15 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/faults/host.py",
             "blades_tpu_torch/faults/injector.py",
             "blades_tpu_torch/comm/codecs.py",
-            "blades_tpu_torch/core/callbacks.py"} <= names
+            "blades_tpu_torch/core/callbacks.py",
+            "blades_tpu_torch/arrivals/engine.py",
+            "blades_tpu_torch/arrivals/cycle.py",
+            "blades_tpu_torch/arrivals/process.py",
+            "blades_tpu_torch/state/store.py",
+            "blades_tpu_torch/state/prefetch.py",
+            "blades_tpu_torch/data/store.py",
+            "blades_tpu_torch/data/stream.py",
+            "blades_tpu_torch/adversaries/campaigns.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -57,7 +65,10 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.adversaries.training_attacks, "
             "blades_tpu_torch.tune.sweep, blades_tpu_torch.tune.yaml_subset, "
             "blades_tpu_torch.faults.host, blades_tpu_torch.core.callbacks, "
-            "blades_tpu_torch.faults.injector, blades_tpu_torch.comm.codecs\n"
+            "blades_tpu_torch.faults.injector, blades_tpu_torch.comm.codecs, "
+            "blades_tpu_torch.arrivals, blades_tpu_torch.state, "
+            "blades_tpu_torch.data.store, blades_tpu_torch.data.stream, "
+            "blades_tpu_torch.adversaries.campaigns\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -83,12 +94,14 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """The campaign adversaries still name the later slice; Noise, Lazy
-    and ghost lanes on the streamed coordinate-wise round (the chunked
-    finish) run now, and so does streamed client momentum, which needs one
-    trace row per data row."""
+    """TopologyAttack still names the later slice; the campaign
+    adversaries resolve now; Noise, Lazy and ghost lanes on the streamed
+    coordinate-wise round (the chunked finish) run, and so does streamed
+    client momentum, which needs one trace row per data row."""
     from blades_tpu_torch.adversaries import (
+        DiurnalALIECampaign,
         LazyAdversary,
+        LazyRampCampaign,
         NoiseAdversary,
         get_adversary,
     )
@@ -96,9 +109,11 @@ def test_out_of_slice_configs_name_the_later_slice():
     from blades_tpu_torch.parallel.streamed import streamed_step
 
     task = TaskSpec(model="mlp", input_shape=(4, 4, 1)).build()
-    for name in ("DiurnalALIE", "LazyRamp", "TopologyAttack"):
+    for name in ("TopologyAttack", "TopologyAttackAdversary"):
         with pytest.raises(NotImplementedError, match="later slice"):
             get_adversary(name)
+    assert isinstance(get_adversary("DiurnalALIE"), DiurnalALIECampaign)
+    assert isinstance(get_adversary("LazyRampCampaign"), LazyRampCampaign)
     assert isinstance(get_adversary("Noise"), NoiseAdversary)
     assert get_adversary({"type": "Lazy", "mode": "replay"}).mode == "replay"
     assert isinstance(get_adversary("LazyAdversary"), LazyAdversary)

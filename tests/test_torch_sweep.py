@@ -248,6 +248,80 @@ def test_codec_and_fault_trials_run_through_file(tmp_path, extra):
     assert rows[-1][key] == jrows[-1][key]
 
 
+ASYNC_TRIAL = {"execution": "async",
+               "async_config": {"rate": 0.5, "agg_every": 3,
+                                "staleness_cap": 2,
+                                "weight_schedule": "inverse"},
+               "server_config": {"lr": 1.0, "aggregator": {"type": "Median"}}}
+WINDOW_TRIAL = {"state_window": 4, "state_store": "disk",
+                "data_store": "memmap", "eval_chunk_clients": 4,
+                "client_config": {"momentum": 0.9},
+                "server_config": {"lr": 1.0, "aggregator": {"type": "Mean"}}}
+
+
+@pytest.mark.parametrize("extra", [ASYNC_TRIAL, WINDOW_TRIAL],
+                         ids=["async", "window"])
+def test_async_and_windowed_trials_run_through_file(tmp_path, extra):
+    """An async grid point and a windowed one (disk store, memmap data
+    store) resolve and run through ``file``, as the JAX command takes them,
+    their rows carrying the async digest or the staging digest."""
+    config = {**MLP_GRID["mlp_grid"]["config"], **extra,
+              "dataset_config": {"type": "mnist", "num_clients": 8,
+                                 "train_bs": 8}}
+    grid = {"mlp_grid": {**MLP_GRID["mlp_grid"], "config": config,
+                         "stop": {"training_iteration": 3}}}
+    path = _write_grid(tmp_path, grid)
+    spec = load_experiments_from_file(path)["mlp_grid"]
+    assert spec == jax_load(str(path))["mlp_grid"]
+    (trial,) = expand_grid(spec["config"])
+    resolve_trial(spec["run"], trial)
+    ours, theirs = tmp_path / "port", tmp_path / "jax"
+    assert train.main(["file", str(path), "--device", "cpu",
+                       "--storage-path", str(ours)]) == 0
+    assert jax_train.main(["file", str(path), "--storage-path", str(theirs),
+                           "--no-cost-analysis", "--no-lanes"]) == 0
+    rows, jrows = _rows(ours, drop=()), _rows(theirs, drop=())
+    assert [r["training_iteration"] for r in rows] == [1, 2, 3]
+    for r, jr in zip(rows, jrows):
+        assert set(r) <= set(jr)
+    if "async_config" in extra:
+        assert len(rows[-1]["staleness_hist"]) == 4
+        assert rows[-1]["arrival_seed"] == jrows[-1]["arrival_seed"]
+    else:
+        assert rows[-1]["state_store"] == "disk"
+        assert rows[-1]["cohort_size"] == 4
+        assert rows[-1]["eval_chunks"] == jrows[-1]["eval_chunks"] == 2
+
+
+def test_run_command_takes_the_async_flags(tmp_path):
+    """``run FEDAVG --execution async --arrivals-json ...`` on the MLP
+    writes rows carrying the async digest."""
+    assert train.main([
+        "run", "FEDAVG", "--rounds", "2", "--device", "cpu",
+        "--storage-path", str(tmp_path), "--execution", "async",
+        "--arrivals-json", json.dumps({"rate": 0.5, "agg_every": 3}),
+        "--config-json", json.dumps(MLP_GRID["mlp_grid"]["config"] | {
+            "server_config": {"lr": 1.0}})]) == 0
+    path = tmp_path / "fedavg_run" / "fedavg_run_00000" / "result.json"
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["training_iteration"] for r in rows] == [1, 2]
+    for key in ("tick", "staleness_mean", "staleness_max", "staleness_hist",
+                "buffer_fill", "buffer_overflow", "arrivals_dropped",
+                "arrival_seed", "cycle_ticks", "updates_per_sec"):
+        assert key in rows[-1], key
+    assert train.main([
+        "run", "FEDAVG", "--rounds", "1", "--device", "cpu",
+        "--storage-path", str(tmp_path / "w"), "--window", "3",
+        "--state-store", "host", "--data-store", "memmap", "--data-dir",
+        str(tmp_path / "shards"), "--config-json",
+        json.dumps(MLP_GRID["mlp_grid"]["config"])]) == 0
+    (row,) = [json.loads(line) for line in (
+        tmp_path / "w" / "fedavg_run" / "fedavg_run_00000" / "result.json"
+    ).read_text().splitlines()]
+    assert (row["state_store"], row["cohort_size"], row["data_store"]) == (
+        "host", 3, "memmap")
+
+
 def test_best_trial_line_says_when_no_trial_was_evaluated(tmp_path, capsys):
     """Two rounds of the grid whose evaluation falls due at round 3: no
     row holds a test accuracy, so no trial is named best at 0."""
@@ -274,7 +348,10 @@ def test_flags_the_port_lacks_are_refused(tmp_path):
         train.main(["file", str(grid), "--device", "cpu", "--no-lanes"])
     with pytest.raises(SystemExit):
         train.main(["run", "FEDAVG", "--device", "cpu", "--execution",
-                    "dense"])
+                    "gossip"])
+    with pytest.raises(SystemExit):
+        train.main(["run", "FEDAVG", "--device", "cpu", "--topology",
+                    "ring"])
 
 
 def test_kill_and_resume_writes_the_straight_runs_rows(tmp_path):
