@@ -8,12 +8,12 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (meshes, forensics, the ledger, ...) raises
+have yet (meshes, lane packing, the autotuner, ...) raises
 ``NotImplementedError`` naming it when it is set to anything but the
 reference's default; an unknown key raises ``KeyError``.  ``validate()``
 refuses the codec, fault, wire-domain, buffered-async, participation-
-window and data-store combinations the reference refuses, with its
-reasons.
+window, data-store, forensics, ledger and control combinations the
+reference refuses, with its reasons.
 """
 
 from __future__ import annotations
@@ -75,6 +75,12 @@ _FIELDS = {
     "state_store": "resident", "state_window": None, "state_dir": None,
     "data_store": "resident", "data_dir": None, "eval_chunk_clients": 256,
     "prefetch": "auto",
+    # Observability: defense forensics, the client ledger (False / True =
+    # "resident" / "disk") and the disk ledger's directory, the watchdog's
+    # rule table (None = default_rules()); the control plane's spec
+    # (ControlPolicy knobs plus "enabled" and "rules"; None = off).
+    "forensics": False, "ledger": False, "ledger_dir": None,
+    "watchdog_rules": None, "control_config": None,
 }
 
 # The reference's other fields, with its defaults: setting one to another
@@ -82,9 +88,7 @@ _FIELDS = {
 _LATER = {
     "donate_buffers": True, "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
-    "client_packing": "off", "forensics": False,
-    "ledger": False, "ledger_dir": None, "watchdog_rules": None,
-    "control_config": None, "num_devices": None, "mesh_shape": None,
+    "client_packing": "off", "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1, "topology_config": None,
 }
 _LATER_EXECUTION = ("dsharded", "hier", "gossip")
@@ -243,6 +247,53 @@ class FedavgConfig:
         :class:`~blades_tpu_torch.faults.FaultInjector`)."""
         return self._set(health_check=health_check, fault_config=faults)
 
+    def observability(self, *, forensics=None, ledger=None, ledger_dir=None,
+                      watchdog_rules=None):
+        """Defense forensics (per-lane diagnostics and the detection
+        precision / recall / FPR of every round), the client ledger
+        (``ledger=True`` for the resident backend, ``"disk"`` to memmap
+        its columns in ``ledger_dir``) and the watchdog's rule table
+        (``watchdog_rules=`` a list of rule dicts replacing
+        ``default_rules()``)."""
+        return self._set(forensics=forensics, ledger=ledger,
+                         ledger_dir=ledger_dir,
+                         watchdog_rules=watchdog_rules)
+
+    def control(self, *, enabled=None, rules=None, cooldown_rounds=None,
+                quarantine_rounds=None, quarantine_max=None,
+                max_quarantine_fraction=None, min_agg_every=None,
+                agg_every_factor=None, buffer_factor=None,
+                max_buffer_capacity=None, cutoff_factor=None,
+                max_weight_cutoff=None, min_window=None,
+                window_factor=None):
+        """The closed-loop control plane (:mod:`blades_tpu_torch.control`):
+        watchdog events drive bounded, rate-limited, journaled actuator
+        moves.  ``rules=`` maps watchdog rule names to actuator families
+        (``agg_every`` | ``buffer`` | ``quarantine`` | ``replan`` |
+        ``window`` | ``"off"``) over the default table; the other knobs
+        are :class:`~blades_tpu_torch.control.ControlPolicy` bounds.
+        Merged into ``control_config``; a bare ``.control()`` arms the
+        defaults."""
+        spec = dict(self.control_config or {})
+        for k, v in (("enabled", enabled), ("rules", rules),
+                     ("cooldown_rounds", cooldown_rounds),
+                     ("quarantine_rounds", quarantine_rounds),
+                     ("quarantine_max", quarantine_max),
+                     ("max_quarantine_fraction", max_quarantine_fraction),
+                     ("min_agg_every", min_agg_every),
+                     ("agg_every_factor", agg_every_factor),
+                     ("buffer_factor", buffer_factor),
+                     ("max_buffer_capacity", max_buffer_capacity),
+                     ("cutoff_factor", cutoff_factor),
+                     ("max_weight_cutoff", max_weight_cutoff),
+                     ("min_window", min_window),
+                     ("window_factor", window_factor)):
+            if v is not None:
+                spec[k] = v
+        if not spec:
+            spec = {"enabled": True}  # a bare .control() arms the defaults
+        return self._set(control_config=spec)
+
     def communication(self, *, codec=None, agg_domain=None):
         """The uplink codec (``codec=``, e.g. ``{"type": "topk",
         "topk_ratio": 0.01}``) and the aggregation domain (``"f32"`` or
@@ -333,6 +384,7 @@ class FedavgConfig:
         self._validate_comm_and_faults()
         self._validate_async()
         self._validate_window()
+        self._validate_observability()
         if getattr(adv, "requires_virtual_time", False) \
                 and self.execution != "async":
             raise ValueError(
@@ -340,6 +392,127 @@ class FedavgConfig:
                 "campaign attack scheduled over virtual arrival time; "
                 f"execution={self.execution!r} has no tick clock -- set "
                 ".resources(execution='async')")
+
+    def _validate_observability(self) -> None:
+        """The reference's checks of forensics, the ledger, the watchdog
+        rules and the control plane, with its words."""
+        if self.forensics and self.execution == "streamed":
+            raise ValueError(
+                f"forensics × execution={self.execution!r} is an "
+                "unsupported pair: the streamed/d-sharded paths never "
+                "materialise the per-lane decisions forensics reports "
+                "— set .resources(execution='dense') (or 'auto' "
+                "within the dense budget), or flip "
+                ".observability(forensics=False)")
+        if not self.ledger_backend and self.ledger_dir:
+            raise ValueError(
+                "ledger_dir is set but the ledger is disabled — set "
+                ".observability(ledger='disk') (ledger_dir names the "
+                "disk backend's live directory) or drop ledger_dir")
+        if self.watchdog_rules is not None:
+            self.get_watchdog_rules()
+        policy = self.get_control_policy()
+        if policy is None:
+            return
+        if int(self.rounds_per_dispatch or 1) != 1:
+            raise ValueError(
+                "control × rounds_per_dispatch > 1 is an unsupported "
+                "pair: the controller observes and actuates between "
+                "HOST-VISIBLE rounds, and a fused dispatch gives it "
+                "none — set rounds_per_dispatch=1, or drop .control()")
+        if self.execution == "streamed":
+            raise ValueError(
+                f"control × execution={self.execution!r} is an "
+                "unsupported pair: the controller's sensors ride "
+                "forensics/ledger row fields those paths never "
+                "produce — use execution='dense'/'async', or drop "
+                ".control()")
+        quarantine_armed = policy.quarantine_rounds > 0 and any(
+            fam == "quarantine" for _, fam in policy.rule_table)
+        if quarantine_armed:
+            for missing, why, flip in (
+                    (self.execution != "async",
+                     "an async ingest path to mask clients at",
+                     ".resources(execution='async')"),
+                    (not self.forensics,
+                     "per-lane diagnoses to probe against",
+                     ".observability(forensics=True)"),
+                    (not self.ledger_backend,
+                     "the ledger's reputation ranking to pick suspects",
+                     ".observability(ledger=True)")):
+                if missing:
+                    raise ValueError(
+                        "control quarantine moves need " + why +
+                        f" — set {flip}, or disable them with "
+                        ".control(quarantine_rounds=0) or "
+                        ".control(rules={'fpr_collapse': 'off', "
+                        "'reputation_collapse': 'off'})")
+            spec = self.get_async_spec()
+            ceiling = int(policy.max_quarantine_fraction * self.num_clients)
+            if self.num_clients - ceiling < spec.agg_every:
+                raise ValueError(
+                    f"control max_quarantine_fraction="
+                    f"{policy.max_quarantine_fraction} could "
+                    f"quarantine {ceiling} of {self.num_clients} "
+                    f"clients, starving agg_every={spec.agg_every} "
+                    "(a cycle buffers at most one event per free "
+                    "client) — lower the fraction or agg_every")
+        if self.execution == "async" and self.state_store != "resident" \
+                and any(fam in ("agg_every", "buffer")
+                        for _, fam in policy.rule_table):
+            raise ValueError(
+                f"control agg_every/buffer moves × state_store="
+                f"{self.state_store!r} is an unsupported pair: the "
+                "out-of-core store sizes its staging rows by the "
+                "initial agg_every, and both families can GROW the "
+                "staged set — map those rules to the shrink-only "
+                "'window' family in .control(rules=...) (bounded by "
+                "min_window/window_factor), map them 'off', or set "
+                "state_store='resident'")
+
+    @property
+    def ledger_backend(self) -> Optional[str]:
+        """The ledger request: ``None`` (off), ``"resident"`` (host-RAM
+        columns; what ``ledger=True`` means) or ``"disk"`` (memmapped
+        columns)."""
+        v = self.ledger
+        if v in (False, None, 0, "off", ""):
+            return None
+        if v in (True, 1, "on", "resident"):
+            return "resident"
+        if v == "disk":
+            return "disk"
+        raise ValueError(
+            f"ledger must be off|resident|disk (or bool), got {v!r}")
+
+    @property
+    def control_enabled(self) -> bool:
+        """Whether the control plane is armed: a ``control_config`` dict
+        whose ``enabled`` (True by default) is truthy."""
+        cfg = self.control_config
+        if cfg is None:
+            return False
+        if not isinstance(cfg, dict):
+            raise ValueError(
+                f"control_config must be a dict, got {type(cfg).__name__}")
+        return bool(cfg.get("enabled", True))
+
+    def get_watchdog_rules(self) -> tuple:
+        """The watchdog's rule table: ``watchdog_rules`` resolved through
+        :func:`~blades_tpu_torch.obs.watchdog.rules_from_config` (unknown
+        keys, kinds and fields fail), or ``default_rules()``."""
+        from blades_tpu_torch.obs.watchdog import rules_from_config
+
+        return rules_from_config(self.watchdog_rules)
+
+    def get_control_policy(self):
+        """The :class:`~blades_tpu_torch.control.ControlPolicy` of
+        ``control_config`` (None when the control plane is off)."""
+        if not self.control_enabled:
+            return None
+        from blades_tpu_torch.control import ControlPolicy
+
+        return ControlPolicy.from_config(self.control_config)
 
     def _validate_async(self) -> None:
         """The reference's checks of ``async_config`` and
@@ -521,13 +694,15 @@ class FedavgConfig:
                  ".fault_tolerance(faults=None)"),
                 (self.health_check, "the in-round health check",
                  ".fault_tolerance(health_check=False)"),
+                (self.forensics, "defense forensics",
+                 ".observability(forensics=False)"),
                 (self.dp_clip_threshold, "client DP",
                  "dp_clip_threshold=None")):
             if knob:
                 raise ValueError(
-                    f"agg_domain='wire' x {why} is an unsupported pair: "
-                    "that stage rewrites or inspects dense f32 rows the "
-                    f"wire domain never materializes; set {flip}, or run "
+                    f"agg_domain='wire' × {why} is an unsupported pair: "
+                    "that stage rewrites/inspects dense f32 rows the "
+                    f"wire domain never materializes — set {flip}, or run "
                     "under .communication(agg_domain='f32')")
         from blades_tpu_torch.parallel.streamed_geometry import (
             WIRE_AGGREGATORS,
@@ -640,7 +815,8 @@ class FedavgConfig:
             dp_noise_factor=self.dp_noise_factor,
             faults=self.get_fault_injector(), codec=self.get_codec(),
             agg_domain=self.agg_domain, agg_d_chunk=self.d_chunk,
-            stateless_clients=self.state_window == 0)
+            stateless_clients=self.state_window == 0,
+            forensics=bool(self.forensics))
 
     def build(self, device=None):
         """Validate, freeze and build the driver on ``device`` (``None`` =

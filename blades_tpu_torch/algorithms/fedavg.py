@@ -34,9 +34,26 @@ Rows of a codec run carry ``comm_bytes_up``, ``codec_bits``,
 the wire domain ``dequant_rows`` and ``hbm_passes``; rows of a fault run
 ``num_participating``, ``num_dropped``, ``num_straggled``, ``fault_seed``
 and, with stragglers, ``staleness_mean`` / ``staleness_max``.
+With ``forensics`` the rows carry ``byz_precision`` / ``byz_recall`` /
+``byz_fpr``, ``num_flagged``, ``num_unhealthy`` and ``lane_forensics``
+(``benign_mask``, ``healthy``, ``scores``, ``update_norms`` and
+``clients``: lane i diagnoses registered client ``clients[i]``, the
+identity on the dense round, the event clients on the async cycle, the
+cohort under a window).  The client ledger (``ledger``,
+:mod:`blades_tpu_torch.obs.ledger`) folds each row's cohort into one
+record per registered client and stamps the fleet fields
+(``suspected_fraction``, ``flagged_churn``, ``reputation_p*``,
+``ledger_clients_seen``, ``ledger_top_suspects``).  The control plane
+(``control_config``, :mod:`blades_tpu_torch.control`) runs the driver's
+own watchdog over each finished row, stamps ``watchdog_events``, journals
+the controller's actions (``control_actions``, ``control_actions_total``,
+``quarantine_size``) and applies them to the async engine's setters.
+These run when a row is finalized, i.e. when its metrics are fetched.
+
 Checkpoints carry the residual and the stale ring in the ``RoundState``,
-the async engine's host state, and a windowed store's rows as shard
-files (``client_state/``).
+the async engine's host state, the watchdog's windows and the
+controller's state, a windowed store's rows as shard files
+(``client_state/``) and the ledger's (``ledger/``).
 
 Each round draws from a ``torch.Generator`` seeded by
 ``SeedSequence([seed, round])``, so a run is reproducible per seed on one
@@ -46,7 +63,6 @@ device (the draws are not the JAX package's).
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from pathlib import Path
 from typing import Dict, Optional
@@ -84,10 +100,14 @@ from blades_tpu_torch.state import (
 from blades_tpu_torch.utils.async_metrics import DEVICE_METRICS_KEY
 from blades_tpu_torch.utils.async_metrics import fetch as fetch_tree
 from blades_tpu_torch.utils.seeds import seed_of
+from blades_tpu_torch.obs.trace import now
 from blades_tpu_torch.utils.timers import Timers
 from blades_tpu_torch.utils.tree import FlatLayout
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: Key under which a row created on a cohort path carries its cohort
+#: ``(client ids, staleness or None)`` until :meth:`Fedavg.finalize_row`.
+_COHORT_KEY = "_cohort"
 
 
 class Fedavg:
@@ -198,11 +218,44 @@ class Fedavg:
                 d_chunk=cfg.d_chunk, device=dev)
         else:
             self._step = self.fed_round.step
+        self._setup_observability()
         self.timers = Timers(sync=dev.type == "cuda")
         self._chunk = max(1, int(cfg.rounds_per_dispatch))
         self._iteration = 0
         self._rounds_since_eval = 0
         self._last_eval: Dict = {}
+
+    def _setup_observability(self) -> None:
+        """The client ledger (one record per registered client) and the
+        control plane: the driver's own watchdog over finished rows and a
+        controller whose actions move the async engine's actuators (the
+        synchronous driver has none of them; a replan needs the
+        autotuner, which the port does not have)."""
+        from blades_tpu_torch.control import Controller
+        from blades_tpu_torch.obs.ledger import make_ledger
+        from blades_tpu_torch.obs.watchdog import Watchdog
+
+        cfg = self.config
+        self._ledger = (None if not cfg.ledger_backend else make_ledger(
+            cfg.ledger_backend, cfg.num_clients, directory=cfg.ledger_dir))
+        self._controller = self._watchdog = None
+        if not cfg.control_enabled:
+            return
+        self._watchdog = Watchdog(cfg.get_watchdog_rules())
+        eng = self._async
+        if eng is None:
+            self._controller = Controller(cfg.get_control_policy(),
+                                          num_clients=cfg.num_clients)
+            return
+        self._controller = Controller(
+            cfg.get_control_policy(), num_clients=cfg.num_clients,
+            agg_every=int(eng.agg_every),
+            buffer_capacity=int(eng.buffer.capacity),
+            weight_cutoff=int(eng.weight_cutoff),
+            # Under a state store the event cohort is the participation
+            # window, which only the shrink-only window family moves.
+            window=(int(eng.agg_every) if self._state_store is not None
+                    else None))
 
     def _setup_windowed_pipeline(self, template) -> None:
         """The participation window on one card: each round gathers the
@@ -282,9 +335,10 @@ class Fedavg:
             return False
         if cfg.num_clients * self._num_params * 4 <= self.dense_matrix_limit():
             return False
-        if cfg.fault_config or cfg.codec_config:
+        if cfg.fault_config or cfg.codec_config or cfg.forensics:
             what = ("fault injection" if cfg.fault_config
-                    else "the update codec")
+                    else "the update codec" if cfg.codec_config
+                    else "defense forensics")
             raise ValueError(
                 f"{what} needs the dense round but 'auto' execution "
                 "resolved to streaming (the dense (n, d) matrix would "
@@ -352,7 +406,7 @@ class Fedavg:
         the card the ``training_step`` timer still syncs the device at the
         end of the dispatch, so deferring saves copies, not syncs."""
         raw = {}
-        t0 = time.perf_counter()
+        t0 = now()
         with self.timers.time("training_step"):
             # Each round draws from its own round seed, so K rounds of one
             # dispatch are exactly K single-round dispatches.
@@ -385,8 +439,14 @@ class Fedavg:
                 row[k] = int(info[k])
             row["staleness_mean"] = float(info["staleness_mean"])
             row["staleness_hist"] = list(info["staleness_hist"])
-            elapsed = max(time.perf_counter() - t0, 1e-9)
+            elapsed = max(now() - t0, 1e-9)
             row["updates_per_sec"] = round(info["events"] / elapsed, 3)
+            # Lane i of this cycle's forensics is event client i; taken
+            # now, before a later cycle moves the engine's columns.
+            row[_COHORT_KEY] = (np.asarray(self._async.last_clients),
+                                np.asarray(self._async.last_staleness))
+        elif self._state_pf is not None:
+            row[_COHORT_KEY] = (np.asarray(self._window_prev[0]), None)
         if self._state_store is not None:
             stats = (self._state_pf.stats if self._state_pf is not None
                      else self._async.store_stats)
@@ -478,6 +538,9 @@ class Fedavg:
         if raw is None:
             return row
         raw = fetch_tree(raw)
+        cohort_ids, cohort_staleness = row.pop(_COHORT_KEY, (None, None))
+        lanes = {k[len("lane_"):]: np.asarray(v[-1])
+                 for k, v in raw.items() if k.startswith("lane_")}
         for k in ("train_loss", "agg_norm", "update_norm_mean"):
             row[k] = float(raw[k][-1])
         for k in ("hbm_passes", "hbm_passes_unfused", "elided_lanes",
@@ -508,10 +571,113 @@ class Fedavg:
             if "staleness_mean" in raw:
                 row["staleness_mean"] = float(raw["staleness_mean"][-1])
                 row["staleness_max"] = int(raw["staleness_max"][-1])
-        if self.config.health_check:
+        if self.config.health_check or self.config.forensics:
             row["num_unhealthy"] = int(sum(raw["num_unhealthy"]))
+        if self.config.health_check:
             row["round_ok"] = bool(all(raw["round_ok"]))
+        if self.config.forensics:
+            for k in ("byz_precision", "byz_recall", "byz_fpr"):
+                row[k] = float(raw[k][-1])
+            row["num_flagged"] = int(raw["num_flagged"][-1])
+            if cohort_ids is None:
+                cohort_ids = np.arange(len(lanes["benign_mask"]))
+            row["lane_forensics"] = {
+                "benign_mask": [bool(b > 0.5) for b in lanes["benign_mask"]],
+                "healthy": [bool(h > 0.5) for h in lanes["healthy"]],
+                "scores": [float(s) for s in lanes["scores"]],
+                "clients": [int(c) for c in cohort_ids],
+                "update_norms": [float(x) for x in lanes["update_norms"]],
+            }
+        if self._ledger is not None:
+            # Without forensics only participation and recency accrue.
+            flagged = scores = norms = None
+            if self.config.forensics:
+                flagged = lanes["benign_mask"] <= 0.5
+                scores = lanes["scores"].astype(np.float64)
+                norms = lanes["update_norms"].astype(np.float64)
+            if cohort_ids is None:
+                cohort_ids = np.arange(self.config.num_clients)
+            self._ledger.observe(
+                cohort_ids, round=int(row["training_iteration"]),
+                tick=row.get("tick"), flagged=flagged, scores=scores,
+                staleness=cohort_staleness, norms=norms)
+            row.update(self._ledger.round_fields())
+        if self._controller is not None:
+            # Last, so the watchdog and the policy see the whole row.
+            self._control_round(row, lanes, cohort_ids)
         return row
+
+    def _control_round(self, row: Dict, lanes: Dict, cohort_ids) -> None:
+        """One control step over a finished row: the driver's watchdog
+        observes it (``watchdog_events``), the controller journals its
+        decisions, they are applied to the engine, and the row carries
+        ``control_actions``, ``control_actions_total`` and
+        ``quarantine_size``."""
+        events = [e.as_dict() for e in self._watchdog.observe(row)]
+        row["watchdog_events"] = events
+        participants = flagged = ()
+        if cohort_ids is not None and "benign_mask" in lanes:
+            ids = np.asarray(cohort_ids, np.int64)
+            participants = tuple(int(c) for c in ids)
+            flagged = tuple(int(c) for c in ids[lanes["benign_mask"] <= 0.5])
+        actions = self._controller.step(
+            round_idx=int(row["training_iteration"]),
+            tick=int(row.get("tick", row["training_iteration"])),
+            events=events, suspects=row.get("ledger_top_suspects") or (),
+            participants=participants, flagged=flagged)
+        for act in actions:
+            self._apply_control_action(act)
+        row["control_actions"] = [a.as_dict() for a in actions]
+        row["control_actions_total"] = int(self._controller.actions_total)
+        row["quarantine_size"] = len(self._controller.quarantine)
+
+    def _apply_control_action(self, act) -> None:
+        """Move the async engine's actuator for one journaled action.  An
+        engine that refuses the move warns: the journal keeps the intent.
+        ``replan`` needs the execution autotuner, which the port does not
+        have, so it moves nothing (the controller offers none without
+        it)."""
+        eng = self._async
+        if eng is None:
+            return
+        try:
+            if act.actuator in ("agg_every", "window"):
+                # Under a state store the event cohort is the window.
+                eng.set_agg_every(int(act.new))
+            elif act.actuator == "buffer_capacity":
+                eng.set_buffer_capacity(int(act.new))
+            elif act.actuator == "weight_cutoff":
+                eng.set_weight_cutoff(int(act.new))
+            elif act.actuator in ("quarantine", "probe", "readmit",
+                                  "requarantine"):
+                eng.set_quarantine(self._controller.quarantined_clients())
+        except ValueError as exc:
+            warnings.warn(
+                f"control action {act.actuator} (seq {act.seq}) was "
+                f"journaled but the engine rejected it: {exc}",
+                RuntimeWarning, stacklevel=2)
+
+    @property
+    def client_ledger(self):
+        """The live :class:`~blades_tpu_torch.obs.ledger.ClientLedger`, or
+        None (the sweep hands it to the flight recorder)."""
+        return self._ledger
+
+    @property
+    def ledger_summary(self) -> Optional[Dict]:
+        """The ledger's fleet digest, or None without a ledger."""
+        return None if self._ledger is None else self._ledger.summary()
+
+    @property
+    def control_summary(self) -> Optional[Dict]:
+        """The controller's digest (actions journaled, actuator values,
+        quarantine and probation sets, the driver watchdog's event
+        count), or None without the control plane."""
+        if self._controller is None:
+            return None
+        out = self._controller.summary()
+        out["watchdog_events"] = len(self._watchdog.events)
+        return out
 
     # -- checkpoints --------------------------------------------------------
 
@@ -553,9 +719,14 @@ class Fedavg:
                 "n_clients": int(self._data_store.n_clients)},
             "arrivals": (None if self._async is None
                          else self._async.host_state()),
+            "control": (None if self._controller is None else {
+                "watchdog": self._watchdog.state(),
+                "controller": self._controller.state()}),
         }
         file = path / "algorithm_state.pkl"
         torch.save(payload, file)
+        if self._ledger is not None:
+            self._ledger.save(path / "ledger")
         return str(file)
 
     def load_checkpoint(self, checkpoint_path: str) -> None:
@@ -587,6 +758,7 @@ class Fedavg:
                 state = dataclasses.replace(
                     state, arrivals=self._async.init_history(
                         state.server.params))
+        self._restore_observability(payload, p.parent)
         # A checkpoint of a run without stragglers or error feedback,
         # resumed under them: start the ring or the residual cold (zeros),
         # as a fresh init does.
@@ -601,6 +773,44 @@ class Fedavg:
             state = dataclasses.replace(state, residual=fr.codec.init_residual(
                 rows, self._num_params, self.device))
         self.state = state
+
+    def _restore_observability(self, payload, ckpt_dir: Path) -> None:
+        """The watchdog's windows, the controller's state (re-asserted on
+        the engine where an older payload left its defaults) and the
+        ledger's shards; a checkpoint without them starts each cold, with
+        a warning."""
+        if self._controller is not None:
+            ctl = payload.get("control")
+            if ctl:
+                self._watchdog.restore_state(ctl.get("watchdog") or {})
+                self._controller.restore(ctl.get("controller") or {})
+                eng = self._async
+                if eng is not None:
+                    v = self._controller.values
+                    want_k = v.get("window") or v.get("agg_every")
+                    if want_k and int(want_k) != eng.agg_every:
+                        eng.set_agg_every(int(want_k))
+                    if (v.get("weight_cutoff") is not None
+                            and int(v["weight_cutoff"]) != eng.weight_cutoff):
+                        eng.set_weight_cutoff(int(v["weight_cutoff"]))
+                    held = self._controller.quarantined_clients()
+                    if held != eng.quarantine:
+                        eng.set_quarantine(held)
+            else:
+                warnings.warn(
+                    "checkpoint carries no control payload; the "
+                    f"controller starts cold at round {self._iteration} "
+                    "(the action journal before it is not recoverable)",
+                    RuntimeWarning, stacklevel=2)
+        if self._ledger is not None:
+            if (ckpt_dir / "ledger" / "manifest.json").exists():
+                self._ledger.load(ckpt_dir / "ledger")
+            else:
+                warnings.warn(
+                    "checkpoint carries no ledger/ shards; the client "
+                    f"ledger starts cold at round {self._iteration} "
+                    "(longitudinal records before it are not "
+                    "recoverable)", RuntimeWarning, stacklevel=2)
 
     def _restore_client_rows(self, state, payload, ckpt_dir: Path):
         """The client rows of a checkpoint into this run's layout: a
@@ -664,10 +874,11 @@ class Fedavg:
         """Release the run's device memory and its stores (idempotent)."""
         if self._state_pf is not None:
             self._state_pf.close()
-        for store in (self._state_store, self._data_pf):
+        for store in (self._state_store, self._data_pf, self._ledger):
             if store is not None:
                 store.close()
         self._state_pf = self._state_store = self._data_pf = None
+        self._ledger = None
         self._data_store = self._window_prev = None
         self.state = self._train = self._test = self._step = None
         self.malicious = self.fed_round = None

@@ -29,6 +29,12 @@ of the events are advanced in place in ``state.client_opt`` (the
 registered stack), or, with ``windowed_state``, ``state.client_opt`` holds
 the ``K`` event rows (gathered by the engine from its state store) and
 comes back advanced.
+
+With ``fed_round.forensics`` the cycle aggregates through
+``Server.step_buffered_diag`` (the same aggregate) and its metrics gain
+the detection scalars against the events' malicious mask,
+``num_unhealthy`` and the per-lane bundle: lane i diagnoses registered
+client ``ev_clients[i]``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from blades_tpu_torch.adversaries.base import forges
-from blades_tpu_torch.core.round import RoundState, _rows
+from blades_tpu_torch.core.round import RoundState, _rows, lane_forensics
 from blades_tpu_torch.data.sampler import sample_batch_indices
 from blades_tpu_torch.faults.injector import _CORRUPT_FILL
 from blades_tpu_torch.utils.seeds import generator_of, seed_of
@@ -121,6 +127,7 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
     hooks = fed_round.hooks()
     nb, bsz = fed_round.num_batches_per_round, fed_round.batch_size
     server = fed_round.server
+    forensics = bool(getattr(fed_round, "forensics", False))
 
     def cycle(state: RoundState, data, ev_clients, ev_ticks, ev_stale,
               ev_malicious, ev_corrupt, ev_lengths, *, seed: int,
@@ -195,11 +202,16 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
         trusted = fed_round.compute_trusted_update(params, gen)
         # Norms of the delivered rows, before the staleness weighting.
         norms = (updates * updates).sum(1).sqrt()
-        new_server, agg = server.step_buffered(
+        # The health predicate at the point the sync round takes it
+        # (post-corruption, post-forge: what the server judges).
+        healthy = torch.isfinite(updates).all(1) if forensics else None
+        step = server.step_buffered_diag if forensics else server.step_buffered
+        out = step(
             state.server, updates, staleness=torch.as_tensor(
                 np.asarray(ev_stale, np.int64)), generator=gen,
             trusted_update=trusted, schedule=weight_schedule,
             power=weight_power, cutoff=weight_cutoff)
+        new_server, agg = out[:2]
         del updates
         new_hist = torch.cat([FlatLayout(new_server.params).ravel(
             new_server.params)[None], hist[:-1]])
@@ -215,6 +227,9 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
             "agg_norm": (agg * agg).sum().sqrt(),
             "round": new_server.round,
         }
+        if forensics:
+            metrics.update(lane_forensics(out[2], mal, healthy, norms))
+            metrics["num_unhealthy"] = (~healthy).sum()
         return RoundState(server=new_server, client_opt=new_opt,
                           stale=state.stale, residual=state.residual,
                           arrivals=new_hist), metrics

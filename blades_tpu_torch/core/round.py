@@ -39,9 +39,15 @@ from ``(fault seed, round)``, so neither moves the round's other draws;
 Under a participation window the round runs over the sampled cohort's
 rows (``client_opt`` / ``residual`` hold the cohort's, ``cohort`` its
 ids; :meth:`init_windowed`), and ``stateless_clients`` starts every lane
-from a fresh optimizer state.  Forensics and lane packing are not in the
-port yet (:class:`~blades_tpu_torch.algorithms.config.FedavgConfig`
-refuses them); the streamed round is
+from a fresh optimizer state.  With ``forensics`` the server aggregates
+through the aggregator's ``diagnose`` (the same aggregate) and the
+metrics gain the detection scalars (``byz_precision`` / ``byz_recall`` /
+``byz_fpr`` / ``num_flagged``, :mod:`blades_tpu_torch.obs.forensics`),
+``num_unhealthy`` and the per-lane bundle under ``lane_`` keys
+(``benign_mask``, ``scores``, ``healthy``, ``update_norms``).  Lane
+packing is not in the port yet
+(:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses it);
+the streamed round is
 :func:`blades_tpu_torch.parallel.streamed.streamed_step`, the
 buffered-async cycle :mod:`blades_tpu_torch.arrivals.cycle`.
 """
@@ -65,6 +71,7 @@ from blades_tpu_torch.core.server import Server, ServerState
 from blades_tpu_torch.core.task import Hooks, Task
 from blades_tpu_torch.data.sampler import sample_client_batches
 from blades_tpu_torch.device import resolve_device
+from blades_tpu_torch.obs.forensics import detection_metrics
 from blades_tpu_torch.ops.layout import ChunkInfo, clip_rows_to_norm
 from blades_tpu_torch.utils.tree import FlatLayout
 
@@ -105,6 +112,22 @@ def round_generator(seed, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def lane_forensics(diag, malicious, healthy, norms, participation=None
+                   ) -> dict:
+    """The forensics metrics of one aggregation: the detection scalars of
+    ``diag["benign_mask"]`` against ``malicious`` (conditioned on
+    ``participation``) and the per-lane bundle under ``lane_`` keys, f32:
+    the kept mask, the scores, the health mask and the update norms of
+    the rows the aggregator judged."""
+    out = detection_metrics(diag["benign_mask"], malicious,
+                            participation=participation)
+    out["lane_benign_mask"] = diag["benign_mask"].float()
+    out["lane_scores"] = diag["scores"].float()
+    out["lane_healthy"] = healthy.float()
+    out["lane_update_norms"] = norms.float()
+    return out
 
 
 def _rows(t, r0, r1):
@@ -160,6 +183,10 @@ class FedRound:
     # round starts each lane from a fresh optimizer state instead of the
     # carried one.  False keeps the round unchanged.
     stateless_clients: bool = False
+    # Defense forensics: aggregate through the aggregator's diagnose()
+    # (the same aggregate) and add the detection metrics and the per-lane
+    # bundle.  False keeps the round unchanged.
+    forensics: bool = False
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
         """Fresh parameters from ``seed``, the server's initial state, the
@@ -330,16 +357,27 @@ class FedRound:
         healthy = None
         if self.health_check:
             updates, healthy = sanitize_updates(updates, participation)
+        elif self.forensics:
+            # The health check's predicate at the same point of the round,
+            # without its repair: num_unhealthy means the same either way.
+            healthy = torch.isfinite(updates).all(1)
+            if participation is not None:
+                healthy = healthy | ~participation
         updates = self.apply_dp(updates, dp_noise, generator)
         if forges(self.adversary):
             updates = self.adversary.on_updates_ready(
                 updates, malicious, noise=forge_noise, generator=generator,
                 aggregator=self.server.aggregator)
         trusted = self.compute_trusted_update(state.server.params, generator)
-        server, agg = self.server.step(state.server, updates,
-                                       generator=generator,
-                                       trusted_update=trusted,
-                                       participation=participation)
+        if self.forensics:
+            server, agg, diag = self.server.step_diag(
+                state.server, updates, generator=generator,
+                trusted_update=trusted, participation=participation)
+        else:
+            server, agg = self.server.step(state.server, updates,
+                                           generator=generator,
+                                           trusted_update=trusted,
+                                           participation=participation)
         benign = (~malicious).float()
         # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
         # relative over millions of f32 terms.
@@ -373,6 +411,11 @@ class FedRound:
             server = guard_server_state(ok, server, state.server)
             metrics["num_unhealthy"] = (~healthy).sum()
             metrics["round_ok"] = ok
+        if self.forensics:
+            metrics.update(lane_forensics(diag, malicious, healthy, norms,
+                                          participation))
+            if not self.health_check:
+                metrics["num_unhealthy"] = (~healthy).sum()
         return RoundState(server=server, client_opt=client_opt, stale=stale,
                           residual=residual,
                           cohort=getattr(state, "cohort", None)), metrics

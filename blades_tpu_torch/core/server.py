@@ -105,6 +105,43 @@ class Server:
         as the matrix's last row.  ``participation`` (the fault
         injector's ``(n,)`` mask) routes through the aggregator's
         ``masked_call``; the trusted row always participates."""
+        updates = self._with_trusted_row(updates, trusted_update)
+        if participation is None:
+            agg, agg_state = self.aggregator(updates, state.agg_state,
+                                             generator=generator)
+        else:
+            agg, agg_state = self.aggregator.masked_call(
+                updates, self._pad_participation(updates, participation),
+                state.agg_state, generator=generator)
+        return self.apply_aggregate(state, agg, agg_state), agg
+
+    def step_diag(self, state: ServerState, updates: torch.Tensor, *,
+                  generator=None, trusted_update=None, participation=None
+                  ) -> Tuple[ServerState, torch.Tensor, dict]:
+        """:meth:`step` plus the aggregator's per-lane bundle
+        (``Aggregator.diagnose``): ``(new_state, aggregate, diag)``.  The
+        bundle covers the CLIENT rows of ``updates`` (FLTrust's appended
+        trusted row judges, it is not judged), so it aligns with the
+        round's malicious mask; with ``participation`` it comes from
+        ``masked_diagnose``."""
+        n_clients = updates.shape[0]
+        updates = self._with_trusted_row(updates, trusted_update)
+        if participation is None:
+            agg, agg_state, diag = self.aggregator.diagnose(
+                updates, state.agg_state, generator=generator)
+        else:
+            agg, agg_state, diag = self.aggregator.masked_diagnose(
+                updates, self._pad_participation(updates, participation),
+                state.agg_state, generator=generator)
+        if diag["benign_mask"].shape[0] != n_clients:
+            raise ValueError(
+                f"{type(self.aggregator).__name__} diagnostics cover "
+                f"{diag['benign_mask'].shape[0]} lanes for {n_clients} "
+                "client rows -- per-lane forensics must align with the "
+                "client axis")
+        return self.apply_aggregate(state, agg, agg_state), agg, diag
+
+    def _with_trusted_row(self, updates, trusted_update):
         if getattr(self.aggregator, "expects_trusted_row", False):
             if trusted_update is None:
                 raise ValueError(
@@ -114,16 +151,17 @@ class Server:
                     "of trust")
             updates = torch.cat([updates, trusted_update[None, :].to(
                 updates.dtype)])
-        if participation is None:
-            agg, agg_state = self.aggregator(updates, state.agg_state,
-                                             generator=generator)
-        else:
-            part = participation.to(device=updates.device, dtype=torch.bool)
-            if updates.shape[0] == part.shape[0] + 1:
-                part = torch.cat([part, part.new_ones((1,))])
-            agg, agg_state = self.aggregator.masked_call(
-                updates, part, state.agg_state, generator=generator)
-        return self.apply_aggregate(state, agg, agg_state), agg
+        return updates
+
+    @staticmethod
+    def _pad_participation(updates, participation):
+        """The participation mask on the matrix's device, True for the
+        appended trusted row (the server's own update always
+        participates)."""
+        part = participation.to(device=updates.device, dtype=torch.bool)
+        if updates.shape[0] == part.shape[0] + 1:
+            part = torch.cat([part, part.new_ones((1,))])
+        return part
 
     def step_buffered(self, state: ServerState, updates: torch.Tensor, *,
                       staleness, generator=None, trusted_update=None,
@@ -138,17 +176,23 @@ class Server:
         scale is exactly 1 and the rows pass unscaled: this is
         :meth:`step`, bit for bit.  No participation mask: every buffered
         row was delivered."""
-        from blades_tpu_torch.arrivals.weights import (
-            normalized_row_scale,
-            staleness_weights,
-        )
-
-        if schedule != "constant":
-            w = staleness_weights(schedule, staleness, power=power,
-                                  cutoff=cutoff).to(updates.device)
-            updates = updates * normalized_row_scale(w)[:, None]
+        updates = _staleness_scaled(updates, staleness, schedule, power,
+                                    cutoff)
         return self.step(state, updates, generator=generator,
                          trusted_update=trusted_update)
+
+    def step_buffered_diag(self, state: ServerState, updates: torch.Tensor,
+                           *, staleness, generator=None, trusted_update=None,
+                           schedule: str = "polynomial", power: float = 0.5,
+                           cutoff: int = 16
+                           ) -> Tuple[ServerState, torch.Tensor, dict]:
+        """:meth:`step_buffered` plus the per-lane bundle: :meth:`step_diag`
+        on the scaled rows (the matrix the aggregator judged), ``(new_state,
+        aggregate, diag)``, lanes in event order."""
+        updates = _staleness_scaled(updates, staleness, schedule, power,
+                                    cutoff)
+        return self.step_diag(state, updates, generator=generator,
+                              trusted_update=trusted_update)
 
     def step_wire(self, state: ServerState, q: torch.Tensor, scales, *,
                   d: Optional[int] = None, generator=None,
@@ -190,3 +234,18 @@ class Server:
             params=params, opt_state=opt,
             agg_state=state.agg_state if agg_state is None else agg_state,
             round=state.round + 1)
+
+
+def _staleness_scaled(updates, staleness, schedule, power, cutoff):
+    """The rows scaled by ``w(k) / mean(w)`` of the staleness schedule;
+    unscaled under ``constant``."""
+    from blades_tpu_torch.arrivals.weights import (
+        normalized_row_scale,
+        staleness_weights,
+    )
+
+    if schedule == "constant":
+        return updates
+    w = staleness_weights(schedule, staleness, power=power,
+                          cutoff=cutoff).to(updates.device)
+    return updates * normalized_row_scale(w)[:, None]

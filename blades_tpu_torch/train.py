@@ -7,15 +7,21 @@
         --arrivals-json '{"rate": 0.25, "agg_every": 16}'
     python -m blades_tpu_torch.train run FEDAVG --window 100 \\
         --state-store host --data-store memmap
+    python -m blades_tpu_torch.train file grid.yaml --watchdog \\
+        --trace-dir /tmp/spans --metrics-csv --flightrec-rounds 4
 
 ``file`` runs every trial of an experiment file's grids, ``run`` one
 algorithm with flat or nested config overrides (as the experiment
 ``<algo>_run``); both go through
 :func:`~blades_tpu_torch.tune.sweep.run_experiments`, on the card unless
-``--device cpu`` is given.  Each trial writes ``params.json`` and
-``result.json`` (one JSON row per dispatch) under
+``--device cpu`` is given.  Each trial writes ``params.json``,
+``result.json`` (one JSON row per dispatch) and ``metrics.jsonl`` (the
+rows, schema-validated; ``--metrics-csv`` adds ``metrics.csv``) under
 ``<storage-path>/<experiment>/<trial>/``; the best trial's test accuracy is
-printed last.  The JAX command's flags for subsystems the port does not
+printed last.  ``--trace-dir`` exports each trial's span tree as Chrome
+trace JSON, ``--trace`` captures a ``torch.profiler`` trace around the
+whole command, ``--watchdog`` / ``--watchdog-rules`` arm the anomaly
+watchdog and ``--flightrec-rounds`` sizes the flight recorder.  The JAX command's flags for subsystems the port does not
 have yet are absent, so argparse refuses them.
 """
 
@@ -38,6 +44,35 @@ def main(argv=None) -> int:
                         "time (flushed before checkpoints)")
     common.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    common.add_argument("--trace", default=None, metavar="DIR",
+                        help="capture a torch.profiler trace (host and "
+                        "the card's kernels) of the whole command into DIR "
+                        "as Chrome trace JSON; composes with --trace-dir")
+    common.add_argument("--trace-dir", default=None, metavar="DIR",
+                        help="export each trial's host span tree (trial -> "
+                        "round -> phase, round provenance as args) as "
+                        "Chrome/Perfetto trace JSON into DIR")
+    common.add_argument("--watchdog", action="store_true",
+                        help="arm the anomaly watchdog: schema-driven rules "
+                        "(NaN aggregate, update-norm spike, detection-FPR "
+                        "collapse, round-time regression, ...) over the "
+                        "written rows; events land in the rows as "
+                        "watchdog_events and trigger the flight recorder")
+    common.add_argument("--watchdog-rules", default=None, metavar="JSON",
+                        help="replace the watchdog's rule table with a JSON "
+                        "list of rule specs, e.g. '[{\"name\": \"acc\", "
+                        "\"kind\": \"collapse\", \"field\": "
+                        "\"test_acc\"}]'; implies --watchdog; checked "
+                        "before any trial starts")
+    common.add_argument("--flightrec-rounds", type=int, default=16,
+                        metavar="K",
+                        help="flight recorder: a ring of the last K row "
+                        "digests per trial, dumped to <trial>/"
+                        "flightrec.json on a NaN aggregate, a watchdog "
+                        "event, a crash or a preemption; 0 disables")
+    common.add_argument("--metrics-csv", action="store_true",
+                        help="also write <trial>/metrics.csv beside "
+                        "metrics.jsonl")
     common.add_argument("-v", "--verbose", action="count", default=1)
 
     p_file = sub.add_parser("file", parents=[common],
@@ -102,23 +137,43 @@ def main(argv=None) -> int:
                        "verified set is reused, a broken one rebuilt)")
     args = parser.parse_args(argv)
 
+    # --watchdog-rules: parsed and checked before any trial is built.
+    watchdog = args.watchdog
+    if args.watchdog_rules is not None:
+        try:
+            specs = json.loads(args.watchdog_rules)
+        except json.JSONDecodeError as exc:
+            parser.error(f"--watchdog-rules is not valid JSON: {exc}")
+        if not isinstance(specs, list):
+            parser.error("--watchdog-rules must be a JSON list of rule "
+                         f"specs, got {type(specs).__name__}")
+        from blades_tpu_torch.obs.watchdog import rules_from_config
+
+        try:
+            rules_from_config(specs)
+        except (ValueError, TypeError) as exc:
+            parser.error(f"--watchdog-rules: {exc}")
+        watchdog = specs
+
     from blades_tpu_torch.tune import (
         load_experiments_from_file,
         run_experiments,
     )
 
     common_kw = dict(storage_path=args.storage_path, verbose=args.verbose,
-                     metrics_every=args.metrics_every, device=args.device)
+                     metrics_every=args.metrics_every, device=args.device,
+                     metrics_csv=args.metrics_csv, trace_dir=args.trace_dir,
+                     watchdog=watchdog,
+                     flightrec_rounds=args.flightrec_rounds)
     if args.cmd == "file":
-        summaries = run_experiments(
-            load_experiments_from_file(args.experiment_file),
-            checkpoint_freq=args.checkpoint_freq,
-            checkpoint_at_end=args.checkpoint_at_end,
-            checkpoint_keep_num=args.checkpoint_keep_num,
-            checkpoint_score_attr=args.checkpoint_score_attr,
-            resume=args.resume, max_rounds_override=args.max_rounds,
-            max_failures=args.max_failures,
-            preempt_after=args.preempt_after, **common_kw)
+        experiments = load_experiments_from_file(args.experiment_file)
+        kw = dict(checkpoint_freq=args.checkpoint_freq,
+                  checkpoint_at_end=args.checkpoint_at_end,
+                  checkpoint_keep_num=args.checkpoint_keep_num,
+                  checkpoint_score_attr=args.checkpoint_score_attr,
+                  resume=args.resume, max_rounds_override=args.max_rounds,
+                  max_failures=args.max_failures,
+                  preempt_after=args.preempt_after, **common_kw)
     else:
         run_config = json.loads(args.config_json)
         for key, value in (("execution", args.execution),
@@ -135,7 +190,14 @@ def main(argv=None) -> int:
             "stop": {"training_iteration": args.rounds},
             "config": run_config,
         }}
-        summaries = run_experiments(experiments, **common_kw)
+        kw = common_kw
+    if args.trace:
+        from blades_tpu_torch.obs.trace import trace
+
+        with trace(args.trace):
+            summaries = run_experiments(experiments, **kw)
+    else:
+        summaries = run_experiments(experiments, **kw)
     best = max((s for s in summaries if s["evaluated"]),
                key=lambda s: s["best_test_acc"], default=None)
     if best:
@@ -144,7 +206,6 @@ def main(argv=None) -> int:
     elif summaries:
         print("best trial: no trial evaluated")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,22 +5,29 @@ An experiment file maps names to ``{run, stop, config}`` specs; every
 ``{"grid_search": [...]}`` node in ``config``, at any depth, expands to
 the cartesian product of trials in the JAX package's depth-first order.
 Each trial runs in ``<storage>/<experiment>/<experiment>_<i:05d>/`` and
-writes ``params.json`` (its config) and ``result.json`` (one JSON row per
-dispatch), with atomic checkpoints ``ckpt_<round:06d>/``, resume, retries
+writes ``params.json`` (its config), ``result.json`` (one JSON row per
+dispatch) and ``metrics.jsonl`` (the same rows, each validated against
+:mod:`blades_tpu_torch.obs.schema`; ``metrics.csv`` beside it on
+request), with atomic checkpoints ``ckpt_<round:06d>/``, resume, retries
 from the latest checkpoint and the simulated-preemption hook, as the JAX
-runner does.
+runner does.  The observability layer is the JAX runner's too: a span
+tree per trial exported as Chrome trace JSON (``trace_dir``), the anomaly
+watchdog over the written rows (``watchdog``; it defers to rows the
+driver's own control-plane watchdog already stamped) and the flight
+recorder (``flightrec_rounds``; ``<trial>/flightrec.json`` on a
+non-finite aggregate, a watchdog event, an exception or a preemption).
 
 The JAX runner's vmapped lanes, scan windows, autotuner and plan cache,
-compile cache, cost analysis, ``metrics.jsonl`` / ``metrics.csv`` and
-their schema, spans, watchdog and flight recorder are not in the port.
-Before the first trial runs, every trial's config is resolved (the config
-and its round, built on the meta device), so a field the port lacks
-raises before any round is paid for.
+compile cache and cost analysis are not in the port.  Before the first
+trial runs, every trial's config is resolved (the config and its round,
+built on the meta device), so a field the port lacks raises before any
+round is paid for.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import itertools
 import json
 import os
@@ -139,6 +146,39 @@ def _truncate_results(path: Path, upto_round: int) -> None:
                 f.write(line + "\n")
 
 
+def _truncate_csv(path: Path, upto_round: int) -> None:
+    """:func:`_truncate_results` for ``metrics.csv``, by its
+    ``training_iteration`` column; a row whose iteration does not parse
+    (a torn final line) is kept: truncation never destroys data it
+    cannot read."""
+    if not path.exists():
+        return
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if not rows or "training_iteration" not in rows[0]:
+        return
+    col = rows[0].index("training_iteration")
+    kept = [rows[0]]
+    for row in rows[1:]:
+        try:
+            if int(float(row[col])) > upto_round:
+                continue
+        except (IndexError, ValueError):
+            pass
+        kept.append(row)
+    if len(kept) != len(rows):
+        with open(path, "w", newline="") as f:
+            csv.writer(f).writerows(kept)
+
+
+def _truncate_streams(tdir: Path, upto_round: int) -> None:
+    """Cut ``result.json``, ``metrics.jsonl`` and ``metrics.csv`` back to
+    ``upto_round`` before a restored run appends."""
+    _truncate_results(tdir / "result.json", upto_round)
+    _truncate_results(tdir / "metrics.jsonl", upto_round)
+    _truncate_csv(tdir / "metrics.csv", upto_round)
+
+
 def _latest_checkpoint(tdir: Path) -> Optional[Path]:
     """The newest periodic checkpoint (``ckpt_<round>``).  Orphaned
     ``ckpt_*.tmp`` directories, an atomic write a kill interrupted, are
@@ -200,6 +240,29 @@ def _build_config(run: str, trial_cfg: Dict):
     return config
 
 
+#: Row fields stamped onto the span that dispatched the row.
+_TRACE_ROW_ATTRS = (
+    "training_iteration", "hbm_passes", "hbm_passes_unfused",
+    "agg_domain", "agg_domain_bits", "comm_bytes_up", "codec_bits",
+    "comm_compression_ratio", "elided_lanes", "dequant_rows",
+    "num_participating", "num_dropped", "num_straggled",
+)
+
+
+def _resolve_watchdog(watchdog):
+    """The ``watchdog`` request as a rule tuple, or None: ``True`` /
+    ``"on"`` arms ``default_rules()``; a sequence of rule dicts or
+    :class:`~blades_tpu_torch.obs.watchdog.WatchdogRule` supplies its
+    own (unknown keys, kinds and fields fail here)."""
+    if not watchdog:
+        return None
+    from blades_tpu_torch.obs.watchdog import default_rules, rules_from_config
+
+    if watchdog is True or watchdog == "on":
+        return default_rules()
+    return rules_from_config(list(watchdog))
+
+
 def resolve_trial(run: str, trial_cfg: Dict) -> None:
     """Build and validate one trial's config and its round on the meta
     device (no data, no memory, no training): a field, model, aggregator,
@@ -225,6 +288,12 @@ def run_experiments(
     retry_backoff_cap: float = 30.0,
     preempt_after: Optional[int] = None,
     metrics_every: int = 1,
+    metrics_csv: bool = False,
+    heartbeat_every: int = 10,
+    strict_metrics: bool = True,
+    trace_dir: Optional[str] = None,
+    watchdog=False,
+    flightrec_rounds: int = 16,
     device=None,
 ) -> List[Dict]:
     """Run every trial of every experiment in turn on ``device`` (``None``
@@ -251,14 +320,42 @@ def run_experiments(
     every checkpoint and before the preemption hook): it sets when rows
     are written and batches their device-to-host copies.  It does not cut
     the host syncs on the card, where the ``training_step`` timer ends
-    every dispatch with a device sync.
+    every dispatch with a device sync.  The driver's forensics, ledger
+    and controller read a row when it is fetched, so under
+    ``metrics_every=N`` they see (and act on) N rows at once.
+
+    Observability: every row also goes to ``metrics.jsonl``, validated
+    (a schema violation fails the trial at once, without retries; pass
+    ``strict_metrics=False`` for a custom trainable), to ``metrics.csv``
+    with ``metrics_csv`` and, at ``verbose > 1``, to a heartbeat line
+    every ``heartbeat_every`` rounds.  ``trace_dir`` arms the span tracer
+    and writes ``<trace_dir>/<trial>.trace.json``; ``watchdog`` (True or
+    a rule list) arms the watchdog, whose events land in the row as
+    ``watchdog_events`` and trigger the flight recorder;
+    ``flightrec_rounds`` (0 = off) sizes the recorder's ring.  A resumed
+    or retried trial rebuilds the watchdog's windows and the recorder's
+    ring from the surviving rows.
     """
     from blades_tpu_torch.faults.host import (
         PreemptionHook,
+        SimulatedPreemption,
         atomic_checkpoint,
         retry_backoff,
     )
+    from blades_tpu_torch.obs import (
+        CsvSink,
+        JsonlSink,
+        MetricsLogger,
+        SchemaError,
+        StdoutSink,
+    )
+    from blades_tpu_torch.obs.flightrec import FlightRecorder
+    from blades_tpu_torch.obs.trace import Timers
+    from blades_tpu_torch.obs.watchdog import Watchdog
     from blades_tpu_torch.utils.async_metrics import flush_rows
+
+    wd_rules = _resolve_watchdog(watchdog)
+    flightrec_rounds = int(flightrec_rounds or 0)
 
     plans = []
     for exp_name, spec in experiments.items():
@@ -279,9 +376,13 @@ def run_experiments(
             tdir = root / exp_name / tname
             tdir.mkdir(parents=True, exist_ok=True)
             if not resume:
-                # A fresh run must not restore a previous sweep's state.
+                # A fresh run must not restore a previous sweep's state,
+                # nor keep its streams or its flight-recorder dump.
                 for p in tdir.glob("ckpt_*"):
                     shutil.rmtree(p, ignore_errors=True)
+                for p in (tdir / "metrics.jsonl", tdir / "metrics.csv",
+                          tdir / "flightrec.json"):
+                    p.unlink(missing_ok=True)
             prior = _read_results(tdir / "result.json") if resume else []
             best_acc = max((r.get("test_acc", 0.0) for r in prior),
                            default=0.0)
@@ -304,7 +405,7 @@ def run_experiments(
                 if ckpt is not None:
                     algo.load_checkpoint(str(ckpt))
                     resumed_from = algo.iteration
-                    _truncate_results(tdir / "result.json", algo.iteration)
+                    _truncate_streams(tdir, algo.iteration)
             with open(tdir / "params.json", "w") as f:
                 json.dump(trial_cfg, f, indent=2, default=str)
             if verbose:
@@ -312,15 +413,54 @@ def run_experiments(
                        if resumed_from else "")
                 print(f"== trial {tname}: {max_rounds} rounds{tag} ==",
                       flush=True)
-            t_start = time.perf_counter()
+            timers = Timers(record=bool(trace_dir),
+                            sync=algo.device.type == "cuda")
+            if trace_dir:
+                # One span tree per trial: the driver's phases nest in
+                # the trial and round spans.
+                algo.timers = timers
+            trial_span = timers.start("trial", experiment=exp_name,
+                                      trial=tname)
             start_round = algo.iteration
             ckpt_scores: Dict[str, float] = {}
             failures = 0
             failed_error = None
             last_row: Dict = {}
+            compiled = False
+            wd = Watchdog(wd_rules) if wd_rules is not None else None
+            flightrec = (FlightRecorder(
+                tdir / "flightrec.json", capacity=flightrec_rounds,
+                experiment=exp_name, trial=tname, algo=spec["run"],
+                config=trial_cfg, max_rounds=max_rounds)
+                if flightrec_rounds else None)
+            if flightrec is not None:
+                flightrec.ledger = algo.client_ledger
+
+            def rewind():
+                """The watchdog's windows and the recorder's ring from
+                the rows that survived a restore."""
+                surviving = _read_results(tdir / "result.json")
+                if wd is not None:
+                    wd.warm(surviving)
+                if flightrec is not None:
+                    flightrec.rewind(surviving)
+
+            if resumed_from:
+                rewind()
             while True:
                 mode = "a" if (resumed_from or failures) else "w"
+                logger = None
                 try:
+                    sinks: List = [JsonlSink(tdir / "metrics.jsonl",
+                                             mode=mode,
+                                             strict=strict_metrics)]
+                    if metrics_csv:
+                        sinks.append(CsvSink(tdir / "metrics.csv",
+                                             mode=mode))
+                    if verbose > 1:
+                        sinks.append(StdoutSink(every=heartbeat_every))
+                    logger = MetricsLogger(
+                        sinks, base={"experiment": exp_name, "trial": tname})
                     pending: List[Dict] = []
                     with open(tdir / "result.json", mode) as f:
 
@@ -328,17 +468,41 @@ def run_experiments(
                             nonlocal best_acc, evaluated, last_row
                             for result in rows:
                                 result["trial"] = tname
+                                if "watchdog_events" in result:
+                                    # The controlled driver's own
+                                    # watchdog stamped them: observing
+                                    # again would double-fire its rules.
+                                    events = list(
+                                        result["watchdog_events"] or [])
+                                else:
+                                    events = [e.as_dict() for e in (
+                                        wd.observe(result) if wd is not None
+                                        else [])]
+                                    if events:
+                                        result["watchdog_events"] = events
                                 f.write(json.dumps(result) + "\n")
+                                logger.log(result)
+                                if flightrec is not None:
+                                    flightrec.record(result)
+                                    trig = flightrec.check(result)
+                                    if trig is None and events:
+                                        trig = {"kind": "watchdog",
+                                                "rules": [e["rule"]
+                                                          for e in events],
+                                                "round": result.get(
+                                                    "training_iteration")}
+                                    if trig is not None:
+                                        flightrec.dump(trig)
+                                if trace_dir:
+                                    timers.stamp_latest_of(
+                                        ("round", "compile"),
+                                        {k: result[k]
+                                         for k in _TRACE_ROW_ATTRS
+                                         if k in result})
                                 best_acc = max(best_acc,
                                                result.get("test_acc", 0.0))
                                 evaluated |= "test_acc" in result
                                 last_row = result
-                                if verbose > 1:
-                                    print(f"   {tname} round "
-                                          f"{result['training_iteration']}:"
-                                          f" train_loss "
-                                          f"{result['train_loss']:.4f}",
-                                          flush=True)
 
                         def flush_pending():
                             nonlocal pending
@@ -349,7 +513,13 @@ def run_experiments(
                         # The stop criterion counts FL rounds; one call
                         # runs rounds_per_dispatch of them.
                         while algo.iteration < max_rounds:
-                            pending.append(algo.train_raw())
+                            # The first dispatch builds the kernels and
+                            # the caches: its span is "compile".
+                            with timers.time("round" if compiled
+                                             else "compile",
+                                             step=algo.iteration):
+                                pending.append(algo.train_raw())
+                            compiled = True
                             if (len(pending) >= metrics_every
                                     or algo.iteration >= max_rounds):
                                 flush_pending()
@@ -369,8 +539,9 @@ def run_experiments(
                                 f.flush()
                                 os.fsync(f.fileno())
                                 name = f"ckpt_{algo.iteration:06d}"
-                                atomic_checkpoint(algo.save_checkpoint,
-                                                  tdir / name)
+                                with timers.time("checkpoint"):
+                                    atomic_checkpoint(algo.save_checkpoint,
+                                                      tdir / name)
                                 ckpt_scores[name] = float(last_row.get(
                                     checkpoint_score_attr, algo.iteration))
                                 _prune_checkpoints(tdir, checkpoint_keep_num,
@@ -384,7 +555,16 @@ def run_experiments(
                     with open(tdir / "error.txt", "a") as ef:
                         ef.write(f"attempt {failures}: {exc!r}\n")
                         ef.write(traceback.format_exc() + "\n")
-                    if failures > max_failures:
+                    if flightrec is not None:
+                        flightrec.dump({
+                            "kind": ("preemption"
+                                     if isinstance(exc, SimulatedPreemption)
+                                     else "exception"),
+                            "error": repr(exc), "round": algo.iteration})
+                    # Schema drift is deterministic: a retry would fail
+                    # the same way on its first row.
+                    if isinstance(exc, SchemaError) or \
+                            failures > max_failures:
                         failed_error = repr(exc)
                         if verbose:
                             print(f"   !! trial {tname} FAILED after "
@@ -401,17 +581,34 @@ def run_experiments(
                     algo.stop()
                     algo = _build_config(spec["run"], trial_cfg).build(
                         device=device)
+                    if trace_dir:
+                        algo.timers = timers
+                    compiled = False
                     ckpt = _latest_checkpoint(tdir)
                     if ckpt is not None:
                         algo.load_checkpoint(str(ckpt))
-                    _truncate_results(tdir / "result.json", algo.iteration)
+                    _truncate_streams(tdir, algo.iteration)
+                    if flightrec is not None:
+                        flightrec.ledger = algo.client_ledger
+                    rewind()
                     if verbose:
                         print(f"   .. retrying {tname} from round "
                               f"{algo.iteration} (failure {failures}/"
                               f"{max_failures})", flush=True)
+                finally:
+                    if logger is not None:
+                        logger.close()
             if checkpoint_at_end and failed_error is None:
-                atomic_checkpoint(algo.save_checkpoint, tdir / "ckpt_final")
-            wall = time.perf_counter() - t_start
+                with timers.time("checkpoint"):
+                    atomic_checkpoint(algo.save_checkpoint,
+                                      tdir / "ckpt_final")
+            timers.finish(trial_span)
+            wall = trial_span.duration
+            if trace_dir:
+                timers.stamp_latest("trial", {"rounds": algo.iteration,
+                                              "failures": failures})
+                timers.export(Path(trace_dir).expanduser()
+                              / f"{tname}.trace.json")
             new_rounds = algo.iteration - start_round
             summary = {
                 "trial": tname, "rounds": algo.iteration,
@@ -422,11 +619,21 @@ def run_experiments(
                 "dir": str(tdir), "timers": algo.timers.summary(),
             }
             # The out-of-core stores' digests (backend, window, bytes,
-            # staging peak; the data store's last gather and eval chunks).
+            # staging peak; the data store's last gather and eval chunks),
+            # the ledger's fleet digest and the controller's.
             for key, block in (("state_store", algo.state_summary),
-                               ("data_store", algo.data_summary)):
+                               ("data_store", algo.data_summary),
+                               ("ledger", algo.ledger_summary),
+                               ("control", algo.control_summary)):
                 if block:
                     summary[key] = block
+            if wd is not None and wd.events:
+                summary["watchdog"] = {
+                    "events": len(wd.events),
+                    "rules": sorted({e.rule for e in wd.events})}
+            if flightrec is not None and flightrec.dumps:
+                summary["flightrec"] = {"dumps": flightrec.dumps,
+                                        "path": str(tdir / "flightrec.json")}
             algo.stop()
             if failed_error is not None:
                 summary["status"] = "ERROR"

@@ -121,8 +121,9 @@ Phases, each printing its lines before the last:
    the plain versions on their own operands as the path runs
    (``_PathAudit``, ``_BnAudit``).
 11. ``resnet34``: the DnC point of ``fedavg_cifar100_resnet34.yaml``
-   through ``run_experiments``, one dispatch of its 10 rounds
-   (``rounds_per_dispatch``): ResNet-34 x 1000 clients of CIFAR-100 shapes,
+   through ``run_experiments``, one dispatch of 5 rounds (the file's
+   ``rounds_per_dispatch`` of 10 cut to 5 to keep the script near half
+   its time limit): ResNet-34 x 1000 clients of CIFAR-100 shapes,
    200 Adaptive elided, f32 compute, the bf16 ``(1000, 21,328,384)``
    buffer, ``client_block`` 50 (25 only if 50 runs out of memory), with
    peak memory, rounds/s and the launches a round (DnC's weighted sum on
@@ -192,28 +193,54 @@ Phases, each printing its lines before the last:
    straight run's.  Every select and BN launch held against the plain
    versions; ``state_stage_ms``, ``state_bytes_staged``,
    ``state_peak_hbm_bytes``, rounds/s and peak memory printed.
-16. ``profile`` (only when named): one more main-path round, one
+16. ``obs``: forensics, the metrics streams, spans, the watchdog, the
+   flight recorder, the client ledger and the control plane at full
+   width, cuDNN deterministic.  (a) ``train.main(["file", ...])`` on a
+   copy of ``fedavg_cifar10_resnet_noniid.yaml`` written to
+   ``chiprun_out/obs/`` with ``forensics: true``, cut to its Trimmedmean
+   and Multikrum points under ALIE (15 of 60, alpha 0.1) and 3 rounds,
+   with ``--trace-dir``, ``--watchdog``, ``--metrics-csv`` and
+   ``--flightrec-rounds 4``: each trial's ``metrics.jsonl`` and trace
+   validated; then the Trimmedmean point with forensics on and off, 2
+   rounds each in turns, parameters equal bit for bit (rounds/s of both).
+   (b) the ``async`` phase's configuration under DiurnalALIE +
+   Trimmedmean with forensics, the resident ledger and the default
+   control policy (the watchdog's ``fpr_collapse`` ceiling at 0, so the
+   quarantine fires in cycle 1) beside a forensics-off twin, 4 cycles in
+   turns (cycles/s of both); then killed after cycle 2 and resumed:
+   cycles 3-4 equal to the straight run's (parameters, ring, host state,
+   forensics, ledger fields, control actions, the quarantine set).  (c)
+   cohorts of 100 of 1000, Median, forensics and the ``disk`` ledger, 2
+   rounds; its shard checkpoint validated.  (d) the MLP trial under the
+   fault injector's NaN corruption, the health check off:
+   ``nan_aggregate`` fires and ``flightrec.json`` validates.  Every
+   select (``column_trimmed_mean:obs``, ``column_median:obs``, the
+   launches of (a)-(c) together) and BN launch held against the plain
+   versions, the BN pair recorded per path (``bn_bwd_reduce:obs`` and
+   ``bn_bwd_dx:obs`` for (a), ``...:obs-async`` for (b),
+   ``...:obs-window`` for (c)); the ledger's ``host_bytes`` printed.
+17. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-17. ``bnstages`` (only when named): the BN kernels alone at the four stage
+18. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-18. ``ringsweep`` (only when named): the row-statistics ring across
+19. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-15 (and before
-each round of phase 7 and each trial of phases 8 to 15) and read just
+Launch counts are set to 0 just before each of phases 4-16 (and before
+each round of phase 7 and each trial of phases 8 to 16) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
 ``row_stats_bundle:gram:int8:wire``, ``column_median:async``,
-``bn_bwd_dx:window``, ...),
+``bn_bwd_dx:window``, ``column_trimmed_mean:obs``, ...),
 timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
@@ -238,7 +265,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire", "async", "window")
+          "wire", "async", "window", "obs")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -3201,7 +3228,9 @@ SWEEP_YAML = os.path.join(TUNED, "fedavg_cifar10_1000clients.yaml")
 LOCAL20_YAML = os.path.join(TUNED, "local20_cnn_fashion_mnist.yaml")
 RESNET34_YAML = os.path.join(TUNED, "fedavg_cifar100_resnet34.yaml")
 SWEEP_ROUNDS = 2
-RESNET34_ROUNDS = 10  # one dispatch: the file's rounds_per_dispatch
+# One dispatch of 5 rounds: the file's rounds_per_dispatch (10) cut to 5
+# to keep the whole script near half its time limit.
+RESNET34_ROUNDS = 5
 # client_block values the resnet34 phase tries, in order: the file's
 # default first; a smaller one only when the larger runs out of memory.
 RESNET34_BLOCKS = (50, 25)
@@ -3707,7 +3736,8 @@ def phase_sweep(card):
 
 def _resnet34_trial(storage, block):
     """The DnC point of ``fedavg_cifar100_resnet34.yaml`` through
-    ``run_experiments``: one dispatch of 10 rounds at ``client_block``,
+    ``run_experiments``: one dispatch of ``RESNET34_ROUNDS`` rounds at
+    ``client_block``,
     every weighted sum held against the plain version and the first
     round's BN launches audited."""
     from blades_tpu_torch.tune import load_experiments_from_file
@@ -3717,6 +3747,7 @@ def _resnet34_trial(storage, block):
     cfg = exps["fedavg_cifar100_resnet34"]["config"]
     cfg["server_config"]["aggregator"] = {"type": "DnC"}
     cfg["client_block"] = block
+    cfg["rounds_per_dispatch"] = RESNET34_ROUNDS
     trained = (1000 - 200) // block
     with _TrialSpy() as spy, _PathAudit(
             "wsum", "row_stats_bundle:wsum:resnet34") as ws, _BnAudit(
@@ -3832,7 +3863,8 @@ def phase_resnet34(card):
     log(f"resnet34: fedavg_cifar100_resnet34.yaml DnC point, ResNet-34 x "
         f"1000 clients (200 Adaptive, elided), CIFAR-100 shapes, f32 "
         f"compute, bf16 buffer {sorted(ws.shapes)}, client_block {block}, "
-        f"rounds_per_dispatch 10: one dispatch of {RESNET34_ROUNDS} rounds, "
+        f"rounds_per_dispatch {RESNET34_ROUNDS}: one dispatch of "
+        f"{RESNET34_ROUNDS} rounds, "
         f"{rps_text} (trial wall {t['wall']:.1f} s); peak memory "
         f"{t['peak'] / 2**30:.2f} GiB; blocks tried (block, peak GiB): "
         f"{[(b, round(p / 2**30, 2)) for b, p, _ in tried]}; train_loss "
@@ -4909,6 +4941,358 @@ def phase_window(card):
     return counts, {**sel.records, **bn_audit.records(total)}
 
 
+# The obs phase.  Part (a): a copy of fedavg_cifar10_resnet_noniid.yaml
+# with forensics on, cut to its Trimmedmean and Multikrum points under ALIE
+# with 15 malicious of 60 clients (alpha 0.1) and 3 rounds, evaluated at
+# round 3, through train.main(["file", ...]) with spans, the watchdog, the
+# CSV sink and a 4-round flight recorder.
+OBS_YAML = os.path.join(TUNED, "fedavg_cifar10_resnet_noniid.yaml")
+OBS_ROUNDS = 3
+OBS_DENSE_BN_ROUND = 2 * 12  # 60 clients in blocks of 50 and 10
+OBS_TURNS = 2                # forensics-on / -off rounds, in turns
+# Part (b): the async phase's configuration with DiurnalALIE +
+# Trimmedmean, forensics, the resident ledger and the default control
+# policy; the watchdog's fpr_collapse ceiling at 0 so that the quarantine
+# fires in cycle 1 (its release, round 9, lies past the run).
+OBS_ASYNC = {
+    "adversary_config": {"type": "DiurnalALIE", "period": 8},
+    "server_config": {"lr": 0.5, "aggregator": {
+        "type": "Trimmedmean", "num_byzantine": 25}},
+}
+OBS_CONTROL = {
+    "forensics": True, "ledger": True, "control_config": {"enabled": True},
+}
+OBS_CYCLES = 4
+
+
+def _obs_yaml(out_dir):
+    """The cut copy of the tuned example, written as JSON (a YAML flow
+    document the port's reader takes) into ``out_dir``."""
+    from blades_tpu_torch.tune import load_experiments_from_file
+
+    (name, spec), = load_experiments_from_file(OBS_YAML).items()
+    cfg = spec["config"]
+    cfg["dataset_config"]["alpha"] = 0.1
+    cfg["server_config"]["aggregator"] = {"grid_search": [
+        {"type": "Trimmedmean"}, {"type": "Multikrum"}]}
+    cfg["num_malicious_clients"] = 15
+    cfg["adversary_config"] = {"type": "ALIE"}
+    cfg["evaluation_interval"] = OBS_ROUNDS
+    cfg["forensics"] = True
+    spec["stop"] = {"training_iteration": OBS_ROUNDS}
+    path = os.path.join(out_dir, "fedavg_cifar10_resnet_noniid_obs.yaml")
+    with open(path, "w") as fh:
+        json.dump({name: spec}, fh)  # one line: a YAML flow mapping
+    return path, name, cfg
+
+
+def _obs_dense(card, out_dir, baseline):
+    """Part (a): the two file trials, their streams validated; then the
+    Trimmedmean point with forensics on and off, 2 rounds each in turns,
+    their parameters equal bit for bit.  Returns the launches."""
+    import torch
+
+    from blades_tpu_torch import train
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.obs import validate_chrome_trace, validate_jsonl
+    from blades_tpu_torch.ops import _cuda
+
+    path, exp, cfg = _obs_yaml(out_dir)
+    storage, spans = (os.path.join(out_dir, d) for d in ("trials", "spans"))
+    with _TrialSpy() as spy:
+        rc = train.main(["file", path, "--storage-path", storage,
+                         "--trace-dir", spans, "--watchdog", "--metrics-csv",
+                         "--flightrec-rounds", "4"])
+    check(rc == 0 and len(spy.trials) == 2,
+          f"obs dense: rc {rc}, {len(spy.trials)} trials")
+    launches = {}
+    for i, (agg, t) in enumerate(zip(("Trimmedmean", "Multikrum"),
+                                     spy.trials)):
+        rows = _rows(storage, exp, i)
+        _trial_checks(f"obs {agg}", t, rows, OBS_ROUNDS, baseline)
+        tdir = os.path.join(storage, exp, f"{exp}_{i:05d}")
+        n_ok, errors = validate_jsonl(os.path.join(tdir, "metrics.jsonl"))
+        check(n_ok == OBS_ROUNDS and not errors,
+              f"obs {agg}: metrics.jsonl {n_ok} valid, errors {errors}")
+        n_spans, errors = validate_chrome_trace(
+            os.path.join(spans, f"{exp}_{i:05d}.trace.json"))
+        # trial, compile + round spans, training_step each, evaluate
+        check(n_spans >= 2 * OBS_ROUNDS + 2 and not errors,
+              f"obs {agg}: trace {n_spans} spans, errors {errors}")
+        check(os.path.exists(os.path.join(tdir, "metrics.csv")),
+              f"obs {agg}: no metrics.csv")
+        last = rows[-1]
+        lanes = last["lane_forensics"]
+        check(len(lanes["benign_mask"]) == 60 and lanes["clients"]
+              == list(range(60)) and math.isfinite(last["test_acc"]),
+              f"obs {agg}: lanes {len(lanes['benign_mask'])}, test_acc "
+              f"{last.get('test_acc')}")
+        want = {k: OBS_ROUNDS * OBS_DENSE_BN_ROUND for k in BN_TPU}
+        if agg == "Trimmedmean":
+            want["column_trimmed_mean"] = OBS_ROUNDS
+        check(t["launches"] == want, f"obs {agg}: launches "
+              f"{t['launches']}, expected {want}")
+        for k, v in t["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"obs {agg} x 60 ALIE (15) f32, forensics: byz_precision "
+            f"{[r['byz_precision'] for r in rows]}, byz_recall "
+            f"{[r['byz_recall'] for r in rows]}, byz_fpr "
+            f"{[r['byz_fpr'] for r in rows]}, num_flagged "
+            f"{[r['num_flagged'] for r in rows]}; watchdog events "
+            f"{sum(len(r.get('watchdog_events', [])) for r in rows)}; "
+            f"train_loss {[r['train_loss'] for r in rows]}, test_acc "
+            f"{last['test_acc']:.4f}; {_train_rps(f'obs {agg}', t)[1]}; "
+            f"{n_spans} spans; peak {t['peak'] / 2**30:.2f} GiB [{card}]")
+    trial = {k: v for k, v in cfg.items()}
+    trial["server_config"] = {**cfg["server_config"],
+                              "aggregator": {"type": "Trimmedmean"}}
+    trial["evaluation_interval"] = 0
+    drivers = {on: FedavgConfig().update_from_dict(
+        {**trial, "forensics": on}).build() for on in (True, False)}
+    _cuda.reset_launches()
+    secs = {True: [], False: []}
+    for _ in range(OBS_TURNS):
+        for on, algo in drivers.items():
+            secs[on].extend(_cycles(algo, 1)[1])
+    for k, v in drivers[True].state.server.params.items():
+        check(torch.equal(v, drivers[False].state.server.params[k]),
+              f"obs: parameter {k} differs between the forensics-on and "
+              "-off rounds")
+    turns = dict(_cuda.LAUNCHES)
+    want = {"column_trimmed_mean": 2 * OBS_TURNS,
+            **{k: 2 * OBS_TURNS * OBS_DENSE_BN_ROUND for k in BN_TPU}}
+    check(turns == want, f"obs turns: launches {turns}, expected {want}")
+    for algo in drivers.values():
+        algo.stop()
+    for k, v in turns.items():
+        launches[k] = launches.get(k, 0) + v
+    rps = {on: len(s) / sum(s) for on, s in secs.items()}
+    log(f"obs dense Trimmedmean x 60, forensics on / off in turns: "
+        f"{rps[True]:.4f} / {rps[False]:.4f} rounds/s (audits out; "
+        f"{[round(x, 3) for x in secs[True]]} / "
+        f"{[round(x, 3) for x in secs[False]]} s), parameters equal bit for "
+        f"bit after {OBS_TURNS} rounds each [{card}]")
+    torch.cuda.empty_cache()
+    return launches, rps
+
+
+def _obs_async(card, work):
+    """Part (b): the async cycle with forensics, the resident ledger and
+    control beside a forensics-off twin, in turns, 4 cycles; then 2
+    cycles, a checkpoint and 2 more from a fresh driver: cycles 3-4 equal
+    to the straight run's."""
+    import torch
+
+    from blades_tpu_torch.obs.watchdog import default_rules
+    from blades_tpu_torch.ops import _cuda
+
+    rules = [dict(name=r.name, kind=r.kind, field=r.field, window=r.window,
+                  min_points=r.min_points, factor=r.factor,
+                  threshold=0.0 if r.name == "fpr_collapse" else r.threshold)
+             for r in default_rules()]
+    armed = {**OBS_ASYNC, **OBS_CONTROL, "watchdog_rules": rules}
+    _reset_peak()
+    on, off = _async_driver(armed), _async_driver(OBS_ASYNC)
+    _cuda.reset_launches()
+    out = {True: ([], []), False: ([], [])}
+    for _ in range(OBS_CYCLES):
+        for flag, algo in ((True, on), (False, off)):
+            rows, secs = _cycles(algo, 1)
+            out[flag][0].extend(rows)
+            out[flag][1].extend(secs)
+    straight = _host_state(on)
+    held = sorted(on._controller.quarantine)
+    host_bytes = on.client_ledger.host_bytes()
+    peak = _peak()
+    off.stop()
+    on.stop()
+    first = _async_driver(armed)
+    _cycles(first, 2)
+    first.save_checkpoint(os.path.join(work, "ckpt"))
+    first.stop()
+    resumed = _async_driver(armed)
+    resumed.load_checkpoint(os.path.join(work, "ckpt"))
+    again, _ = _cycles(resumed, 2)
+    got = _host_state(resumed)
+    got_held = sorted(resumed._controller.quarantine)
+    resumed.stop()
+    launches = dict(_cuda.LAUNCHES)
+    cycles = 2 * OBS_CYCLES + 4
+    want = {"column_trimmed_mean": cycles,
+            **{k: cycles * ASYNC_BN_CYCLE for k in BN_TPU}}
+    check(launches == want, f"obs async: launches {launches}, expected "
+          f"{want}")
+    _same_state(got, straight, "obs async kill-and-resume")
+    keys = ("train_loss", "agg_norm", "tick", "byz_precision", "byz_recall",
+            "byz_fpr", "num_flagged", "lane_forensics",
+            "suspected_fraction", "flagged_churn", "reputation_p10",
+            "reputation_p50", "reputation_p90", "ledger_clients_seen",
+            "ledger_top_suspects", "watchdog_events", "control_actions",
+            "control_actions_total", "quarantine_size",
+            "arrivals_quarantined")
+    rows = out[True][0]
+    for a, b in zip(again, rows[2:]):
+        for k in keys:
+            check(a[k] == b[k], f"obs async resume: cycle "
+                  f"{a['training_iteration']} {k} {a[k]!r} vs {b[k]!r}")
+    check(got_held == held and held and rows[0]["control_actions"],
+          f"obs async: quarantine {got_held} vs {held}, actions "
+          f"{rows[0]['control_actions']}")
+    cps = {flag: len(s) / sum(s) for flag, (_, s) in out.items()}
+    log(f"obs async DiurnalALIE + Trimmedmean x 1000, K = 100: forensics + "
+        f"ledger + control on / off in turns {cps[True]:.4f} / "
+        f"{cps[False]:.4f} cycles/s (audits out); actions "
+        f"{[[a['actuator'] for a in r['control_actions']] for r in rows]}, "
+        f"quarantine {held}, arrivals_quarantined "
+        f"{[r['arrivals_quarantined'] for r in rows]}, num_flagged "
+        f"{[r['num_flagged'] for r in rows]}, byz_recall "
+        f"{[r['byz_recall'] for r in rows]}, ledger seen "
+        f"{[r['ledger_clients_seen'] for r in rows]}, top suspects "
+        f"{rows[-1]['ledger_top_suspects']}; ledger host_bytes {host_bytes};"
+        f" peak {peak / 2**30:.2f} GiB [{card}]")
+    log(f"obs async kill-and-resume: killed after cycle 2, cycles 3-4 equal "
+        f"to the straight run's (parameters, ring and host state bit for "
+        f"bit; forensics, ledger fields, watchdog events, control actions "
+        f"and the quarantine set {held} equal)")
+    torch.cuda.empty_cache()
+    return launches, cps, host_bytes
+
+
+def _obs_window(card, work):
+    """Part (c): cohorts of 100 of 1000, Median, forensics and the disk
+    ledger, 2 rounds; the ledger's shard checkpoint validated."""
+    import torch
+
+    from blades_tpu_torch.obs import validate_ledger_checkpoint
+    from blades_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    algo = _window_driver({"forensics": True, "ledger": "disk",
+                           "ledger_dir": os.path.join(work, "ledger_live")})
+    rows, secs = _cycles(algo, 2)
+    algo.save_checkpoint(os.path.join(work, "wckpt"))
+    host_bytes = algo.client_ledger.host_bytes()
+    cohorts = [r["lane_forensics"]["clients"] for r in rows]
+    algo.stop()
+    launches = dict(_cuda.LAUNCHES)
+    want = {"column_median": 2, **{k: 2 * WINDOW_BN_ROUND for k in BN_TPU}}
+    check(launches == want, f"obs window: launches {launches}, expected "
+          f"{want}")
+    n_ok, errors = validate_ledger_checkpoint(
+        os.path.join(work, "wckpt", "ledger"))
+    check(n_ok > 0 and not errors, f"obs window: ledger checkpoint {n_ok} "
+          f"files, errors {errors}")
+    check(all(len(set(c)) == 100 for c in cohorts)
+          and rows[-1]["ledger_clients_seen"] == len(set(sum(cohorts, []))),
+          f"obs window: cohorts {[len(c) for c in cohorts]}, seen "
+          f"{rows[-1]['ledger_clients_seen']}")
+    log(f"obs window x 1000, cohorts of 100, Median, forensics + disk "
+        f"ledger: {len(secs) / sum(secs):.4f} rounds/s (audits out), "
+        f"num_flagged {[r['num_flagged'] for r in rows]}, ledger seen "
+        f"{[r['ledger_clients_seen'] for r in rows]}; ledger host_bytes "
+        f"{host_bytes}, its checkpoint {n_ok} shard files valid [{card}]")
+    torch.cuda.empty_cache()
+    return launches, host_bytes
+
+
+def _obs_flightrec(out_dir):
+    """Part (d): the MLP trial under the fault injector's NaN corruption,
+    the health check off: nan_aggregate fires and the flight recorder's
+    dump validates."""
+    from blades_tpu_torch import train
+    from blades_tpu_torch.obs import validate_flightrec
+
+    grid = {"obs_nan": {"run": "FEDAVG", "stop": {"training_iteration": 2},
+                        "config": {**MLP_TRIAL, "fault_config": {
+                            "corrupt_rate": 1.0, "corrupt_mode": "nan"}}}}
+    path = os.path.join(out_dir, "obs_nan.yaml")
+    with open(path, "w") as fh:
+        json.dump(grid, fh)
+    storage = os.path.join(out_dir, "nan")
+    rc = train.main(["file", path, "--storage-path", storage, "--watchdog",
+                     "--flightrec-rounds", "4"])
+    rows = _rows(storage, "obs_nan", 0)
+    rules = {e["rule"] for e in rows[0].get("watchdog_events", [])}
+    dump = os.path.join(storage, "obs_nan", "obs_nan_00000",
+                        "flightrec.json")
+    n, errors = validate_flightrec(dump)
+    check(rc == 0 and "nan_aggregate" in rules and n >= 1 and not errors,
+          f"obs flightrec: rc {rc}, rules {rules}, dump {n} rounds, errors "
+          f"{errors}")
+    log(f"obs flightrec: MLP x 6 under NaN corruption, health check off: "
+        f"watchdog {sorted(rules)} in round 1, flightrec.json with {n} "
+        f"round(s) validated")
+
+
+def phase_obs(card):
+    """Forensics, the metrics streams, spans, the watchdog, the flight
+    recorder, the client ledger and the control plane at full width, on
+    the dense, async and windowed paths, every select and BN launch held
+    against the plain versions.  cuDNN runs deterministic algorithms
+    here, so forensics-on and -off rounds compare bit for bit."""
+    import torch
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    work = _work_dir("obs")
+    out_dir = os.path.join(HERE, "chiprun_out", "obs")
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    audits = {path: _BnAudit(key=path)
+              for path in ("obs", "obs-async", "obs-window")}
+    try:
+        with _shared_datasets(), \
+                _PathAudit("trim", "column_trimmed_mean:obs") as trim, \
+                _PathAudit("select", "column_median:obs") as sel:
+            with audits["obs"]:
+                dense, rps = _obs_dense(card, out_dir, baseline)
+            with audits["obs-async"]:
+                asyn, cps, ledger_res = _obs_async(card, work)
+            with audits["obs-window"]:
+                win, ledger_disk = _obs_window(card, work)
+        _obs_flightrec(out_dir)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+    # The selects' launches add up over the three paths; the BN pair's
+    # stay one record per path, as each path hands it its own layout
+    # (f32 folded dense, bf16 per-lane async, bf16 windowed).
+    counts = {}
+    for path, launches in (("obs", dense), ("obs-async", asyn),
+                           ("obs-window", win)):
+        for k, v in launches.items():
+            key = f"{k}:{path}" if k in BN_TPU else f"{k}:obs"
+            counts[key] = counts.get(key, 0) + v
+    rounds = {"obs": 2 * OBS_ROUNDS + 2 * OBS_TURNS,
+              "obs-async": 2 * OBS_CYCLES + 4, "obs-window": 2}
+    bn_calls = {p: a.calls for p, a in audits.items()}
+    check(trim.calls == counts.get("column_trimmed_mean:obs")
+          and sel.calls == counts.get("column_median:obs")
+          and all(n == 2 * counts.get(f"bn_bwd_reduce:{p}", 0)
+                  for p, n in bn_calls.items()),
+          f"obs: audited {trim.calls} trimmed means, {sel.calls} medians, "
+          f"BN launches {bn_calls} for launches {counts}")
+    log(f"obs: trimmed means on {sorted(trim.shapes)} (max err "
+        f"{trim.records['column_trimmed_mean:obs']['max_abs_err']:.3g}), "
+        f"medians on {sorted(sel.shapes)} bit-exact, BN launches audited "
+        f"{bn_calls} (dx bit-exact, sums max err "
+        f"{max(a.err for a in audits.values()):.3g}) [{card}]")
+    log(f"obs summary: dense rounds/s forensics on {rps[True]:.4f} / off "
+        f"{rps[False]:.4f}; async cycles/s on {cps[True]:.4f} / off "
+        f"{cps[False]:.4f}; ledger host_bytes resident {ledger_res}, disk "
+        f"{ledger_disk}")
+    records = {**trim.records, **sel.records}
+    for path, audit in audits.items():
+        log(f"{path} BN layouts: {_bn_layouts(audit)}")
+        records.update(audit.records(rounds[path]))
+    return counts, records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4976,7 +5360,7 @@ def main(argv=None) -> int:
         for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
                          ("resnet34", phase_resnet34), ("cct", phase_cct),
                          ("wire", phase_wire), ("async", phase_async),
-                         ("window", phase_window)):
+                         ("window", phase_window), ("obs", phase_obs)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

@@ -237,6 +237,28 @@ def test_cycles_match_the_jax_build_cycle(adversary, aggregator, momentum,
     if model != "mlp":
         run.update(global_model=model, dataset_config={
             **ASYNC_RUN["dataset_config"], "type": "cifar10"})
+    for m, jm, _ in _lockstep_cycles(run, cycles, model=model):
+        if model == "mlp":
+            continue
+        for k in ("params", "arrivals"):
+            assert np.linalg.norm(m[k] - jm[k]) <= 1e-4 * np.linalg.norm(
+                jm[k])
+        np.testing.assert_allclose(float(m["train_loss"]),
+                                   float(jm["train_loss"]), **tol)
+        np.testing.assert_allclose(float(m["agg_norm"]),
+                                   float(jm["agg_norm"]), rtol=1e-4)
+
+
+def _lockstep_cycles(run, cycles, model="mlp"):
+    """Drive the JAX engine's ``build_cycle`` and the port's ``_cycle``
+    for ``cycles`` cycles on the same events, batches, dropout masks and
+    forge noise (the JAX package's draws, handed in).  Yields ``(metrics,
+    jax_metrics, (clients, staleness))`` per cycle, each metrics dict with
+    ``params`` and ``arrivals`` added; on the MLP the parameters, the
+    ring, the loss and the aggregate norm are checked here within
+    ``rtol=1e-5, atol=1e-6``."""
+    adversary = run["adversary_config"]
+    tol = dict(rtol=1e-5, atol=1e-6)
     jalgo = JaxFedavgConfig().update_from_dict(run).build()
     algo = FedavgConfig().update_from_dict(run).build(device="cpu")
     jeng, jst = jalgo._async, jalgo.state
@@ -282,21 +304,71 @@ def test_cycles_match_the_jax_build_cycle(adversary, aggregator, momentum,
             state, algo._train[:2], clients, ticks, stale, mal, corrupt,
             np.asarray(lengths)[clients], seed=7, version=c,
             prebatched=batches, dropout_masks=masks, forge_noise=noise)
-        got = (_flat(state.server.params), state.arrivals.numpy())
-        want = (np.asarray(ravel_pytree(jst.server.params)[0]),
-                np.asarray(jst.arrivals))
-        for a, b in zip(got, want):
-            if model == "mlp":
-                np.testing.assert_allclose(a, b, **tol)
-            else:
-                assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
-        np.testing.assert_allclose(float(m["train_loss"]),
-                                   float(jm["train_loss"]), **tol)
-        np.testing.assert_allclose(
-            float(m["agg_norm"]), float(jm["agg_norm"]),
-            **(tol if model == "mlp" else dict(rtol=1e-4)))
+        m = {**m, "params": _flat(state.server.params),
+             "arrivals": state.arrivals.numpy()}
+        jm = {**jm, "params": np.asarray(ravel_pytree(jst.server.params)[0]),
+              "arrivals": np.asarray(jst.arrivals)}
+        if model == "mlp":
+            for k in ("params", "arrivals", "train_loss", "agg_norm"):
+                np.testing.assert_allclose(np.asarray(m[k], np.float32),
+                                           np.asarray(jm[k]), **tol)
+        yield m, jm, (clients, stale)
     jalgo.stop()
     algo.stop()
+
+
+@pytest.mark.parametrize("adversary,aggregator", [
+    ({"type": "ALIE"}, "Median"),
+    ({"type": "DiurnalALIE", "period": 4}, "Trimmedmean"),
+    ({"type": "ALIE"}, "Multikrum"),
+], ids=["alie-median", "diurnal-trimmedmean", "alie-multikrum"])
+def test_forensic_cycles_match_the_jax_build_cycle(adversary, aggregator):
+    """The cycle's cohort forensics against the JAX package's on the same
+    events (6 a cycle, 2 malicious clients of 8): the health mask taken
+    after forge and corruption, the aggregator's bundle on the
+    staleness-scaled rows, the update norms before the weighting, and the
+    detection scalars on the events' malicious mask.  The kept and
+    healthy masks and the detection scalars exactly, the scores and norms
+    within ``rtol=1e-5, atol=1e-6``.  Each package's client ledger folds
+    its own cycle's lanes, lane i as event client i: the round fields
+    agree, the floats within the same tolerance."""
+    from blades_tpu.obs.ledger import make_ledger as jax_make_ledger
+    from blades_tpu_torch.obs.ledger import make_ledger
+
+    run = {**ASYNC_RUN, "adversary_config": adversary, "forensics": True,
+           "ledger": True,
+           "async_config": {**ASYNC_RUN["async_config"], "agg_every": 6},
+           "server_config": {"lr": 1.0, "aggregator": {"type": aggregator}}}
+    tol = dict(rtol=1e-5, atol=1e-6)
+    jled, led = jax_make_ledger("resident", N), make_ledger("resident", N)
+    flagged = 0
+    for c, (m, jm, (clients, stale)) in enumerate(
+            _lockstep_cycles(run, 3)):
+        for k in ("lane_benign_mask", "lane_healthy", "byz_precision",
+                  "byz_recall", "byz_fpr", "num_flagged", "num_unhealthy"):
+            np.testing.assert_array_equal(np.asarray(m[k]),
+                                          np.asarray(jm[k]), err_msg=k)
+        for k in ("lane_scores", "lane_update_norms"):
+            np.testing.assert_allclose(np.asarray(m[k]), np.asarray(jm[k]),
+                                       err_msg=k, **tol)
+        for ledger, out in ((led, m), (jled, jm)):
+            ledger.observe(
+                clients.astype(np.int64), round=c + 1,
+                flagged=np.asarray(out["lane_benign_mask"]) <= 0.5,
+                scores=np.asarray(out["lane_scores"], np.float64),
+                staleness=stale, norms=np.asarray(out["lane_update_norms"],
+                                                  np.float64))
+        got, want = led.round_fields(), jled.round_fields()
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            if isinstance(v, float):
+                np.testing.assert_allclose(got[k], v, err_msg=k, **tol)
+            else:
+                assert got[k] == v, k
+        flagged += int(m["num_flagged"])
+    # Median keeps every lane (its scores are distances); the selection
+    # defenses flag someone, so their masks are a real comparison.
+    assert (flagged > 0) == (aggregator != "Median")
 
 
 def test_stale_replay_reads_the_oldest_ring_row():

@@ -130,12 +130,12 @@ def test_client_momentum_runs_streamed():
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"ledger": True}, NotImplementedError),
+    ({"autotune": True}, NotImplementedError),
     ({"num_devices": 4}, NotImplementedError),
     ({"client_packing": 2}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
     ({"adversary_config": {"type": "TopologyAttack"}}, NotImplementedError),
-    ({"forensics": True}, NotImplementedError),
+    ({"topology_config": {"graph": "ring"}}, NotImplementedError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),
 ])
@@ -167,7 +167,7 @@ def test_reference_defaults_of_later_fields_are_accepted():
     """A later field set to the reference's own default changes nothing
     and is accepted (a YAML may spell defaults out)."""
     cfg = FedavgConfig().update_from_dict(
-        {**MLP_RUN, "rounds_per_dispatch": 1, "forensics": False})
+        {**MLP_RUN, "rounds_per_dispatch": 1, "autotune": False})
     assert cfg.validate() is None
     # Client momentum runs on the streamed round too.
     assert FedavgConfig().update_from_dict(

@@ -50,7 +50,13 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/state/prefetch.py",
             "blades_tpu_torch/data/store.py",
             "blades_tpu_torch/data/stream.py",
-            "blades_tpu_torch/adversaries/campaigns.py"} <= names
+            "blades_tpu_torch/adversaries/campaigns.py",
+            "blades_tpu_torch/obs/schema.py",
+            "blades_tpu_torch/obs/trace.py",
+            "blades_tpu_torch/obs/ledger.py",
+            "blades_tpu_torch/obs/forensics.py",
+            "blades_tpu_torch/control/controller.py",
+            "blades_tpu_torch/control/policy.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -68,7 +74,8 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.faults.injector, blades_tpu_torch.comm.codecs, "
             "blades_tpu_torch.arrivals, blades_tpu_torch.state, "
             "blades_tpu_torch.data.store, blades_tpu_torch.data.stream, "
-            "blades_tpu_torch.adversaries.campaigns\n"
+            "blades_tpu_torch.adversaries.campaigns, blades_tpu_torch.obs, "
+            "blades_tpu_torch.control\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -94,10 +101,14 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """TopologyAttack still names the later slice; the campaign
-    adversaries resolve now; Noise, Lazy and ghost lanes on the streamed
-    coordinate-wise round (the chunked finish) run, and so does streamed
-    client momentum, which needs one trace row per data row."""
+    """TopologyAttack and the config fields still out of the port (meshes,
+    the gossip topology, the autotuner) name the later slice; forensics
+    resolves now, refusing the streamed round with the JAX package's
+    error; the campaign adversaries resolve; Noise, Lazy and ghost lanes
+    on the streamed coordinate-wise round (the chunked finish) run, and
+    so does streamed client momentum, which needs one trace row per data
+    row."""
+    from blades_tpu_torch.algorithms.config import FedavgConfig
     from blades_tpu_torch.adversaries import (
         DiurnalALIECampaign,
         LazyAdversary,
@@ -108,6 +119,16 @@ def test_out_of_slice_configs_name_the_later_slice():
     from blades_tpu_torch.core import FedRound, Server, TaskSpec
     from blades_tpu_torch.parallel.streamed import streamed_step
 
+    for field, value in (("num_devices", 4),
+                         ("topology_config", {"graph": "ring"}),
+                         ("autotune", True)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            FedavgConfig().update_from_dict({field: value})
+    FedavgConfig().update_from_dict({"forensics": True}).validate()
+    with pytest.raises(ValueError, match="forensics × execution='streamed' "
+                       "is an unsupported pair"):
+        FedavgConfig().update_from_dict(
+            {"forensics": True, "execution": "streamed"}).validate()
     task = TaskSpec(model="mlp", input_shape=(4, 4, 1)).build()
     for name in ("TopologyAttack", "TopologyAttackAdversary"):
         with pytest.raises(NotImplementedError, match="later slice"):

@@ -49,9 +49,6 @@ REPO = Path(__file__).resolve().parents[1]
 TUNED = sorted((REPO / "blades_tpu" / "tuned_examples").glob("*.yaml"))
 NOT_RUNNABLE = {"fedavg_cifar10_1000clients_mesh": "num_devices"}
 RUNNABLE = [p for p in TUNED if p.stem not in NOT_RUNNABLE]
-# The JAX package's per-trial metrics stream (metrics.jsonl and its
-# schema), not in the port.
-JAX_ONLY_FILES = {"metrics.jsonl"}
 
 EDGE_CASES = """\
 # PyYAML's YAML 1.1 resolver on plain scalars
@@ -197,9 +194,7 @@ def test_file_command_writes_the_jax_layout_rows_and_accuracy(tmp_path,
     assert "best trial: mlp_grid_0000" in capsys.readouterr().out
     assert jax_train.main(["file", str(grid), "--storage-path", str(theirs),
                            "--no-cost-analysis", "--no-lanes"]) == 0
-    jax_files = [f for f in _files(theirs)
-                 if Path(f).name not in JAX_ONLY_FILES]
-    assert _files(ours) == jax_files
+    assert _files(ours) == _files(theirs)
     assert [p.name for p in sorted((ours / "mlp_grid").iterdir())] == [
         "mlp_grid_00000", "mlp_grid_00001"]
     for trial in ("mlp_grid_00000", "mlp_grid_00001"):
@@ -338,7 +333,8 @@ def test_run_command_writes_the_jax_run_layout(tmp_path):
         "--storage-path", str(tmp_path), "--config-json",
         json.dumps(MLP_GRID["mlp_grid"]["config"] | {
             "server_config": {"lr": 1.0}})]) == 0
-    assert _files(tmp_path) == ["fedavg_run/fedavg_run_00000/params.json",
+    assert _files(tmp_path) == ["fedavg_run/fedavg_run_00000/metrics.jsonl",
+                                "fedavg_run/fedavg_run_00000/params.json",
                                 "fedavg_run/fedavg_run_00000/result.json"]
 
 

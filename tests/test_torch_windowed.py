@@ -51,6 +51,31 @@ def _flat(params):
 ], ids=["mean", "median", "topk-ef"])
 def test_windowed_rounds_match_the_jax_driver(extra):
     run = {**WINDOWED, "state_store": "host", **extra}
+    jalgo, algo = _lockstep_windowed(run)
+    for r in range(3):
+        _check_round(jalgo, algo, jalgo.train(), algo.train())
+    jalgo._state_pf.flush()
+    algo._state_pf.flush()
+    jrows = jalgo._state_store.gather(np.arange(N))
+    rows = algo._state_store.gather(np.arange(N))
+    trace = jrows["client_opt"][0].trace
+    want = np.stack([np.asarray(ravel_pytree(jax.tree.map(
+        lambda t: t[i], trace))[0]) for i in range(N)])
+    np.testing.assert_allclose(rows["client_opt"].numpy(), want, rtol=1e-5,
+                               atol=1e-6)
+    if "codec_config" in extra:
+        res = np.asarray(jrows["residual"])
+        assert np.abs(res).sum() > 0
+        np.testing.assert_allclose(rows["residual"].numpy(), res,
+                                   rtol=1e-5, atol=1e-6)
+    jalgo.stop()
+    algo.stop()
+
+
+def _lockstep_windowed(run):
+    """Both drivers built from ``run``, the port's cohorts, batches and
+    dropout masks the JAX driver's (drawn one round ahead), the port's
+    initial parameters the JAX package's."""
     jalgo = JaxFedavgConfig().update_from_dict(run).build()
     algo = FedavgConfig().update_from_dict(run).build(device="cpu")
     fr, jfr = algo.fed_round, jalgo.fed_round
@@ -78,31 +103,58 @@ def test_windowed_rounds_match_the_jax_driver(extra):
     params = params_from_jax(jax.tree.map(np.asarray,
                                           jalgo.state.server.params))
     algo.state = RoundState(server=fr.server.init(params, W))
+    return jalgo, algo
+
+
+def _check_round(jalgo, algo, jrow, row):
+    """One round of the pair: the cohort, the parameters and the loss."""
+    np.testing.assert_array_equal(np.asarray(jalgo._window_prev[0]),
+                                  algo._window_prev[0])
+    np.testing.assert_allclose(
+        _flat(algo.state.server.params),
+        np.asarray(ravel_pytree(jalgo.state.server.params)[0]),
+        rtol=1e-5, atol=1e-6)
+    assert row["train_loss"] == pytest.approx(jrow["train_loss"],
+                                              rel=1e-5, abs=1e-6)
+
+
+@pytest.mark.parametrize("aggregator", [
+    {"type": "Median"}, {"type": "Multikrum", "k": 2}],
+    ids=["median", "multikrum"])
+def test_forensic_windowed_rounds_match_the_jax_driver(aggregator):
+    """The windowed round's cohort forensics and ledger fold against the
+    JAX driver's, 3 rounds of cohorts of 4 of 8 with the resident
+    ledger: ``lane_forensics`` (lane i diagnoses registered client
+    ``clients[i]``, the sampled cohort), the detection scalars and the
+    ledger's round fields.  Masks, client ids, counts and detection
+    scalars exactly; scores, update norms and the ledger's floats within
+    ``rtol=1e-5, atol=1e-6``."""
+    tol = dict(rtol=1e-5, atol=1e-6)
+    run = {**WINDOWED, "state_store": "host", "forensics": True,
+           "ledger": True,
+           "server_config": {"lr": 1.0, "aggregator": aggregator}}
+    jalgo, algo = _lockstep_windowed(run)
+    flagged = 0
     for r in range(3):
-        jrow = jalgo.train()
-        row = algo.train()
-        np.testing.assert_array_equal(np.asarray(jalgo._window_prev[0]),
-                                      algo._window_prev[0])
-        np.testing.assert_allclose(
-            _flat(algo.state.server.params),
-            np.asarray(ravel_pytree(jalgo.state.server.params)[0]),
-            rtol=1e-5, atol=1e-6)
-        assert row["train_loss"] == pytest.approx(jrow["train_loss"],
-                                                  rel=1e-5, abs=1e-6)
-    jalgo._state_pf.flush()
-    algo._state_pf.flush()
-    jrows = jalgo._state_store.gather(np.arange(N))
-    rows = algo._state_store.gather(np.arange(N))
-    trace = jrows["client_opt"][0].trace
-    want = np.stack([np.asarray(ravel_pytree(jax.tree.map(
-        lambda t: t[i], trace))[0]) for i in range(N)])
-    np.testing.assert_allclose(rows["client_opt"].numpy(), want, rtol=1e-5,
-                               atol=1e-6)
-    if "codec_config" in extra:
-        res = np.asarray(jrows["residual"])
-        assert np.abs(res).sum() > 0
-        np.testing.assert_allclose(rows["residual"].numpy(), res,
-                                   rtol=1e-5, atol=1e-6)
+        jrow, row = jalgo.train(), algo.train()
+        _check_round(jalgo, algo, jrow, row)
+        got, want = row["lane_forensics"], jrow["lane_forensics"]
+        assert got["clients"] == [int(c) for c in jalgo._window_prev[0]]
+        for k in ("benign_mask", "healthy", "clients"):
+            assert got[k] == list(want[k]), k
+        for k in ("scores", "update_norms"):
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+        ledger_keys = set(algo.client_ledger.round_fields())
+        assert ledger_keys <= set(row)
+        for k in ("byz_precision", "byz_recall", "byz_fpr", "num_flagged",
+                  "num_unhealthy", *sorted(ledger_keys)):
+            if isinstance(jrow[k], float):
+                np.testing.assert_allclose(row[k], jrow[k], err_msg=k,
+                                           **tol)
+            else:
+                assert row[k] == jrow[k], k
+        flagged += row["num_flagged"]
+    assert (flagged > 0) == (aggregator["type"] != "Median")
     jalgo.stop()
     algo.stop()
 
