@@ -1,7 +1,8 @@
 """Adversaries: the update-forging attacks of the port (ALIE, IPM, Noise,
 Adaptive, MinMax, SignGuard, Lazy, Attackclippedclustering), the campaign
 attacks scheduled over the async engine's virtual ticks (DiurnalALIE,
-LazyRamp) and the training-corruption attacks (LabelFlip, SignFlip)."""
+LazyRamp), the training-corruption attacks (LabelFlip, SignFlip) and the
+gossip round's per-receiver wrapper (TopologyAttack)."""
 
 import inspect
 
@@ -13,6 +14,9 @@ from blades_tpu_torch.adversaries.base import (  # noqa: F401
 from blades_tpu_torch.adversaries.campaigns import (  # noqa: F401
     DiurnalALIECampaign,
     LazyRampCampaign,
+)
+from blades_tpu_torch.adversaries.topology_attacks import (  # noqa: F401
+    TopologyAttackAdversary,
 )
 from blades_tpu_torch.adversaries.training_attacks import (  # noqa: F401
     LabelFlipAdversary,
@@ -42,9 +46,8 @@ ADVERSARIES = {
     "Lazy": LazyAdversary,
     "DiurnalALIE": DiurnalALIECampaign,
     "LazyRamp": LazyRampCampaign,
+    "TopologyAttack": TopologyAttackAdversary,
 }
-# The reference's adversaries the port does not have yet, by either name.
-_LATER = {"TopologyAttack", "TopologyAttackAdversary"}
 _ALIASES = {cls.__name__: cls for cls in ADVERSARIES.values()}
 
 
@@ -61,9 +64,6 @@ def get_adversary(spec, **context) -> Adversary:
         spec = {"type": spec}
     spec = dict(spec)
     name = spec.pop("type").rsplit(".", 1)[-1]
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not in the port yet (a later slice)")
     cls = ADVERSARIES.get(name) or _ALIASES.get(name)
     if cls is None:
         raise KeyError(f"unknown adversary {name!r}; known: "

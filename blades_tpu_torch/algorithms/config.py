@@ -12,8 +12,8 @@ have yet (meshes, lane packing, the autotuner, ...) raises
 ``NotImplementedError`` naming it when it is set to anything but the
 reference's default; an unknown key raises ``KeyError``.  ``validate()``
 refuses the codec, fault, wire-domain, buffered-async, participation-
-window, data-store, forensics, ledger and control combinations the
-reference refuses, with its reasons.
+window, data-store, forensics, ledger, control and gossip combinations
+the reference refuses, with its reasons.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ _FIELDS = {
     "num_malicious_clients": 0, "adversary_config": None,
     "evaluation_interval": 50, "evaluation_num_samples": None,
     "augment": "auto", "compute_dtype": None,
-    # "auto" | "dense" | "streamed"
+    # "auto" | "dense" | "streamed" | "async" | "gossip"
     "execution": "auto", "client_block": 50, "d_chunk": 1 << 17,
     "update_dtype": "bfloat16", "health_check": False,
     "fltrust_root_size": 100,
@@ -81,6 +81,11 @@ _FIELDS = {
     # (ControlPolicy knobs plus "enabled" and "rules"; None = off).
     "forensics": False, "ledger": False, "ledger_dir": None,
     "watchdog_rules": None, "control_config": None,
+    # Decentralized gossip (execution="gossip"): the peer-graph spec, a
+    # dict of TopologyConfig knobs (graph / k / p / graph_seed / mixing;
+    # num_nodes is num_clients) or a bare graph name; None runs the
+    # TopologyConfig defaults (ring).  Set via .topology(...).
+    "topology_config": None,
 }
 
 # The reference's other fields, with its defaults: setting one to another
@@ -89,10 +94,10 @@ _LATER = {
     "donate_buffers": True, "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
     "client_packing": "off", "num_devices": None, "mesh_shape": None,
-    "preagg": "bucket", "bucket_size": 1, "topology_config": None,
+    "preagg": "bucket", "bucket_size": 1,
 }
-_LATER_EXECUTION = ("dsharded", "hier", "gossip")
-_EXECUTIONS = ("auto", "dense", "streamed", "async")
+_LATER_EXECUTION = ("dsharded", "hier")
+_EXECUTIONS = ("auto", "dense", "streamed", "async", "gossip")
 
 _NESTED = {
     "dataset_config": {"type": "dataset", "num_clients": "num_clients",
@@ -294,6 +299,22 @@ class FedavgConfig:
             spec = {"enabled": True}  # a bare .control() arms the defaults
         return self._set(control_config=spec)
 
+    def topology(self, *, graph=None, k=None, p=None, graph_seed=None,
+                 mixing=None):
+        """The peer graph of ``execution="gossip"``
+        (:class:`~blades_tpu_torch.topology.TopologyConfig`): the graph
+        family (``ring`` | ``torus`` | ``kregular`` | ``erdos`` |
+        ``complete``), its size knob (``k`` for kregular, ``p`` for
+        erdos), the Erdős–Rényi draw's seed and the doubly-stochastic
+        mixing (``metropolis`` | ``uniform``).  Merged into
+        ``topology_config``."""
+        spec = dict(self.topology_config or {})
+        for key, v in (("graph", graph), ("k", k), ("p", p),
+                       ("graph_seed", graph_seed), ("mixing", mixing)):
+            if v is not None:
+                spec[key] = v
+        return self._set(topology_config=spec or None)
+
     def communication(self, *, codec=None, agg_domain=None):
         """The uplink codec (``codec=``, e.g. ``{"type": "topk",
         "topk_ratio": 0.01}``) and the aggregation domain (``"f32"`` or
@@ -353,10 +374,12 @@ class FedavgConfig:
         if self.execution in _LATER_EXECUTION:
             raise NotImplementedError(
                 f"execution={self.execution!r} is not in the port yet (a "
-                "later slice); the port runs 'auto', 'dense' and 'streamed'")
+                "later slice); the port runs "
+                + ", ".join(repr(e) for e in _EXECUTIONS[:-1])
+                + f" and {_EXECUTIONS[-1]!r}")
         if self.execution not in _EXECUTIONS:
-            raise ValueError("execution must be auto|dense|streamed|async, "
-                             f"got {self.execution!r}")
+            raise ValueError("execution must be " + "|".join(_EXECUTIONS)
+                             + f", got {self.execution!r}")
         if str(self.update_dtype) not in ("bfloat16", "float32"):
             raise ValueError("update_dtype must be 'bfloat16' or 'float32', "
                              f"got {self.update_dtype!r}")
@@ -381,6 +404,7 @@ class FedavgConfig:
                              f"{self.evaluation_num_samples}")
         adv = self.get_adversary()  # an attack the port lacks fails here
         self.get_client_callbacks()  # so does an unknown callback
+        self._validate_gossip()
         self._validate_comm_and_faults()
         self._validate_async()
         self._validate_window()
@@ -392,6 +416,68 @@ class FedavgConfig:
                 "campaign attack scheduled over virtual arrival time; "
                 f"execution={self.execution!r} has no tick clock -- set "
                 ".resources(execution='async')")
+        # Topology-scoped attacks poison per RECEIVER over the peer graph:
+        # only the gossip round has receivers to scope.
+        if getattr(adv, "topology_scoped", False) \
+                and self.execution != "gossip":
+            raise ValueError(
+                f"adversary {self.adversary_config.get('type')!r} is "
+                "topology-scoped (per-receiver poisoning over the "
+                f"peer graph); execution={self.execution!r} has no "
+                "peer graph — set .resources(execution='gossip')")
+
+    def _validate_gossip(self) -> None:
+        """The reference's checks of ``topology_config`` and
+        ``execution='gossip'``, with its words."""
+        if self.topology_config and self.execution != "gossip":
+            raise ValueError(
+                "topology_config is set but execution="
+                f"{self.execution!r}: the peer-graph spec only drives the "
+                "decentralized gossip path — set "
+                ".resources(execution='gossip') or drop .topology(...)")
+        if self.execution != "gossip":
+            return
+        # Build the topology now: a bad (graph, knob) pair fails here.
+        self.get_topology()
+        for knob, why, flip in (
+                (self.codec_config, "update codecs",
+                 ".communication(codec=None)"),
+                (self.agg_domain != "f32", "wire-domain aggregation",
+                 ".communication(agg_domain='f32')"),
+                (self.state_window is not None,
+                 "the participation-window store", ".resources(window=None)"),
+                (self.state_store != "resident", "out-of-core client state",
+                 ".resources(state_store='resident')"),
+                (self.forensics, "defense forensics",
+                 ".observability(forensics=False)"),
+                (self.ledger_backend, "the client ledger",
+                 ".observability(ledger=False)"),
+                (self.control_config, "the control plane", "drop .control()"),
+                (int(self.rounds_per_dispatch or 1) != 1,
+                 "rounds_per_dispatch > 1", "rounds_per_dispatch=1"),
+                (self.chained_dispatch, "chained_dispatch",
+                 "chained_dispatch=False")):
+            if knob:
+                raise ValueError(
+                    f"execution='gossip' × {why} is an unsupported "
+                    "pair: the decentralized round has no central "
+                    "server matrix for that stage to rewrite — set "
+                    f"{flip}, or use a server execution path")
+        injector = self.get_fault_injector()
+        if injector is not None:
+            if injector.needs_stale_buffer:
+                raise ValueError(
+                    "execution='gossip' × straggler faults is an "
+                    "unsupported pair: the stale ring buffer is a "
+                    "server-path process — gossip faults are EDGE "
+                    "dropout (dropout_rate/dropout_schedule); set "
+                    "num_stragglers=0")
+            if injector.corrupt_rate > 0.0:
+                raise ValueError(
+                    "execution='gossip' × corruption faults is an "
+                    "unsupported pair: lane corruption models "
+                    "server-bound transfers — gossip faults are EDGE "
+                    "dropout; set corrupt_rate=0")
 
     def _validate_observability(self) -> None:
         """The reference's checks of forensics, the ledger, the watchdog
@@ -782,6 +868,18 @@ class FedavgConfig:
         if not self.codec_config:
             return None
         return get_codec(self.codec_config)
+
+    def get_topology(self):
+        """The gossip round's
+        :class:`~blades_tpu_torch.topology.TopologyConfig` of
+        ``topology_config`` (None unless ``execution="gossip"``), its
+        ``num_nodes`` pinned to ``num_clients``: on the gossip path every
+        client is a node."""
+        if self.execution != "gossip":
+            return None
+        from blades_tpu_torch.topology import get_topology
+
+        return get_topology(self.topology_config, int(self.num_clients))
 
     def get_adversary(self):
         return get_adversary(

@@ -27,7 +27,13 @@ runs the dense round over a sampled cohort whose state rows come from a
 ``state_bytes_staged`` and ``state_peak_hbm_bytes``, and with a data
 store ``data_store``, ``data_stage_ms``, ``data_bytes_staged`` (and
 ``eval_chunks`` where the memmap data store streams the evaluation).
-``state_window=0`` runs stateless clients.
+``state_window=0`` runs stateless clients.  Under ``execution="gossip"``
+the round is the decentralized gossip round
+(:mod:`blades_tpu_torch.topology.gossip`): ``RoundState.server`` holds one
+replica per node (leaves ``(n, *shape)``), evaluation scores node 0's
+replica, and the rows carry ``gossip_ici_bytes``,
+``num_partitioned_nodes``, ``consensus_dist`` and the graph's
+provenance (``topology``, ``graph_seed``, ``spectral_gap``).
 
 Rows of a codec run carry ``comm_bytes_up``, ``codec_bits``,
 ``comm_compression_ratio``, ``agg_domain`` and ``agg_domain_bits``, and in
@@ -50,9 +56,10 @@ the controller's actions (``control_actions``, ``control_actions_total``,
 ``quarantine_size``) and applies them to the async engine's setters.
 These run when a row is finalized, i.e. when its metrics are fetched.
 
-Checkpoints carry the residual and the stale ring in the ``RoundState``,
-the async engine's host state, the watchdog's windows and the
-controller's state, a windowed store's rows as shard files
+Checkpoints carry the residual and the stale ring in the ``RoundState``
+(under gossip the per-node stacks, which ``torch.load`` puts back on the
+device verbatim), the async engine's host state, the watchdog's windows
+and the controller's state, a windowed store's rows as shard files
 (``client_state/``) and the ledger's (``ledger/``).
 
 Each round draws from a ``torch.Generator`` seeded by
@@ -96,6 +103,11 @@ from blades_tpu_torch.state import (
     make_store,
     read_checkpoint_rows,
     sample_cohort,
+)
+from blades_tpu_torch.topology import (
+    gossip_federation,
+    gossip_step,
+    node_head,
 )
 from blades_tpu_torch.utils.async_metrics import DEVICE_METRICS_KEY
 from blades_tpu_torch.utils.async_metrics import fetch as fetch_tree
@@ -193,6 +205,7 @@ class Fedavg:
         self._streaming_eval = (self._data_store is not None
                                 and self._data_store.backend == "memmap")
         self._test = self._test_arrays(host=self._streaming_eval)
+        self._topology = self._gossip_recorder = None
         if cfg.execution == "async":
             if ooc_async:
                 self._state_store = make_store(
@@ -210,6 +223,14 @@ class Fedavg:
             self._step = None
         elif self._windowed:
             self._setup_windowed_pipeline(template)
+        elif cfg.execution == "gossip":
+            # Every node keeps its own replica: one round is local
+            # training -> neighborhood exchange -> per-node robust
+            # aggregation -> mixing.  Evaluation reads node 0's replica.
+            self._topology = cfg.get_topology()
+            self.state = gossip_federation(self.state, cfg.num_clients)
+            self._step, self._gossip_recorder = gossip_step(
+                self.fed_round, self._topology)
         elif self._streamed:
             self._step = streamed_step(
                 self.fed_round, client_block=self._streamed_block(),
@@ -571,6 +592,18 @@ class Fedavg:
             if "staleness_mean" in raw:
                 row["staleness_mean"] = float(raw["staleness_mean"][-1])
                 row["staleness_max"] = int(raw["staleness_max"][-1])
+        if "gossip_ici_bytes" in raw:
+            # The exchange's wire bytes, the partition count, the replicas'
+            # consensus diameter, and the graph's provenance (static per
+            # run, stamped on every row).
+            row["gossip_ici_bytes"] = int(raw["gossip_ici_bytes"][-1])
+            row["num_partitioned_nodes"] = int(
+                raw["num_partitioned_nodes"][-1])
+            row["consensus_dist"] = float(raw["consensus_dist"][-1])
+            prov = self._topology.provenance()
+            row["topology"] = str(prov["topology"])
+            row["graph_seed"] = int(prov["graph_seed"])
+            row["spectral_gap"] = float(prov["spectral_gap"])
         if self.config.health_check or self.config.forensics:
             row["num_unhealthy"] = int(sum(raw["num_unhealthy"]))
         if self.config.health_check:
@@ -863,7 +896,9 @@ class Fedavg:
                     self.state.server.params, self._test,
                     self.config.eval_chunk_clients, device=self.device)
             else:
-                ev = self.fed_round.evaluate(self.state, *self._test)
+                state = (self.state if self._topology is None
+                         else node_head(self.state))
+                ev = self.fed_round.evaluate(state, *self._test)
             self._last_eval = {k: float(ev[k]) for k in
                                ("test_loss", "test_acc", "test_acc_top3")}
             if self._streaming_eval:

@@ -20,6 +20,11 @@ meets identical failures.  The JAX package's realizations come from its
 own PRNG; ``inject(..., realization=(participation, straggled,
 corrupted))`` applies given masks instead, which is how the port is held
 against it.
+
+The gossip round's faults are EDGE dropout instead (:meth:`realize_edges`):
+a symmetric ``(n, n)`` mask of dead links, pure in ``(seed, round)`` and
+drawn from a stream of its own, so the node processes and the edge
+process never alias under one fault seed.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ _CORRUPT_FILL = {
 _FAULT_STREAM = 0xFA17
 # The per-tick stream of the buffered-async engine.
 _FAULT_TICK_STREAM = 0xFA18
+# The gossip round's edge-dropout stream (the JAX package folds its round
+# key with the same constant, ``EDGE_FOLD``).
+EDGE_FOLD = 0xED6E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +170,17 @@ class FaultInjector:
         u_drop, u_corr = (torch.rand((n,), generator=gen) for _ in range(2))
         return (u_drop < self.dropout_rate_at(tick),
                 u_corr < self.corrupt_rate)
+
+    def realize_edges(self, n: int, round_idx: int) -> torch.Tensor:
+        """Round ``round_idx``'s dead links of an ``n``-node peer graph: an
+        ``(n, n)`` bool mask on the CPU, symmetric (``u_sym = min(u,
+        u.T)``: a partitioned link is dead both ways).  The ``(n, n)``
+        uniforms come from a CPU generator seeded from ``(seed, round)``
+        and the edge stream alone; the rate is the dropout schedule's at
+        ``round_idx``."""
+        gen = generator_of(self.seed, round_idx, EDGE_FOLD)
+        u = torch.rand((n, n), generator=gen)
+        return torch.minimum(u, u.T) < self.dropout_rate_at(round_idx)
 
     def inject(self, updates: torch.Tensor, stale, round_idx: int, *,
                realization=None):

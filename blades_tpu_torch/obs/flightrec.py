@@ -29,8 +29,10 @@ Replay contract: every execution path is deterministic in
 ``(fault_seed, round)`` and round ``r`` draws from a generator seeded by
 ``SeedSequence([seed, r])`` — so a replay rebuilds the config from the
 dump, re-runs to the recorded tick and compares the digest.  No model
-state needs to ride the dump.  (The port has no replay tool yet; the
-JAX package's ``tools/replay_round.py`` replays JAX dumps.)
+state needs to ride the dump.  ``python -m
+blades_tpu_torch.tools.replay_round <flightrec.json>`` replays a port
+dump through the port's driver (the JAX package's
+``tools/replay_round.py`` replays JAX dumps).
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ REPLAY_FIELDS = (
     # trajectory reproduces them bit-for-bit.
     "cycle_ticks", "arrivals_quarantined", "control_actions_total",
     "quarantine_size",
-    # The JAX package's decentralized gossip round (not in the port):
-    # kept so a digest list reads the same in both packages.
+    # The decentralized gossip round (blades_tpu_torch/topology): the
+    # edge-dropout realization is pure in (fault_seed, round) and the
+    # peer graph in topology_config, so these replay bit-for-bit too.
     "gossip_ici_bytes", "num_partitioned_nodes", "consensus_dist",
     "spectral_gap", "graph_seed",
 )

@@ -768,6 +768,41 @@ AGGREGATORS = {
 }
 _NEEDS_NUM_BYZANTINE = {"DnC", "Trimmedmean", "Multikrum"}
 
+#: Breakdown-bound coefficients ``(a, b)``: aggregating fewer than
+#: ``a * f + b`` rows against ``f`` Byzantine rows is undefined for the
+#: named defense.  Mean needs one benign row past the attackers (f + 1);
+#: the order-statistic / geometric-median family needs a benign majority
+#: (2f + 1, the classic (α, f)-robustness bound — ByzFL arXiv:2505.24802);
+#: Multikrum's score needs n - f - 2 >= 1 neighbors (f + 3); FLTrust's
+#: trust row makes any client matrix usable (1).  The gossip round
+#: (:mod:`blades_tpu_torch.topology.gossip`) reads these per NODE: a node
+#: whose live neighborhood shrinks below its bound falls back to its own
+#: update.
+BREAKDOWN_MIN_ROWS = {
+    "Mean": (1, 1),
+    "Median": (2, 1),
+    "Trimmedmean": (2, 1),
+    "GeoMed": (2, 1),
+    "DnC": (2, 1),
+    "Multikrum": (1, 3),
+    "Centeredclipping": (2, 1),
+    "Signguard": (2, 1),
+    "Clippedclustering": (2, 1),
+    "FLTrust": (0, 1),
+}
+
+
+def breakdown_min_rows(name: str, f):
+    """Minimum matrix height for ``name`` against ``f`` Byzantine rows:
+    affine in ``f`` with integer coefficients, so ``f`` may be an int or
+    a tensor of per-node counts."""
+    if name not in BREAKDOWN_MIN_ROWS:
+        raise KeyError(
+            f"no breakdown bound for aggregator {name!r}; known: "
+            f"{sorted(BREAKDOWN_MIN_ROWS)}")
+    a, b = BREAKDOWN_MIN_ROWS[name]
+    return a * f + b
+
 
 def get_aggregator(spec, num_byzantine: Optional[int] = None) -> Aggregator:
     """Resolve a name, ``{"type": ..., **kwargs}`` dict or instance,

@@ -136,6 +136,9 @@ class PassRecorder:
     ``dequant_rows`` counts the full-width f32 rows a wire-domain planner
     decodes (weighted sums, medians and coordwise 1 each, mean and std 2,
     a gather its share of the width, rounded up), as the reference does.
+    ``ici_events`` holds one ``(label, kind, payload_bytes, ring_size)``
+    per collective a round records (:meth:`count_ici`, the gossip round's
+    exchange) and ``ici_bytes`` their per-device ring wire total.
     """
 
     def __init__(self):
@@ -144,12 +147,26 @@ class PassRecorder:
         self.dequant_rows = 0
         self.kernel_bundles = 0
         self.loop_iters = 0
+        self.ici_events = []
+        self.ici_bytes = 0
 
     def count(self, executed: int, unfused: int, mult: int = 1,
               dequant: int = 0) -> None:
         self.executed += executed * mult
         self.unfused += unfused * mult
         self.dequant_rows += dequant * mult
+
+    def count_ici(self, label: str, kind: str, payload_bytes: int,
+                  axis_size: int) -> None:
+        """Record one ring collective: ``payload_bytes`` is the TOTAL
+        gathered or reduced payload (the comm model's convention); the
+        wire cost per device follows the ring factors (gathers move
+        ``P*(k-1)/k``, a psum ``2P*(k-1)/k``; a ring of one moves
+        nothing)."""
+        k = max(1, int(axis_size))
+        factor = 2 if kind == "psum" else 1
+        self.ici_events.append((str(label), str(kind), int(payload_bytes), k))
+        self.ici_bytes += int(factor * int(payload_bytes) * (k - 1) // k)
 
 
 class PassHandle:

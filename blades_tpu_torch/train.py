@@ -7,6 +7,8 @@
         --arrivals-json '{"rate": 0.25, "agg_every": 16}'
     python -m blades_tpu_torch.train run FEDAVG --window 100 \\
         --state-store host --data-store memmap
+    python -m blades_tpu_torch.train run FEDAVG --execution gossip \\
+        --topology kregular --mixing metropolis --graph-seed 0
     python -m blades_tpu_torch.train file grid.yaml --watchdog \\
         --trace-dir /tmp/spans --metrics-csv --flightrec-rounds 4
 
@@ -110,11 +112,29 @@ def main(argv=None) -> int:
                        "'{\"dataset_config\": {\"type\": \"mnist\"}}'")
     p_run.add_argument("--rounds", type=int, default=100)
     p_run.add_argument("--execution", default=None,
-                       choices=("auto", "dense", "streamed", "async"),
+                       choices=("auto", "dense", "streamed", "async",
+                                "gossip"),
                        help="execution path; 'async' runs buffered-async "
                        "cycles (a Poisson arrival process, clients training "
                        "against the version they pulled, staleness-weighted "
-                       "aggregation every K buffered arrivals)")
+                       "aggregation every K buffered arrivals); 'gossip' "
+                       "runs the decentralized per-node round over a peer "
+                       "graph (--topology)")
+    p_run.add_argument("--topology", default=None,
+                       choices=("ring", "torus", "kregular", "erdos",
+                                "complete"),
+                       help="peer graph family for --execution gossip; "
+                       "'complete' with Mean aggregates as the centralized "
+                       "dense round does")
+    p_run.add_argument("--mixing", default=None,
+                       choices=("metropolis", "uniform"),
+                       help="doubly-stochastic mixing scheme for "
+                       "--execution gossip; Metropolis-Hastings weights "
+                       "by default")
+    p_run.add_argument("--graph-seed", type=int, default=None, metavar="S",
+                       help="seed of the random graph family (--topology "
+                       "erdos); part of the run's provenance, so two "
+                       "processes build the same graph")
     p_run.add_argument("--arrivals-json", default=None, metavar="SPEC",
                        help="the async arrival spec as JSON (AsyncSpec "
                        "knobs, e.g. '{\"rate\": 0.25, \"agg_every\": "
@@ -183,6 +203,15 @@ def main(argv=None) -> int:
                            ("data_dir", args.data_dir)):
             if value is not None:
                 run_config[key] = value
+        if (args.topology is not None or args.mixing is not None
+                or args.graph_seed is not None):
+            topo = dict(run_config.get("topology_config") or {})
+            for key, value in (("graph", args.topology),
+                               ("mixing", args.mixing),
+                               ("graph_seed", args.graph_seed)):
+                if value is not None:
+                    topo[key] = value
+            run_config["topology_config"] = topo
         if args.arrivals_json is not None:
             run_config["async_config"] = json.loads(args.arrivals_json)
         experiments = {f"{args.algo.lower()}_run": {

@@ -121,8 +121,8 @@ Phases, each printing its lines before the last:
    the plain versions on their own operands as the path runs
    (``_PathAudit``, ``_BnAudit``).
 11. ``resnet34``: the DnC point of ``fedavg_cifar100_resnet34.yaml``
-   through ``run_experiments``, one dispatch of 5 rounds (the file's
-   ``rounds_per_dispatch`` of 10 cut to 5 to keep the script near half
+   through ``run_experiments``, one dispatch of 3 rounds (the file's
+   ``rounds_per_dispatch`` of 10 cut to 3 to keep the script near half
    its time limit): ResNet-34 x 1000 clients of CIFAR-100 shapes,
    200 Adaptive elided, f32 compute, the bf16 ``(1000, 21,328,384)``
    buffer, ``client_block`` 50 (25 only if 50 runs out of memory), with
@@ -219,28 +219,52 @@ Phases, each printing its lines before the last:
    versions, the BN pair recorded per path (``bn_bwd_reduce:obs`` and
    ``bn_bwd_dx:obs`` for (a), ``...:obs-async`` for (b),
    ``...:obs-window`` for (c)); the ledger's ``host_bytes`` printed.
-17. ``profile`` (only when named): one more main-path round, one
+17. ``gossip``: decentralized gossip through ``FedavgConfig`` ->
+   ``Fedavg.train()`` and ``train.main``, cuDNN deterministic, at
+   ResNet-10 x 64 nodes of CIFAR-10 shapes (bench.py's gossip protocol:
+   ALIE on a quarter, Median, batch 32, one local step, f32, blocks of
+   32 lanes each from its own replica): (a) kregular k = 4 (k1 = 5),
+   Metropolis mixing, one warm-up round and 3 timed, one
+   ``select:radix`` launch a round over the ``(5, 64 * d)`` slot-major
+   matrices, the recorder's collectives reconciled with
+   ``gossip_round_volumes`` on a ring of one (``gossip_ici_bytes`` 0),
+   node 0's test accuracy; (b) the ring under ``TopologyAttack`` wrapping
+   ALIE with ``eclipse_target=0``, every slot of every receiver's matrix
+   held against the victim-only poisoning; (c) Multikrum(f = 1) on
+   kregular, 2 rounds; (d) (a) under edge dropout 0.2 through
+   ``train.main(["file", ...])`` for 4 rounds (preempted after round 4,
+   so the flight recorder dumps), 2 rounds, a checkpoint, a fresh driver
+   and 2 more, equal to the trial's rounds 3-4 bit for bit, then
+   ``python -m blades_tpu_torch.tools.replay_round`` on the dump in its
+   own process (exit 0) and the port's ``validate_metrics`` on the
+   trial's files; (e) bench.py's A/B: 32 nodes, the CNN, centralized
+   dense against ring against kregular, in turns, rounds/s after a
+   warm-up.  Every select (``column_median:gossip``,
+   ``column_median:gossip-ab``) and BN launch (``bn_bwd_reduce:gossip``,
+   ``bn_bwd_dx:gossip``) held against the plain versions.
+18. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-18. ``bnstages`` (only when named): the BN kernels alone at the four stage
+19. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-19. ``ringsweep`` (only when named): the row-statistics ring across
+20. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-16 (and before
-each round of phase 7 and each trial of phases 8 to 16) and read just
+Launch counts are set to 0 just before each of phases 4-17 (and before
+each round of phase 7 and each trial of phases 8 to 17) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
 ``row_stats_bundle:gram:int8:wire``, ``column_median:async``,
-``bn_bwd_dx:window``, ``column_trimmed_mean:obs``, ...),
+``bn_bwd_dx:window``, ``column_trimmed_mean:obs``,
+``column_median:gossip``, ...),
 timed at that path's operands; a
 kernel of the phase that did not launch, or launched another number of
 times than its path must, fails the run.  The last
@@ -253,6 +277,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import importlib
 import json
@@ -265,7 +290,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire", "async", "window", "obs")
+          "wire", "async", "window", "obs", "gossip")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -3228,9 +3253,9 @@ SWEEP_YAML = os.path.join(TUNED, "fedavg_cifar10_1000clients.yaml")
 LOCAL20_YAML = os.path.join(TUNED, "local20_cnn_fashion_mnist.yaml")
 RESNET34_YAML = os.path.join(TUNED, "fedavg_cifar100_resnet34.yaml")
 SWEEP_ROUNDS = 2
-# One dispatch of 5 rounds: the file's rounds_per_dispatch (10) cut to 5
+# One dispatch of 3 rounds: the file's rounds_per_dispatch (10) cut to 3
 # to keep the whole script near half its time limit.
-RESNET34_ROUNDS = 5
+RESNET34_ROUNDS = 3
 # client_block values the resnet34 phase tries, in order: the file's
 # default first; a smaller one only when the larger runs out of memory.
 RESNET34_BLOCKS = (50, 25)
@@ -3451,13 +3476,19 @@ class _PathAudit:
 
         def rec():
             # On NaN-free columns the midpoint median is the 0.5 quantile
-            # with linear interpolation: one PyTorch call.
+            # with linear interpolation: one PyTorch call, where it takes
+            # the operand.
             xf = x.float()
+            try:
+                lib = timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0]
+            except RuntimeError as exc:
+                log(f"{key}: torch.quantile refuses {tuple(x.shape)}: "
+                    f"{str(exc).splitlines()[0]}; library_ms null")
+                lib = None
             return _record(
                 key, SELECT_SRC, SELECT_TPU["column_median"],
                 timed(lambda: orig(x), REPS)[0], plain_ms,
-                rows * d * x.element_size() + d * 4, rows * d, err,
-                timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0])
+                rows * d * x.element_size() + d * 4, rows * d, err, lib)
 
         self._keep(key, err, rec)
 
@@ -4255,11 +4286,17 @@ class _WireAudit:
         self.agg_err[name] = max(self.agg_err.get(name, 0.0), err)
 
 
+#: A trial's rounds/s after its warm-up round (None with one round) and
+#: the text that says it.
+_Rate = collections.namedtuple("_Rate", "rps text")
+
+
 def _wire_trial(what, overrides, rounds):
     """Build, run ``rounds`` rounds (the last evaluating), stop: ``(rows,
-    launches, maps, peak bytes, setup s, rounds/s over rounds 2..)``; the
-    audits' seconds are taken out of the rounds/s, their allocations out
-    of the peak."""
+    launches, maps, peak bytes, setup s, rate)``, ``rate`` the text of the
+    rounds/s over rounds 2.., or of the one round's seconds when there is
+    only one; the audits' seconds are taken out of both, their
+    allocations out of the peak."""
     import torch
 
     from blades_tpu_torch.algorithms import FedavgConfig
@@ -4287,11 +4324,15 @@ def _wire_trial(what, overrides, rounds):
           and math.isfinite(rows[-1]["test_acc"]),
           f"{what}: train losses {losses}, test_acc "
           f"{rows[-1].get('test_acc')}")
-    rps = float("nan")
+    step = [r["timers"]["training_step"]["total_s"] for r in rows]
     if rounds > 1:  # round 1 warms up; the last one also evaluates
-        step = [r["timers"]["training_step"]["total_s"] for r in rows]
         rps = (rounds - 1) / (step[-1] - step[0] - sum(audit_s[1:]))
-    return rows, launches, maps, _peak(), setup, rps
+        text = f"{rps:.4f} rounds/s over rounds 2-{rounds}"
+    else:
+        rps = None
+        text = (f"its one round {step[0] - audit_s[0]:.3f} s (a first "
+                "round, warm-up included)")
+    return rows, launches, maps, _peak(), setup, _Rate(rps, text)
 
 
 def _wire_full(card):
@@ -4303,7 +4344,7 @@ def _wire_full(card):
         what = f"wire ResNet-10 x 1000 ALIE {agg} quant int8"
         with _WireAudit() as audit, _PathAudit(
                 "select", "column_median:wire") as sel:
-            rows, launches, maps, peak, setup, rps = _wire_trial(
+            rows, launches, maps, peak, setup, rate = _wire_trial(
                 what, {**WIRE_TRIAL, "server_config": {
                     "lr": 0.5, "aggregator": {"type": agg}}}, rounds)
         bn = {k: rounds * WIRE_BN_ROUND for k in BN_TPU}
@@ -4339,8 +4380,8 @@ def _wire_full(card):
               "held against decode-then-f32")
         records.update(audit.records)
         dq = [r["dequant_rows"] for r in rows]
-        log(f"{what}: setup {setup:.1f} s, {rps:.4f} rounds/s over rounds "
-            f"2-{rounds} (audits out), train_loss "
+        log(f"{what}: setup {setup:.1f} s, {rate.text} (audits out), "
+            "train_loss "
             f"{[r['train_loss'] for r in rows]}, test_acc "
             f"{rows[-1]['test_acc']:.4f}; agg_domain_bits "
             f"{rows[-1]['agg_domain_bits']}, comm_bytes_up "
@@ -4366,9 +4407,9 @@ def _wire_ab(card):
             "server_config": {"lr": 0.5, "aggregator": {"type": "Multikrum"}}}
     out = {}
     for domain in ("wire", "f32", "f32", "wire"):
-        rows, _, _, peak, _, rps = _wire_trial(
+        rows, _, _, peak, _, rate = _wire_trial(
             f"wire A/B {domain}", {**base, "agg_domain": domain}, 3)
-        out.setdefault(domain, []).append((rps, peak))
+        out.setdefault(domain, []).append((rate.rps, peak))
     log(f"wire A/B: ResNet-10 x {n} ({n // 4} ALIE), Multikrum, quant int8, "
         f"rounds/s over rounds 2-3 (in turns wire, f32, f32, wire): wire "
         f"{[round(r, 4) for r, _ in out['wire']]}, f32 "
@@ -4442,7 +4483,7 @@ def _wire_faults(card):
     compacted, ``select:radix`` on them)."""
     key = "column_median:faults"
     with _PathAudit("select", key) as sel:
-        rows, launches, maps, peak, setup, rps = _wire_trial(
+        rows, launches, maps, peak, setup, rate = _wire_trial(
             "wire faults", {**DENSE_TRIAL, "adversary_config":
                             {"type": "ALIE"}, "health_check": True,
                             "fault_config": WIRE_FAULTS}, 3)
@@ -4462,7 +4503,7 @@ def _wire_faults(card):
         f"{[r['staleness_mean'] for r in rows]}; selects on "
         f"{sorted(sel.shapes)}, each bit-exact against the plain version; "
         f"train_loss {[r['train_loss'] for r in rows]}, test_acc "
-        f"{rows[-1]['test_acc']:.4f}; {rps:.4f} rounds/s, peak "
+        f"{rows[-1]['test_acc']:.4f}; {rate.text}, peak "
         f"{peak / 2**30:.2f} GiB [{card}]")
     return {key: launches["column_median"]}, sel.records
 
@@ -4598,10 +4639,20 @@ def _same_state(a, b, what):
     check(a[2] == b[2], f"{what}: host state {a[2]} vs {b[2]}")
 
 
+def _warm_rate(secs, unit):
+    """The first round's (or cycle's) seconds on their own, and the rate
+    over the rest (PERF.md's rounds/s is taken after a warm-up round)."""
+    text = f"first {unit} {secs[0]:.3f} s"
+    if len(secs) > 1:
+        text += (f", then {(len(secs) - 1) / sum(secs[1:]):.4f} {unit}s/s "
+                 f"over {unit}s 2-{len(secs)}")
+    return text
+
+
 def _async_log(what, rows, secs, peak, card):
-    cps = len(secs) / sum(secs)
-    log(f"async {what}: {cps:.4f} cycles/s ({[round(t, 3) for t in secs]} s "
-        f"a cycle, audits out), updates_per_sec "
+    log(f"async {what}: {_warm_rate(secs, 'cycle')} "
+        f"({[round(t, 3) for t in secs]} s a cycle, audits out), "
+        "updates_per_sec "
         f"{[r['updates_per_sec'] for r in rows]} (audits in), ticks "
         f"{[r['tick'] for r in rows]}, staleness_hist "
         f"{[r['staleness_hist'] for r in rows]}, staleness_mean "
@@ -4784,7 +4835,7 @@ def _window_driver(overrides):
 
 
 def _window_log(what, rows, secs, peak, card):
-    log(f"window {what}: {len(secs) / sum(secs):.4f} rounds/s "
+    log(f"window {what}: {_warm_rate(secs, 'round')} "
         f"({[round(t, 3) for t in secs]} s a round, audits out); "
         f"state_stage_ms {[r['state_stage_ms'] for r in rows]}, "
         f"state_bytes_staged {[r['state_bytes_staged'] for r in rows]}, "
@@ -5293,6 +5344,412 @@ def phase_obs(card):
     return counts, records
 
 
+# The gossip phase: bench.py's gossip protocol (:1149-1166: ALIE on a
+# quarter of the nodes, Median, server lr 0.5, client lr 0.1, batch 32, one
+# local step) at ResNet-10's width, 64 nodes of CIFAR-10 shapes, f32,
+# blocks of 32 lanes, each from its own replica.
+GOSSIP_N = 64
+GOSSIP_BLOCK = 32
+GOSSIP_TRIAL = {
+    "dataset_config": {"type": "cifar10", "num_clients": GOSSIP_N,
+                       "train_bs": 32, "seed": 122},
+    "global_model": "resnet10", "execution": "gossip",
+    "client_block": GOSSIP_BLOCK,
+    "topology_config": {"graph": "kregular", "k": 4,
+                        "mixing": "metropolis"},
+    "num_malicious_clients": GOSSIP_N // 4,
+    "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 0.5, "aggregator": {"type": "Median"}},
+    "client_config": {"lr": 0.1, "num_batch_per_round": 1},
+    "evaluation_interval": 0, "evaluation_num_samples": 10,
+}
+GOSSIP_ROUNDS = 3  # headline rounds timed after one warm-up round
+# BN-backward launches of each kernel a round: 64 lanes in blocks of 32,
+# 12 BN layers, one local step.
+GOSSIP_BN_ROUND = GOSSIP_N // GOSSIP_BLOCK * 12
+GOSSIP_DROPOUT = {"dropout_rate": 0.2, "seed": 11}
+GOSSIP_AB_N = 32  # bench.py's A/B (:1196-1216): the CNN, 32 nodes
+GOSSIP_AB_ROUNDS = 3
+GOSSIP_ARMS = (("centralized", {"execution": "dense",
+                                "topology_config": None}),
+               ("ring", {"topology_config": {"graph": "ring"}}),
+               ("kregular", {"topology_config": {"graph": "kregular",
+                                                 "k": 4}}))
+GOSSIP_KEY = {"select": "column_median:gossip"}
+
+
+def _gossip_driver(overrides):
+    from blades_tpu_torch.algorithms import FedavgConfig
+
+    return FedavgConfig().update_from_dict({**GOSSIP_TRIAL,
+                                            **overrides}).build()
+
+
+def _gossip_log(what, rows, secs, peak, card):
+    log(f"gossip {what}: {_warm_rate(secs, 'round')} "
+        f"({[round(t, 3) for t in secs]} s a round, audits out); "
+        f"train_loss {[r['train_loss'] for r in rows]}, agg_norm "
+        f"{[r['agg_norm'] for r in rows]}, consensus_dist "
+        f"{[r['consensus_dist'] for r in rows]}, num_partitioned_nodes "
+        f"{[r['num_partitioned_nodes'] for r in rows]}, gossip_ici_bytes "
+        f"{[r['gossip_ici_bytes'] for r in rows]}, spectral_gap "
+        f"{rows[-1]['spectral_gap']:.6f}; peak {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["agg_norm"])
+              and math.isfinite(r["consensus_dist"]) for r in rows),
+          f"gossip {what}: non-finite rows")
+
+
+def _gossip_launches(rounds, selects_per_round=1):
+    want = {k: rounds * GOSSIP_BN_ROUND for k in BN_TPU}
+    if selects_per_round:
+        want["column_median"] = rounds * selects_per_round
+    return want
+
+
+def _gossip_headline(card):
+    """(a) 64 nodes on kregular k = 4 (k1 = 5), Metropolis, ALIE on 16,
+    Median: one warm-up round and 3 timed; one ``select:radix`` launch a
+    round over the (5, 64 * d) slot-major matrices; the recorder's events
+    against ``gossip_round_volumes``."""
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel.comm_model import (
+        gossip_round_volumes,
+        gossip_wire_bytes,
+    )
+
+    _reset_peak()
+    algo = _gossip_driver({})
+    _cuda.reset_launches()
+    rows, secs = _cycles(algo, 1 + GOSSIP_ROUNDS)
+    launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+    ev = algo.evaluate()
+    peak = _peak()
+    rec, d = algo._gossip_recorder, algo._num_params
+    vols = gossip_round_volumes(GOSSIP_N, d, (1,))
+    model = sorted((v.label, v.kind, v.payload_bytes, k) for v, k in vols)
+    check(sorted(rec.ici_events) == model
+          and rec.ici_bytes == gossip_wire_bytes(vols) == 0
+          and all(r["gossip_ici_bytes"] == 0 for r in rows),
+          f"gossip: recorder {rec.ici_events} ({rec.ici_bytes} B) against "
+          f"the comm model {model}")
+    stacks = {tuple(v.shape[:1]) for v in algo.state.server.params.values()}
+    algo.stop()
+    rounds = 1 + GOSSIP_ROUNDS
+    want = _gossip_launches(rounds)
+    check(launches == want
+          and maps.get(("column_median", "select:radix")) == rounds
+          and stacks == {(GOSSIP_N,)} and math.isfinite(ev["test_acc"]),
+          f"gossip headline: launches {launches} by route {maps}, expected "
+          f"{want}; stacks {stacks}; test_acc {ev['test_acc']}")
+    _gossip_log(f"(a) ResNet-10 x {GOSSIP_N} kregular k=4 metropolis, ALIE "
+                f"on {GOSSIP_N // 4}, Median, f32", rows, secs, peak, card)
+    log(f"gossip (a): d = {d}, select:radix launches per round "
+        f"{launches.get('column_median', 0) / rounds:g} on the (5, "
+        f"{GOSSIP_N * d}) "
+        f"slot-major view; recorder events {[e[0] for e in rec.ici_events]} "
+        f"each on a ring of 1, reconciled with gossip_round_volumes both "
+        f"ways, gossip_ici_bytes 0; node 0's test_acc {ev['test_acc']:.4f} "
+        f"after {rounds} rounds")
+    return launches
+
+
+class _EclipseAudit:
+    """Wraps ``GossipStep._neighborhoods``: every slot of every receiver's
+    matrix held, bit for bit, against the row it must hold -- the forged
+    row of a malicious sender adjacent to the victim in the victim's
+    neighborhood, the sender's clean row everywhere else -- derived from
+    the graph and the malicious mask, not from the step's tables.  Set
+    aside (:func:`_aside`)."""
+
+    def __init__(self, victim, n, malicious):
+        self.victim, self.n, self.mal = victim, n, malicious
+        self.calls, self.forged_slots = 0, []
+
+    def __enter__(self):
+        from blades_tpu_torch.topology import gossip as G
+
+        self._cls = G.GossipStep
+        self._orig = orig = G.GossipStep._neighborhoods
+        audit = self
+
+        def wrapped(step, forged, clean, nbr, live):
+            mat = orig(step, forged, clean, nbr, live)
+            with _aside():
+                audit._check(step, mat, forged, clean, nbr)
+            audit.calls += 1
+            return mat
+
+        G.GossipStep._neighborhoods = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._neighborhoods = self._orig
+
+    def _check(self, step, mat, forged, clean, nbr):
+        import numpy as np
+        import torch
+
+        adj = step.topo.adjacency()
+        dev = mat.device
+        hits = 0
+        for s in range(mat.shape[0]):
+            j = nbr[:, s]
+            want = clean.index_select(0, torch.as_tensor(j, device=dev))
+            bad = (np.arange(self.n) == self.victim) & adj[j, self.victim] \
+                & self.mal[j]
+            for i in np.flatnonzero(bad):
+                want[i] = forged[j[i]]
+                check(not torch.equal(forged[j[i]], clean[j[i]]),
+                      f"gossip eclipse: sender {j[i]}'s forged row is its "
+                      "clean row")
+            hits += int(bad.sum())
+            check(torch.equal(mat[s], want),
+                  f"gossip eclipse: slot {s} of the neighborhood matrices "
+                  "is not the victim-only poisoning")
+            del want
+        self.forged_slots.append(hits)
+
+
+def _gossip_eclipse(card):
+    """(b) the ring (k1 = 3) under TopologyAttack wrapping ALIE with
+    eclipse_target = 0, 2 rounds: only the victim's matrix holds forged
+    rows, audited slot by slot."""
+    import numpy as np
+
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    algo = _gossip_driver({
+        "topology_config": {"graph": "ring"},
+        "adversary_config": {"type": "TopologyAttack", "base": "ALIE",
+                             "eclipse_target": 0}})
+    _cuda.reset_launches()
+    with _EclipseAudit(0, GOSSIP_N, np.asarray(algo._malicious_host)) as ecl:
+        rows, secs = _cycles(algo, 2)
+    launches = dict(_cuda.LAUNCHES)
+    peak = _peak()
+    algo.stop()
+    want = _gossip_launches(2)
+    check(launches == want and ecl.calls == 2
+          and ecl.forged_slots == [1, 1],
+          f"gossip eclipse: launches {launches}, expected {want}; "
+          f"{ecl.calls} matrices audited, forged slots {ecl.forged_slots}")
+    _gossip_log("(b) ring, TopologyAttack(ALIE) eclipsing node 0", rows,
+                secs, peak, card)
+    log(f"gossip (b): every slot of the {GOSSIP_N} receivers' (3, d) "
+        "matrices held bit for bit against the eclipse: node 0's slot of "
+        "sender 1 "
+        "(malicious, adjacent) forged, every other slot clean, both rounds")
+    return launches
+
+
+def _gossip_multikrum(card):
+    """(c) Multikrum on kregular k = 4 with one malicious node (f = 1: the
+    breakdown gate refuses f = 2 on k1 = 5), 2 rounds on the batched
+    ``k1 x k1`` products; no column select."""
+    from blades_tpu_torch.ops import _cuda
+
+    _reset_peak()
+    algo = _gossip_driver({"num_malicious_clients": 1, "server_config": {
+        "lr": 0.5, "aggregator": {"type": "Multikrum"}}})
+    _cuda.reset_launches()
+    rows, secs = _cycles(algo, 2)
+    launches = dict(_cuda.LAUNCHES)
+    peak = _peak()
+    algo.stop()
+    want = _gossip_launches(2, selects_per_round=0)
+    check(launches == want, f"gossip Multikrum: launches {launches}, "
+          f"expected {want}")
+    _gossip_log("(c) kregular k=4, Multikrum(f=1), ALIE on 1", rows, secs,
+                peak, card)
+    return launches
+
+
+def _gossip_dropout(card, work, out_dir):
+    """(d) the headline under edge dropout 0.2: the trial through
+    ``train.main(["file", ...])`` for 4 rounds, preempted after round 4
+    so the flight recorder dumps its ring; 2 rounds in a driver, a
+    checkpoint, a fresh driver restored from it and 2 more, equal to the
+    trial's rounds 3-4 bit for bit; then ``python -m
+    blades_tpu_torch.tools.replay_round`` on the dump in its own process
+    and the port's ``validate_metrics`` on the trial's files."""
+    import torch
+
+    import blades_tpu_torch
+    from blades_tpu_torch import train
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.tools import validate_metrics
+
+    cfg = {**GOSSIP_TRIAL, "fault_config": GOSSIP_DROPOUT}
+    path = os.path.join(out_dir, "gossip_dropout.yaml")
+    with open(path, "w") as fh:
+        json.dump({"gossip_dropout": {"run": "FEDAVG", "stop": {
+            "training_iteration": 4}, "config": cfg}}, fh)
+    storage = os.path.join(out_dir, "trials")
+    _reset_peak()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    a0 = AUDIT["s"]
+    rc = train.main(["file", path, "--storage-path", storage,
+                     "--preempt-after", "4", "--flightrec-rounds", "4"])
+    trial_s = time.perf_counter() - t0 - (AUDIT["s"] - a0)
+    rows = _rows(storage, "gossip_dropout", 0)
+    check(rc == 0 and len(rows) == 4, f"gossip dropout trial: rc {rc}, "
+          f"{len(rows)} rows")
+    first = _gossip_driver({"fault_config": GOSSIP_DROPOUT})
+    _cycles(first, 2)
+    first.save_checkpoint(os.path.join(work, "ckpt"))
+    first.stop()
+    resumed = _gossip_driver({"fault_config": GOSSIP_DROPOUT})
+    resumed.load_checkpoint(os.path.join(work, "ckpt"))
+    again, secs = _cycles(resumed, 2)
+    resumed.stop()
+    launches = dict(_cuda.LAUNCHES)
+    peak = _peak()
+    for a, b in zip(again, rows[2:]):
+        for k in ("train_loss", "agg_norm", "update_norm_mean",
+                  "consensus_dist", "num_partitioned_nodes"):
+            check(a[k] == b[k], f"gossip resume: round "
+                  f"{a['training_iteration']} {k} {a[k]!r} vs the straight "
+                  f"trial's {b[k]!r}")
+    parts = [r["num_partitioned_nodes"] for r in rows]
+    check(any(p > 0 for p in parts), f"gossip dropout: partitioned {parts}")
+    want = _gossip_launches(8)
+    check(launches == want, f"gossip dropout: launches {launches}, "
+          f"expected {want}")
+    tdir = os.path.join(storage, "gossip_dropout", "gossip_dropout_00000")
+    dump = os.path.join(tdir, "flightrec.json")
+    torch.cuda.empty_cache()
+    port = os.path.dirname(os.path.dirname(os.path.abspath(
+        blades_tpu_torch.__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (port, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    rep = subprocess.run(
+        [sys.executable, "-m", "blades_tpu_torch.tools.replay_round", dump],
+        cwd=port, env=env, capture_output=True, text=True, timeout=600)
+    replay_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "replay.txt"), "w") as fh:
+        fh.write(rep.stdout + rep.stderr)
+    check(rep.returncode == 0 and "bit-identical" in rep.stdout,
+          f"gossip replay: exit {rep.returncode}: {rep.stdout[-2000:]} "
+          f"{rep.stderr[-2000:]}")
+    valid = [validate_metrics.main([os.path.join(tdir, "metrics.jsonl")]),
+             validate_metrics.main(["--flightrec", dump])]
+    check(valid == [0, 0], f"gossip validate_metrics: exit codes {valid}")
+    _gossip_log("(d) kregular k=4 under edge dropout 0.2, resumed rounds "
+                "3-4", again, secs, peak, card)
+    log(f"gossip (d): the file trial's 4 rounds in {trial_s:.1f} s "
+        f"(audits out), num_partitioned_nodes {parts}; killed after round "
+        f"2 and resumed: rounds 3-4 equal to the trial's bit for bit "
+        f"(train_loss {[r['train_loss'] for r in again]}); replay_round of "
+        f"round {rows[-1]['training_iteration']} exited 0 in {replay_s:.1f} "
+        f"s in its own process ({rep.stdout.strip().splitlines()[-1]}); "
+        "validate_metrics exited 0 on metrics.jsonl and flightrec.json")
+    return launches
+
+
+def _gossip_ab(card):
+    """(e) bench.py's A/B on the card: 32 nodes, the CNN on CIFAR-10
+    shapes, centralized dense against ring against kregular, a warm-up
+    round each, then 3 rounds each in turns."""
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    base = {**GOSSIP_TRIAL, "global_model": "cnn",
+            "dataset_config": {**GOSSIP_TRIAL["dataset_config"],
+                               "num_clients": GOSSIP_AB_N},
+            "num_malicious_clients": GOSSIP_AB_N // 4}
+    _reset_peak()
+    algos = {name: FedavgConfig().update_from_dict({**base, **o}).build()
+             for name, o in GOSSIP_ARMS}
+    _cuda.reset_launches()
+    secs = {name: [] for name in algos}
+    rows = {name: [] for name in algos}
+    for _ in range(1 + GOSSIP_AB_ROUNDS):
+        for name, algo in algos.items():
+            r, t = _cycles(algo, 1)
+            rows[name] += r
+            secs[name] += t
+    launches = dict(_cuda.LAUNCHES)
+    peak = _peak()
+    d = algos["ring"]._num_params
+    for algo in algos.values():
+        algo.stop()
+    rounds = 1 + GOSSIP_AB_ROUNDS
+    want = {"column_median": len(GOSSIP_ARMS) * rounds}
+    check(launches == want, f"gossip A/B: launches {launches}, expected "
+          f"{want}")
+    rps = {n: GOSSIP_AB_ROUNDS / sum(s[1:]) for n, s in secs.items()}
+    for name in algos:
+        check(all(math.isfinite(r["train_loss"]) for r in rows[name]),
+              f"gossip A/B {name}: non-finite losses")
+    log(f"gossip (e) A/B: CNN (d = {d}) x {GOSSIP_AB_N} nodes, ALIE on "
+        f"{GOSSIP_AB_N // 4}, Median, rounds/s over rounds 2-{rounds} in "
+        f"turns (first rounds "
+        f"{ {n: round(s[0], 3) for n, s in secs.items()} } s): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in rps.items())
+        + f"; spectral_gap ring {rows['ring'][-1]['spectral_gap']:.6f}, "
+        f"kregular {rows['kregular'][-1]['spectral_gap']:.6f}; peak "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    return launches
+
+
+def phase_gossip(card):
+    """Decentralized gossip through ``FedavgConfig`` -> ``Fedavg.train()``
+    and ``train.main``: (a)-(d) at ResNet-10 x 64 nodes, (e) bench.py's
+    A/B.  Every select (``select:radix`` over the slot-major matrices of
+    all nodes, once a Median round) and every BN launch (per-lane
+    parameters, 24 of each kernel a round) is held against the plain
+    versions; cuDNN runs deterministic algorithms here, so resumed rounds
+    and the replay compare bit for bit."""
+    import torch
+
+    torch.cuda.empty_cache()
+    work = _work_dir("gossip")
+    out_dir = os.path.join(HERE, "chiprun_out", "gossip")
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    resnet = {}
+    try:
+        with _shared_datasets(), \
+                _PathAudit("select", lambda: GOSSIP_KEY["select"]) as sel:
+            GOSSIP_KEY["select"] = "column_median:gossip"
+            with _BnAudit(key="gossip") as bn_audit:
+                for part in (_gossip_headline(card), _gossip_eclipse(card),
+                             _gossip_multikrum(card),
+                             _gossip_dropout(card, work, out_dir)):
+                    for k, v in part.items():
+                        resnet[k] = resnet.get(k, 0) + v
+            GOSSIP_KEY["select"] = "column_median:gossip-ab"
+            ab = _gossip_ab(card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+    rounds = (1 + GOSSIP_ROUNDS) + 2 + 2 + 8
+    check(resnet == {"column_median": rounds - 2,
+                     **{k: rounds * GOSSIP_BN_ROUND for k in BN_TPU}}
+          and sel.calls == rounds - 2 + ab["column_median"]
+          and bn_audit.calls == 2 * rounds * GOSSIP_BN_ROUND,
+          f"gossip: launches {resnet}, {sel.calls} selects and "
+          f"{bn_audit.calls} BN launches audited over {rounds} rounds")
+    log(f"gossip: selects on {sorted(sel.shapes)}, each bit-exact against "
+        f"the plain version; {bn_audit.calls} BN launches with per-lane "
+        f"parameters audited (dx bit-exact, sums max err "
+        f"{bn_audit.err:.3g}, layouts {len(bn_audit.layouts)}) [{card}]")
+    log(f"gossip BN layouts: {_bn_layouts(bn_audit)}")
+    counts = {"column_median:gossip": resnet["column_median"],
+              "column_median:gossip-ab": ab["column_median"],
+              **{f"{k}:gossip": resnet[k] for k in BN_TPU}}
+    return counts, {**sel.records, **bn_audit.records(rounds)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5360,7 +5817,8 @@ def main(argv=None) -> int:
         for name, fn in (("chunked", phase_chunked), ("sweep", phase_sweep),
                          ("resnet34", phase_resnet34), ("cct", phase_cct),
                          ("wire", phase_wire), ("async", phase_async),
-                         ("window", phase_window), ("obs", phase_obs)):
+                         ("window", phase_window), ("obs", phase_obs),
+                         ("gossip", phase_gossip)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

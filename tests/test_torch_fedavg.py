@@ -134,8 +134,8 @@ def test_client_momentum_runs_streamed():
     ({"num_devices": 4}, NotImplementedError),
     ({"client_packing": 2}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
-    ({"adversary_config": {"type": "TopologyAttack"}}, NotImplementedError),
-    ({"topology_config": {"graph": "ring"}}, NotImplementedError),
+    ({"mesh_shape": [4, 2]}, NotImplementedError),
+    ({"preagg": "nnm"}, NotImplementedError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),
 ])

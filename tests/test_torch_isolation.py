@@ -56,7 +56,15 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/obs/ledger.py",
             "blades_tpu_torch/obs/forensics.py",
             "blades_tpu_torch/control/controller.py",
-            "blades_tpu_torch/control/policy.py"} <= names
+            "blades_tpu_torch/control/policy.py",
+            "blades_tpu_torch/topology/graph.py",
+            "blades_tpu_torch/topology/gossip.py",
+            "blades_tpu_torch/adversaries/topology_attacks.py",
+            "blades_tpu_torch/parallel/comm_model.py",
+            "blades_tpu_torch/tools/replay_round.py",
+            "blades_tpu_torch/tools/validate_metrics.py",
+            "blades_tpu_torch/tools/ledger_report.py",
+            "blades_tpu_torch/tools/control_report.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -75,7 +83,12 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.arrivals, blades_tpu_torch.state, "
             "blades_tpu_torch.data.store, blades_tpu_torch.data.stream, "
             "blades_tpu_torch.adversaries.campaigns, blades_tpu_torch.obs, "
-            "blades_tpu_torch.control\n"
+            "blades_tpu_torch.control, blades_tpu_torch.topology, "
+            "blades_tpu_torch.parallel.comm_model, "
+            "blades_tpu_torch.tools.replay_round, "
+            "blades_tpu_torch.tools.validate_metrics, "
+            "blades_tpu_torch.tools.ledger_report, "
+            "blades_tpu_torch.tools.control_report\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -101,8 +114,9 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """TopologyAttack and the config fields still out of the port (meshes,
-    the gossip topology, the autotuner) name the later slice; forensics
+    """The config fields still out of the port (meshes, pre-aggregation,
+    the autotuner) name the later slice; TopologyAttack resolves by both
+    of its names now; forensics
     resolves now, refusing the streamed round with the JAX package's
     error; the campaign adversaries resolve; Noise, Lazy and ghost lanes
     on the streamed coordinate-wise round (the chunked finish) run, and
@@ -114,13 +128,14 @@ def test_out_of_slice_configs_name_the_later_slice():
         LazyAdversary,
         LazyRampCampaign,
         NoiseAdversary,
+        TopologyAttackAdversary,
         get_adversary,
     )
     from blades_tpu_torch.core import FedRound, Server, TaskSpec
     from blades_tpu_torch.parallel.streamed import streamed_step
 
     for field, value in (("num_devices", 4),
-                         ("topology_config", {"graph": "ring"}),
+                         ("preagg", "nnm"),
                          ("autotune", True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             FedavgConfig().update_from_dict({field: value})
@@ -131,8 +146,8 @@ def test_out_of_slice_configs_name_the_later_slice():
             {"forensics": True, "execution": "streamed"}).validate()
     task = TaskSpec(model="mlp", input_shape=(4, 4, 1)).build()
     for name in ("TopologyAttack", "TopologyAttackAdversary"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_adversary(name)
+        assert isinstance(get_adversary(name, num_clients=6),
+                          TopologyAttackAdversary)
     assert isinstance(get_adversary("DiurnalALIE"), DiurnalALIECampaign)
     assert isinstance(get_adversary("LazyRampCampaign"), LazyRampCampaign)
     assert isinstance(get_adversary("Noise"), NoiseAdversary)

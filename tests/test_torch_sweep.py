@@ -344,10 +344,10 @@ def test_flags_the_port_lacks_are_refused(tmp_path):
         train.main(["file", str(grid), "--device", "cpu", "--no-lanes"])
     with pytest.raises(SystemExit):
         train.main(["run", "FEDAVG", "--device", "cpu", "--execution",
-                    "gossip"])
+                    "hier"])
     with pytest.raises(SystemExit):
-        train.main(["run", "FEDAVG", "--device", "cpu", "--topology",
-                    "ring"])
+        train.main(["run", "FEDAVG", "--device", "cpu", "--mesh-shape",
+                    "4x2"])
 
 
 def test_kill_and_resume_writes_the_straight_runs_rows(tmp_path):
