@@ -8,12 +8,14 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (meshes, lane packing, the autotuner, ...) raises
+have yet (meshes, the autotuner, ...) raises
 ``NotImplementedError`` naming it when it is set to anything but the
 reference's default; an unknown key raises ``KeyError``.  ``validate()``
 refuses the codec, fault, wire-domain, buffered-async, participation-
-window, data-store, forensics, ledger, control and gossip combinations
-the reference refuses, with its reasons.
+window, data-store, forensics, ledger, control, gossip and client-packing
+combinations the reference refuses, with its reasons, and
+``get_fed_round()`` resolves the ``client_packing`` request
+(:func:`~blades_tpu_torch.parallel.packed.resolve_client_packing`).
 """
 
 from __future__ import annotations
@@ -86,6 +88,10 @@ _FIELDS = {
     # num_nodes is num_clients) or a bare graph name; None runs the
     # TopologyConfig defaults (ring).  Set via .topology(...).
     "topology_config": None,
+    # Client lane-packing: "off" | "auto" (pack 2 clients per lane of
+    # grouped kernels when eligible, else a loud fallback) | an int P >= 2
+    # (forced).  Updates are unpacked before anything reads them.
+    "client_packing": "off",
 }
 
 # The reference's other fields, with its defaults: setting one to another
@@ -93,7 +99,7 @@ _FIELDS = {
 _LATER = {
     "donate_buffers": True, "mxu_finish": None,
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
-    "client_packing": "off", "num_devices": None, "mesh_shape": None,
+    "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1,
 }
 _LATER_EXECUTION = ("dsharded", "hier")
@@ -142,6 +148,9 @@ class FedavgConfig:
         # Fields validate() inferred from the dataset, reset when the
         # dataset changes.
         self._inferred: set = set()
+        # get_fed_round()'s packing decision (requested / pack_factor /
+        # packed_lanes / fallback), which sweep summaries carry.
+        self._packing_decision = None
 
     # -- setters -------------------------------------------------------------
 
@@ -207,8 +216,11 @@ class FedavgConfig:
     def resources(self, *, execution=None, client_block=None, d_chunk=None,
                   update_dtype=None, compute_dtype=None, state_store=None,
                   window=None, state_dir=None, data_store=None,
-                  data_dir=None, eval_chunk_clients=None):
-        """``window`` is the participation window's cohort size (0 =
+                  data_dir=None, eval_chunk_clients=None,
+                  client_packing=None):
+        """``client_packing`` packs clients into lanes of grouped kernels
+        (``"off"``, ``"auto"`` or an int P >= 2); ``window`` is the
+        participation window's cohort size (0 =
         stateless clients), ``state_store`` where the off-cohort state
         rows live (``resident`` | ``host`` | ``disk``, in ``state_dir``);
         ``data_store`` (``resident`` | ``memmap``, in ``data_dir``) the
@@ -221,7 +233,8 @@ class FedavgConfig:
                          compute_dtype=compute_dtype, state_store=state_store,
                          state_dir=state_dir, data_store=data_store,
                          data_dir=data_dir,
-                         eval_chunk_clients=eval_chunk_clients)
+                         eval_chunk_clients=eval_chunk_clients,
+                         client_packing=client_packing)
 
     def arrivals(self, *, rate=None, rate_schedule=None, slow_fraction=None,
                  slow_factor=None, agg_every=None, buffer_capacity=None,
@@ -409,6 +422,7 @@ class FedavgConfig:
         self._validate_async()
         self._validate_window()
         self._validate_observability()
+        self._validate_packing()
         if getattr(adv, "requires_virtual_time", False) \
                 and self.execution != "async":
             raise ValueError(
@@ -444,6 +458,8 @@ class FedavgConfig:
                  ".communication(codec=None)"),
                 (self.agg_domain != "f32", "wire-domain aggregation",
                  ".communication(agg_domain='f32')"),
+                (self.client_packing not in ("off", None),
+                 "client lane-packing", ".resources(client_packing='off')"),
                 (self.state_window is not None,
                  "the participation-window store", ".resources(window=None)"),
                 (self.state_store != "resident", "out-of-core client state",
@@ -622,6 +638,8 @@ class FedavgConfig:
                  ".communication(codec=None)"),
                 (self.agg_domain != "f32", "wire-domain aggregation",
                  ".communication(agg_domain='f32')"),
+                (self.client_packing not in ("off", None),
+                 "client lane-packing", ".resources(client_packing='off')"),
                 (int(self.rounds_per_dispatch or 1) != 1,
                  "rounds_per_dispatch > 1", "rounds_per_dispatch=1"),
                 (self.chained_dispatch, "chained_dispatch",
@@ -643,6 +661,36 @@ class FedavgConfig:
                 "(staleness is first-class in the arrival model); set "
                 "num_stragglers=0 -- dropout and corruption compose with "
                 "async arrivals as-is")
+
+    def _validate_packing(self) -> None:
+        """The reference's checks of a forced ``client_packing`` int, with
+        its words; ``get_fed_round()`` resolves the rest against the
+        model."""
+        if self.client_packing in ("off", "auto", None):
+            return
+        try:
+            p = int(self.client_packing)
+        except (TypeError, ValueError):
+            raise ValueError(
+                "client_packing must be 'off', 'auto' or an int >= 2, "
+                f"got {self.client_packing!r}")
+        if p < 2:
+            raise ValueError(f"client_packing int must be >= 2, got {p}")
+        if self.num_clients % p:
+            raise ValueError(
+                f"client_packing={p} does not divide num_clients="
+                f"{self.num_clients}")
+        num_devices = getattr(self, "num_devices", None)
+        if num_devices and num_devices > 1:
+            raise ValueError(
+                "client_packing × num_devices>1 is an unsupported "
+                "pair: the grouped-kernel lanes have no mesh "
+                "formulation — set .resources(num_devices=None), or "
+                ".resources(client_packing='off')")
+        if self.execution in ("streamed", "dsharded"):
+            raise ValueError(
+                "client_packing needs the dense round; execution="
+                f"{self.execution!r} never runs the packed local round")
 
     def _validate_window(self) -> None:
         """The reference's checks of the participation window, the state
@@ -701,6 +749,9 @@ class FedavgConfig:
                     (self.fault_config, "fault injection (the straggler "
                      "ring and participation mask are keyed by lane, not "
                      "registered id)", ".fault_tolerance(faults=None)"),
+                    (self.client_packing not in ("off", None),
+                     "client lane-packing",
+                     ".resources(client_packing='off')"),
                     (self.agg_domain != "f32", "wire-domain aggregation",
                      ".communication(agg_domain='f32')"),
                     (int(self.rounds_per_dispatch or 1) != 1,
@@ -901,7 +952,13 @@ class FedavgConfig:
         return dataclasses.replace(fed_round, task=task)
 
     def get_fed_round(self) -> FedRound:
-        return FedRound(
+        """The round, its ``client_packing`` request resolved against the
+        model (a loud fallback under ``"auto"``, an error for a forced P
+        that cannot run); the decision is kept for the sweep's
+        summaries."""
+        from blades_tpu_torch.parallel.packed import resolve_client_packing
+
+        fr = FedRound(
             task=self.get_task_spec().build(), server=self.get_server(),
             adversary=self.get_adversary(),
             batch_size=self.train_batch_size,
@@ -915,6 +972,11 @@ class FedavgConfig:
             agg_domain=self.agg_domain, agg_d_chunk=self.d_chunk,
             stateless_clients=self.state_window == 0,
             forensics=bool(self.forensics))
+        fr, self._packing_decision = resolve_client_packing(
+            fr, self.client_packing, num_clients=self.num_clients,
+            num_devices=getattr(self, "num_devices", None),
+            execution=self.execution)
+        return fr
 
     def build(self, device=None):
         """Validate, freeze and build the driver on ``device`` (``None`` =

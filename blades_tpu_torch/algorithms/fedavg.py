@@ -35,6 +35,10 @@ replica, and the rows carry ``gossip_ici_bytes``,
 ``num_partitioned_nodes``, ``consensus_dist`` and the graph's
 provenance (``topology``, ``graph_seed``, ``spectral_gap``).
 
+Under client lane-packing (``client_packing``) the rows carry
+``pack_factor`` and ``packed_lanes`` and :attr:`Fedavg.packing_summary`
+the decision; an ``"auto"`` request whose ``execution="auto"`` resolves
+to the streamed round falls back to the unpacked round with a warning.
 Rows of a codec run carry ``comm_bytes_up``, ``codec_bits``,
 ``comm_compression_ratio``, ``agg_domain`` and ``agg_domain_bits``, and in
 the wire domain ``dequant_rows`` and ``hbm_passes``; rows of a fault run
@@ -122,6 +126,33 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _COHORT_KEY = "_cohort"
 
 
+def eval_arrays(cfg, dataset, device, host: bool = False):
+    """The per-client test shards of ``dataset`` on ``device`` (numpy
+    arrays with ``host``), each subsampled to ``cfg``'s
+    ``evaluation_num_samples`` rows (a seeded random subset of the
+    client's true rows, as the reference draws it)."""
+    test = dataset.test
+    tx, ty, tln = test.x, test.y, test.lengths
+    cap = cfg.evaluation_num_samples
+    if cap is not None and cap < tx.shape[1]:
+        rng = np.random.default_rng(cfg.seed ^ 0x5EED)
+        n = tx.shape[0]
+        pick = np.zeros((n, cap), np.int32)
+        for i in range(n):
+            k = int(tln[i])
+            pick[i] = (rng.choice(k, size=cap, replace=False)
+                       if k >= cap else np.arange(cap) % max(k, 1))
+        tx = np.take_along_axis(
+            tx, pick.reshape((n, cap) + (1,) * (tx.ndim - 2)), axis=1)
+        ty = np.take_along_axis(ty, pick, axis=1)
+        tln = np.minimum(tln, cap)
+    if host:
+        return tx, ty, tln
+    return (torch.from_numpy(np.ascontiguousarray(tx)).to(device),
+            torch.from_numpy(np.ascontiguousarray(ty)).long().to(device),
+            torch.from_numpy(np.asarray(tln)).long().to(device))
+
+
 class Fedavg:
     """FedAvg with Byzantine clients and a robust server."""
 
@@ -204,7 +235,8 @@ class Fedavg:
         # evaluates it in chunks.
         self._streaming_eval = (self._data_store is not None
                                 and self._data_store.backend == "memmap")
-        self._test = self._test_arrays(host=self._streaming_eval)
+        self._test = eval_arrays(cfg, self.dataset, dev,
+                                 host=self._streaming_eval)
         self._topology = self._gossip_recorder = None
         if cfg.execution == "async":
             if ooc_async:
@@ -304,40 +336,15 @@ class Fedavg:
             return True
         return self.device.type == "cuda"
 
-    def _test_arrays(self, host: bool = False):
-        """The per-client test shards on the device (on the host with
-        ``host``), each subsampled to ``evaluation_num_samples`` rows (a
-        seeded random subset of the client's true rows, as the reference
-        draws it)."""
-        cfg = self.config
-        test = self.dataset.test
-        tx, ty, tln = test.x, test.y, test.lengths
-        cap = cfg.evaluation_num_samples
-        if cap is not None and cap < tx.shape[1]:
-            rng = np.random.default_rng(cfg.seed ^ 0x5EED)
-            n = tx.shape[0]
-            pick = np.zeros((n, cap), np.int32)
-            for i in range(n):
-                k = int(tln[i])
-                pick[i] = (rng.choice(k, size=cap, replace=False)
-                           if k >= cap else np.arange(cap) % max(k, 1))
-            tx = np.take_along_axis(
-                tx, pick.reshape((n, cap) + (1,) * (tx.ndim - 2)), axis=1)
-            ty = np.take_along_axis(ty, pick, axis=1)
-            tln = np.minimum(tln, cap)
-        if host:
-            return tx, ty, tln
-        dev = self.device
-        return (torch.from_numpy(np.ascontiguousarray(tx)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(ty)).long().to(dev),
-                torch.from_numpy(np.asarray(tln)).long().to(dev))
-
-    def dense_matrix_limit(self) -> int:
-        """The 'auto' execution's budget for the dense f32 matrix."""
-        if self.device.type == "cuda":
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            return int(total * self._DENSE_MATRIX_FRACTION)
-        return self._DENSE_MATRIX_LIMIT
+    @classmethod
+    def dense_matrix_limit(cls, device) -> int:
+        """The 'auto' execution's budget for the dense f32 matrix on
+        ``device`` (the laned matrix's too)."""
+        device = torch.device(device)
+        if device.type == "cuda":
+            total = torch.cuda.get_device_properties(device).total_memory
+            return int(total * cls._DENSE_MATRIX_FRACTION)
+        return cls._DENSE_MATRIX_LIMIT
 
     def _streamed_supported(self) -> bool:
         fr = self.fed_round
@@ -354,12 +361,31 @@ class Fedavg:
             return cfg.execution == "streamed"
         if not self._streamed_supported():
             return False
-        if cfg.num_clients * self._num_params * 4 <= self.dense_matrix_limit():
+        limit = self.dense_matrix_limit(self.device)
+        if cfg.num_clients * self._num_params * 4 <= limit:
             return False
-        if cfg.fault_config or cfg.codec_config or cfg.forensics:
+        if (self.fed_round.packing is not None
+                and cfg.client_packing == "auto"):
+            # resolve_client_packing refuses an explicit streamed request
+            # only; an 'auto' request keeps its loud fallback here.
+            reason = ("'auto' execution resolved to streaming at "
+                      f"num_clients={cfg.num_clients} (dense (n, d) "
+                      "matrix would strain device memory); lane packing "
+                      "needs the dense round")
+            warnings.warn(
+                f"client_packing='auto' falling back to unpacked "
+                f"execution: {reason}", RuntimeWarning, stacklevel=3)
+            self.fed_round = dataclasses.replace(self.fed_round,
+                                                 packing=None)
+            cfg._packing_decision = {
+                "requested": "auto", "pack_factor": 1,
+                "packed_lanes": cfg.num_clients, "fallback": reason}
+        if (cfg.fault_config or cfg.codec_config or cfg.forensics
+                or self.fed_round.packing is not None):
             what = ("fault injection" if cfg.fault_config
                     else "the update codec" if cfg.codec_config
-                    else "defense forensics")
+                    else "defense forensics" if cfg.forensics
+                    else "client lane-packing")
             raise ValueError(
                 f"{what} needs the dense round but 'auto' execution "
                 "resolved to streaming (the dense (n, d) matrix would "
@@ -568,6 +594,12 @@ class Fedavg:
                   "dequant_rows"):
             if k in raw:
                 row[k] = int(raw[k][-1])
+        packing = self.fed_round.packing
+        if packing is not None:
+            # Static per round: clients per lane and the lanes they fill.
+            row["pack_factor"] = int(packing.pack)
+            row["packed_lanes"] = int(self.config.num_clients
+                                      // packing.pack)
         codec = self.fed_round.codec
         if codec is not None:
             # Static per round, from the config alone; under a window only
@@ -691,6 +723,13 @@ class Fedavg:
                 RuntimeWarning, stacklevel=2)
 
     @property
+    def packing_summary(self) -> Optional[Dict]:
+        """The packing decision ``get_fed_round()`` resolved (requested,
+        pack_factor, packed_lanes, fallback reason), or None when packing
+        was not requested; the sweep puts it in the trial's summary."""
+        return getattr(self.config, "_packing_decision", None)
+
+    @property
     def client_ledger(self):
         """The live :class:`~blades_tpu_torch.obs.ledger.ClientLedger`, or
         None (the sweep hands it to the flight recorder)."""
@@ -752,6 +791,10 @@ class Fedavg:
                 "n_clients": int(self._data_store.n_clients)},
             "arrivals": (None if self._async is None
                          else self._async.host_state()),
+            # RoundState is unpacked on every path, so any pack factor
+            # resumes any other; recorded for the audit.
+            "pack_factor": (1 if self.fed_round.packing is None
+                            else int(self.fed_round.packing.pack)),
             "control": (None if self._controller is None else {
                 "watchdog": self._watchdog.state(),
                 "controller": self._controller.state()}),

@@ -44,10 +44,12 @@ through the aggregator's ``diagnose`` (the same aggregate) and the
 metrics gain the detection scalars (``byz_precision`` / ``byz_recall`` /
 ``byz_fpr`` / ``num_flagged``, :mod:`blades_tpu_torch.obs.forensics`),
 ``num_unhealthy`` and the per-lane bundle under ``lane_`` keys
-(``benign_mask``, ``scores``, ``healthy``, ``update_norms``).  Lane
-packing is not in the port yet
-(:class:`~blades_tpu_torch.algorithms.config.FedavgConfig` refuses it);
-the streamed round is
+(``benign_mask``, ``scores``, ``healthy``, ``update_norms``).  Under
+client lane-packing (``packing``, :mod:`blades_tpu_torch.parallel.packed`)
+P clients train in one lane of grouped kernels, and their updates come
+back as the canonical ``(n, d)`` matrix before codecs, faults, DP,
+forging and aggregation; ``RoundState`` stays unpacked.  The streamed
+round is
 :func:`blades_tpu_torch.parallel.streamed.streamed_step`, the
 buffered-async cycle :mod:`blades_tpu_torch.arrivals.cycle`.
 """
@@ -187,6 +189,10 @@ class FedRound:
     # (the same aggregate) and add the detection metrics and the per-lane
     # bundle.  False keeps the round unchanged.
     forensics: bool = False
+    # Client lane-packing (parallel.packed.ClientPacking): P clients per
+    # lane of grouped kernels in the local round alone.  None keeps the
+    # round unchanged.
+    packing: Any = None
 
     def init(self, seed: int, num_clients: int, device=None) -> RoundState:
         """Fresh parameters from ``seed``, the server's initial state, the
@@ -285,33 +291,12 @@ class FedRound:
         dev = next(iter(params.values())).device
         if isinstance(generator, int):
             generator = round_generator(generator, dev)
-        n = bx.shape[0]
         malicious = malicious.to(device=dev, dtype=torch.bool)
-        block = min(self.client_block or n, n)
-        hooks = self.hooks()
-        opt = state.client_opt
-        if self.stateless_clients:
-            # Every lane starts from a fresh optimizer state.
-            opt = self.task.init_client_opt_state(params, n)
-        new_opt = (None if opt is None
-                   else {k: torch.empty_like(v) for k, v in opt.items()})
-        updates = torch.empty((n, FlatLayout(params).d), dtype=torch.float32,
-                              device=dev)
-        losses = torch.empty((n,), dtype=torch.float32, device=dev)
-        for r0 in range(0, n, block):
-            r1 = min(n, r0 + block)
-            _, loss, opt_b = self.task.local_round_batched(
-                params, bx[r0:r1].to(dev), by[r0:r1].to(dev),
-                opt_state=_rows(opt, r0, r1),
-                malicious=malicious[r0:r1], hooks=hooks, generator=generator,
-                dropout_masks=_rows(dropout_masks, r0, r1),
-                aug_draws=_rows(aug_draws, r0, r1), out=updates[r0:r1])
-            losses[r0:r1] = loss
-            if new_opt is not None:
-                for k, v in opt_b.items():
-                    new_opt[k][r0:r1] = v
+        updates, new_opt, losses = self.train_clients(
+            state, bx, by, malicious, generator,
+            dropout_masks=dropout_masks, aug_draws=aug_draws)
         k = self.num_clients
-        if k is not None and k < n:  # ghost (padding) lanes
+        if k is not None and k < bx.shape[0]:  # ghost (padding) lanes
             updates, losses, malicious = updates[:k], losses[:k], malicious[:k]
         residual = state.residual
         if self.codec is not None:
@@ -343,6 +328,61 @@ class FedRound:
                                  straggled=straggled, stale=stale,
                                  residual=residual)
 
+    def train_clients(self, state: RoundState, bx, by, malicious,
+                      generator=None, *, dropout_masks=None, aug_draws=None,
+                      out=None):
+        """The local rounds of every client, block by block: ``(updates
+        (n, d) f32, client_opt, losses (n,))``, the updates written into
+        ``out`` (an ``(n, d)`` view) when given.  Under ``packing`` each
+        block trains in lanes of P clients
+        (:func:`~blades_tpu_torch.parallel.packed.packed_local_round_batched`);
+        its blocks are ``client_block`` rounded down to a multiple of P, so
+        a ``client_block`` that P divides draws what the unpacked round
+        draws."""
+        params = state.server.params
+        dev = next(iter(params.values())).device
+        n = bx.shape[0]
+        block = min(self.client_block or n, n)
+        hooks = self.hooks()
+        pack = None if self.packing is None else self.packing.pack
+        if pack is not None:
+            if hooks is not None:
+                raise ValueError("client lane-packing runs hook-free local "
+                                 "rounds only (resolve_client_packing gates "
+                                 "training hooks out)")
+            from blades_tpu_torch.parallel.packed import (
+                packed_local_round_batched,
+            )
+
+            block = max(pack, block // pack * pack)
+        opt = state.client_opt
+        if self.stateless_clients:
+            # Every lane starts from a fresh optimizer state.
+            opt = self.task.init_client_opt_state(params, n)
+        new_opt = (None if opt is None
+                   else {k: torch.empty_like(v) for k, v in opt.items()})
+        updates = out if out is not None else torch.empty(
+            (n, FlatLayout(params).d), dtype=torch.float32, device=dev)
+        losses = torch.empty((n,), dtype=torch.float32, device=dev)
+        for r0 in range(0, n, block):
+            r1 = min(n, r0 + block)
+            kw = dict(opt_state=_rows(opt, r0, r1), generator=generator,
+                      dropout_masks=_rows(dropout_masks, r0, r1),
+                      aug_draws=_rows(aug_draws, r0, r1), out=updates[r0:r1])
+            if pack is None:
+                _, loss, opt_b = self.task.local_round_batched(
+                    params, bx[r0:r1].to(dev), by[r0:r1].to(dev),
+                    malicious=malicious[r0:r1], hooks=hooks, **kw)
+            else:
+                _, loss, opt_b = packed_local_round_batched(
+                    self.task, pack, params, bx[r0:r1].to(dev),
+                    by[r0:r1].to(dev), **kw)
+            losses[r0:r1] = loss
+            if new_opt is not None:
+                for k, v in opt_b.items():
+                    new_opt[k][r0:r1] = v
+        return updates, new_opt, losses
+
     def finish_dense(self, state: RoundState, updates, client_opt, losses,
                      malicious, generator=None, *, forge_noise=None,
                      dp_noise=None, participation=None, straggled=None,
@@ -354,6 +394,35 @@ class FedRound:
         the server aggregates the participants, and the loss and norm
         summaries cover them; ``stale`` and ``residual`` are carried into
         the new state."""
+        updates, healthy = self.prepare_rows(
+            updates, malicious, generator, participation=participation,
+            forge_noise=forge_noise, dp_noise=dp_noise)
+        trusted = self.compute_trusted_update(state.server.params, generator)
+        diag = None
+        if self.forensics:
+            server, agg, diag = self.server.step_diag(
+                state.server, updates, generator=generator,
+                trusted_update=trusted, participation=participation)
+        else:
+            server, agg = self.server.step(state.server, updates,
+                                           generator=generator,
+                                           trusted_update=trusted,
+                                           participation=participation)
+        # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
+        # relative over millions of f32 terms.
+        norms = (updates * updates).sum(1).sqrt()
+        return self.close_round(
+            state, server, agg, norms, losses, malicious,
+            participation=participation, straggled=straggled,
+            healthy=healthy, diag=diag, client_opt=client_opt, stale=stale,
+            residual=residual)
+
+    def prepare_rows(self, updates, malicious, generator=None, *,
+                     participation=None, forge_noise=None, dp_noise=None):
+        """The rows the aggregator reads: the health check (or, under
+        forensics, its predicate), DP, then the forge.  Returns
+        ``(updates, healthy)``, ``healthy`` None when neither asks for
+        it."""
         healthy = None
         if self.health_check:
             updates, healthy = sanitize_updates(updates, participation)
@@ -368,20 +437,17 @@ class FedRound:
             updates = self.adversary.on_updates_ready(
                 updates, malicious, noise=forge_noise, generator=generator,
                 aggregator=self.server.aggregator)
-        trusted = self.compute_trusted_update(state.server.params, generator)
-        if self.forensics:
-            server, agg, diag = self.server.step_diag(
-                state.server, updates, generator=generator,
-                trusted_update=trusted, participation=participation)
-        else:
-            server, agg = self.server.step(state.server, updates,
-                                           generator=generator,
-                                           trusted_update=trusted,
-                                           participation=participation)
+        return updates, healthy
+
+    def close_round(self, state: RoundState, server, agg, norms, losses,
+                    malicious, *, participation=None, straggled=None,
+                    healthy=None, diag=None, client_opt=None, stale=None,
+                    residual=None) -> Tuple[RoundState, dict]:
+        """The new state and the metrics of a round whose server step
+        gave ``server`` and ``agg``; ``norms`` are the aggregated rows'
+        L2 norms.  Under the health check a non-finite aggregate keeps
+        ``state``'s server."""
         benign = (~malicious).float()
-        # Plain sums of squares: torch's CPU vector_norm loses ~1e-4
-        # relative over millions of f32 terms.
-        norms = (updates * updates).sum(1).sqrt()
         if participation is None:
             update_norm_mean = norms.mean()
         else:

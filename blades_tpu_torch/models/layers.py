@@ -1,4 +1,5 @@
-"""Batch-statistics normalisation with a hand-written backward.
+"""Batch-statistics normalisation with a hand-written backward, the
+explicit-mask dropout and the packed dense layer.
 
 The reference pins ``track_running_stats=False`` on every BatchNorm, so a
 layer normalises by the current batch's statistics and carries no state:
@@ -15,6 +16,14 @@ saving the input ``x`` rather than ``xhat``, as
 module (the CUDA kernels on the card), whose vmap rule makes a vmapped
 client block one launch of each.
 Channels are on dim 1 (NCHW).
+
+Dropout takes its keep-masks as arguments (:func:`keyed_dropout`), drawn
+by the caller from an explicit generator (``Task.draw_dropout_masks``):
+a mask is a function of the client's draw alone, whatever module
+computes with it, which is what lets a packed lane
+(:func:`packed_keyed_dropout`) apply to each of its clients the mask the
+unpacked model applies to that client.  :class:`PackedDense` is the
+packed form of a dense layer (``blades_tpu_torch/parallel/packed.py``).
 """
 
 from __future__ import annotations
@@ -99,3 +108,46 @@ class BatchStatsNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return bn_apply(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                         self.eps)
+
+
+def keyed_dropout(x: torch.Tensor, rate: float, masks, index: int
+                  ) -> torch.Tensor:
+    """Inverted dropout of ``x`` with the keep-mask ``masks[index]`` (the
+    ``index``-th dropout site's); the identity when ``masks`` is None
+    (evaluation) or the rate is 0."""
+    if masks is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(masks[index], x / keep, torch.zeros_like(x))
+
+
+def packed_keyed_dropout(x: torch.Tensor, rate: float, masks, index: int
+                         ) -> torch.Tensor:
+    """:func:`keyed_dropout` over pack-axis activations ``x (B, P, F)``:
+    ``masks[index]`` is ``(P, B, F)``, client ``g``'s ``(B, F)`` mask at
+    ``[g]``, exactly the mask the unpacked model applies to client
+    ``g``."""
+    if masks is None or rate == 0.0:
+        return x
+    return keyed_dropout(x, rate, (masks[index].transpose(0, 1),), 0)
+
+
+class PackedDense(nn.Module):
+    """P clients' dense layers as one batched product over ``(B, P, fin)``
+    activations -> ``(B, P, fout)``.  ``weight`` is ``(P, fin, fout)``,
+    the stack of the clients' kernels in flax's ``(in, out)`` layout (the
+    JAX package's ``PackedDense`` kernel, which the flat-layout rules
+    keep as is), ``bias`` ``(P, fout)``; group ``g`` contracts with
+    ``weight[g]`` alone."""
+
+    def __init__(self, pack: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(pack, in_features,
+                                               out_features))
+        self.bias = nn.Parameter(torch.zeros(pack, out_features))
+        # lecun-normal fan-in of one client's kernel
+        self.kernel_fan_in = in_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.einsum("bpi,pio->bpo", x, self.weight.to(x.dtype))
+        return y + self.bias.to(y.dtype)[None]

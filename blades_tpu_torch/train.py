@@ -11,8 +11,13 @@
         --topology kregular --mixing metropolis --graph-seed 0
     python -m blades_tpu_torch.train file grid.yaml --watchdog \\
         --trace-dir /tmp/spans --metrics-csv --flightrec-rounds 4
+    python -m blades_tpu_torch.train file fedavg_dp.yaml --no-lanes
+    python -m blades_tpu_torch.train run FEDAVG --client-packing auto
 
-``file`` runs every trial of an experiment file's grids, ``run`` one
+``file`` runs every trial of an experiment file's grids (each eligible
+group of trials that differ only in seed, learning rates, DP epsilon or
+clip or IPM's scale as the lanes of one program, unless ``--no-lanes``),
+``run`` one
 algorithm with flat or nested config overrides (as the experiment
 ``<algo>_run``); both go through
 :func:`~blades_tpu_torch.tune.sweep.run_experiments`, on the card unless
@@ -103,6 +108,10 @@ def main(argv=None) -> int:
                         help="raise a SimulatedPreemption once, the first "
                         "time a trial finishes round N (between its row "
                         "write and its checkpoint save)")
+    p_file.add_argument("--no-lanes", action="store_true",
+                        help="disable laned execution of shape-"
+                        "compatible trial groups (seed/lr/eps/scale grids); "
+                        "every trial then runs sequentially")
 
     p_run = sub.add_parser("run", parents=[common],
                            help="run one algorithm with overrides")
@@ -111,6 +120,12 @@ def main(argv=None) -> int:
                        help="flat/nested config overrides as JSON, e.g. "
                        "'{\"dataset_config\": {\"type\": \"mnist\"}}'")
     p_run.add_argument("--rounds", type=int, default=100)
+    p_run.add_argument("--client-packing", default=None, metavar="P",
+                       help="client lane-packing on the dense round: "
+                       "'auto' (pack 2 clients per grouped-kernel lane "
+                       "iff the width/divisibility heuristic passes, loud "
+                       "fallback otherwise), an int P>=2 to force, 'off' "
+                       "(default; see README \"Client packing\")")
     p_run.add_argument("--execution", default=None,
                        choices=("auto", "dense", "streamed", "async",
                                 "gossip"),
@@ -193,9 +208,14 @@ def main(argv=None) -> int:
                   checkpoint_score_attr=args.checkpoint_score_attr,
                   resume=args.resume, max_rounds_override=args.max_rounds,
                   max_failures=args.max_failures,
-                  preempt_after=args.preempt_after, **common_kw)
+                  preempt_after=args.preempt_after,
+                  lanes=not args.no_lanes, **common_kw)
     else:
         run_config = json.loads(args.config_json)
+        if args.client_packing is not None:
+            cp = args.client_packing
+            run_config["client_packing"] = (cp if cp in ("auto", "off")
+                                            else int(cp))
         for key, value in (("execution", args.execution),
                            ("state_store", args.state_store),
                            ("state_window", args.window),

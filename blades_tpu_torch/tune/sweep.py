@@ -17,11 +17,26 @@ driver's own control-plane watchdog already stamped) and the flight
 recorder (``flightrec_rounds``; ``<trial>/flightrec.json`` on a
 non-finite aggregate, a watchdog event, an exception or a preemption).
 
-The JAX runner's vmapped lanes, scan windows, autotuner and plan cache,
-compile cache and cost analysis are not in the port.  Before the first
-trial runs, every trial's config is resolved (the config and its round,
-built on the meta device), so a field the port lacks raises before any
-round is paid for.
+Trial lanes (``lanes=True``, the default, as in the JAX runner): the
+trials of an experiment that differ only in lane knobs (seed, client or
+server lr, DP epsilon or clip, IPM's scale: :func:`lane_groups`) run as
+the lanes of one program (:func:`blades_tpu_torch.tune.lanes.run_lanes`)
+when the group is eligible (:func:`_lanes_eligible`: two or more fresh
+dense trials of at most 200 clients, one round per dispatch, no
+forensics, faults, participation window, ledger or control plane, and the
+``L * n * d * 4`` bytes of the laned matrix within the dense budget of
+``Fedavg.dense_matrix_limit``) and the sweep neither resumes, checkpoints
+nor retries.  Each laned trial writes the files a sequential one writes;
+its summary carries ``lanes`` and ``rounds_per_sec = rounds * L / wall``.
+A group that fails warns, stamps its trials' summaries
+(``lane_fallback``) and runs them one by one, except where the failure
+came from a kernel's build or launch, which raises.
+
+The JAX runner's scan windows, autotuner and plan cache, compile cache
+and cost analysis are not in the port.  Before the first trial runs,
+every trial's config is resolved (the config and its round, built on the
+meta device), so a field the port lacks raises before any round is paid
+for.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import os
 import shutil
 import time
 import traceback
+import warnings
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -98,6 +114,123 @@ def load_experiments_from_file(path: str) -> Dict[str, Dict]:
         spec.setdefault("stop", {"training_iteration": 100})
         spec.setdefault("config", {})
     return experiments
+
+
+# ---------------------------------------------------------------------------
+# lane grouping: which trials can share one laned program?
+# ---------------------------------------------------------------------------
+
+# Trial-dict paths a lane may vary, mapped to tune.lanes flat keys.
+_LANE_PATHS = {
+    ("dataset_config", "seed"): "seed",
+    ("seed",): "seed",
+    ("client_config", "lr"): "client_lr",
+    ("client_lr",): "client_lr",
+    ("server_config", "lr"): "server_lr",
+    ("server_lr",): "server_lr",
+    ("dp_epsilon",): "dp_epsilon",
+    ("dp_clip_threshold",): "dp_clip_threshold",
+    ("adversary_config", "scale"): "adversary_scale",
+}
+_LANE_SENTINEL = "__LANE__"
+
+
+def _get_path(cfg, path):
+    node = cfg
+    for p in path:
+        if not isinstance(node, dict) or p not in node:
+            return None, False
+        node = node[p]
+    return node, True
+
+
+def _lane_signature(trial: Dict):
+    """``(signature json, {lane key: value})``: trials with equal
+    signatures differ only in lane knobs.  A trial that sets one lane knob
+    through two paths with different values (``seed`` and
+    ``dataset_config.seed``) is signed by its whole config, so it is
+    never laned."""
+    present_paths = {}
+    conflict = False
+    for path, key in _LANE_PATHS.items():
+        val, present = _get_path(trial, path)
+        if present and not isinstance(val, (dict, list)):
+            if key in present_paths and present_paths[key][1] != val:
+                conflict = True
+            else:
+                present_paths[key] = (path, val)
+    if conflict:
+        sig = dict(trial, __lane_conflict__=True)
+        return json.dumps(sig, sort_keys=True, default=str), {}
+    sig = copy.deepcopy(trial)
+    overrides = {}
+    for key, (path, val) in present_paths.items():
+        overrides[key] = val
+        _set_path(sig, path, _LANE_SENTINEL)
+    return json.dumps(sig, sort_keys=True, default=str), overrides
+
+
+def lane_groups(trials: List[Dict]) -> List[List[int]]:
+    """Trial indices grouped by :func:`_lane_signature` (same static
+    config, differing only in lane knobs); a singleton runs
+    sequentially."""
+    by_sig: Dict[str, List[int]] = {}
+    for i, t in enumerate(trials):
+        sig, _ = _lane_signature(t)
+        by_sig.setdefault(sig, []).append(i)
+    return list(by_sig.values())
+
+
+def _lanes_eligible(spec_run: str, trial: Dict, group: List[int],
+                    device=None) -> bool:
+    """Whether the group may run as lanes: the JAX runner's gate (dense
+    trials of at most 200 clients, one round per dispatch, no forensics,
+    faults or participation window, no ``server_lr`` lanes under an
+    ``lr_schedule``, and the laned ``L * n * d * 4`` bytes within the
+    dense budget on ``device``), and no client ledger or control plane,
+    which the laned program does not carry."""
+    if len(group) < 2:
+        return False
+    try:
+        cfg = _build_config(spec_run, copy.deepcopy(trial))
+        cfg.validate()
+    except Exception:
+        return False
+    if not (cfg.execution in ("auto", "dense")
+            and cfg.num_clients <= 200
+            and int(cfg.rounds_per_dispatch or 1) == 1):
+        return False
+    if (cfg.forensics or cfg.fault_config or cfg.state_window is not None
+            or cfg.ledger_backend or cfg.control_enabled):
+        return False
+    if cfg.lr_schedule and "server_lr" in _lane_signature(trial)[1]:
+        return False
+    from blades_tpu_torch.algorithms.fedavg import Fedavg
+    from blades_tpu_torch.device import resolve_device
+
+    try:
+        with torch.device("meta"):
+            d = sum(p.numel() for p in
+                    cfg.get_task_spec().build().model.parameters())
+        limit = Fedavg.dense_matrix_limit(resolve_device(device))
+    except Exception as exc:
+        warnings.warn(f"lane eligibility probe failed for group {group}: "
+                      f"{type(exc).__name__}: {exc}", RuntimeWarning)
+        return False
+    return len(group) * cfg.num_clients * d * 4 <= limit
+
+
+def _raised_in_kernel(exc: BaseException) -> bool:
+    """Whether ``exc`` came out of a kernel's build or launch
+    (:mod:`blades_tpu_torch.ops._cuda`): such a failure is never a lane
+    group's to fall back from."""
+    tb = exc.__traceback__
+    while tb is not None:
+        if tb.tb_frame.f_code.co_filename.endswith(
+                os.path.join("ops", "_cuda.py")):
+            return True
+        tb = tb.tb_next
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +396,141 @@ def _resolve_watchdog(watchdog):
     return rules_from_config(list(watchdog))
 
 
+def _run_lane_group(
+    spec_run: str,
+    trials: List[Dict],
+    group: List[int],
+    max_rounds: int,
+    exp_name: str,
+    root: Path,
+    verbose: int,
+    *,
+    device=None,
+    metrics_csv: bool = False,
+    strict_metrics: bool = True,
+    metrics_every: int = 1,
+    trace_dir: Optional[str] = None,
+    wd_rules=None,
+    flightrec_rounds: int = 0,
+) -> Dict[int, Dict]:
+    """Run one lane group as one laned program; write each member trial's
+    ``params.json``, ``result.json`` and metrics streams as the sequential
+    path writes them and return its summaries by trial index.  The
+    watchdog and the flight recorder read each trial's rows after the
+    group finishes, with fresh per-trial state."""
+    from blades_tpu_torch.obs import CsvSink, JsonlSink, MetricsLogger
+    from blades_tpu_torch.obs.flightrec import FlightRecorder
+    from blades_tpu_torch.obs.trace import Timers
+    from blades_tpu_torch.obs.watchdog import Watchdog
+    from blades_tpu_torch.tune.lanes import run_lanes
+
+    sig_cfg = None
+    overrides = []
+    for i in group:
+        sig, ov = _lane_signature(trials[i])
+        overrides.append(ov)
+        sig_cfg = sig_cfg or json.loads(sig)
+
+    def strip_sentinels(node):
+        if isinstance(node, dict):
+            return {k: strip_sentinels(v) for k, v in node.items()
+                    if v != _LANE_SENTINEL}
+        if isinstance(node, list):
+            return [strip_sentinels(v) for v in node]
+        return node
+
+    shared = strip_sentinels(sig_cfg)
+
+    def builder():
+        return _build_config(spec_run, copy.deepcopy(shared))
+
+    if verbose:
+        print(f"== lane group {exp_name}[{group[0]}..{group[-1]}]: "
+              f"{len(group)} trials x {max_rounds} rounds as one program ==",
+              flush=True)
+    tracer = Timers(record=bool(trace_dir))
+    gspan = tracer.start("lane_group", experiment=exp_name,
+                         trials=len(group), rounds=max_rounds)
+    results = run_lanes(builder, overrides, max_rounds, device=device,
+                        metrics_every=metrics_every, tracer=tracer)
+    tracer.finish(gspan)
+    wall = gspan.duration
+    if trace_dir:
+        tracer.export(Path(trace_dir).expanduser()
+                      / f"{exp_name}_lanes_{group[0]:05d}-{group[-1]:05d}"
+                        ".trace.json")
+    out: Dict[int, Dict] = {}
+    for lane, i in enumerate(group):
+        tname = _trial_name(exp_name, i, trials[i])
+        tdir = root / exp_name / tname
+        tdir.mkdir(parents=True, exist_ok=True)
+        for p in tdir.glob("ckpt_*"):
+            shutil.rmtree(p, ignore_errors=True)
+        for p in (tdir / "metrics.csv", tdir / "flightrec.json"):
+            p.unlink(missing_ok=True)
+        with open(tdir / "params.json", "w") as f:
+            json.dump(trials[i], f, indent=2, default=str)
+        rows = results[lane]
+        sinks: List = [JsonlSink(tdir / "metrics.jsonl",
+                                 strict=strict_metrics)]
+        if metrics_csv:
+            sinks.append(CsvSink(tdir / "metrics.csv"))
+        wd = Watchdog(wd_rules) if wd_rules is not None else None
+        flightrec = (FlightRecorder(
+            tdir / "flightrec.json", capacity=flightrec_rounds,
+            experiment=exp_name, trial=tname, algo=spec_run,
+            config=trials[i], max_rounds=max_rounds)
+            if flightrec_rounds else None)
+        logger = MetricsLogger(sinks, base={"experiment": exp_name,
+                                            "trial": tname})
+        try:
+            with open(tdir / "result.json", "w") as f:
+                for row in rows:
+                    events = [e.as_dict() for e in
+                              (wd.observe(row) if wd is not None else [])]
+                    if events:
+                        row["watchdog_events"] = events
+                    f.write(json.dumps({**row, "trial": tname}) + "\n")
+                    logger.log(row)
+                    if flightrec is not None:
+                        flightrec.record(row)
+                        trig = flightrec.check(row)
+                        if trig is None and events:
+                            trig = {"kind": "watchdog",
+                                    "rules": [e["rule"] for e in events],
+                                    "round": row.get("training_iteration")}
+                        if trig is not None:
+                            flightrec.dump(trig)
+        finally:
+            logger.close()
+        best = max((r.get("test_acc", 0.0) for r in rows), default=0.0)
+        final = {k: rows[-1][k] for k in ("test_loss", "test_acc",
+                                          "test_acc_top3")
+                 if k in rows[-1]} if rows else {}
+        out[i] = {
+            "trial": tname, "rounds": max_rounds,
+            "wall_s": round(wall, 2),
+            "rounds_per_sec": (round(max_rounds * len(group) / wall, 2)
+                               if wall else None),
+            "best_test_acc": best,
+            "evaluated": any("test_acc" in r for r in rows),
+            "final": final, "dir": str(tdir), "lanes": len(group),
+        }
+        packing = _packing_summary(rows[-1] if rows else {})
+        if packing:
+            out[i]["packing"] = packing
+    return out
+
+
+def _packing_summary(row: Dict) -> Optional[Dict]:
+    """The packing stamps of a laned trial's last row (static per round);
+    a sequential trial's summary carries the fuller decision of
+    ``Fedavg.packing_summary`` instead."""
+    packing = {k: row[k] for k in ("pack_factor", "packed_lanes")
+               if k in row}
+    return packing or None
+
+
 def resolve_trial(run: str, trial_cfg: Dict) -> None:
     """Build and validate one trial's config and its round on the meta
     device (no data, no memory, no training): a field, model, aggregator,
@@ -295,6 +563,7 @@ def run_experiments(
     watchdog=False,
     flightrec_rounds: int = 16,
     device=None,
+    lanes: bool = True,
 ) -> List[Dict]:
     """Run every trial of every experiment in turn on ``device`` (``None``
     = the card); returns one summary per trial (``trial``, ``rounds``,
@@ -335,6 +604,13 @@ def run_experiments(
     ``flightrec_rounds`` (0 = off) sizes the recorder's ring.  A resumed
     or retried trial rebuilds the watchdog's windows and the recorder's
     ring from the surviving rows.
+
+    ``lanes=True`` (the default) runs each eligible lane group of a fresh
+    sweep (no ``resume``, checkpoints or ``max_failures``) as one laned
+    program (see the module docstring); its trials' summaries carry
+    ``lanes`` instead of ``timers``.  ``lanes=False`` runs every trial on
+    its own.  A trial whose packing was requested carries the decision
+    as ``packing``.
     """
     from blades_tpu_torch.faults.host import (
         PreemptionHook,
@@ -371,7 +647,42 @@ def run_experiments(
         stop = spec.get("stop", {})
         max_rounds = int(max_rounds_override
                          or stop.get("training_iteration", 100))
+        laned: Dict[int, Dict] = {}
+        lane_failed: Dict[int, str] = {}
+        if (lanes and not resume and not checkpoint_freq
+                and not checkpoint_at_end and max_failures == 0):
+            for group in lane_groups(trials):
+                if not _lanes_eligible(spec["run"], trials[group[0]], group,
+                                       device=device):
+                    continue
+                try:
+                    laned.update(_run_lane_group(
+                        spec["run"], trials, group, max_rounds, exp_name,
+                        root, verbose, device=device,
+                        metrics_csv=metrics_csv,
+                        strict_metrics=strict_metrics,
+                        metrics_every=metrics_every, trace_dir=trace_dir,
+                        wd_rules=wd_rules,
+                        flightrec_rounds=flightrec_rounds))
+                except Exception as exc:
+                    if _raised_in_kernel(exc):
+                        raise
+                    # Loud: the group warns, its trials' summaries say
+                    # why, and they run one by one.
+                    msg = f"{type(exc).__name__}: {exc}"
+                    warnings.warn(
+                        f"lane group {exp_name}{group} fell back to "
+                        f"sequential execution ({msg})", RuntimeWarning)
+                    print(f"   !! lane group {group} fell back to "
+                          f"sequential ({msg})", flush=True)
+                    for i in group:
+                        lane_failed[i] = msg
         for i, trial_cfg in enumerate(trials):
+            if i in laned:
+                summaries.append(laned[i])
+                if verbose:
+                    print(f"   -> {laned[i]}", flush=True)
+                continue
             tname = _trial_name(exp_name, i, trial_cfg)
             tdir = root / exp_name / tname
             tdir.mkdir(parents=True, exist_ok=True)
@@ -627,6 +938,12 @@ def run_experiments(
                                ("control", algo.control_summary)):
                 if block:
                     summary[key] = block
+            if algo.packing_summary:
+                # Present whenever packing was requested: a fallback shows
+                # pack_factor 1 and its reason.
+                summary["packing"] = algo.packing_summary
+            if i in lane_failed:
+                summary["lane_fallback"] = lane_failed[i]
             if wd is not None and wd.events:
                 summary["watchdog"] = {
                     "events": len(wd.events),

@@ -290,7 +290,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire", "async", "window", "obs", "gossip")
+          "wire", "async", "window", "obs", "gossip", "lanes")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -338,8 +338,17 @@ BN_REPS = 50      # the same for the sub-millisecond BN kernels
 SLEEP_CYCLES_PER_MS = 2.0e6
 
 
+# The whole log also goes to chiprun_out/chip_smoke.log (main() opens
+# it), beside the phases' other output files, for runs whose output is
+# read from its end only.
+LOG_FILE = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for fh in LOG_FILE:
+        fh.write(msg + "\n")
+        fh.flush()
 
 
 class Failure(RuntimeError):
@@ -3253,9 +3262,9 @@ SWEEP_YAML = os.path.join(TUNED, "fedavg_cifar10_1000clients.yaml")
 LOCAL20_YAML = os.path.join(TUNED, "local20_cnn_fashion_mnist.yaml")
 RESNET34_YAML = os.path.join(TUNED, "fedavg_cifar100_resnet34.yaml")
 SWEEP_ROUNDS = 2
-# One dispatch of 3 rounds: the file's rounds_per_dispatch (10) cut to 3
+# One dispatch of 2 rounds: the file's rounds_per_dispatch (10) cut to 2
 # to keep the whole script near half its time limit.
-RESNET34_ROUNDS = 3
+RESNET34_ROUNDS = 2
 # client_block values the resnet34 phase tries, in order: the file's
 # default first; a smaller one only when the larger runs out of memory.
 RESNET34_BLOCKS = (50, 25)
@@ -4072,8 +4081,9 @@ def phase_cct(card):
 # fedavg_cifar10_1000clients.yaml (ResNet-10, d = 4,903,242, x 1000 clients
 # of CIFAR-10 shapes, 250 ALIE, bf16 compute, client_block 25, d_chunk
 # 131,072) under the quant int8 codec on the wire, through
-# FedavgConfig -> Fedavg.train(): Multikrum and Median for 2 rounds each,
-# GeoMed for 1, the last round evaluating 10 test rows a client.  The
+# FedavgConfig -> Fedavg.train(): Multikrum, Median and GeoMed for 1 round
+# each (cut from 2, 2 and 1 to keep the whole script near half its time
+# limit), the round evaluating 10 test rows a client.  The
 # health check is off: the wire domain refuses it (as the JAX config does).
 WIRE_TRIAL = {
     "dataset_config": {"type": "cifar10", "num_clients": 1000, "iid": False,
@@ -4085,7 +4095,7 @@ WIRE_TRIAL = {
     "evaluation_num_samples": 10,
     "codec_config": {"type": "quant", "bits": 8}, "agg_domain": "wire",
 }
-WIRE_AGGS = (("Multikrum", 2), ("Median", 2), ("GeoMed", 1))
+WIRE_AGGS = (("Multikrum", 1), ("Median", 1), ("GeoMed", 1))
 WIRE_CHUNKS = -(-RESNET10_D // 131072)  # the Median's decoded chunks
 WIRE_BN_ROUND = 1000 // 25 * 12  # every lane trains on the dense round
 # The domain A/B: the same round at 500 clients (125 ALIE), where the f32
@@ -4994,11 +5004,11 @@ def phase_window(card):
 
 # The obs phase.  Part (a): a copy of fedavg_cifar10_resnet_noniid.yaml
 # with forensics on, cut to its Trimmedmean and Multikrum points under ALIE
-# with 15 malicious of 60 clients (alpha 0.1) and 3 rounds, evaluated at
-# round 3, through train.main(["file", ...]) with spans, the watchdog, the
-# CSV sink and a 4-round flight recorder.
+# with 15 malicious of 60 clients (alpha 0.1) and 2 rounds (cut from 3),
+# evaluated at round 2, through train.main(["file", ...]) with spans, the
+# watchdog, the CSV sink and a 4-round flight recorder.
 OBS_YAML = os.path.join(TUNED, "fedavg_cifar10_resnet_noniid.yaml")
-OBS_ROUNDS = 3
+OBS_ROUNDS = 2
 OBS_DENSE_BN_ROUND = 2 * 12  # 60 clients in blocks of 50 and 10
 OBS_TURNS = 2                # forensics-on / -off rounds, in turns
 # Part (b): the async phase's configuration with DiurnalALIE +
@@ -5750,6 +5760,379 @@ def phase_gossip(card):
     return counts, {**sel.records, **bn_audit.records(rounds)}
 
 
+# The lanes phase: trial lanes and client lane-packing through the entry
+# points a user calls.  (a) fedavg_dp.yaml's 15 trials (MNIST MLP x 60,
+# 5 seeds x 3 epsilons) as one lane group through train.main, beside the
+# seed-121 epsilon trials run one by one; (b) a user repeating
+# fedavg_cifar10_resnet_noniid.yaml's alpha-0.1 Median / ALIE-on-6 point
+# (ResNet-10 x 60, f32) over 4 seeds, laned and one by one in turns;
+# (c) the Fashion-MNIST CNN's ALIE point under client_packing "auto", and
+# the ResNet-10 point packed by 2, killed after round 1 and resumed
+# unpacked.
+DP_YAML = os.path.join(TUNED, "fedavg_dp.yaml")
+FASHION_YAML = os.path.join(TUNED, "fedavg_fashion_cnn_noniid.yaml")
+LANES_ROUNDS = 2
+LANES_SEEDS = (121, 122, 123, 124)
+LANES_TURNS = 2  # laned / one-by-one turns of (b); the first audited
+# BN-backward launches of each kernel per ResNet-10 round of one trial:
+# 60 clients in blocks of 50 and 10, 12 BN layers, one local step.
+LANES_BN_ROUND = 2 * 12
+# A laned trial against its sequential trial: the same operations in the
+# same order (cuDNN deterministic here), within f32 rounding of the
+# select's laned view (none: order statistics are exact).
+LANES_RTOL, LANES_ATOL = 1e-6, 1e-7
+# Packed against unpacked: the grouped convolutions reassociate f32 sums;
+# the JAX package's RTOL for the same comparison, as rtol and atol.
+PACKED_TOL = 1e-4
+LANES_KEY = {"select": "column_median:lanes"}
+
+
+def _lanes_point(packing="off"):
+    """fedavg_cifar10_resnet_noniid.yaml's point with alpha 0.1, Median,
+    ALIE on 6 of 60 (ResNet-10, f32), as a trial dict."""
+    from blades_tpu_torch.tune import load_experiments_from_file
+
+    (_, spec), = load_experiments_from_file(OBS_YAML).items()
+    cfg = spec["config"]
+    cfg["dataset_config"]["alpha"] = 0.1
+    cfg["server_config"]["aggregator"] = {"type": "Median"}
+    cfg["num_malicious_clients"] = 6
+    cfg["adversary_config"] = {"type": "ALIE"}
+    cfg["client_packing"] = packing
+    return cfg
+
+
+def _host_params(params):
+    return {k: v.detach().cpu().clone() for k, v in params.items()}
+
+
+def _params_diff(a, b, rtol, atol):
+    """Two parameter dicts: the largest absolute difference, whether every
+    leaf is within ``atol + rtol * |b|``, and whether they are equal bit
+    for bit."""
+    import torch
+
+    err = max(float((a[k] - b[k]).abs().max()) for k in a)
+    return (err, all(torch.allclose(a[k], b[k], rtol=rtol, atol=atol)
+                     for k in a),
+            all(torch.equal(a[k], b[k]) for k in a))
+
+
+def _rows_close(a, b, rtol, atol, what):
+    for ra, rb in zip(a, b):
+        for k in ("train_loss", "agg_norm", "update_norm_mean"):
+            check(math.isfinite(ra[k]) and abs(ra[k] - rb[k])
+                  <= atol + rtol * abs(rb[k]),
+                  f"{what}: round {ra['training_iteration']} {k} {ra[k]} "
+                  f"against {rb[k]}")
+
+
+def _lanes_dp(card, work):
+    """(a) ``train.main(["file", fedavg_dp.yaml, "--max-rounds", "2"])``:
+    every trial in one lane group of 15; then the three epsilon trials of
+    seed 121 with ``--no-lanes``; in turns.  Their rows equal the laned
+    rows within ``LANES_RTOL``."""
+    from blades_tpu_torch import train, tune
+    from blades_tpu_torch.tune import load_experiments_from_file
+
+    (name, _), = load_experiments_from_file(DP_YAML).items()
+    with open(DP_YAML) as fh:
+        text = fh.read()
+    grid = "grid_search: [121, 122, 123, 124, 125]"
+    check(text.count(grid) == 1, f"{DP_YAML}: no seed grid {grid!r}")
+    one_seed = os.path.join(work, "fedavg_dp_seed121.yaml")
+    with open(one_seed, "w") as fh:
+        fh.write(text.replace("seed:\n        " + grid, "seed: 121"))
+    got = []
+    real = tune.run_experiments
+
+    def spy(experiments, **kw):
+        got.append(real(experiments, **kw))
+        return got[-1]
+
+    tune.run_experiments = spy
+    rates = {"laned": [], "one by one": []}
+    try:
+        for turn in range(LANES_TURNS):
+            for how, path, flags in (("laned", DP_YAML, []),
+                                     ("one by one", one_seed,
+                                      ["--no-lanes"])):
+                storage = os.path.join(work, f"dp_{turn}_{len(flags)}")
+                t0 = time.perf_counter()
+                rc = train.main(["file", path, "--max-rounds",
+                                 str(LANES_ROUNDS), "--storage-path",
+                                 storage] + flags)
+                wall = time.perf_counter() - t0
+                summ = got[-1]
+                want = 15 if how == "laned" else 3
+                check(rc == 0 and len(summ) == want and all(
+                    s.get("lanes") == (15 if how == "laned" else None)
+                    and "status" not in s for s in summ),
+                    f"lanes (a) {how}: rc {rc}, summaries "
+                    f"{[(s['trial'], s.get('lanes')) for s in summ]}")
+                # The whole command's seconds, set-up included on both
+                # sides (a laned group builds its datasets inside its
+                # span, a sequential trial before its own).
+                rates[how].append(want * LANES_ROUNDS / wall)
+                if how == "laned":
+                    laned = [_rows(storage, name, i) for i in range(3)]
+                else:
+                    for i in range(3):
+                        rows = _rows(storage, name, i)
+                        check(len(rows) == LANES_ROUNDS
+                              and laned[i][0]["seed"] == 121,
+                              f"lanes (a): trial {i} rows")
+                        _rows_close(laned[i], rows, LANES_RTOL, LANES_ATOL,
+                                    f"lanes (a) epsilon trial {i}")
+    finally:
+        tune.run_experiments = real
+    log(f"lanes (a) fedavg_dp.yaml (MLP x 60, Mean, DP): 15 trials as one "
+        f"lane group, trials x rounds / s of the command "
+        f"{[round(r, 3) for r in rates['laned']]}; seed 121's 3 epsilon "
+        f"trials one by one {[round(r, 3) for r in rates['one by one']]} "
+        f"(turns); their rows equal the laned rows within rtol "
+        f"{LANES_RTOL} [{card}]")
+    return rates
+
+
+def _lanes_resnet(card, bn_audit):
+    """(b) the ResNet-10 point over 4 seeds as one lane group (``run_lanes``)
+    and as 4 sequential trials (``Fedavg.train()``), in turns: the laned
+    trials' rows and parameters equal the sequential trials' within
+    ``LANES_RTOL``; one ``select:radix`` launch a round over the (60, 4 *
+    d) view.  The first turn runs under the audits (``bn_audit`` the laned
+    BN launches); returns the launches of each part and the rates."""
+    import copy
+
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.obs.trace import Timers
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.tune.lanes import run_lanes
+
+    point = _lanes_point()
+    n = point["dataset_config"]["num_clients"]
+
+    def builder():
+        return FedavgConfig().update_from_dict(copy.deepcopy(point))
+
+    overrides = [{"seed": s} for s in LANES_SEEDS]
+    lanes_n = len(LANES_SEEDS)
+    launches = {"lanes": {}, "seq": {}}
+    rates = {"laned": [], "one by one": []}
+    for turn in range(LANES_TURNS):
+        LANES_KEY["select"] = "column_median:lanes"
+        _reset_peak()
+        _cuda.reset_launches()
+        tracer = Timers(sync=True)
+        a0 = AUDIT["s"]
+        ctx = bn_audit if turn == 0 else contextlib.nullcontext()
+        with ctx:
+            rows, states = run_lanes(builder, overrides, LANES_ROUNDS,
+                                     tracer=tracer, return_states=True)
+        summ = tracer.summary()
+        laned_s = (sum(summ[k]["total_s"] for k in ("compile", "round")
+                       if k in summ) - (AUDIT["s"] - a0))
+        peak = _peak()
+        if turn == 0:
+            launches["lanes"] = dict(_cuda.LAUNCHES)
+            maps = dict(_cuda.MAPS)
+        laned = [_host_params(st.server.params) for st in states]
+        d = sum(v.numel() for v in laned[0].values())
+        del states
+        torch.cuda.empty_cache()
+        LANES_KEY["select"] = "column_median:lanes-seq"
+        seq_s, errs = 0.0, []
+        _cuda.reset_launches()
+        with _BnAudit() if turn == 0 else contextlib.nullcontext():
+            for i, seed in enumerate(LANES_SEEDS):
+                cfg = builder()
+                cfg.seed = seed
+                algo = cfg.build()
+                seq_rows, secs = _cycles(algo, LANES_ROUNDS)
+                seq_s += sum(secs)
+                _rows_close(rows[i], seq_rows, LANES_RTOL, LANES_ATOL,
+                            f"lanes (b) seed {seed}")
+                err, ok, exact = _params_diff(
+                    laned[i], _host_params(algo.state.server.params),
+                    LANES_RTOL, LANES_ATOL)
+                check(ok, f"lanes (b) seed {seed}: laned parameters "
+                      f"{err:.3g} from the sequential trial's")
+                errs.append((err, exact))
+                algo.stop()
+        if turn == 0:
+            launches["seq"] = dict(_cuda.LAUNCHES)
+        rates["laned"].append(LANES_ROUNDS * lanes_n / laned_s)
+        rates["one by one"].append(LANES_ROUNDS * lanes_n / seq_s)
+        log(f"lanes (b) turn {turn + 1}: {lanes_n} seeds laned "
+            f"{rates['laned'][-1]:.4f} rounds x lanes / s ({laned_s:.3f} s "
+            f"of rounds, audits out), one by one "
+            f"{rates['one by one'][-1]:.4f} ({seq_s:.3f} s); laned "
+            f"parameters against the sequential trials' max abs diff "
+            f"{[e for e, _ in errs]} (bit for bit: "
+            f"{[x for _, x in errs]}); train_loss "
+            f"{[r[-1]['train_loss'] for r in rows]}; peak "
+            f"{peak / 2**30:.2f} GiB (the laned matrix ({n}, {lanes_n}, "
+            f"{d}) f32 alone {n * lanes_n * d * 4 / 2**30:.2f} GiB) [{card}]")
+    want_l = {"column_median": LANES_ROUNDS,
+              **{k: LANES_ROUNDS * lanes_n * LANES_BN_ROUND for k in BN_TPU}}
+    want_s = {"column_median": LANES_ROUNDS * lanes_n,
+              **{k: LANES_ROUNDS * lanes_n * LANES_BN_ROUND for k in BN_TPU}}
+    check(launches["lanes"] == want_l and launches["seq"] == want_s
+          and maps.get(("column_median", "select:radix")) == LANES_ROUNDS,
+          f"lanes (b): laned launches {launches['lanes']} by route {maps}, "
+          f"expected {want_l}; one by one {launches['seq']}, expected "
+          f"{want_s}")
+    return launches, rates
+
+
+def _lanes_packed_cnn(card):
+    """(c) fedavg_fashion_cnn_noniid.yaml's ALIE point, 6 malicious, under
+    ``client_packing: auto``: it packs 2 and stamps ``pack_factor`` 2;
+    its parameters after 2 rounds match the unpacked run's within
+    ``PACKED_TOL``."""
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.tune import load_experiments_from_file
+
+    (_, spec), = load_experiments_from_file(FASHION_YAML).items()
+    cfg = spec["config"]
+    cfg["num_malicious_clients"] = 6
+    cfg["adversary_config"] = {"type": "ALIE"}
+    n = cfg["dataset_config"]["num_clients"]
+    out = {}
+    for packing in ("auto", "off"):
+        algo = FedavgConfig().update_from_dict(
+            {**cfg, "client_packing": packing}).build()
+        rows, secs = _cycles(algo, LANES_ROUNDS)
+        out[packing] = (rows, secs, _host_params(algo.state.server.params),
+                        algo.packing_summary)
+        algo.stop()
+    rows, secs, params, dec = out["auto"]
+    check(dec == {"requested": "auto", "pack_factor": 2,
+                  "packed_lanes": n // 2, "fallback": None}
+          and all(r.get("pack_factor") == 2 and r.get("packed_lanes")
+                  == n // 2 for r in rows),
+          f"lanes (c) CNN auto: decision {dec}, rows "
+          f"{[(r.get('pack_factor'), r.get('packed_lanes')) for r in rows]}")
+    err, ok, _ = _params_diff(params, out["off"][2], PACKED_TOL, PACKED_TOL)
+    check(ok, f"lanes (c) CNN: packed parameters {err:.3g} from the "
+          "unpacked run's")
+    _rows_close(rows, out["off"][0], PACKED_TOL, PACKED_TOL, "lanes (c) CNN")
+    log(f"lanes (c) Fashion-MNIST CNN x {n}, Signguard, ALIE on 6, "
+        f"client_packing auto: pack_factor 2, {_warm_rate(secs, 'round')}; "
+        f"unpacked {_warm_rate(out['off'][1], 'round')}; parameters after "
+        f"{LANES_ROUNDS} rounds max abs diff {err:.3g} [{card}]")
+
+
+def _lanes_packed_resnet(card, work, bn_audit):
+    """(c) the ResNet-10 point (one seed) packed by 2: 2 straight rounds,
+    and a run killed after round 1 (its checkpoint) resumed unpacked,
+    equal to the straight run within ``PACKED_TOL``; the packed rounds'
+    BN launches audited by ``bn_audit`` on the packed layout."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    LANES_KEY["select"] = "column_median:packed"
+    point = _lanes_point(packing=2)
+    _cuda.reset_launches()
+    _reset_peak()
+    with bn_audit:
+        algo = FedavgConfig().update_from_dict(point).build()
+        rows, secs = _cycles(algo, LANES_ROUNDS)
+        straight = _host_params(algo.state.server.params)
+        peak = _peak()
+        algo.stop()
+        killed = FedavgConfig().update_from_dict(point).build()
+        _cycles(killed, 1)
+        ckpt = killed.save_checkpoint(os.path.join(work, "packed_ckpt"))
+        killed.stop()
+    launches = dict(_cuda.LAUNCHES)
+    rounds = LANES_ROUNDS + 1
+    want = {"column_median": rounds,
+            **{k: rounds * LANES_BN_ROUND for k in BN_TPU}}
+    check(launches == want and all(r.get("pack_factor") == 2 for r in rows),
+          f"lanes (c) packed ResNet: launches {launches}, expected {want}; "
+          f"rows {[r.get('pack_factor') for r in rows]}")
+    LANES_KEY["select"] = "column_median:lanes-seq"
+    with _BnAudit():
+        resumed = FedavgConfig().update_from_dict(
+            {**point, "client_packing": "off"}).build()
+        resumed.load_checkpoint(ckpt)
+        rrows, _ = _cycles(resumed, LANES_ROUNDS - 1)
+        err, ok, _ = _params_diff(_host_params(resumed.state.server.params),
+                                  straight, PACKED_TOL, PACKED_TOL)
+        resumed.stop()
+    torch.cuda.empty_cache()
+    check(ok and "pack_factor" not in rrows[-1],
+          f"lanes (c) packed ResNet resumed unpacked: parameters {err:.3g} "
+          "from the straight packed run's")
+    _rows_close(rrows, rows[1:], PACKED_TOL, PACKED_TOL,
+                "lanes (c) resumed unpacked")
+    log(f"lanes (c) ResNet-10 x {point['dataset_config']['num_clients']} "
+        f"Median ALIE on 6 packed by 2: "
+        f"{_warm_rate(secs, 'round')}; killed after round 1, resumed "
+        f"unpacked: parameters after round {LANES_ROUNDS} max abs diff "
+        f"{err:.3g} from the straight packed run; peak {peak / 2**30:.2f} "
+        f"GiB [{card}]")
+    return launches, rounds
+
+
+def phase_lanes(card):
+    """Trial lanes and client lane-packing, (a)-(c) above.  Every select
+    (``select:radix``, once a round over the laned (60, 4 * d) view on the
+    laned path) and every BN launch (the laned trials' own blocks; the
+    packed layout's 2 * C channels) is held against the plain versions.
+    cuDNN runs deterministic algorithms here, so a laned trial compares
+    with its sequential trial at ``LANES_RTOL``."""
+    import torch
+
+    torch.cuda.empty_cache()
+    work = _work_dir("lanes")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    bn_lanes, bn_packed = _BnAudit(key="lanes"), _BnAudit(key="packed")
+    try:
+        dp_rates = _lanes_dp(card, work)
+        with _shared_datasets(), \
+                _PathAudit("select", lambda: LANES_KEY["select"]) as sel:
+            resnet, rates = _lanes_resnet(card, bn_lanes)
+            packed, packed_rounds = _lanes_packed_resnet(card, work,
+                                                         bn_packed)
+            _lanes_packed_cnn(card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+    counts = {"column_median:lanes": resnet["lanes"].get("column_median", 0),
+              "column_median:lanes-seq": resnet["seq"].get("column_median",
+                                                           0),
+              "column_median:packed": packed.get("column_median", 0),
+              **{f"{k}:lanes": resnet["lanes"].get(k, 0) for k in BN_TPU},
+              **{f"{k}:packed": packed.get(k, 0) for k in BN_TPU}}
+    check(bn_lanes.calls == 2 * counts["bn_bwd_reduce:lanes"]
+          and bn_packed.calls == 2 * counts["bn_bwd_reduce:packed"],
+          f"lanes: BN launches audited {bn_lanes.calls} / {bn_packed.calls}"
+          f" for launches {counts}")
+    log(f"lanes: selects on {sorted(sel.shapes)} ({sel.calls} audited, "
+        f"each bit-exact against the plain version); BN launches audited "
+        f"laned {bn_lanes.calls}, packed {bn_packed.calls} (dx bit-exact, "
+        f"sums max err {max(bn_lanes.err, bn_packed.err):.3g}) [{card}]")
+    log(f"lanes BN layouts: laned {_bn_layouts(bn_lanes)}; packed "
+        f"{_bn_layouts(bn_packed)}")
+    log(f"lanes summary: (a) trials x rounds / s laned "
+        f"{[round(r, 3) for r in dp_rates['laned']]}, one by one "
+        f"{[round(r, 3) for r in dp_rates['one by one']]}; (b) rounds x "
+        f"lanes / s laned {[round(r, 4) for r in rates['laned']]}, one by "
+        f"one {[round(r, 4) for r in rates['one by one']]} [{card}]")
+    records = dict(sel.records)
+    records.update(bn_lanes.records(LANES_ROUNDS))
+    records.update(bn_packed.records(packed_rounds))
+    return counts, records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5786,6 +6169,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    LOG_FILE.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
     card = smi()
     log(f"card: {card}")
     records = {}
@@ -5818,7 +6204,7 @@ def main(argv=None) -> int:
                          ("resnet34", phase_resnet34), ("cct", phase_cct),
                          ("wire", phase_wire), ("async", phase_async),
                          ("window", phase_window), ("obs", phase_obs),
-                         ("gossip", phase_gossip)):
+                         ("gossip", phase_gossip), ("lanes", phase_lanes)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

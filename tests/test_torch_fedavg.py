@@ -21,6 +21,7 @@ counts reduced over the three rounds as the JAX driver reduces them.
 import json
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -132,7 +133,7 @@ def test_client_momentum_runs_streamed():
 @pytest.mark.parametrize("override,error", [
     ({"autotune": True}, NotImplementedError),
     ({"num_devices": 4}, NotImplementedError),
-    ({"client_packing": 2}, NotImplementedError),
+    ({"mxu_finish": True}, NotImplementedError),
     ({"execution": "dsharded"}, NotImplementedError),
     ({"mesh_shape": [4, 2]}, NotImplementedError),
     ({"preagg": "nnm"}, NotImplementedError),
@@ -143,6 +144,22 @@ def test_fields_the_port_lacks_raise(override, error):
     with pytest.raises(error):
         cfg = FedavgConfig().update_from_dict({**MLP_RUN, **override})
         cfg.build(device="cpu")
+
+
+@pytest.mark.parametrize("packing,pack_factor", [
+    ("off", None), ("auto", None), (2, 2), (3, 3)])
+def test_client_packing_is_accepted(packing, pack_factor):
+    """``client_packing`` builds: ``"off"`` and an ineligible ``"auto"``
+    (the MLP's 256-wide layer) run unpacked, a forced P packs."""
+    cfg = FedavgConfig().update_from_dict(
+        {**MLP_RUN, "client_packing": packing})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        algo = cfg.build(device="cpu")
+    packing_spec = algo.fed_round.packing
+    assert (None if packing_spec is None
+            else packing_spec.pack) == pack_factor
+    algo.stop()
 
 
 def test_fluent_setters_build_the_same_config():

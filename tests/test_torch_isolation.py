@@ -64,7 +64,13 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/tools/replay_round.py",
             "blades_tpu_torch/tools/validate_metrics.py",
             "blades_tpu_torch/tools/ledger_report.py",
-            "blades_tpu_torch/tools/control_report.py"} <= names
+            "blades_tpu_torch/tools/control_report.py",
+            "blades_tpu_torch/tune/lanes.py",
+            "blades_tpu_torch/parallel/packed.py",
+            "blades_tpu_torch/models/layers.py",
+            "blades_tpu_torch/models/mlp.py",
+            "blades_tpu_torch/models/cnn.py",
+            "blades_tpu_torch/models/resnet.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -88,7 +94,10 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.tools.replay_round, "
             "blades_tpu_torch.tools.validate_metrics, "
             "blades_tpu_torch.tools.ledger_report, "
-            "blades_tpu_torch.tools.control_report\n"
+            "blades_tpu_torch.tools.control_report, "
+            "blades_tpu_torch.tune.lanes, blades_tpu_torch.parallel.packed, "
+            "blades_tpu_torch.models.mlp, blades_tpu_torch.models.resnet, "
+            "blades_tpu_torch.models.layers\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -140,6 +149,12 @@ def test_out_of_slice_configs_name_the_later_slice():
         with pytest.raises(NotImplementedError, match="later slice"):
             FedavgConfig().update_from_dict({field: value})
     FedavgConfig().update_from_dict({"forensics": True}).validate()
+    # Client lane-packing resolves now.
+    cfg = FedavgConfig().update_from_dict(
+        {"client_packing": 2, "global_model": "cnn",
+         "dataset_config": {"type": "fashionmnist", "num_clients": 4}})
+    cfg.validate()
+    assert cfg.get_fed_round().packing.pack == 2
     with pytest.raises(ValueError, match="forensics × execution='streamed' "
                        "is an unsupported pair"):
         FedavgConfig().update_from_dict(
