@@ -56,14 +56,21 @@ class ALIEAdversary(Adversary):
         cdf = (n - f - s) / max(n - f, 1)
         return NormalDist().inv_cdf(min(max(cdf, 1e-9), 1.0 - 1e-9))
 
-    def on_updates_ready(self, updates, malicious, *, noise=None,
-                         generator=None, aggregator=None, shard=None):
-        del noise, generator
+    def forged_row(self, updates, malicious, *, aggregator=None,
+                   shard=None):
+        """The ``(d,)`` row the malicious lanes receive."""
         mean, std = benign_mean_std(updates, malicious)
         if isinstance(aggregator, Signguard):
             std = _negate_first_half(std, shard)
-        return self.scatter_forged(updates, mean + std * self.z_max,
-                                   malicious)
+        return mean + std * self.z_max
+
+    def on_updates_ready(self, updates, malicious, *, noise=None,
+                         generator=None, aggregator=None, shard=None):
+        del noise, generator
+        return self.scatter_forged(
+            updates, self.forged_row(updates, malicious,
+                                     aggregator=aggregator, shard=shard),
+            malicious)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +79,20 @@ class IPMAdversary(Adversary):
 
     scale: float = 1.0
 
+    def forged_row(self, updates, malicious, *, aggregator=None,
+                   shard=None):
+        """The ``(d,)`` row the malicious lanes receive."""
+        del aggregator, shard
+        mean, _ = benign_mean_std(updates, malicious)
+        return -self.scale * mean
+
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del noise, generator, aggregator, shard
-        mean, _ = benign_mean_std(updates, malicious)
-        return self.scatter_forged(updates, -self.scale * mean, malicious)
+        del noise, generator
+        return self.scatter_forged(
+            updates, self.forged_row(updates, malicious,
+                                     aggregator=aggregator, shard=shard),
+            malicious)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,9 +8,13 @@ shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  A field of the reference's config that the port does not
-have yet (meshes, the autotuner, ...) raises
+have yet (the multi-device meshes and pre-aggregation) raises
 ``NotImplementedError`` naming it when it is set to anything but the
-reference's default; an unknown key raises ``KeyError``.  ``validate()``
+reference's default; an unknown key raises ``KeyError``.  The execution
+autotuner's fields (``autotune``, ``autotune_cache_dir``, ``tuned_plan``)
+are the reference's; ``mxu_finish`` takes only ``None`` or ``""`` (the
+port has no MXU route) and ``donate_buffers`` either value (the port
+updates in place, so it changes nothing).  ``validate()``
 refuses the codec, fault, wire-domain, buffered-async, participation-
 window, data-store, forensics, ledger, control, gossip and client-packing
 combinations the reference refuses, with its reasons, and
@@ -92,16 +96,25 @@ _FIELDS = {
     # grouped kernels when eligible, else a loud fallback) | an int P >= 2
     # (forced).  Updates are unpacked before anything reads them.
     "client_packing": "off",
+    # Accepted with either value; the port updates the state in place.
+    "donate_buffers": True,
+    # The reference's MXU finish: None or "" (the port has no MXU route).
+    "mxu_finish": None,
+    # The execution autotuner (perf/autotune.py): False / "off", True /
+    # "on" (the bit-exact default tier) or "reassociating"; the plan
+    # cache's directory; a pinned plan dict (Plan.as_dict()).
+    "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
 }
 
 # The reference's other fields, with its defaults: setting one to another
 # value raises NotImplementedError (a later slice of the port).
 _LATER = {
-    "donate_buffers": True, "mxu_finish": None,
-    "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
     "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1,
 }
+_NO_MXU = ("the port has no MXU route: the JAX package's mxu_finish "
+           "'counts' / 'all' pick a TPU unit, and the card's finish takes "
+           "neither -- set mxu_finish=None or ''")
 _LATER_EXECUTION = ("dsharded", "hier")
 _EXECUTIONS = ("auto", "dense", "streamed", "async", "gossip")
 
@@ -151,6 +164,12 @@ class FedavgConfig:
         # get_fed_round()'s packing decision (requested / pack_factor /
         # packed_lanes / fallback), which sweep summaries carry.
         self._packing_decision = None
+        # Fields the user set (setters and dict merge), as opposed to
+        # defaults: the autotuner never varies an explicit knob.
+        self._explicit: set = set()
+        # The scan windows the sweep hands the autotuner (eligible
+        # chained windows, descending).
+        self._autotune_windows = None
 
     # -- setters -------------------------------------------------------------
 
@@ -171,6 +190,7 @@ class FedavgConfig:
             self._inferred.clear()
         setattr(self, k, v)
         self._inferred.discard(k)
+        self._explicit.add(k)
 
     def _set(self, **kw):
         if self._frozen:
@@ -217,8 +237,12 @@ class FedavgConfig:
                   update_dtype=None, compute_dtype=None, state_store=None,
                   window=None, state_dir=None, data_store=None,
                   data_dir=None, eval_chunk_clients=None,
-                  client_packing=None):
-        """``client_packing`` packs clients into lanes of grouped kernels
+                  client_packing=None, mxu_finish=None, autotune=None,
+                  autotune_cache_dir=None, tuned_plan=None):
+        """``autotune`` (``"on"`` / True, ``"reassociating"``, ``"off"``)
+        arms the execution autotuner, ``autotune_cache_dir`` its plan
+        cache's directory, ``tuned_plan`` pins a plan dict instead of
+        tuning; ``client_packing`` packs clients into lanes of grouped kernels
         (``"off"``, ``"auto"`` or an int P >= 2); ``window`` is the
         participation window's cohort size (0 =
         stateless clients), ``state_store`` where the off-cohort state
@@ -234,7 +258,10 @@ class FedavgConfig:
                          state_dir=state_dir, data_store=data_store,
                          data_dir=data_dir,
                          eval_chunk_clients=eval_chunk_clients,
-                         client_packing=client_packing)
+                         client_packing=client_packing,
+                         mxu_finish=mxu_finish, autotune=autotune,
+                         autotune_cache_dir=autotune_cache_dir,
+                         tuned_plan=tuned_plan)
 
     def arrivals(self, *, rate=None, rate_schedule=None, slow_fraction=None,
                  slow_factor=None, agg_every=None, buffer_capacity=None,
@@ -366,6 +393,7 @@ class FedavgConfig:
     # -- validation / build --------------------------------------------------
 
     def validate(self) -> None:
+        self._validate_autotune()
         if self.num_malicious_clients > self.num_clients // 2:
             raise ValueError(
                 f"num_malicious_clients={self.num_malicious_clients} is a "
@@ -472,7 +500,9 @@ class FedavgConfig:
                 (int(self.rounds_per_dispatch or 1) != 1,
                  "rounds_per_dispatch > 1", "rounds_per_dispatch=1"),
                 (self.chained_dispatch, "chained_dispatch",
-                 "chained_dispatch=False")):
+                 "chained_dispatch=False"),
+                (self.autotune_mode, "the execution autotuner",
+                 ".resources(autotune='off')")):
             if knob:
                 raise ValueError(
                     f"execution='gossip' × {why} is an unsupported "
@@ -573,6 +603,21 @@ class FedavgConfig:
                 "state_store='resident'")
 
     @property
+    def autotune_mode(self) -> Optional[str]:
+        """The autotune request: ``None`` (off), ``"default"`` (the
+        numerics-preserving tier) or ``"reassociating"`` (the opt-in tier
+        too)."""
+        v = self.autotune
+        if v in (False, None, 0, "off", ""):
+            return None
+        if v in (True, 1, "on", "default"):
+            return "default"
+        if v == "reassociating":
+            return "reassociating"
+        raise ValueError(
+            f"autotune must be off|on|reassociating (or bool), got {v!r}")
+
+    @property
     def ledger_backend(self) -> Optional[str]:
         """The ledger request: ``None`` (off), ``"resident"`` (host-RAM
         columns; what ``ledger=True`` means) or ``"disk"`` (memmapped
@@ -640,6 +685,8 @@ class FedavgConfig:
                  ".communication(agg_domain='f32')"),
                 (self.client_packing not in ("off", None),
                  "client lane-packing", ".resources(client_packing='off')"),
+                (self.autotune_mode, "the execution autotuner",
+                 ".resources(autotune='off')"),
                 (int(self.rounds_per_dispatch or 1) != 1,
                  "rounds_per_dispatch > 1", "rounds_per_dispatch=1"),
                 (self.chained_dispatch, "chained_dispatch",
@@ -793,6 +840,25 @@ class FedavgConfig:
             raise ValueError(
                 "prefetch must be 'auto', True / 'on' or False / 'off', "
                 f"got {self.prefetch!r}")
+
+    def _validate_autotune(self) -> None:
+        """The reference's checks of ``mxu_finish``, ``autotune`` and
+        ``tuned_plan``, with the port's refusal of the MXU finishes."""
+        if self.mxu_finish not in (None, "", "counts", "all"):
+            raise ValueError(
+                "mxu_finish must be None (env default), '', 'counts' or "
+                f"'all', got {self.mxu_finish!r}")
+        if self.mxu_finish:
+            raise ValueError(f"mxu_finish={self.mxu_finish!r}: {_NO_MXU}")
+        self.autotune_mode  # fail fast on a bad autotune value
+        if self.tuned_plan is not None:
+            from blades_tpu_torch.perf.autotune import Plan
+
+            plan = Plan.from_dict(self.tuned_plan)
+            if plan.mxu_finish:
+                raise ValueError(
+                    f"tuned_plan carries mxu_finish={plan.mxu_finish!r}: "
+                    f"{_NO_MXU}")
 
     def _validate_comm_and_faults(self) -> None:
         """The reference's checks of ``fault_config``, ``codec_config``

@@ -60,6 +60,21 @@ the controller's actions (``control_actions``, ``control_actions_total``,
 ``quarantine_size``) and applies them to the async engine's setters.
 These run when a row is finalized, i.e. when its metrics are fetched.
 
+The execution autotuner (``autotune``, :mod:`blades_tpu_torch.perf.autotune`)
+resolves the plan -- the ``tuned_plan`` pin, the plan cache's winner, a
+measured selection on the card or the ranked heuristic off it -- and
+writes it into the config's knobs before the pipeline is built;
+:attr:`Fedavg.plan` / :attr:`Fedavg.plan_summary` hold it and its
+provenance, and the rows carry ``plan_id``, ``autotune_cache_hit``,
+``autotune_timed`` and ``autotune_candidates``.  A ``replan`` control
+action re-resolves it on the dense path.  The dense and windowed rounds'
+rows carry the kernel build cache's ``compile_cache_hits`` /
+``compile_cache_misses``.  With ``prefetch`` on (on the card by default)
+the dense single-round path draws round ``r+1``'s batches on a side
+stream while round ``r`` computes
+(:class:`~blades_tpu_torch.data.prefetch.BatchPrefetcher`).
+:meth:`Fedavg.cost_analysis` counts one dispatch's operations and bytes.
+
 Checkpoints carry the residual and the stale ring in the ``RoundState``
 (under gossip the per-node stacks, which ``torch.load`` puts back on the
 device verbatim), the async engine's host state, the watchdog's windows
@@ -74,6 +89,7 @@ device (the draws are not the JAX package's).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import warnings
 from pathlib import Path
 from typing import Dict, Optional
@@ -86,6 +102,7 @@ from blades_tpu_torch.adversaries.base import forges
 from blades_tpu_torch.arrivals import AsyncEngine
 from blades_tpu_torch.arrivals.engine import opt_to_rows, rows_to_opt
 from blades_tpu_torch.data.datasets import DatasetCatalog
+from blades_tpu_torch.data.prefetch import BatchPrefetcher
 from blades_tpu_torch.data.store import make_data_store
 from blades_tpu_torch.data.stream import (
     DataPrefetcher,
@@ -96,6 +113,8 @@ from blades_tpu_torch.device import resolve_device
 from blades_tpu_torch.ops.aggregators import Mean, Median, Trimmedmean
 from blades_tpu_torch.parallel.streamed import (
     _COORDWISE_FORGERS,
+    chunk_invariant,
+    coordwise_route,
     streamed_step,
 )
 from blades_tpu_torch.parallel.streamed_geometry import (
@@ -117,6 +136,8 @@ from blades_tpu_torch.utils.async_metrics import DEVICE_METRICS_KEY
 from blades_tpu_torch.utils.async_metrics import fetch as fetch_tree
 from blades_tpu_torch.utils.seeds import seed_of
 from blades_tpu_torch.obs.trace import now
+from blades_tpu_torch.perf import autotune as at
+from blades_tpu_torch.perf import compile_cache
 from blades_tpu_torch.utils.timers import Timers
 from blades_tpu_torch.utils.tree import FlatLayout
 
@@ -206,6 +227,14 @@ class Fedavg:
             self.state = self.fed_round.init(cfg.seed, cfg.num_clients,
                                              device=dev)
         self._num_params = FlatLayout(self.state.server.params).d
+        # The execution autotuner writes its plan into the config's knobs
+        # before anything below reads them.
+        self._plan = self._plan_provenance = None
+        if cfg.autotune_mode:
+            self._plan, self._plan_provenance = self._resolve_autotune_plan()
+            self._apply_plan(self._plan)
+        self._chunk = max(1, int(cfg.rounds_per_dispatch))
+        self._prefetcher = None
 
         train = self.dataset.train
         self._host_train = (train.x, train.y, train.lengths)
@@ -270,10 +299,13 @@ class Fedavg:
                 malicious_prefix=cfg.num_malicious_clients,
                 d_chunk=cfg.d_chunk, device=dev)
         else:
-            self._step = self.fed_round.step
+            self._setup_dense_pipeline()
+        # The kernel build cache's counters ride the rows of the paths
+        # whose JAX counterparts run an ahead-of-time compiled program.
+        self._stamps_cache = (self._async is None and self._topology is None
+                              and not self._streamed)
         self._setup_observability()
         self.timers = Timers(sync=dev.type == "cuda")
-        self._chunk = max(1, int(cfg.rounds_per_dispatch))
         self._iteration = 0
         self._rounds_since_eval = 0
         self._last_eval: Dict = {}
@@ -282,8 +314,8 @@ class Fedavg:
         """The client ledger (one record per registered client) and the
         control plane: the driver's own watchdog over finished rows and a
         controller whose actions move the async engine's actuators (the
-        synchronous driver has none of them; a replan needs the
-        autotuner, which the port does not have)."""
+        synchronous driver has one, the replan, which re-resolves the
+        autotuned plan on the dense path)."""
         from blades_tpu_torch.control import Controller
         from blades_tpu_torch.obs.ledger import make_ledger
         from blades_tpu_torch.obs.watchdog import Watchdog
@@ -297,8 +329,12 @@ class Fedavg:
         self._watchdog = Watchdog(cfg.get_watchdog_rules())
         eng = self._async
         if eng is None:
-            self._controller = Controller(cfg.get_control_policy(),
-                                          num_clients=cfg.num_clients)
+            # A replan is the synchronous driver's one actuator; the
+            # windowed store and prefetcher are not rebuilt mid-run.
+            self._controller = Controller(
+                cfg.get_control_policy(), num_clients=cfg.num_clients,
+                allow_replan=bool(cfg.autotune_mode
+                                  and self._state_pf is None))
             return
         self._controller = Controller(
             cfg.get_control_policy(), num_clients=cfg.num_clients,
@@ -328,7 +364,23 @@ class Fedavg:
             device=self.device, async_staging=self._resolve_prefetch())
         self._step = self.fed_round.step
 
+    def _setup_dense_pipeline(self) -> None:
+        """The dense round, with the next round's batches staged while a
+        round computes when ``prefetch`` resolves on (single-round
+        dispatches only)."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+        self._prefetcher = None
+        self._step = self.fed_round.step
+        if self._chunk == 1 and self._resolve_prefetch():
+            self._prefetcher = BatchPrefetcher(
+                lambda gen: self.fed_round.sample_round_batches(
+                    *self._train, gen),
+                self.round_seed, self.device)
+
     def _resolve_prefetch(self) -> bool:
+        """Whether ``prefetch`` resolves on: ``"auto"`` is on on the card
+        (the JAX package's baseline: on off the CPU)."""
         want = self.config.prefetch
         if want in (False, "off"):
             return False
@@ -467,6 +519,12 @@ class Fedavg:
                         self._host_train[2])
                 elif self._state_pf is not None:
                     m = self._windowed_round()
+                elif self._prefetcher is not None:
+                    r = self._iteration
+                    gen, bx, by = self._prefetcher.take(r)
+                    self._prefetcher.stage(r + 1)
+                    self.state, m = self.fed_round.step_prebatched(
+                        self.state, bx, by, self.malicious, gen)
                 else:
                     seed = self.round_seed(self._iteration)
                     self.state, m = self._step(self.state, *self._train,
@@ -507,6 +565,18 @@ class Fedavg:
             row["data_store"] = self._data_store.backend
             row["data_stage_ms"] = round(dstats.last_stage_ms, 3)
             row["data_bytes_staged"] = int(dstats.last_bytes_staged)
+        if self._stamps_cache:
+            stats = compile_cache.cache_stats()
+            row["compile_cache_hits"] = int(stats["hits"])
+            row["compile_cache_misses"] = int(stats["misses"])
+        if self._plan is not None:
+            # Static per trial: the plan and how it was selected (the
+            # candidates' timings ride the sweep summary).
+            prov = self._plan_provenance or {}
+            row["plan_id"] = self._plan.plan_id
+            row["autotune_cache_hit"] = bool(prov.get("cache_hit"))
+            row["autotune_timed"] = bool(prov.get("timed"))
+            row["autotune_candidates"] = len(prov.get("candidates") or [])
         # The rounds-since-eval cadence: a rounds_per_dispatch that does
         # not divide the interval still evaluates.
         if (self.config.evaluation_interval
@@ -516,6 +586,32 @@ class Fedavg:
         elif self._last_eval:
             row.update(self._last_eval)
         return row
+
+    def train_rows(self, per_round: bool = False) -> list:
+        """One dispatch as result rows: ``[self.train()]``, or with
+        ``per_round`` and ``rounds_per_dispatch > 1`` one row per FL round
+        (the sweep's scan windows): each carries its own round's metrics
+        and the dispatch's static fields; rows before the window's last
+        carry the previous evaluation, the last one what the dispatch
+        attached."""
+        if not per_round or self._chunk == 1:
+            return [self.train()]
+        prev_eval = dict(self._last_eval)
+        start = self._iteration
+        tail = self.train_raw()
+        raw = tail.pop(DEVICE_METRICS_KEY)
+        eval_keys = {k: tail.pop(k) for k in
+                     ("test_loss", "test_acc", "test_acc_top3", "eval_chunks")
+                     if k in tail}
+        for k in prev_eval:
+            tail.pop(k, None)
+        rows = []
+        for r in range(self._chunk):
+            row = dict(tail, training_iteration=start + r + 1)
+            row[DEVICE_METRICS_KEY] = {k: [v[r]] for k, v in raw.items()}
+            row.update(eval_keys if r == self._chunk - 1 else prev_eval)
+            rows.append(self.finalize_row(row))
+        return rows
 
     def _cohort_size(self) -> int:
         return (int(self.config.state_window) if self._state_pf is not None
@@ -697,12 +793,15 @@ class Fedavg:
         row["quarantine_size"] = len(self._controller.quarantine)
 
     def _apply_control_action(self, act) -> None:
-        """Move the async engine's actuator for one journaled action.  An
-        engine that refuses the move warns: the journal keeps the intent.
-        ``replan`` needs the execution autotuner, which the port does not
-        have, so it moves nothing (the controller offers none without
-        it)."""
+        """Move the actuator of one journaled action: a ``replan``
+        re-resolves the autotuned plan (:meth:`_replan_runtime`; the
+        controller offers one only to an autotuned synchronous run), the
+        others move the async engine's setters.  An engine that refuses
+        the move warns: the journal keeps the intent."""
         eng = self._async
+        if act.actuator == "replan":
+            self._replan_runtime()
+            return
         if eng is None:
             return
         try:
@@ -721,6 +820,326 @@ class Fedavg:
                 f"control action {act.actuator} (seq {act.seq}) was "
                 f"journaled but the engine rejected it: {exc}",
                 RuntimeWarning, stacklevel=2)
+
+    # -- the execution autotuner (perf/autotune.py) --------------------------
+
+    def _d_chunk_exact(self) -> bool:
+        """Whether the streamed finish's result is invariant to the
+        ``d_chunk`` partition bit for bit (the JAX package's gate,
+        :func:`~blades_tpu_torch.parallel.streamed.chunk_invariant`)."""
+        return chunk_invariant(self.fed_round)
+
+    def _takes_chunked_finish(self) -> bool:
+        """Whether the streamed round takes the chunked finish, the one
+        route that reads ``d_chunk`` (the fused finish's kernel covers the
+        whole buffer): the port's gate on the chunk ladder."""
+        cfg = self.config
+        route, _ = coordwise_route(
+            self.fed_round, cfg.num_clients,
+            client_block=self._streamed_block(),
+            update_dtype=_DTYPES[str(cfg.update_dtype)],
+            malicious_prefix=cfg.num_malicious_clients)
+        return route == "chunked"
+
+    def _plan_space(self, allow_reassociating: bool):
+        """This trial's legal execution plans
+        (:func:`~blades_tpu_torch.perf.autotune.enumerate_plans`), each
+        knob's list ordered current-resolution first and collapsed to one
+        entry where the user set the knob, as the JAX package enumerates
+        them; the port offers no MXU finish, and the ``d_chunk`` ladder
+        only where the round takes the chunked finish."""
+        cfg = self.config
+        explicit = getattr(cfg, "_explicit", set()) or set()
+        baseline_streamed = self._use_streamed()
+        windowed = self._windowed
+        stateless = bool(getattr(self.fed_round, "stateless_clients", False))
+        dense_features = (cfg.forensics or cfg.fault_config
+                          or cfg.codec_config or windowed or stateless)
+        packing = self.fed_round.packing
+        base_pack = int(packing.pack) if packing is not None else 1
+        dense_bytes = cfg.num_clients * self._num_params * 4
+
+        if cfg.execution in ("dense", "streamed"):
+            execs = [cfg.execution]
+        else:
+            execs = ["streamed" if baseline_streamed else "dense"]
+            if allow_reassociating:
+                if (baseline_streamed and not dense_features
+                        and dense_bytes
+                        <= self.dense_matrix_limit(self.device)):
+                    execs.append("dense")
+                elif (not baseline_streamed and self._streamed_supported()
+                      and not dense_features and base_pack == 1):
+                    execs.append("streamed")
+        streamed_in_space = "streamed" in execs
+
+        d_chunks = [int(cfg.d_chunk)]
+        if (streamed_in_space and "d_chunk" not in explicit
+                and self._d_chunk_exact() and self._takes_chunked_finish()):
+            seen = {min(int(cfg.d_chunk), self._num_params)}
+            for c in at.D_CHUNK_LADDER:
+                eff = min(int(c), self._num_params)
+                if eff not in seen:
+                    seen.add(eff)
+                    d_chunks.append(int(c))
+
+        packs = [base_pack]
+        if (allow_reassociating and "dense" in execs and not windowed
+                and not isinstance(cfg.client_packing, int)
+                and (cfg.client_packing == "auto"
+                     or "client_packing" not in explicit)):
+            from blades_tpu_torch.parallel.packed import (
+                resolve_client_packing,
+            )
+
+            for p in (1, 2, 4, 8):
+                if p in packs or cfg.num_clients % p:
+                    continue
+                if p == 1:
+                    packs.append(1)
+                    continue
+                try:
+                    stripped = dataclasses.replace(self.fed_round,
+                                                   packing=None)
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        _, dec = resolve_client_packing(
+                            stripped, p, num_clients=cfg.num_clients,
+                            execution="dense")
+                except Exception:
+                    continue
+                if dec and int(dec.get("pack_factor", 1)) == p:
+                    packs.append(p)
+
+        rpd = int(cfg.rounds_per_dispatch or 1)
+        windows = ([rpd] if rpd != 1 else
+                   [int(w) for w in (cfg._autotune_windows or (1,))])
+
+        base_pre = self._resolve_prefetch()
+        prefetch_options = [base_pre]
+        if cfg.prefetch == "auto" and "prefetch" not in explicit:
+            prefetch_options.append(not base_pre)
+
+        agg_domains = [cfg.agg_domain]
+        if (allow_reassociating and "dense" in execs and not windowed
+                and "agg_domain" not in explicit
+                and cfg.agg_domain == "f32" and cfg.codec_config
+                and not (cfg.fault_config or cfg.health_check
+                         or cfg.forensics or cfg.dp_clip_threshold)):
+            from blades_tpu_torch.parallel.streamed_geometry import (
+                WIRE_AGGREGATORS,
+            )
+
+            codec = cfg.get_codec()
+            if (codec is not None and codec.supports_deferred
+                    and codec.name != "identity"
+                    and isinstance(self.fed_round.server.aggregator,
+                                   WIRE_AGGREGATORS)):
+                agg_domains.append("wire")
+
+        state_stores = [cfg.state_store]
+        if (allow_reassociating and windowed
+                and "state_store" not in explicit):
+            for alt in ("host", "resident"):
+                if alt not in state_stores:
+                    state_stores.append(alt)
+
+        return at.enumerate_plans(
+            executions=execs, d_chunks=d_chunks, mxu_modes=[""],
+            pack_factors=packs, scan_windows=windows,
+            prefetch_options=prefetch_options, agg_domains=agg_domains,
+            state_stores=state_stores,
+            state_windows=[cfg.state_window],
+            allow_reassociating=allow_reassociating)
+
+    def _program_fingerprint(self) -> Optional[str]:
+        """The config fields that steer the program, digested (the plan
+        cache's key): every field but ``seed`` and the autotune request,
+        a dataset object by its name, FLTrust's root data by value;
+        ``None`` where a field holds a value no stable digest captures (a
+        callable, an object)."""
+
+        def plain(v) -> bool:
+            if isinstance(v, (str, int, float, bool, type(None))):
+                return True
+            if isinstance(v, (list, tuple)):
+                return all(plain(x) for x in v)
+            if isinstance(v, dict):
+                return all(isinstance(k, str) and plain(x)
+                           for k, x in v.items())
+            return False
+
+        items: Dict = {"__class__": type(self).__name__,
+                       "__augment__": str(self.fed_round.task.spec.augment)}
+        for k, v in self.config.items():
+            if k in ("seed", "autotune", "autotune_cache_dir", "tuned_plan"):
+                continue
+            if k == "dataset" and not isinstance(v, (str, dict)):
+                v = f"<dataset:{getattr(v, 'name', type(v).__name__)}>"
+            if not plain(v):
+                return None
+            items[k] = v
+        td = self.fed_round.trusted_data
+        if td is not None:
+            h = hashlib.sha1()
+            for a in td:
+                h.update(a.detach().cpu().numpy().tobytes())
+            items["__trusted_digest__"] = h.hexdigest()
+        return compile_cache.fingerprint(items)
+
+    def _select(self, space):
+        """The measured selection on the card (each candidate its own
+        driver, stopped before the next), the ranked heuristic off it."""
+        measure = (at.timed_measure_fn(self.config, device=self.device)
+                   if at.timing_available(self.device) else None)
+        plan, prov = at.select_plan(space, measure_fn=measure)
+        self.candidate_peaks = dict(getattr(measure, "peaks", {}) or {})
+        return plan, prov
+
+    def _resolve_autotune_plan(self):
+        """This trial's plan: the ``tuned_plan`` pin, the plan cache's
+        winner (when it is still in this run's space), or a selection
+        (then cached).  Returns ``(Plan, provenance)``."""
+        cfg = self.config
+        mode = cfg.autotune_mode
+        self.candidate_peaks = {}
+        if cfg.tuned_plan:
+            plan = at.Plan.from_dict(cfg.tuned_plan)
+            return plan, {
+                "mode": "pinned", "timed": False, "cache_hit": False,
+                "winner": plan.as_dict(), "winner_id": plan.plan_id,
+                "candidates": [], "truncated": 0,
+            }
+        space = self._plan_space(
+            allow_reassociating=(mode == "reassociating"))
+        cache = at.PlanCache(cfg.autotune_cache_dir)
+        fp = self._program_fingerprint()
+        key = at.cache_key(fp, tier=mode) if fp else None
+        cache_stale = False
+        if key is not None:
+            entry = cache.get(key)
+            if entry is not None:
+                plan = at.Plan.from_dict(entry["plan"])
+                if plan in space.candidates:
+                    prov = dict(entry.get("provenance") or {})
+                    prov.update({"mode": "cache", "cache_hit": True,
+                                 "winner": plan.as_dict(),
+                                 "winner_id": plan.plan_id})
+                    return plan, prov
+                # The cached winner is outside this run's space (another
+                # round budget's scan windows): re-tune and overwrite.
+                cache_stale = True
+        plan, prov = self._select(space)
+        if cache_stale:
+            prov["cache_stale"] = True
+        if key is not None:
+            cache.put(key, plan, prov)
+        return plan, prov
+
+    def _apply_plan(self, plan) -> None:
+        """Write the plan into the config's knobs, and re-resolve lane
+        packing where its pack factor differs from the round's."""
+        cfg = self.config
+        at.apply_plan(cfg, plan)
+        packing = self.fed_round.packing
+        cur = int(packing.pack) if packing is not None else 1
+        want = int(plan.client_packing or 1)
+        if want == cur:
+            return
+        fr = dataclasses.replace(self.fed_round, packing=None)
+        if want >= 2:
+            from blades_tpu_torch.parallel.packed import (
+                resolve_client_packing,
+            )
+
+            fr, decision = resolve_client_packing(
+                fr, want, num_clients=cfg.num_clients,
+                execution=plan.execution)
+            cfg._packing_decision = decision
+        else:
+            cfg._packing_decision = {
+                "requested": cfg.client_packing, "pack_factor": 1,
+                "packed_lanes": cfg.num_clients,
+                "fallback": "autotune plan selected unpacked execution",
+            }
+        self.fed_round = fr
+
+    def _replan_runtime(self) -> None:
+        """Re-run the autotuner and rebuild the dense pipeline when the
+        winner changed (the synchronous dense path only: autotune is
+        refused with async and gossip, and the windowed store is not
+        rebuilt mid-run)."""
+        cfg = self.config
+        if (not cfg.autotune_mode or self._async is not None
+                or self._state_pf is not None or self._topology is not None):
+            return
+        space = self._plan_space(
+            allow_reassociating=(cfg.autotune_mode == "reassociating"))
+        plan, prov = self._select(space)
+        prov["mode"] = "replan"
+        self._plan_provenance = prov
+        if self._plan is not None and plan.as_dict() == self._plan.as_dict():
+            return  # the standing plan won again
+        if plan.execution == "streamed" or self._streamed:
+            warnings.warn("replan resolved a streamed plan mid-run; "
+                          "keeping the standing pipeline",
+                          RuntimeWarning, stacklevel=2)
+            return
+        self._plan = plan
+        self._apply_plan(plan)
+        self._chunk = max(1, int(cfg.rounds_per_dispatch))
+        self._setup_dense_pipeline()
+
+    @property
+    def plan(self):
+        """The resolved :class:`~blades_tpu_torch.perf.autotune.Plan`, or
+        None when autotune is off."""
+        return self._plan
+
+    @property
+    def plan_summary(self) -> Optional[Dict]:
+        """The autotuner's provenance for sweep summaries (mode, the
+        candidates' medians, the winner, the cache hit), or None when
+        autotune is off."""
+        return self._plan_provenance
+
+    def cost_analysis(self) -> Optional[Dict]:
+        """The operations and bytes of ONE dispatch, counted: ``{"flops":
+        ..., "bytes_accessed": ...}``.  The dispatch runs on a copy of the
+        state at the current round's seed; aten operations count by
+        ``torch.utils.flop_counter``'s formulas and their operands' bytes
+        (views move nothing), the hand-written kernels by what their
+        bounds count (``ops/_cuda.py::COST``).  A count, not a compiler
+        estimate.  Memoized; the trial's state, round counter and launch
+        counts are left as they were; ``None`` (never an exception) where
+        the path has no single dispatch to count (async, the window).
+        ``cost_by_op`` then holds the flops by aten operation (and the
+        hand-written kernels' as ``"cuda kernels"``).  A grouped
+        convolution's weight gradient (a vmapped client block is one)
+        counts its own products (:func:`_conv_backward_flop`)."""
+        if hasattr(self, "_cost_analysis"):
+            return self._cost_analysis
+        cost = None
+        if self._step is not None and self._state_pf is None:
+            from blades_tpu_torch.ops import _cuda
+
+            launches, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+            routes = dict(getattr(self._step, "routes", {}) or {})
+            try:
+                cost = _count_dispatch(self)
+            except Exception:
+                cost = None
+            finally:
+                _cuda.COST = None
+                _cuda.LAUNCHES.clear()
+                _cuda.LAUNCHES.update(launches)
+                _cuda.MAPS.clear()
+                _cuda.MAPS.update(maps)
+                if hasattr(self._step, "routes"):
+                    self._step.routes.clear()
+                    self._step.routes.update(routes)
+        self._cost_analysis = cost
+        return cost
 
     @property
     def packing_summary(self) -> Optional[Dict]:
@@ -795,6 +1214,10 @@ class Fedavg:
             # resumes any other; recorded for the audit.
             "pack_factor": (1 if self.fed_round.packing is None
                             else int(self.fed_round.packing.pack)),
+            # The plan the checkpoint was written under: the sweep pins it
+            # back (config.tuned_plan) before a retry or resume rebuilds.
+            "plan": (self._plan.as_dict() if self._plan is not None
+                     else None),
             "control": (None if self._controller is None else {
                 "watchdog": self._watchdog.state(),
                 "controller": self._controller.state()}),
@@ -812,6 +1235,16 @@ class Fedavg:
         if p.is_dir():
             p = p / "algorithm_state.pkl"
         payload = torch.load(p, map_location=self.device, weights_only=False)
+        saved_plan = payload.get("plan")
+        cur_plan = self._plan.as_dict() if self._plan is not None else None
+        if saved_plan is not None and saved_plan != cur_plan:
+            warnings.warn(
+                f"checkpoint was written under execution plan {saved_plan} "
+                f"but this instance resolved {cur_plan}; pin the saved plan "
+                "via FedavgConfig.resources(tuned_plan=...) to replay it "
+                "identically", RuntimeWarning, stacklevel=2)
+        if self._prefetcher is not None:
+            self._prefetcher.invalidate()
         self._iteration = payload["iteration"]
         self._rounds_since_eval = payload["rounds_since_eval"]
         self._last_eval = dict(payload["last_eval"])
@@ -952,6 +1385,9 @@ class Fedavg:
         """Release the run's device memory and its stores (idempotent)."""
         if self._state_pf is not None:
             self._state_pf.close()
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+        self._prefetcher = None
         for store in (self._state_store, self._data_pf, self._ledger):
             if store is not None:
                 store.close()
@@ -962,3 +1398,77 @@ class Fedavg:
         self.malicious = self.fed_round = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+
+def _conv_backward_flop(*args, out_val=None, **kwargs) -> int:
+    """``torch.utils.flop_counter``'s convolution-backward formula with the
+    weight gradient divided by ``groups``: the library counts a grouped
+    convolution's weight gradient as if every input channel met every
+    output channel, ``groups`` times its products (a vmapped client block
+    of G clients is a convolution of G groups).  Takes the operation's own
+    arguments (``aten.convolution_backward``'s)."""
+    from torch.utils.flop_counter import conv_backward_flop
+
+    head, groups, mask, rest = args[:9], args[9], args[10], args[11:]
+    grad_input = conv_backward_flop(*head, groups, [mask[0], False, False],
+                                    *rest, out_val=out_val, **kwargs)
+    grad_weight = conv_backward_flop(*head, groups, [False, mask[1], False],
+                                     *rest, out_val=out_val, **kwargs)
+    return grad_input + grad_weight // max(1, int(groups))
+
+
+_conv_backward_flop._get_raw = True  # FlopCounterMode passes the operands
+
+
+def _count_dispatch(algo) -> Dict:
+    """Run one dispatch of ``algo``'s round on a copy of its state at the
+    current round's seed, counting operations and bytes (see
+    :meth:`Fedavg.cost_analysis`)."""
+    import copy
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from blades_tpu_torch.ops import _cuda
+
+    class _Bytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                leaves, _ = tree_flatten((args, kwargs, out))
+                self.total += sum(t.numel() * t.element_size()
+                                  for t in leaves if torch.is_tensor(t))
+            return out
+
+    state = copy.deepcopy(algo.state)
+    _cuda.COST = kernels = {"bytes": 0, "flops": 0}
+    flops = FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _conv_backward_flop})
+    nbytes = _Bytes()
+    with flops, nbytes:
+        for r in range(algo._chunk):
+            seed = algo.round_seed(algo.iteration + r)
+            if algo._prefetcher is not None:
+                gen = torch.Generator(device=algo.device)
+                gen.manual_seed(int(seed))
+                bx, by = algo.fed_round.sample_round_batches(*algo._train,
+                                                             gen)
+                state, _ = algo.fed_round.step_prebatched(
+                    state, bx, by, algo.malicious, gen)
+            else:
+                state, _ = algo._step(state, *algo._train, algo.malicious,
+                                      seed)
+    if algo.device.type == "cuda":
+        torch.cuda.synchronize(algo.device)
+    del state
+    by_op = {str(op): int(n) for op, n in
+             flops.get_flop_counts().get("Global", {}).items()}
+    by_op["cuda kernels"] = int(kernels["flops"])
+    algo.cost_by_op = by_op
+    return {"flops": float(flops.get_total_flops() + kernels["flops"]),
+            "bytes_accessed": float(nbytes.total + kernels["bytes"])}

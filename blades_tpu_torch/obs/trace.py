@@ -288,6 +288,16 @@ def trace(log_dir: str) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(log_dir, "profile.trace.json"))
 
 
+@contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region, visible in a :func:`trace` capture
+    (``torch.profiler.record_function``)."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        yield
+
+
 # ---------------------------------------------------------------------------
 # offline validation
 # ---------------------------------------------------------------------------

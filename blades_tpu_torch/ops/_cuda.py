@@ -14,7 +14,14 @@ thread map), the Gram launches per (wrapper name, ``gram:`` + route), the
 row-statistics launches per (wrapper name, ``rowstats:`` + route), the
 finish launches per (wrapper name, ``finish:`` + route) and the column
 selects per (wrapper name, ``select:radix``); :func:`reset_launches` sets
-every count to 0.
+every count to 0.  While ``COST`` is a dict (``Fedavg.cost_analysis``),
+each launch adds to its ``"bytes"`` and ``"flops"`` what the kernel's
+bound counts: each input byte read once, each output byte written once,
+and its operations per element.
+
+The library's directory is :func:`blades_tpu_torch.perf.compile_cache.cache_dir`
+(``build/`` unless ``--compile-cache`` names another); finding the
+library there counts as a compile-cache hit, running ``nvcc`` as a miss.
 """
 
 from __future__ import annotations
@@ -40,7 +47,10 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: collections.Counter = collections.Counter()
 MAPS: collections.Counter = collections.Counter()
+#: Where launches book their bytes and operations, or None.
+COST = None
 _lib = None
+_HERE = os.path.abspath(__file__)
 
 FORGES = {None: 0, "alie": 1, "ipm": 2, "adaptive": 3}
 AGGS = {"mean": 0, "median": 1, "trimmed": 2}
@@ -51,6 +61,30 @@ def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
     LAUNCHES.clear()
     MAPS.clear()
+
+
+def raised_in_kernel(exc: BaseException) -> bool:
+    """Whether ``exc`` came out of a kernel's build or launch (a frame of
+    this module): such a failure is never a fallback's or a tuner's to
+    hide."""
+    tb = exc.__traceback__
+    while tb is not None:
+        if os.path.abspath(tb.tb_frame.f_code.co_filename) == _HERE:
+            return True
+        tb = tb.tb_next
+    return False
+
+
+def _charge(nbytes: int, ops: int) -> None:
+    """Book one launch's bytes and operations into ``COST``."""
+    if COST is not None:
+        COST["bytes"] += int(nbytes)
+        COST["flops"] += int(ops)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _nvcc() -> str:
@@ -73,15 +107,20 @@ def build() -> Path:
     when the library for these source texts already exists) and return the
     library's path.  Each source compiles in its own ``nvcc`` process, all
     at once; ptxas's report of every kernel lands beside the library."""
+    from blades_tpu_torch.perf import compile_cache
+
     srcs = _sources()
     h = hashlib.sha1()
     for src in srcs:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"libblades_kernels_{h.hexdigest()[:12]}.so"
+    build_dir = compile_cache.cache_dir(BUILD_DIR)
+    out = build_dir / f"libblades_kernels_{h.hexdigest()[:12]}.so"
     if out.exists():
+        compile_cache.record(hit=True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    compile_cache.record(hit=False)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=build_dir))
     try:
         nvcc = _nvcc()
         jobs = []
@@ -104,7 +143,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link:\n{link.stderr}")
         os.replace(tmp, out)
-        (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text("".join(reports))
+        (build_dir / f"{out.stem}.ptxas.txt").write_text("".join(reports))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -315,6 +354,8 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
         _check(lib, err, f"{name}: {route} launch failed")
     LAUNCHES[name] += 1
     MAPS[name, "finish:" + route] += 1
+    # Per element: mean 1, variance 3, row norm 2, selection 1.
+    _charge(_nbytes(x, act, nz, agg_out, forged, sq, bad), 7 * rows * d)
     return agg_out, sq, bad.bool(), forged
 
 
@@ -454,6 +495,9 @@ def launch_select(name: str, x: torch.Tensor, agg, *, geometry=None,
             f"{name}: select launch failed")
     LAUNCHES[name] += 1
     MAPS[name, "select:radix"] += 1
+    # Per element: a compare for the median, a compare and an add for the
+    # trimmed mean.
+    _charge(_nbytes(x, out), (1 if agg[0] == "median" else 2) * rows * d)
     return out
 
 
@@ -713,6 +757,13 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
             out["gram"] = gram_out
             MAPS[name, "gram:" + route] += 1
     LAUNCHES[name] += 1
+    # A multiply and an add per element for each row statistic and each
+    # vector, and per row pair of the Gram.
+    per = int(sq) + int(signs) + R + W + G
+    _charge(_nbytes(x, v, w, g) + sum(
+        _nbytes(t) for t in out.values() if torch.is_tensor(t)),
+        2 * rows * d_true * per
+        + (rows * (rows + 1) // 2 * d_true * 2 if gram else 0))
     return out
 
 
@@ -906,6 +957,8 @@ def launch_bn_reduce(name: str, x, dy, mean, r, scale):
             torch.cuda.current_stream(dev).cuda_stream)
         _check(lib, err, f"{name}: launch failed")
     _count(name, plan)
+    # A subtract, 3 multiplies and 3 adds per element.
+    _charge(_nbytes(x, dy, *vecs, *sums), 7 * x.numel())
     return tuple(sums)
 
 
@@ -926,6 +979,8 @@ def launch_bn_dx(name: str, x, dy, mean, r, scale, mean_dxhat,
                            torch.cuda.current_stream(dev).cuda_stream)
         _check(lib, err, f"{name}: launch failed")
     _count(name, plan)
+    # A subtract, 4 multiplies and 2 subtracts per element.
+    _charge(_nbytes(x, dy, dx, *vecs), 7 * x.numel())
     return dx
 
 
@@ -965,6 +1020,10 @@ def launch_bn_bwd(x, dy, mean, r, scale):
         _check(lib, err, "bn_bwd: launch failed")
     _count("bn_bwd_reduce", red)
     _count("bn_bwd_dx", dxp)
+    # The two passes: x and dy read twice, dx written, the (G, C) sums
+    # and coefficients; 7 operations per element each.
+    _charge(2 * _nbytes(x, dy) + _nbytes(dx, dscale, dbias, *vecs)
+            + 5 * gc * 4, 14 * x.numel())
     return dx, dscale, dbias, scratch
 
 

@@ -23,7 +23,13 @@ is allocated:
   (ALIE, IPM, Adaptive, Noise) with per-chunk draws, and aggregated by
   the aggregator's own call (Median / Trimmedmean launch the column
   select on a card); the row norms count only not-yet-covered columns,
-  while the tail chunk's aggregate overwrites the overlap.
+  while the tail chunk's aggregate overwrites the overlap.  On a round
+  whose result does not depend on the chunk grid (:func:`chunk_invariant`),
+  ALIE's and IPM's statistics and a Mean aggregate are taken over
+  ``STAT_WIDTH``-wide column slices of the chunk, and the row
+  norms over the model's ``STAT_WIDTH``-wide column blocks, so the
+  finish gives the same parameters and metrics, bit for bit, for every
+  ``d_chunk`` that is a multiple of ``STAT_WIDTH`` or covers the model.
 
 The buffer is ``(rows, d_alloc)`` on every route, the model width ``d``
 rounded up to a multiple of 512 as the JAX package allocates it whenever
@@ -85,7 +91,7 @@ lanes enter no row-geometry round, as in the JAX package.
 from __future__ import annotations
 
 import collections
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -155,6 +161,99 @@ def _fused_spec(fr: FedRound):
     return fspec, aspec
 
 
+#: The column width of the chunked finish's column statistics on a
+#: chunk-invariant round: the deterministic forges' (ALIE, IPM) and a
+#: Mean aggregate come from reductions over ``(rows, STAT_WIDTH)`` column
+#: slices of a chunk (its last slice overlapping its predecessor), and
+#: the row norms from the model's ``STAT_WIDTH``-wide column blocks in
+#: order, so the finish is invariant to ``d_chunk`` bit for bit.  A CUDA
+#: column reduction splits its rows across thread blocks by the number of
+#: columns it reduces, and orders them by the input's strides: over the
+#: whole chunk its sums would move with the chunk width, and a Mean over a
+#: strided slice with the chunk's stride, so a Mean's slice is made
+#: contiguous.  The forges and the norms reduce elementwise results,
+#: which are contiguous whatever the slice's stride.
+STAT_WIDTH = 1 << 16
+
+
+def chunk_invariant(fr: FedRound) -> bool:
+    """Whether the streamed finish's result can be invariant to the
+    ``d_chunk`` partition bit for bit (the JAX package's gate on the chunk
+    ladder): a coordinate-wise aggregator under a deterministic
+    coordinate-wise forge, without DP (per-chunk noise), the Noise and
+    Adaptive forges (per-chunk draws) or the health check (chunk-local
+    sanitize)."""
+    if fr.dp_clip_threshold is not None or fr.health_check:
+        return False
+    if not isinstance(fr.server.aggregator, _COORDWISE_AGGREGATORS):
+        return False
+    adv = fr.adversary
+    if forges(adv):
+        if isinstance(adv, (AdaptiveAdversary, NoiseAdversary)):
+            return False
+        if not isinstance(adv, _COORDWISE_FORGERS):
+            return False
+    return True
+
+
+def stat_slices(c: int):
+    """The starts of the ``STAT_WIDTH``-wide column slices covering ``c``
+    columns (one slice of ``c`` when ``c <= STAT_WIDTH``; the last one
+    overlaps its predecessor)."""
+    if c <= STAT_WIDTH:
+        return [(0, c)]
+    starts = list(range(0, c - STAT_WIDTH + 1, STAT_WIDTH))
+    if starts[-1] + STAT_WIDTH < c:
+        starts.append(c - STAT_WIDTH)
+    return [(a, STAT_WIDTH) for a in starts]
+
+
+def _by_slices(fn, chunk, out):
+    """``fn`` (column-local) over ``chunk``'s statistics slices into
+    ``out``, column for column."""
+    for a, w in stat_slices(chunk.shape[1]):
+        out[..., a:a + w] = fn(chunk[:, a:a + w])
+    return out
+
+
+def _add_sq_by_blocks(sq, chunk, start, lo):
+    """Add the squared norms of ``chunk``'s columns ``lo:`` (model columns
+    from ``start + lo``) to ``sq``, one model ``STAT_WIDTH`` block at a
+    time: the same sums in the same order whenever the chunk grid's
+    boundaries fall on block boundaries."""
+    g, end = start + lo, start + chunk.shape[1]
+    while g < end:
+        b = min((g // STAT_WIDTH + 1) * STAT_WIDTH, end)
+        x = chunk[:, g - start:b - start]
+        sq += (x * x).sum(1)
+        g = b
+
+
+def coordwise_route(fr: FedRound, n: int, *, client_block: int,
+                    update_dtype: torch.dtype,
+                    malicious_prefix: int | None) -> Tuple[str, int]:
+    """The finish a coordinate-wise streamed round over ``n`` data rows
+    takes, decided before its buffer exists: ``("fused_compact", rows
+    elided)``, ``("fused", 0)`` or ``("chunked", 0)``.  The fused finish
+    runs where it can express the round (:func:`_fused_spec`, no ghost
+    lanes) and its kernel plan takes the buffer's rows
+    (:func:`~blades_tpu_torch.ops._cuda.finish_fits`); compact when a
+    forging round's malicious prefix is whole blocks."""
+    adv = fr.adversary
+    forging = forges(adv) and isinstance(
+        adv, _COORDWISE_FORGERS + STREAMED_ROW_FORGERS)
+    skip_blocks = (malicious_prefix // client_block
+                   if malicious_prefix and forging else 0)
+    ghosts = fr.num_clients is not None and fr.num_clients != n
+    fused = _fused_spec(fr) is not None and not ghosts
+    compact = (fused and skip_blocks > 0
+               and malicious_prefix % client_block == 0)
+    row_shift = malicious_prefix if compact else 0
+    if not (fused and _cuda.finish_fits(update_dtype, n - row_shift)):
+        return "chunked", 0
+    return ("fused_compact", row_shift) if compact else ("fused", 0)
+
+
 def generator_draws(generator: torch.Generator) -> Callable:
     """The chunked finish's default random inputs, ``draws(kind, i,
     shape)``: standard normals of ``shape`` for DP and the Noise forge,
@@ -217,6 +316,7 @@ def streamed_step(
     row_forges = forges(adv) and isinstance(adv, STREAMED_ROW_FORGERS)
     rowgeom_path = row_geom or row_forges
     dp = fr.dp_clip_threshold is not None
+    invariant = chunk_invariant(fr)
     if getattr(agg, "expects_trusted_row", False) and fr.trusted_data is None:
         raise ValueError(
             f"{type(agg).__name__} requires FedRound.trusted_data (the "
@@ -314,15 +414,37 @@ def streamed_step(
                 bad |= ~healthy
             if dp:
                 chunk = _dp_chunk(chunk, scale, draws, i)
-            if coord_forges:
+            if coord_forges and invariant:
+                # ALIE, IPM: the forged row from statistics slices (their
+                # reductions run over the contiguous results of masking
+                # the slice, whatever its stride), written into the
+                # malicious rows in place.
+                forged = torch.empty((c,), dtype=chunk.dtype,
+                                     device=chunk.device)
+                _by_slices(lambda x: adv.forged_row(x, malicious), chunk,
+                           forged)
+                torch.where(malicious[:, None], forged[None, :], chunk,
+                            out=chunk)
+            elif coord_forges:
                 chunk = adv.on_updates_ready(
                     chunk, malicious, aggregator=agg,
                     noise=_forge_noise(draws, i, (rows, c)))
             # The tail chunk overlaps its predecessor: its aggregate
             # overwrites the overlap, its norms count only new columns.
-            agg_vec[start:start + c] = agg(chunk)[0]
-            fresh = chunk[:, max(i * c - start, 0):]
-            sq += (fresh * fresh).sum(1)
+            # On an invariant round Mean reduces contiguous statistics
+            # slices; the column selects of Median and Trimmedmean are
+            # column-local on any width.
+            if invariant and isinstance(agg, Mean):
+                _by_slices(lambda x: agg(x.contiguous())[0], chunk,
+                           agg_vec[start:start + c])
+            else:
+                agg_vec[start:start + c] = agg(chunk)[0]
+            lo = max(i * c - start, 0)
+            if invariant:
+                _add_sq_by_blocks(sq, chunk, start, lo)
+            else:
+                fresh = chunk[:, lo:]
+                sq += (fresh * fresh).sum(1)
         return _serve_aggregate(RoundState(server=server_state), agg_vec,
                                 malicious, losses, sq, bad)
 
@@ -488,16 +610,12 @@ def streamed_step(
                         "disagrees: elision would zero benign updates")
                 checked_mask[0] = malicious
         # The route, decided before the buffer exists (compact and full
-        # buffers differ in shape): the fused finish where it can express
-        # the round and its kernel plan takes the rows, else the chunked
-        # finish over the full buffer.
-        fused = spec is not None and not ghosts
-        compact = (fused and skip_blocks > 0
-                   and malicious_prefix % client_block == 0)
-        row_shift = malicious_prefix if compact else 0
-        fused = fused and _cuda.finish_fits(update_dtype, n - row_shift)
-        if not fused:
-            compact, row_shift = False, 0
+        # buffers differ in shape).
+        route, row_shift = coordwise_route(
+            fr, n, client_block=client_block, update_dtype=update_dtype,
+            malicious_prefix=malicious_prefix)
+        fused = not rowgeom_path and route != "chunked"
+        compact = route == "fused_compact"
 
         params = state.server.params
         d = FlatLayout(params).d
@@ -544,11 +662,9 @@ def streamed_step(
             server, metrics = _finish_rowgeom(state, buf, malicious, losses,
                                               row_norms, gen, draws, d)
         elif fused:
-            route = "fused_compact" if compact else "fused"
             server, metrics = _finish_fused(state, buf, malicious, losses,
                                             gen, compact, d, d_alloc)
         else:
-            route = "chunked"
             server, metrics = step.finish(state.server, buf, malicious,
                                           losses, row_norms, d=d,
                                           draws=draws)

@@ -11,5 +11,9 @@ no JAX (counterparts of the JAX package's ``tools/``):
 - :mod:`~blades_tpu_torch.tools.ledger_report`: fleet summary, suspects
   and per-client timelines of a client-ledger checkpoint;
 - :mod:`~blades_tpu_torch.tools.control_report`: the control plane's
-  action timeline, tallies and quarantine histories.
+  action timeline, tallies and quarantine histories;
+- :mod:`~blades_tpu_torch.tools.show_plan`: list, show and invalidate the
+  autotuner's plan cache;
+- :mod:`~blades_tpu_torch.tools.gossip_curves`: gossip against
+  centralized convergence curves on a synthetic federation.
 """

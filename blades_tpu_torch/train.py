@@ -13,6 +13,9 @@
         --trace-dir /tmp/spans --metrics-csv --flightrec-rounds 4
     python -m blades_tpu_torch.train file fedavg_dp.yaml --no-lanes
     python -m blades_tpu_torch.train run FEDAVG --client-packing auto
+    python -m blades_tpu_torch.train file grid.yaml --autotune \
+        --plan-cache-dir /tmp/plans --compile-cache /tmp/kernels
+    python -m blades_tpu_torch.train file grid.yaml --autotune reassociating
 
 ``file`` runs every trial of an experiment file's grids (each eligible
 group of trials that differ only in seed, learning rates, DP epsilon or
@@ -22,14 +25,23 @@ algorithm with flat or nested config overrides (as the experiment
 ``<algo>_run``); both go through
 :func:`~blades_tpu_torch.tune.sweep.run_experiments`, on the card unless
 ``--device cpu`` is given.  Each trial writes ``params.json``,
-``result.json`` (one JSON row per dispatch) and ``metrics.jsonl`` (the
+``result.json`` (one JSON row per round, or per dispatch of a trial that pins
+``rounds_per_dispatch``) and ``metrics.jsonl`` (the
 rows, schema-validated; ``--metrics-csv`` adds ``metrics.csv``) under
 ``<storage-path>/<experiment>/<trial>/``; the best trial's test accuracy is
 printed last.  ``--trace-dir`` exports each trial's span tree as Chrome
 trace JSON, ``--trace`` captures a ``torch.profiler`` trace around the
 whole command, ``--watchdog`` / ``--watchdog-rules`` arm the anomaly
-watchdog and ``--flightrec-rounds`` sizes the flight recorder.  The JAX command's flags for subsystems the port does not
-have yet are absent, so argparse refuses them.
+watchdog and ``--flightrec-rounds`` sizes the flight recorder.
+``--scan-window`` caps the rounds per dispatch of eligible trials (one
+row per round still; ``auto`` by default, 1 disables), ``--autotune``
+arms the execution autotuner (``reassociating`` adds the opt-in tier),
+``--plan-cache-dir`` moves its plan cache, ``--compile-cache`` names the
+directory the CUDA kernels build into and load from, and
+``--no-cost-analysis`` drops the summaries' counted ``cost``.  The JAX
+command's multi-device flags (``--mesh-shape``, ``--preagg``,
+``--bucket-size``, ``--coordinator``, ...) are absent, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -80,6 +92,31 @@ def main(argv=None) -> int:
     common.add_argument("--metrics-csv", action="store_true",
                         help="also write <trial>/metrics.csv beside "
                         "metrics.jsonl")
+    common.add_argument("--no-cost-analysis", action="store_true",
+                        help="skip the per-trial cost analysis (one extra "
+                        "dispatch on a copy of the state, counted)")
+    common.add_argument("--scan-window", default="auto", metavar="W",
+                        help="run eligible trials W rounds per dispatch at "
+                        "most while keeping one result row per round; "
+                        "'auto' (default) picks the largest safe window, 1 "
+                        "disables")
+    common.add_argument("--compile-cache", default=None, metavar="DIR",
+                        help="build the CUDA kernels into DIR and load them "
+                        "from there (default build/; also "
+                        "$BLADES_TPU_TORCH_COMPILE_CACHE_DIR)")
+    common.add_argument("--autotune", nargs="?", const="on", default=None,
+                        choices=("on", "reassociating"),
+                        help="execution autotuner: time the legal execution "
+                        "plans on the card (the ranked heuristic on the "
+                        "CPU) and cache the winner.  Bare --autotune tunes "
+                        "the bit-exact default tier; 'reassociating' also "
+                        "offers dense<->streamed and lane-packing.  "
+                        "Explicit knobs are never varied")
+    common.add_argument("--plan-cache-dir", default=None, metavar="DIR",
+                        help="plan cache of --autotune (default "
+                        "$BLADES_TPU_TORCH_PLAN_CACHE_DIR or "
+                        "~/.cache/blades_tpu_torch/plans); inspect with "
+                        "python -m blades_tpu_torch.tools.show_plan")
     common.add_argument("-v", "--verbose", action="count", default=1)
 
     p_file = sub.add_parser("file", parents=[common],
@@ -171,6 +208,8 @@ def main(argv=None) -> int:
                        help="the memmap data store's shard directory (a "
                        "verified set is reused, a broken one rebuilt)")
     args = parser.parse_args(argv)
+    scan_window = (args.scan_window if args.scan_window == "auto"
+                   else int(args.scan_window))
 
     # --watchdog-rules: parsed and checked before any trial is built.
     watchdog = args.watchdog
@@ -199,7 +238,12 @@ def main(argv=None) -> int:
                      metrics_every=args.metrics_every, device=args.device,
                      metrics_csv=args.metrics_csv, trace_dir=args.trace_dir,
                      watchdog=watchdog,
-                     flightrec_rounds=args.flightrec_rounds)
+                     flightrec_rounds=args.flightrec_rounds,
+                     cost_analysis=not args.no_cost_analysis,
+                     scan_window=scan_window,
+                     compile_cache_dir=args.compile_cache,
+                     autotune=args.autotune,
+                     plan_cache_dir=args.plan_cache_dir)
     if args.cmd == "file":
         experiments = load_experiments_from_file(args.experiment_file)
         kw = dict(checkpoint_freq=args.checkpoint_freq,

@@ -32,11 +32,28 @@ A group that fails warns, stamps its trials' summaries
 (``lane_fallback``) and runs them one by one, except where the failure
 came from a kernel's build or launch, which raises.
 
-The JAX runner's scan windows, autotuner and plan cache, compile cache
-and cost analysis are not in the port.  Before the first trial runs,
-every trial's config is resolved (the config and its round, built on the
-meta device), so a field the port lacks raises before any round is paid
-for.
+Scan windows (``scan_window="auto"``, the default, as in the JAX
+runner): a fresh straight-line sweep (no resume, retries or preemption
+hook) runs each eligible trial with ``rounds_per_dispatch`` set to the
+largest window that divides the round budget, the evaluation interval
+and the checkpoint frequency (:func:`_eligible_scan_windows`, at most 8
+rounds), and still writes one row per FL round
+(``Fedavg.train_rows(per_round=True)``); each round draws from its own
+round seed, so the rows are the round-per-dispatch rows.  ``autotune``
+arms the execution autotuner (:mod:`blades_tpu_torch.perf.autotune`) on
+every trial that does not set its own: autotuned trials run one by one,
+the sweep hands the plan space the eligible windows, retries and resumes
+pin the plan their latest checkpoint recorded
+(:func:`_pin_checkpoint_plan`), and the summary carries the selection
+record as ``"autotune"``.  ``compile_cache_dir`` names the directory the
+CUDA kernels build into and load from
+(:mod:`blades_tpu_torch.perf.compile_cache`); a trial whose kernel
+build looked it up carries ``"compile_cache"`` (hits, misses).
+``cost_analysis`` (on by default) adds ``"cost"``: one dispatch's counted
+operations and bytes (``Fedavg.cost_analysis``).  Before the first trial
+runs, every trial's config is resolved (the config and its round, built
+on the meta device), so a field the port lacks raises before any round
+is paid for.
 """
 
 from __future__ import annotations
@@ -55,6 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from blades_tpu_torch.ops._cuda import raised_in_kernel
 from blades_tpu_torch.tune import yaml_subset
 
 # ---------------------------------------------------------------------------
@@ -187,8 +205,8 @@ def _lanes_eligible(spec_run: str, trial: Dict, group: List[int],
     trials of at most 200 clients, one round per dispatch, no forensics,
     faults or participation window, no ``server_lr`` lanes under an
     ``lr_schedule``, and the laned ``L * n * d * 4`` bytes within the
-    dense budget on ``device``), and no client ledger or control plane,
-    which the laned program does not carry."""
+    dense budget on ``device``, no autotune), and no client ledger or
+    control plane, which the laned program does not carry."""
     if len(group) < 2:
         return False
     try:
@@ -202,6 +220,10 @@ def _lanes_eligible(spec_run: str, trial: Dict, group: List[int],
         return False
     if (cfg.forensics or cfg.fault_config or cfg.state_window is not None
             or cfg.ledger_backend or cfg.control_enabled):
+        return False
+    if cfg.autotune_mode:
+        # The laned program has no plan machinery: an autotuned trial runs
+        # on its own, so its plan, provenance and checkpoint record engage.
         return False
     if cfg.lr_schedule and "server_lr" in _lane_signature(trial)[1]:
         return False
@@ -220,17 +242,76 @@ def _lanes_eligible(spec_run: str, trial: Dict, group: List[int],
     return len(group) * cfg.num_clients * d * 4 <= limit
 
 
-def _raised_in_kernel(exc: BaseException) -> bool:
-    """Whether ``exc`` came out of a kernel's build or launch
-    (:mod:`blades_tpu_torch.ops._cuda`): such a failure is never a lane
-    group's to fall back from."""
-    tb = exc.__traceback__
-    while tb is not None:
-        if tb.tb_frame.f_code.co_filename.endswith(
-                os.path.join("ops", "_cuda.py")):
-            return True
-        tb = tb.tb_next
-    return False
+# ---------------------------------------------------------------------------
+# scan windows and the autotuner's checkpointed plan
+# ---------------------------------------------------------------------------
+
+_SCAN_WINDOW_CAP = 8
+
+
+def _eligible_scan_windows(config, max_rounds: int, checkpoint_freq: int,
+                           cap: int = _SCAN_WINDOW_CAP) -> Tuple[int, ...]:
+    """Every dispatch window ``w`` (``<= cap``, descending, 1 last) whose
+    windowed execution writes the round-per-dispatch rows: ``w`` divides
+    the round budget, the evaluation interval and the checkpoint
+    frequency.  A trial that pins ``rounds_per_dispatch``, a forensics,
+    participation-window or control-plane trial (the controller acts
+    between rounds; ``validate()`` refuses it with windows) and any
+    execution but ``auto`` / ``dense`` offer no window.  The head is
+    ``scan_window="auto"``'s pick, the whole list the autotuner's
+    candidates."""
+    if int(getattr(config, "rounds_per_dispatch", 1) or 1) != 1:
+        return (1,)
+    if getattr(config, "forensics", False):
+        return (1,)
+    if getattr(config, "state_window", None) is not None \
+            and config.state_window >= 1:
+        return (1,)
+    if getattr(config, "num_devices", None):
+        return (1,)
+    if getattr(config, "control_enabled", False):
+        return (1,)
+    if getattr(config, "execution", "auto") not in ("auto", "dense"):
+        return (1,)
+    interval = int(getattr(config, "evaluation_interval", 0) or 0)
+    out = []
+    for w in range(min(cap, max_rounds), 1, -1):
+        if max_rounds % w:
+            continue
+        if interval and interval % w:
+            continue
+        if checkpoint_freq and checkpoint_freq % w:
+            continue
+        out.append(w)
+    out.append(1)
+    return tuple(out)
+
+
+def _auto_scan_window(config, max_rounds: int, checkpoint_freq: int,
+                      cap: int = _SCAN_WINDOW_CAP) -> int:
+    """The largest eligible dispatch window; 1 when none qualifies."""
+    return _eligible_scan_windows(config, max_rounds, checkpoint_freq,
+                                  cap)[0]
+
+
+def _pin_checkpoint_plan(config, tdir: Path) -> None:
+    """Pin an autotuned trial's plan to the one its latest checkpoint was
+    written under (``config.tuned_plan``), so a retry or resume replays it
+    instead of re-tuning mid-trajectory.  A no-op without autotune, a
+    checkpoint or a recorded plan."""
+    if not getattr(config, "autotune_mode", None):
+        return
+    ckpt = _latest_checkpoint(tdir)
+    if ckpt is None:
+        return
+    try:
+        payload = torch.load(ckpt / "algorithm_state.pkl", map_location="cpu",
+                             weights_only=False, mmap=True)
+        plan = payload.get("plan")
+    except Exception:
+        return  # the restore itself will surface an unreadable checkpoint
+    if plan:
+        config.tuned_plan = plan
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +645,11 @@ def run_experiments(
     flightrec_rounds: int = 16,
     device=None,
     lanes: bool = True,
+    scan_window="auto",
+    cost_analysis: bool = True,
+    compile_cache_dir: Optional[str] = None,
+    autotune=None,
+    plan_cache_dir: Optional[str] = None,
 ) -> List[Dict]:
     """Run every trial of every experiment in turn on ``device`` (``None``
     = the card); returns one summary per trial (``trial``, ``rounds``,
@@ -611,6 +697,12 @@ def run_experiments(
     ``lanes`` instead of ``timers``.  ``lanes=False`` runs every trial on
     its own.  A trial whose packing was requested carries the decision
     as ``packing``.
+
+    ``scan_window`` (``"auto"``, an int cap, or 1 to disable),
+    ``autotune`` (True / ``"on"`` or ``"reassociating"``; a trial's own
+    ``autotune`` wins), ``plan_cache_dir``, ``compile_cache_dir`` and
+    ``cost_analysis``: see the module docstring.  A windowed trial's
+    summary carries ``scan_window``.
     """
     from blades_tpu_torch.faults.host import (
         PreemptionHook,
@@ -630,8 +722,28 @@ def run_experiments(
     from blades_tpu_torch.obs.watchdog import Watchdog
     from blades_tpu_torch.utils.async_metrics import flush_rows
 
+    from blades_tpu_torch.perf import compile_cache
+
+    compile_cache.set_cache_dir(compile_cache_dir)
     wd_rules = _resolve_watchdog(watchdog)
     flightrec_rounds = int(flightrec_rounds or 0)
+
+    def apply_autotune(config) -> bool:
+        """The sweep's autotune request on a trial config (the trial's
+        own settings win); whether the trial is autotuned."""
+        if autotune and not config.autotune:
+            config.autotune = autotune if isinstance(autotune, str) else True
+        if plan_cache_dir and not config.autotune_cache_dir:
+            config.autotune_cache_dir = plan_cache_dir
+        return bool(config.autotune_mode)
+
+    # Windows move dispatch boundaries, which is safe only on a fresh
+    # straight-line sweep: a restore can land inside a window, and the
+    # preemption hook fires between per-round dispatches.
+    windows_ok = (scan_window not in (1, None, False) and not resume
+                  and max_failures == 0 and preempt_after is None)
+    window_cap = (_SCAN_WINDOW_CAP if scan_window == "auto"
+                  else int(scan_window or 1))
 
     plans = []
     for exp_name, spec in experiments.items():
@@ -650,7 +762,8 @@ def run_experiments(
         laned: Dict[int, Dict] = {}
         lane_failed: Dict[int, str] = {}
         if (lanes and not resume and not checkpoint_freq
-                and not checkpoint_at_end and max_failures == 0):
+                and not checkpoint_at_end and max_failures == 0
+                and not autotune):
             for group in lane_groups(trials):
                 if not _lanes_eligible(spec["run"], trials[group[0]], group,
                                        device=device):
@@ -665,7 +778,7 @@ def run_experiments(
                         wd_rules=wd_rules,
                         flightrec_rounds=flightrec_rounds))
                 except Exception as exc:
-                    if _raised_in_kernel(exc):
+                    if raised_in_kernel(exc):
                         raise
                     # Loud: the group warns, its trials' summaries say
                     # why, and they run one by one.
@@ -709,7 +822,26 @@ def run_experiments(
                     "evaluated": evaluated, "final": {}, "dir": str(tdir),
                     "resumed": "skipped"})
                 continue
-            algo = _build_config(spec["run"], trial_cfg).build(device=device)
+            config = _build_config(spec["run"], trial_cfg)
+            autotuned = apply_autotune(config)
+            scan_w = (_auto_scan_window(config, max_rounds, checkpoint_freq,
+                                        window_cap) if windows_ok else 1)
+            if autotuned:
+                # The autotuner owns the window: it gets the eligible set,
+                # and the effective window is read off the plan.
+                if windows_ok:
+                    config._autotune_windows = _eligible_scan_windows(
+                        config, max_rounds, checkpoint_freq, window_cap)
+                scan_w = 1
+            elif scan_w > 1:
+                config.rounds_per_dispatch = scan_w
+                config.chained_dispatch = True
+            cache_before = compile_cache.cache_stats()
+            if resume and autotuned:
+                _pin_checkpoint_plan(config, tdir)
+            algo = config.build(device=device)
+            if autotuned and algo.plan is not None:
+                scan_w = int(algo.plan.rounds_per_dispatch)
             resumed_from = None
             if resume:
                 ckpt = _latest_checkpoint(tdir)
@@ -772,6 +904,9 @@ def run_experiments(
                         sinks.append(StdoutSink(every=heartbeat_every))
                     logger = MetricsLogger(
                         sinks, base={"experiment": exp_name, "trial": tname})
+                    # One row per FL round from a windowed dispatch; the
+                    # deferred fetch only for round-per-dispatch trials.
+                    per_round_rows = scan_w > 1
                     pending: List[Dict] = []
                     with open(tdir / "result.json", mode) as f:
 
@@ -829,10 +964,16 @@ def run_experiments(
                             with timers.time("round" if compiled
                                              else "compile",
                                              step=algo.iteration):
-                                pending.append(algo.train_raw())
+                                if per_round_rows:
+                                    rows = algo.train_rows(per_round=True)
+                                else:
+                                    rows = None
+                                    pending.append(algo.train_raw())
                             compiled = True
-                            if (len(pending) >= metrics_every
-                                    or algo.iteration >= max_rounds):
+                            if rows is not None:
+                                emit(rows)
+                            elif (len(pending) >= metrics_every
+                                  or algo.iteration >= max_rounds):
                                 flush_pending()
                             checkpoint_due = bool(
                                 checkpoint_freq
@@ -888,10 +1029,13 @@ def run_experiments(
                         base=retry_backoff_base, cap=retry_backoff_cap)
                     if delay > 0:
                         time.sleep(delay)
-                    # A fresh build restored from the latest checkpoint.
+                    # A fresh build restored from the latest checkpoint,
+                    # under the plan that checkpoint recorded.
                     algo.stop()
-                    algo = _build_config(spec["run"], trial_cfg).build(
-                        device=device)
+                    config = _build_config(spec["run"], trial_cfg)
+                    if apply_autotune(config):
+                        _pin_checkpoint_plan(config, tdir)
+                    algo = config.build(device=device)
                     if trace_dir:
                         algo.timers = timers
                     compiled = False
@@ -942,6 +1086,21 @@ def run_experiments(
                 # Present whenever packing was requested: a fallback shows
                 # pack_factor 1 and its reason.
                 summary["packing"] = algo.packing_summary
+            cache_after = compile_cache.cache_stats()
+            cache_delta = {k: cache_after[k] - cache_before[k]
+                           for k in ("hits", "misses")}
+            if cache_delta["hits"] or cache_delta["misses"]:
+                summary["compile_cache"] = cache_delta
+            if scan_w > 1:
+                summary["scan_window"] = scan_w
+            if algo.plan_summary:
+                # The selection record: mode, every candidate's median,
+                # the winner, the cache hit.
+                summary["autotune"] = algo.plan_summary
+            if cost_analysis and failed_error is None:
+                cost = algo.cost_analysis()
+                if cost:
+                    summary["cost"] = cost
             if i in lane_failed:
                 summary["lane_fallback"] = lane_failed[i]
             if wd is not None and wd.events:

@@ -242,22 +242,48 @@ Phases, each printing its lines before the last:
    warm-up.  Every select (``column_median:gossip``,
    ``column_median:gossip-ab``) and BN launch (``bn_bwd_reduce:gossip``,
    ``bn_bwd_dx:gossip``) held against the plain versions.
-18. ``profile`` (only when named): one more main-path round, one
+18. ``lanes``: trial lanes and client lane-packing: (a)
+   ``fedavg_dp.yaml``'s 15 trials as one lane group beside seed 121's
+   three one by one; (b) the ResNet-10 point over 4 seeds laned and
+   sequential, bit for bit; (c) the packed ResNet-10 and CNN rounds.
+19. ``autotune``: the execution autotuner, cuDNN deterministic.  (a) The
+   ``fedavg`` phase's 1000-client streamed ResNet-10 trial (ALIE, Median)
+   with ``autotune=True``: the plan space, each candidate's median
+   seconds a round and peak memory (each candidate a driver of its own,
+   stopped before the next), the winner; its 2 rounds equal an untuned
+   run's bit for bit; a second build is served from the plan cache
+   (``cache_hit``, no candidate timed); ``show_plan list``.  (b) The
+   Fashion-MNIST CNN at 5,000 f32 clients (100 ALIE), whose round takes
+   the chunked finish: the ``d_chunk`` ladder timed, and each candidate's
+   round (parameters and rows) equal to the untuned round bit for bit;
+   then the chunked finish alone on random (5,000 and 1,237 rows, d_alloc)
+   f32 buffers, Median / Trimmedmean / Mean x ALIE / IPM, parameters and
+   row metrics equal across the ladder bit for bit.  (c) The dense ResNet-10
+   x 60 trial through ``train.main(["file", ..., "--autotune",
+   "reassociating"])`` (dense / streamed, pack 1 / 2 / 4, prefetch on /
+   off), preempted after round 2 and resumed: the resumed trial pins the
+   plan its checkpoint recorded.  (d) The headline dispatch's
+   ``cost_analysis()``, a 2-round ``accuracy_curves`` grid and a 2-round
+   ``gossip_curves`` run on the synthetic fallback.  (e) The default
+   tier's other knobs on the dense ResNet-10 x 60 trial: prefetch on and
+   off, and a 3-round scan window through ``file`` against
+   ``--scan-window 1``, each pair bit for bit.
+20. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-19. ``bnstages`` (only when named): the BN kernels alone at the four stage
+21. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-20. ``ringsweep`` (only when named): the row-statistics ring across
+22. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-17 (and before
+Launch counts are set to 0 just before each of phases 4-19 (and before
 each round of phase 7 and each trial of phases 8 to 17) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
@@ -290,7 +316,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire", "async", "window", "obs", "gossip", "lanes")
+          "wire", "async", "window", "obs", "gossip", "lanes", "autotune")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -3611,7 +3637,8 @@ def _sweep_main(storage, baseline):
                 limit=SWEEP_BN_AUDIT, key="sweep") as bn_audit:
         t0 = time.perf_counter()
         rc = train.main(["file", SWEEP_YAML, "--max-rounds",
-                         str(SWEEP_ROUNDS), "--storage-path", storage])
+                         str(SWEEP_ROUNDS), "--storage-path", storage,
+                         "--no-cost-analysis"])
         secs = time.perf_counter() - t0
     check(rc == 0 and len(spy.trials) == 3,
           f"sweep: rc {rc}, {len(spy.trials)} trials")
@@ -3673,7 +3700,8 @@ def _sweep_local20(storage, baseline):
     try:
         with _TrialSpy() as spy, _PathAudit("select", key) as sel:
             rc = train.main(["file", LOCAL20_YAML, "--max-rounds",
-                             str(SWEEP_ROUNDS), "--storage-path", storage])
+                             str(SWEEP_ROUNDS), "--storage-path", storage,
+                             "--no-cost-analysis"])
     finally:
         callbacks.ClippingCallback.on_backward_end = clip
     check(rc == 0 and len(spy.trials) == 1,
@@ -3716,7 +3744,8 @@ def _sweep_resume(storage, straight):
         (summary,) = run_experiments(
             exps, storage_path=storage, verbose=0, checkpoint_freq=1,
             preempt_after=SWEEP_ROUNDS, max_failures=1,
-            retry_backoff_base=0.0, max_rounds_override=SWEEP_ROUNDS)
+            retry_backoff_base=0.0, max_rounds_override=SWEEP_ROUNDS,
+            cost_analysis=False)
     check("status" not in summary and summary["rounds"] == SWEEP_ROUNDS,
           f"sweep resume: summary {summary}")
     rows = _rows(storage, "fedavg_cifar10_1000clients", 0)
@@ -3795,7 +3824,7 @@ def _resnet34_trial(storage, block):
                 key="resnet34") as bn_audit:
         (summary,) = run_experiments(
             exps, storage_path=storage, verbose=0,
-            max_rounds_override=RESNET34_ROUNDS)
+            max_rounds_override=RESNET34_ROUNDS, cost_analysis=False)
     return summary, spy.trials[0], ws, bn_audit
 
 
@@ -3970,7 +3999,7 @@ def _cct_grid(storage, baseline):
     with _TrialSpy() as spy, _PathAudit("select", key) as sel:
         t0 = time.perf_counter()
         rc = train.main(["file", path, "--max-rounds", str(CCT_ROUNDS),
-                         "--storage-path", storage])
+                         "--storage-path", storage, "--no-cost-analysis"])
         secs = time.perf_counter() - t0
     check(rc == 0 and len(spy.trials) == 6,
           f"cct: rc {rc}, {len(spy.trials)} trials")
@@ -5063,7 +5092,7 @@ def _obs_dense(card, out_dir, baseline):
     with _TrialSpy() as spy:
         rc = train.main(["file", path, "--storage-path", storage,
                          "--trace-dir", spans, "--watchdog", "--metrics-csv",
-                         "--flightrec-rounds", "4"])
+                         "--flightrec-rounds", "4", "--no-cost-analysis"])
     check(rc == 0 and len(spy.trials) == 2,
           f"obs dense: rc {rc}, {len(spy.trials)} trials")
     launches = {}
@@ -5271,7 +5300,7 @@ def _obs_flightrec(out_dir):
         json.dump(grid, fh)
     storage = os.path.join(out_dir, "nan")
     rc = train.main(["file", path, "--storage-path", storage, "--watchdog",
-                     "--flightrec-rounds", "4"])
+                     "--flightrec-rounds", "4", "--no-cost-analysis"])
     rows = _rows(storage, "obs_nan", 0)
     rules = {e["rule"] for e in rows[0].get("watchdog_events", [])}
     dump = os.path.join(storage, "obs_nan", "obs_nan_00000",
@@ -5602,7 +5631,8 @@ def _gossip_dropout(card, work, out_dir):
     t0 = time.perf_counter()
     a0 = AUDIT["s"]
     rc = train.main(["file", path, "--storage-path", storage,
-                     "--preempt-after", "4", "--flightrec-rounds", "4"])
+                     "--preempt-after", "4", "--flightrec-rounds", "4",
+                     "--no-cost-analysis"])
     trial_s = time.perf_counter() - t0 - (AUDIT["s"] - a0)
     rows = _rows(storage, "gossip_dropout", 0)
     check(rc == 0 and len(rows) == 4, f"gossip dropout trial: rc {rc}, "
@@ -5861,7 +5891,7 @@ def _lanes_dp(card, work):
                 t0 = time.perf_counter()
                 rc = train.main(["file", path, "--max-rounds",
                                  str(LANES_ROUNDS), "--storage-path",
-                                 storage] + flags)
+                                 storage, "--no-cost-analysis"] + flags)
                 wall = time.perf_counter() - t0
                 summ = got[-1]
                 want = 15 if how == "laned" else 3
@@ -6133,6 +6163,441 @@ def phase_lanes(card):
     return counts, records
 
 
+# ---------------------------------------------------------------------------
+# the execution autotuner
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_ROUNDS = 2  # rounds of each untuned / winner run held bit for bit
+# A candidate's median is over its timed train() calls, an evaluation's
+# included where the cadence fires: every third round here, so the
+# median of the 3 timed calls is a training round.
+AUTOTUNE_HEADLINE = {**STREAMED_TRIAL, "evaluation_interval": 3}
+# (b): a repo model at full width whose round takes the chunked finish,
+# the one route that reads d_chunk: the Fashion-MNIST CNN (1,475,146
+# parameters) at 5,000 f32 clients, 100 of them ALIE (elided), so 4,900 or
+# more f32 rows reach the finish, above the fused kernel's 4,874.
+LADDER_TRIAL = {
+    "dataset_config": {"type": "fashionmnist", "num_clients": 5000,
+                       "iid": True, "train_bs": 32, "seed": 122},
+    "global_model": "cnn", "execution": "streamed", "client_block": 100,
+    "update_dtype": "float32",
+    "num_malicious_clients": 100, "adversary_config": {"type": "ALIE"},
+    "server_config": {"lr": 0.5, "aggregator": {"type": "Median"}},
+    "client_config": {"lr": 0.01, "num_batch_per_round": 1},
+    "evaluation_interval": 0,
+}
+LADDER_ROUNDS = 1
+# (c): the dense ResNet-10 x 60 trial under ALIE, autotuned through the
+# `file` entry point for 3 rounds, preempted after round 2 (checkpoint 1
+# on disk) and resumed.
+AUTOTUNE_DENSE = {**DENSE_TRIAL, "adversary_config": {"type": "ALIE"},
+                  "evaluation_interval": 3}
+
+
+def _at_run(overrides, rounds, cost=False):
+    """Build a driver from ``overrides``, run ``rounds`` rounds and return
+    its host parameters, rows, plan, provenance, the candidates' peak
+    memory, the run's finish routes and launch counts (set to 0 after the
+    build, whose candidates launch too), its peak memory and, with
+    ``cost``, ``cost_analysis()``."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    algo = FedavgConfig().update_from_dict(overrides).build()
+    build_s = time.perf_counter() - t0
+    # The candidates' launches (during the build) are not the run's.
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rows = [algo.train() for _ in range(rounds)]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        out = {"params": {k: v.detach().cpu() for k, v in
+                          algo.state.server.params.items()},
+               "rows": rows, "plan": algo.plan, "prov": algo.plan_summary,
+               "peaks": dict(getattr(algo, "candidate_peaks", {}) or {}),
+               "routes": dict(getattr(algo._step, "routes", {}) or {}),
+               "launches": dict(_cuda.LAUNCHES), "build_s": build_s,
+               "run_s": run_s,
+               "prefetched": getattr(algo, "_prefetcher", None) is not None,
+               "peak": torch.cuda.max_memory_allocated()}
+        if cost:
+            t0 = time.perf_counter()
+            out["cost"] = algo.cost_analysis()
+            out["cost_s"] = time.perf_counter() - t0
+            out["cost_by_op"] = dict(getattr(algo, "cost_by_op", {}))
+    finally:
+        algo.stop()
+    return out
+
+
+def _same_params(a, b, what):
+    import torch
+
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    check(a.keys() == b.keys() and not diff,
+          f"{what}: parameters differ from the untuned run's at {diff[:4]}")
+
+
+def _at_candidates(what, prov, peaks):
+    """Log the plan space, each candidate's median and peak, the winner."""
+    for c in prov["candidates"]:
+        med = c["median_s"]
+        peak = peaks.get(c["plan_id"])
+        log(f"{what}: candidate {c['rank']} {c['plan_id']} ({c['tier']}) "
+            f"median {'failed' if med is None else f'{med:.4f} s'} a round"
+            + ("" if peak is None else f", peak {peak / 2**30:.2f} GiB"))
+    log(f"{what}: winner {prov['winner_id']} (mode {prov['mode']}, "
+        f"{len(prov['candidates'])} candidates, truncated "
+        f"{prov['truncated']})")
+
+
+def _autotune_headline(card, plans):
+    """(a) the headline streamed round, default tier."""
+    from blades_tpu_torch.perf import autotune as at
+    from blades_tpu_torch.tools import show_plan
+
+    base = _at_run(AUTOTUNE_HEADLINE, AUTOTUNE_ROUNDS)
+    tuned_cfg = {**AUTOTUNE_HEADLINE, "autotune": True,
+                 "autotune_cache_dir": plans}
+    tuned = _at_run(tuned_cfg, AUTOTUNE_ROUNDS, cost=True)
+    prov = tuned["prov"]
+    check(prov["mode"] == "measured" and prov["timed"]
+          and tuned["plan"].tier == "default"
+          and all(c["median_s"] is not None for c in prov["candidates"]),
+          f"autotune (a): provenance {prov}")
+    _at_candidates(f"autotune (a) ResNet-10 x 1000 ALIE Median [{card}]",
+                   prov, tuned["peaks"])
+    check(tuned["launches"].get("fused_finish_compact") == AUTOTUNE_ROUNDS,
+          f"autotune (a): the winner's launches {tuned['launches']}")
+    _same_params(tuned["params"], base["params"], "autotune (a) winner")
+    check([r["train_loss"] for r in tuned["rows"]]
+          == [r["train_loss"] for r in base["rows"]],
+          "autotune (a): the winner's losses differ from the untuned run's")
+    log(f"autotune (a): the winner's {AUTOTUNE_ROUNDS} rounds equal the "
+        f"untuned run's bit for bit; winner run {tuned['run_s']:.3f} s, "
+        f"build (candidates timed) {tuned['build_s']:.1f} s, peak "
+        f"{tuned['peak'] / 2**30:.2f} GiB, untuned peak "
+        f"{base['peak'] / 2**30:.2f} GiB")
+    cost = tuned["cost"]
+    check(cost is not None and cost["flops"] > 0
+          and cost["bytes_accessed"] > 0, f"autotune (d): cost {cost}")
+    top = sorted(tuned["cost_by_op"].items(), key=lambda kv: -kv[1])[:6]
+    log(f"autotune (d): cost_analysis() of one headline dispatch: "
+        f"{cost['flops']:.6g} flops, {cost['bytes_accessed']:.6g} bytes "
+        f"(counted in {tuned['cost_s']:.1f} s); flops by op {top}")
+    timed = []
+    real = at.timed_measure_fn
+
+    def counting(*a, **kw):
+        measure = real(*a, **kw)
+
+        def m(plan):
+            timed.append(plan.plan_id)
+            return measure(plan)
+
+        return m
+
+    at.timed_measure_fn = counting
+    try:
+        again = _at_run(tuned_cfg, 0)
+    finally:
+        at.timed_measure_fn = real
+    check(again["prov"]["mode"] == "cache" and again["prov"]["cache_hit"]
+          and not timed and again["plan"] == tuned["plan"],
+          f"autotune (a): second build {again['prov']['mode']}, "
+          f"{len(timed)} candidates timed")
+    log(f"autotune (a): the second build is served from the plan cache "
+        f"(cache_hit true, no candidate timed, build "
+        f"{again['build_s']:.1f} s)")
+    buf = __import__("io").StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = show_plan.main(["--cache-dir", plans, "list"])
+    for line in buf.getvalue().splitlines():
+        log(f"autotune (a) show_plan: {line}")
+    check(rc == 0 and tuned["plan"].plan_id in buf.getvalue(),
+          "autotune (a): show_plan list")
+
+
+def _autotune_ladder(card, plans):
+    """(b) the d_chunk ladder on the chunked finish."""
+    from blades_tpu_torch.perf.autotune import D_CHUNK_LADDER, Plan
+
+    base = _at_run(LADDER_TRIAL, LADDER_ROUNDS)
+    check(base["routes"] == {"chunked": LADDER_ROUNDS}
+          and base["launches"].get("column_median", 0) > 0,
+          f"autotune (b): untuned routes {base['routes']}, launches "
+          f"{base['launches']}")
+    tuned = _at_run({**LADDER_TRIAL, "autotune": True,
+                     "autotune_cache_dir": plans}, 0)
+    prov = tuned["prov"]
+    ladder = [Plan(execution="streamed", d_chunk=c) for c in
+              (LADDER_TRIAL.get("d_chunk", 1 << 17),
+               *[c for c in D_CHUNK_LADDER if c != 1 << 17])]
+    check([c["plan_id"] for c in prov["candidates"]]
+          == [p.plan_id for p in ladder] and prov["timed"],
+          f"autotune (b): candidates {prov['candidates']}")
+    _at_candidates(f"autotune (b) CNN x 5000 f32 ALIE Median [{card}]",
+                   prov, tuned["peaks"])
+    for plan in ladder:
+        got = _at_run({**LADDER_TRIAL, "autotune": True,
+                       "tuned_plan": plan.as_dict(),
+                       "autotune_cache_dir": plans}, LADDER_ROUNDS)
+        check(got["routes"] == {"chunked": LADDER_ROUNDS},
+              f"autotune (b) {plan.plan_id}: routes {got['routes']}")
+        _same_params(got["params"], base["params"],
+                     f"autotune (b) {plan.plan_id}")
+        keys = ("train_loss", "agg_norm", "update_norm_mean")
+        check([[r[k] for k in keys] for r in got["rows"]]
+              == [[r[k] for k in keys] for r in base["rows"]],
+              f"autotune (b) {plan.plan_id}: rows differ from the untuned "
+              f"run's")
+        log(f"autotune (b): {plan.plan_id} equals the untuned run bit for "
+            f"bit, parameters and rows "
+            f"({got['launches'].get('column_median', 0)} selects, "
+            f"round {got['run_s']:.3f} s, peak {got['peak'] / 2**30:.2f} GiB)")
+
+
+LADDER_GRID_ROWS = (5000, 1237)  # a second, odd row count
+
+
+def _ladder_finish_grid(card):
+    """(b), the finish alone: the chunked finish on random (rows, d_alloc)
+    f32 buffers at the CNN's width, 100 malicious rows, at each of
+    ``LADDER_GRID_ROWS``, for Median / Trimmedmean / Mean x ALIE / IPM at
+    each ``d_chunk`` of the ladder: the server's parameters and the row
+    metrics equal across the ladder bit for bit."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.parallel.streamed import streamed_step
+    from blades_tpu_torch.perf.autotune import D_CHUNK_LADDER
+    from blades_tpu_torch.utils.tree import FlatLayout
+
+    f = LADDER_TRIAL["num_malicious_clients"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    done = []
+    metric_keys = ("update_norm_mean", "agg_norm", "train_loss")
+    for n in LADDER_GRID_ROWS:
+        mal = torch.zeros((n,), dtype=torch.bool, device="cuda")
+        mal[:f] = True
+        losses = torch.rand((n,), generator=gen, device="cuda")
+        buf = None
+        for agg in ("Median", "Trimmedmean", "Mean"):
+            for forge in ("ALIE", "IPM"):
+                cfg = FedavgConfig().update_from_dict(
+                    {**LADDER_TRIAL, "adversary_config": {"type": forge},
+                     "server_config": {"lr": 0.5,
+                                       "aggregator": {"type": agg}}})
+                cfg.validate()
+                fr = cfg.get_fed_round()
+                state = fr.init(0, n, device="cuda")
+                d = FlatLayout(state.server.params).d
+                if buf is None:
+                    buf = torch.randn((n, -(-d // 512) * 512), generator=gen,
+                                      device="cuda") * 0.01
+                outs, rows = [], []
+                for c in D_CHUNK_LADDER:
+                    step = streamed_step(fr, client_block=100,
+                                         update_dtype=torch.float32,
+                                         malicious_prefix=f, d_chunk=c,
+                                         device="cuda")
+                    server, metrics = step.finish(state.server, buf, mal,
+                                                  losses, d=d)
+                    outs.append({k: v.detach().cpu() for k, v in
+                                 server.params.items()})
+                    rows.append([float(metrics[k]) for k in metric_keys])
+                for c, out, row in zip(D_CHUNK_LADDER[1:], outs[1:],
+                                       rows[1:]):
+                    what = (f"autotune (b) finish {n} rows {agg} {forge} "
+                            f"d_chunk {c} vs {D_CHUNK_LADDER[0]}")
+                    _same_params(out, outs[0], what)
+                    check(row == rows[0], f"{what}: {metric_keys} {row} "
+                          f"against {rows[0]}")
+                done.append(f"{agg}/{forge}")
+        del buf
+        torch.cuda.empty_cache()
+    log(f"autotune (b): the chunked finish on (rows, d_alloc) f32 buffers, "
+        f"rows {list(LADDER_GRID_ROWS)}, equals itself bit for bit across "
+        f"d_chunk {list(D_CHUNK_LADDER)} (parameters and {metric_keys}) for "
+        f"{sorted(set(done))} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def _autotune_dense(card, work, plans):
+    """(c) the dense trial through ``file --autotune reassociating``,
+    preempted after round 2 and resumed from checkpoint 1 under the plan
+    it recorded."""
+    import torch
+
+    from blades_tpu_torch import train, tune
+    from blades_tpu_torch.perf.autotune import Plan
+
+    path = os.path.join(work, "autotune_dense.yaml")
+    with open(path, "w") as fh:
+        json.dump({"at_dense": {"run": "FEDAVG",
+                                "stop": {"training_iteration": 3},
+                                "config": AUTOTUNE_DENSE}}, fh)
+    storage = os.path.join(work, "dense")
+    got = []
+    real = tune.run_experiments
+
+    def spy(experiments, **kw):
+        got.append(real(experiments, **kw))
+        return got[-1]
+
+    flags = ["--storage-path", storage, "--autotune", "reassociating",
+             "--plan-cache-dir", plans, "--checkpoint-freq", "1",
+             "--no-cost-analysis"]
+    tune.run_experiments = spy
+    try:
+        rc = train.main(["file", path, "--preempt-after", "2"] + flags)
+        (first,) = got[-1]
+        rc2 = train.main(["file", path, "--resume"] + flags)
+        (second,) = got[-1]
+    finally:
+        tune.run_experiments = real
+    prov = first["autotune"]
+    ids = [c["plan_id"] for c in prov["candidates"]]
+    check(rc == 0 and first.get("status") == "ERROR" and prov["timed"]
+          and any(i.startswith("streamed|") for i in ids)
+          and any("|p2|" in i for i in ids)
+          and any(i.startswith("dense|") and "|p1|" in i for i in ids),
+          f"autotune (c): rc {rc}, first run {first.get('status')}, "
+          f"candidates {ids}")
+    _at_candidates(f"autotune (c) ResNet-10 x 60 ALIE Median reassociating "
+                   f"[{card}]", prov, {})
+    tdir = os.path.join(storage, "at_dense", "at_dense_00000")
+    saved = torch.load(os.path.join(tdir, "ckpt_000001",
+                                    "algorithm_state.pkl"),
+                       map_location="cpu", weights_only=False)["plan"]
+    rows = _rows(storage, "at_dense", 0)
+    pid = Plan.from_dict(saved).plan_id
+    check(rc2 == 0 and "status" not in second
+          and second["autotune"]["mode"] == "pinned"
+          and second["autotune"]["winner"] == saved
+          and pid == prov["winner_id"] and len(rows) == 3
+          and all(r["plan_id"] == pid for r in rows)
+          and all(math.isfinite(r["train_loss"]) for r in rows),
+          f"autotune (c): resumed {second.get('autotune')}, rows "
+          f"{[(r['training_iteration'], r.get('plan_id')) for r in rows]}")
+    log(f"autotune (c): the resumed trial pinned the checkpoint's plan "
+        f"{pid}; rows {[r['train_loss'] for r in rows]}, test_acc "
+        f"{rows[-1].get('test_acc')}")
+
+
+def _default_tier_dense(card, work):
+    """The default tier's other knobs on the card: the dense ResNet-10 x 60
+    trial with batch prefetch on and off, and through ``file`` with a scan
+    window (3 rounds a dispatch) and with ``--scan-window 1``; each pair
+    bit for bit."""
+    from blades_tpu_torch.tune import run_experiments
+
+    runs = {p: _at_run({**AUTOTUNE_DENSE, "prefetch": p}, AUTOTUNE_ROUNDS)
+            for p in ("on", "off")}
+    check(runs["on"]["prefetched"] and not runs["off"]["prefetched"],
+          "autotune (e): the prefetch knob did not steer the dense pipeline")
+    _same_params(runs["on"]["params"], runs["off"]["params"],
+                 "autotune (e) prefetch on vs off")
+    keys = ("train_loss", "agg_norm", "update_norm_mean")
+    check([[r[k] for k in keys] for r in runs["on"]["rows"]]
+          == [[r[k] for k in keys] for r in runs["off"]["rows"]],
+          "autotune (e): prefetch on and off rows differ")
+    log(f"autotune (e) ResNet-10 x 60 dense: prefetch on and off equal bit "
+        f"for bit over {AUTOTUNE_ROUNDS} rounds (parameters, {keys}); "
+        f"runs {runs['on']['run_s']:.3f} / {runs['off']['run_s']:.3f} s, "
+        f"peaks {runs['on']['peak'] / 2**30:.2f} / "
+        f"{runs['off']['peak'] / 2**30:.2f} GiB [{card}]")
+    rounds = AUTOTUNE_DENSE["evaluation_interval"]
+    exp = {"at_window": {"run": "FEDAVG",
+                         "stop": {"training_iteration": rounds},
+                         "config": AUTOTUNE_DENSE}}
+    rows, windows, took = {}, {}, {}
+    for w in (1, "auto"):
+        storage = os.path.join(work, f"window_{w}")
+        t0 = time.perf_counter()
+        (summary,) = run_experiments(exp, storage_path=storage, verbose=0,
+                                     scan_window=w, cost_analysis=False)
+        took[w] = time.perf_counter() - t0
+        windows[w] = summary.get("scan_window")
+        rows[w] = _rows(storage, "at_window", 0)
+    check(windows == {1: None, "auto": rounds},
+          f"autotune (e): scan windows {windows}")
+    keys = [k for k in ("train_loss", "agg_norm", "update_norm_mean",
+                        "test_acc", "test_loss") if k in rows[1][-1]]
+    got = {w: [[r.get(k) for k in keys] for r in rows[w]] for w in rows}
+    check(len(rows[1]) == rounds and got["auto"] == got[1]
+          and all(math.isfinite(r["train_loss"]) for r in rows[1]),
+          f"autotune (e): windowed rows {got['auto']} against {got[1]}")
+    log(f"autotune (e) ResNet-10 x 60 dense through file: a {rounds}-round "
+        f"scan window's rows equal --scan-window 1's bit for bit ({keys}); "
+        f"{took['auto']:.1f} s against {took[1]:.1f} s of sweep [{card}]")
+
+
+def _autotune_curves(card, work):
+    """(d) a 2-round accuracy-curve grid and a 2-round gossip-curve run on
+    the synthetic fallback."""
+    from blades_tpu_torch.benchmarks import accuracy_curves
+    from blades_tpu_torch.tools import gossip_curves
+
+    out = os.path.join(work, "curves")
+    rc = accuracy_curves.main(
+        ["--dataset", "mnist", "--rounds", "2", "--num-clients", "10",
+         "--aggregators", "Mean", "Median", "--malicious", "0", "2",
+         "--rounds-per-dispatch", "1", "--out", out])
+    with open(os.path.join(out, "curves.json")) as fh:
+        table = json.load(fh)
+    check(rc == 0 and len(table["rows"]) == 4
+          and all(math.isfinite(r["final_test_acc"]) for r in table["rows"]),
+          f"autotune (d): accuracy curves rc {rc}, table {table}")
+    log(f"autotune (d): accuracy_curves {table['source']}: "
+        f"{[(r['aggregator'], r['num_malicious'], r['final_test_acc']) for r in table['rows']]}"
+        f"; curves.png {'written' if os.path.exists(os.path.join(out, 'curves.png')) else 'not written'}")
+    path = os.path.join(work, "gossip", "curves.json")
+    rc = gossip_curves.main(["--rounds", "2", "--graphs", "ring",
+                             "--out", path])
+    with open(path) as fh:
+        table = json.load(fh)
+    check(rc == 0 and len(table["rows"]) == 4,
+          f"autotune (d): gossip curves rc {rc}")
+    log(f"autotune (d): gossip_curves "
+        f"{[(r['path'], r['num_malicious'], r['final_test_acc']) for r in table['rows']]} "
+        f"[{card}]")
+
+
+def phase_autotune(card):
+    """The execution autotuner, (a)-(e) above.  cuDNN runs deterministic
+    algorithms here, so a winner's or a candidate's rounds compare with
+    the untuned run's bit for bit."""
+    import torch
+
+    torch.cuda.empty_cache()
+    work = _work_dir("autotune")
+    plans = os.path.join(work, "plans")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        with _shared_datasets():
+            _autotune_headline(card, plans)
+            torch.cuda.empty_cache()
+            _autotune_ladder(card, plans)
+            torch.cuda.empty_cache()
+            _ladder_finish_grid(card)
+            _autotune_dense(card, work, plans)
+            torch.cuda.empty_cache()
+            _default_tier_dense(card, work)
+        _autotune_curves(card, work)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+    return {}, {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6204,7 +6669,8 @@ def main(argv=None) -> int:
                          ("resnet34", phase_resnet34), ("cct", phase_cct),
                          ("wire", phase_wire), ("async", phase_async),
                          ("window", phase_window), ("obs", phase_obs),
-                         ("gossip", phase_gossip), ("lanes", phase_lanes)):
+                         ("gossip", phase_gossip), ("lanes", phase_lanes),
+                         ("autotune", phase_autotune)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

@@ -70,7 +70,18 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/models/layers.py",
             "blades_tpu_torch/models/mlp.py",
             "blades_tpu_torch/models/cnn.py",
-            "blades_tpu_torch/models/resnet.py"} <= names
+            "blades_tpu_torch/models/resnet.py",
+            "blades_tpu_torch/perf/__init__.py",
+            "blades_tpu_torch/perf/autotune.py",
+            "blades_tpu_torch/perf/compile_cache.py",
+            "blades_tpu_torch/data/prefetch.py",
+            "blades_tpu_torch/utils/profiling.py",
+            "blades_tpu_torch/tune/visualize.py",
+            "blades_tpu_torch/benchmarks/__init__.py",
+            "blades_tpu_torch/benchmarks/main.py",
+            "blades_tpu_torch/benchmarks/accuracy_curves.py",
+            "blades_tpu_torch/tools/show_plan.py",
+            "blades_tpu_torch/tools/gossip_curves.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -97,12 +108,56 @@ def test_importing_the_port_loads_no_jax():
             "blades_tpu_torch.tools.control_report, "
             "blades_tpu_torch.tune.lanes, blades_tpu_torch.parallel.packed, "
             "blades_tpu_torch.models.mlp, blades_tpu_torch.models.resnet, "
-            "blades_tpu_torch.models.layers\n"
+            "blades_tpu_torch.models.layers, blades_tpu_torch.perf, "
+            "blades_tpu_torch.perf.autotune, "
+            "blades_tpu_torch.perf.compile_cache, "
+            "blades_tpu_torch.data.prefetch, "
+            "blades_tpu_torch.utils.profiling, "
+            "blades_tpu_torch.tune.visualize, blades_tpu_torch.benchmarks, "
+            "blades_tpu_torch.benchmarks.main, "
+            "blades_tpu_torch.benchmarks.accuracy_curves, "
+            "blades_tpu_torch.tools.show_plan, "
+            "blades_tpu_torch.tools.gossip_curves\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_no_module_level_pandas_or_matplotlib_import():
+    """The card's machine has neither pandas nor matplotlib: no port
+    module imports them at module level (a plot imports matplotlib inside
+    the function that draws it, and skips where it is missing)."""
+    bad = []
+    for f in _port_files():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            bad += [(str(f.relative_to(REPO)), n) for n in names
+                    if n.split(".")[0] in ("pandas", "matplotlib",
+                                           "seaborn")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("blades_tpu_torch.benchmarks.main", ["--model", "mlp", "--dataset",
+                                          "mnist", "--epochs", "1"]),
+    ("blades_tpu_torch.benchmarks.accuracy_curves", ["--dataset", "mnist",
+                                                     "--rounds", "1"]),
+    ("blades_tpu_torch.tools.gossip_curves", ["--rounds", "1"]),
+])
+def test_new_entry_points_need_the_card_unless_cpu_is_asked(
+        monkeypatch, tmp_path, module, argv):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(module).main(argv)
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
@@ -123,8 +178,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """The config fields still out of the port (meshes, pre-aggregation,
-    the autotuner) name the later slice; TopologyAttack resolves by both
+    """The config fields still out of the port (meshes and
+    pre-aggregation) name the later slice; TopologyAttack resolves by both
     of its names now; forensics
     resolves now, refusing the streamed round with the JAX package's
     error; the campaign adversaries resolve; Noise, Lazy and ghost lanes
@@ -145,7 +200,7 @@ def test_out_of_slice_configs_name_the_later_slice():
 
     for field, value in (("num_devices", 4),
                          ("preagg", "nnm"),
-                         ("autotune", True)):
+                         ("bucket_size", 4)):
         with pytest.raises(NotImplementedError, match="later slice"):
             FedavgConfig().update_from_dict({field: value})
     FedavgConfig().update_from_dict({"forensics": True}).validate()

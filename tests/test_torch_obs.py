@@ -103,9 +103,8 @@ def test_rows_carry_the_jax_rows_keys(trials):
                 (t / "metrics.jsonl").read_text().splitlines()]
         jrows = [json.loads(x) for x in
                  (j / "metrics.jsonl").read_text().splitlines()]
-        drop = {"compile_cache_hits", "compile_cache_misses"}
         for r, jr in zip(rows, jrows):
-            assert set(r) == set(jr) - drop
+            assert set(r) == set(jr)
             assert set(r["lane_forensics"]) == set(jr["lane_forensics"])
         header = next(csv.reader(open(t / "metrics.csv")))
         assert header == next(csv.reader(open(j / "metrics.csv")))

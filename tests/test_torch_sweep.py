@@ -341,7 +341,8 @@ def test_run_command_writes_the_jax_run_layout(tmp_path):
 def test_flags_the_port_lacks_are_refused(tmp_path):
     grid = _write_grid(tmp_path)
     with pytest.raises(SystemExit):
-        train.main(["file", str(grid), "--device", "cpu", "--autotune"])
+        train.main(["file", str(grid), "--device", "cpu", "--coordinator",
+                    "localhost:1234"])
     with pytest.raises(SystemExit):
         train.main(["run", "FEDAVG", "--device", "cpu", "--execution",
                     "hier"])
