@@ -27,17 +27,19 @@
 // matrix (mult = the elided malicious prefix), and every row when nothing
 // is forged (mult = 0).
 //
-// Two routes (ops/_cuda.py::finish_route picks one from the layout):
+// Three routes (ops/_cuda.py::finish_route picks one from the layout):
 //  - radix (radix_kernel, below finish_kernel): bf16 rows that are 16-byte
-//    aligned, as the streamed round's padded buffer is.  Two 8-bit digit
-//    passes select the order statistics; see its own note.
-//  - bitserial (finish_kernel): f32 storage (f32 rounds) and unaligned
-//    bf16 rows.
+//    aligned, as the streamed round's padded buffer is, up to 1,317 rows.
+//    Two 8-bit digit passes select the order statistics; see its own note.
+//  - ring (ring_kernel, below radix_kernel): every other 16-byte-aligned
+//    matrix -- f32 storage, and bf16 above radix's rows -- through a ring
+//    of row groups, any row count; see its own note.
+//  - bitserial (finish_kernel): rows that are not 16-byte aligned.
 //
 // Bound on the H100: the bytes of one read of the matrix (bf16: 2 B per
-// element) against 3.35 TB/s, unless the radix select's compare-and-count
-// work (16 steps over bf16 keys, 32 over f32 keys, each touching every
-// element once) outruns it, which a plain implementation does.
+// element) against 3.35 TB/s, unless the select's compare-and-count work
+// (bit-serial: 16 steps over bf16 keys, 32 over f32 keys, each touching
+// every element once) outruns it, which a plain implementation does.
 //
 // Design of finish_kernel, the bit-serial route:
 //  - Each CTA owns whole 512-column stripes (the sanitize granularity) and
@@ -95,6 +97,9 @@ struct Args {
   int compact;            // arithmetic of the compact kernel for the trimmed sum
   int aligned;            // rows start on 4-byte boundaries: cp.async path
   float fc[6];            // forge constants, see forge_constants() in the wrapper
+  int stages;             // ring route: groups the ring holds,
+  int ahead;              //   groups in flight,
+  int resident;           //   and whether a slab's groups stay in the ring
 };
 
 __device__ __forceinline__ uint32_t key32_of_bits(uint32_t b) {
@@ -129,6 +134,7 @@ struct Tr<uint16_t> {  // bf16 storage, 16-bit keys
   __device__ static float round_store(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
+  __device__ static float fval(uint32_t b) { return __uint_as_float(b << 16); }
 };
 
 template <>
@@ -142,6 +148,7 @@ struct Tr<uint32_t> {  // f32 storage, 32-bit keys
   __device__ static float val(uint32_t k) { return val32_of(k); }
   __device__ static uint32_t key_f(float v) { return key32_of(v); }
   __device__ static float round_store(float v) { return v; }
+  __device__ static float fval(uint32_t b) { return __uint_as_float(b); }
 };
 
 // Shared-memory layout of one CTA, shared by host and device.
@@ -990,6 +997,549 @@ __global__ void __launch_bounds__(kRThreads, 1) radix_kernel(Args a) {
   for (int r = tid; r < rows; r += kRThreads) a.bad_part[b * rows + r] = badacc[r];
 }
 
+// ---- The ring route: rows that are 16-byte aligned, any row count --------
+//
+// Replaces finish_kernel wherever the rows are 16-byte aligned (f32 with
+// d % 4 == 0, bf16 with d % 8 == 0, a 16-byte-aligned base) and the radix
+// route does not take them: f32 storage, and bf16 above radix_kernel's
+// 1,317 rows.  The streamed round's padded buffer always is aligned.  It
+// computes exactly what finish_kernel computes; what differs is how:
+//
+//  - A CTA (512 threads) owns whole 512-column stripes (the sanitize
+//    granularity) and walks their 32-column slabs: lane = column, warp =
+//    row, so a warp reads one 64-byte (bf16) or 128-byte (f32) row piece.
+//  - A slab's active rows arrive in groups of 8 KB (128 bf16 or 64 f32
+//    rows) through a ring of shared-memory stages by 16-byte cp.async,
+//    `ahead` groups in flight.  Resident plan: the ring holds every group
+//    of a slab beside the next slab's first `ahead` groups, so the later
+//    passes read shared memory while the next slab loads.  Streaming plan
+//    (more rows than fit so): every pass streams the slab's groups again.
+//    Only the per-row arrays (10 bytes a row) bound the rows, at about
+//    17,400; ops/_cuda.py::ring_finish_plan mirrors the plan.
+//  - Pass A takes the column sums (and Adaptive's max/min), a histogram
+//    of each key's top byte (hist[bin][column]: lane l only touches bank
+//    l, so the atomics never conflict inside a warp) and, by a second
+//    thread map of 16-byte row pieces, the row norms.  ALIE's deviations
+//    pass follows; then the forged row.
+//  - The select runs in 8-bit digit passes (two for bf16 keys, four for
+//    f32 keys), both ranks in one counter (rank A's count in the low 16
+//    bits, B's in the high 16).  After each pass a walk finds, per column,
+//    the bins holding ranks kA and kB (select_kernel's walk of
+//    csrc/column_select.cu); the virtual forged row adds `mult` to its
+//    key's bin whenever its key shares the rank's prefix.  The walks leave
+//    the counts below and equal to each rank's key, which the trimmed
+//    mean's tie correction needs; its sum takes one more pass.
+//  - Every reduction over rows runs in a fixed order (each thread's rows
+//    in order, warps in order, no float atomics); row norms and flags go
+//    to per-CTA partials that finalize_kernel reduces in CTA order.
+//
+// Bound on the H100: one read of the (active rows, d) matrix at 3.35 TB/s.
+
+constexpr int kGThreads = 512;
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGCols = 32;          // columns per slab, one per lane
+constexpr int kGroupBytes = 8192;   // one ring stage
+constexpr int kGMaxAhead = 8;       // groups in flight
+constexpr int kGMinAhead = 4;       // the fewest a resident slab may leave
+constexpr int kGSmemCap = 226 * 1024;  // under 227 KB a block, beside static shared
+constexpr int kGMaxRows = 65535;    // counts packed two to a word
+constexpr int kGBinsPerWarp = kBins / kGWarps;
+
+// Per-column select state in shared memory, one int per column each.
+enum GField { gPrefA, gPrefB, gBelowA, gBelowB, gEqA, gEqB, kGFields = 8 };
+
+// Shared-memory layout of the ring route, shared by host and device: the
+// ring of `stages` 8 KB groups, the histogram, two int arrays a row (the
+// active rows, the row norms), the per-warp column buffers (sums, then
+// ALIE's deviations or Adaptive's max and min, then the walk's totals),
+// the per-column fields, and two byte arrays a row (flags).
+struct GSmem {
+  size_t ring, hist, act, sqs, red, ps, col, flag, badacc, total;
+  __host__ __device__ GSmem(int rows, int stages) {
+    size_t o = 0;
+    ring = o;
+    o += (size_t)stages * kGroupBytes;
+    hist = o;
+    o += (size_t)kBins * kGCols * 4;
+    act = o;
+    o += (size_t)rows * 4;
+    sqs = o;
+    o += (size_t)rows * 4;
+    red = o;
+    o += 3 * kGWarps * kGCols * 4;
+    ps = o;
+    o += kGWarps * kGCols * 4;
+    col = o;
+    o += kGFields * kGCols * 4;
+    flag = o;
+    o += rows;
+    badacc = o;
+    o += rows;
+    total = (o + 15) / 16 * 16;
+  }
+};
+
+// A 16-byte row piece: all finite, and its sum of squares in a fixed order.
+template <typename T>
+__device__ __forceinline__ bool piece_finite(uint4 u);
+template <>
+__device__ __forceinline__ bool piece_finite<uint16_t>(uint4 u) {
+  return finite2(u.x) && finite2(u.y) && finite2(u.z) && finite2(u.w);
+}
+template <>
+__device__ __forceinline__ bool piece_finite<uint32_t>(uint4 u) {
+  return (u.x & 0x7F800000u) != 0x7F800000u && (u.y & 0x7F800000u) != 0x7F800000u &&
+         (u.z & 0x7F800000u) != 0x7F800000u && (u.w & 0x7F800000u) != 0x7F800000u;
+}
+template <typename T>
+__device__ __forceinline__ float piece_sq(uint4 u);
+template <>
+__device__ __forceinline__ float piece_sq<uint16_t>(uint4 u) {
+  return sq8(u);
+}
+template <>
+__device__ __forceinline__ float piece_sq<uint32_t>(uint4 u) {
+  const float v[4] = {__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                      __uint_as_float(u.w)};
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s += v[j] * v[j];
+  return s;
+}
+
+// Wait until at most n commit groups are pending (n < kGMaxAhead).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+#define BT_WAIT_CASE(N) \
+  case N:               \
+    asm volatile("cp.async.wait_group " #N ";\n" ::); \
+    break;
+  switch (n) {
+    BT_WAIT_CASE(0) BT_WAIT_CASE(1) BT_WAIT_CASE(2) BT_WAIT_CASE(3)
+    BT_WAIT_CASE(4) BT_WAIT_CASE(5) BT_WAIT_CASE(6)
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+#undef BT_WAIT_CASE
+}
+
+// The walk after a digit pass at shift `ds`: warp w owns bins [16w, 16w +
+// 16) of column `lane`.  Each thread reads and zeroes its 16 packed
+// counters once, publishes their total, and takes the count below its
+// bins from the totals of the warps before it and the counts below the
+// ranks' prefixes; fbA / fbB is the forged row's bin when its key shares
+// rank A's / B's prefix (else -1), and adds `mult` there.  The thread whose
+// bins hold rank kA (kB) writes the rank's key prefix, the count below it
+// and its bin's count to the column's fields.
+__device__ __forceinline__ void ring_walk(int* hl, unsigned* ps, int* cf, int warp, int lane,
+                                          int kA, int kB, uint32_t prefA, uint32_t prefB,
+                                          int belowA, int belowB, int ds, int fbA, int fbB,
+                                          int mult) {
+  const int b0 = warp * kGBinsPerWarp;
+  unsigned v[kGBinsPerWarp];
+  unsigned t = 0;
+#pragma unroll
+  for (int j = 0; j < kGBinsPerWarp; ++j) {
+    v[j] = (unsigned)hl[(b0 + j) * kGCols];
+    hl[(b0 + j) * kGCols] = 0;
+    t += v[j];
+  }
+  ps[warp * kGCols + lane] = t;
+  __syncthreads();
+  unsigned bel = 0;
+  for (int w = 0; w < warp; ++w) bel += ps[w * kGCols + lane];
+  const bool inA = fbA >= b0 && fbA < b0 + kGBinsPerWarp;
+  const bool inB = fbB >= b0 && fbB < b0 + kGBinsPerWarp;
+  int belA = belowA + (int)(bel & 0xFFFFu) + (fbA >= 0 && fbA < b0 ? mult : 0);
+  int belB = belowB + (int)(bel >> 16) + (fbB >= 0 && fbB < b0 ? mult : 0);
+  const int ta = (int)(t & 0xFFFFu) + (inA ? mult : 0);
+  const int tb = (int)(t >> 16) + (inB ? mult : 0);
+  if (belA <= kA && kA < belA + ta) {
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < kGBinsPerWarp; ++j) {
+      const int c = (int)(v[j] & 0xFFFFu) + (fbA == b0 + j ? mult : 0);
+      if (!found && kA < belA + c) {
+        found = true;
+        cf[gPrefA * kGCols] = (int)(prefA | ((uint32_t)(b0 + j) << ds));
+        cf[gBelowA * kGCols] = belA;
+        cf[gEqA * kGCols] = c;
+      }
+      belA += c;
+    }
+  }
+  if (belB <= kB && kB < belB + tb) {
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < kGBinsPerWarp; ++j) {
+      const int c = (int)(v[j] >> 16) + (fbB == b0 + j ? mult : 0);
+      if (!found && kB < belB + c) {
+        found = true;
+        cf[gPrefB * kGCols] = (int)(prefB | ((uint32_t)(b0 + j) << ds));
+        cf[gBelowB * kGCols] = belB;
+        cf[gEqB * kGCols] = c;
+      }
+      belB += c;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, 1) ring_kernel(Args a) {
+  using TR = Tr<T>;
+  constexpr int E = 16 / (int)sizeof(T);                          // elements a piece
+  constexpr int P = kGCols / E;                                   // pieces a slab row
+  constexpr int GH = kGroupBytes / (kGCols * (int)sizeof(T));     // rows a group
+  constexpr int kDigits = TR::kBits / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = a.rows, S = a.stages, ahead = a.ahead;
+  const bool resident = a.resident != 0;
+  const GSmem L(rows, S);
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
+  int* hist = reinterpret_cast<int*>(smem + L.hist);
+  int* act = reinterpret_cast<int*>(smem + L.act);
+  float* sqs = reinterpret_cast<float*>(smem + L.sqs);
+  float* rsum = reinterpret_cast<float*>(smem + L.red);
+  float* rmx = rsum + kGWarps * kGCols;  // ALIE's deviations, or Adaptive's max
+  float* rmn = rmx + kGWarps * kGCols;
+  unsigned* ps = reinterpret_cast<unsigned*>(smem + L.ps);
+  int* col = reinterpret_cast<int*>(smem + L.col);
+  uint8_t* flag = smem + L.flag;
+  uint8_t* badacc = smem + L.badacc;
+  __shared__ int na_sh;
+
+  const T* X = static_cast<const T*>(a.x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long d = a.d;
+
+  // The active rows in row order, built with ballots by warp 0.
+  if (warp == 0) {
+    int n = 0;
+    for (int r0 = 0; r0 < rows; r0 += 32) {
+      const int r = r0 + lane;
+      const bool on = r < rows && (a.active == nullptr || a.active[r]);
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, on);
+      if (on) act[n + __popc(m & ((1u << lane) - 1u))] = r;
+      n += __popc(m);
+    }
+    if (lane == 0) na_sh = n;
+  }
+  for (int r = tid; r < rows; r += kGThreads) {
+    sqs[r] = 0.f;
+    flag[r] = 0;
+    badacc[r] = 0;
+  }
+  for (int e = tid; e < kBins * kGCols; e += kGThreads) hist[e] = 0;
+  __syncthreads();
+  const int na = na_sh;
+  const int mult = a.active != nullptr ? rows - na : a.mult;
+  const int n_true = na + mult;
+  const float nb = (float)max(na, 1);
+  const int kA = a.agg == kAggMedian ? (n_true - 1) / 2 : a.k_cut;
+  const int kB = a.agg == kAggMedian ? n_true / 2 : n_true - 1 - a.k_cut;
+  const bool select = a.agg != kAggMean;
+  const bool trimmed = a.agg == kAggTrimmed;
+  const bool want_sq = a.sq_part != nullptr;
+  const bool alie = a.forge == kForgeAlie;
+  const bool adaptive = a.forge == kForgeAdaptive;
+  const int ng = max((na + GH - 1) / GH, 1);  // groups a slab
+  // Streamed passes a slab: pass A; streaming, also ALIE's deviations, the
+  // digit passes after the first and the trimmed sum.
+  const int npass =
+      resident ? 1 : 1 + (alie ? 1 : 0) + (select ? kDigits - 1 : 0) + (trimmed ? 1 : 0);
+  const long long nstripes = (d + kStripe - 1) / kStripe;
+  auto slabs_in = [&](long long s) -> int {  // the last stripe may be ragged
+    return (int)min((long long)kSlabsPerStripe, (d - s * kStripe + kGCols - 1) / kGCols);
+  };
+  int* hl = hist + lane;
+  int* cf = col + lane;
+  float fsq_acc = 0.f;  // thread 0 only
+
+  // The load cursor: stripe ls, its slab lj, group lg, pass repeat lrep,
+  // and the ring stage.  One commit group a call (empty past the end, so
+  // wait counts stay uniform); pieces past d read as +0.
+  long long ls = blockIdx.x;
+  int lj = 0, lg = 0, lrep = 0, lstage = 0;
+  auto load_next = [&]() {
+    if (ls < nstripes) {
+      const int r0 = lg * GH, nv = min(GH, na - r0);
+      T* dst = ring + (size_t)lstage * GH * kGCols;
+      const long long c0 = ls * kStripe + (long long)lj * kGCols;
+      for (int u = tid; u < nv * P; u += kGThreads) {
+        const int i = u / P, q = (u % P) * E;
+        if (c0 + q < d)
+          cp_async16(dst + i * kGCols + q, X + (size_t)act[r0 + i] * d + c0 + q);
+        else
+          *reinterpret_cast<uint4*>(dst + i * kGCols + q) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      if (++lg == ng) {
+        lg = 0;
+        if (++lrep == npass) {
+          lrep = 0;
+          if (++lj == slabs_in(ls)) {
+            lj = 0;
+            ls += gridDim.x;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+    if (++lstage == S) lstage = 0;
+  };
+  for (int i = 0; i < ahead; ++i) load_next();
+
+  int cstage = 0;     // ring stage of the next group to arrive
+  bool nflag = false;  // an active row of this stripe is flagged
+  // Every group of the slab arrives and, for each, `fn(B, nv, g)` runs on
+  // its stage: the slab's active rows [g * GH, g * GH + nv).  Flagged rows
+  // read as +0 for the whole stripe.
+  auto stream_pass = [&](auto&& fn) {
+    for (int g = 0; g < ng; ++g) {
+      cp_async_wait_dyn(ahead - 1);
+      __syncthreads();  // group landed; every thread is done with the stage reloaded next
+      load_next();
+      T* B = ring + (size_t)cstage * GH * kGCols;
+      if (++cstage == S) cstage = 0;
+      const int nv = max(0, min(GH, na - g * GH));
+      if (nflag) {
+        for (int u = tid; u < nv * P; u += kGThreads)
+          if (flag[act[g * GH + u / P]])
+            *reinterpret_cast<uint4*>(B + (u / P) * kGCols + (u % P) * E) =
+                make_uint4(0u, 0u, 0u, 0u);
+        __syncthreads();
+      }
+      fn(B, nv, g);
+    }
+  };
+  // A pass after pass A: over the slab's resident groups from stage st0,
+  // or streamed again.
+  auto later_pass = [&](int st0, auto&& fn) {
+    if (!resident) {
+      stream_pass(fn);
+      return;
+    }
+    for (int g = 0; g < ng; ++g) {
+      int st = st0 + g;
+      if (st >= S) st -= S;
+      fn(ring + (size_t)st * GH * kGCols, max(0, min(GH, na - g * GH)), g);
+    }
+  };
+
+  for (long long s = blockIdx.x; s < nstripes; s += gridDim.x) {
+    const long long s0 = s * kStripe;
+    if (a.sanitize) {
+      // Flag every row holding a non-finite value in this stripe.
+      __syncthreads();  // the last stripe's passes are done with flag[]
+      const int sw = (int)min((long long)kStripe, d - s0);
+      bool mine = false;
+      for (int r = warp; r < rows; r += kGWarps) {
+        const T* row = X + (size_t)r * d + s0;
+        bool bad = false;
+        for (int j = lane * E; j < sw; j += 32 * E)
+          bad |= !piece_finite<T>(*reinterpret_cast<const uint4*>(row + j));
+        bad = __any_sync(0xFFFFFFFFu, bad);
+        if (lane == 0) {
+          flag[r] = bad;
+          if (bad) badacc[r] = 1;
+        }
+        mine |= bad && (a.active == nullptr || a.active[r]);
+      }
+      nflag = __syncthreads_or(mine) != 0;
+    }
+    const int nsl = slabs_in(s);
+    for (int j = 0; j < nsl; ++j) {
+      const long long c0 = s0 + (long long)j * kGCols;
+      const int w = (int)min((long long)kGCols, d - c0);
+      const int st0 = cstage;
+
+      // Pass A: column sums (four partials a thread), Adaptive's max/min,
+      // the top-byte histogram, and the row norms.
+      float c4[4] = {0.f, 0.f, 0.f, 0.f};
+      float mx = -INFINITY, mn = INFINITY;
+      stream_pass([&](T* B, int nv, int g) {
+        if (adaptive) {
+          for (int i = warp; i < nv; i += kGWarps) {
+            const uint32_t v = B[i * kGCols + lane];
+            const float f = TR::fval(v);
+            c4[0] += f;
+            mx = nmax(mx, f);
+            mn = nmin(mn, f);
+            if (select) atomicAdd(hl + (TR::key_bits(v) >> (TR::kBits - 8)) * kGCols, 0x10001);
+          }
+        } else {
+          int i = warp;
+          for (; i + 3 * kGWarps < nv; i += 4 * kGWarps) {
+            uint32_t v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[q] = B[(i + q * kGWarps) * kGCols + lane];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) c4[q] += TR::fval(v[q]);
+            if (select) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                atomicAdd(hl + (TR::key_bits(v[q]) >> (TR::kBits - 8)) * kGCols, 0x10001);
+            }
+          }
+          for (; i < nv; i += kGWarps) {
+            const uint32_t v = B[i * kGCols + lane];
+            c4[0] += TR::fval(v);
+            if (select) atomicAdd(hl + (TR::key_bits(v) >> (TR::kBits - 8)) * kGCols, 0x10001);
+          }
+        }
+        if (want_sq) {
+          // P threads a row, one 16-byte piece each, a fixed xor tree.
+          const int q = tid % P;
+          for (int i0 = 0; i0 < nv; i0 += kGThreads / P) {
+            const int i = i0 + tid / P;
+            float sq = i < nv ? piece_sq<T>(*reinterpret_cast<const uint4*>(B + i * kGCols + q * E))
+                              : 0.f;
+#pragma unroll
+            for (int o = 1; o < P; o <<= 1) sq += __shfl_xor_sync(0xFFFFFFFFu, sq, o);
+            if (q == 0 && i < nv) sqs[g * GH + i] += sq;
+          }
+        }
+      });
+      rsum[warp * kGCols + lane] = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+      if (adaptive) {
+        rmx[warp * kGCols + lane] = mx;
+        rmn[warp * kGCols + lane] = mn;
+      }
+      __syncthreads();
+      float colsum = 0.f;
+      for (int gg = 0; gg < kGWarps; ++gg) colsum += rsum[gg * kGCols + lane];
+      const float mean = colsum / nb;
+
+      float forged = 0.f;
+      uint32_t fkey = 0;
+      if (a.forge != kForgeNone) {
+        float var = 0.f, fmx = -INFINITY, fmn = INFINITY;
+        if (alie) {
+          float p4[4] = {0.f, 0.f, 0.f, 0.f};
+          later_pass(st0, [&](T* B, int nv, int) {
+            int i = warp;
+            for (; i + 3 * kGWarps < nv; i += 4 * kGWarps) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float dv = TR::fval(B[(i + q * kGWarps) * kGCols + lane]) - mean;
+                p4[q] += dv * dv;
+              }
+            }
+            for (; i < nv; i += kGWarps) {
+              const float dv = TR::fval(B[i * kGCols + lane]) - mean;
+              p4[0] += dv * dv;
+            }
+          });
+          rmx[warp * kGCols + lane] = (p4[0] + p4[1]) + (p4[2] + p4[3]);
+          __syncthreads();
+          for (int gg = 0; gg < kGWarps; ++gg) var += rmx[gg * kGCols + lane];
+        } else if (adaptive) {
+          for (int gg = 0; gg < kGWarps; ++gg) {
+            fmx = nmax(fmx, rmx[gg * kGCols + lane]);
+            fmn = nmin(fmn, rmn[gg * kGCols + lane]);
+          }
+        }
+        const float r = (adaptive && lane < w && a.noise != nullptr) ? a.noise[c0 + lane] : 0.f;
+        forged = forge_value(a.forge, mean, var, nb, fmx, fmn, r, a.fc);
+        forged = TR::round_store(forged);
+        fkey = TR::key_f(forged);
+      }
+
+      float out = 0.f;
+      if (!select) {
+        out = (colsum + (float)mult * forged) / (float)n_true;
+      } else {
+        uint32_t prefA = 0, prefB = 0;
+        int belowA = 0, belowB = 0, eqA = 0, eqB = 0;
+        for (int p = 0; p < kDigits; ++p) {
+          const int ds = TR::kBits - 8 * (p + 1), hs = ds + 8;
+          if (p > 0) {
+            // Digit p of the keys that share rank A's or B's prefix.
+            const uint32_t qa = prefA >> hs, qb = prefB >> hs;
+            auto count = [&](uint32_t v) {
+              const uint32_t k = TR::key_bits(v);
+              const int inc = ((k >> hs) == qa ? 1 : 0) + ((k >> hs) == qb ? 0x10000 : 0);
+              if (inc) atomicAdd(hl + ((k >> ds) & 0xFFu) * kGCols, inc);
+            };
+            later_pass(st0, [&](T* B, int nv, int) {
+              int i = warp;
+              for (; i + 3 * kGWarps < nv; i += 4 * kGWarps) {
+                uint32_t v[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) v[q] = B[(i + q * kGWarps) * kGCols + lane];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) count(v[q]);
+              }
+              for (; i < nv; i += kGWarps) count(B[i * kGCols + lane]);
+            });
+          }
+          __syncthreads();  // every count of the pass is in
+          int fbA = -1, fbB = -1;
+          if (mult > 0) {
+            const int fb = (int)((fkey >> ds) & 0xFFu);
+            if (p == 0 || (fkey >> hs) == (prefA >> hs)) fbA = fb;
+            if (p == 0 || (fkey >> hs) == (prefB >> hs)) fbB = fb;
+          }
+          ring_walk(hl, ps, cf, warp, lane, kA, kB, prefA, prefB, belowA, belowB, ds, fbA, fbB,
+                    mult);
+          prefA = (uint32_t)cf[gPrefA * kGCols];
+          prefB = (uint32_t)cf[gPrefB * kGCols];
+          belowA = cf[gBelowA * kGCols];
+          belowB = cf[gBelowB * kGCols];
+          eqA = cf[gEqA * kGCols];
+          eqB = cf[gEqB * kGCols];
+        }
+        const uint32_t vlo = prefA, vhi = prefB;
+        if (!trimmed) {
+          out = kA == kB ? TR::val(vlo) : (TR::val(vlo) + TR::val(vhi)) * 0.5f;
+        } else {
+          // The stored values strictly between the two cut keys.
+          float t4[4] = {0.f, 0.f, 0.f, 0.f};
+          auto add = [&](float& acc, uint32_t v) {
+            const uint32_t k = TR::key_bits(v);
+            if (k > vlo && k < vhi) acc += TR::fval(v);
+          };
+          later_pass(st0, [&](T* B, int nv, int) {
+            int i = warp;
+            for (; i + 3 * kGWarps < nv; i += 4 * kGWarps) {
+              uint32_t v[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) v[q] = B[(i + q * kGWarps) * kGCols + lane];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) add(t4[q], v[q]);
+            }
+            for (; i < nv; i += kGWarps) add(t4[0], B[i * kGCols + lane]);
+          });
+          rsum[warp * kGCols + lane] = (t4[0] + t4[1]) + (t4[2] + t4[3]);
+          __syncthreads();
+          float sm = 0.f;
+          for (int gg = 0; gg < kGWarps; ++gg) sm += rsum[gg * kGCols + lane];
+          out = trimmed_value(sm, mult, forged, fkey > vlo && fkey < vhi, a.compact, belowA, eqA,
+                              belowB, eqB, n_true, a.k_cut, TR::val(vlo), TR::val(vhi),
+                              vlo == vhi);
+        }
+      }
+      if (warp == 0) {
+        if (lane < w) {
+          a.agg_out[c0 + lane] = out;
+          if (a.forged_out != nullptr) a.forged_out[c0 + lane] = forged;
+        }
+        if (want_sq && !a.compact && a.forge != kForgeNone) {
+          float f2 = lane < w ? forged * forged : 0.f;
+          for (int o = 16; o > 0; o >>= 1) f2 += __shfl_xor_sync(0xFFFFFFFFu, f2, o);
+          fsq_acc += f2;
+        }
+      }
+    }
+  }
+  cp_async_wait_dyn(0);
+
+  const size_t b = blockIdx.x;
+  if (want_sq) {
+    for (int i = tid; i < na; i += kGThreads) a.sq_part[b * (rows + 1) + act[i]] = sqs[i];
+    if (tid == 0) a.sq_part[b * (rows + 1) + rows] = fsq_acc;
+  }
+  for (int r = tid; r < rows; r += kGThreads) a.bad_part[b * rows + r] = badacc[r];
+}
+
 // Reduce the per-CTA row partials in CTA order (deterministic).
 __global__ void finalize_kernel(const float* sq_part, const uint8_t* bad_part,
                                 const uint8_t* active, int rows, int nblk,
@@ -1075,21 +1625,56 @@ cudaError_t rplan(int rows, int* stages, int* smem, int* blocks_per_sm) {
   }
 }
 
+// The ring route's plan for `rows` rows of T (ops/_cuda.py::ring_finish_plan
+// mirrors it): resident when a slab's groups and at least kGMinAhead more
+// fit the ring, `ahead` up to kGMaxAhead; else streaming, a ring of ahead +
+// 1 groups.  geom packs stages | ahead << 8 | resident << 16.
+template <typename T>
+cudaError_t gplan(int rows, int* geom, int* smem, int* blocks_per_sm) {
+  constexpr int gh = kGroupBytes / (kGCols * (int)sizeof(T));
+  if (rows < 1 || rows > kGMaxRows) return cudaErrorInvalidValue;
+  const long long fixed = (long long)GSmem(rows, 0).total;
+  if (fixed + 2LL * kGroupBytes > kGSmemCap) return cudaErrorInvalidValue;
+  const int smax = (int)((kGSmemCap - fixed) / kGroupBytes);
+  const int ng = (rows + gh - 1) / gh;
+  int stages, ahead, resident;
+  if (ng + kGMinAhead <= smax) {
+    resident = 1;
+    ahead = min(kGMaxAhead, smax - ng);
+    stages = ng + ahead;
+  } else {
+    resident = 0;
+    ahead = min(kGMaxAhead, smax - 1);
+    stages = ahead + 1;
+  }
+  *geom = stages | (ahead << 8) | (resident << 16);
+  *smem = (int)GSmem(rows, stages).total;
+  cudaError_t e = cudaFuncSetAttribute(ring_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ring_kernel<T>, kGThreads,
+                                                       *smem);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch geometry for (dtype, route, rows): writes `geom` (the bit-serial
-// route's slab width in columns, or the radix route's ring depth in
-// slabs), the dynamic shared memory and the CTA count to use for `d`
-// columns.  dtype 0 = f32, 1 = bf16; route 0 = bit-serial (finish_kernel),
-// 1 = radix (radix_kernel, bf16 only).  Returns a cudaError_t
-// (cudaErrorInvalidValue when the rows do not fit one CTA's shared memory).
+// route's slab width in columns, the radix route's ring depth in slabs, or
+// the ring route's packed plan, see gplan), the dynamic shared memory and
+// the CTA count to use for `d` columns.  dtype 0 = f32, 1 = bf16; route 0 =
+// bit-serial (finish_kernel), 1 = radix (radix_kernel, bf16 only), 2 = ring
+// (ring_kernel).  Returns a cudaError_t (cudaErrorInvalidValue when the
+// rows do not fit one CTA's shared memory).
 int bt_finish_plan(int dtype, int route, int rows, long long d, int* geom, int* smem,
                    int* grid) {
   int per_sm = 0;
   cudaError_t e;
-  if (route == 1)
+  if (route == 2)
+    e = dtype == 1 ? gplan<uint16_t>(rows, geom, smem, &per_sm)
+                   : gplan<uint32_t>(rows, geom, smem, &per_sm);
+  else if (route == 1)
     e = dtype == 1 ? rplan(rows, geom, smem, &per_sm) : cudaErrorInvalidValue;
   else
     e = dtype == 1 ? plan_t<uint16_t>(rows, geom, smem, &per_sm)
@@ -1111,7 +1696,7 @@ int bt_finish_plan(int dtype, int route, int rows, long long d, int* geom, int* 
 // `active` mask the forged row's multiplicity is the inactive row count,
 // formed on the device with the ranks; without one it is `mult`.  The
 // radix route refuses (cudaErrorInvalidValue) rows that are not bf16 and
-// 16-byte aligned.
+// 16-byte aligned, the ring route rows that are not 16-byte aligned.
 int bt_finish(const void* x, int dtype, int route, int rows, long long d,
               const uint8_t* active, const float* noise, float* agg_out, float* forged_out,
               float* sq_out, uint8_t* bad_out, float* sq_part, uint8_t* bad_part, int geom,
@@ -1135,8 +1720,20 @@ int bt_finish(const void* x, int dtype, int route, int rows, long long d,
   a.compact = compact;
   for (int i = 0; i < 6; ++i) a.fc[i] = fc[i];
   a.aligned = dtype == 0 || (d % 2 == 0 && ((uintptr_t)x % 4) == 0);
+  a.stages = geom & 0xFF;
+  a.ahead = (geom >> 8) & 0xFF;
+  a.resident = (geom >> 16) & 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
+  if (route == 2) {
+    const long long esize = dtype == 1 ? 2 : 4;
+    if ((d * esize) % 16 != 0 || ((uintptr_t)x % 16) != 0 || rows > kGMaxRows ||
+        a.ahead < 1 || a.ahead > kGMaxAhead || a.stages < a.ahead + 1)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 1)
+      ring_kernel<uint16_t><<<grid, kGThreads, smem, st>>>(a);
+    else
+      ring_kernel<uint32_t><<<grid, kGThreads, smem, st>>>(a);
+  } else if (route == 1) {
     if (dtype != 1 || d % 8 != 0 || ((uintptr_t)x % 16) != 0) return (int)cudaErrorInvalidValue;
     if (geom == 3)
       radix_kernel<3><<<grid, kRThreads, smem, st>>>(a);

@@ -217,7 +217,7 @@ def forge_constants(forge) -> list:
     return [p - 1.0, 1.0 / p - 1.0, 1.0 - 1.0 / p, 1.0 - p, p, p]
 
 
-FINISH_ROUTES = {"bitserial": 0, "radix": 1}  # bt_finish's route codes
+FINISH_ROUTES = {"bitserial": 0, "radix": 1, "ring": 2}  # bt_finish's codes
 RADIX_SMEM_CAP = 226 * 1024  # kRSmemCap in csrc/fused_finish.cu
 
 
@@ -235,15 +235,84 @@ def radix_smem(rows: int, stages: int) -> int:
 
 def finish_route(dtype: torch.dtype, d: int, address: int, rows: int) -> str:
     """The finish kernel for a ``(rows, d)`` matrix of ``dtype`` at device
-    ``address``: ``radix`` (``radix_kernel``: 16-byte ``cp.async`` slabs,
-    two 8-bit digit passes) for bf16 rows that are 16-byte aligned --
-    ``d % 8 == 0`` and a 16-byte-aligned base -- and few enough that a
-    two-slab ring of them fits one CTA's shared memory (1,317 rows); else
-    ``bitserial`` (``finish_kernel``: f32, unaligned bf16, more rows)."""
-    if (dtype == torch.bfloat16 and d % 8 == 0 and address % 16 == 0
-            and radix_smem(rows, 2) <= RADIX_SMEM_CAP):
-        return "radix"
+    ``address``.  Rows that are 16-byte aligned -- ``d * itemsize % 16 ==
+    0`` and a 16-byte-aligned base, as the streamed round's padded buffer
+    always is -- take ``radix`` (``radix_kernel``: 16-byte ``cp.async``
+    slabs, two 8-bit digit passes) when they are bf16 and few enough that a
+    two-slab ring of them fits one CTA's shared memory (1,317 rows), else
+    ``ring`` (``ring_kernel``: row groups through a ring, 8-bit digit
+    passes, any row count :func:`ring_finish_plan` takes).  Other rows take
+    ``bitserial`` (``finish_kernel``)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if (dtype in (torch.float32, torch.bfloat16) and (d * esize) % 16 == 0
+            and address % 16 == 0):
+        if dtype == torch.bfloat16 and radix_smem(rows, 2) <= RADIX_SMEM_CAP:
+            return "radix"
+        return "ring"
     return "bitserial"
+
+
+RING_FINISH_GROUP = 8192  # kGroupBytes: one ring stage
+RING_FINISH_MAX_AHEAD = 8  # kGMaxAhead
+RING_FINISH_MIN_AHEAD = 4  # kGMinAhead: the fewest a resident slab leaves
+RING_FINISH_SMEM_CAP = 226 * 1024  # kGSmemCap
+RING_FINISH_MAX_ROWS = 65_535  # kGMaxRows: counts packed two to a word
+
+
+class RingFinishPlan(NamedTuple):
+    """How ``ring_kernel`` covers a matrix: rows per 8 KB group, groups
+    the ring holds, groups in flight, whether every group of a slab stays
+    in the ring (``resident``; else each pass streams the slab again), and
+    the dynamic shared memory in bytes."""
+    gh: int
+    stages: int
+    ahead: int
+    resident: int
+    smem: int
+
+    @property
+    def geom(self) -> int:
+        """The plan as ``bt_finish_plan`` packs it."""
+        return self.stages | self.ahead << 8 | self.resident << 16
+
+
+def ring_finish_smem(rows: int, stages: int) -> int:
+    """Dynamic shared memory of ``ring_kernel`` over ``rows`` rows with a
+    ring of ``stages`` groups, laid out as ``GSmem`` lays it out: the 8 KB
+    groups, the 256-bin x 32-column histogram, two int arrays a row, four
+    per-warp column buffers (16 warps x 32 columns), eight per-column
+    fields and two byte arrays a row."""
+    cols, bins, warps, fields = 32, 256, 16, 8
+    total = (stages * RING_FINISH_GROUP + bins * cols * 4 + 2 * rows * 4
+             + 4 * warps * cols * 4 + fields * cols * 4 + 2 * rows)
+    return -(-total // 16) * 16
+
+
+def ring_finish_plan(rows: int, esize: int) -> RingFinishPlan:
+    """``gplan`` of ``csrc/fused_finish.cu`` for ``rows`` rows of
+    ``esize``-byte elements: groups of 8 KB (128 bf16 or 64 f32 rows);
+    resident when a slab's groups and at least ``RING_FINISH_MIN_AHEAD``
+    more fit beside the rest of the layout, with up to
+    ``RING_FINISH_MAX_AHEAD`` in flight; else streaming, a ring of ``ahead
+    + 1`` groups.  A pure function of its arguments.  Raises when a ring
+    of two groups does not fit or the rows pass ``RING_FINISH_MAX_ROWS``."""
+    gh = RING_FINISH_GROUP // (32 * esize)
+    fixed = ring_finish_smem(rows, 0)
+    if not 1 <= rows <= RING_FINISH_MAX_ROWS or (
+            fixed + 2 * RING_FINISH_GROUP > RING_FINISH_SMEM_CAP):
+        raise ValueError(f"finish: the ring route takes 1 to "
+                         f"{RING_FINISH_MAX_ROWS} rows whose two groups fit "
+                         f"{RING_FINISH_SMEM_CAP} bytes, got {rows}")
+    smax = (RING_FINISH_SMEM_CAP - fixed) // RING_FINISH_GROUP
+    ng = -(-rows // gh)
+    if ng + RING_FINISH_MIN_AHEAD <= smax:
+        ahead = min(RING_FINISH_MAX_AHEAD, smax - ng)
+        resident, stages = 1, ng + ahead
+    else:
+        ahead = min(RING_FINISH_MAX_AHEAD, smax - 1)
+        resident, stages = 0, ahead + 1
+    return RingFinishPlan(gh, stages, ahead, resident,
+                          ring_finish_smem(rows, stages))
 
 
 BITSERIAL_THREADS = 256  # kThreads in csrc/fused_finish.cu
@@ -275,12 +344,16 @@ def bitserial_plan(rows: int, esize: int) -> int:
 
 
 def finish_fits(dtype: torch.dtype, rows: int) -> bool:
-    """Whether the fused finish's kernel takes a ``(rows, d_alloc)``
-    buffer of ``dtype`` as the streamed round allocates it (``d_alloc`` a
-    multiple of 512 and a fresh, 16-byte-aligned allocation): on the
-    radix route, or else on the bit-serial one.  A pure function of shape
-    and dtype, the same on the CPU and on the card; the streamed round
-    sends every other buffer to its chunked finish."""
+    """Whether the streamed round gives a ``(rows, d_alloc)`` buffer of
+    ``dtype`` (``d_alloc`` a multiple of 512, a fresh 16-byte-aligned
+    allocation) to the fused finish: the rows radix's plan takes, then
+    the rows the bit-serial plan takes (7,473 bf16, 4,874 f32).  Such a
+    buffer launches the radix or the ring route (:func:`finish_route`);
+    the ring takes more rows, but the gate keeps the bit-serial plan's so
+    that no round moves between the fused and the chunked finish.  A
+    pure function of shape and dtype, the same on the CPU and on the
+    card; the streamed round sends every other buffer to its chunked
+    finish."""
     if finish_route(dtype, 512, 0, rows) == "radix":
         return True
     esize = 2 if dtype == torch.bfloat16 else 4
@@ -291,10 +364,13 @@ def finish_fits(dtype: torch.dtype, rows: int) -> bool:
 def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
                   mult: int = 0, forge=None, agg=("median",),
                   sanitize: bool = False, compact: bool = False,
-                  want_sq: bool = True, want_forged: bool = False):
+                  want_sq: bool = True, want_forged: bool = False,
+                  route=None):
     """Launch the finish kernel of :func:`finish_route` on ``x`` (rows, d)
     and return ``(agg (d,), sq (rows,) or None, bad (rows,) bool, forged
-    (d,) or None)``.
+    (d,) or None)``.  ``route`` names another route to launch instead
+    (measurements: two routes on one matrix); it raises where that route's
+    kernel does not take ``x``.
 
     ``active`` (rows,) bool selects the rows the statistics and the order
     statistics read (None = every row); the forged row's virtual
@@ -325,7 +401,12 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
         nz = noise.to(device=dev, dtype=torch.float32).contiguous()
     k_cut = int(agg[1]) if agg[0] == "trimmed" else 0
     dtype = 1 if x.dtype == torch.bfloat16 else 0
-    route = finish_route(x.dtype, d, x.data_ptr(), rows)
+    if route is None:
+        route = finish_route(x.dtype, d, x.data_ptr(), rows)
+    elif route not in FINISH_ROUTES:
+        raise ValueError(f"{name}: unknown finish route {route!r}")
+    plan = (ring_finish_plan(rows, x.element_size()) if route == "ring"
+            else None)
 
     lib = library()
     geom, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -334,6 +415,11 @@ def launch_finish(name: str, x: torch.Tensor, *, active=None, noise=None,
                                        ctypes.byref(geom), ctypes.byref(smem),
                                        ctypes.byref(grid)),
                f"{name}: no {route} launch geometry for {rows} rows")
+        if plan is not None and (geom.value, smem.value) != (plan.geom,
+                                                             plan.smem):
+            raise RuntimeError(f"{name}: the kernel plans geometry "
+                               f"{geom.value:#x} in {smem.value} bytes, "
+                               f"ring_finish_plan {plan}")
         g = grid.value
         agg_out = torch.empty((d,), dtype=torch.float32, device=dev)
         forged = (torch.empty((d,), dtype=torch.float32, device=dev)

@@ -10,11 +10,11 @@ Counterpart of ``blades_tpu/ops/pallas_round.py``.  Two entry points:
   mask: the forged row replaces the malicious rows (forge optional).
 
 On a CUDA tensor each launches a hand-written kernel of
-``csrc/fused_finish.cu`` (built on first use) or raises: the radix route
-for bf16 rows that are 16-byte aligned (``d % 8 == 0``; the streamed round
-pads its buffer so) and few enough to fit its shared memory (1,317), the
-bit-serial route otherwise
-(:func:`blades_tpu_torch.ops._cuda.finish_route`).  Neither waits for the
+``csrc/fused_finish.cu`` (built on first use) or raises: for rows that
+are 16-byte aligned (the streamed round pads its buffer so) the radix
+route when they are bf16 and few enough to fit its shared memory (1,317),
+else the ring route; the bit-serial route for other rows
+(:func:`blades_tpu_torch.ops._cuda.finish_route`).  None waits for the
 device.  On a CPU tensor
 each runs its plain PyTorch version, :func:`fused_finish_compact_plain` /
 :func:`fused_finish_plain`, which also serve as the kernel's yardstick on

@@ -14,8 +14,8 @@ is allocated:
   forge among ALIE / IPM / Adaptive or none), no ghost lanes, and the
   kernel's shared-memory plan takes the buffer's rows and dtype
   (:func:`blades_tpu_torch.ops._cuda.finish_fits`: up to 1,317 bf16 rows
-  on the radix route, then up to 7,473 bf16 or 4,874 f32 rows on the
-  bit-serial one);
+  on the radix route, then up to 7,473 bf16 or 4,874 f32 rows, the
+  bit-serial plan's rows, on the ring route);
 - otherwise the chunked finish (``step.finish``, the JAX package's
   ``_finish``): per column chunk of width ``d_chunk`` (the tail chunk
   overlaps its predecessor), an f32 copy of the chunk is sanitized,

@@ -11,11 +11,14 @@ Phases, each printing its lines before the last:
    ``sm_90a`` into ``build/``.
 2. ``small``: every kernel wrapper against its plain PyTorch version on a
    grid of forges x aggregators x storage types x sanitize, with a NaN row
-   confined to one 512-column stripe -- the two fused finishes on both of
-   their routes (bf16 rows of 3000 columns on the radix route, of 2999 on
-   the bit-serial one, f32 on the bit-serial one; the route of every call
-   checked) and on tie-heavy matrices (a few bf16 levels, signed zeros
-   and all-equal columns, exponents spread over 2**+-40) -- the column
+   confined to one 512-column stripe -- the two fused finishes on their
+   three routes (rows of 3000 columns on the radix route under bf16 and
+   the ring route under f32, of 2999 on the bit-serial one; the route of
+   every call checked) and on tie-heavy matrices (a few bf16 levels,
+   signed zeros and all-equal columns, exponents spread over 2**+-40);
+   the ring route's plan against ``_cuda.ring_finish_plan`` at 1 to 8,000
+   rows of both dtypes and its edges (bf16 1,318 and 7,473 rows, f32 40,
+   1,001 and 4,874) full and compact -- the column
    selects on their radix route (``select:radix``) at 1 to 6,000 rows
    (the 64-row group and the last resident row count, each +-1) and 3000,
    3002 and 2999 columns (16-, 8- and 4-byte copies; the route and copy
@@ -63,6 +66,14 @@ Phases, each printing its lines before the last:
    one warm-up round and 3 timed rounds through the compact fused finish
    on its ``(750, d_alloc)`` buffer, on the radix route;
    180 launches of each BN kernel per round, all on the vector map.
+4b. ``wide``: ``main``'s protocol where the radix route cannot hold the
+   compact buffer -- (a) 2,000 clients, bf16 (1,500 rows), (b) 1,000
+   clients, f32 updates (750 rows) -- one warm-up and 2 timed rounds, each
+   on ``finish:ring`` once, every launch held against the plain version
+   and against the bit-serial ``finish_kernel`` on the round's buffer, the
+   two kernels timed there in turns (parent, change, change, parent);
+   then the same rounds with every finish sent to ``finish_kernel`` (the
+   parent's routing): rounds/s and peak of both.
 5. ``full``: one ResNet-10 round at 200 clients with no malicious prefix,
    through the full fused finish on a ``(200, d_alloc)`` buffer, on the
    radix route.
@@ -314,7 +325,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "small", "kernels", "main", "full", "aggregators",
+PHASES = ("build", "small", "kernels", "main", "wide", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
           "wire", "async", "window", "obs", "gossip", "lanes", "autotune")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
@@ -568,9 +579,10 @@ def _took_route(before: dict, name: str, route: str, what: str) -> None:
 
 
 # (dtype, d) of the finish's small cases and the route each must take:
-# bf16 rows of 3000 columns are 16-byte aligned (radix), of 2999 not.
-SMALL_FINISH = (("float32", 3000, "bitserial"), ("bfloat16", 3000, "radix"),
-                ("bfloat16", 2999, "bitserial"))
+# rows of 3000 columns are 16-byte aligned (bf16 radix, f32 ring), of 2999
+# not (bit-serial).
+SMALL_FINISH = (("float32", 3000, "ring"), ("float32", 2999, "bitserial"),
+                ("bfloat16", 3000, "radix"), ("bfloat16", 2999, "bitserial"))
 
 
 def _small_finish(gen) -> int:
@@ -605,12 +617,28 @@ def _small_finish(gen) -> int:
     return cases
 
 
+# The ring route's edges in the small phase: (dtype, rows, route) on
+# aligned (rows, 1024) matrices -- radix's last bf16 row count and the
+# ring above it (resident), bf16 at the fused finish's cap (streaming), f32
+# at 40 rows, at an odd count and at the cap (streaming) -- each on every
+# kind of ``RING_EDGE_KINDS``.
+RING_EDGE_KINDS = ("randn", "levels", "spread")
+RING_PLAN_ROWS = 8000  # bt_finish_plan vs ring_finish_plan, rows 1 to this
+
+
 def _small_finish_rows(gen) -> int:
-    """The radix route's row capacity: ``_cuda.radix_smem``'s count of the
-    rows that fit (1,317) agrees with the kernel's launch plan, and aligned
-    bf16 matrices of that many rows take the radix route while one row more,
-    and 1,400 rows, take the bit-serial route, each against its plain
-    version (ALIE under Median and Trimmedmean, sanitize on)."""
+    """The finish's row capacities and the ring route's edges.
+    ``_cuda.radix_smem``'s count of the rows that fit (1,317) agrees with
+    the radix kernel's launch plan; ``_cuda.ring_finish_plan`` agrees with
+    the ring kernel's (``bt_finish_plan``: geometry and shared memory) at
+    every row count up to :data:`RING_PLAN_ROWS` in both dtypes.  Aligned
+    bf16 matrices of 1,317 rows take ``finish:radix``, of 1,318 and 7,473
+    ``finish:ring``; aligned f32 ones of 40, 1,001 and 4,874 rows
+    ``finish:ring``; unaligned ones of 1,400 bf16 and 1,001 f32 rows
+    ``finish:bitserial``.  Each is held against its plain version on
+    unit-scale, tie-heavy and spread (NaN, inf) matrices, full and compact
+    (ALIE under Median and Trimmedmean, sanitize on; the no-forge median
+    bit-exact on the spread ones)."""
     import ctypes
 
     import torch
@@ -626,18 +654,45 @@ def _small_finish_rows(gen) -> int:
                                  *[ctypes.byref(o) for o in outs])
         check((err == 0) == fits, f"radix plan for {rows} rows: error {err}, "
               f"radix_smem says {'fits' if fits else 'does not fit'}")
+    for dt, esize in ((1, 2), (0, 4)):
+        for rows in range(1, RING_PLAN_ROWS + 1):
+            err = lib.bt_finish_plan(dt, _cuda.FINISH_ROUTES["ring"], rows,
+                                     1024, *[ctypes.byref(o) for o in outs])
+            plan = _cuda.ring_finish_plan(rows, esize)
+            check(err == 0 and (outs[0].value, outs[1].value)
+                  == (plan.geom, plan.smem),
+                  f"ring plan for {rows} rows of {esize} bytes: error {err}, "
+                  f"geometry {outs[0].value:#x} in {outs[1].value} B on the "
+                  f"card, {plan} in Python")
     cases = 0
-    for rows, route in ((cap, "radix"), (cap + 1, "bitserial"),
-                        (1400, "bitserial")):
-        x = _small_matrix(gen, "randn", rows, 1024, torch.bfloat16, True)
-        mal = torch.rand((rows,), generator=gen, device="cuda") < 0.3
-        for agg in (("median",), ("trimmed", rows // 5)):
-            cases += _small_finish_case(
-                x, mal, None, ("alie", 0.7), agg, True, True, route,
-                f"bf16 d=1024 rows={rows} agg={agg}")
+    edges = ((torch.bfloat16, 1024, cap, "radix"),
+             (torch.bfloat16, 1024, cap + 1, "ring"),
+             (torch.bfloat16, 1024, 7473, "ring"),
+             (torch.bfloat16, 1020, 1400, "bitserial"),
+             (torch.float32, 1024, 40, "ring"),
+             (torch.float32, 1024, 1001, "ring"),
+             (torch.float32, 1024, 4874, "ring"),
+             (torch.float32, 1023, 1001, "bitserial"))
+    for dtype, d, rows, route in edges:
+        bf16 = dtype == torch.bfloat16
+        for kind in RING_EDGE_KINDS:
+            x = _small_matrix(gen, kind, rows, d, dtype, True)
+            mal = torch.rand((rows,), generator=gen, device="cuda") < 0.3
+            tag = f"{dtype} d={d} rows={rows} {kind}"
+            if kind == "spread":  # exact medians only
+                cases += _small_finish_case(x, mal, None, None, ("median",),
+                                            True, bf16, route, tag)
+                continue
+            for agg in (("median",), ("trimmed", rows // 5)):
+                cases += _small_finish_case(
+                    x, mal, None, ("alie", 0.7), agg, True, bf16, route,
+                    f"{tag} agg={agg}")
     log(f"small: the radix route fits {cap} rows, as its launch plan does; "
-        f"{cap} aligned bf16 rows take finish:radix, {cap + 1} and 1400 "
-        "finish:bitserial, all agreeing with the plain version")
+        f"ring_finish_plan equals the ring kernel's plan at 1-"
+        f"{RING_PLAN_ROWS} rows of both dtypes; {cap} aligned bf16 rows take "
+        f"finish:radix, {cap + 1} and 7473 finish:ring, aligned f32 rows "
+        "40 / 1001 / 4874 finish:ring, unaligned ones finish:bitserial, all "
+        "agreeing with the plain version (randn, levels, spread)")
     return cases
 
 
@@ -1996,7 +2051,8 @@ def _select_records(gen, rows, d, vec, suffix):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         bits_fn = lambda: _cuda.launch_finish(  # noqa: E731
-            "finish:bitserial select", x, agg=agg, want_sq=False)[0]
+            "finish:bitserial select", x, agg=agg, want_sq=False,
+            route="bitserial")[0]
         old = bits_fn()
         if name == "column_median":
             err = same(got, want, tag)
@@ -2364,10 +2420,12 @@ def _gram_shapes():
 
 
 def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
-                    profile_to=None, aggregator="Median", tag=None):
+                    profile_to=None, aggregator="Median", tag=None,
+                    update_dtype=None):
     """Build the headline configuration at ``n`` clients (with
-    ``aggregator`` in place of Median) and run ``rounds`` rounds; return
-    the per-round losses, seconds, last metrics and the step.
+    ``aggregator`` in place of Median, ``update_dtype`` in place of bf16
+    storage) and run ``rounds`` rounds; return the per-round losses,
+    seconds, last metrics and the step.
     ``block``, ``hw`` and ``device`` shrink it for a rehearsal.  With
     ``profile_to`` (a directory) the last round runs under
     ``torch.profiler`` and its kernel table is written there as
@@ -2395,6 +2453,7 @@ def _headline_round(n, f, prefix, rounds, block=50, hw=32, device=None,
     mal = make_malicious_mask(n, f, device=dev)
     state = fr.init(0, n, device=device)
     step = streamed_step(fr, client_block=block, malicious_prefix=prefix,
+                         update_dtype=update_dtype or torch.bfloat16,
                          device=device)
     losses, secs = [], []
     for r in range(rounds):
@@ -2546,6 +2605,247 @@ def phase_main():
         f"vector map; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, rps
+
+
+# The ``wide`` phase: ``main``'s protocol in the two configurations whose
+# compact buffers the radix route cannot hold, (tag, clients, dtype).
+WIDE_CONFIGS = (("a", 2000, "bfloat16"), ("b", 1000, "float32"))
+WIDE_ROUNDS = 2  # timed after one warm-up round
+WIDE_REPS = 3    # timed launches of each finish, after one warm-up launch
+
+
+def _ring_agrees(got, old, want, fw, median, tag, bf16, full=False):
+    """A ring launch against the plain version's ``want`` and
+    ``finish_kernel``'s ``old`` on the same buffer (``(agg, sq, bad,
+    forged)`` each; ``fw`` the plain forged row): flags bit for bit; the
+    median bit for bit in every column whose two forged values are equal;
+    the forged row, the aggregate and the row norms within :func:`close`
+    (``full``: the forged rows' norms are the forged row's).  Returns the
+    aggregate's max abs err against the plain version and the share of
+    columns whose forged values are equal."""
+    fsq = fw.square().sum().reshape(1) if full else None
+    same(got[2], want[2], f"{tag}: bad vs plain")
+    err = close(got[0], want[0], f"{tag}: agg vs plain", forged=fw,
+                bf16=bf16)
+    close(got[1], want[1], f"{tag}: sq vs plain", rtol=SQ_RTOL, forged=fsq,
+          bf16=bf16)
+    same(got[2], old[2], f"{tag}: bad vs finish_kernel")
+    close(got[3], fw, f"{tag}: forged vs plain", forged=fw, bf16=bf16)
+    close(got[3], old[3], f"{tag}: forged vs finish_kernel", forged=fw,
+          bf16=bf16)
+    eq = got[3] == old[3]
+    if median:
+        same(got[0][eq], old[0][eq],
+             f"{tag}: median vs finish_kernel where the forged rows agree")
+    close(got[0], old[0], f"{tag}: agg vs finish_kernel", forged=fw,
+          bf16=bf16)
+    close(got[1], old[1], f"{tag}: sq vs finish_kernel", rtol=SQ_RTOL,
+          forged=fsq, bf16=bf16)
+    return err, float(eq.float().mean())
+
+
+class _RingAudit:
+    """Wraps the streamed round's compact finish while ``wide`` runs: each
+    launch must take ``finish:ring`` once and is held, set aside
+    (:func:`_aside`), against the plain version and against
+    ``finish_kernel`` on the same buffer (:func:`_ring_agrees`).  At the
+    first launch both kernels are timed device-only on that buffer in
+    turns (bit-serial, ring, ring, bit-serial), the plain version once,
+    the ring with parts of its work switched off, and the full finish on
+    the same buffer with its first quarter malicious (held and timed the
+    same way)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.times = None
+        self.aside_s = []  # each launch's audit seconds, inside its round
+
+    def _audit(self, buf, noise, kw, got):
+        import torch
+
+        from blades_tpu_torch.ops import _cuda
+        from blades_tpu_torch.ops import fused_finish as ff
+
+        bf16 = buf.dtype == torch.bfloat16
+        median = kw["agg"][0] == "median"
+        tag = f"wide {tuple(buf.shape)} {buf.dtype}"
+        opts = dict(noise=noise, forge=kw["forge"], agg=kw["agg"],
+                    sanitize=kw["sanitize"], want_forged=True)
+
+        def old_fn():
+            return _cuda.launch_finish(
+                "finish:bitserial wide", buf, mult=kw["forged_mult"],
+                compact=True, route="bitserial", **opts)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ff.fused_finish_compact_plain(buf, noise, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, eq = _ring_agrees(got, old_fn(), want, want[3], median, tag,
+                               bf16)
+        del want
+        if self.times is not None:
+            return
+        rows, d_alloc = buf.shape
+
+        def ring_fn():
+            return ff.fused_finish_compact(buf, noise, **kw)
+
+        turns = [timed(fn, WIDE_REPS)[0]
+                 for fn in (old_fn, ring_fn, ring_fn, old_fn)]
+        # Where the ring's time goes: parts of its work switched off.
+        alie = dict(mult=kw["forged_mult"], forge=kw["forge"],
+                    agg=kw["agg"], compact=True)
+        parts = {"mean": dict(agg=("mean",), want_sq=False),
+                 "mean+norms": dict(agg=("mean",)),
+                 "median": dict(agg=("median",), want_sq=False),
+                 "alie+median": alie,
+                 "alie+median+sanitize": dict(alie, sanitize=True)}
+        phase_ms = {k: timed(lambda o=o: _cuda.launch_finish(
+            "finish:ring phases", buf, **o), WIDE_REPS)[0]
+            for k, o in parts.items()}
+        # The full finish over the same buffer, the first quarter forged.
+        mal = torch.arange(rows, device=buf.device) < rows // 4
+        full = {r: (lambda r=r: _cuda.launch_finish(
+            f"finish:{r} wide full", buf, active=~mal, route=r, **opts))
+            for r in ("ring", "bitserial")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ff.fused_finish_plain(buf, mal, noise, forge=kw["forge"],
+                                     agg=kw["agg"], sanitize=kw["sanitize"])
+        torch.cuda.synchronize()
+        full_plain_ms = (time.perf_counter() - t0) * 1e3
+        fw = ff.fused_finish_compact_plain(
+            buf[rows // 4:], noise, forged_mult=1, forge=kw["forge"],
+            agg=("mean",), sanitize=kw["sanitize"])[3]
+        full_err, _ = _ring_agrees(full["ring"](), full["bitserial"](),
+                                   want, fw, median, f"{tag} full", bf16,
+                                   full=True)
+        del want, fw
+        full_turns = [timed(full[r], WIDE_REPS)[0]
+                      for r in ("bitserial", "ring", "ring", "bitserial")]
+        self.times = dict(bits=(turns[0], turns[3]),
+                          ring=(turns[1], turns[2]), plain=plain_ms,
+                          err=err, eq=eq,
+                          read=rows * d_alloc * buf.element_size(),
+                          small=rows * 5 + 2 * d_alloc * 4,
+                          ops=7 * rows * d_alloc, shape=(rows, d_alloc),
+                          phases=phase_ms, full=full_turns,
+                          full_plain=full_plain_ms, full_err=full_err)
+
+    def __enter__(self):
+        from blades_tpu_torch.parallel import streamed
+
+        self.mod, self.real = streamed, streamed.fused_finish_compact
+
+        def wrapped(buf, noise=None, **kw):
+            before = _finish_routes()
+            got = self.real(buf, noise, **kw)
+            _took_route(before, "fused_finish_compact", "ring",
+                        f"wide {tuple(buf.shape)} {buf.dtype}")
+            self.launches += 1
+            t0 = time.perf_counter()
+            with _aside():
+                self._audit(buf, noise, kw, got)
+            self.aside_s.append(time.perf_counter() - t0)
+            return got
+
+        streamed.fused_finish_compact = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_finish_compact = self.real
+
+
+def _wide_rounds(n, dtype, route=None):
+    """``main``'s protocol at ``n`` clients, a quarter ALIE and elided,
+    ``dtype`` storage: one warm-up and :data:`WIDE_ROUNDS` timed rounds;
+    with ``route`` every finish is sent to that route (the parent's
+    routing), unaudited.  Returns rounds/s, the peak, the audit and the
+    launch counts by route."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    rounds = 1 + WIDE_ROUNDS
+    _reset_peak()
+    _cuda.reset_launches()
+    real_route = _cuda.finish_route
+    audit = _RingAudit()
+    try:
+        if route is not None:
+            _cuda.finish_route = lambda *a: route
+            ctx = contextlib.nullcontext()
+        else:
+            ctx = audit
+        with _FinishSpy() as spy, ctx:
+            losses, secs, m, step = _headline_round(
+                n, n // 4, n // 4, rounds, update_dtype=getattr(torch, dtype))
+    finally:
+        _cuda.finish_route = real_route
+    rows = n - n // 4
+    want_buf = [("fused_finish_compact", (rows, RESNET10_D_ALLOC))] * rounds
+    check(spy.seen == want_buf, f"wide: finish buffers {spy.seen}, expected "
+          f"{want_buf}")
+    check(dict(step.routes) == {"fused_compact": rounds},
+          f"wide: rounds by finish {dict(step.routes)}, expected "
+          f"fused_compact x {rounds}")
+    check(int(m["elided_lanes"]) == n // 4, "wide: elision did not engage")
+    took = _finish_routes()
+    want = {("fused_finish_compact", "finish:" + (route or "ring")): rounds}
+    check(took == want, f"wide: finish routes {took}, expected {want}")
+    if route is None:
+        check(audit.launches == rounds, f"wide: {audit.launches} audited "
+              f"launches, expected {rounds}")
+        # Each round's audit, set aside, comes out of its seconds.
+        secs = [t - a for t, a in zip(secs, audit.aside_s)]
+    rps = WIDE_ROUNDS / sum(secs[1:])
+    return rps, _peak(), audit, losses, dict(_cuda.MAPS)
+
+
+def phase_wide(card):
+    """``main``'s protocol where the radix route cannot take the compact
+    buffer: (a) 2,000 clients, bf16 (1,500 benign rows); (b) 1,000 clients,
+    f32 updates (750 rows).  Each runs first on the ring route, every
+    launch audited (:class:`_RingAudit`), then with every finish sent to
+    the bit-serial ``finish_kernel`` (the parent's routing), and prints
+    rounds/s and the peak of both, the two kernels' device-only ms on the
+    round's own buffer (parent, change, change, parent) and the bound."""
+    counts, records = {}, {}
+    for tag, n, dtype in WIDE_CONFIGS:
+        rps, peak, audit, losses, maps = _wide_rounds(n, dtype)
+        name = "finish:ring" if dtype == "bfloat16" else "finish:ring:f32"
+        counts[name] = maps[("fused_finish_compact", "finish:ring")]
+        old_rps, old_peak, _, _, _ = _wide_rounds(n, dtype, route="bitserial")
+        t = audit.times
+        rec = _record(name, SRC, COMPACT_TPU, sum(t["ring"]) / 2, t["plain"],
+                      t["read"] + t["small"], t["ops"], t["err"])
+        records[name] = rec
+        log(f"wide ({tag}): ResNet-10 x {n} clients ({n // 4} ALIE, elided), "
+            f"Median, {dtype} updates: compact finish on {t['shape']}; ring "
+            f"{WIDE_ROUNDS} timed rounds at {rps:.4f} rounds/s (losses "
+            f"{losses}), peak {peak / 2**30:.2f} GiB; bit-serial routing "
+            f"{old_rps:.4f} rounds/s, peak {old_peak / 2**30:.2f} GiB [{card}]")
+        log(f"wide ({tag}): device-only ms on the round's buffer, parent, "
+            f"change, change, parent: finish_kernel {t['bits'][0]:.3f}, ring "
+            f"{t['ring'][0]:.3f}, ring {t['ring'][1]:.3f}, finish_kernel "
+            f"{t['bits'][1]:.3f}; bound {rec['bound_ms']:.3f} "
+            f"({rec['bound_by']}); plain {t['plain']:.1f}; "
+            f"{100 * t['eq']:.2f}% of columns with equal forged values "
+            f"(the median bit for bit there) [{card}]")
+        f = t["full"]
+        log(f"wide ({tag}): the full finish on the same buffer, the first "
+            f"quarter forged, device-only ms, parent, change, change, "
+            f"parent: finish_kernel {f[0]:.3f}, ring {f[1]:.3f}, ring "
+            f"{f[2]:.3f}, finish_kernel {f[3]:.3f}; plain "
+            f"{t['full_plain']:.1f}; max_abs_err {t['full_err']:.3g} vs "
+            f"plain [{card}]")
+        rate = t["read"] / t["phases"]["mean"] / 1e9
+        log(f"wide ({tag}): finish:ring phases on {t['shape']}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in t["phases"].items())
+            + f"; the mean pass reads the rows at {rate:.2f} TB/s [{card}]")
+    return counts, records
 
 
 def phase_full():
@@ -3057,13 +3357,29 @@ def _gate_vs_plan():
         check((err == 0) == fits, f"gate: {route} plan at {rows} rows of "
               f"{dtype}: the card says {'fits' if err == 0 else 'no'} "
               f"(error {err}), Python {'fits' if fits else 'no'}")
+        # The padded buffer's rows are aligned: above radix's cap the fused
+        # finish launches the ring route, whose plan must agree too.
+        want = "radix" if route == "radix" and fits else "ring"
+        took = _cuda.finish_route(dtype, RESNET10_D_ALLOC, 0, rows)
+        check(took == want, f"gate: {rows} aligned rows of {dtype} route to "
+              f"{took}, expected {want}")
+        if took == "ring":
+            err = lib.bt_finish_plan(int(esize == 2), _cuda.FINISH_ROUTES[
+                "ring"], rows, RESNET10_D_ALLOC, ctypes.byref(geom),
+                ctypes.byref(smem), ctypes.byref(grid))
+            plan = _cuda.ring_finish_plan(rows, esize)
+            check(err == 0 and (geom.value, smem.value)
+                  == (plan.geom, plan.smem), f"gate: ring plan at {rows} "
+                  f"rows of {dtype}: error {err}, {geom.value:#x} / "
+                  f"{smem.value} B on the card, {plan} in Python")
     for dtype, last in ((torch.float32, 4874), (torch.bfloat16, 7473)):
         check(_cuda.finish_fits(dtype, last)
               and not _cuda.finish_fits(dtype, last + 1),
               f"gate: finish_fits({dtype}) flips elsewhere than {last}")
     log(f"chunked: the gate agrees with bt_finish_plan at {len(cases)} row "
         "counts around the caps (radix bf16 1,317; bit-serial f32 4,874, "
-        "bf16 7,473)")
+        "bf16 7,473); the aligned rows above radix's cap take finish:ring, "
+        "whose plan agrees too")
 
 
 def _chunked_counts(what, rounds, chunks, trained_blocks, bn_layers=12):
@@ -6657,6 +6973,10 @@ def main(argv=None) -> int:
         launches = {}
         if "main" in phases:
             launches.update(run("main", phase_main)[0])
+        if "wide" in phases:
+            counts, recs = run("wide", phase_wide, card)
+            launches.update(counts)
+            records.update(recs)
         if "full" in phases:
             launches.update(run("full", phase_full))
         if "aggregators" in phases:

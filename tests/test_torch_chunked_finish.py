@@ -258,6 +258,53 @@ def test_bitserial_plan_fits_exactly_where_it_says(dtype, esize):
             cols > 0 or _cuda.finish_route(dtype, 512, 0, rows) == "radix")
 
 
+@pytest.mark.parametrize("esize", [2, 4])
+def test_ring_finish_plan_fits_exactly_where_it_says(esize):
+    """The Python mirror of the ring route's plan (``gplan`` of
+    ``csrc/fused_finish.cu``) against the layout its source states: the
+    ring of 8 KB groups (128 bf16 / 64 f32 rows), the 256 x 32 histogram
+    (32 KB), four int or float arrays of 16 warps x 32 columns, eight
+    per-column fields, then 4 + 4 + 1 + 1 bytes a row, rounded to 16.  For
+    1 to 20,000 rows: within the 226 KB cap; resident exactly when a
+    slab's groups and four more fit, with as many in flight as fit up to
+    eight; else streaming with as many as fit; refused only where two
+    groups do not fit."""
+    cap, group = _cuda.RING_FINISH_SMEM_CAP, _cuda.RING_FINISH_GROUP
+    assert cap <= 227 * 1024 and group == 8192
+    gh = 8192 // (32 * esize)
+
+    def layout(rows, stages):
+        total = stages * 8192 + 256 * 32 * 4 + 4 * 16 * 32 * 4 + 8 * 32 * 4
+        return -(-(total + 10 * rows) // 16) * 16
+
+    refused = []
+    for rows in range(1, 20_001):
+        if layout(rows, 2) > cap:
+            with pytest.raises(ValueError, match="ring route"):
+                _cuda.ring_finish_plan(rows, esize)
+            refused.append(rows)
+            continue
+        plan = _cuda.ring_finish_plan(rows, esize)
+        assert plan.gh == gh
+        assert plan.smem == layout(rows, plan.stages) == _cuda.ring_finish_smem(
+            rows, plan.stages) <= cap
+        room = (cap - layout(rows, 0)) // 8192  # groups that fit
+        ng = -(-rows // gh)
+        if plan.resident:
+            assert plan.stages == ng + plan.ahead and 4 <= plan.ahead <= 8
+            assert plan.ahead == min(8, room - ng)
+        else:
+            assert ng + 4 > room
+            assert plan.stages == plan.ahead + 1
+            assert plan.ahead == min(8, room - 1) >= 1
+    # The streamed round's buffers at the fused finish's caps, and above.
+    assert _cuda.ring_finish_plan(7473, 2).resident == 0
+    assert _cuda.ring_finish_plan(4874, 4).resident == 0
+    assert _cuda.ring_finish_plan(1500, 2).resident == 1
+    assert _cuda.ring_finish_plan(750, 4).resident == 1
+    assert refused and min(refused) > 17_000
+
+
 def _spied_round(monkeypatch, n, f, *, adversary="ALIE", dp=None,
                  num_clients=None, dtype="bfloat16", prefix=None):
     """One streamed MLP round; returns the route counts and what each

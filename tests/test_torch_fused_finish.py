@@ -192,7 +192,7 @@ def test_compact_equals_full_with_prefix():
         _close(sq_f[:mult], (f_c * f_c).sum().expand(mult))
 
 
-def _tie_matrix(kind, seed, rows, dtype):
+def _tie_matrix(kind, seed, rows, dtype, d=D):
     """Tie-heavy ``(torch, jax)`` copies of one matrix: ``levels`` draws
     from five bf16-exact values (long runs of equal keys across both
     trimmed cuts); ``zeros`` mixes +0 and -0 with all-equal columns, where
@@ -201,9 +201,9 @@ def _tie_matrix(kind, seed, rows, dtype):
     rng = np.random.default_rng(seed)
     if kind == "levels":
         lv = np.array([-0.5, -0.125, 0.0, 0.125, 0.25], np.float32)
-        x = lv[rng.integers(0, 5, size=(rows, D))]
+        x = lv[rng.integers(0, 5, size=(rows, d))]
     else:
-        x = np.where(rng.random((rows, D)) < 0.5, np.float32(-0.0),
+        x = np.where(rng.random((rows, d)) < 0.5, np.float32(-0.0),
                      np.float32(0.0)).astype(np.float32)
         x[:, 1::3] = 0.375
     x[2, 600], x[5, 7] = np.nan, np.inf
@@ -254,19 +254,157 @@ def test_tie_heavy_matches_pallas(branch, kind, agg, dtype):
     (torch.bfloat16, 4_903_424, 0, 1000, "radix"),     # the full finish
     (torch.bfloat16, 3000, 1 << 20, 40, "radix"),
     (torch.bfloat16, 1024, 0, 1317, "radix"),          # the most that fit
-    (torch.bfloat16, 1024, 0, 1318, "bitserial"),      # one row too many
-    (torch.bfloat16, 4_903_424, 0, 1600, "bitserial"),  # ResNet-10 x 1600
+    (torch.bfloat16, 1024, 0, 1318, "ring"),           # one row too many
+    (torch.bfloat16, 4_903_424, 0, 1600, "ring"),      # ResNet-10 x 1600
+    (torch.bfloat16, 4_903_424, 0, 1500, "ring"),      # ResNet-10 x 2000
     (torch.bfloat16, 4_903_242, 0, 750, "bitserial"),  # 9,806,484-byte rows
     (torch.bfloat16, 1004, 0, 40, "bitserial"),        # 8-byte-aligned rows
     (torch.bfloat16, 1008, 8, 40, "bitserial"),        # an unaligned base
-    (torch.float32, 1024, 0, 40, "bitserial"),         # f32: the column selects
+    (torch.bfloat16, 1004, 0, 1600, "bitserial"),      # unaligned, many rows
+    (torch.float32, 1024, 0, 40, "ring"),              # f32: any aligned rows
+    (torch.float32, 4_903_424, 0, 750, "ring"),        # an f32 streamed round
+    (torch.float32, 1022, 0, 40, "bitserial"),         # 8-byte-aligned rows
+    (torch.float32, 1024, 4, 40, "bitserial"),         # an unaligned base
 ])
 def test_finish_route_takes_radix_only_for_aligned_bf16_rows(dtype, d,
                                                              address, rows,
                                                              route):
+    """Aligned bf16 rows up to radix's cap take the radix route, every
+    other 16-byte-aligned matrix the ring route, the rest the bit-serial
+    route."""
     from blades_tpu_torch.ops._cuda import finish_route
 
     assert finish_route(dtype, d, address, rows) == route
+
+
+@pytest.mark.parametrize("dtype,cap", [(torch.bfloat16, 7473),
+                                       (torch.float32, 4874)])
+def test_finish_fits_keeps_todays_row_counts(dtype, cap):
+    """The ring route moves no round between the fused and the chunked
+    finish: for rows 1 to 8,000 ``finish_fits`` gives what it gave before
+    the ring route -- radix's cap, then the bit-serial plan -- which is
+    every row count up to 7,473 bf16 / 4,874 f32 rows."""
+    from blades_tpu_torch.ops import _cuda
+
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for rows in range(1, 8001):
+        radix = (dtype == torch.bfloat16
+                 and _cuda.radix_smem(rows, 2) <= _cuda.RADIX_SMEM_CAP)
+        before = radix or _cuda.bitserial_plan(rows, esize) > 0
+        assert _cuda.finish_fits(dtype, rows) == before == (rows <= cap), rows
+
+
+# -- the ring route's shapes against the Pallas kernels ----------------------
+
+WIDE_D = 1024  # two whole stripes: aligned rows for both dtypes
+WIDE_ROWS = {"bf16": 1400, "f32": 600}  # above radix's cap; an f32 matrix
+
+
+def _wide_matrix(seed, rows, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, WIDE_D)).astype(np.float32)
+    x[2, 600], x[5, 7] = np.nan, np.inf  # one stripe each: sanitized
+    t = torch.from_numpy(x)
+    if dtype == "bf16":
+        t = t.to(torch.bfloat16)
+        return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return t, jnp.asarray(x)
+
+
+def _wide_noise(seed, forge):
+    if forge[0] != "adaptive":
+        return None, None
+    r = np.random.default_rng(seed).random(WIDE_D).astype(np.float32)
+    return torch.from_numpy(r), jnp.asarray(r)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("agg", [("median",), ("trimmed", 0)],
+                         ids=lambda a: a[0])
+@pytest.mark.parametrize("forge", FORGES, ids=lambda f: f[0])
+def test_ring_shapes_match_pallas(forge, agg, dtype):
+    """The plain versions the ring route is held to on the card, at its
+    shapes (bf16 above radix's 1,317 rows, f32), against the Pallas
+    kernels, sanitize on: the compact finish with a fifth of the rows
+    forged, the full one with a quarter malicious.  Trimmed cut: a fifth
+    of the rows."""
+    rows = WIDE_ROWS[dtype]
+    xt, xj = _wide_matrix(rows + len(forge[0]), rows, dtype)
+    rt, rj = _wide_noise(rows, forge)
+    mult = rows // 4
+    cagg = agg if agg[0] == "median" else ("trimmed", (rows + mult) // 5)
+    a_t, sq_t, bad_t, f_t = tff.fused_finish_compact(
+        xt, rt, forged_mult=mult, forge=forge, agg=cagg, sanitize=True)
+    a_j, sq_j, bad_j, f_j = jax_compact(
+        xj, rj, forged_mult=mult, forge=forge, agg=cagg, sanitize=True,
+        interpret=True)
+    _close(f_t, f_j, dtype, f_t)
+    _close(a_t, a_j, dtype, f_t)
+    _close(sq_t, sq_j)
+    np.testing.assert_array_equal(bad_t.numpy(), np.asarray(bad_j))
+    assert bad_t.nonzero().flatten().tolist() == [2, 5]
+    mal = np.arange(rows) >= rows - rows // 4
+    fagg = agg if agg[0] == "median" else ("trimmed", rows // 5)
+    a_t, sq_t, bad_t = tff.fused_finish(
+        xt, torch.from_numpy(mal), rt, forge=forge, agg=fagg, sanitize=True)
+    a_j, sq_j, bad_j = jax_fused(xj, jnp.asarray(mal), rj, forge=forge,
+                                 agg=fagg, sanitize=True, interpret=True)
+    f_t = _port_forged(xt, mal, forge, rt) if dtype == "bf16" else None
+    _close(a_t, a_j, dtype, f_t)
+    _close(sq_t[~mal], np.asarray(sq_j)[~mal])
+    np.testing.assert_array_equal(bad_t.numpy(), np.asarray(bad_j))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("agg", [("median",), ("trimmed", 0)],
+                         ids=lambda a: a[0])
+def test_ring_shapes_tie_heavy_match_pallas(agg, dtype):
+    """Five bf16-exact levels (runs of equal keys across both cuts) with a
+    NaN and an inf row, at the ring route's shapes, compact under ALIE
+    with sanitize on."""
+    rows = WIDE_ROWS[dtype]
+    xt, xj = _tie_matrix("levels", rows, rows, dtype, d=WIDE_D)
+    mult = rows // 4
+    cagg = agg if agg[0] == "median" else ("trimmed", (rows + mult) // 5)
+    a_t, sq_t, bad_t, f_t = tff.fused_finish_compact(
+        xt, forged_mult=mult, forge=("alie", 0.7), agg=cagg, sanitize=True)
+    a_j, sq_j, bad_j, f_j = jax_compact(
+        xj, forged_mult=mult, forge=("alie", 0.7), agg=cagg, sanitize=True,
+        interpret=True)
+    _close(f_t, f_j, dtype, f_t)
+    _close(a_t, a_j, dtype, f_t)
+    _close(sq_t, sq_j)
+    np.testing.assert_array_equal(bad_t.numpy(), np.asarray(bad_j))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_ring_shapes_nan_column_match_pallas(sanitize, dtype):
+    """A column more than half NaN (the median among them), a column of
+    -inf and a column of equal values, at the ring route's shapes, no
+    forge: the median bit for bit (sanitize off: the NaN is the median;
+    on: the NaN rows are zeroed in their stripe)."""
+    rows = WIDE_ROWS[dtype]
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(rows, WIDE_D)).astype(np.float32)
+    x[: rows // 2 + 1, 700] = np.nan
+    x[:, 701] = -np.inf
+    x[:, 702] = 0.375
+    t = torch.from_numpy(x)
+    j = jnp.asarray(x)
+    if dtype == "bf16":
+        t, j = t.to(torch.bfloat16), j.astype(jnp.bfloat16)
+    mal = np.zeros(rows, dtype=bool)
+    a_t, sq_t, bad_t = tff.fused_finish(t, torch.from_numpy(mal), forge=None,
+                                        agg=("median",), sanitize=sanitize)
+    a_j, sq_j, bad_j = jax_fused(j, jnp.asarray(mal), forge=None,
+                                 agg=("median",), sanitize=sanitize,
+                                 interpret=True)
+    np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+    assert np.isnan(a_t[700].item()) != sanitize
+    np.testing.assert_array_equal(bad_t.numpy(), np.asarray(bad_j))
+    if sanitize:
+        _close(sq_t, sq_j)
 
 
 def test_rejects_bad_arguments():
