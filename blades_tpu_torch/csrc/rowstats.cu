@@ -35,8 +35,9 @@
 //    X_slab t into per-CTA row partials.  A second kernel reduces the
 //    partials in CTA order: deterministic, no float atomics; sign counts
 //    and int8 norms are integers throughout.
-//  - Gram (gram_mma_kernel for int8 and unaligned bf16, gram_f32_kernel
-//    for f32): a tiled product over the (i <= j) tiles of the upper
+//  - Gram of rows that are not 16-byte aligned (gram_mma_kernel for int8
+//    and bf16, gram_f32_kernel for f32 at any alignment): a tiled product
+//    over the (i <= j) tiles of the upper
 //    triangle, the d-reduction split across CTAs in whole waves.  bf16 uses mma.sync
 //    m16n8k16 with f32 accumulation (a bf16 x bf16 product is exact in
 //    f32, so this is the same function up to the order of the sums); int8
@@ -52,11 +53,14 @@
 //    result is exactly symmetric.  This reads the matrix once per tile
 //    row it meets (the L2 cache serves most of it, since the CTAs of one
 //    split walk the same columns together).
-//  - Gram of bf16 rows that are 16-byte aligned (gram_wgmma_kernel, below):
-//    TMA loads into a shared-memory ring and wgmma on the tensor cores.
-//    The streamed round's row-geometry buffer is (n, d_alloc), d_alloc
-//    the model width rounded up to 512 columns as the JAX package
-//    allocates it, so its rows are; ops/_cuda.py::gram_route picks it.
+//  - Gram of bf16 or int8 rows that are 16-byte aligned
+//    (gram_wgmma_kernel, below): TMA loads into a shared-memory ring and
+//    wgmma on the tensor cores, f32 sums for bf16, exact int32 spans for
+//    int8.  The streamed round's row-geometry buffer is (n, d_alloc),
+//    d_alloc the model width rounded up to 512 columns as the JAX package
+//    allocates it, and the wire domain's int8 payload is (n,
+//    wire_width(d)), a multiple of 16 columns, so the rows of both are;
+//    ops/_cuda.py::gram_route picks it.
 //  - Otherwise (rowstats_kernel, the mma and f32 Grams) rows need not be
 //    aligned to anything: a 4-byte cp.async
 //    serves rows whose length in bytes is a multiple of 4 (every f32
@@ -76,7 +80,7 @@ namespace {
 constexpr int kThreads = 256;    // Gram kernels
 constexpr int kRsThreads = 512;  // row-statistics kernel
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
-constexpr int kInt8Span = 65536;  // int32-exact span: 65536 * 127^2 < 2^31
+constexpr int kInt8Span = 65536;  // int32-exact span: 65536 * 128^2 = 2^30 < 2^31
 
 // Element j of a 4-byte word holding 4 / sizeof(T) values, as f32 (all in
 // registers: j is a constant after unrolling).
@@ -595,49 +599,71 @@ __global__ void __launch_bounds__(kThreads) gram_f32_kernel(GramArgs a) {
 }
 
 // --------------------------------------------------------------------------
-// Gram on Hopper: TMA + wgmma (bf16 rows 16-byte aligned)
+// Gram on Hopper: TMA + wgmma (bf16 and int8 rows 16-byte aligned)
 // --------------------------------------------------------------------------
 //
 // Replaces the Gram of blades_tpu/ops/pallas_rowstats.py:98
-// (_rowstats_kernel, want_gram) for bf16 matrices whose rows are 16-byte
-// aligned: the streamed round's (1000, d_alloc) buffer, padded as the JAX
-// package pads it (d_alloc a multiple of 512).  Bound on the H100 at
-// (1000, 4,903,424): n (n + 1) / 2 * d * 2 = 4.9e12 operations over 989
-// TFLOP/s = 4.96 ms; the 36 whole upper-triangle tiles do 5.78e12, 5.85 ms.
+// (_rowstats_kernel, want_gram, and its int8 branch) for bf16 and int8
+// matrices whose rows are 16-byte aligned: the streamed round's (1000,
+// d_alloc) bf16 buffer, padded as the JAX package pads it (d_alloc a
+// multiple of 512), and the wire round's (1000, 4,903,248) int8 payload.
+// Bounds on the H100, counting the symmetric half, n (n + 1) / 2 * d * 2
+// operations: bf16 at (1000, 4,903,424) 4.9e12 over 989 TFLOP/s = 4.96 ms;
+// int8 at (1000, 4,903,248) 4.9e12 over 1,979 TOP/s = 2.48 ms (its bytes,
+// 4.9 GB over 3.35 TB/s, 1.47 ms).  The 36 whole upper-triangle tiles do
+// 5.78e12: 5.85 / 2.92 ms.
 //
-// Design: the same 128 x 128 upper-triangle tiles, d-splits and
-// (splits, npairs, 128, 128) f32 partials as gram_mma_kernel, so
-// gram_finalize and the split search are shared.  One 2-D TMA descriptor
-// over the (rows, d) matrix loads 128-row x 64-column boxes (128-byte rows,
-// 128-byte swizzle) into a kWgStages-deep ring of 32 KB stages (a diagonal
-// tile loads one box and reads it as both operands); the rows >= rows and
-// columns >= d come in as zeros from TMA's out-of-bounds fill, so nothing
-// is masked here.  Warpgroup 2 is the producer (one thread issues the
-// loads); warpgroups 0 and 1 each own a 64-row half of the tile and run
-// wgmma m64n128k16 on K-major A and B straight from shared memory, with
-// full / empty mbarriers per stage.  The tensor cores' f32 accumulation
-// truncates (see the Gram note above), so every kWgFlush stages (256
-// columns) a consumer waits for its wgmma groups, adds the accumulator into
-// a separate f32 sum with ordinary rounding, and restarts it.
+// Design: the same 128 x 128 upper-triangle tiles, d-splits and (splits,
+// npairs, 128, 128) partials (f32 for bf16, int32 for int8) as
+// gram_mma_kernel, so gram_finalize and the split search are shared.  One
+// 2-D TMA descriptor over the (rows, d) matrix loads 128-row x 128-byte
+// boxes (64 bf16 or 128 int8 columns: one 128-byte swizzle row) into a
+// kWgStages-deep ring of 32 KB stages (a diagonal tile loads one box and
+// reads it as both operands); the rows >= rows and columns >= d come in as
+// zeros from TMA's out-of-bounds fill, so nothing is masked here.
+// Warpgroup 2 is the producer (one thread issues the loads); warpgroups 0
+// and 1 each own a 64-row half of the tile and run wgmma m64n128k16 (bf16)
+// or m64n128k32 (s8) on K-major A and B straight from shared memory, with
+// full / empty mbarriers per stage.
 //
-// Likely next limit: every CTA streams its two 128-row tiles through
-// shared memory, so a Gram moves 64 tile-loads x 128 rows x 9.8 MB = 80 GB
-// from L2 into shared memory; L2's rate, not the tensor cores, probably
-// caps this design.  A 2-CTA cluster multicasting the shared tile (or a
-// 128 x 256 tile) would halve that traffic.
+// Sums.  bf16: the tensor cores' f32 accumulation truncates (see the Gram
+// note above), so every kWgFlush stages (256 columns) a consumer waits for
+// its wgmma groups, adds the accumulator into a separate f32 sum with
+// ordinary rounding, and restarts it.  int8: integer sums are exact, so the
+// s32 accumulator runs over the CTA's whole span.  The plan caps a span at
+// kWgMaxStages stages of 128 columns = kInt8Span, where a partial is at
+// most 65,536 * 128^2 = 2^30 < 2^31 in magnitude and cannot wrap, and
+// gram_finalize adds the partials in split order in int64 and rounds to
+// f32 once: the result is bit-identical to gram_mma_kernel's and to the
+// exact Gram.  No .satfinite: saturation would hide a wrong span cap.
+//
+// Limit: every CTA streams its two 128-row tiles through shared memory,
+// so a Gram moves 64 tile-loads x 128 rows x the row's bytes from L2 into
+// shared memory (80 GB for the bf16 buffer, 40 GB for the int8 payload).
+// Measured on the H100 (PERF.md §6): the int8 payload takes 9.9 ms, 4.0x
+// its bound (4.0 TB/s into shared memory, 0.58 POP/s), where
+// gram_mma_kernel takes 24.6 ms; the same tiles at 1 << 20 columns run at
+// 7.6 TB/s, so neither the tensor cores nor L2 -> shared memory stop the
+// full width, and the rate falls as the matrix widens (L2 reuse across
+// waves or address translation; not yet measured by counters).
+// Resident CTA groups walking every split, and shorter spans, ran slower.
+// A 2-CTA cluster multicasting the shared tile (or a 128 x 256 tile)
+// would halve the loads.
 
 constexpr int kWgTile = 128;      // tile side (rows of X per operand)
-constexpr int kWgK = 64;          // columns per stage: one 128-byte swizzle row
+constexpr int kWgRowB = 128;      // bytes of a tile row per stage: one swizzle row
 constexpr int kWgStages = 5;
-constexpr int kWgFlush = 4;       // stages (256 columns) per wgmma accumulation
-// Stages one CTA walks at most (32,768 columns).  The CTAs that share a
-// tile row drift apart over a long span (a diagonal tile loads half as
-// much a stage), and the L2 cache then serves fewer of one CTA's rows to
-// the others: at the round's shape the wave-filling 11 splits give each
-// CTA 6,966 stages, and on the H100 a cap of 512 (154 splits, still
-// whole waves) ran faster than 256, 1024, 2048 or none (PERF.md §6).
+constexpr int kWgFlush = 4;       // bf16 stages (256 columns) per wgmma accumulation
+// Stages one CTA walks at most (32,768 bf16 or 65,536 int8 columns, which
+// is kInt8Span).  The CTAs that share a tile row drift apart over a long
+// span (a diagonal tile loads half as much a stage), and the L2 cache then
+// serves fewer of one CTA's rows to the others: at the round's shape the
+// wave-filling 11 splits give each CTA 6,966 bf16 stages, and on the H100
+// a cap of 512 (154 splits, still whole waves) ran faster than 256, 1024,
+// 2048 or none (PERF.md §6).
 constexpr long long kWgMaxStages = 512;
-constexpr int kWgBox = kWgTile * kWgK * 2;  // bytes of one operand box
+static_assert(kWgMaxStages * kWgRowB <= kInt8Span, "int8 spans must stay int32-exact");
+constexpr int kWgBox = kWgTile * kWgRowB;   // bytes of one operand box
 constexpr int kWgConsumers = 256;           // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // + the producer warpgroup
 constexpr int kWgSmem = kWgStages * 2 * kWgBox + 1024 + 2 * kWgStages * 8;
@@ -682,8 +708,8 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tma
 }
 // The wgmma descriptor of a K-major operand under 128-byte swizzle at
 // shared address `addr`: 8-row groups 1024 bytes apart (SBO), LBO unused
-// (1), layout 1 = 128-byte swizzle.  A k16 step within the 64-column
-// swizzle row adds 32 bytes to the start address.
+// (1), layout 1 = 128-byte swizzle.  A 32-byte k-step (k16 bf16, k32 s8)
+// within the 128-byte swizzle row adds 32 bytes to the start address.
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
@@ -704,12 +730,16 @@ __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D (64 x 128, f32, 64 registers a thread) (+)= A (64 x 16) B^T, A and B
 // K-major bf16 tiles in shared memory under 128-byte swizzle; `accumulate`
 // 0 overwrites D.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                 int accumulate) {
+__device__ __forceinline__ void wgmma_step(float* d, uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -731,9 +761,41 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+// The same for s8: D (64 x 128, s32) (+)= A (64 x 32) B^T.  The integer
+// form has no scale or transpose operands (8-bit operands are K-major
+// only).
+__device__ __forceinline__ void wgmma_step(int* d, uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
+// T = uint16_t: bf16 rows, f32 partials; T = int8_t: s8 rows, int32
+// partials.  CTA b computes tile pair b % npairs over split b / npairs.
+template <typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gram_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, GramArgs a) {
+  constexpr bool kInt = std::is_same<T, int8_t>::value;
+  using Acc = typename std::conditional<kInt, int, float>::type;
+  constexpr int kK = kWgRowB / sizeof(T);  // columns per stage
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzle wants 1024-byte aligned boxes.
   const uint32_t raw = smem_u32(smem_raw);
@@ -748,7 +810,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const bool diag = ti == tj;
   const long long k0 = split * a.span;
   const long long k1 = k0 + a.span < a.d ? k0 + a.span : a.d;
-  const int nk = static_cast<int>((k1 - k0 + kWgK - 1) / kWgK);
+  const int nk = static_cast<int>((k1 - k0 + kK - 1) / kK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -763,14 +825,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
   if (wg == 2) {
     // Producer: one thread keeps the ring full.  The span is a multiple of
-    // kWgK, so no box reaches past this split's columns but at d.
+    // kK, so no box reaches past this split's columns but at d.
     if (threadIdx.x == kWgConsumers) {
       const uint32_t bytes = diag ? kWgBox : 2 * kWgBox;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % kWgStages;
         mbar_wait(empty + 8 * s, ((kt / kWgStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, bytes);
-        const int col = static_cast<int>(k0 + static_cast<long long>(kt) * kWgK);
+        const int col = static_cast<int>(k0 + static_cast<long long>(kt) * kK);
         const uint32_t dst = base + s * 2 * kWgBox;
         tma_load_2d(dst, &tmap, full + 8 * s, col, ti * kWgTile);
         if (!diag) tma_load_2d(dst + kWgBox, &tmap, full + 8 * s, col, tj * kWgTile);
@@ -779,9 +841,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   } else {
     // Consumers: warpgroup wg computes rows [64 wg, 64 wg + 64) of the tile
     // against all 128 of the other operand.
-    float acc[64], tot[64];
+    Acc acc[64];
+    float tot[kInt ? 1 : 64];  // bf16: the rounded-to-nearest sum of the flushes
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = Acc(0);
+#pragma unroll
+    for (int i = 0; i < (kInt ? 1 : 64); ++i) tot[i] = 0.f;
     int held = -1;  // the stage an unfinished wgmma group still reads
     int fresh = 1;  // the next wgmma starts a new accumulation
     for (int kt = 0; kt < nk; ++kt) {
@@ -789,20 +854,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_wait(full + 8 * s, (kt / kWgStages) & 1);
       const uint32_t a_tile = base + s * 2 * kWgBox;
       const uint32_t b_tile = diag ? a_tile : a_tile + kWgBox;
-      const uint64_t da = wg_desc(a_tile + wg * 64 * 128), db = wg_desc(b_tile);
+      const uint64_t da = wg_desc(a_tile + wg * 64 * kWgRowB), db = wg_desc(b_tile);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < kWgK / 16; ++k)  // 32 bytes = 2 descriptor units a step
-        wgmma_m64n128k16(acc, da + 2 * k, db + 2 * k, k > 0 || !fresh);
+      for (int k = 0; k < kWgRowB / 32; ++k)  // 32 bytes = 2 descriptor units a step
+        wgmma_step(acc, da + 2 * k, db + 2 * k, k > 0 || !fresh);
       wgmma_commit();
-      if ((kt + 1) % kWgFlush == 0 || kt + 1 == nk) {
+      // bf16 restarts its accumulator every kWgFlush stages; int8 sums run
+      // over the whole span and wait once, after the loop (a wait inside it
+      // that the compiler cannot place makes ptxas serialize the wgmmas).
+      if (!kInt && ((kt + 1) % kWgFlush == 0 || kt + 1 == nk)) {
         wgmma_wait<0>();
         fence_regs(acc);
         if (held >= 0) mbar_arrive(empty + 8 * (held % kWgStages));
         mbar_arrive(empty + 8 * s);
         held = -1;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+        for (int i = 0; i < (kInt ? 1 : 64); ++i) tot[i] += acc[i];
         fresh = 1;
       } else {
         wgmma_wait<1>();  // every group but this stage's has finished
@@ -811,19 +879,31 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         fresh = 0;
       }
     }
-    // Accumulator layout of m64nNk16: register 4j + e of thread (warp w,
-    // lane l) holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) +
-    // e % 2.
+    // Accumulator layout of m64nNk16 / m64nNk32: register 4j + e of thread
+    // (warp w, lane l) holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2
+    // (l % 4) + e % 2.
     const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
-    float* out = static_cast<float*>(a.part) +
-                 (static_cast<size_t>(split) * a.npairs + p) * kWgTile * kWgTile;
+    Acc* out = static_cast<Acc*>(a.part) +
+               (static_cast<size_t>(split) * a.npairs + p) * kWgTile * kWgTile;
     const int r = wg * 64 + 16 * w + l / 4;
+    if constexpr (kInt) {
+      wgmma_wait<0>();
+      fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 8 * j + 2 * (l % 4);
-      *reinterpret_cast<float2*>(out + r * kWgTile + c) = make_float2(tot[4 * j], tot[4 * j + 1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * kWgTile + c) =
-          make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * (l % 4);
+        *reinterpret_cast<int2*>(out + r * kWgTile + c) = make_int2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<int2*>(out + (r + 8) * kWgTile + c) =
+            make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * (l % 4);
+        *reinterpret_cast<float2*>(out + r * kWgTile + c) = make_float2(tot[4 * j], tot[4 * j + 1]);
+        *reinterpret_cast<float2*>(out + (r + 8) * kWgTile + c) =
+            make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+      }
     }
   }
 }
@@ -1315,31 +1395,36 @@ cudaError_t encode_tiled(EncodeTiledFn* fn) {
   return cudaSuccess;
 }
 
-// The TMA descriptor of a row-major (rows, d) bf16 matrix in 128-row x
-// 64-column boxes, 128-byte swizzle, zero fill out of bounds.  Needs d % 8
-// == 0 and a 16-byte-aligned base (TMA's row stride is a multiple of 16
-// bytes).
-cudaError_t gram_tmap(const void* x, int rows, long long d, CUtensorMap* map) {
-  if (d % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return cudaErrorInvalidValue;
+// The TMA descriptor of a row-major (rows, d) bf16 or int8 matrix in
+// 128-row x 128-byte boxes (64 bf16 or 128 int8 columns), 128-byte
+// swizzle, zero fill out of bounds; int8 is copied as its bytes (UINT8).
+// Needs rows of a whole number of 16 bytes (d % 8 == 0 bf16, d % 16 == 0
+// int8) and a 16-byte-aligned base: TMA's row stride is a multiple of 16
+// bytes.
+cudaError_t gram_tmap(const void* x, int dtype, int rows, long long d, CUtensorMap* map) {
+  const int es = elem_size(dtype);
+  if (dtype == 0 || (d * es) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
   EncodeTiledFn fn;
   cudaError_t e = encode_tiled(&fn);
   if (e != cudaSuccess) return e;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {kWgK, kWgTile};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * es};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWgRowB / es), kWgTile};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, const_cast<void*>(x), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+template <typename T>
 cudaError_t gram_wgmma_setup(int* per_sm) {
-  cudaError_t e = cudaFuncSetAttribute(gram_wgmma_kernel,
+  cudaError_t e = cudaFuncSetAttribute(gram_wgmma_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gram_wgmma_kernel, kWgThreads,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gram_wgmma_kernel<T>, kWgThreads,
                                                        kWgSmem);
 }
 
@@ -1532,19 +1617,22 @@ int bt_rowstats(const void* x, int dtype, int rows, long long d, long long d_tru
 
 // Gram geometry for (dtype, route, rows, d): the tile side, the
 // upper-triangle tile count, the d-splits (whole waves of CTAs where d
-// allows; on route 1 also at most kWgMaxStages stages a CTA) and the
-// columns per split, a multiple of the kernel's stage depth.  route 1 is gram_wgmma_kernel (bf16 only), 0 the kernel of the
-// dtype.
+// allows; on route 1 also at most kWgMaxStages stages a CTA, in a whole
+// multiple of the wave-filling count) and the columns per split, a
+// multiple of the kernel's stage depth.  int8 spans are at most
+// kInt8Span columns, so its int32 partials stay exact.  route 1 is
+// gram_wgmma_kernel (bf16 or int8), 0 the kernel of the dtype.
+// ops/_cuda.py::gram_plan mirrors this.
 int bt_gram_plan(int dtype, int route, int rows, long long d, int* tile, int* npairs,
                  int* splits, long long* span) {
   int per_sm = 0;
   cudaError_t e;
   int bke = kRowB / elem_size(dtype);
   if (route == 1) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0) return static_cast<int>(cudaErrorInvalidValue);
     *tile = kWgTile;
-    bke = kWgK;
-    e = gram_wgmma_setup(&per_sm);
+    bke = kWgRowB / elem_size(dtype);
+    e = dtype == 1 ? gram_wgmma_setup<uint16_t>(&per_sm) : gram_wgmma_setup<int8_t>(&per_sm);
   } else if (dtype == 0) {
     *tile = kF32Tile;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_f32_kernel, kThreads,
@@ -1572,13 +1660,13 @@ int bt_gram_plan(int dtype, int route, int rows, long long d, int* tile, int* np
       s = c;
     }
   }
-  if (dtype == 2) {
-    const long long need = (d + kInt8Span - 1) / kInt8Span;
-    if (s < need) s = need;
-  }
   if (route == 1) {  // a whole multiple of the wave-filling split count
     const long long per = (nkb + s - 1) / s;
     if (per > kWgMaxStages) s *= (per + kWgMaxStages - 1) / kWgMaxStages;
+  }
+  if (dtype == 2) {  // route 1 meets this already: kWgMaxStages * 128 <= kInt8Span
+    const long long need = (d + kInt8Span - 1) / kInt8Span;
+    if (s < need) s = need;
   }
   *span = (nkb + s - 1) / s * bke;
   *splits = static_cast<int>((d + *span - 1) / *span);
@@ -1601,11 +1689,16 @@ int bt_gram(const void* x, int dtype, int route, int rows, long long d, int tile
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = npairs * splits;
   if (route == 1) {
-    if (dtype != 1 || tile != kWgTile) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0 || tile != kWgTile || span % (kWgRowB / elem_size(dtype)) != 0 ||
+        (dtype == 2 && span > kInt8Span))
+      return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap map;
-    cudaError_t me = gram_tmap(x, rows, d, &map);
+    cudaError_t me = gram_tmap(x, dtype, rows, d, &map);
     if (me != cudaSuccess) return static_cast<int>(me);
-    gram_wgmma_kernel<<<grid, kWgThreads, kWgSmem, st>>>(map, a);
+    if (dtype == 1)
+      gram_wgmma_kernel<uint16_t><<<grid, kWgThreads, kWgSmem, st>>>(map, a);
+    else
+      gram_wgmma_kernel<int8_t><<<grid, kWgThreads, kWgSmem, st>>>(map, a);
   } else if (dtype == 0) {
     gram_f32_kernel<<<grid, kThreads, kF32Stages * 2 * kF32Tile * kTStride, st>>>(a);
   } else if (dtype == 1) {

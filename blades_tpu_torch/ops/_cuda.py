@@ -600,15 +600,88 @@ def _weights(name, m, cols, dev):
 
 def gram_route(dtype: torch.dtype, d: int, address: int) -> str:
     """The Gram kernel for a ``(rows, d)`` matrix of ``dtype`` at device
-    ``address``: ``wgmma`` (``gram_wgmma_kernel``, TMA-fed) for bf16 rows
-    that are 16-byte aligned -- ``d % 8 == 0`` and a 16-byte-aligned base,
-    as TMA's row stride must be -- else ``mma`` (``gram_mma_kernel``: int8,
-    unaligned bf16) or ``f32`` (``gram_f32_kernel``)."""
+    ``address``: ``wgmma`` (``gram_wgmma_kernel``, TMA-fed) for bf16 or
+    int8 rows that are 16-byte aligned -- ``d * itemsize % 16 == 0`` (bf16
+    ``d % 8``, int8 ``d % 16``) and a 16-byte-aligned base, as TMA's row
+    stride must be -- else ``mma`` (``gram_mma_kernel``: unaligned bf16 and
+    int8) or ``f32`` (``gram_f32_kernel``)."""
     if dtype == torch.float32:
         return "f32"
-    if dtype == torch.bfloat16 and d % 8 == 0 and address % 16 == 0:
+    esize = 2 if dtype == torch.bfloat16 else 1
+    if (d * esize) % 16 == 0 and address % 16 == 0:
         return "wgmma"
     return "mma"
+
+
+# bt_gram_plan's constants (csrc/rowstats.cu): kWgTile, kWgRowB,
+# kWgMaxStages; kMmaTile, kRowB; kF32Tile; kInt8Span.
+_WG_TILE, _WG_ROWB, _WG_MAX_STAGES = 128, 128, 512
+_MMA_TILE, _MMA_ROWB, _F32_TILE = 128, 64, 64
+INT8_SPAN = 65_536  # int32-exact: 65,536 x 128^2 = 2^30 < 2^31
+
+
+class GramPlan(NamedTuple):
+    """How a Gram kernel covers a ``(rows, d)`` matrix: the tile side, the
+    upper-triangle tile count, the d-splits and the columns per split (a
+    multiple of the kernel's stage depth); the partials are ``(splits,
+    npairs, tile, tile)``."""
+    tile: int
+    npairs: int
+    splits: int
+    span: int
+
+
+def gram_plan(dtype: torch.dtype, route: str, rows: int, d: int, *,
+              per_sm: int = 1, sms: int = 132) -> GramPlan:
+    """``bt_gram_plan`` of ``csrc/rowstats.cu`` in Python, for the kernel
+    of ``route`` (:func:`gram_route`) with ``per_sm`` resident CTAs on
+    each of ``sms`` SMs (the TMA + wgmma kernel holds one a SM; the
+    H100 has 132): the split count that fills whole waves best (ties:
+    fewer); on ``wgmma`` a whole multiple of it that keeps every CTA at or
+    below 512 stages; for int8 at least as many splits as keep each span
+    within :data:`INT8_SPAN` columns.  A pure function of its arguments."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if route == "wgmma":
+        if dtype == torch.float32:
+            raise ValueError("the wgmma Gram takes bf16 or int8 rows")
+        tile, bke = _WG_TILE, _WG_ROWB // esize
+    elif dtype == torch.float32:
+        tile, bke = _F32_TILE, _MMA_ROWB // 4
+    else:
+        tile, bke = _MMA_TILE, _MMA_ROWB // esize
+    nt = -(-rows // tile)
+    npairs = nt * (nt + 1) // 2
+    nkb = -(-d // bke)
+    resident = per_sm * sms
+    s, best = 1, 0.0
+    for c in range(1, min(4 * resident // npairs + 1, nkb) + 1):
+        ctas = c * npairs
+        eff = ctas / (-(-ctas // resident) * resident)
+        if eff > best + 1e-9:
+            best, s = eff, c
+    if route == "wgmma":
+        per = -(-nkb // s)
+        if per > _WG_MAX_STAGES:
+            s *= -(-per // _WG_MAX_STAGES)
+    if dtype == torch.int8:
+        s = max(s, -(-d // INT8_SPAN))
+    span = -(-nkb // s) * bke
+    return GramPlan(tile, npairs, -(-d // span), span)
+
+
+def card_gram_plan(dtype: torch.dtype, route: str, rows: int,
+                   d: int) -> GramPlan:
+    """``bt_gram_plan`` itself, with the card's occupancy and SM count:
+    the plan the Gram launches take (:func:`gram_plan` mirrors it)."""
+    lib = library()
+    tile, npairs, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    span = ctypes.c_longlong()
+    _check(lib, lib.bt_gram_plan(ROWSTATS_DTYPES[dtype], int(route == "wgmma"),
+                                 rows, d, ctypes.byref(tile),
+                                 ctypes.byref(npairs), ctypes.byref(splits),
+                                 ctypes.byref(span)),
+           f"no {route} Gram launch geometry for ({rows}, {d}) {dtype}")
+    return GramPlan(tile.value, npairs.value, splits.value, span.value)
 
 
 ROWSTATS_ROUTES = {"slab": 0, "ring": 1}
@@ -822,24 +895,17 @@ def launch_rowstats(name: str, x: torch.Tensor, *, sq: bool = False,
                 out["wsum"] = wsum_out[:, :d_true]
         if gram:
             route = gram_route(x.dtype, d, x.data_ptr())
-            rc = int(route == "wgmma")  # bt_gram's route code
-            tile, npairs, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-            span = ctypes.c_longlong()
-            _check(lib, lib.bt_gram_plan(dt, rc, rows, d, ctypes.byref(tile),
-                                         ctypes.byref(npairs),
-                                         ctypes.byref(splits),
-                                         ctypes.byref(span)),
-                   f"{name}: no Gram launch geometry")
+            plan = card_gram_plan(x.dtype, route, rows, d)
             part = torch.empty(
-                (splits.value, npairs.value, tile.value, tile.value),
+                (plan.splits, plan.npairs, plan.tile, plan.tile),
                 dtype=torch.int32 if dt == 2 else torch.float32, device=dev)
             gram_out = torch.empty((rows, rows), dtype=torch.float32,
                                    device=dev)
-            _check(lib, lib.bt_gram(x.data_ptr(), dt, rc, rows, d,
-                                    tile.value, npairs.value, splits.value,
-                                    span.value, part.data_ptr(),
+            _check(lib, lib.bt_gram(x.data_ptr(), dt, int(route == "wgmma"),
+                                    rows, d, plan.tile, plan.npairs,
+                                    plan.splits, plan.span, part.data_ptr(),
                                     gram_out.data_ptr(), stream),
-                   f"{name}: Gram launch failed")
+                   f"{name}: {route} Gram launch failed")
             out["gram"] = gram_out
             MAPS[name, "gram:" + route] += 1
     LAUNCHES[name] += 1

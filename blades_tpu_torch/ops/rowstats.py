@@ -26,8 +26,9 @@ Nothing is padded or copied here: the streamed round hands over its
 ``(n, d_alloc)`` buffer, zero past ``d_true`` as the JAX package allocates
 it, whose rows are 16-byte aligned.  The statistics of such rows take the
 ring kernel at any row count (``_cuda.rowstats_route``), and the Gram of
-such bf16 rows the TMA + wgmma kernel (``_cuda.gram_route``); the other
-kernels mask their own ragged edges.
+such bf16 or int8 rows the TMA + wgmma kernel (``_cuda.gram_route``: the
+wire payload's rows are a multiple of 16 bytes too); the other kernels
+mask their own ragged edges.
 
 ``gram_dot_shared`` tells the kernel which gram_dot vectors ARE weights
 rows (the pass planner knows it by object identity: GeoMed's and

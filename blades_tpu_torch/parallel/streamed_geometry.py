@@ -56,7 +56,8 @@ Gram, dots, gram_dot and gathers are scaled after them (``s_i^2``,
 their weights, masked medians into their row scale; the chunk-only
 ``mean_std`` and ``coordwise`` scale each in-flight slice.  On the card
 the int8 statistics take the ring (``rowstats:ring``) and the Gram
-``gram:mma``; :func:`aggregate_wire` runs every one of
+``gram:wgmma`` (the TMA + wgmma kernel's s8 instance: the payload's rows
+are a multiple of 16 bytes); :func:`aggregate_wire` runs every one of
 :data:`WIRE_AGGREGATORS` so, and Median / Trimmedmean decode each chunk
 for ``select:radix``, ranking the values decode-then-f32 would rank.  The
 recorder's ``dequant_rows`` counts the full-width f32 rows decoded.

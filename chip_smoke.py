@@ -30,8 +30,10 @@ Phases, each printing its lines before the last:
    ring for 16-byte-aligned rows, 6,000 rows among them, the slab kernel
    for the rest; every call's route checked, two launches bit-identical,
    a shared weight vector bit-identical to two) and the Gram on each of its routes
-   (TMA + wgmma for bf16 rows that are 16-byte aligned, ragged edges and a
-   zero-padded buffer included), and the BatchNorm-backward kernels
+   (TMA + wgmma for bf16 and int8 rows that are 16-byte aligned, ragged
+   edges, a zero-padded buffer and int8 rows whose exact products pass
+   2**31 included; its plan against ``_cuda.gram_plan``), and the
+   BatchNorm-backward kernels
    (each pass alone and the composite ``bn_bwd``) on a grid of f32/bf16 x
    four physical layouts (the folded and the grouped vmap layouts, each
    NCHW and channels-last) x ragged shapes and the main round's stage
@@ -53,7 +55,10 @@ Phases, each printing its lines before the last:
    ``row_stats_bundle`` the bundles of the row-geometry round on its
    padded ``(1000, d_alloc)`` buffer (the Multikrum Gram, with the old
    route on the unpadded matrix and ``torch.mm`` on both beside it, and
-   the Gram at three more shapes; GeoMed's weighted sum + Gram-vector
+   the Gram at three more shapes; the wire's int8 Gram on a synthetic
+   ``(1000, 4,903,248)`` payload on ``gram:wgmma`` and ``gram:mma`` in
+   turns, bit-exact, beside ``torch._int_mm``, and at three more shapes;
+   GeoMed's weighted sum + Gram-vector
    product, the weighted sum alone, sign counts and dots on the ring
    route, each beside the slab route on the unpadded matrix, and the
    ring's time by part of its work); for the
@@ -164,7 +169,7 @@ Phases, each printing its lines before the last:
    round at ``fedavg_cifar10_1000clients.yaml``'s widths (ResNet-10 x
    1000 clients of CIFAR-10 shapes, 250 ALIE, bf16 compute) under quant
    int8 on the wire, Multikrum and Median for 2 rounds, GeoMed for 1:
-   every int8 bundle of the planner (the Gram on ``gram:mma``, the rest
+   every int8 bundle of the planner (the Gram on ``gram:wgmma``, the rest
    on ``rowstats:ring``, never ``rowstats:slab``) and every select of the
    Median's decoded chunks (38 a round) held against the plain version,
    each round's aggregate against the port's decode-then-f32 aggregate of
@@ -851,13 +856,15 @@ def phase_small():
 def _abs_scales(x, kw):
     """Per-entry magnitudes of each statistic's summands: the same bundle
     over |X|, |v|, |w|, |g|.  An f32 sum in another order differs by a
-    small multiple of the rounding unit times these."""
+    small multiple of the rounding unit times these.  int8 -128 counts as
+    127 (its abs wraps to -128 in int8), a magnitude 1/128 below its own."""
     import torch
 
     from blades_tpu_torch.ops import rowstats as rs
 
     akw = {k: v.abs() if torch.is_tensor(v) else v for k, v in kw.items()}
-    return rs.row_stats_bundle_plain(x.abs(), **akw)
+    xa = x.clamp_min(-127).abs() if x.dtype == torch.int8 else x.abs()
+    return rs.row_stats_bundle_plain(xa, **akw)
 
 
 def rowstats_agree(got, want, x, kw, what, rtol=ROW_RTOL) -> float:
@@ -1038,15 +1045,63 @@ def _gram_routes_since(before: dict) -> dict:
 # widths not a multiple of 64, so TMA's zero fill covers both edges.
 GRAM_WGMMA_SHAPES = ((9, 1008), (77, 1000), (1000, 1000), (77, 300_008),
                      (130, 4104))
+# int8 shapes for it (the wire payload's route): a partial tile row, across
+# a tile row, several splits with a column tail inside a TMA box; then
+# GRAM8_WORST's worst-case rows, and the wire round's width for the plan.
+GRAM8_WGMMA_SHAPES = ((77, 1040), (130, 4096), (1000, 200_016))
+GRAM8_WORST = (136, 131_088)
+GRAM8_WIRE = (1000, 4_903_248)  # (n, wire_width(ResNet-10's d))
+
+
+def _int8_worst_rows(gen, rows, d):
+    """int8 rows in -128..127 from ``gen`` with rows 0 and 128 all -128,
+    row 1 all +127 and rows 2, 3 alternating -128 / +127: their exact
+    products (d x 128^2 = 2,147,745,792 at d = 131,088, in a diagonal and
+    an off-diagonal tile) pass 2**31, and the random rows' pass 2**24."""
+    import torch
+
+    x = torch.randint(-128, 128, (rows, d), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    alt = torch.arange(d, device="cuda") % 2 == 0
+    x[0] = -128
+    x[1] = 127
+    x[2] = torch.where(alt, 127, -128).to(torch.int8)
+    x[3] = torch.where(alt, -128, 127).to(torch.int8)
+    x[128] = -128
+    return x
+
+
+def _gram_plans_agree(shapes):
+    """``_cuda.gram_plan`` (the Python mirror, one CTA a SM on this card's
+    SMs) against ``bt_gram_plan`` on the ``wgmma`` route, and every int8
+    span within the int32-exact ``_cuda.INT8_SPAN`` columns."""
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, rows, d in shapes:
+        want = _cuda.card_gram_plan(dtype, "wgmma", rows, d)
+        got = _cuda.gram_plan(dtype, "wgmma", rows, d, per_sm=1, sms=sms)
+        check(got == want, f"gram plan ({rows}, {d}) {dtype}: gram_plan "
+              f"{got}, bt_gram_plan {want}")
+        check(dtype != torch.int8 or (want.span <= _cuda.INT8_SPAN
+                                      and want.span % 128 == 0),
+              f"gram plan ({rows}, {d}) int8: span {want.span}")
+    return sms
 
 
 def _small_gram_routes(gen):
     """The Gram's routes against the plain version: ``gram:wgmma`` on bf16
     rows that are 16-byte aligned (the shapes above, and a zero-padded
     ``(n, d_alloc)`` buffer read with ``d_true < d_alloc`` as the
-    row-geometry round reads its buffer), and ``gram:mma`` on an aligned
-    width at a 2-byte offset.  Each case's Gram must take its route once
-    and the other never."""
+    row-geometry round reads its buffer) and on int8 rows that are (the
+    wire payload's route: the int8 shapes above and the worst-case rows,
+    the int8 Gram bit-exact), and ``gram:mma`` on an aligned bf16 width
+    at a 2-byte offset and an aligned int8 width at a 4-byte offset (the
+    4-byte ``cp.async`` loads).  Each case's Gram must take its route once
+    and the other never.  The ``wgmma`` plan of every shape, and of the
+    wire round's, against its Python mirror."""
     import torch
 
     from blades_tpu_torch.ops import rowstats as rs
@@ -1067,6 +1122,23 @@ def _small_gram_routes(gen):
         torch.bfloat16)
     cases.append(("(77, 1000) at a 2-byte offset", flat[1:].view(77, 1000),
                   1000, "gram:mma"))
+    for rows, d in GRAM8_WGMMA_SHAPES:
+        x = torch.randint(-127, 128, (rows, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        x[:, ::5] = 0
+        cases.append((f"int8 ({rows}, {d})", x, d, "gram:wgmma"))
+    cases.append((f"int8 worst-case rows {GRAM8_WORST}",
+                  _int8_worst_rows(gen, *GRAM8_WORST), GRAM8_WORST[1],
+                  "gram:wgmma"))
+    flat8 = torch.randint(-127, 128, (77 * 1040 + 16,), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    x8 = flat8[4:4 + 77 * 1040].view(77, 1040)
+    check(x8.data_ptr() % 16 == 4, f"int8 offset case at {x8.data_ptr()}")
+    cases.append(("int8 (77, 1040) at a 4-byte offset", x8, 1040,
+                  "gram:mma"))
+    sms = _gram_plans_agree(
+        [(x.dtype,) + tuple(x.shape) for _, x, _, r in cases
+         if r == "gram:wgmma"] + [(torch.int8,) + GRAM8_WIRE])
     count = 0
     for what, x, d_true, route in cases:
         rows, d = x.shape
@@ -1093,8 +1165,11 @@ def _small_gram_routes(gen):
             count += 1
     torch.cuda.synchronize()
     log(f"small: {count} Gram route cases agree with the plain version "
-        f"({len(GRAM_WGMMA_SHAPES) + 1} shapes on gram:wgmma, one on "
-        "gram:mma)")
+        f"({len(GRAM_WGMMA_SHAPES) + 1} bf16 and "
+        f"{len(GRAM8_WGMMA_SHAPES) + 1} int8 shapes on gram:wgmma, the "
+        "int8 Gram bit-exact with worst-case rows past 2**31; one bf16 and "
+        "one int8 shape on gram:mma); gram_plan equals bt_gram_plan at "
+        f"every wgmma shape and {GRAM8_WIRE} int8 ({sms} SMs)")
 
 
 def _small_round():
@@ -2001,6 +2076,7 @@ def phase_kernels():
     records.update(_select_records(gen, 60, d, 8, ":dense_trial"))
     records.update(_bundle_records(gen, d))
     _gram_shapes()
+    _int8_gram_turns(gen)
     records.update(_bn_records(gen))
     for r in records.values():
         lib = r["library_ms"]
@@ -2378,16 +2454,18 @@ def phase_ringsweep(out_dir: str):
 GRAM_SHAPES = ((128, RESNET10_D_ALLOC), (1000, 1 << 20), (1000, 16_384))
 
 
-def _gram_rates(rows, d, ms) -> str:
-    """The rates of a ``(rows, d)`` Gram on the TMA + wgmma route taking
-    ``ms``: the operations of its whole 128 x 128 tiles, and the bytes they
-    load into shared memory (a diagonal tile one 128-row box a stage,
-    another tile two)."""
+def _gram_rates(rows, d, ms, esize=2) -> str:
+    """The rates of a ``(rows, d)`` Gram of ``esize``-byte elements on a
+    128 x 128-tile route taking ``ms``: the operations of its whole tiles
+    (TFLOP/s for bf16, TOP/s for int8), and the bytes they load into
+    shared memory (a diagonal tile one 128-row box a stage, another tile
+    two)."""
     nt = -(-rows // 128)
     npairs = nt * (nt + 1) // 2
     ops = npairs * 128 * 128 * 2 * d
-    fill = (nt + 2 * (npairs - nt)) * 128 * d * 2
-    return (f"{ops / ms / 1e9:.1f} TFLOP/s over the whole tiles, "
+    fill = (nt + 2 * (npairs - nt)) * 128 * d * esize
+    unit = "TFLOP/s" if esize == 2 else "TOP/s"
+    return (f"{ops / ms / 1e9:.1f} {unit} over the whole tiles, "
             f"{fill / ms / 1e9:.2f} TB/s into shared memory")
 
 
@@ -2416,6 +2494,131 @@ def _gram_shapes():
             f"gram:wgmma {ms:.4f} ms, {_gram_rates(rows, d, ms)}; torch.mm "
             f"{_mm_ms(x)} ms")
         del x
+        torch.cuda.empty_cache()
+
+
+# The int8 Gram's sweep beside the wire payload (GRAM_SHAPES' counterpart):
+# one tile row (every tile diagonal), a fifth and two fifths of the width
+# (the same 128 x 128 tiles and at most 512 stages a CTA, over fewer
+# columns), and an operand that fits the 50 MB L2.
+GRAM8_SHAPES = ((128, GRAM8_WIRE[1]), (1000, 1 << 20), (1000, 2 << 20),
+                (1000, 16_384))
+GRAM8_FORGED = 250  # the wire round's identical forged rows
+
+
+def _int8_payload(gen, rows, dp, d, forged=0):
+    """A ``(rows, dp)`` int8 matrix that looks like the wire payload:
+    values in -127..127 from ``gen`` (drawn a block of rows at a time),
+    zero past ``d``, the first ``forged`` rows identical."""
+    import torch
+
+    x = torch.empty((rows, dp), dtype=torch.int8, device="cuda")
+    for r0 in range(0, rows, 100):
+        x[r0:r0 + 100] = torch.randint(-127, 128, (min(100, rows - r0), dp),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int8)
+    x[:, d:] = 0
+    if forged > 1:
+        x[1:forged] = x[0]
+    return x
+
+
+def _int8_gram(x, route, what):
+    """``row_stats_bundle(x, gram=True)``'s Gram, checked to take
+    ``route`` once."""
+    from blades_tpu_torch.ops import rowstats as rs
+
+    before = _gram_routes()
+    g = rs.row_stats_bundle(x, gram=True)["gram"]
+    took = _gram_routes_since(before)
+    check(took == {route: 1}, f"{what}: Gram routes {took}, expected "
+          f"{{{route!r}: 1}}")
+    return g
+
+
+def _int_mm(x, want):
+    """``torch._int_mm(x, x.T)`` (int32 sums) against the exact Gram
+    ``want`` (f32): its device ms where it equals ``want`` once rounded to
+    f32 (the same function: its sums did not wrap), else None; and a line
+    that says which, with its time."""
+    import torch
+
+    try:
+        g = torch._int_mm(x, x.t())
+    except RuntimeError as e:
+        return None, f"torch._int_mm does not take {tuple(x.shape)}: {e}"
+    exact = torch.equal(g.float(), want)
+    ms = timed(lambda: torch._int_mm(x, x.t()), REPS)[0]
+    return ms if exact else None, (
+        f"torch._int_mm(q, q.T) {ms:.3f} ms, "
+        f"{'equal to' if exact else 'NOT equal to (int32 wraps)'} the "
+        "exact Gram")
+
+
+def _int8_gram_turns(gen):
+    """The wire payload's int8 Gram on its two routes in turns, on the same
+    bytes: a synthetic ``(1000, 4,903,248)`` payload (:func:`_int8_payload`
+    with 250 identical forged rows, zero past ResNet-10's d) on
+    ``gram:wgmma``, and a copy at a base 4- but not 16-byte aligned on
+    ``gram:mma`` (``gram_mma_kernel``'s 4-byte ``cp.async`` loads): mma,
+    wgmma, wgmma, mma, each bit-exact against the
+    other and the plain version; ``torch._int_mm`` beside them; then the
+    TMA route alone at :data:`GRAM8_SHAPES`, bit-exact, with its rates."""
+    import torch
+
+    from blades_tpu_torch.ops import rowstats as rs
+
+    n, dp = GRAM8_WIRE
+    x = _int8_payload(gen, n, dp, RESNET10_D, GRAM8_FORGED)
+    flat = torch.empty((n * dp + 16,), dtype=torch.int8, device="cuda")
+    xo = flat[4:4 + n * dp].view(n, dp)
+    xo.copy_(x)
+    check(xo.data_ptr() % 16 == 4, f"gram8: offset copy at {xo.data_ptr()}")
+    got = _int8_gram(x, "gram:wgmma", "gram8 payload")
+    old = _int8_gram(xo, "gram:mma", "gram8 payload, offset copy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = rs.row_stats_bundle_plain(x, gram=True)["gram"]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same(got, want, "gram8 payload: gram:wgmma vs plain")
+    same(old, got, "gram8 payload: gram:mma vs gram:wgmma")
+    del got, old
+    turns = []
+    for xi in (xo, x, x, xo):
+        turns.append(timed(lambda: rs.row_stats_bundle(xi, gram=True),
+                           REPS)[0])
+    lib_text = _int_mm(x, want)[1]
+    peak = float(want.diagonal().max())
+    bound = n * (n + 1) // 2 * dp * 2 / INT8_TENSOR_OPS_PER_S * 1e3
+    log(f"kernel gram8 ({n}, {dp}) int8, {GRAM8_FORGED} identical rows: "
+        f"gram:mma {turns[0]:.3f} ms, gram:wgmma {turns[1]:.3f} / "
+        f"{turns[2]:.3f} ms, gram:mma {turns[3]:.3f} ms (in turns, "
+        f"bit-exact); wgmma {_gram_rates(n, dp, turns[1], 1)}; mma "
+        f"{_gram_rates(n, dp, turns[0], 1)}; bound {bound:.3f} ms "
+        f"(operations, the symmetric half); plain {plain_ms:.1f} ms; "
+        f"{lib_text} (int32 {'wraps' if peak > 2 ** 31 - 1 else 'holds'}: "
+        f"largest exact entry {peak:.6g})")
+    del x, xo, flat, want
+    torch.cuda.empty_cache()
+    for rows, d in GRAM8_SHAPES:
+        x = _int8_payload(gen, rows, d, d)
+        got = _int8_gram(x, "gram:wgmma", f"gram8 shape ({rows}, {d})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = rs.row_stats_bundle_plain(x, gram=True)["gram"]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same(got, want, f"gram8 shape ({rows}, {d}): gram:wgmma vs plain")
+        ms = timed(lambda: rs.row_stats_bundle(x, gram=True), 4 * REPS)[0]
+        lib_text = _int_mm(x, want)[1]
+        bound = max(rows * (rows + 1) // 2 * d * 2 / INT8_TENSOR_OPS_PER_S,
+                    (rows * d + rows * rows * 4) / HBM_BYTES_PER_S) * 1e3
+        log(f"kernel gram8 shape ({rows}, {d}), {rows * d / 1e6:.0f} MB: "
+            f"gram:wgmma {ms:.4f} ms, {_gram_rates(rows, d, ms, 1)}, "
+            f"bit-exact; bound {bound:.4f} ms; plain {plain_ms:.1f} ms; "
+            f"{lib_text}")
+        del x, got, want
         torch.cuda.empty_cache()
 
 
@@ -4562,24 +4765,12 @@ class _WireAudit:
         plain_ms = (time.perf_counter() - t0) * 1e3
         lib = None
         if name == GRAM8_RECORD:
-            # X X^T of the int8 rows with int32 sums: where its sums do
-            # not wrap, the same function.
-            try:
-                g = torch._int_mm(x, x.t())
-                exact = torch.equal(g.double(), rs.row_stats_bundle_plain(
-                    x, gram=True)["gram"].double())
-                lib = timed(lambda: torch._int_mm(x, x.t()), REPS)[0]
-                log(f"wire: torch._int_mm(q, q.T) {lib:.3f} ms, "
-                    f"{'equal to' if exact else 'NOT equal to (int32 wraps)'}"
-                    " the exact Gram")
-                if not exact:
-                    lib = None
-            except RuntimeError as e:
-                log(f"wire: torch._int_mm does not take {tuple(x.shape)}: "
-                    f"{e}")
+            lib, text = _int_mm(x, rs.row_stats_bundle_plain(
+                x, gram=True)["gram"])
+            log(f"wire: {text}")
             self.records[name] = _record(
                 name, ROWSTATS_SRC, ROWSTATS_TPU, ms, plain_ms,
-                n * dp + n * n * 4, 2 * n * n * dp, err, lib,
+                n * dp + n * n * 4, n * (n + 1) // 2 * dp * 2, err, lib,
                 ops_per_s=INT8_TENSOR_OPS_PER_S)
         else:
             k = 4 if name == GEOMED8_RECORD else 2
@@ -4722,15 +4913,16 @@ def _wire_full(card):
                        or launches["row_stats_bundle"] == per * rounds)
                   and rsb.get("rowstats:ring") == (
                       launches["row_stats_bundle"])
-                  and rsb.get("gram:mma", 0) == (
+                  and rsb.get("gram:wgmma", 0) == (
                       rounds if agg == "Multikrum" else 0)
+                  and "gram:mma" not in rsb
                   and "rowstats:slab" not in rsb
                   and audit.calls == launches["row_stats_bundle"],
                   f"{what}: launches {launches}, row statistics by route "
                   f"{rsb}, {audit.calls} bundles audited")
             ring[agg] = rsb["rowstats:ring"]
             if agg == "Multikrum":
-                counts[GRAM8_RECORD] = rsb["gram:mma"]
+                counts[GRAM8_RECORD] = rsb["gram:wgmma"]
         check(audit.aggs == rounds, f"{what}: {audit.aggs} aggregates "
               "held against decode-then-f32")
         records.update(audit.records)

@@ -179,6 +179,61 @@ def test_ring_plan_fits_shared_memory_at_any_row_count(dtype, bundle):
     assert moved == bool(KF or want_ip)
 
 
+# ---- the Gram's plan (_cuda.gram_plan, bt_gram_plan's mirror) -----------
+
+GRAM_PLAN_ROWS = (1, 77, 128, 130, 1000, 2000)
+GRAM_PLAN_WIDTHS = (16, 1040, 65_536, 65_552, 200_016, 4_903_248, 21_328_384)
+
+
+@pytest.mark.parametrize("rows", GRAM_PLAN_ROWS)
+def test_int8_wgmma_gram_plan_keeps_every_span_int32_exact(rows):
+    """On the H100 (132 SMs, one TMA + wgmma CTA a SM) every int8 span is
+    whole 128-column stages and at most 65,536 columns, where a partial is
+    at most 65,536 x 128^2 = 2^30 in magnitude; the splits cover d once."""
+    nt = -(-rows // 128)
+    for d in GRAM_PLAN_WIDTHS:
+        p = _cuda.gram_plan(torch.int8, "wgmma", rows, d, per_sm=1, sms=132)
+        assert p.tile == 128 and p.npairs == nt * (nt + 1) // 2, (d, p)
+        assert p.span % 128 == 0 and 0 < p.span <= _cuda.INT8_SPAN, (d, p)
+        assert p.splits * p.span >= d > (p.splits - 1) * p.span, (d, p)
+        assert p.span * 128 ** 2 < 2 ** 31
+
+
+@pytest.mark.parametrize("dtype,rows,d,plan", [
+    # bf16: 64-column stages; the wave-filling 11 splits x 14 to stay within
+    # 512 stages a CTA (as the kernel has been planned since it was added).
+    (torch.bfloat16, 1000, 4_903_424, (128, 36, 154, 31_872)),
+    # int8: 128-column stages; 11 x 7 = 77 splits, 21 whole waves.
+    (torch.int8, 1000, 4_903_248, (128, 36, 77, 63_744)),
+])
+def test_wgmma_gram_plan_at_the_rounds_shapes(dtype, rows, d, plan):
+    assert tuple(_cuda.gram_plan(dtype, "wgmma", rows, d)) == plan
+
+
+def test_plain_int8_gram_is_exact_past_int32_and_f32():
+    """The plain version's int8 Gram (and norms) is the exact integer X X^T
+    rounded to f32 once, at a width where the all -128 row's self-product
+    (131,088 x 128^2 = 2,147,745,792) wraps an int32 sum and the random
+    rows' self-products lose low-order bits to an f32 sum."""
+    d = 131_088
+    rng = np.random.default_rng(11)
+    alt = np.arange(d) % 2 == 0
+    x = np.stack([np.full(d, -128), np.full(d, 127),
+                  np.where(alt, 127, -128), np.where(alt, -128, 127),
+                  rng.integers(-128, 128, d),
+                  rng.integers(-128, 128, d)]).astype(np.int8)
+    x64 = x.astype(np.int64)
+    exact = x64 @ x64.T
+    assert exact[0, 0] == 2_147_745_792 > 2 ** 31 - 1
+    f32_sum = np.cumsum(x[4].astype(np.float32) ** 2, dtype=np.float32)[-1]
+    assert exact[4, 4] > 2 ** 24 and int(f32_sum) != exact[4, 4]
+    got = row_stats_bundle_plain(torch.from_numpy(x), sq=True, gram=True)
+    np.testing.assert_array_equal(got["gram"].numpy(),
+                                  exact.astype(np.float32))
+    np.testing.assert_array_equal(got["sq"].numpy(),
+                                  np.diagonal(exact).astype(np.float32))
+
+
 def test_plain_version_honours_the_shared_weight_map():
     _, _, tx = _matrix("float32", seed=11)
     _, w, g = _vectors(seed=12)

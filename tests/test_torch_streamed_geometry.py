@@ -381,5 +381,18 @@ def test_gram_route_takes_wgmma_only_for_aligned_bf16_rows():
     assert gram_route(bf16, 4_903_242, 0) == "mma"    # 9,806,484-byte rows
     assert gram_route(bf16, 1004, 0) == "mma"         # 8-byte-aligned rows
     assert gram_route(bf16, 1008, 8) == "mma"         # an unaligned base
-    assert gram_route(torch.int8, 1024, 0) == "mma"   # the wire domain
     assert gram_route(torch.float32, 1024, 0) == "f32"
+
+
+@pytest.mark.parametrize("d,address,route", [
+    (1024, 0, "wgmma"),           # 16-byte rows on an aligned base
+    (4_903_248, 0, "wgmma"),      # the wire payload, wire_width(d)
+    (1040, 1 << 20, "wgmma"),
+    (1000, 0, "mma"),             # 1000 % 16 == 8
+    (1024, 4, "mma"),             # 4-byte cp.async rows
+    (1024, 8, "mma"),
+])
+def test_gram_route_takes_wgmma_for_aligned_int8_rows(d, address, route):
+    from blades_tpu_torch.ops._cuda import gram_route
+
+    assert gram_route(torch.int8, d, address) == route
