@@ -7,10 +7,12 @@ The reference's builder surface -- ``.data() .training() .client()
 shim (``__getitem__`` / ``get`` / ``items`` / ``update_from_dict`` with the
 reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
-``build()``.  A field of the reference's config that the port does not
-have yet (the multi-device meshes and pre-aggregation) raises
-``NotImplementedError`` naming it when it is set to anything but the
-reference's default; an unknown key raises ``KeyError``.  The execution
+``build()``.  ``num_devices`` / ``mesh_shape`` run the rounds on the
+ranks of a ``torch.distributed`` process group (one process per rank:
+the client-sharded dense round, or under ``execution="hier"`` the
+hierarchical round with ``preagg`` and ``bucket_size``); the width-sharded
+``execution="dsharded"`` raises ``NotImplementedError``, as does the
+autotuner on a mesh.  An unknown key raises ``KeyError``.  The execution
 autotuner's fields (``autotune``, ``autotune_cache_dir``, ``tuned_plan``)
 are the reference's; ``mxu_finish`` takes only ``None`` or ``""`` (the
 port has no MXU route) and ``donate_buffers`` either value (the port
@@ -59,7 +61,7 @@ _FIELDS = {
     "num_malicious_clients": 0, "adversary_config": None,
     "evaluation_interval": 50, "evaluation_num_samples": None,
     "augment": "auto", "compute_dtype": None,
-    # "auto" | "dense" | "streamed" | "async" | "gossip"
+    # "auto" | "dense" | "streamed" | "async" | "gossip" | "hier"
     "execution": "auto", "client_block": 50, "d_chunk": 1 << 17,
     "update_dtype": "bfloat16", "health_check": False,
     "fltrust_root_size": 100,
@@ -104,19 +106,18 @@ _FIELDS = {
     # "on" (the bit-exact default tier) or "reassociating"; the plan
     # cache's directory; a pinned plan dict (Plan.as_dict()).
     "autotune": False, "autotune_cache_dir": None, "tuned_plan": None,
-}
-
-# The reference's other fields, with its defaults: setting one to another
-# value raises NotImplementedError (a later slice of the port).
-_LATER = {
+    # Ranks of the process group (None = one process) and their
+    # (clients, d) grid; the hierarchical round's pre-aggregation flavor
+    # ("bucket" | "nnm") and bucket size (1 = the identity).
     "num_devices": None, "mesh_shape": None,
     "preagg": "bucket", "bucket_size": 1,
 }
+
 _NO_MXU = ("the port has no MXU route: the JAX package's mxu_finish "
            "'counts' / 'all' pick a TPU unit, and the card's finish takes "
            "neither -- set mxu_finish=None or ''")
-_LATER_EXECUTION = ("dsharded", "hier")
-_EXECUTIONS = ("auto", "dense", "streamed", "async", "gossip")
+_LATER_EXECUTION = ("dsharded",)
+_EXECUTIONS = ("auto", "dense", "streamed", "async", "gossip", "hier")
 
 _NESTED = {
     "dataset_config": {"type": "dataset", "num_clients": "num_clients",
@@ -174,12 +175,6 @@ class FedavgConfig:
     # -- setters -------------------------------------------------------------
 
     def _assign(self, k, v):
-        if k in _LATER:
-            if v != _LATER[k]:
-                raise NotImplementedError(
-                    f"config field {k!r} is not in the port yet (a later "
-                    "slice)")
-            return
         if k not in _FIELDS and k not in self._EXTRA_FIELDS:
             raise KeyError(f"unknown config key {k!r}")
         if k == "dataset":
@@ -238,10 +233,13 @@ class FedavgConfig:
                   window=None, state_dir=None, data_store=None,
                   data_dir=None, eval_chunk_clients=None,
                   client_packing=None, mxu_finish=None, autotune=None,
-                  autotune_cache_dir=None, tuned_plan=None):
-        """``autotune`` (``"on"`` / True, ``"reassociating"``, ``"off"``)
-        arms the execution autotuner, ``autotune_cache_dir`` its plan
-        cache's directory, ``tuned_plan`` pins a plan dict instead of
+                  autotune_cache_dir=None, tuned_plan=None, num_devices=None,
+                  mesh_shape=None, preagg=None, bucket_size=None):
+        """``num_devices`` ranks of the process group run the round
+        (``mesh_shape=(c, dd)`` their grid), ``preagg`` / ``bucket_size``
+        the hierarchical round's pre-aggregation; ``autotune`` (``"on"`` /
+        True, ``"reassociating"``, ``"off"``) arms the execution autotuner,
+        ``autotune_cache_dir`` its plan cache's directory, ``tuned_plan`` pins a plan dict instead of
         tuning; ``client_packing`` packs clients into lanes of grouped kernels
         (``"off"``, ``"auto"`` or an int P >= 2); ``window`` is the
         participation window's cohort size (0 =
@@ -261,7 +259,9 @@ class FedavgConfig:
                          client_packing=client_packing,
                          mxu_finish=mxu_finish, autotune=autotune,
                          autotune_cache_dir=autotune_cache_dir,
-                         tuned_plan=tuned_plan)
+                         tuned_plan=tuned_plan, num_devices=num_devices,
+                         mesh_shape=mesh_shape, preagg=preagg,
+                         bucket_size=bucket_size)
 
     def arrivals(self, *, rate=None, rate_schedule=None, slow_fraction=None,
                  slow_factor=None, agg_every=None, buffer_capacity=None,
@@ -414,8 +414,8 @@ class FedavgConfig:
             self._inferred.add("num_classes")
         if self.execution in _LATER_EXECUTION:
             raise NotImplementedError(
-                f"execution={self.execution!r} is not in the port yet (a "
-                "later slice); the port runs "
+                f"execution={self.execution!r} (the width-sharded round, "
+                "ROADMAP Queue A 9b) is not in the port yet; the port runs "
                 + ", ".join(repr(e) for e in _EXECUTIONS[:-1])
                 + f" and {_EXECUTIONS[-1]!r}")
         if self.execution not in _EXECUTIONS:
@@ -445,6 +445,7 @@ class FedavgConfig:
                              f"{self.evaluation_num_samples}")
         adv = self.get_adversary()  # an attack the port lacks fails here
         self.get_client_callbacks()  # so does an unknown callback
+        self._validate_mesh()
         self._validate_gossip()
         self._validate_comm_and_faults()
         self._validate_async()
@@ -467,6 +468,157 @@ class FedavgConfig:
                 "topology-scoped (per-receiver poisoning over the "
                 f"peer graph); execution={self.execution!r} has no "
                 "peer graph — set .resources(execution='gossip')")
+
+    def _validate_mesh(self) -> None:
+        """The reference's checks of ``num_devices``, ``mesh_shape``,
+        ``preagg``, ``bucket_size`` and ``execution='hier'`` and of every
+        pair it refuses on a mesh, with its words; then the port's own
+        refusals on a mesh (the autotuner, the gossip round), by name."""
+        from blades_tpu_torch.ops.preagg import PREAGG_FLAVORS
+
+        multi = bool(self.num_devices and self.num_devices > 1)
+        if self.num_devices is not None and (
+                not isinstance(self.num_devices, int)
+                or isinstance(self.num_devices, bool)
+                or self.num_devices < 1):
+            raise ValueError(f"num_devices must be None or an int >= 1, got "
+                             f"{self.num_devices!r}")
+        if self.preagg not in PREAGG_FLAVORS:
+            raise ValueError(
+                f"preagg must be one of {PREAGG_FLAVORS}, got "
+                f"{self.preagg!r}")
+        if (not isinstance(self.bucket_size, int)
+                or isinstance(self.bucket_size, bool) or self.bucket_size < 1):
+            raise ValueError(
+                f"bucket_size must be an int >= 1, got {self.bucket_size!r}")
+        if self.mesh_shape is not None:
+            ms = tuple(int(v) for v in self.mesh_shape)
+            if len(ms) != 2 or min(ms) < 1:
+                raise ValueError(
+                    f"mesh_shape must be a (clients, d) pair of positive "
+                    f"ints, got {self.mesh_shape!r}")
+            self.mesh_shape = ms
+            if not multi:
+                raise ValueError(
+                    "mesh_shape × single-chip is an unsupported pair: the "
+                    "2-D (clients, d) layout tiles a multi-chip mesh — "
+                    "set .resources(num_devices=...) > 1, or drop "
+                    "mesh_shape")
+            if ms[0] * ms[1] != self.num_devices:
+                raise ValueError(
+                    f"mesh_shape {ms[0]}x{ms[1]} must tile exactly "
+                    f"num_devices={self.num_devices} chips — fix one of "
+                    "the two in .resources(...)")
+        if self.execution == "hier":
+            if not multi:
+                raise ValueError(
+                    "execution='hier' pre-aggregates per chip and gathers "
+                    "representatives over a mesh; set "
+                    ".resources(num_devices=...) > 1")
+            if int(self.rounds_per_dispatch or 1) != 1:
+                raise ValueError(
+                    "execution='hier' × rounds_per_dispatch>1 is an "
+                    "unsupported pair: the hierarchical round is dispatched "
+                    "per-round (no chained-scan formulation yet) — set "
+                    "rounds_per_dispatch=1, or use a flat mesh path")
+        if not multi:
+            return
+        for execution, why, flip in (
+                ("streamed", "execution='streamed' × num_devices>1 is an "
+                 "unsupported pair: streamed is the single-chip "
+                 "giant-federation path", "use a mesh execution "
+                 "(dsharded/hier) for multi-chip"),
+                ("async", "execution='async' × num_devices>1 is an "
+                 "unsupported pair: the buffered cycle program has no mesh "
+                 "formulation", "use a synchronous execution path on the "
+                 "mesh")):
+            if self.execution == execution:
+                raise ValueError(f"{why} — set .resources(num_devices=None), "
+                                 f"or {flip}")
+        if self.forensics:
+            raise ValueError(
+                "forensics × num_devices>1 is an unsupported pair: "
+                "per-lane diagnostics under shard_map would shard "
+                "the lane axis — set .resources(num_devices=None), "
+                "or flip .observability(forensics=False)")
+        if self.fault_config:
+            injector = self.get_fault_injector()
+            if self.execution not in ("hier", "gossip"):
+                raise ValueError(
+                    "fault injection × num_devices>1 is an "
+                    "unsupported pair on the flat mesh paths: the "
+                    "participation mask under shard_map would shard "
+                    "the lane axis — set .resources(num_devices=None) "
+                    "or .resources(execution='hier'), or drop faults")
+            if self.execution == "hier":
+                if injector is not None and injector.needs_stale_buffer:
+                    raise ValueError(
+                        "execution='hier' × straggler faults is an "
+                        "unsupported pair: the stale ring buffer is "
+                        "sized per lane and has no hierarchical "
+                        "formulation — set num_stragglers=0, or run "
+                        "single-chip")
+                if self.preagg == "bucket" and self.bucket_size != 1:
+                    raise ValueError(
+                        "execution='hier' × fault injection needs an "
+                        "identity-height pre-aggregation (bucketing "
+                        f"with bucket_size={self.bucket_size} shrinks "
+                        "the matrix) — set .resources(bucket_size=1) "
+                        "or preagg='nnm', or drop faults")
+        if self.codec_config:
+            raise ValueError(
+                "update codecs are single-chip for now: top-k selection "
+                "and per-row scales under shard_map would shard the "
+                "lane axis — run the compressed pass without "
+                "num_devices, or disable the codec")
+        w = self.state_window
+        if w == 0:
+            raise ValueError(
+                "window=0 (stateless clients) × num_devices>1 is an "
+                "unsupported pair: the mesh rounds thread per-client "
+                "state through their own bodies — set "
+                ".resources(num_devices=None), or drop window=0")
+        if w is not None and w >= 1:
+            raise ValueError(
+                f"state_window={w} × num_devices>1 is an unsupported "
+                "pair: cohort gather/scatter has no mesh formulation "
+                "— set .resources(num_devices=None), or drop the "
+                "window")
+        if self.ledger_backend:
+            raise ValueError(
+                "ledger × num_devices>1 is an unsupported pair: the "
+                "ledger folds per-lane diagnosis host-side and the "
+                "mesh paths never materialise per-lane decisions — "
+                "set .resources(num_devices=None), or flip "
+                ".observability(ledger=False)")
+        if self.get_control_policy() is not None:
+            raise ValueError(
+                "control × num_devices>1 is an unsupported pair "
+                "(same lane-axis constraint as forensics/ledger) — "
+                "set .resources(num_devices=None), or drop .control()")
+        if self.autotune_mode and self.execution == "hier":
+            raise ValueError(
+                "autotune × execution='hier' is an unsupported pair: "
+                "the tuner selects INTO the hierarchical path via its "
+                "collective knob (reassociating tier) — set "
+                ".resources(execution='auto') to let it, pin the plan "
+                "via tuned_plan, or disable autotune")
+        if self.chained_dispatch:
+            raise ValueError(
+                "chained_dispatch (the sweep's scan-window key discipline) "
+                "has no mesh formulation; run without num_devices or drop "
+                "chained_dispatch")
+        if self.autotune_mode:
+            raise NotImplementedError(
+                "autotune × num_devices>1 is not in the port yet: timing "
+                "candidates in lockstep across ranks is still to be "
+                "ported (ROADMAP); set .resources(autotune='off') or pin "
+                "the plan via tuned_plan")
+        if self.execution == "gossip":
+            raise NotImplementedError(
+                "execution='gossip' × num_devices>1 is not in the port "
+                "yet: the port's gossip round keeps every node's replica "
+                "on one card; set .resources(num_devices=None)")
 
     def _validate_gossip(self) -> None:
         """The reference's checks of ``topology_config`` and
@@ -502,7 +654,9 @@ class FedavgConfig:
                 (self.chained_dispatch, "chained_dispatch",
                  "chained_dispatch=False"),
                 (self.autotune_mode, "the execution autotuner",
-                 ".resources(autotune='off')")):
+                 ".resources(autotune='off')"),
+                (self.mesh_shape is not None, "2-D mesh_shape",
+                 ".resources(mesh_shape=None)")):
             if knob:
                 raise ValueError(
                     f"execution='gossip' × {why} is an unsupported "

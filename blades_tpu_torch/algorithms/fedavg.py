@@ -75,6 +75,21 @@ stream while round ``r`` computes
 (:class:`~blades_tpu_torch.data.prefetch.BatchPrefetcher`).
 :meth:`Fedavg.cost_analysis` counts one dispatch's operations and bytes.
 
+With ``num_devices > 1`` the rounds run on the ranks of a
+``torch.distributed`` process group, one process per rank
+(:mod:`blades_tpu_torch.parallel.mesh`): each rank holds its lanes' data
+and client state on its device (``cuda:{local_rank}``, or the device the
+caller names) and runs the client-sharded dense round
+(:func:`~blades_tpu_torch.parallel.sharded.sharded_step`) or, under
+``execution="hier"``, the hierarchical round
+(:func:`~blades_tpu_torch.parallel.hier.hier_step`, whose rows carry
+``ici_bytes``, ``preagg_kept`` and ``mesh_shape``); the evaluation sums
+the ranks' test shards.  Every rank computes every row; checkpoints
+gather the client optimizer rows to rank 0, which alone writes, in the
+one-process format (a resume on any number of ranks re-shards).  Where
+the replicated ``(n, d)`` matrix would exceed the dense budget,
+``execution="auto"`` raises: the width-sharded round is not ported.
+
 Checkpoints carry the residual and the stale ring in the ``RoundState``
 (under gossip the per-node stacks, which ``torch.load`` puts back on the
 device verbatim), the async engine's host state, the watchdog's windows
@@ -111,6 +126,7 @@ from blades_tpu_torch.data.stream import (
 )
 from blades_tpu_torch.device import resolve_device
 from blades_tpu_torch.ops.aggregators import Mean, Median, Trimmedmean
+from blades_tpu_torch.parallel.mesh import rank_device
 from blades_tpu_torch.parallel.streamed import (
     _COORDWISE_FORGERS,
     chunk_invariant,
@@ -184,7 +200,9 @@ class Fedavg:
 
     def __init__(self, config, device=None):
         self.config = config
-        self.device = resolve_device(device)
+        self._multi = bool(config.num_devices and config.num_devices > 1)
+        self.device = (rank_device(device) if self._multi
+                       else resolve_device(device))
         self._setup()
 
     def _setup(self) -> None:
@@ -235,11 +253,22 @@ class Fedavg:
             self._apply_plan(self._plan)
         self._chunk = max(1, int(cfg.rounds_per_dispatch))
         self._prefetcher = None
+        self._mesh = self._hier_recorder = None
+        if (self._multi and cfg.execution == "auto"
+                and cfg.num_clients * self._num_params * 4
+                > self.dense_matrix_limit(dev)):
+            raise NotImplementedError(
+                f"execution='auto' on num_devices={cfg.num_devices} resolves "
+                "to the width-sharded round here (the replicated (n, d) "
+                f"f32 matrix of {cfg.num_clients} x {self._num_params} "
+                "exceeds the dense budget), which is not in the port yet "
+                "(ROADMAP Queue A 9b); shrink the federation, or set "
+                "execution='dense' or 'hier'")
 
         train = self.dataset.train
         self._host_train = (train.x, train.y, train.lengths)
         self._streamed = (not cohort and cfg.execution != "async"
-                          and self._use_streamed())
+                          and not self._multi and self._use_streamed())
         if cohort:
             # The shards stay on the host; each cohort's rows are
             # gathered through the data store.
@@ -257,14 +286,17 @@ class Fedavg:
                 # at 1000 CIFAR clients, which the bf16 update matrix
                 # needs back).
                 x = x.to(cd)
-            self._train = (x.to(dev),
-                           torch.from_numpy(train.y).long().to(dev),
-                           torch.from_numpy(train.lengths).long().to(dev))
+            # On a mesh the stacks are cut to this rank's lanes on the
+            # host first (the setup below), then moved.
+            put = (lambda t: t) if self._multi else (lambda t: t.to(dev))
+            self._train = (put(x), put(torch.from_numpy(train.y).long()),
+                           put(torch.from_numpy(train.lengths).long()))
         # The memmap data plane keeps the test stack on the host too and
         # evaluates it in chunks.
         self._streaming_eval = (self._data_store is not None
                                 and self._data_store.backend == "memmap")
-        self._test = eval_arrays(cfg, self.dataset, dev,
+        self._test = eval_arrays(cfg, self.dataset,
+                                 "cpu" if self._multi else dev,
                                  host=self._streaming_eval)
         self._topology = self._gossip_recorder = None
         if cfg.execution == "async":
@@ -292,6 +324,8 @@ class Fedavg:
             self.state = gossip_federation(self.state, cfg.num_clients)
             self._step, self._gossip_recorder = gossip_step(
                 self.fed_round, self._topology)
+        elif self._multi:
+            self._setup_mesh()
         elif self._streamed:
             self._step = streamed_step(
                 self.fed_round, client_block=self._streamed_block(),
@@ -303,7 +337,7 @@ class Fedavg:
         # The kernel build cache's counters ride the rows of the paths
         # whose JAX counterparts run an ahead-of-time compiled program.
         self._stamps_cache = (self._async is None and self._topology is None
-                              and not self._streamed)
+                              and not self._streamed and self._mesh is None)
         self._setup_observability()
         self.timers = Timers(sync=dev.type == "cuda")
         self._iteration = 0
@@ -345,6 +379,40 @@ class Fedavg:
             # window, which only the shrink-only window family moves.
             window=(int(eng.agg_every) if self._state_store is not None
                     else None))
+
+    def _setup_mesh(self) -> None:
+        """The rounds on the process group's ranks: this rank's lanes of
+        the state, the training and the test stacks on its device, the
+        sharded round or the hierarchical one, and the ranks' evaluation."""
+        from blades_tpu_torch.parallel import (
+            hier_step,
+            make_mesh,
+            shard_federation,
+            sharded_step,
+        )
+        from blades_tpu_torch.parallel.mesh import local_lanes
+        from blades_tpu_torch.parallel.sharded import sharded_evaluate
+
+        cfg, dev, fr = self.config, self.device, self.fed_round
+        self._mesh = make_mesh(cfg.num_devices, cfg.mesh_shape)
+        self.state, train = shard_federation(self._mesh, self.state,
+                                             self._train)
+        self._train = tuple(a.to(dev) for a in train)
+        self._test = tuple(local_lanes(self._mesh, a).to(dev)
+                           for a in self._test)
+        if cfg.execution == "hier":
+            self._step, self._hier_recorder = hier_step(
+                fr, self._mesh, preagg=cfg.preagg,
+                bucket_size=int(cfg.bucket_size))
+        else:
+            self._step = sharded_step(fr, self._mesh)
+        self._mesh_evaluate = sharded_evaluate(fr, self._mesh)
+
+    @property
+    def mesh(self):
+        """The :class:`~blades_tpu_torch.parallel.mesh.Mesh` of a
+        multi-rank run, or None."""
+        return self._mesh
 
     def _setup_windowed_pipeline(self, template) -> None:
         """The participation window on one card: each round gathers the
@@ -690,6 +758,13 @@ class Fedavg:
                   "dequant_rows"):
             if k in raw:
                 row[k] = int(raw[k][-1])
+        if "ici_bytes" in raw:
+            # The hierarchical round's wire bytes and matrix height, and
+            # the ranks' layout.
+            row["ici_bytes"] = int(raw["ici_bytes"][-1])
+            row["preagg_kept"] = int(raw["preagg_kept"][-1])
+            c, dd = self._mesh.shape
+            row["mesh_shape"] = f"{int(c)}x{int(dd)}"
         packing = self.fed_round.packing
         if packing is not None:
             # Static per round: clients per lane and the lanes they fill.
@@ -1181,10 +1256,16 @@ class Fedavg:
         (``arrivals``); a windowed store's rows as shard files under
         ``client_state/`` (the write-backs flushed first).  The round and
         event generators are pure in ``(seed, round)`` and ``(seed, tick,
-        client)``, so nothing else is needed to replay the run."""
+        client)``, so nothing else is needed to replay the run.  On a mesh
+        every rank calls it (the client rows are gathered) and rank 0
+        alone writes."""
         path = Path(checkpoint_dir)
-        path.mkdir(parents=True, exist_ok=True)
         state = self.state
+        if self._mesh is not None:
+            state = self._gathered_state()
+            if self._mesh.rank != 0:
+                return str(path / "algorithm_state.pkl")
+        path.mkdir(parents=True, exist_ok=True)
         if self._state_store is not None:
             if self._state_pf is not None:
                 self._state_pf.flush()
@@ -1227,6 +1308,19 @@ class Fedavg:
         if self._ledger is not None:
             self._ledger.save(path / "ledger")
         return str(file)
+
+    def _gathered_state(self):
+        """The state with every rank's client optimizer rows gathered
+        into the whole federation's stacks (ghost lanes dropped): the
+        one-process layout."""
+        from blades_tpu_torch.parallel.mesh import all_gather_rows
+
+        opt = self.state.client_opt
+        if opt is None:
+            return self.state
+        n = self.config.num_clients
+        return dataclasses.replace(self.state, client_opt={
+            k: all_gather_rows(self._mesh, v)[:n] for k, v in opt.items()})
 
     def load_checkpoint(self, checkpoint_path: str) -> None:
         """Restore what :meth:`save_checkpoint` wrote (a checkpoint
@@ -1281,6 +1375,13 @@ class Fedavg:
                 is None and fr.codec is not None):
             state = dataclasses.replace(state, residual=fr.codec.init_residual(
                 rows, self._num_params, self.device))
+        if self._mesh is not None and state.client_opt is not None:
+            # The checkpoint holds the whole federation's rows: re-shard.
+            from blades_tpu_torch.parallel.mesh import local_lanes
+
+            state = dataclasses.replace(state, client_opt={
+                k: local_lanes(self._mesh, v)
+                for k, v in state.client_opt.items()})
         self.state = state
 
     def _restore_observability(self, payload, ckpt_dir: Path) -> None:
@@ -1371,6 +1472,8 @@ class Fedavg:
                     make_chunk_evaluator(self.fed_round.task),
                     self.state.server.params, self._test,
                     self.config.eval_chunk_clients, device=self.device)
+            elif self._mesh is not None:
+                ev = self._mesh_evaluate(self.state, *self._test)
             else:
                 state = (self.state if self._topology is None
                          else node_head(self.state))

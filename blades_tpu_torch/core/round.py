@@ -386,14 +386,17 @@ class FedRound:
     def finish_dense(self, state: RoundState, updates, client_opt, losses,
                      malicious, generator=None, *, forge_noise=None,
                      dp_noise=None, participation=None, straggled=None,
-                     stale=None, residual=None) -> Tuple[RoundState, dict]:
+                     stale=None, residual=None, loss_benign=None
+                     ) -> Tuple[RoundState, dict]:
         """The aggregation tail of :meth:`step_prebatched` over the
         assembled ``(n, d)`` update matrix: health check, DP, forge,
         trusted row, robust aggregate, server step and the metrics.
         ``participation`` / ``straggled`` are the fault injector's masks:
         the server aggregates the participants, and the loss and norm
         summaries cover them; ``stale`` and ``residual`` are carried into
-        the new state."""
+        the new state.  ``loss_benign`` is the benign mask of ``losses``
+        where the matrix's rows are not the lanes (the hierarchical
+        round's representatives); ``~malicious`` by default."""
         updates, healthy = self.prepare_rows(
             updates, malicious, generator, participation=participation,
             forge_noise=forge_noise, dp_noise=dp_noise)
@@ -415,7 +418,7 @@ class FedRound:
             state, server, agg, norms, losses, malicious,
             participation=participation, straggled=straggled,
             healthy=healthy, diag=diag, client_opt=client_opt, stale=stale,
-            residual=residual)
+            residual=residual, loss_benign=loss_benign)
 
     def prepare_rows(self, updates, malicious, generator=None, *,
                      participation=None, forge_noise=None, dp_noise=None):
@@ -442,12 +445,13 @@ class FedRound:
     def close_round(self, state: RoundState, server, agg, norms, losses,
                     malicious, *, participation=None, straggled=None,
                     healthy=None, diag=None, client_opt=None, stale=None,
-                    residual=None) -> Tuple[RoundState, dict]:
+                    residual=None, loss_benign=None
+                    ) -> Tuple[RoundState, dict]:
         """The new state and the metrics of a round whose server step
         gave ``server`` and ``agg``; ``norms`` are the aggregated rows'
         L2 norms.  Under the health check a non-finite aggregate keeps
         ``state``'s server."""
-        benign = (~malicious).float()
+        benign = (~malicious if loss_benign is None else loss_benign).float()
         if participation is None:
             update_norm_mean = norms.mean()
         else:

@@ -17,9 +17,16 @@ def sample_batch_indices(generator: torch.Generator, lengths: torch.Tensor,
     """``(n, num_batches, batch_size)`` int64 indices, each in
     ``[0, max(length, 1))`` of its client."""
     n = lengths.shape[0]
-    hi = lengths.clamp(min=1).to(torch.float64)[:, None, None]
     u = torch.rand((n, num_batches, batch_size), generator=generator,
                    device=lengths.device, dtype=torch.float64)
+    return indices_from_uniforms(u, lengths)
+
+
+def indices_from_uniforms(u: torch.Tensor, lengths: torch.Tensor
+                          ) -> torch.Tensor:
+    """The batch indices of :func:`sample_batch_indices` from its f64
+    uniforms ``u (n, num_batches, batch_size)`` and ``lengths (n,)``."""
+    hi = lengths.to(u.device).clamp(min=1).to(torch.float64)[:, None, None]
     idx = (u * hi).floor().to(torch.int64)
     return torch.minimum(idx, hi.to(torch.int64) - 1)
 

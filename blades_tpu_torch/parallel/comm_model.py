@@ -1,13 +1,15 @@
-"""Analytic collective byte accounting (counterpart of the gossip part of
-``blades_tpu/parallel/comm_model.py``; the rest comes with the
-multi-device paths).
+"""Analytic collective byte accounting (counterpart of the gossip and
+hierarchical parts of ``blades_tpu/parallel/comm_model.py``; the rest
+comes with the width-sharded round).
 
-:func:`gossip_round_volumes` lists every collective one gossip round
-issues, as ``(CollectiveVolume, ring_size)`` pairs, with the JAX
-package's arithmetic; the round's
+:func:`gossip_round_volumes` and :func:`hier_round_volumes` list every
+collective one gossip or hierarchical round issues, as
+``(CollectiveVolume, ring_size)`` pairs, with the JAX package's
+arithmetic; the round's
 :class:`~blades_tpu_torch.parallel.streamed_geometry.PassRecorder`
 records the same events as the round runs
-(:mod:`blades_tpu_torch.topology.gossip`), and the tests reconcile the two
+(:mod:`blades_tpu_torch.topology.gossip`,
+:mod:`blades_tpu_torch.parallel.hier`), and the tests reconcile the two
 inventories event by event, in both directions.
 
 Ring-collective wire cost per device, payload ``P`` bytes (the classic
@@ -68,6 +70,37 @@ def gossip_round_volumes(n: int, d: int, mesh_shape, *,
     ]
     if faults:
         vols.append((CollectiveVolume("partitioned_psum", "psum", f4), c))
+    return vols
+
+
+def hier_round_volumes(n: int, d: int, mesh_shape, *, preagg: str = "bucket",
+                       bucket_size: int = 1) -> List[tuple]:
+    """Every collective one hierarchical round issues, as
+    ``(CollectiveVolume, ring_size)`` pairs, from the round geometry
+    alone (client padding, bucket arithmetic, the ``d`` axis's column
+    padding): the representatives' gather over ``clients`` (and, with a
+    ``d`` axis, its second phase over ``d``) and the losses' gather.  The
+    rings run over different axes (``clients`` of size ``c``, ``d`` of
+    size ``dd``), hence the ring size per event."""
+    c, dd = int(mesh_shape[0]), int(mesh_shape[1])
+    b = int(bucket_size)
+    f4 = 4
+    n_local = -(-n // c)
+    n_pad = c * n_local
+    m = n_local if preagg == "nnm" else -(-n_local // b)
+    vols = []
+    if dd > 1:
+        d_pad = -(-d // dd) * dd
+        col = d_pad // dd
+        vols.append((CollectiveVolume("reps_gather_clients", "all_gather",
+                                      c * m * col * f4), c))
+        vols.append((CollectiveVolume("reps_gather_d", "all_gather",
+                                      c * m * d_pad * f4), dd))
+    else:
+        vols.append((CollectiveVolume("reps_gather_clients", "all_gather",
+                                      c * m * d * f4), c))
+    vols.append((CollectiveVolume("losses_gather", "all_gather",
+                                  n_pad * f4), c))
     return vols
 
 

@@ -16,6 +16,12 @@
     python -m blades_tpu_torch.train file grid.yaml --autotune \
         --plan-cache-dir /tmp/plans --compile-cache /tmp/kernels
     python -m blades_tpu_torch.train file grid.yaml --autotune reassociating
+    python -m blades_tpu_torch.train file grid.yaml --coordinator H:P \\
+        --num-processes 4 --process-id 0      # one command per rank
+    torchrun --nproc-per-node 4 -m blades_tpu_torch.train file grid.yaml
+    torchrun --nproc-per-node 4 -m blades_tpu_torch.train run FEDAVG \\
+        --execution hier --mesh-shape 2x2 --bucket-size 2 \\
+        --config-json '{"num_devices": 4}'
 
 ``file`` runs every trial of an experiment file's grids (each eligible
 group of trials that differ only in seed, learning rates, DP epsilon or
@@ -38,10 +44,15 @@ row per round still; ``auto`` by default, 1 disables), ``--autotune``
 arms the execution autotuner (``reassociating`` adds the opt-in tier),
 ``--plan-cache-dir`` moves its plan cache, ``--compile-cache`` names the
 directory the CUDA kernels build into and load from, and
-``--no-cost-analysis`` drops the summaries' counted ``cost``.  The JAX
-command's multi-device flags (``--mesh-shape``, ``--preagg``,
-``--bucket-size``, ``--coordinator``, ...) are absent, so argparse
-refuses them.
+``--no-cost-analysis`` drops the summaries' counted ``cost``.
+``--coordinator`` / ``--num-processes`` / ``--process-id`` (``file``)
+join this process to a ``torch.distributed`` group before anything else
+runs (without them torchrun's ``MASTER_ADDR`` / ``RANK`` /
+``WORLD_SIZE`` are read, and a lone process joins nothing); a trial with
+``num_devices`` then runs on the group's ranks, rank 0 writing its files.
+``run`` joins a group from torchrun's environment alone;
+``--mesh-shape CxD``, ``--preagg`` and ``--bucket-size`` (``run``) set the
+ranks' grid and the hierarchical round's pre-aggregation.
 """
 
 from __future__ import annotations
@@ -145,6 +156,14 @@ def main(argv=None) -> int:
                         help="raise a SimulatedPreemption once, the first "
                         "time a trial finishes round N (between its row "
                         "write and its checkpoint save)")
+    p_file.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="join a torch.distributed process group at "
+                        "this rendezvous (tcp://HOST:PORT; a URL such as "
+                        "file:///path is taken as it is) before anything "
+                        "else; without it torchrun's MASTER_ADDR / RANK / "
+                        "WORLD_SIZE are read")
+    p_file.add_argument("--num-processes", type=int, default=None)
+    p_file.add_argument("--process-id", type=int, default=None)
     p_file.add_argument("--no-lanes", action="store_true",
                         help="disable laned execution of shape-"
                         "compatible trial groups (seed/lr/eps/scale grids); "
@@ -165,13 +184,27 @@ def main(argv=None) -> int:
                        "(default; see README \"Client packing\")")
     p_run.add_argument("--execution", default=None,
                        choices=("auto", "dense", "streamed", "async",
-                                "gossip"),
-                       help="execution path; 'async' runs buffered-async "
+                                "gossip", "hier"),
+                       help="execution path; 'hier' runs the hierarchical "
+                       "round on the ranks of num_devices; 'async' runs "
+                       "buffered-async "
                        "cycles (a Poisson arrival process, clients training "
                        "against the version they pulled, staleness-weighted "
                        "aggregation every K buffered arrivals); 'gossip' "
                        "runs the decentralized per-node round over a peer "
                        "graph (--topology)")
+    p_run.add_argument("--mesh-shape", default=None, metavar="CxD",
+                       help="the ranks' (clients, d) grid for multi-rank "
+                       "runs, e.g. '2x2'; must tile num_devices exactly")
+    p_run.add_argument("--preagg", default=None, choices=("bucket", "nnm"),
+                       help="the hierarchical round's per-rank "
+                       "pre-aggregation (--execution hier): 'bucket' "
+                       "averages disjoint buckets, 'nnm' mixes each update "
+                       "with its nearest neighbors")
+    p_run.add_argument("--bucket-size", type=int, default=None, metavar="B",
+                       help="pre-aggregation bucket size for --execution "
+                       "hier; 1 (default) is the identity: the dense "
+                       "round's result")
     p_run.add_argument("--topology", default=None,
                        choices=("ring", "torus", "kregular", "erdos",
                                 "complete"),
@@ -245,6 +278,16 @@ def main(argv=None) -> int:
                      autotune=args.autotune,
                      plan_cache_dir=args.plan_cache_dir)
     if args.cmd == "file":
+        if args.coordinator and (args.num_processes is None
+                                 or args.process_id is None):
+            parser.error("--coordinator needs --num-processes and "
+                         "--process-id")
+        # Before anything else touches the devices; a lone process (no
+        # coordinator, no torchrun environment) joins nothing.
+        from blades_tpu_torch import parallel
+
+        parallel.init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id)
         experiments = load_experiments_from_file(args.experiment_file)
         kw = dict(checkpoint_freq=args.checkpoint_freq,
                   checkpoint_at_end=args.checkpoint_at_end,
@@ -255,12 +298,26 @@ def main(argv=None) -> int:
                   preempt_after=args.preempt_after,
                   lanes=not args.no_lanes, **common_kw)
     else:
+        # One process is one rank here: under torchrun's environment a
+        # `run` joins its group too (no flags; a lone process joins none).
+        from blades_tpu_torch import parallel
+
+        parallel.init_distributed()
         run_config = json.loads(args.config_json)
         if args.client_packing is not None:
             cp = args.client_packing
             run_config["client_packing"] = (cp if cp in ("auto", "off")
                                             else int(cp))
+        if args.mesh_shape is not None:
+            try:
+                c, dd = args.mesh_shape.lower().split("x")
+                run_config["mesh_shape"] = (int(c), int(dd))
+            except ValueError:
+                parser.error("--mesh-shape must look like '4x2' "
+                             f"(got {args.mesh_shape!r})")
         for key, value in (("execution", args.execution),
+                           ("preagg", args.preagg),
+                           ("bucket_size", args.bucket_size),
                            ("state_store", args.state_store),
                            ("state_window", args.window),
                            ("data_store", args.data_store),

@@ -54,10 +54,18 @@ operations and bytes (``Fedavg.cost_analysis``).  Before the first trial
 runs, every trial's config is resolved (the config and its round, built
 on the meta device), so a field the port lacks raises before any round
 is paid for.
+
+Under a ``torch.distributed`` process group every rank runs every trial
+(a trial with ``num_devices`` runs on the ranks; checkpoints are
+collective), and rank 0 alone writes the trial's files: ``params.json``,
+``result.json``, the metrics streams, the flight recorder, checkpoints,
+``error.txt`` and the span trace.  The other ranks read the checkpoints
+to resume.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import itertools
@@ -74,6 +82,74 @@ import torch
 
 from blades_tpu_torch.ops._cuda import raised_in_kernel
 from blades_tpu_torch.tune import yaml_subset
+
+def _is_primary() -> bool:
+    """Whether this process writes the trials' files: a lone process, or
+    rank 0 of a process group."""
+    import torch.distributed as dist
+
+    return (not (dist.is_available() and dist.is_initialized())
+            or dist.get_rank() == 0)
+
+
+class PeerFailure(RuntimeError):
+    """A trial attempt failed on another rank of the mesh; ``final`` when
+    it failed there for good (a retry would fail the same way)."""
+
+    def __init__(self, final: bool):
+        super().__init__("the trial attempt failed on another rank"
+                         + (" for good" if final else ""))
+        self.final = final
+
+
+def _final_failure(exc: BaseException) -> bool:
+    """Whether a retry cannot cure ``exc``: schema drift is deterministic
+    (a retry fails the same way on its first row)."""
+    from blades_tpu_torch.obs import SchemaError
+
+    return (isinstance(exc, SchemaError)
+            or isinstance(exc, PeerFailure) and exc.final)
+
+
+@contextlib.contextmanager
+def _as_one(algo):
+    """Every rank of ``algo``'s mesh leaves the block with one outcome.
+    Rank 0 alone writes a trial's rows, sinks and files, so a failure there
+    (an I/O error, a schema error) is one rank's: the ranks all-reduce the
+    worst outcome (0 none, 1 a retry may cure it, 2 for good), and a rank
+    whose block went through raises :class:`PeerFailure`, so that the ranks
+    retry or stop together instead of one waiting in a collective the
+    others never reach.  Off a mesh the block runs as it is.  A failure
+    inside a collective (a round, a checkpoint's gather) is not covered."""
+    from blades_tpu_torch.parallel.mesh import all_ranks_max
+
+    mesh = getattr(algo, "mesh", None)
+    if mesh is None or mesh.world_size == 1:
+        yield
+        return
+    try:
+        yield
+    except Exception as exc:
+        own = 2 if _final_failure(exc) else 1
+        if all_ranks_max(mesh, own) > own:
+            raise PeerFailure(final=True) from exc
+        raise
+    worst = all_ranks_max(mesh, 0)
+    if worst:
+        raise PeerFailure(final=worst == 2)
+
+
+def _checkpoint(algo, path: Path, primary: bool) -> None:
+    """Save ``algo`` to ``path``: atomically on the writing rank; on the
+    others the call takes part in the collective gather and writes
+    nothing."""
+    from blades_tpu_torch.faults.host import atomic_checkpoint
+
+    if primary:
+        atomic_checkpoint(algo.save_checkpoint, path)
+    else:
+        algo.save_checkpoint(str(path))
+
 
 # ---------------------------------------------------------------------------
 # grid_search expansion (Tune-compatible)
@@ -216,6 +292,7 @@ def _lanes_eligible(spec_run: str, trial: Dict, group: List[int],
         return False
     if not (cfg.execution in ("auto", "dense")
             and cfg.num_clients <= 200
+            and not cfg.num_devices
             and int(cfg.rounds_per_dispatch or 1) == 1):
         return False
     if (cfg.forensics or cfg.fault_config or cfg.state_window is not None
@@ -707,14 +784,12 @@ def run_experiments(
     from blades_tpu_torch.faults.host import (
         PreemptionHook,
         SimulatedPreemption,
-        atomic_checkpoint,
         retry_backoff,
     )
     from blades_tpu_torch.obs import (
         CsvSink,
         JsonlSink,
         MetricsLogger,
-        SchemaError,
         StdoutSink,
     )
     from blades_tpu_torch.obs.flightrec import FlightRecorder
@@ -754,6 +829,7 @@ def run_experiments(
 
     preempt_hook = PreemptionHook(preempt_after) if preempt_after else None
     root = Path(storage_path).expanduser()
+    primary = _is_primary()
     summaries = []
     for exp_name, spec, trials in plans:
         stop = spec.get("stop", {})
@@ -798,8 +874,9 @@ def run_experiments(
                 continue
             tname = _trial_name(exp_name, i, trial_cfg)
             tdir = root / exp_name / tname
-            tdir.mkdir(parents=True, exist_ok=True)
-            if not resume:
+            if primary:
+                tdir.mkdir(parents=True, exist_ok=True)
+            if not resume and primary:
                 # A fresh run must not restore a previous sweep's state,
                 # nor keep its streams or its flight-recorder dump.
                 for p in tdir.glob("ckpt_*"):
@@ -843,14 +920,17 @@ def run_experiments(
             if autotuned and algo.plan is not None:
                 scan_w = int(algo.plan.rounds_per_dispatch)
             resumed_from = None
-            if resume:
-                ckpt = _latest_checkpoint(tdir)
-                if ckpt is not None:
-                    algo.load_checkpoint(str(ckpt))
-                    resumed_from = algo.iteration
-                    _truncate_streams(tdir, algo.iteration)
-            with open(tdir / "params.json", "w") as f:
-                json.dump(trial_cfg, f, indent=2, default=str)
+            with _as_one(algo):
+                if resume:
+                    ckpt = _latest_checkpoint(tdir)
+                    if ckpt is not None:
+                        algo.load_checkpoint(str(ckpt))
+                        resumed_from = algo.iteration
+                        if primary:
+                            _truncate_streams(tdir, algo.iteration)
+                if primary:
+                    with open(tdir / "params.json", "w") as f:
+                        json.dump(trial_cfg, f, indent=2, default=str)
             if verbose:
                 tag = (f" (resumed @ round {resumed_from})"
                        if resumed_from else "")
@@ -875,7 +955,7 @@ def run_experiments(
                 tdir / "flightrec.json", capacity=flightrec_rounds,
                 experiment=exp_name, trial=tname, algo=spec["run"],
                 config=trial_cfg, max_rounds=max_rounds)
-                if flightrec_rounds else None)
+                if flightrec_rounds and primary else None)
             if flightrec is not None:
                 flightrec.ledger = algo.client_ledger
 
@@ -894,21 +974,28 @@ def run_experiments(
                 mode = "a" if (resumed_from or failures) else "w"
                 logger = None
                 try:
-                    sinks: List = [JsonlSink(tdir / "metrics.jsonl",
-                                             mode=mode,
-                                             strict=strict_metrics)]
-                    if metrics_csv:
-                        sinks.append(CsvSink(tdir / "metrics.csv",
-                                             mode=mode))
-                    if verbose > 1:
-                        sinks.append(StdoutSink(every=heartbeat_every))
-                    logger = MetricsLogger(
-                        sinks, base={"experiment": exp_name, "trial": tname})
+                    with _as_one(algo):
+                        # A rank that does not write validates nothing
+                        # twice.
+                        sinks: List = ([JsonlSink(tdir / "metrics.jsonl",
+                                                  mode=mode,
+                                                  strict=strict_metrics)]
+                                       if primary else [])
+                        if metrics_csv and primary:
+                            sinks.append(CsvSink(tdir / "metrics.csv",
+                                                 mode=mode))
+                        if verbose > 1:
+                            sinks.append(StdoutSink(every=heartbeat_every))
+                        logger = MetricsLogger(
+                            sinks,
+                            base={"experiment": exp_name, "trial": tname})
+                        rows_file = open(tdir / "result.json" if primary
+                                         else os.devnull, mode)
                     # One row per FL round from a windowed dispatch; the
                     # deferred fetch only for round-per-dispatch trials.
                     per_round_rows = scan_w > 1
                     pending: List[Dict] = []
-                    with open(tdir / "result.json", mode) as f:
+                    with rows_file as f:
 
                         def emit(rows):
                             nonlocal best_acc, evaluated, last_row
@@ -970,43 +1057,53 @@ def run_experiments(
                                     rows = None
                                     pending.append(algo.train_raw())
                             compiled = True
-                            if rows is not None:
-                                emit(rows)
-                            elif (len(pending) >= metrics_every
-                                  or algo.iteration >= max_rounds):
-                                flush_pending()
                             checkpoint_due = bool(
                                 checkpoint_freq
                                 and algo.iteration % checkpoint_freq == 0)
-                            if preempt_hook is not None or checkpoint_due:
-                                flush_pending()
-                            if preempt_hook is not None:
-                                # Between the row write and the checkpoint
-                                # save: the restore must come from an older
-                                # checkpoint.
-                                preempt_hook.check(algo.iteration)
+                            with _as_one(algo):
+                                if rows is not None:
+                                    emit(rows)
+                                elif (len(pending) >= metrics_every
+                                      or algo.iteration >= max_rounds):
+                                    flush_pending()
+                                if (preempt_hook is not None
+                                        or checkpoint_due):
+                                    flush_pending()
+                                if preempt_hook is not None:
+                                    # Between the row write and the
+                                    # checkpoint save: the restore must
+                                    # come from an older checkpoint.
+                                    preempt_hook.check(algo.iteration)
+                                if checkpoint_due:
+                                    # Every round a checkpoint covers is
+                                    # on disk first.
+                                    f.flush()
+                                    if primary:
+                                        os.fsync(f.fileno())
                             if checkpoint_due:
-                                # Every round a checkpoint covers is on
-                                # disk first.
-                                f.flush()
-                                os.fsync(f.fileno())
                                 name = f"ckpt_{algo.iteration:06d}"
-                                with timers.time("checkpoint"):
-                                    atomic_checkpoint(algo.save_checkpoint,
-                                                      tdir / name)
-                                ckpt_scores[name] = float(last_row.get(
-                                    checkpoint_score_attr, algo.iteration))
-                                _prune_checkpoints(tdir, checkpoint_keep_num,
-                                                   ckpt_scores)
-                        flush_pending()
+                                with _as_one(algo):
+                                    with timers.time("checkpoint"):
+                                        _checkpoint(algo, tdir / name,
+                                                    primary)
+                                    ckpt_scores[name] = float(
+                                        last_row.get(checkpoint_score_attr,
+                                                     algo.iteration))
+                                    if primary:
+                                        _prune_checkpoints(
+                                            tdir, checkpoint_keep_num,
+                                            ckpt_scores)
+                        with _as_one(algo):
+                            flush_pending()
                     break
                 except KeyboardInterrupt:
                     raise
                 except Exception as exc:
                     failures += 1
-                    with open(tdir / "error.txt", "a") as ef:
-                        ef.write(f"attempt {failures}: {exc!r}\n")
-                        ef.write(traceback.format_exc() + "\n")
+                    if primary:
+                        with open(tdir / "error.txt", "a") as ef:
+                            ef.write(f"attempt {failures}: {exc!r}\n")
+                            ef.write(traceback.format_exc() + "\n")
                     if flightrec is not None:
                         flightrec.dump({
                             "kind": ("preemption"
@@ -1015,8 +1112,7 @@ def run_experiments(
                             "error": repr(exc), "round": algo.iteration})
                     # Schema drift is deterministic: a retry would fail
                     # the same way on its first row.
-                    if isinstance(exc, SchemaError) or \
-                            failures > max_failures:
+                    if _final_failure(exc) or failures > max_failures:
                         failed_error = repr(exc)
                         if verbose:
                             print(f"   !! trial {tname} FAILED after "
@@ -1042,10 +1138,12 @@ def run_experiments(
                     ckpt = _latest_checkpoint(tdir)
                     if ckpt is not None:
                         algo.load_checkpoint(str(ckpt))
-                    _truncate_streams(tdir, algo.iteration)
-                    if flightrec is not None:
-                        flightrec.ledger = algo.client_ledger
-                    rewind()
+                    with _as_one(algo):
+                        if primary:
+                            _truncate_streams(tdir, algo.iteration)
+                        if flightrec is not None:
+                            flightrec.ledger = algo.client_ledger
+                        rewind()
                     if verbose:
                         print(f"   .. retrying {tname} from round "
                               f"{algo.iteration} (failure {failures}/"
@@ -1054,12 +1152,11 @@ def run_experiments(
                     if logger is not None:
                         logger.close()
             if checkpoint_at_end and failed_error is None:
-                with timers.time("checkpoint"):
-                    atomic_checkpoint(algo.save_checkpoint,
-                                      tdir / "ckpt_final")
+                with _as_one(algo), timers.time("checkpoint"):
+                    _checkpoint(algo, tdir / "ckpt_final", primary)
             timers.finish(trial_span)
             wall = trial_span.duration
-            if trace_dir:
+            if trace_dir and primary:
                 timers.stamp_latest("trial", {"rounds": algo.iteration,
                                               "failures": failures})
                 timers.export(Path(trace_dir).expanduser()

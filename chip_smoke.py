@@ -284,23 +284,41 @@ Phases, each printing its lines before the last:
    tier's other knobs on the dense ResNet-10 x 60 trial: prefetch on and
    off, and a 3-round scan window through ``file`` against
    ``--scan-window 1``, each pair bit for bit.
-20. ``profile`` (only when named): one more main-path round, one
+20. ``mesh``: the rounds on the ranks of a ``torch.distributed`` group,
+   one process a rank started by this script (``--mesh-part``), every
+   rank on ``cuda:0`` (one card: NCCL takes one rank a card, so the
+   multi-rank groups run over gloo, which stages each collective through
+   the host), cuDNN deterministic.  On the ``fedavg`` phase's dense
+   ResNet-10 x 60 trial under ALIE + Median in client blocks of 30:
+   (a) ``num_devices=2``, the client-sharded round, 2 rounds, in turns
+   with the one-process dense round on rank 0 (the other rank waiting),
+   bit for bit; launches per rank, rounds/s of both, the gather's bytes
+   and ms; (b) ``execution="hier"`` on a (2, 2) mesh of 4 ranks: at
+   ``bucket_size=1`` the dense round bit for bit, bucket and nnm at 2
+   with ``ici_bytes`` = ``hier_wire_bytes(hier_round_volumes(...))``,
+   and both pre-aggregations timed alone on a rank's block; (c) one NCCL rank
+   through ``sharded_step``, the dense round bit for bit.  Every select
+   (``column_median:mesh``) and BN launch (``bn_bwd_reduce:mesh``,
+   ``bn_bwd_dx:mesh``) of (a)'s first turn, and of (b) at 2 and (c), held
+   against the plain versions.  A rank that fails fails the phase.
+21. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-21. ``bnstages`` (only when named): the BN kernels alone at the four stage
+22. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-22. ``ringsweep`` (only when named): the row-statistics ring across
+23. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-19 (and before
-each round of phase 7 and each trial of phases 8 to 17) and read just
+Launch counts are set to 0 just before each of phases 4-20 (and before
+each round of phase 7, each trial of phases 8 to 17 and each driver of
+phase 20, in every rank) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
@@ -332,7 +350,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "wide", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
-          "wire", "async", "window", "obs", "gossip", "lanes", "autotune")
+          "wire", "async", "window", "obs", "gossip", "lanes", "autotune",
+          "mesh")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -7106,6 +7125,464 @@ def phase_autotune(card):
     return {}, {}
 
 
+# The mesh phase: the rounds on the ranks of a torch.distributed group, one
+# process a rank, every rank on cuda:0 (the machine has one card, and NCCL
+# takes one rank a card, so the multi-rank groups run over gloo, which
+# stages each collective through the host).  The 60-client dense ResNet-10
+# trial of the fedavg phase under ALIE + Median, in client blocks of 30, so
+# that a rank's 30 lanes are one block of the one-process dense round too.
+MESH_TRIAL = {**DENSE_TRIAL, "adversary_config": {"type": "ALIE"},
+              "client_block": 30, "evaluation_interval": 2}
+MESH_ROUNDS = 2
+MESH_TURNS = 2  # dense / sharded turns of (a); the first audited
+# BN-backward launches of each kernel per rank and round: 30 lanes in one
+# block, 12 BN layers, 2 local steps.
+MESH_BN_ROUND = 12 * 2
+MESH_DEADLINE_S = 600
+MESH_PORT = []  # --port, handed to the ranks
+MESH_DEVICE = "cuda:0"  # every rank's device: the one card
+MESH_T0 = [time.perf_counter()]  # a rank's start, for its setup seconds
+
+
+def _mesh_run(cfg, turn_audit=None):
+    """One driver of ``cfg`` on cuda:0, ``MESH_ROUNDS`` rounds, the launch
+    counts set to 0 just before them and read just after; with
+    ``turn_audit`` (``(select key, BN key)``) every select and BN launch
+    held against the plain versions.  Returns the parameters on the host,
+    the rows' scalars, the counts and routes, and the training seconds."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    algo = FedavgConfig().update_from_dict(cfg).build(device=MESH_DEVICE)
+    audits = contextlib.ExitStack()
+    sel = bn = None
+    if turn_audit is not None:
+        sel = audits.enter_context(_PathAudit("select", turn_audit[0]))
+        bn = audits.enter_context(_BnAudit(key=turn_audit[1]))
+    AUDIT["s"] = 0.0
+    try:
+        with audits:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            rows = [algo.train() for _ in range(MESH_ROUNDS)]
+            torch.cuda.synchronize()
+            counts, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+        train_s = rows[-1]["timers"]["training_step"]["total_s"] - AUDIT["s"]
+        out = {"params": _host_params(algo.state.server.params),
+               "rows": [{k: v for k, v in r.items()
+                         if isinstance(v, (int, float, str))} for r in rows],
+               "counts": counts,
+               "maps": {"/".join(k): v for k, v in maps.items()},
+               "train_s": train_s}
+        if sel is not None:
+            out["records"] = {**sel.records, **bn.records(MESH_ROUNDS)}
+            out["audited"] = (sel.calls, bn.calls)
+        return out
+    finally:
+        algo.stop()
+
+
+def _mesh_gather_ms(mesh, d):
+    """The sharded round's gather alone: each rank's (30, d) f32 rows into
+    the (60, d) matrix on every rank, over the round's group; the median
+    of 3 after a warm-up, every rank starting together."""
+    import torch
+    import torch.distributed as dist
+
+    from blades_tpu_torch.parallel.mesh import all_gather_rows
+
+    x = torch.randn((30, d), device=MESH_DEVICE)
+    times = []
+    for _ in range(4):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_gather_rows(mesh, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[1]
+
+
+def _mesh_sharded(rank, world):
+    """(a) Dense on rank 0 (the others wait at a barrier), then the
+    sharded round on every rank, in turns; the first sharded turn
+    audited.  Rank 0 holds each sharded turn against the dense turn."""
+    import torch.distributed as dist
+
+    from blades_tpu_torch.parallel.mesh import params_digest
+
+    sharded_cfg = {**MESH_TRIAL, "num_devices": world}
+    out = {"dense_s": [], "sharded_s": [], "same": [], "err": []}
+    dense = None
+    for turn in range(MESH_TURNS):
+        if rank == 0:
+            dense = _mesh_run(MESH_TRIAL)
+            out["dense_s"].append(dense["train_s"])
+            out["dense_counts"] = dense["counts"]
+        dist.barrier()
+        audit = (("column_median:mesh", "mesh") if turn == 0 else None)
+        run = _mesh_run(sharded_cfg, audit)
+        out["sharded_s"].append(run["train_s"])
+        if turn == 0:
+            out["records"] = run["records"]
+            out["audited"] = run["audited"]
+        else:
+            out["counts"], out["maps"] = run["counts"], run["maps"]
+        out["digest"] = params_digest(run["params"])
+        out["rows"] = run["rows"]
+        if rank == 0:
+            err, _, same_bits = _params_diff(run["params"], dense["params"],
+                                             RTOL, ATOL)
+            out["same"].append(same_bits)
+            out["err"].append(err)
+            out["agg_norms"] = ([r["agg_norm"] for r in run["rows"]],
+                                [r["agg_norm"] for r in dense["rows"]])
+        dist.barrier()
+    d = sum(v.numel() for v in run["params"].values())
+    from blades_tpu_torch.parallel import make_mesh
+
+    out["gather_ms"] = _mesh_gather_ms(make_mesh(world), d)
+    out["d"] = d
+    return out
+
+
+def _preagg_ms(d):
+    """Rank 0's pre-aggregation alone on a (30, d) f32 block (a rank's
+    lanes), bucket and nnm at bucket_size 2: the median of 3 after a
+    warm-up."""
+    import torch
+
+    from blades_tpu_torch.ops.preagg import (
+        bucket_representatives,
+        nnm_representatives,
+    )
+
+    x = torch.randn((30, d), device=MESH_DEVICE)
+    real = torch.ones(30, dtype=torch.bool, device=MESH_DEVICE)
+    out = {}
+    for name, fn in (("bucket", bucket_representatives),
+                     ("nnm", nnm_representatives)):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, real, 2)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(times[1:])[1]
+    return out
+
+
+def _mesh_hier(rank, world):
+    """(b) On a (2, 2) mesh: dense on rank 0, then the hierarchical round
+    at bucket_size 1 (rank 0 holds it against the dense round), and bucket
+    and nnm at bucket_size 2 (their recorded wire bytes against the comm
+    model's), the select and BN launches held against the plain versions;
+    then rank 0 times the two pre-aggregations alone."""
+    import torch.distributed as dist
+
+    from blades_tpu_torch.parallel.comm_model import (
+        hier_round_volumes,
+        hier_wire_bytes,
+    )
+    from blades_tpu_torch.parallel.mesh import params_digest
+
+    out = {}
+    if rank == 0:
+        dense = _mesh_run(MESH_TRIAL)
+    dist.barrier()
+    for key, preagg, b in (("b1", "bucket", 1), ("b2", "bucket", 2),
+                           ("nnm2", "nnm", 2)):
+        cfg = {**MESH_TRIAL, "num_devices": world, "mesh_shape": (2, 2),
+               "execution": "hier", "preagg": preagg, "bucket_size": b}
+        # bucket_size 1 launches at (a)'s shapes; bucket 2 selects over
+        # (30, d).
+        run = _mesh_run(cfg, ("column_median:mesh-hier", "mesh-hier")
+                        if key == "b2" else None)
+        d = sum(v.numel() for v in run["params"].values())
+        vols = hier_round_volumes(MESH_TRIAL["dataset_config"]["num_clients"],
+                                  d, (2, 2), preagg=preagg, bucket_size=b)
+        res = {"counts": run["counts"], "maps": run["maps"],
+               "audited": run.get("audited"),
+               "digest": params_digest(run["params"]),
+               "ici_bytes": [r["ici_bytes"] for r in run["rows"]],
+               "model_bytes": hier_wire_bytes(vols),
+               "kept": [r["preagg_kept"] for r in run["rows"]],
+               "losses": [r["train_loss"] for r in run["rows"]],
+               "finite": all(bool(v.isfinite().all())
+                             for v in run["params"].values()),
+               "train_s": run["train_s"]}
+        if rank == 0 and key == "b1":
+            err, _, same_bits = _params_diff(run["params"], dense["params"],
+                                             RTOL, ATOL)
+            res["same"], res["err"] = same_bits, err
+        out[key] = res
+        dist.barrier()
+    if rank == 0:
+        out["preagg_ms"] = _preagg_ms(d)
+    dist.barrier()
+    return out
+
+
+def _mesh_nccl(rank, world):
+    """(c) One NCCL rank: the dense driver's 2 rounds, then
+    ``sharded_step`` from the same initial state over the driver's data
+    and round seeds (its gathers one-rank NCCL collectives)."""
+    import copy
+
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel import (
+        make_mesh,
+        shard_federation,
+        sharded_step,
+    )
+
+    algo = FedavgConfig().update_from_dict(MESH_TRIAL).build(
+        device=MESH_DEVICE)
+    try:
+        state0 = copy.deepcopy(algo.state)  # train() moves algo.state
+        for _ in range(MESH_ROUNDS):
+            algo.train()
+        dense = _host_params(algo.state.server.params)
+        mesh = make_mesh(1)
+        state, data = shard_federation(mesh, state0, algo._train)
+        step = sharded_step(algo.fed_round, mesh)
+        _cuda.reset_launches()
+        with _PathAudit("select", "column_median:mesh-nccl"), _BnAudit():
+            for r in range(MESH_ROUNDS):
+                state, m = step(state, *data, algo.malicious,
+                                algo.round_seed(r))
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        err, _, same_bits = _params_diff(
+            _host_params(state.server.params), dense, RTOL, ATOL)
+        return {"same": same_bits, "err": err, "counts": counts,
+                "backend": mesh.backend}
+    finally:
+        algo.stop()
+
+
+MESH_PARTS = {"sharded": _mesh_sharded, "hier": _mesh_hier,
+              "nccl": _mesh_nccl}
+
+
+def _mesh_rank_main(args) -> int:
+    """One rank of the mesh phase (started by :func:`phase_mesh`): join the
+    group, run the part, write its JSON beside the others."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, os.path.abspath(args.port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    out = args.mesh_out
+    try:
+        from blades_tpu_torch.parallel import init_distributed
+        import torch.distributed as dist
+
+        init_distributed(args.mesh_url, args.mesh_world, args.mesh_rank,
+                         backend=args.mesh_backend)
+        t0 = time.perf_counter()
+        with _shared_datasets():
+            res = MESH_PARTS[args.mesh_part](args.mesh_rank, args.mesh_world)
+        # Seconds from the interpreter's start to the group, and the part.
+        res["setup_s"] = t0 - MESH_T0[0]
+        res["part_s"] = time.perf_counter() - t0
+        with open(f"{out}{args.mesh_rank}.json", "w") as fh:
+            json.dump(res, fh, default=str)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    except BaseException:
+        with open(f"{out}{args.mesh_rank}.err", "w") as fh:
+            fh.write(traceback.format_exc())
+        return 1
+
+
+def _mesh_start(part, world, backend, work):
+    """Start ``world`` ranks of ``part``: one process each, a ``file://``
+    rendezvous in ``work``, each rank's output in chiprun_out/mesh/."""
+    import subprocess
+
+    gdir = os.path.join(work, part)
+    os.makedirs(gdir, exist_ok=True)
+    logs = os.path.join(HERE, "chiprun_out", "mesh")
+    os.makedirs(logs, exist_ok=True)
+    out = os.path.join(gdir, "out")
+    procs = []
+    for r in range(world):
+        log_fh = open(os.path.join(logs, f"{part}{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-part", part,
+             "--mesh-rank", str(r), "--mesh-world", str(world),
+             "--mesh-url", f"file://{os.path.join(gdir, 'rendezvous')}",
+             "--mesh-backend", backend, "--mesh-out", out,
+             "--port", MESH_PORT[0]],
+            stdout=log_fh, stderr=subprocess.STDOUT), log_fh))
+    return part, out, procs
+
+
+def _mesh_wait(group):
+    """Every rank's JSON; a rank that fails, or a group still running at
+    the deadline (every rank then killed), fails the phase."""
+    import subprocess
+
+    part, out, procs = group
+    end = time.monotonic() + MESH_DEADLINE_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p, _ in procs:
+            p.kill()
+            p.wait()
+        raise Failure(f"mesh {part}: ranks still running after "
+                      f"{MESH_DEADLINE_S} s")
+    finally:
+        for _, fh in procs:
+            fh.close()
+    res = []
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            err = f"{out}{r}.err"
+            why = (open(err).read() if os.path.exists(err)
+                   else "no traceback (see chiprun_out/mesh)")
+            raise Failure(f"mesh {part}: rank {r} exited {p.returncode}: "
+                          f"{why[-3000:]}")
+        with open(f"{out}{r}.json") as fh:
+            res.append(json.load(fh))
+    return res
+
+
+def phase_mesh(card):
+    """The rounds on the ranks of a process group, through ``FedavgConfig``
+    -> ``Fedavg.train()`` (``num_devices``, ``mesh_shape``,
+    ``execution="hier"``): (a) the client-sharded round on 2 gloo ranks
+    sharing cuda:0, 2 rounds, in turns with the one-process dense round
+    (bit for bit: the ranks' 30-lane blocks are the dense round's blocks,
+    cuDNN deterministic); (b) the hierarchical round on a (2, 2) mesh of 4
+    ranks, at bucket_size 1 the dense round bit for bit, bucket and nnm at
+    2 with ``ici_bytes`` the comm model's; (c) one NCCL rank through
+    ``sharded_step``, the dense round bit for bit.  Every select and BN
+    launch of the ranks held against the plain versions."""
+    from blades_tpu_torch.ops import _cuda
+
+    _cuda.build()  # the ranks load this build
+    _cuda.library()
+    work = _work_dir("mesh")
+    t0 = time.perf_counter()
+    a = _mesh_wait(_mesh_start("sharded", 2, "gloo", work))
+    log(f"mesh (a): 2 gloo ranks in {time.perf_counter() - t0:.1f} s (a "
+        f"rank's start to its group {a[0]['setup_s']:.1f} s, its rounds, "
+        f"audits and gathers {a[0]['part_s']:.1f} s)")
+    t0 = time.perf_counter()
+    groups = [_mesh_start("hier", 4, "gloo", work),
+              _mesh_start("nccl", 1, "nccl", work)]
+    b, c = (_mesh_wait(g) for g in groups)
+    log(f"mesh (b)+(c): 4 gloo ranks and 1 NCCL rank in "
+        f"{time.perf_counter() - t0:.1f} s (setup {b[0]['setup_s']:.1f} / "
+        f"{c[0]['setup_s']:.1f} s, parts {b[0]['part_s']:.1f} / "
+        f"{c[0]['part_s']:.1f} s)")
+
+    # (a) the sharded round.
+    r0 = a[0]
+    want = {"column_median": MESH_ROUNDS,
+            **{k: MESH_ROUNDS * MESH_BN_ROUND for k in BN_TPU}}
+    for r, res in enumerate(a):
+        check(res["counts"] == want, f"mesh (a) rank {r}: launches "
+              f"{res['counts']}, expected {want}")
+        check(res["maps"].get("column_median/select:radix") == MESH_ROUNDS,
+              f"mesh (a) rank {r}: select routes {res['maps']}")
+        check(res["digest"] == r0["digest"], f"mesh (a): rank {r}'s "
+              "parameters differ from rank 0's")
+        check(res["audited"][0] == MESH_ROUNDS
+              and res["audited"][1] == 2 * MESH_ROUNDS * MESH_BN_ROUND,
+              f"mesh (a) rank {r}: audited {res['audited']}")
+    check(all(r0["same"]), f"mesh (a): the sharded round differs from the "
+          f"dense round (max abs err {r0['err']})")
+    dense_want = {"column_median": MESH_ROUNDS,
+                  **{k: 2 * MESH_ROUNDS * MESH_BN_ROUND for k in BN_TPU}}
+    check(r0["dense_counts"] == dense_want, f"mesh (a): dense launches "
+          f"{r0['dense_counts']}, expected {dense_want}")
+    d = r0["d"]
+    nbytes = 60 * d * 4
+    log(f"mesh (a): sharded ResNet-10 x 60 (d = {d:,}) on 2 gloo ranks "
+        f"sharing cuda:0 equals the one-process dense round bit for bit "
+        f"in {MESH_TURNS} turns (agg norms {r0['agg_norms'][0]} vs "
+        f"{r0['agg_norms'][1]}); launches per rank "
+        + "; ".join(f"rank {r}: {res['counts']} ({res['maps']})"
+                    for r, res in enumerate(a)) + f" [{card}]")
+    log(f"mesh (a): rounds/s in turns, dense / sharded: "
+        + ", ".join(f"{MESH_ROUNDS / ds:.4f} / {MESH_ROUNDS / ss:.4f}"
+                    for ds, ss in zip(r0["dense_s"], r0["sharded_s"]))
+        + f" (rank 1: {MESH_ROUNDS / a[1]['sharded_s'][-1]:.4f}); "
+        f"the gather: {nbytes:,} bytes out on every rank ({nbytes // 2:,} "
+        f"from the other rank), {r0['gather_ms']:.3f} / "
+        f"{a[1]['gather_ms']:.3f} ms (median of 3, gloo through the host, "
+        f"two ranks on one card: not an NCCL or multi-GPU number) [{card}]")
+
+    # (b) the hierarchical round.
+    h0 = b[0]
+    for key in ("b1", "b2", "nnm2"):
+        for r, res in enumerate(b):
+            h = res[key]
+            check(h["counts"] == want and h["finite"]
+                  and all(math.isfinite(v) for v in h["losses"]),
+                  f"mesh (b) {key} rank {r}: launches {h['counts']}, "
+                  f"expected {want}; finite {h['finite']}, losses "
+                  f"{h['losses']}")
+            check(h["digest"] == h0[key]["digest"], f"mesh (b) {key}: rank "
+                  f"{r}'s parameters differ from rank 0's")
+            check(all(x == h["model_bytes"] for x in h["ici_bytes"]),
+                  f"mesh (b) {key} rank {r}: ici_bytes {h['ici_bytes']}, "
+                  f"the comm model {h['model_bytes']}")
+    check(h0["b1"]["same"], f"mesh (b): hier at bucket_size 1 differs from "
+          f"the dense round (max abs err {h0['b1']['err']})")
+    check(h0["b1"]["kept"] == h0["nnm2"]["kept"] == [60] * MESH_ROUNDS
+          and h0["b2"]["kept"] == [30] * MESH_ROUNDS,
+          f"mesh (b): preagg_kept {h0['b1']['kept']} / {h0['b2']['kept']} "
+          f"/ {h0['nnm2']['kept']}")
+    log(f"mesh (b): hier on a (2, 2) mesh of 4 gloo ranks sharing cuda:0: "
+        f"bucket_size 1 equals the dense round bit for bit; bucket_size 2 "
+        f"keeps {h0['b2']['kept'][0]} rows, ici_bytes "
+        f"{h0['b2']['ici_bytes'][0]:,} = hier_wire_bytes(hier_round_volumes)"
+        f" (bucket_size 1: {h0['b1']['ici_bytes'][0]:,}); train_loss "
+        f"{h0['b2']['losses']}; {MESH_ROUNDS / h0['b1']['train_s']:.4f} / "
+        f"{MESH_ROUNDS / h0['b2']['train_s']:.4f} rounds/s on rank 0 "
+        f"(four ranks on one card) [{card}]")
+    pm = h0["preagg_ms"]
+    log(f"mesh (b): nnm at bucket_size 2 keeps {h0['nnm2']['kept'][0]} "
+        f"rows, ici_bytes {h0['nnm2']['ici_bytes'][0]:,} = the comm "
+        f"model's; train_loss {h0['nnm2']['losses']}; "
+        f"{MESH_ROUNDS / h0['nnm2']['train_s']:.4f} rounds/s on rank 0; "
+        f"the pre-aggregation alone on a rank's (30, {d:,}) f32 block at "
+        f"bucket_size 2: bucket {pm['bucket']:.3f} ms, nnm {pm['nnm']:.3f} "
+        f"ms (median of 3, rank 0, the other ranks idle) [{card}]")
+
+    # (c) one NCCL rank.
+    c0 = c[0]
+    check(c0["backend"] == "nccl" and c0["same"],
+          f"mesh (c): backend {c0['backend']}, the NCCL rank's sharded_step "
+          f"differs from the dense round (max abs err {c0['err']})")
+    check(c0["counts"] == {"column_median": MESH_ROUNDS,
+                           **{k: 2 * MESH_ROUNDS * MESH_BN_ROUND
+                              for k in BN_TPU}},
+          f"mesh (c): launches {c0['counts']}")
+    log(f"mesh (c): sharded_step on one NCCL rank equals the dense round "
+        f"bit for bit; launches {c0['counts']} [{card}]")
+    counts = {"column_median:mesh": r0["counts"]["column_median"],
+              **{f"{k}:mesh": r0["counts"][k] for k in BN_TPU}}
+    return counts, r0["records"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7116,7 +7593,16 @@ def main(argv=None) -> int:
                          "package to drive (default: beside this script); "
                          "another tree's, to time its kernels in the same "
                          "call")
+    # One rank of the mesh phase (phase_mesh starts them).
+    for flag, kind in (("--mesh-part", str), ("--mesh-rank", int),
+                       ("--mesh-world", int), ("--mesh-url", str),
+                       ("--mesh-backend", str), ("--mesh-out", str)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_part is not None:
+        return _mesh_rank_main(args)
+    MESH_PORT.append(os.path.abspath(args.port))
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
     if unknown:
@@ -7182,7 +7668,7 @@ def main(argv=None) -> int:
                          ("wire", phase_wire), ("async", phase_async),
                          ("window", phase_window), ("obs", phase_obs),
                          ("gossip", phase_gossip), ("lanes", phase_lanes),
-                         ("autotune", phase_autotune)):
+                         ("autotune", phase_autotune), ("mesh", phase_mesh)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)

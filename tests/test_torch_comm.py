@@ -408,9 +408,9 @@ def test_config_validates_codecs_as_jax():
            .resources(execution="streamed"))
     with pytest.raises(ValueError, match="codec"):
         cfg.validate()
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(ValueError, match="num_devices"):
         FedavgConfig().update_from_dict(
-            {**MLP_RUN, "codec_config": TOPK2, "num_devices": 2})
+            {**MLP_RUN, "codec_config": TOPK2, "num_devices": 2}).validate()
     fluent = FedavgConfig().update_from_dict(MLP_RUN).communication(
         codec=TOPK2)
     assert fluent.get_codec() == CodecConfig("topk", topk_ratio=0.02)

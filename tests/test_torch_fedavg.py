@@ -128,12 +128,12 @@ def test_client_momentum_runs_streamed():
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"bucket_size": 4}, NotImplementedError),
-    ({"num_devices": 4}, NotImplementedError),
+    ({"bucket_size": 0}, ValueError),
+    ({"num_devices": 4}, ValueError),  # a world of one process
     ({"mxu_finish": "counts"}, ValueError),
     ({"execution": "dsharded"}, NotImplementedError),
-    ({"mesh_shape": [4, 2]}, NotImplementedError),
-    ({"preagg": "nnm"}, NotImplementedError),
+    ({"mesh_shape": [4, 2]}, ValueError),
+    ({"preagg": "mean"}, ValueError),
     ({"no_such_field": 1}, KeyError),
     ({"dataset_config": {"no_such_key": 1}}, KeyError),
 ])

@@ -67,6 +67,10 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/tools/control_report.py",
             "blades_tpu_torch/tune/lanes.py",
             "blades_tpu_torch/parallel/packed.py",
+            "blades_tpu_torch/parallel/mesh.py",
+            "blades_tpu_torch/parallel/sharded.py",
+            "blades_tpu_torch/parallel/hier.py",
+            "blades_tpu_torch/ops/preagg.py",
             "blades_tpu_torch/models/layers.py",
             "blades_tpu_torch/models/mlp.py",
             "blades_tpu_torch/models/cnn.py",
@@ -178,8 +182,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """The config fields still out of the port (meshes and
-    pre-aggregation) name the later slice; TopologyAttack resolves by both
+    """The paths still out of the port (the width-sharded round, the
+    autotuner on a mesh) name the later slice; TopologyAttack resolves by both
     of its names now; forensics
     resolves now, refusing the streamed round with the JAX package's
     error; the campaign adversaries resolve; Noise, Lazy and ghost lanes
@@ -198,11 +202,11 @@ def test_out_of_slice_configs_name_the_later_slice():
     from blades_tpu_torch.core import FedRound, Server, TaskSpec
     from blades_tpu_torch.parallel.streamed import streamed_step
 
-    for field, value in (("num_devices", 4),
-                         ("preagg", "nnm"),
-                         ("bucket_size", 4)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            FedavgConfig().update_from_dict({field: value})
+    for fields, match in (({"execution": "dsharded"}, "Queue A 9b"),
+                          ({"num_devices": 4, "autotune": True},
+                           "ROADMAP")):
+        with pytest.raises(NotImplementedError, match=match):
+            FedavgConfig().update_from_dict(fields).validate()
     FedavgConfig().update_from_dict({"forensics": True}).validate()
     # Client lane-packing resolves now.
     cfg = FedavgConfig().update_from_dict(

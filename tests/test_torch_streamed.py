@@ -302,7 +302,6 @@ def test_every_row_geometry_aggregator_runs_streamed():
         assert step.passes.kernel_bundles >= 1
 
 
-@pytest.mark.slow  # ~22 s on a CPU, most of it the JAX ResNet-10 compile
 def _jax_traces(opt):
     """The JAX momentum traces as one ``(n, d)`` array in ravel order."""
     trace = opt[0].trace
@@ -344,6 +343,7 @@ def test_client_momentum_rounds_match_jax(branch):
         assert same == (r == 0), r
 
 
+@pytest.mark.slow  # ~22 s on a CPU, most of it the JAX ResNet-10 compile
 def test_resnet10_round_matches_jax():
     """16x16 inputs: at 8x8 the last stage is 1x1 and its BatchNorms over a
     batch of 4 are too ill-conditioned for an f32 comparison (see

@@ -47,7 +47,7 @@ from blades_tpu_torch.tune.sweep import (
 
 REPO = Path(__file__).resolve().parents[1]
 TUNED = sorted((REPO / "blades_tpu" / "tuned_examples").glob("*.yaml"))
-NOT_RUNNABLE = {"fedavg_cifar10_1000clients_mesh": "num_devices"}
+NOT_RUNNABLE = {"fedavg_cifar10_1000clients_mesh": "dsharded"}
 RUNNABLE = [p for p in TUNED if p.stem not in NOT_RUNNABLE]
 
 EDGE_CASES = """\
@@ -339,14 +339,17 @@ def test_run_command_writes_the_jax_run_layout(tmp_path):
 
 
 def test_flags_the_port_lacks_are_refused(tmp_path):
+    """The multi-process flags exist now: a coordinator without the
+    process counts is refused by the parser, and the mesh flags on one
+    process by the config's validation, with the JAX package's words."""
     grid = _write_grid(tmp_path)
     with pytest.raises(SystemExit):
         train.main(["file", str(grid), "--device", "cpu", "--coordinator",
                     "localhost:1234"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="pre-aggregates per chip"):
         train.main(["run", "FEDAVG", "--device", "cpu", "--execution",
                     "hier"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="mesh_shape × single-chip"):
         train.main(["run", "FEDAVG", "--device", "cpu", "--mesh-shape",
                     "4x2"])
 

@@ -318,20 +318,27 @@ def test_gossip_validation_messages_are_the_jax_messages(case, match):
 @pytest.mark.parametrize("execution", ["dsharded", "hier", "nope"])
 def test_execution_messages_name_every_path_the_port_runs(execution):
     """The stale-message repair: the refusal of a later execution and of
-    an unknown one name auto, dense, streamed, async and gossip."""
+    an unknown one name auto, dense, streamed, async, gossip and hier;
+    hier on one process is refused with the JAX package's words."""
     cfg = FedavgConfig()
     cfg.execution = execution
+    if execution == "hier":
+        with pytest.raises(ValueError, match="pre-aggregates per chip"):
+            cfg.validate()
+        return
     err = NotImplementedError if execution != "nope" else ValueError
     with pytest.raises(err) as info:
         cfg.validate()
     msg = str(info.value)
-    assert _EXECUTIONS == ("auto", "dense", "streamed", "async", "gossip")
+    assert _EXECUTIONS == ("auto", "dense", "streamed", "async", "gossip",
+                           "hier")
     for name in _EXECUTIONS:
         assert (f"'{name}'" if err is NotImplementedError else name) in msg
     if err is ValueError:
-        assert "auto|dense|streamed|async|gossip" in msg
+        assert "auto|dense|streamed|async|gossip|hier" in msg
     else:
-        assert "'auto', 'dense', 'streamed', 'async' and 'gossip'" in msg
+        assert ("'auto', 'dense', 'streamed', 'async', 'gossip' and "
+                "'hier'") in msg
 
 
 def test_topology_builder_merges_and_resolves():
