@@ -19,14 +19,15 @@ def benign_mean_std(updates: torch.Tensor, malicious: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and unbiased (ddof=1) std over benign rows.  Select-masked, so
     a non-finite malicious row cannot reach the benign statistics.  The
-    benign count stays on the device (no host sync)."""
+    benign count stays on the device (no host sync).  One ``updates``-sized
+    temporary at a time."""
     w = (~malicious).to(updates.dtype)
     nb = w.sum().clamp(min=1.0)
-    zero = torch.zeros_like(updates)
-    xs = torch.where(malicious[:, None], zero, updates)
-    mean = xs.sum(0) / nb
-    var = (torch.where(malicious[:, None], zero, (updates - mean) ** 2)
-           .sum(0) / (nb - 1.0).clamp(min=1.0))
+    mal = malicious[:, None]
+    mean = updates.masked_fill(mal, 0.0).sum(0) / nb
+    dev = (updates - mean).pow_(2).masked_fill_(mal, 0.0)
+    var = dev.sum(0) / (nb - 1.0).clamp(min=1.0)
+    del dev
     return mean, torch.sqrt(var)
 
 

@@ -6,9 +6,19 @@ Each reads the benign rows' statistics and writes forged rows into the
 malicious lanes.  Random inputs are arguments (``noise``: Adaptive's
 per-coordinate uniforms, Noise's ``(rows, c)`` normals, Lazy's ``(lane
 scores, normals)``, SignGuard's ``(rank, uniforms)``), drawn by the
-caller from its generator when absent, never inside a kernel.  ``shard`` (a
-:class:`~blades_tpu_torch.ops.layout.ChunkInfo`) tells a coordinate-wise
-forge which global columns a column chunk holds.
+caller from its generator when absent, never inside a kernel.  ``shard``
+tells a forge which global columns its rows hold: a
+:class:`~blades_tpu_torch.ops.layout.ChunkInfo` (a column chunk of the
+streamed round) or a :class:`~blades_tpu_torch.ops.layout.ShardInfo` (the
+width-sharded round's ``(n, d_local)`` shard).  On a width shard the row
+geometry (MinMax's distances, SignGuard's sign census,
+Attackclippedclustering's norms and Gram) is the psum of the shards'
+partials, coordinate positions are global, and the draws over columns
+are made at the global width from the replicated generator and sliced
+(Adaptive's uniforms, SignGuard's permutation and magnitudes), so those
+forged rows are the dense layout's.  Noise's and Lazy's ``(rows, c)``
+normals come from a generator folded with the shard index
+(``ShardInfo.fold``): deterministic per seed, not the dense draws.
 
 MinMax, SignGuard and Attackclippedclustering need whole-row geometry;
 the streamed round runs them through
@@ -26,7 +36,21 @@ import torch
 from blades_tpu_torch.adversaries.base import Adversary, benign_mean_std
 from blades_tpu_torch.ops import clustering
 from blades_tpu_torch.ops.aggregators import Signguard
-from blades_tpu_torch.ops.layout import row_norms
+from blades_tpu_torch.ops.layout import (
+    ShardInfo,
+    gram,
+    pairwise_sq_dists,
+    psum_if,
+    row_dots,
+    row_norms,
+    slice_to_shard,
+)
+
+
+def _width_shard(shard):
+    """``shard`` where it is a width shard (row geometry psum'd), else
+    None (the dense layout, or a column chunk's full rows)."""
+    return shard if isinstance(shard, ShardInfo) else None
 
 
 def _negate_first_half(v: torch.Tensor, shard=None) -> torch.Tensor:
@@ -109,6 +133,11 @@ class AdaptiveAdversary(Adversary):
                          generator=None, aggregator=None, shard=None):
         del aggregator
         mean, _ = benign_mean_std(updates, malicious)
+        if noise is None and _width_shard(shard) is not None:
+            # The global-width draw of the dense layout, sliced.
+            noise = slice_to_shard(torch.rand(
+                (shard.global_d,), generator=generator, device=mean.device),
+                shard)
         if noise is None and shard is not None:
             raise ValueError("Adaptive on a column chunk needs the full-width "
                              "uniforms sliced to it (noise=)")
@@ -134,14 +163,18 @@ class AdaptiveAdversary(Adversary):
 class NoiseAdversary(Adversary):
     """Pure Gaussian rows ``N(mean, std)``, independent per malicious lane
     and coordinate.  ``noise`` is the ``(rows, c)`` standard normals;
-    without it they are drawn from ``generator``."""
+    without it they are drawn from ``generator`` (on a width shard, from
+    ``shard.fold(generator)``)."""
 
     mean: float = 0.1
     std: float = 0.1
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del aggregator, shard
+        del aggregator
+        ws = _width_shard(shard)
+        if noise is None and ws is not None:
+            generator = ws.fold(generator)
         z = noise if noise is not None else torch.randn(
             updates.shape, generator=generator, device=updates.device)
         forged = self.mean + self.std * z.to(updates.dtype)
@@ -157,8 +190,10 @@ class LazyAdversary(Adversary):
     the camouflage; under the buffered-async cycle that row was computed
     against the oldest retained params version (``wants_stale_replay``).  ``noise`` is ``(scores
     (rows,) uniforms, (rows, c) standard normals)``; without it both are
-    drawn from ``generator``.  The streamed round has no formulation for
-    it, as in the JAX package."""
+    drawn from ``generator`` (on a width shard the scores, a draw over
+    lanes, from ``generator`` itself, so every shard copies the same
+    victim, and the normals from ``shard.fold(generator)``).  The
+    streamed round has no formulation for it, as in the JAX package."""
 
     mode: str = "copy"
     copy_scale: float = 1.0
@@ -184,9 +219,16 @@ class LazyAdversary(Adversary):
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del aggregator, shard
-        scores, z = noise if noise is not None else self.draw(
-            updates.shape, generator, updates.device)
+        del aggregator
+        ws = _width_shard(shard)
+        if noise is None and ws is not None:
+            scores = torch.rand((updates.shape[0],), generator=generator,
+                                device=updates.device)
+            z = torch.randn(updates.shape, generator=ws.fold(generator),
+                            device=updates.device)
+        else:
+            scores, z = noise if noise is not None else self.draw(
+                updates.shape, generator, updates.device)
         camo = self.noise_std * z.to(updates.dtype)
         if self.mode == "copy":
             neg_inf = torch.tensor(-math.inf, device=updates.device)
@@ -235,20 +277,20 @@ class MinMaxAdversary(Adversary):
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del noise, generator, shard
+        del noise, generator
+        ws = _width_shard(shard)
         mean, dev = benign_mean_std(updates, malicious)
         if isinstance(aggregator, Signguard):
-            dev = _negate_first_half(dev)
+            dev = _negate_first_half(dev, ws)
         benign = ~malicious
         w = benign.to(updates.dtype)
-        sq = (updates * updates).sum(1)
-        d2 = sq[:, None] + sq[None, :] - 2.0 * (updates @ updates.T)
+        d2 = pairwise_sq_dists(updates, ws)
         threshold = ((d2 * (w[:, None] * w[None, :])).max()
                      .clamp(min=0.0).sqrt())
         neg_inf = torch.tensor(-math.inf, device=updates.device)
 
         def farthest(g):
-            dist = row_norms(updates - (mean - g * dev)[None, :])
+            dist = row_norms(updates - (mean - g * dev)[None, :], ws)
             return torch.where(benign, dist, neg_inf).max()
 
         gamma = self.gamma(farthest, threshold, updates.device)
@@ -261,7 +303,8 @@ class SignGuardAdversary(Adversary):
     random magnitudes at shuffled positions: coordinates of permutation
     rank below ``#pos`` get ``+U(0,1)``, the next ``#neg`` get ``-U(0,1)``,
     the rest 0.  ``noise`` is ``(rank (d,), uniforms (d,))``; without it
-    both are drawn from ``generator``."""
+    both are drawn from ``generator``.  On a width shard the census is
+    psum'd and both draws are made at the global width and sliced."""
 
     @staticmethod
     def draw(d: int, generator, device=None):
@@ -271,8 +314,9 @@ class SignGuardAdversary(Adversary):
                 torch.rand((d,), generator=generator, device=device))
 
     @staticmethod
-    def forged_row(mean, rank, u):
-        pos, neg = (mean > 0).sum(), (mean < 0).sum()
+    def forged_row(mean, rank, u, shard=None):
+        pos = psum_if((mean > 0).sum(), shard)
+        neg = psum_if((mean < 0).sum(), shard)
         rank = rank.to(mean.device)
         u = u.to(device=mean.device, dtype=mean.dtype)
         return torch.where(rank < pos, u,
@@ -281,11 +325,18 @@ class SignGuardAdversary(Adversary):
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del aggregator, shard
+        del aggregator
+        ws = _width_shard(shard)
         mean, _ = benign_mean_std(updates, malicious)
-        rank, u = noise if noise is not None else self.draw(
-            mean.shape[0], generator, mean.device)
-        return self.scatter_forged(updates, self.forged_row(mean, rank, u),
+        if ws is None:
+            rank, u = noise if noise is not None else self.draw(
+                mean.shape[0], generator, mean.device)
+        else:
+            rank, u = noise if noise is not None else self.draw(
+                ws.global_d, generator, mean.device)
+            rank, u = slice_to_shard(rank, ws), slice_to_shard(u, ws)
+        return self.scatter_forged(updates,
+                                   self.forged_row(mean, rank, u, ws),
                                    malicious)
 
 
@@ -300,10 +351,10 @@ class AttackclippedclusteringAdversary(Adversary):
 
     eps: float = 1e-4
 
-    def forged_row(self, mean, cos, cos2mean, benign, unit_row):
+    def forged_row(self, mean, cos, cos2mean, benign, unit_row, shard=None):
         """From the rows' pairwise cosines ``cos`` (n, n), their cosines
         to the benign mean ``cos2mean`` (n,) and ``unit_row(i)``, row ``i``
-        scaled to unit norm."""
+        scaled to unit norm (the mean's norm global under ``shard``)."""
         n = cos.shape[0]
         w = benign.to(torch.float32)
         dist = 1.0 - torch.clamp(cos, -1.0, 1.0)
@@ -316,7 +367,7 @@ class AttackclippedclusteringAdversary(Adversary):
         big = torch.where(pair_ok | eye, dist, torch.full_like(dist, 2.0))
         majority = clustering.agglomerative_majority(
             big, linkage="single") & benign
-        mean_hat = mean / row_norms(mean[None])[0].clamp(min=1e-12)
+        mean_hat = mean / row_norms(mean[None], shard)[0].clamp(min=1e-12)
         dis2mean = torch.where(majority, 1.0 - cos2mean,
                                torch.full_like(cos2mean, -math.inf))
         idx = dis2mean.argmax()
@@ -332,10 +383,12 @@ class AttackclippedclusteringAdversary(Adversary):
 
     def on_updates_ready(self, updates, malicious, *, noise=None,
                          generator=None, aggregator=None, shard=None):
-        del noise, generator, aggregator, shard
+        del noise, generator, aggregator
+        ws = _width_shard(shard)
         mean, _ = benign_mean_std(updates, malicious)
-        normed = updates / row_norms(updates).clamp(min=1e-12)[:, None]
-        mean_hat = mean / row_norms(mean[None])[0].clamp(min=1e-12)
-        forged = self.forged_row(mean, normed @ normed.T, normed @ mean_hat,
-                                 ~malicious, lambda i: normed[i])
+        normed = updates / row_norms(updates, ws).clamp(min=1e-12)[:, None]
+        mean_hat = mean / row_norms(mean[None], ws)[0].clamp(min=1e-12)
+        forged = self.forged_row(mean, gram(normed, ws),
+                                 row_dots(normed, mean_hat, ws), ~malicious,
+                                 lambda i: normed[i], ws)
         return self.scatter_forged(updates, forged, malicious)

@@ -9,10 +9,10 @@ reference's nested ``dataset_config`` / ``client_config`` /
 ``server_config`` keys), ``validate()`` and ``freeze()`` before
 ``build()``.  ``num_devices`` / ``mesh_shape`` run the rounds on the
 ranks of a ``torch.distributed`` process group (one process per rank:
-the client-sharded dense round, or under ``execution="hier"`` the
-hierarchical round with ``preagg`` and ``bucket_size``); the width-sharded
-``execution="dsharded"`` raises ``NotImplementedError``, as does the
-autotuner on a mesh.  An unknown key raises ``KeyError``.  The execution
+the client-sharded dense round, under ``execution="hier"`` the
+hierarchical round with ``preagg`` and ``bucket_size``, under
+``execution="dsharded"`` the width-sharded round); the autotuner on a
+mesh raises ``NotImplementedError``.  An unknown key raises ``KeyError``.  The execution
 autotuner's fields (``autotune``, ``autotune_cache_dir``, ``tuned_plan``)
 are the reference's; ``mxu_finish`` takes only ``None`` or ``""`` (the
 port has no MXU route) and ``donate_buffers`` either value (the port
@@ -116,8 +116,8 @@ _FIELDS = {
 _NO_MXU = ("the port has no MXU route: the JAX package's mxu_finish "
            "'counts' / 'all' pick a TPU unit, and the card's finish takes "
            "neither -- set mxu_finish=None or ''")
-_LATER_EXECUTION = ("dsharded",)
-_EXECUTIONS = ("auto", "dense", "streamed", "async", "gossip", "hier")
+_EXECUTIONS = ("auto", "dense", "streamed", "dsharded", "async", "hier",
+               "gossip")
 
 _NESTED = {
     "dataset_config": {"type": "dataset", "num_clients": "num_clients",
@@ -412,12 +412,6 @@ class FedavgConfig:
         if name in _NUM_CLASSES and self.num_classes == 10:
             self.num_classes = _NUM_CLASSES[name]
             self._inferred.add("num_classes")
-        if self.execution in _LATER_EXECUTION:
-            raise NotImplementedError(
-                f"execution={self.execution!r} (the width-sharded round, "
-                "ROADMAP Queue A 9b) is not in the port yet; the port runs "
-                + ", ".join(repr(e) for e in _EXECUTIONS[:-1])
-                + f" and {_EXECUTIONS[-1]!r}")
         if self.execution not in _EXECUTIONS:
             raise ValueError("execution must be " + "|".join(_EXECUTIONS)
                              + f", got {self.execution!r}")
@@ -509,6 +503,10 @@ class FedavgConfig:
                     f"mesh_shape {ms[0]}x{ms[1]} must tile exactly "
                     f"num_devices={self.num_devices} chips — fix one of "
                     "the two in .resources(...)")
+        if self.execution == "dsharded" and not multi:
+            raise ValueError(
+                "execution='dsharded' width-shards the update matrix "
+                "over a mesh; set .resources(num_devices=...) > 1")
         if self.execution == "hier":
             if not multi:
                 raise ValueError(
@@ -535,6 +533,8 @@ class FedavgConfig:
             if self.execution == execution:
                 raise ValueError(f"{why} — set .resources(num_devices=None), "
                                  f"or {flip}")
+        if self.execution == "dsharded":
+            self._validate_dsharded()
         if self.forensics:
             raise ValueError(
                 "forensics × num_devices>1 is an unsupported pair: "
@@ -608,6 +608,13 @@ class FedavgConfig:
                 "chained_dispatch (the sweep's scan-window key discipline) "
                 "has no mesh formulation; run without num_devices or drop "
                 "chained_dispatch")
+        if self.autotune_mode and self.execution == "dsharded":
+            raise ValueError(
+                "autotune × execution='dsharded' is an unsupported "
+                "pair: the plan space has no d-sharded vocabulary (a "
+                "plan would silently rewrite the pin) — set "
+                ".resources(autotune='off'), or drop the explicit "
+                "execution pin")
         if self.autotune_mode:
             raise NotImplementedError(
                 "autotune × num_devices>1 is not in the port yet: timing "
@@ -619,6 +626,40 @@ class FedavgConfig:
                 "execution='gossip' × num_devices>1 is not in the port "
                 "yet: the port's gossip round keeps every node's replica "
                 "on one card; set .resources(num_devices=None)")
+
+    def _validate_dsharded(self) -> None:
+        """The reference's refusals of the width-sharded round's pairs
+        (forensics, faults, codecs, control), with its words; they come
+        before the generic ``num_devices>1`` ones there too."""
+        if self.forensics:
+            raise ValueError(
+                "forensics × execution='dsharded' is an unsupported pair: "
+                "the streamed/d-sharded paths never materialise the "
+                "per-lane decisions forensics reports — set "
+                ".resources(execution='dense') (or 'auto' within the "
+                "dense budget), or flip .observability(forensics=False)")
+        if self.fault_config:
+            self.get_fault_injector()
+            raise ValueError(
+                "fault injection (fault_config) is only formulated for "
+                "the dense round — the streamed/d-sharded paths never "
+                "materialise the participation mask the masked "
+                "aggregators consume; use execution='dense' (or 'auto' "
+                "within the dense budget) or disable faults")
+        if self.codec_config:
+            self.get_codec()
+            raise ValueError(
+                "update codecs (codec_config) are only formulated for "
+                "the dense round — the streamed/d-sharded paths never "
+                "materialise the full (n, d) matrix the encode->decode "
+                "transform consumes; use execution='dense' (or 'auto' "
+                "within the dense budget) or disable the codec")
+        if self.get_control_policy() is not None:
+            raise ValueError(
+                "control × execution='dsharded' is an unsupported pair: "
+                "the controller's sensors ride forensics/ledger row "
+                "fields those paths never produce — use "
+                "execution='dense'/'async', or drop .control()")
 
     def _validate_gossip(self) -> None:
         """The reference's checks of ``topology_config`` and

@@ -80,15 +80,23 @@ With ``num_devices > 1`` the rounds run on the ranks of a
 (:mod:`blades_tpu_torch.parallel.mesh`): each rank holds its lanes' data
 and client state on its device (``cuda:{local_rank}``, or the device the
 caller names) and runs the client-sharded dense round
-(:func:`~blades_tpu_torch.parallel.sharded.sharded_step`) or, under
-``execution="hier"``, the hierarchical round
+(:func:`~blades_tpu_torch.parallel.sharded.sharded_step`), under
+``execution="hier"`` the hierarchical round
 (:func:`~blades_tpu_torch.parallel.hier.hier_step`, whose rows carry
-``ici_bytes``, ``preagg_kept`` and ``mesh_shape``); the evaluation sums
-the ranks' test shards.  Every rank computes every row; checkpoints
-gather the client optimizer rows to rank 0, which alone writes, in the
-one-process format (a resume on any number of ranks re-shards).  Where
-the replicated ``(n, d)`` matrix would exceed the dense budget,
-``execution="auto"`` raises: the width-sharded round is not ported.
+``ici_bytes``, ``preagg_kept`` and ``mesh_shape``), or under
+``execution="dsharded"`` -- and under ``"auto"`` where the replicated
+``(n, d)`` f32 matrix would exceed the dense budget -- the width-sharded
+round (:func:`~blades_tpu_torch.parallel.dsharded.dsharded_step`, one
+call per round of a dispatch as on the other paths).  Under an
+update forge the width-sharded round elides the malicious lanes'
+training: the clients are first permuted into the strided layout of
+:func:`~blades_tpu_torch.parallel.dsharded.elision_client_order` (data,
+test shards and mask together), and the rows carry ``elided_lanes``.  The
+evaluation sums the ranks' test shards.  Every rank computes every row;
+checkpoints gather the client optimizer rows to rank 0, which alone
+writes, in the one-process format with the layout's ``client_order`` (a
+resume on any number of ranks, or on another layout, re-shards and
+realigns each client's rows).
 
 Checkpoints carry the residual and the stale ring in the ``RoundState``
 (under gossip the per-node stacks, which ``torch.load`` puts back on the
@@ -190,6 +198,22 @@ def eval_arrays(cfg, dataset, device, host: bool = False):
             torch.from_numpy(np.asarray(tln)).long().to(device))
 
 
+def dsharded_elision_prefix(cfg, adversary) -> Optional[int]:
+    """The malicious prefix the width-sharded round elides: the malicious
+    count ``f`` where every malicious row is replaced by an update forge
+    (a training attack's lanes train for real) and the strided layout is
+    uniform over the ``k`` ranks of the ``clients`` axis (``n % k == 0``,
+    at least one lane a rank, ``f < n``); None otherwise."""
+    f = int(cfg.num_malicious_clients or 0)
+    if not f or not forges(adversary):
+        return None
+    k = (int(cfg.mesh_shape[0]) if cfg.mesh_shape
+         else int(cfg.num_devices or 1))
+    if cfg.num_clients % k or f < k or f >= cfg.num_clients:
+        return None
+    return f
+
+
 class Fedavg:
     """FedAvg with Byzantine clients and a robust server."""
 
@@ -254,16 +278,7 @@ class Fedavg:
         self._chunk = max(1, int(cfg.rounds_per_dispatch))
         self._prefetcher = None
         self._mesh = self._hier_recorder = None
-        if (self._multi and cfg.execution == "auto"
-                and cfg.num_clients * self._num_params * 4
-                > self.dense_matrix_limit(dev)):
-            raise NotImplementedError(
-                f"execution='auto' on num_devices={cfg.num_devices} resolves "
-                "to the width-sharded round here (the replicated (n, d) "
-                f"f32 matrix of {cfg.num_clients} x {self._num_params} "
-                "exceeds the dense budget), which is not in the port yet "
-                "(ROADMAP Queue A 9b); shrink the federation, or set "
-                "execution='dense' or 'hier'")
+        self._client_order = None
 
         train = self.dataset.train
         self._host_train = (train.x, train.y, train.lengths)
@@ -383,8 +398,12 @@ class Fedavg:
     def _setup_mesh(self) -> None:
         """The rounds on the process group's ranks: this rank's lanes of
         the state, the training and the test stacks on its device, the
-        sharded round or the hierarchical one, and the ranks' evaluation."""
+        sharded, hierarchical or width-sharded round (the last on the
+        elision layout under an update forge), and the ranks'
+        evaluation."""
         from blades_tpu_torch.parallel import (
+            dsharded_step,
+            elision_client_order,
             hier_step,
             make_mesh,
             shard_federation,
@@ -394,7 +413,23 @@ class Fedavg:
         from blades_tpu_torch.parallel.sharded import sharded_evaluate
 
         cfg, dev, fr = self.config, self.device, self.fed_round
+        use_dsharded = cfg.execution == "dsharded" or (
+            cfg.execution == "auto" and self._dsharded_auto())
         self._mesh = make_mesh(cfg.num_devices, cfg.mesh_shape)
+        prefix = (dsharded_elision_prefix(cfg, fr.adversary) if use_dsharded
+                  else None)
+        if prefix:
+            # Elision needs every rank's lanes laid out [f / k malicious |
+            # the rest]: permute the clients before sharding (data, test
+            # shards and mask move together; the fresh optimizer state is
+            # the same for every client).
+            self._client_order = elision_client_order(
+                cfg.num_clients, prefix, self._mesh.num_clients_shards)
+            order = torch.from_numpy(self._client_order)
+            self._train = tuple(a[order] for a in self._train)
+            self._test = tuple(a[order] for a in self._test)
+            self.malicious = self.malicious[order.to(self.malicious.device)]
+            self._malicious_host = self._malicious_host[self._client_order]
         self.state, train = shard_federation(self._mesh, self.state,
                                              self._train)
         self._train = tuple(a.to(dev) for a in train)
@@ -404,6 +439,9 @@ class Fedavg:
             self._step, self._hier_recorder = hier_step(
                 fr, self._mesh, preagg=cfg.preagg,
                 bucket_size=int(cfg.bucket_size))
+        elif use_dsharded:
+            self._step = dsharded_step(fr, self._mesh,
+                                       malicious_prefix=prefix)
         else:
             self._step = sharded_step(fr, self._mesh)
         self._mesh_evaluate = sharded_evaluate(fr, self._mesh)
@@ -413,6 +451,13 @@ class Fedavg:
         """The :class:`~blades_tpu_torch.parallel.mesh.Mesh` of a
         multi-rank run, or None."""
         return self._mesh
+
+    def _dsharded_auto(self) -> bool:
+        """On a mesh, ``"auto"`` picks the width-sharded round where the
+        replicated f32 ``(n, d)`` matrix the gather rounds form on every
+        rank would exceed the dense budget."""
+        return (self.config.num_clients * self._num_params * 4
+                > self.dense_matrix_limit(self.device))
 
     def _setup_windowed_pipeline(self, template) -> None:
         """The participation window on one card: each round gathers the
@@ -1291,6 +1336,11 @@ class Fedavg:
                 "n_clients": int(self._data_store.n_clients)},
             "arrivals": (None if self._async is None
                          else self._async.host_state()),
+            # Which client each stacked row holds (the width-sharded
+            # round's elision layout permutes them), so that a resume on
+            # another layout realigns the per-client rows.
+            "client_order": (None if self._client_order is None
+                             else [int(i) for i in self._client_order]),
             # RoundState is unpacked on every path, so any pack factor
             # resumes any other; recorded for the audit.
             "pack_factor": (1 if self.fed_round.packing is None
@@ -1375,6 +1425,7 @@ class Fedavg:
                 is None and fr.codec is not None):
             state = dataclasses.replace(state, residual=fr.codec.init_residual(
                 rows, self._num_params, self.device))
+        state = self._realign_clients(state, payload.get("client_order"))
         if self._mesh is not None and state.client_opt is not None:
             # The checkpoint holds the whole federation's rows: re-shard.
             from blades_tpu_torch.parallel.mesh import local_lanes
@@ -1383,6 +1434,25 @@ class Fedavg:
                 k: local_lanes(self._mesh, v)
                 for k, v in state.client_opt.items()})
         self.state = state
+
+    def _realign_clients(self, state, saved_order):
+        """The checkpoint's client optimizer rows moved into this run's
+        client layout: saved row ``j`` holds client ``saved_order[j]``,
+        this run's row ``i`` must hold client ``client_order[i]`` (the
+        natural order where either is None).  The other per-client stacks
+        (residual, stale ring) come with codecs and faults, which the
+        width-sharded round, the one layout that permutes, refuses."""
+        n = self.config.num_clients
+        saved = list(saved_order) if saved_order else list(range(n))
+        cur = (list(range(n)) if self._client_order is None
+               else [int(i) for i in self._client_order])
+        if saved == cur or state.client_opt is None:
+            return state
+        remap = torch.from_numpy(np.argsort(np.asarray(saved))[
+            np.asarray(cur)])
+        return dataclasses.replace(state, client_opt={
+            k: v.index_select(0, remap.to(v.device))
+            for k, v in state.client_opt.items()})
 
     def _restore_observability(self, payload, ckpt_dir: Path) -> None:
         """The watchdog's windows, the controller's state (re-asserted on

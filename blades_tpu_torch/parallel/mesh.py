@@ -126,14 +126,12 @@ class Mesh:
         return int(self.shape[0] if axis == CLIENTS_AXIS else self.shape[1])
 
 
-def make_mesh(num_devices: Optional[int] = None,
-              mesh_shape: Optional[Sequence[int]] = None) -> Mesh:
-    """The mesh over the process group's ranks: 1-D ``(clients,)`` by
-    default (``mesh_shape=(k, 1)``), or ``mesh_shape=(c, dd)``.  Every
-    rank calls it, in the same order (it creates the axis subgroups).
-    ``num_devices`` must be the world size: one process per rank."""
+def mesh_grid(num_devices: Optional[int] = None,
+              mesh_shape: Optional[Sequence[int]] = None) -> tuple:
+    """``(c, dd)``, the ``(clients, d)`` grid :func:`make_mesh` lays over
+    the process group for these arguments, or its error: a check that
+    creates nothing."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    rank = dist.get_rank() if dist.is_initialized() else 0
     if mesh_shape is not None:
         c, dd = (int(mesh_shape[0]), int(mesh_shape[1]))
         if c < 1 or dd < 1:
@@ -155,6 +153,18 @@ def make_mesh(num_devices: Optional[int] = None,
         raise ValueError(
             f"num_devices={want} must equal the process group's world size "
             f"{world}: the port runs one process per rank")
+    return c, dd
+
+
+def make_mesh(num_devices: Optional[int] = None,
+              mesh_shape: Optional[Sequence[int]] = None) -> Mesh:
+    """The mesh over the process group's ranks: 1-D ``(clients,)`` by
+    default (``mesh_shape=(k, 1)``), or ``mesh_shape=(c, dd)``.  Every
+    rank calls it, in the same order (it creates the axis subgroups).
+    ``num_devices`` must be the world size: one process per rank."""
+    c, dd = mesh_grid(num_devices, mesh_shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
     ci, di = divmod(rank, dd)
     clients_group = d_group = None
     if world > 1 and dd > 1:
@@ -229,6 +239,36 @@ def all_gather_rows(mesh: Mesh, tensor: torch.Tensor, axis: str = CLIENTS_AXIS
     dist.all_gather([out[i * rows:(i + 1) * rows] for i in range(k)], src,
                     group=group)
     return out.to(tensor.device)
+
+
+def rows_to_width_shard(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
+    """The axis swap of the width-sharded round: this rank's ``(n_local,
+    d_pad)`` rows (``d_pad`` a multiple of the ``k`` ranks along the
+    ``clients`` axis)
+    become every rank's rows on this rank's ``d_pad / k`` columns, ``(k *
+    n_local, d_pad / k)``, the rows in rank order (as
+    :func:`all_gather_rows` stacks them).  ``all_to_all_single`` sends the
+    ``j``-th slab of dim 0 to rank ``j``, so the block is first laid out
+    as ``(k, n_local, width)``: one copy of it (on the host under gloo
+    for rows on the card, the staging copy itself).  One collective."""
+    k = mesh.axis_size(CLIENTS_AXIS)
+    n_local, d_pad = rows.shape
+    if d_pad % k:
+        raise ValueError(f"{d_pad} columns do not split over {k} ranks: "
+                         "zero-pad them to a multiple first")
+    if _alone(mesh, CLIENTS_AXIS):
+        return rows
+    width = d_pad // k
+    blocks = rows.view(n_local, k, width).transpose(0, 1)
+    if mesh.backend == "gloo" and rows.is_cuda:
+        src = torch.empty(blocks.shape, dtype=rows.dtype)
+        src.copy_(blocks)
+    else:
+        src = blocks.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.clients_group)
+    del src
+    return out.view(k * n_local, width).to(rows.device)
 
 
 def all_reduce_sum(mesh: Mesh, tensor: torch.Tensor,

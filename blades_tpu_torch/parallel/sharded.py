@@ -233,10 +233,15 @@ def sharded_step(fr: FedRound, mesh: Mesh) -> Callable:
 
 def sharded_multi_step(fr: FedRound, mesh: Mesh, num_rounds: int
                        ) -> Callable:
-    """``num_rounds`` sharded rounds in one dispatch: ``multi(state, x, y,
-    lengths, malicious, seeds) -> (state, [metrics per round])``, round
-    ``i`` from ``seeds[i]``."""
-    step = ShardedStep(fr, mesh)
+    """``num_rounds`` sharded rounds in one dispatch (:func:`multi_dispatch`
+    of :class:`ShardedStep`)."""
+    return multi_dispatch(ShardedStep(fr, mesh), num_rounds)
+
+
+def multi_dispatch(step: MeshRound, num_rounds: int) -> Callable:
+    """``num_rounds`` rounds of ``step`` in one dispatch: ``multi(state, x,
+    y, lengths, malicious, seeds) -> (state, [metrics per round])``, round
+    ``i`` from ``seeds[i]``; ``multi.step`` is ``step``."""
 
     def multi(state, data_x, data_y, lengths, malicious, seeds):
         if len(seeds) != num_rounds:

@@ -183,10 +183,12 @@ def main(argv=None) -> int:
                        "fallback otherwise), an int P>=2 to force, 'off' "
                        "(default; see README \"Client packing\")")
     p_run.add_argument("--execution", default=None,
-                       choices=("auto", "dense", "streamed", "async",
-                                "gossip", "hier"),
+                       choices=("auto", "dense", "streamed", "dsharded",
+                                "async", "hier", "gossip"),
                        help="execution path; 'hier' runs the hierarchical "
-                       "round on the ranks of num_devices; 'async' runs "
+                       "round on the ranks of num_devices, 'dsharded' the "
+                       "width-sharded one (one all-to-all to (n, d / k) "
+                       "shards); 'async' runs "
                        "buffered-async "
                        "cycles (a Poisson arrival process, clients training "
                        "against the version they pulled, staleness-weighted "

@@ -81,6 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from blades_tpu_torch.ops._cuda import raised_in_kernel
+from blades_tpu_torch.parallel.mesh import mesh_grid
 from blades_tpu_torch.tune import yaml_subset
 
 def _is_primary() -> bool:
@@ -689,14 +690,15 @@ def _packing_summary(row: Dict) -> Optional[Dict]:
     return packing or None
 
 
-def resolve_trial(run: str, trial_cfg: Dict) -> None:
+def resolve_trial(run: str, trial_cfg: Dict):
     """Build and validate one trial's config and its round on the meta
     device (no data, no memory, no training): a field, model, aggregator,
-    attack or callback the port lacks raises here."""
+    attack or callback the port lacks raises here.  Returns the config."""
     config = _build_config(run, trial_cfg)
     config.validate()
     with torch.device("meta"):
         config.get_fed_round()
+    return config
 
 
 def run_experiments(
@@ -824,7 +826,10 @@ def run_experiments(
     for exp_name, spec in experiments.items():
         trials = expand_grid(spec.get("config", {}))
         for trial_cfg in trials:
-            resolve_trial(spec["run"], trial_cfg)
+            config = resolve_trial(spec["run"], trial_cfg)
+            if (getattr(config, "num_devices", None) or 1) > 1:
+                # The process group must hold the trial's ranks.
+                mesh_grid(config.num_devices, config.mesh_shape)
         plans.append((exp_name, spec, trials))
 
     preempt_hook = PreemptionHook(preempt_after) if preempt_after else None

@@ -301,24 +301,45 @@ Phases, each printing its lines before the last:
    (``column_median:mesh``) and BN launch (``bn_bwd_reduce:mesh``,
    ``bn_bwd_dx:mesh``) of (a)'s first turn, and of (b) at 2 and (c), held
    against the plain versions.  A rank that fails fails the phase.
-21. ``profile`` (only when named): one more main-path round, one
+21. ``dsharded``: the width-sharded round (``execution="dsharded"``) on
+   ranks started as in ``mesh``, cuDNN deterministic: (a)
+   ``fedavg_cifar10_1000clients_mesh.yaml``'s three points (Median,
+   Multikrum, Signguard), read with the port's YAML reader, at full
+   ResNet-18 width (d = 11,173,962) cut to 64 clients (16 ALIE, 8 elided a
+   rank), client blocks of 8, the health check, one dispatch of 2 rounds
+   on 2 gloo ranks sharing ``cuda:0``, each in turns with the one-process
+   dense round on rank 0 over the elision-ordered federation: Median bit
+   for bit or within ``RTOL`` / ``ATOL`` (the phase prints which),
+   Multikrum the same selected clients, Signguard the same mask, each
+   round-1 aggregate within ``RTOL`` / ``ATOL``; the all-to-all's bytes
+   and ms a rank (timed in the rounds), peak memory a rank, rounds/s of
+   both; (b) a group of one NCCL rank, the script's own process, through
+   ``dsharded_step`` at 256 clients (64 elided) under Median, the dense
+   round bit for bit, peak memory.  Every
+   select (``column_median:dsharded``, ``column_median:dsharded-nccl``)
+   and BN launch (``bn_bwd_reduce:dsharded``, ``bn_bwd_dx:dsharded``, and
+   ``...:dsharded-nccl``) of (a)'s Median turn and of (b) held against
+   the plain versions; the launches per rank and round derived from the
+   model (its BN layers x trained client blocks, one select a Median
+   round), a missing or extra one failing the run.
+22. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
    ``chiprun_out/profile_main.txt``, ``profile_rowgeom.txt`` and
    ``profile_geomed.txt``.
-22. ``bnstages`` (only when named): the BN kernels alone at the four stage
+23. ``bnstages`` (only when named): the BN kernels alone at the four stage
    shapes, device-only, beside the profiler's kernel durations and the
    host us per call.  With ``--port DIR`` every phase drives the package
    in DIR (another tree's), so one call can time two versions.
-23. ``ringsweep`` (only when named): the row-statistics ring across
+24. ``ringsweep`` (only when named): the row-statistics ring across
    geometries (slab bytes, group rows, groups in flight) for the four
    bundles the planner issues on the row-geometry round's buffer; the
    table goes to
    ``chiprun_out/ringsweep.txt``.
 
-Launch counts are set to 0 just before each of phases 4-20 (and before
+Launch counts are set to 0 just before each of phases 4-21 (and before
 each round of phase 7, each trial of phases 8 to 17 and each driver of
-phase 20, in every rank) and read just
+phases 20 and 21, in every rank) and read just
 after; each path's count goes to its own record (``column_median:local20``,
 ``column_median:cct``,
 ``row_stats_bundle:wsum:resnet34``, ``bn_bwd_reduce:resnet50``,
@@ -339,6 +360,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import importlib
 import json
 import math
@@ -351,7 +373,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "small", "kernels", "main", "wide", "full", "aggregators",
           "rowgeom", "fedavg", "chunked", "sweep", "resnet34", "cct",
           "wire", "async", "window", "obs", "gossip", "lanes", "autotune",
-          "mesh")
+          "mesh", "dsharded")
 EXTRA_PHASES = ("profile", "bnstages", "ringsweep")  # run only when named
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the f32
@@ -5125,21 +5147,28 @@ ASYNC_TRIAL = {
 # BN-backward launches of each kernel a cycle: K events in blocks of 25,
 # 12 BN layers, one local step (every event trains).
 ASYNC_BN_CYCLE = ASYNC_K // 25 * 12
+SHARED_DATASETS = 4  # datasets the whole script keeps built (main())
 
 
 @contextlib.contextmanager
-def _shared_datasets():
-    """The phase's drivers share one build of each dataset (a 1000-client
-    CIFAR-10 partition takes seconds on the host; its arrays are never
-    written, so the drivers' rounds are unchanged)."""
+def _shared_datasets(keep=None):
+    """The drivers share one build of each dataset (a 1000-client CIFAR-10
+    partition takes ~7-10 s on the host; its arrays are never written, so
+    the drivers' rounds are unchanged); with ``keep``, only the ``keep``
+    datasets asked for last stay (the whole script's cache: each 1000-client
+    partition holds ~2.2 GB of host memory)."""
     from blades_tpu_torch.data.datasets import DatasetCatalog
 
-    orig, cache = DatasetCatalog.__dict__["get_dataset"], {}
+    orig, cache = (DatasetCatalog.__dict__["get_dataset"],
+                   collections.OrderedDict())
 
     def get_dataset(spec, **overrides):
         key = json.dumps([spec, overrides], sort_keys=True, default=str)
         if key not in cache:
             cache[key] = orig.__func__(spec, **overrides)
+            while keep is not None and len(cache) > keep:
+                cache.popitem(last=False)
+        cache.move_to_end(key)
         return cache[key]
 
     DatasetCatalog.get_dataset = staticmethod(get_dataset)
@@ -7184,25 +7213,31 @@ def _mesh_run(cfg, turn_audit=None):
         algo.stop()
 
 
-def _mesh_gather_ms(mesh, d):
-    """The sharded round's gather alone: each rank's (30, d) f32 rows into
-    the (60, d) matrix on every rank, over the round's group; the median
-    of 3 after a warm-up, every rank starting together."""
+def _collective_ms(fn):
+    """A collective ``fn()`` alone: every rank starting together, the ms
+    of one run after a warm-up (a run moves gigabytes through the host
+    and takes seconds)."""
     import torch
     import torch.distributed as dist
+
+    for _ in range(2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_gather_ms(mesh, d):
+    """The sharded round's gather alone: each rank's (30, d) f32 rows into
+    the (60, d) matrix on every rank, over the round's group."""
+    import torch
 
     from blades_tpu_torch.parallel.mesh import all_gather_rows
 
     x = torch.randn((30, d), device=MESH_DEVICE)
-    times = []
-    for _ in range(4):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        all_gather_rows(mesh, x)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return sorted(times[1:])[1]
+    return _collective_ms(lambda: all_gather_rows(mesh, x))
 
 
 def _mesh_sharded(rank, world):
@@ -7367,8 +7402,325 @@ def _mesh_nccl(rank, world):
         algo.stop()
 
 
+# The dsharded phase: the width-sharded round of
+# fedavg_cifar10_1000clients_mesh.yaml at full ResNet-18 width (d =
+# 11,173,962), cut to 64 clients (16 ALIE, 8 elided a rank) on 2 gloo ranks
+# sharing cuda:0, client blocks of 8, 2 rounds in one dispatch; then a
+# group of one NCCL rank, this process, at 256 clients (64 elided).
+DSHARDED_YAML = os.path.join(HERE, "blades_tpu", "tuned_examples",
+                             "fedavg_cifar10_1000clients_mesh.yaml")
+DSHARDED_CUT = {"num_clients": 64, "num_malicious_clients": 16,
+                "num_devices": 2, "rounds_per_dispatch": 2,
+                "client_block": 8}
+DSHARDED_NCCL_CUT = {"num_clients": 256, "num_malicious_clients": 64,
+                     "num_devices": None, "rounds_per_dispatch": 1,
+                     "client_block": 8}
+DSHARDED_ROUNDS = 2  # (a)'s rounds, one dispatch
+DSHARDED_AGGS = ("Median", "Multikrum", "Signguard")  # the example's grid
+
+
+def _dsharded_trials(cut):
+    """The mesh example's three points (Median, Multikrum, Signguard) read
+    with the port's YAML reader, cut to ``cut``."""
+    from blades_tpu_torch.tune import expand_grid, load_experiments_from_file
+
+    (spec,) = load_experiments_from_file(DSHARDED_YAML).values()
+    out = {}
+    for trial in expand_grid(spec["config"]):
+        cfg = copy.deepcopy(trial)
+        cfg["dataset_config"]["num_clients"] = cut["num_clients"]
+        for k in ("num_malicious_clients", "num_devices",
+                  "rounds_per_dispatch", "client_block"):
+            cfg[k] = cut[k]
+        if cut["num_devices"] is None:
+            cfg["execution"] = "dense"
+        out[cfg["server_config"]["aggregator"]["type"]] = cfg
+    return out
+
+
+def _bn_layers(params):
+    """The BatchNorm layers of a model, from its parameter names."""
+    return sum(1 for k in params
+               if "BatchStatsNorm" in k and k.endswith(".weight"))
+
+
+class _MaskSpy:
+    """Records the row mask of every ``masked.masked_mean`` call (the
+    Multikrum selection, Signguard's survivors)."""
+
+    def __enter__(self):
+        from blades_tpu_torch.ops import masked
+
+        self._mod, self._orig, self.masks = masked, masked.masked_mean, []
+
+        def spy(x, mask):
+            self.masks.append([bool(v) for v in mask.detach().cpu()])
+            return self._orig(x, mask)
+
+        masked.masked_mean = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.masked_mean = self._orig
+
+
+class _AggSpy:
+    """Records, on the host, the ``(d,)`` aggregate of every
+    ``Server.apply_aggregate`` call (one a round, on either path); the
+    copies' seconds go to ``AUDIT["s"]``."""
+
+    def __enter__(self):
+        from blades_tpu_torch.core.server import Server
+
+        self._cls, self._orig, self.aggs = Server, Server.apply_aggregate, []
+
+        def spy(server, state, agg, agg_state=None):
+            t0 = time.perf_counter()
+            self.aggs.append(agg.detach().float().cpu())
+            AUDIT["s"] += time.perf_counter() - t0
+            return self._orig(server, state, agg, agg_state)
+
+        Server.apply_aggregate = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.apply_aggregate = self._orig
+
+
+def _aggs_diff(mine, dense):
+    """Round by round: (max abs err, within ``RTOL`` / ``ATOL``, bit for
+    bit) of the width-sharded aggregates against the dense round's."""
+    return [_params_diff({"agg": a}, {"agg": b}, RTOL, ATOL)
+            for a, b in zip(mine, dense)]
+
+
+def _dsharded_dense(cfg, order):
+    """The one-process dense round of ``cfg`` on the elision-ordered
+    federation (``order``), ``DSHARDED_ROUNDS`` rounds from the driver's
+    round seeds: parameters, launches, seconds, peak memory, masks and
+    each round's aggregate."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    algo = FedavgConfig().update_from_dict(
+        {**cfg, "num_devices": None, "execution": "dense"}).build(
+        device=MESH_DEVICE)
+    try:
+        idx = torch.as_tensor(order, device=algo.malicious.device)
+        train = tuple(a[idx.to(a.device)] for a in algo._train)
+        mal, state = algo.malicious[idx], algo.state
+        torch.cuda.synchronize()
+        _reset_peak()
+        _cuda.reset_launches()
+        AUDIT["s"] = 0.0
+        t0 = time.perf_counter()
+        with _MaskSpy() as spy, _AggSpy() as aggs:
+            for r in range(DSHARDED_ROUNDS):
+                state, m = algo.fed_round.step(state, *train, mal,
+                                               algo.round_seed(r))
+            torch.cuda.synchronize()
+        return {"params": _host_params(state.server.params),
+                "counts": dict(_cuda.LAUNCHES),
+                "s": time.perf_counter() - t0 - AUDIT["s"],
+                "peak": _peak(), "masks": spy.masks, "aggs": aggs.aggs,
+                "agg_norm": float(m["agg_norm"])}
+    finally:
+        algo.stop()
+
+
+class _SwapTimer:
+    """Times each axis swap of the width-sharded rounds, in the round: the
+    ranks line up at a barrier first, so a rank's wait for the other's
+    training is not the swap's."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        from blades_tpu_torch.parallel import dsharded
+
+        self._mod, self._orig, self.ms = (dsharded,
+                                          dsharded.rows_to_width_shard, [])
+
+        def timed(mesh, rows):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(mesh, rows)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        dsharded.rows_to_width_shard = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.rows_to_width_shard = self._orig
+
+
+def _dsharded_gloo(rank, world):
+    """(a) For each of the example's three aggregators: the one-process
+    dense round on rank 0 (the other rank waiting), then the width-sharded
+    driver on every rank, one dispatch of 2 rounds; the Median turn's
+    select and BN launches audited."""
+    import torch
+    import torch.distributed as dist
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel import elision_client_order
+    from blades_tpu_torch.ops.layout import ShardInfo
+    from blades_tpu_torch.parallel.mesh import params_digest
+
+    cut = DSHARDED_CUT
+    order = elision_client_order(cut["num_clients"],
+                                 cut["num_malicious_clients"], world)
+    out = {}
+    for agg, cfg in _dsharded_trials(cut).items():
+        res = {}
+        if rank == 0:
+            res["dense"] = _dsharded_dense(cfg, order)
+        dist.barrier()
+        algo = FedavgConfig().update_from_dict(cfg).build(device=MESH_DEVICE)
+        audits = contextlib.ExitStack()
+        sel = bn = swaps = None
+        if agg == "Median":
+            sel = audits.enter_context(_PathAudit("select",
+                                                  "column_median:dsharded"))
+            bn = audits.enter_context(_BnAudit(key="dsharded"))
+            swaps = audits.enter_context(_SwapTimer())
+        AUDIT["s"] = 0.0
+        try:
+            with audits, _MaskSpy() as spy, _AggSpy() as aggs:
+                torch.cuda.synchronize()
+                _reset_peak()
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                row = algo.train()
+                torch.cuda.synchronize()
+                res["s"] = time.perf_counter() - t0 - AUDIT["s"]
+                res["counts"] = dict(_cuda.LAUNCHES)
+                res["maps"] = {"/".join(k): v for k, v in _cuda.MAPS.items()}
+            res["peak"] = _peak()
+            res["masks"] = spy.masks
+            res["aggs"] = aggs.aggs
+            params = algo.state.server.params
+            res["params"] = _host_params(params)
+            res["digest"] = params_digest(params)
+            res["row"] = {k: v for k, v in row.items()
+                          if isinstance(v, (int, float, str))}
+            res["order_ok"] = (algo._client_order is not None
+                               and algo._client_order.tolist()
+                               == order.tolist())
+            res["bn_layers"] = _bn_layers(params)
+            res["f_local"] = algo._step.f_local
+            if sel is not None:
+                res["records"] = {**sel.records,
+                                  **bn.records(DSHARDED_ROUNDS)}
+                res["audited"] = (sel.calls, bn.calls)
+                res["bn_lines"] = _bn_layouts(bn)
+                d = sum(v.numel() for v in params.values())
+                res["d"], res["d_pad"] = d, ShardInfo.of(d, world).d_pad
+                res["swap_ms"] = swaps.ms
+        finally:
+            algo.stop()
+        if rank == 0:
+            dense = res["dense"]
+            err, close_, same_bits = _params_diff(res["params"],
+                                                  dense["params"], RTOL, ATOL)
+            res["err"], res["close"], res["same"] = err, close_, same_bits
+            res["agg_rounds"] = _aggs_diff(res["aggs"], dense["aggs"])
+            del dense["params"], dense["aggs"]
+        del res["params"], res["aggs"]
+        out[agg] = res
+        dist.barrier()
+    return out
+
+
+def _dsharded_nccl():
+    """(b) A group of one NCCL rank, this process: the one-process dense
+    Median round of the example at 256 clients, then ``dsharded_step`` with
+    64 lanes elided from the same state over the same data and round seed,
+    every select and BN launch audited."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel import (
+        dsharded_step,
+        make_mesh,
+        shard_federation,
+    )
+
+    cut = DSHARDED_NCCL_CUT
+    cfg = _dsharded_trials(cut)["Median"]
+    algo = FedavgConfig().update_from_dict(cfg).build(device=MESH_DEVICE)
+    try:
+        state0 = copy.deepcopy(algo.state)
+        torch.cuda.synchronize()
+        _reset_peak()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        state, _ = algo.fed_round.step(copy.deepcopy(state0), *algo._train,
+                                       algo.malicious, algo.round_seed(0))
+        torch.cuda.synchronize()
+        out = {"dense_s": time.perf_counter() - t0, "dense_peak": _peak(),
+               "dense_counts": dict(_cuda.LAUNCHES)}
+        dense = _host_params(state.server.params)
+        del state
+        mesh = make_mesh(1)
+        state, data = shard_federation(mesh, state0, algo._train)
+        step = dsharded_step(algo.fed_round, mesh,
+                             malicious_prefix=cut["num_malicious_clients"])
+        torch.cuda.synchronize()
+        _reset_peak()
+        _cuda.reset_launches()
+        AUDIT["s"] = 0.0
+        t0 = time.perf_counter()
+        with _PathAudit("select", "column_median:dsharded-nccl") as sel, \
+                _BnAudit(key="dsharded-nccl") as bn:
+            state, m = step(state, *data, algo.malicious, algo.round_seed(0))
+            torch.cuda.synchronize()
+        out.update(
+            s=time.perf_counter() - t0 - AUDIT["s"], peak=_peak(),
+            counts=dict(_cuda.LAUNCHES), backend=mesh.backend,
+            f_local=step.f_local, audited=(sel.calls, bn.calls),
+            records={**sel.records, **bn.records(1)},
+            elided=m.get("elided_lanes"),
+            bn_layers=_bn_layers(state.server.params))
+        err, _, same_bits = _params_diff(_host_params(state.server.params),
+                                         dense, RTOL, ATOL)
+        out["same"], out["err"] = same_bits, err
+        return out
+    finally:
+        algo.stop()
+
+
+def _dsharded_here(work):
+    """(b) in this process, warm from the phases before it: a group of one
+    NCCL rank, cuDNN deterministic as in the ranks; the group closed and
+    the flags restored after."""
+    import torch
+    import torch.distributed as dist
+
+    from blades_tpu_torch.parallel import init_distributed
+
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    init_distributed(f"file://{os.path.join(work, 'nccl-rendezvous')}", 1, 0,
+                     backend="nccl")
+    try:
+        return _dsharded_nccl()
+    finally:
+        dist.destroy_process_group()
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
 MESH_PARTS = {"sharded": _mesh_sharded, "hier": _mesh_hier,
-              "nccl": _mesh_nccl}
+              "nccl": _mesh_nccl, "dsharded": _dsharded_gloo}
 
 
 def _mesh_rank_main(args) -> int:
@@ -7526,8 +7878,9 @@ def phase_mesh(card):
         + f" (rank 1: {MESH_ROUNDS / a[1]['sharded_s'][-1]:.4f}); "
         f"the gather: {nbytes:,} bytes out on every rank ({nbytes // 2:,} "
         f"from the other rank), {r0['gather_ms']:.3f} / "
-        f"{a[1]['gather_ms']:.3f} ms (median of 3, gloo through the host, "
-        f"two ranks on one card: not an NCCL or multi-GPU number) [{card}]")
+        f"{a[1]['gather_ms']:.3f} ms (one run after a warm-up, gloo through "
+        f"the host, two ranks on one card: not an NCCL or multi-GPU number) "
+        f"[{card}]")
 
     # (b) the hierarchical round.
     h0 = b[0]
@@ -7581,6 +7934,183 @@ def phase_mesh(card):
     counts = {"column_median:mesh": r0["counts"]["column_median"],
               **{f"{k}:mesh": r0["counts"][k] for k in BN_TPU}}
     return counts, r0["records"]
+
+
+def _forged_classes(mask, malicious):
+    """A selection with the forged lanes taken as one class (they carry one
+    identical row, so which of them a tie-break picks is not a choice
+    between updates): the benign lanes picked, and how many forged."""
+    return ([i for i, (s, m) in enumerate(zip(mask, malicious))
+             if s and not m], sum(1 for s, m in zip(mask, malicious)
+                                  if s and m))
+
+
+def phase_dsharded(card):
+    """The width-sharded round through ``FedavgConfig`` -> ``Fedavg.train()``
+    (``execution="dsharded"``): (a) the mesh example's three points at full
+    ResNet-18 width, 64 clients (16 ALIE, 8 elided a rank) on 2 gloo ranks
+    sharing cuda:0, one dispatch of 2 rounds each, in turns with the
+    one-process dense round on the elision-ordered federation (Median bit
+    for bit or within ``RTOL`` / ``ATOL``, the phase says which; Multikrum
+    the same selected clients, Signguard the same survivors, the ALIE
+    lanes' identical forged rows taken as one client; every aggregator's
+    round-1 aggregate within ``RTOL`` / ``ATOL``); (b) a group of one NCCL
+    rank in this process through ``dsharded_step`` at 256 clients, 64
+    elided, under Median, the dense round bit for bit.  Every select and
+    BN launch of (a)'s Median turn and of (b) held against the plain
+    versions; the launches per rank and round derived from the model.  The ranks' results go to
+    ``chiprun_out/dsharded.json`` before they are checked."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel import elision_client_order
+
+    _cuda.build()  # the ranks load this build
+    _cuda.library()
+    work = _work_dir("dsharded")
+    t0 = time.perf_counter()
+    a = _mesh_wait(_mesh_start("dsharded", 2, "gloo", work))
+    log(f"dsharded (a): 2 gloo ranks in {time.perf_counter() - t0:.1f} s "
+        f"(a rank's start to its group {a[0]['setup_s']:.1f} s, its turns "
+        f"and audits {a[0]['part_s']:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    b = _dsharded_here(work)
+    log(f"dsharded (b): a group of one NCCL rank in this process, "
+        f"{time.perf_counter() - t0:.1f} s (the process held "
+        f"{held / 2**30:.2f} GiB before, inside its peaks)")
+    with open(os.path.join(HERE, "chiprun_out", "dsharded.json"), "w") as fh:
+        json.dump({"a": a, "b": b}, fh, default=str)
+
+    # (a) the three aggregators on 2 gloo ranks.
+    cut = DSHARDED_CUT
+    k, n, f = 2, cut["num_clients"], cut["num_malicious_clients"]
+    mal = [bool(v) for v in (np.arange(n) < f)[elision_client_order(n, f,
+                                                                     k)]]
+    check(sorted(a[0]) == sorted(DSHARDED_AGGS + ("setup_s", "part_s")),
+          f"dsharded (a): the example's points {sorted(a[0])}")
+    med = a[0]["Median"]
+    layers = med["bn_layers"]
+    blocks = -(-(n // k - f // k) // cut["client_block"])
+    dense_blocks = -(-n // cut["client_block"])
+    bn_round = layers * blocks  # one local step
+    for agg in DSHARDED_AGGS:
+        r0, dense = a[0][agg], a[0][agg]["dense"]
+        if agg == "Median":
+            ok = r0["same"] or r0["close"]
+            held = ("bit for bit" if r0["same"] else
+                    f"within rtol {RTOL} / atol {ATOL} (max abs err "
+                    f"{r0['err']:.3e}), not bit for bit")
+        else:
+            mine = [_forged_classes(m, mal) for m in r0["masks"]]
+            want = [_forged_classes(m, mal) for m in dense["masks"]]
+            # The selections of both rounds here, and round 1's aggregate
+            # below: round 2 trains from round 1's parameters in bf16,
+            # which can widen a forged row's last-ulp difference (the
+            # card's column sums are not width-invariant) past RTOL / ATOL.
+            ok = mine == want and len(mine) == DSHARDED_ROUNDS
+            picked = [[i for i, v in enumerate(m) if v] for m in r0["masks"]]
+            dense_picked = [[i for i, v in enumerate(m) if v]
+                            for m in dense["masks"]]
+            lanes = ("equal" if picked == dense_picked else
+                     f"{picked} against the dense round's {dense_picked}")
+            held = (f"{'the same' if mine == want else 'OTHER'} "
+                    f"{'selected clients' if agg == 'Multikrum' else 'mask'}"
+                    f" (benign / forged lanes kept a round "
+                    f"{[(len(b), fk) for b, fk in mine]}; the lanes "
+                    f"{lanes}); parameters "
+                    f"{'within' if r0['close'] else 'not within'} rtol "
+                    f"{RTOL} / atol {ATOL} after 2 rounds (max abs err "
+                    f"{r0['err']:.3e})")
+        rounds = "; ".join(
+            f"round {i + 1} "
+            f"{'bit for bit' if same else 'within' if near else 'NOT within'}"
+            f" (max abs err {err:.3e})"
+            for i, (err, near, same) in enumerate(r0["agg_rounds"]))
+        held += f"; the aggregate: {rounds}"
+        log(f"dsharded (a) {agg}: ResNet-18 x {n} (d = {med['d']:,}, {f} "
+            f"ALIE, {f // k} elided a rank) on 2 gloo ranks sharing cuda:0 "
+            f"against the one-process dense round on the elision-ordered "
+            f"federation: {held}; agg norm {r0['row']['agg_norm']} vs "
+            f"{dense['agg_norm']}; rounds/s dsharded "
+            f"{DSHARDED_ROUNDS / r0['s']:.4f} (rank 1 "
+            f"{DSHARDED_ROUNDS / a[1][agg]['s']:.4f}) / dense "
+            f"{DSHARDED_ROUNDS / dense['s']:.4f}; peak "
+            f"{r0['peak'] / 2**30:.2f} / {a[1][agg]['peak'] / 2**30:.2f} "
+            f"GiB a rank, dense {dense['peak'] / 2**30:.2f} GiB; launches a "
+            f"rank {r0['counts']} [{card}]")
+        check(ok and len(r0["agg_rounds"]) == DSHARDED_ROUNDS
+              and r0["agg_rounds"][0][1],
+              f"dsharded (a) {agg} differs from the dense round: {held}")
+        want_counts = {kk: DSHARDED_ROUNDS * bn_round for kk in BN_TPU}
+        dense_want = {kk: DSHARDED_ROUNDS * layers * dense_blocks
+                      for kk in BN_TPU}
+        if agg == "Median":
+            want_counts["column_median"] = DSHARDED_ROUNDS
+            dense_want["column_median"] = DSHARDED_ROUNDS
+        check(dense["counts"] == dense_want, f"dsharded (a) {agg}: dense "
+              f"launches {dense['counts']}, expected {dense_want}")
+        for r, res in enumerate(a):
+            x = res[agg]
+            check(x["counts"] == want_counts, f"dsharded (a) {agg} rank {r}: "
+                  f"launches {x['counts']}, expected {want_counts}")
+            check(x["digest"] == r0["digest"], f"dsharded (a) {agg}: rank "
+                  f"{r}'s parameters differ from rank 0's")
+            check(x["order_ok"] and x["f_local"] == f // k
+                  and x["row"].get("elided_lanes") == f
+                  and x["row"].get("round_ok") is True
+                  and x["row"].get("num_unhealthy") == 0
+                  and math.isfinite(x["row"]["train_loss"]),
+                  f"dsharded (a) {agg} rank {r}: layout / row {x['row']}")
+            if agg == "Median":
+                check(x["maps"].get("column_median/select:radix")
+                      == DSHARDED_ROUNDS, f"dsharded (a) rank {r}: select "
+                      f"routes {x['maps']}")
+                check(x["audited"] == [DSHARDED_ROUNDS,
+                                       2 * DSHARDED_ROUNDS * bn_round],
+                      f"dsharded (a) rank {r}: audited {x['audited']}")
+    rows = n // k
+    out_bytes = rows * (med["d_pad"] // k) * 4 * (k - 1)
+    swaps = [[round(ms, 3) for ms in x["Median"]["swap_ms"]] for x in a]
+    check(all(len(ms) == DSHARDED_ROUNDS for ms in swaps),
+          f"dsharded (a): swaps timed {swaps}")
+    log(f"dsharded (a): the all-to-all: a rank's ({rows}, {med['d_pad']:,}) "
+        f"f32 block -> its ({n}, {med['d_pad'] // k:,}) shard, {out_bytes:,} "
+        f"bytes out and {out_bytes:,} in a rank; the Median turn's rounds' "
+        f"swaps {swaps[0]} / {swaps[1]} ms a rank (timed in the round after "
+        f"a barrier; gloo through the host, two ranks on one card: not an "
+        f"NCCL or multi-GPU number); BN layouts {med['bn_lines']} [{card}]")
+
+    # (b) one NCCL rank.
+    nn, ff = DSHARDED_NCCL_CUT["num_clients"], DSHARDED_NCCL_CUT[
+        "num_malicious_clients"]
+    nb = b["bn_layers"] * -(-(nn - ff) // DSHARDED_NCCL_CUT["client_block"])
+    want_b = {"column_median": 1, **{kk: nb for kk in BN_TPU}}
+    log(f"dsharded (b): dsharded_step on one NCCL rank, ResNet-18 x {nn} "
+        f"({ff} elided) against the one-process dense round: "
+        f"{'bit for bit' if b['same'] else 'DIFFERS'} (max abs err "
+        f"{b['err']:.3e}); launches {b['counts']} (dense "
+        f"{b['dense_counts']}); peak {b['peak'] / 2**30:.2f} GiB (dense "
+        f"{b['dense_peak'] / 2**30:.2f} GiB); round {b['s']:.3f} s (dense "
+        f"{b['dense_s']:.3f} s) [{card}]")
+    check(b["backend"] == "nccl" and b["same"] and b["f_local"] == ff
+          and b["elided"] == ff, f"dsharded (b): backend {b['backend']}, "
+          f"f_local {b['f_local']}, the NCCL rank's dsharded_step differs "
+          f"from the dense round (max abs err {b['err']})")
+    check(b["counts"] == want_b, f"dsharded (b): launches {b['counts']}, "
+          f"expected {want_b}")
+    check(list(b["audited"]) == [1, 2 * nb], f"dsharded (b): audited "
+          f"{b['audited']}")
+    counts = {"column_median:dsharded": med["counts"]["column_median"],
+              "column_median:dsharded-nccl": b["counts"]["column_median"],
+              **{f"{kk}:dsharded": med["counts"][kk] for kk in BN_TPU},
+              **{f"{kk}:dsharded-nccl": b["counts"][kk] for kk in BN_TPU}}
+    return counts, {**med["records"], **b["records"]}
 
 
 def main(argv=None) -> int:
@@ -7641,7 +8171,10 @@ def main(argv=None) -> int:
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    # Every phase's drivers share the datasets built before them.
+    datasets = contextlib.ExitStack()
     try:
+        datasets.enter_context(_shared_datasets(keep=SHARED_DATASETS))
         if "build" in phases:
             run("build", phase_build)
         if "small" in phases:
@@ -7668,7 +8201,8 @@ def main(argv=None) -> int:
                          ("wire", phase_wire), ("async", phase_async),
                          ("window", phase_window), ("obs", phase_obs),
                          ("gossip", phase_gossip), ("lanes", phase_lanes),
-                         ("autotune", phase_autotune), ("mesh", phase_mesh)):
+                         ("autotune", phase_autotune), ("mesh", phase_mesh),
+                         ("dsharded", phase_dsharded)):
             if name in phases:
                 counts, recs = run(name, fn, card)
                 launches.update(counts)
@@ -7683,6 +8217,8 @@ def main(argv=None) -> int:
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        datasets.close()
     for name, r in records.items():
         r["launches"] = launches.get(name, 0)
     if set(PHASES) <= set(phases):

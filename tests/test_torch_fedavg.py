@@ -131,7 +131,7 @@ def test_client_momentum_runs_streamed():
     ({"bucket_size": 0}, ValueError),
     ({"num_devices": 4}, ValueError),  # a world of one process
     ({"mxu_finish": "counts"}, ValueError),
-    ({"execution": "dsharded"}, NotImplementedError),
+    ({"execution": "dsharded"}, ValueError),  # needs a mesh
     ({"mesh_shape": [4, 2]}, ValueError),
     ({"preagg": "mean"}, ValueError),
     ({"no_such_field": 1}, KeyError),

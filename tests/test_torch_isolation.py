@@ -182,8 +182,9 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_out_of_slice_configs_name_the_later_slice():
-    """The paths still out of the port (the width-sharded round, the
-    autotuner on a mesh) name the later slice; TopologyAttack resolves by both
+    """The path still out of the port (the autotuner on a mesh) names the
+    later slice, and the width-sharded round refuses one process with the
+    JAX package's words; TopologyAttack resolves by both
     of its names now; forensics
     resolves now, refusing the streamed round with the JAX package's
     error; the campaign adversaries resolve; Noise, Lazy and ghost lanes
@@ -202,11 +203,11 @@ def test_out_of_slice_configs_name_the_later_slice():
     from blades_tpu_torch.core import FedRound, Server, TaskSpec
     from blades_tpu_torch.parallel.streamed import streamed_step
 
-    for fields, match in (({"execution": "dsharded"}, "Queue A 9b"),
-                          ({"num_devices": 4, "autotune": True},
-                           "ROADMAP")):
-        with pytest.raises(NotImplementedError, match=match):
-            FedavgConfig().update_from_dict(fields).validate()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FedavgConfig().update_from_dict(
+            {"num_devices": 4, "autotune": True}).validate()
+    with pytest.raises(ValueError, match="execution='dsharded' width-shards"):
+        FedavgConfig().update_from_dict({"execution": "dsharded"}).validate()
     FedavgConfig().update_from_dict({"forensics": True}).validate()
     # Client lane-packing resolves now.
     cfg = FedavgConfig().update_from_dict(

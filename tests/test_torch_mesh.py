@@ -6,15 +6,17 @@ start on gloo ranks.
 ``make_mesh``'s errors, ``pad_to_multiple``, the lane blocks and
 ``hier_kept_counts`` equal the JAX package's; every validation message of
 JAX's ``test_pod_scale_validation_messages`` comes back from the port's
-``validate()`` (``execution="dsharded"`` and the autotuner on a mesh raise
-``NotImplementedError`` by name); ``--mesh-shape`` / ``--preagg`` /
+``validate()`` (the autotuner and gossip on a mesh raise
+``NotImplementedError`` by name; ``execution="dsharded"`` is accepted);
+``--mesh-shape`` / ``--preagg`` /
 ``--bucket-size`` and ``--coordinator`` / ``--num-processes`` /
 ``--process-id`` reach the config and the process group.
 
 Run as a script (``python tests/test_torch_mesh.py RANK WORLD URL IN
 OUT``) this file is one rank: it joins the gloo group at ``URL``, runs the
-cases of ``IN`` (a ``torch.save`` of ``{"cases": [...]}``) and writes
-``OUT<rank>.pt``.  :func:`start_ranks` starts the ranks, and waiting for them
+cases of ``IN`` (a ``torch.save`` of ``{"cases": [...]}``; a case whose
+``kind`` is ``"module:function"`` runs that function of a test module)
+and writes ``OUT<rank>.pt``.  :func:`start_ranks` starts the ranks, and waiting for them
 has a deadline, so a hung collective fails its test.
 """
 
@@ -241,9 +243,16 @@ def _rank_main(argv):
         cases = torch.load(inp, weights_only=False)["cases"]
         results = []
         for case in cases:
-            run = {"prebatched": _prebatched_case, "driver": _driver_case,
-                   "sweep": _sweep_case,
-                   "shard_map": _shard_map_case}[case["kind"]]
+            kind = case["kind"]
+            if ":" in kind:
+                import importlib
+
+                mod, fn = kind.split(":")
+                run = getattr(importlib.import_module(mod), fn)
+            else:
+                run = {"prebatched": _prebatched_case,
+                       "driver": _driver_case, "sweep": _sweep_case,
+                       "shard_map": _shard_map_case}[kind]
             results.append(run(case, rank))
         torch.save({"results": results}, f"{out}{rank}.pt")
         import torch.distributed as dist
@@ -462,8 +471,6 @@ def test_pod_scale_validation_messages(match, kw):
 
 
 @pytest.mark.parametrize("kw,named", [
-    (dict(execution="dsharded", num_devices=8), "9b"),
-    (dict(execution="dsharded", num_devices=8, autotune="on"), "9b"),
     (dict(num_devices=2, autotune="on"), "lockstep"),
     (dict(num_devices=2, execution="gossip"), "gossip"),
 ])
@@ -471,6 +478,15 @@ def test_later_mesh_paths_raise_by_name(kw, named):
     cfg = _configs(**kw)[1]
     with pytest.raises(NotImplementedError, match=named):
         cfg.validate()
+
+
+@pytest.mark.parametrize("kw", [dict(execution="dsharded", num_devices=8),
+                                dict(execution="dsharded", num_devices=2,
+                                     rounds_per_dispatch=4)])
+def test_dsharded_is_accepted_on_a_mesh(kw):
+    """Both configs accept the width-sharded round on a mesh."""
+    for cfg in _configs(**kw):
+        assert cfg.validate() is None
 
 
 def test_mesh_fields_are_accepted():
@@ -483,18 +499,24 @@ def test_mesh_fields_are_accepted():
 
 
 def test_auto_resolving_to_dsharded_raises(monkeypatch):
-    """Where the JAX driver's 'auto' would pick the width-sharded round
-    (the replicated (n, d) matrix over the dense budget), the port raises
-    before it builds a mesh."""
+    """Where the replicated (n, d) matrix exceeds the dense budget, 'auto'
+    on a mesh resolves to the width-sharded round, as the JAX driver's
+    ``_dsharded_auto`` does; in one process the mesh then raises
+    ``make_mesh``'s world-size words."""
     from blades_tpu_torch.algorithms import FedavgConfig
     from blades_tpu_torch.algorithms.fedavg import Fedavg
 
+    seen = []
+    auto = Fedavg._dsharded_auto
     monkeypatch.setattr(Fedavg, "_DENSE_MATRIX_LIMIT", 1024)
+    monkeypatch.setattr(Fedavg, "_dsharded_auto",
+                        lambda self: seen.append(auto(self)) or seen[-1])
     cfg = FedavgConfig().update_from_dict({
         "dataset_config": {"type": "mnist", "num_clients": 4},
         "global_model": "mlp", "num_devices": 2})
-    with pytest.raises(NotImplementedError, match="9b"):
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         cfg.build(device="cpu")
+    assert seen == [True]
 
 
 def test_cli_mesh_flags(monkeypatch, tmp_path):

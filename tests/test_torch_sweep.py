@@ -6,9 +6,11 @@ JAX package's.
   example and on PyYAML's YAML 1.1 resolver edge cases, and refuses what
   it does not take by name.
 - Each tuned example expands to JAX's trials, in JAX's order; every grid
-  point of the twelve runnable ones (CCT's among them) resolves through
-  the port's config and round (on the meta device), and the 8-device
-  mesh raises.
+  point of all thirteen (CCT's and the 8-device mesh example's among them)
+  resolves through the port's config and round (on the meta device); the
+  mesh example resolves to three width-sharded trials with JAX's elision
+  layout, and one process refuses it by ``make_mesh``'s world-size words
+  before any trial writes a file.
 - A two-point MLP grid through ``train.main(["file", ...])`` on the CPU
   writes the JAX command's layout and trial names, rows whose keys are
   JAX's, and reaches test accuracy > 0.9 on both sides.
@@ -24,6 +26,7 @@ import ast
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 import yaml
@@ -47,8 +50,8 @@ from blades_tpu_torch.tune.sweep import (
 
 REPO = Path(__file__).resolve().parents[1]
 TUNED = sorted((REPO / "blades_tpu" / "tuned_examples").glob("*.yaml"))
-NOT_RUNNABLE = {"fedavg_cifar10_1000clients_mesh": "dsharded"}
-RUNNABLE = [p for p in TUNED if p.stem not in NOT_RUNNABLE]
+MESH_EXAMPLE = REPO / "blades_tpu" / "tuned_examples" / (
+    "fedavg_cifar10_1000clients_mesh.yaml")
 
 EDGE_CASES = """\
 # PyYAML's YAML 1.1 resolver on plain scalars
@@ -134,7 +137,7 @@ def test_grids_expand_to_the_jax_trials(path):
         assert len(trials) >= 1
 
 
-@pytest.mark.parametrize("path", RUNNABLE, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", TUNED, ids=lambda p: p.stem)
 def test_every_grid_point_resolves_in_the_port(path):
     """Config and round on the meta device for each point: no dataset, no
     training (fedavg_cifar10_resnet_noniid has 1,260 points)."""
@@ -143,13 +146,39 @@ def test_every_grid_point_resolves_in_the_port(path):
             resolve_trial(spec["run"], trial)
 
 
-@pytest.mark.parametrize("stem", sorted(NOT_RUNNABLE))
-def test_cct_and_the_mesh_example_raise_by_name(stem, tmp_path):
-    path = REPO / "blades_tpu" / "tuned_examples" / f"{stem}.yaml"
-    exps = load_experiments_from_file(path)
-    with pytest.raises(NotImplementedError, match=NOT_RUNNABLE[stem]):
+def test_mesh_example_resolves_to_three_dsharded_trials():
+    """Median, Multikrum and Signguard on the width-sharded round of 8
+    ranks, 4 rounds a dispatch, the 250 ALIE lanes elided on JAX's strided
+    layout."""
+    from blades_tpu.parallel.dsharded import (
+        elision_client_order as jax_order,
+    )
+    from blades_tpu_torch.algorithms.fedavg import dsharded_elision_prefix
+    from blades_tpu_torch.parallel import elision_client_order
+
+    (spec,) = load_experiments_from_file(MESH_EXAMPLE).values()
+    trials = expand_grid(spec["config"])
+    aggs = []
+    for trial in trials:
+        cfg = resolve_trial(spec["run"], trial)
+        assert (cfg.execution, cfg.num_devices, cfg.rounds_per_dispatch) == (
+            "dsharded", 8, 4)
+        assert dsharded_elision_prefix(cfg, cfg.get_adversary()) == 250
+        aggs.append(trial["server_config"]["aggregator"]["type"])
+    assert aggs == ["Median", "Multikrum", "Signguard"]
+    order = elision_client_order(1000, 250, 8)
+    assert order.tolist() == jax_order(1000, 250, 8).tolist()
+    lanes = (np.arange(1000) < 250)[order].reshape(8, 125)
+    assert lanes[:, :31].all() and lanes[:, 31:].sum() == 2
+
+
+def test_mesh_example_is_refused_in_one_process(tmp_path):
+    """One process is a world of one: the 8-rank trials are refused by
+    ``make_mesh``'s words before any trial writes a file."""
+    exps = load_experiments_from_file(MESH_EXAMPLE)
+    with pytest.raises(ValueError, match="requested 8 devices, have 1"):
         run_experiments(exps, storage_path=str(tmp_path), device="cpu")
-    assert not any(tmp_path.iterdir())  # refused before any trial ran
+    assert not any(tmp_path.iterdir())
 
 
 MLP_GRID = {

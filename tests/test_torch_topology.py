@@ -317,28 +317,23 @@ def test_gossip_validation_messages_are_the_jax_messages(case, match):
 
 @pytest.mark.parametrize("execution", ["dsharded", "hier", "nope"])
 def test_execution_messages_name_every_path_the_port_runs(execution):
-    """The stale-message repair: the refusal of a later execution and of
-    an unknown one name auto, dense, streamed, async, gossip and hier;
-    hier on one process is refused with the JAX package's words."""
-    cfg = FedavgConfig()
-    cfg.execution = execution
-    if execution == "hier":
-        with pytest.raises(ValueError, match="pre-aggregates per chip"):
+    """The refusal of an unknown execution names every path the port runs
+    (all of the JAX package's), in the JAX package's words; dsharded and
+    hier on one process are refused with the JAX package's words too."""
+    msgs = []
+    for cls in (JaxFedavgConfig, FedavgConfig):
+        cfg = cls()
+        cfg.execution = execution
+        with pytest.raises(ValueError) as info:
             cfg.validate()
-        return
-    err = NotImplementedError if execution != "nope" else ValueError
-    with pytest.raises(err) as info:
-        cfg.validate()
-    msg = str(info.value)
-    assert _EXECUTIONS == ("auto", "dense", "streamed", "async", "gossip",
-                           "hier")
-    for name in _EXECUTIONS:
-        assert (f"'{name}'" if err is NotImplementedError else name) in msg
-    if err is ValueError:
-        assert "auto|dense|streamed|async|gossip|hier" in msg
+        msgs.append(str(info.value))
+    assert msgs[0] == msgs[1]
+    assert _EXECUTIONS == ("auto", "dense", "streamed", "dsharded", "async",
+                           "hier", "gossip")
+    if execution == "nope":
+        assert "auto|dense|streamed|dsharded|async|hier|gossip" in msgs[1]
     else:
-        assert ("'auto', 'dense', 'streamed', 'async', 'gossip' and "
-                "'hier'") in msg
+        assert "over a mesh" in msgs[1]
 
 
 def test_topology_builder_merges_and_resolves():
