@@ -284,13 +284,14 @@ class MinMaxAdversary(Adversary):
             dev = _negate_first_half(dev, ws)
         benign = ~malicious
         w = benign.to(updates.dtype)
-        d2 = pairwise_sq_dists(updates, ws)
+        d2 = pairwise_sq_dists(updates, ws, "minmax_pairwise")
         threshold = ((d2 * (w[:, None] * w[None, :])).max()
                      .clamp(min=0.0).sqrt())
         neg_inf = torch.tensor(-math.inf, device=updates.device)
 
         def farthest(g):
-            dist = row_norms(updates - (mean - g * dev)[None, :], ws)
+            dist = row_norms(updates - (mean - g * dev)[None, :], ws,
+                             "minmax_bisection_norms")
             return torch.where(benign, dist, neg_inf).max()
 
         gamma = self.gamma(farthest, threshold, updates.device)
@@ -315,8 +316,8 @@ class SignGuardAdversary(Adversary):
 
     @staticmethod
     def forged_row(mean, rank, u, shard=None):
-        pos = psum_if((mean > 0).sum(), shard)
-        neg = psum_if((mean < 0).sum(), shard)
+        pos = psum_if((mean > 0).sum(), shard, "signguard_census_pos")
+        neg = psum_if((mean < 0).sum(), shard, "signguard_census_neg")
         rank = rank.to(mean.device)
         u = u.to(device=mean.device, dtype=mean.dtype)
         return torch.where(rank < pos, u,
@@ -367,7 +368,8 @@ class AttackclippedclusteringAdversary(Adversary):
         big = torch.where(pair_ok | eye, dist, torch.full_like(dist, 2.0))
         majority = clustering.agglomerative_majority(
             big, linkage="single") & benign
-        mean_hat = mean / row_norms(mean[None], shard)[0].clamp(min=1e-12)
+        mean_hat = mean / row_norms(mean[None], shard,
+                                    "acc_mean_norm")[0].clamp(min=1e-12)
         dis2mean = torch.where(majority, 1.0 - cos2mean,
                                torch.full_like(cos2mean, -math.inf))
         idx = dis2mean.argmax()
@@ -386,9 +388,12 @@ class AttackclippedclusteringAdversary(Adversary):
         del noise, generator, aggregator
         ws = _width_shard(shard)
         mean, _ = benign_mean_std(updates, malicious)
-        normed = updates / row_norms(updates, ws).clamp(min=1e-12)[:, None]
-        mean_hat = mean / row_norms(mean[None], ws)[0].clamp(min=1e-12)
-        forged = self.forged_row(mean, gram(normed, ws),
-                                 row_dots(normed, mean_hat, ws), ~malicious,
-                                 lambda i: normed[i], ws)
+        normed = updates / row_norms(updates, ws, "acc_row_norms").clamp(
+            min=1e-12)[:, None]
+        mean_hat = mean / row_norms(mean[None], ws,
+                                    "acc_mean_norm")[0].clamp(min=1e-12)
+        forged = self.forged_row(mean, gram(normed, ws, "acc_gram"),
+                                 row_dots(normed, mean_hat, ws,
+                                          "acc_mean_dots"),
+                                 ~malicious, lambda i: normed[i], ws)
         return self.scatter_forged(updates, forged, malicious)

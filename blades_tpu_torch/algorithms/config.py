@@ -439,8 +439,8 @@ class FedavgConfig:
                              f"{self.evaluation_num_samples}")
         adv = self.get_adversary()  # an attack the port lacks fails here
         self.get_client_callbacks()  # so does an unknown callback
-        self._validate_mesh()
         self._validate_gossip()
+        self._validate_mesh()
         self._validate_comm_and_faults()
         self._validate_async()
         self._validate_window()
@@ -467,7 +467,7 @@ class FedavgConfig:
         """The reference's checks of ``num_devices``, ``mesh_shape``,
         ``preagg``, ``bucket_size`` and ``execution='hier'`` and of every
         pair it refuses on a mesh, with its words; then the port's own
-        refusals on a mesh (the autotuner, the gossip round), by name."""
+        refusal on a mesh (the autotuner), by name."""
         from blades_tpu_torch.ops.preagg import PREAGG_FLAVORS
 
         multi = bool(self.num_devices and self.num_devices > 1)
@@ -621,11 +621,6 @@ class FedavgConfig:
                 "candidates in lockstep across ranks is still to be "
                 "ported (ROADMAP); set .resources(autotune='off') or pin "
                 "the plan via tuned_plan")
-        if self.execution == "gossip":
-            raise NotImplementedError(
-                "execution='gossip' × num_devices>1 is not in the port "
-                "yet: the port's gossip round keeps every node's replica "
-                "on one card; set .resources(num_devices=None)")
 
     def _validate_dsharded(self) -> None:
         """The reference's refusals of the width-sharded round's pairs

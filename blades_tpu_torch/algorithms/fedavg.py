@@ -33,7 +33,12 @@ the round is the decentralized gossip round
 replica per node (leaves ``(n, *shape)``), evaluation scores node 0's
 replica, and the rows carry ``gossip_ici_bytes``,
 ``num_partitioned_nodes``, ``consensus_dist`` and the graph's
-provenance (``topology``, ``graph_seed``, ``spectral_gap``).
+provenance (``topology``, ``graph_seed``, ``spectral_gap``).  With
+``num_devices > 1`` each rank holds its block of the node replicas
+(:func:`~blades_tpu_torch.parallel.mesh.shard_gossip_state`), every rank
+writes the one-process run's rows (with the mesh's ``gossip_ici_bytes``)
+and scores node 0's replica, broadcast from rank 0, on the whole test
+set; checkpoints hold every node's stacks, gathered.
 
 Under client lane-packing (``client_packing``) the rows carry
 ``pack_factor`` and ``packed_lanes`` and :attr:`Fedavg.packing_summary`
@@ -336,9 +341,12 @@ class Fedavg:
             # training -> neighborhood exchange -> per-node robust
             # aggregation -> mixing.  Evaluation reads node 0's replica.
             self._topology = cfg.get_topology()
-            self.state = gossip_federation(self.state, cfg.num_clients)
+            if self._multi:
+                self._setup_gossip_mesh()
+            else:
+                self.state = gossip_federation(self.state, cfg.num_clients)
             self._step, self._gossip_recorder = gossip_step(
-                self.fed_round, self._topology)
+                self.fed_round, self._topology, mesh=self._mesh)
         elif self._multi:
             self._setup_mesh()
         elif self._streamed:
@@ -445,6 +453,27 @@ class Fedavg:
         else:
             self._step = sharded_step(fr, self._mesh)
         self._mesh_evaluate = sharded_evaluate(fr, self._mesh)
+
+    def _setup_gossip_mesh(self) -> None:
+        """The gossip round on the process group's ranks: the initial
+        state (checked replicated) stacked to one replica per node, then
+        this rank's block of the stacks and of the training shards on its
+        device; the test stacks stay whole (every rank scores node 0's
+        replica on all of them)."""
+        from blades_tpu_torch.parallel import make_mesh
+        from blades_tpu_torch.parallel.mesh import (
+            check_replicated,
+            shard_gossip_state,
+        )
+
+        cfg, dev = self.config, self.device
+        self._mesh = make_mesh(cfg.num_devices, cfg.mesh_shape)
+        check_replicated(self._mesh, self.state.server.params)
+        self.state, train = shard_gossip_state(
+            self._mesh, gossip_federation(self.state, cfg.num_clients),
+            self._train, cfg.num_clients)
+        self._train = tuple(a.to(dev) for a in train)
+        self._test = tuple(a.to(dev) for a in self._test)
 
     @property
     def mesh(self):
@@ -1360,15 +1389,21 @@ class Fedavg:
         return str(file)
 
     def _gathered_state(self):
-        """The state with every rank's client optimizer rows gathered
-        into the whole federation's stacks (ghost lanes dropped): the
-        one-process layout."""
-        from blades_tpu_torch.parallel.mesh import all_gather_rows
+        """The state with every rank's client optimizer rows (under
+        gossip, every per-node stack) gathered into the whole
+        federation's stacks (ghost lanes dropped): the one-process
+        layout."""
+        from blades_tpu_torch.parallel.mesh import (
+            all_gather_rows,
+            gather_gossip_state,
+        )
 
+        n = self.config.num_clients
+        if self._topology is not None:
+            return gather_gossip_state(self._mesh, self.state, n)
         opt = self.state.client_opt
         if opt is None:
             return self.state
-        n = self.config.num_clients
         return dataclasses.replace(self.state, client_opt={
             k: all_gather_rows(self._mesh, v)[:n] for k, v in opt.items()})
 
@@ -1426,7 +1461,13 @@ class Fedavg:
             state = dataclasses.replace(state, residual=fr.codec.init_residual(
                 rows, self._num_params, self.device))
         state = self._realign_clients(state, payload.get("client_order"))
-        if self._mesh is not None and state.client_opt is not None:
+        if self._mesh is not None and self._topology is not None:
+            # The checkpoint holds every node's stacks: take this rank's.
+            from blades_tpu_torch.parallel.mesh import shard_gossip_state
+
+            state, _ = shard_gossip_state(self._mesh, state, (),
+                                          self.config.num_clients)
+        elif self._mesh is not None and state.client_opt is not None:
             # The checkpoint holds the whole federation's rows: re-shard.
             from blades_tpu_torch.parallel.mesh import local_lanes
 
@@ -1542,12 +1583,13 @@ class Fedavg:
                     make_chunk_evaluator(self.fed_round.task),
                     self.state.server.params, self._test,
                     self.config.eval_chunk_clients, device=self.device)
+            elif self._topology is not None:
+                ev = self.fed_round.evaluate(node_head(self.state, self._mesh),
+                                             *self._test)
             elif self._mesh is not None:
                 ev = self._mesh_evaluate(self.state, *self._test)
             else:
-                state = (self.state if self._topology is None
-                         else node_head(self.state))
-                ev = self.fed_round.evaluate(state, *self._test)
+                ev = self.fed_round.evaluate(self.state, *self._test)
             self._last_eval = {k: float(ev[k]) for k in
                                ("test_loss", "test_acc", "test_acc_top3")}
             if self._streaming_eval:

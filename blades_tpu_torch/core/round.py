@@ -588,6 +588,21 @@ class FedRound:
                                           ty[idx].to(dev), generator=generator)
         return update
 
+    def skip_trusted_update(self, generator, device) -> None:
+        """Take from ``generator`` what :meth:`compute_trusted_update`
+        takes, in its order (the batch indices, then its local round's
+        dropout masks and augmentation draws), without the training: a
+        rank that aggregates a later node replays an earlier node's
+        draws."""
+        if self.trusted_data is None or not getattr(
+                self.server.aggregator, "expects_trusted_row", False):
+            return
+        shape = (1, self.num_batches_per_round, self.batch_size)
+        torch.randint(0, self.trusted_data[0].shape[0], shape[1:],
+                      generator=generator, device=generator.device)
+        self.task.draw_dropout_masks(generator, shape, device)
+        self.task.draw_augment(generator, shape, device)
+
     @torch.no_grad()
     def evaluate(self, state: RoundState, test_x, test_y, lengths,
                  eval_rows: int = 2048) -> dict:

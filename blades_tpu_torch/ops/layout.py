@@ -43,7 +43,10 @@ class ShardInfo:
     ones (``width``, or fewer on the last shard: the padding is never
     computed on).  :meth:`psum` all-reduces over ``mesh``'s ``clients``
     axis (the identity without a mesh), or calls ``reduce`` where one is
-    given."""
+    given.  On a mesh, :meth:`psum` and :meth:`gather` count their
+    collectives on ``recorder`` (a
+    :class:`~blades_tpu_torch.parallel.streamed_geometry.PassRecorder`)
+    where one is given."""
 
     num_shards: int
     global_d: int
@@ -51,6 +54,7 @@ class ShardInfo:
     index: int = 0
     mesh: Any = None
     reduce: Optional[Callable] = None
+    recorder: Any = None
 
     @classmethod
     def of(cls, d: int, num_shards: int, index: int = 0, **kw
@@ -84,20 +88,23 @@ class ShardInfo:
         return (self.offset() + torch.arange(self.width, device=device)
                 < self.global_d)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the shards."""
+    def psum(self, x: torch.Tensor, label: Optional[str] = None
+             ) -> torch.Tensor:
+        """The sum of ``x`` over the shards (counted under ``label``)."""
         if self.reduce is not None:
             return self.reduce(x)
         if self.mesh is None:
             return x
         from blades_tpu_torch.parallel.mesh import all_reduce_sum
 
-        return all_reduce_sum(self.mesh, x)
+        return all_reduce_sum(self.mesh, x, recorder=self.recorder,
+                              label=label)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, label: Optional[str] = None
+               ) -> torch.Tensor:
         """The shards' ``(columns, ...)`` pieces in shard order, each
         zero-padded to ``width``: ``(d_pad, ...)`` (``x`` itself without a
-        mesh)."""
+        mesh; counted under ``label``)."""
         if self.mesh is None:
             return x
         from blades_tpu_torch.parallel.mesh import all_gather_rows
@@ -105,7 +112,8 @@ class ShardInfo:
         if x.shape[0] < self.width:
             x = torch.cat([x, x.new_zeros((self.width - x.shape[0],)
                                           + tuple(x.shape[1:]))])
-        return all_gather_rows(self.mesh, x)
+        return all_gather_rows(self.mesh, x, recorder=self.recorder,
+                               label=label)
 
     def fold(self, generator: torch.Generator) -> torch.Generator:
         """A generator seeded from ``(seed, shard index)``, the counterpart
@@ -135,53 +143,58 @@ class ChunkInfo:
         return self.start + torch.arange(self.width, device=device)
 
 
-def psum_if(x: torch.Tensor, shard: Optional[ShardInfo]) -> torch.Tensor:
-    """``shard.psum(x)``, or ``x`` on the dense layout."""
-    return x if shard is None else shard.psum(x)
+def psum_if(x: torch.Tensor, shard: Optional[ShardInfo],
+            label: Optional[str] = None) -> torch.Tensor:
+    """``shard.psum(x, label)``, or ``x`` on the dense layout.  Each helper
+    below takes the ``label`` its psum is counted under."""
+    return x if shard is None else shard.psum(x, label)
 
 
-def row_sq_norms(x: torch.Tensor, shard: Optional[ShardInfo] = None
-                 ) -> torch.Tensor:
+def row_sq_norms(x: torch.Tensor, shard: Optional[ShardInfo] = None,
+                 label: Optional[str] = None) -> torch.Tensor:
     """Squared L2 norm of each row ``(n,)``, global under ``shard``."""
-    return psum_if((x * x).sum(1), shard)
+    return psum_if((x * x).sum(1), shard, label)
 
 
-def row_norms(x: torch.Tensor, shard: Optional[ShardInfo] = None
-              ) -> torch.Tensor:
+def row_norms(x: torch.Tensor, shard: Optional[ShardInfo] = None,
+              label: Optional[str] = None) -> torch.Tensor:
     """L2 norm of each row, as ``sqrt(sum(x**2))``; under ``shard`` the
     square root of the summed partials (clamped at 0)."""
     if shard is None:
         return (x * x).sum(1).sqrt()
-    return row_sq_norms(x, shard).clamp(min=0.0).sqrt()
+    return row_sq_norms(x, shard, label).clamp(min=0.0).sqrt()
 
 
 def row_dots(x: torch.Tensor, v: torch.Tensor,
-             shard: Optional[ShardInfo] = None) -> torch.Tensor:
+             shard: Optional[ShardInfo] = None,
+             label: Optional[str] = None) -> torch.Tensor:
     """``x @ v`` ``(n,)``, global under ``shard``."""
-    return psum_if(x @ v, shard)
+    return psum_if(x @ v, shard, label)
 
 
-def gram(x: torch.Tensor, shard: Optional[ShardInfo] = None) -> torch.Tensor:
+def gram(x: torch.Tensor, shard: Optional[ShardInfo] = None,
+         label: Optional[str] = None) -> torch.Tensor:
     """The Gram matrix ``x @ x.T`` ``(n, n)``, global under ``shard``."""
-    return psum_if(x @ x.T, shard)
+    return psum_if(x @ x.T, shard, label)
 
 
-def pairwise_sq_dists(x: torch.Tensor, shard: Optional[ShardInfo] = None
-                      ) -> torch.Tensor:
+def pairwise_sq_dists(x: torch.Tensor, shard: Optional[ShardInfo] = None,
+                      label: Optional[str] = None) -> torch.Tensor:
     """``||x_i - x_j||**2`` ``(n, n)`` as ``sq_i + sq_j - 2 g_ij``: each
     shard's partial is linear in its own sums, so one psum of the
     assembled partial is the global matrix (up to the shards' order of
     summation)."""
     sq = (x * x).sum(1)
-    return psum_if(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T), shard)
+    return psum_if(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T), shard,
+                   label)
 
 
 def clip_rows_to_norm(x: torch.Tensor, max_norm,
-                      shard: Optional[ShardInfo] = None, eps: float = 1e-12
-                      ) -> torch.Tensor:
+                      shard: Optional[ShardInfo] = None, eps: float = 1e-12,
+                      label: Optional[str] = None) -> torch.Tensor:
     """Scale each row of ``x`` down to L2 norm ``max_norm`` if above it,
     the norms global under ``shard``."""
-    norms = row_norms(x, shard)[:, None]
+    norms = row_norms(x, shard, label)[:, None]
     return x * torch.clamp(max_norm / norms.clamp(min=eps), max=1.0)
 
 

@@ -62,6 +62,13 @@ lane.  ``num_unhealthy`` counts trained lanes only, and the metrics carry
 The round's update matrix is f32: the dense round's, whatever
 ``update_dtype`` says (as in the JAX package, whose width-sharded round
 trains without an ``out_dtype``).
+
+Accounting: every collective the round issues (the swap, the gathers,
+``ShardInfo``'s psums and gathers) is counted on the step's
+:class:`~blades_tpu_torch.parallel.streamed_geometry.PassRecorder`
+(``step.recorder.ici_events``, the last round's), and equals
+:func:`blades_tpu_torch.parallel.comm_model.dsharded_round_volumes` as a
+multiset.  No row field stamps it, as in the JAX round.
 """
 
 from __future__ import annotations
@@ -110,6 +117,7 @@ from blades_tpu_torch.parallel.sharded import (
     _params_device,
     multi_dispatch,
 )
+from blades_tpu_torch.parallel.streamed_geometry import PassRecorder
 from blades_tpu_torch.utils.tree import FlatLayout
 
 
@@ -120,8 +128,8 @@ def _sign_census_majority(clipped: torch.Tensor, shard: ShardInfo
     ``global_d`` (padding columns are zero and not counted), each divided
     by ``global_d`` as ``clustering.sign_features`` divides by ``d``."""
     d = shard.global_d
-    pos = shard.psum((clipped > 0).sum(1))
-    neg = shard.psum((clipped < 0).sum(1))
+    pos = shard.psum((clipped > 0).sum(1), "sign_census_pos")
+    neg = shard.psum((clipped < 0).sum(1), "sign_census_neg")
     zero = d - pos - neg
     feats = torch.stack([pos / d, neg / d, zero / d], 1).to(clipped.dtype)
     return clustering.kmeans_majority(feats)
@@ -140,7 +148,8 @@ def aggregate_dshard(aggregator, upd: torch.Tensor, shard: ShardInfo, *,
         return aggregator(upd, agg_state)
     if isinstance(aggregator, Multikrum):
         aggregator.check(n)
-        mask = _krum_mask(row_sq_norms(upd, shard), gram(upd, shard),
+        mask = _krum_mask(row_sq_norms(upd, shard, "row_sq_norms"),
+                          gram(upd, shard, "gram"),
                           aggregator.num_byzantine, aggregator.k)
         return masked.masked_mean(upd, mask), agg_state
     if isinstance(aggregator, GeoMed):
@@ -151,7 +160,8 @@ def aggregate_dshard(aggregator, upd: torch.Tensor, shard: ShardInfo, *,
 
         median = wavg(weights)
         for _ in range(aggregator.maxiter):
-            denom = row_norms(upd - median, shard).clamp(min=aggregator.eps)
+            denom = row_norms(upd - median, shard,
+                              "weiszfeld_row_norms").clamp(min=aggregator.eps)
             median = wavg(weights / denom)
         return median, agg_state
     if isinstance(aggregator, DnC):
@@ -163,16 +173,17 @@ def aggregate_dshard(aggregator, upd: torch.Tensor, shard: ShardInfo, *,
         owned = (local >= 0) & (local < shard.columns)
         cols = upd[:, local.clamp(0, shard.columns - 1)].permute(1, 0, 2)
         subs = shard.psum(torch.where(owned[:, None, :], cols,
-                                      torch.zeros_like(cols)))
+                                      torch.zeros_like(cols)),
+                          "sampled_columns")
         benign = aggregator.select(subs, keep)
         return masked.masked_mean(upd, benign), agg_state
     if isinstance(aggregator, FLTrust):
         if trusted_shard is None:
             raise ValueError("FLTrust requires the server's trusted root-data "
                              "update (FedRound.trusted_data)")
-        s_norm = row_norms(trusted_shard[None], shard)[0]
-        c_norm = row_norms(upd, shard).clamp(min=1e-12)
-        cos = (row_dots(upd, trusted_shard, shard)
+        s_norm = row_norms(trusted_shard[None], shard, "trust_s_norm")[0]
+        c_norm = row_norms(upd, shard, "trust_row_norms").clamp(min=1e-12)
+        cos = (row_dots(upd, trusted_shard, shard, "trust_row_dots")
                / (c_norm * s_norm.clamp(min=1e-12)))
         trust = torch.relu(cos)
         rescaled = upd * (s_norm / c_norm)[:, None]
@@ -187,12 +198,14 @@ def aggregate_dshard(aggregator, upd: torch.Tensor, shard: ShardInfo, *,
         center = slice_to_shard(momentum, shard)
         for _ in range(aggregator.n_iter):
             center = center + clip_rows_to_norm(
-                upd - center[None, :], aggregator.tau, shard).mean(0)
-        return center, shard.gather(center)[:shard.global_d]
+                upd - center[None, :], aggregator.tau, shard,
+                label="clip_row_norms").mean(0)
+        return center, shard.gather(center, "momentum_gather")[
+            :shard.global_d]
     if isinstance(aggregator, Signguard):
-        norms = row_norms(upd, shard)
+        norms = row_norms(upd, shard, "row_norms")
         M = masked.median(norms[:, None])[0]
-        clipped = clip_rows_to_norm(upd, M, shard)
+        clipped = clip_rows_to_norm(upd, M, shard, label="clip_row_norms")
         cnorms = torch.minimum(norms, M)
         mask = ((cnorms >= 0.1 * M) & (cnorms <= 3.0 * M)
                 & _sign_census_majority(clipped, shard))
@@ -200,12 +213,13 @@ def aggregate_dshard(aggregator, upd: torch.Tensor, shard: ShardInfo, *,
             return masked.masked_mean(clipped, mask), agg_state
         return masked.masked_median(clipped, mask), agg_state
     if isinstance(aggregator, Clippedclustering):
-        norms = row_norms(upd, shard)
+        norms = row_norms(upd, shard, "row_norms")
         threshold, new_state = aggregator.clip_threshold(norms, agg_state)
-        clipped = clip_rows_to_norm(upd, threshold, shard)
-        cn = row_norms(clipped, shard)
+        clipped = clip_rows_to_norm(upd, threshold, shard,
+                                    label="clip_row_norms")
+        cn = row_norms(clipped, shard, "clipped_row_norms")
         normed = clipped / cn.clamp(min=1e-12)[:, None]
-        dist = 1.0 - torch.clamp(gram(normed, shard), -1.0, 1.0)
+        dist = 1.0 - torch.clamp(gram(normed, shard, "gram"), -1.0, 1.0)
         zero = cn < 1e-12
         dist = torch.where(zero[:, None] | zero[None, :],
                            torch.full_like(dist, 2.0), dist)
@@ -265,6 +279,9 @@ class DshardedStep(MeshRound):
             # in the first ranks' tails, keeping the ranks' shapes equal.
             self.f_local = int(malicious_prefix) // self.c
         self._checked = None
+        # The last round's collectives, as dsharded_round_volumes lists
+        # them (parallel/comm_model.py).
+        self.recorder = PassRecorder()
 
     def _validate(self, malicious) -> None:
         """Once per mask object: the elided prefix of every rank's lanes
@@ -316,7 +333,11 @@ class DshardedStep(MeshRound):
         dev = _params_device(state)
         malicious = malicious.to(device=dev, dtype=torch.bool)
         d = FlatLayout(state.server.params).d
-        shard = ShardInfo.of(d, self.c, self.mesh.coords[0], mesh=mesh)
+        rec = self.recorder
+        rec.ici_events.clear()
+        rec.ici_bytes = 0
+        shard = ShardInfo.of(d, self.c, self.mesh.coords[0], mesh=mesh,
+                             recorder=rec)
         if d <= (self.c - 1) * shard.width:
             raise ValueError(f"d={d} leaves a shard of the {self.c} ranks "
                              f"without columns ({SHARD_ALIGN}-column groups)")
@@ -333,16 +354,19 @@ class DshardedStep(MeshRound):
                    else shard.fold(generator))
             rows[:, :d] = fr.apply_dp(rows[:, :d], noise, gen)
         # The round's collectives: the axis swap, then the losses.
-        upd = rows_to_width_shard(mesh, rows)[:n, :shard.columns]
+        upd = rows_to_width_shard(mesh, rows, recorder=rec,
+                                  label="update_matrix_swap")[
+            :n, :shard.columns]
         del rows
-        losses = all_gather_rows(mesh, losses)[:n]
+        losses = all_gather_rows(mesh, losses, recorder=rec,
+                                 label="losses_gather")[:n]
         healthy = None
         if fr.health_check:
             # A lane is unhealthy if any shard of its row holds a
             # non-finite value: one psum of the shards' verdicts, then the
             # row is zeroed on every shard.
             bad = (~torch.isfinite(upd).all(1)).to(torch.int32)
-            healthy = shard.psum(bad) == 0
+            healthy = shard.psum(bad, "row_health") == 0
             upd.masked_fill_(~healthy[:, None], 0.0)
         if forges(fr.adversary):
             upd = fr.adversary.on_updates_ready(
@@ -356,12 +380,13 @@ class DshardedStep(MeshRound):
                            else slice_to_shard(trusted, shard)))
         # Only the (d,) aggregate is gathered; the server step is the
         # dense round's, replicated.
-        agg = shard.gather(agg_shard)[:d]
+        agg = shard.gather(agg_shard, "aggregate_gather")[:d]
         server = fr.server.apply_aggregate(state.server, agg, agg_state)
         benign = (~malicious).float()
         metrics = {
             "train_loss": (losses * benign).sum() / benign.sum().clamp(min=1.0),
-            "update_norm_mean": row_norms(upd, shard).mean(),
+            "update_norm_mean": row_norms(upd, shard,
+                                          "metrics_row_norms").mean(),
             "agg_norm": (agg * agg).sum().sqrt(),
             "round": server.round,
         }

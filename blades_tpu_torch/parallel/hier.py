@@ -113,18 +113,18 @@ class HierStep(MeshRound):
         rec, mesh, c, m = self.recorder, self.mesh, self.c, self.m
         d, dd = reps.shape[1], mesh.dd
         if dd == 1:
-            rec.count_ici("reps_gather_clients", "all_gather",
-                          c * m * d * 4, c)
-            return all_gather_rows(mesh, reps, CLIENTS_AXIS)
+            return all_gather_rows(mesh, reps, CLIENTS_AXIS, recorder=rec,
+                                   label="reps_gather_clients")
         d_pad = -(-d // dd) * dd
         col = d_pad // dd
         di = mesh.coords[1]
         reps_p = torch.nn.functional.pad(reps, (0, d_pad - d))
         g1 = all_gather_rows(mesh, reps_p[:, di * col:(di + 1) * col]
-                             .contiguous(), CLIENTS_AXIS)
-        rec.count_ici("reps_gather_clients", "all_gather", c * m * col * 4, c)
-        g2 = all_gather_rows(mesh, g1, D_AXIS)  # (dd * c * m, col)
-        rec.count_ici("reps_gather_d", "all_gather", c * m * d_pad * 4, dd)
+                             .contiguous(), CLIENTS_AXIS, recorder=rec,
+                             label="reps_gather_clients")
+        # (dd * c * m, col)
+        g2 = all_gather_rows(mesh, g1, D_AXIS, recorder=rec,
+                             label="reps_gather_d")
         return g2.view(dd, c * m, col).transpose(0, 1).reshape(
             c * m, d_pad)[:, :d]
 
@@ -145,9 +145,8 @@ class HierStep(MeshRound):
             reps = bucket_representatives(upd, real, b)
         del upd
         updates = self._gather(reps)[:self.kept]
-        losses = all_gather_rows(self.mesh, losses_local, CLIENTS_AXIS)
-        rec.count_ici("losses_gather", "all_gather", self.n_pad * 4, c)
-        losses = losses[:n_real]
+        losses = all_gather_rows(self.mesh, losses_local, CLIENTS_AXIS,
+                                 recorder=rec, label="losses_gather")[:n_real]
         # The representatives' malicious mask: bucketing flags a
         # representative when any member is malicious (b = 1: the lanes'
         # own mask); NNM keeps the height, so each keeps its lane's flag.

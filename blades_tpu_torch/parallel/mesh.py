@@ -24,6 +24,7 @@ import hashlib
 import os
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -191,18 +192,48 @@ def pad_to_multiple(tensor: torch.Tensor, multiple: int) -> torch.Tensor:
                       tensor.new_zeros((pad,) + tuple(tensor.shape[1:]))])
 
 
-def lane_block(mesh: Mesh, n: int) -> tuple:
-    """``(start, n_local)``: this rank's lanes of an ``n``-client stack
-    padded to a multiple of the ``clients`` axis."""
-    n_local = -(-int(n) // mesh.num_clients_shards)
-    return mesh.coords[0] * n_local, n_local
+@dataclasses.dataclass(frozen=True)
+class LaneBlock:
+    """This rank's contiguous block ``[start, start + n_local)`` of an
+    ``n``-lane stack padded to ``n_pad = c * n_local`` lanes over the ``c``
+    ranks of the ``clients`` axis; without a mesh every lane (``c = 1``).
+    Lanes past ``n`` are ghosts."""
+
+    n: int
+    c: int
+    start: int
+    n_local: int
+
+    @classmethod
+    def of(cls, mesh: Optional[Mesh], n: int) -> "LaneBlock":
+        c = 1 if mesh is None else mesh.num_clients_shards
+        n_local = -(-int(n) // c)
+        coord = 0 if mesh is None else mesh.coords[0]
+        return cls(int(n), c, coord * n_local, n_local)
+
+    @property
+    def n_pad(self) -> int:
+        return self.c * self.n_local
+
+    @property
+    def real(self) -> tuple:
+        """``(lo, hi)``: the real (non-ghost) lanes of the block."""
+        return min(self.start, self.n), min(self.start + self.n_local, self.n)
+
+    def lanes(self, t):
+        """The block's lanes of a whole-stack tensor (a tuple of them, or
+        None), zero rows past its rows."""
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return tuple(self.lanes(v) for v in t)
+        return pad_to_multiple(t, self.c)[self.start:self.start
+                                          + self.n_local]
 
 
 def local_lanes(mesh: Mesh, tensor: torch.Tensor) -> torch.Tensor:
     """This rank's block of a client-stacked tensor (padded first)."""
-    start, n_local = lane_block(mesh, tensor.shape[0])
-    return pad_to_multiple(tensor, mesh.num_clients_shards)[
-        start:start + n_local]
+    return LaneBlock.of(mesh, tensor.shape[0]).lanes(tensor)
 
 
 def _stage(mesh: Mesh, tensor: torch.Tensor) -> torch.Tensor:
@@ -213,25 +244,44 @@ def _stage(mesh: Mesh, tensor: torch.Tensor) -> torch.Tensor:
     return tensor.contiguous()
 
 
-def _alone(mesh: Mesh, axis: str) -> bool:
-    """Whether a collective along ``axis`` has nothing to do: the axis has
-    one rank, and that rank is not a whole process group of one (whose
-    collective still runs, the backend's identity)."""
-    return mesh.axis_size(axis) == 1 and not (dist.is_initialized()
-                                              and mesh.world_size == 1)
+def _axis_size(mesh: Optional[Mesh], axis: str) -> int:
+    return 1 if mesh is None else mesh.axis_size(axis)
 
 
-def all_gather_rows(mesh: Mesh, tensor: torch.Tensor, axis: str = CLIENTS_AXIS
-                    ) -> torch.Tensor:
+def _alone(mesh: Optional[Mesh], axis: str) -> bool:
+    """Whether a collective along ``axis`` has nothing to do: there is no
+    mesh (one device outside any group), or the axis has one rank and
+    that rank is not a whole process group of one (whose collective still
+    runs, the backend's identity)."""
+    return mesh is None or (mesh.axis_size(axis) == 1
+                            and not (dist.is_initialized()
+                                     and mesh.world_size == 1))
+
+
+def _count(recorder, label: Optional[str], kind: str, payload_bytes: int,
+           ring: int) -> None:
+    if recorder is not None:
+        recorder.count_ici(label or kind, kind, payload_bytes, ring)
+
+
+def all_gather_rows(mesh: Optional[Mesh], tensor: torch.Tensor,
+                    axis: str = CLIENTS_AXIS, recorder=None,
+                    label: Optional[str] = None) -> torch.Tensor:
     """The ranks' ``(rows, ...)`` blocks along ``axis``, stacked in rank
     order into one contiguous ``(k * rows, ...)`` tensor on ``tensor``'s
     device.  ``dist.all_gather`` into row views of one output: one
     collective, the same call on gloo and NCCL and on every torch
     release, and no copy after it (``all_gather_into_tensor`` warns as
-    deprecated on recent releases)."""
+    deprecated on recent releases).  Without a mesh, ``tensor`` itself.
+    A ``recorder``
+    (:class:`~blades_tpu_torch.parallel.streamed_geometry.PassRecorder`)
+    counts it under ``label`` (default the kind): the gathered bytes over
+    the axis's ring."""
+    k = _axis_size(mesh, axis)
+    _count(recorder, label, "all_gather",
+           k * tensor.numel() * tensor.element_size(), k)
     if _alone(mesh, axis):
         return tensor
-    k = mesh.axis_size(axis)
     group = mesh.clients_group if axis == CLIENTS_AXIS else mesh.d_group
     src = _stage(mesh, tensor)
     out = src.new_empty((k * src.shape[0],) + tuple(src.shape[1:]))
@@ -241,7 +291,8 @@ def all_gather_rows(mesh: Mesh, tensor: torch.Tensor, axis: str = CLIENTS_AXIS
     return out.to(tensor.device)
 
 
-def rows_to_width_shard(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
+def rows_to_width_shard(mesh: Mesh, rows: torch.Tensor, recorder=None,
+                        label: Optional[str] = None) -> torch.Tensor:
     """The axis swap of the width-sharded round: this rank's ``(n_local,
     d_pad)`` rows (``d_pad`` a multiple of the ``k`` ranks along the
     ``clients`` axis)
@@ -250,12 +301,16 @@ def rows_to_width_shard(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
     :func:`all_gather_rows` stacks them).  ``all_to_all_single`` sends the
     ``j``-th slab of dim 0 to rank ``j``, so the block is first laid out
     as ``(k, n_local, width)``: one copy of it (on the host under gloo
-    for rows on the card, the staging copy itself).  One collective."""
+    for rows on the card, the staging copy itself).  One collective,
+    counted on ``recorder`` under ``label``: the block's bytes over the
+    ring."""
     k = mesh.axis_size(CLIENTS_AXIS)
     n_local, d_pad = rows.shape
     if d_pad % k:
         raise ValueError(f"{d_pad} columns do not split over {k} ranks: "
                          "zero-pad them to a multiple first")
+    _count(recorder, label, "all_to_all", rows.numel() * rows.element_size(),
+           k)
     if _alone(mesh, CLIENTS_AXIS):
         return rows
     width = d_pad // k
@@ -271,9 +326,14 @@ def rows_to_width_shard(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
     return out.view(k * n_local, width).to(rows.device)
 
 
-def all_reduce_sum(mesh: Mesh, tensor: torch.Tensor,
-                   axis: str = CLIENTS_AXIS) -> torch.Tensor:
-    """The sum of ``tensor`` over the ranks along ``axis``."""
+def all_reduce_sum(mesh: Optional[Mesh], tensor: torch.Tensor,
+                   axis: str = CLIENTS_AXIS, recorder=None,
+                   label: Optional[str] = None) -> torch.Tensor:
+    """The sum of ``tensor`` over the ranks along ``axis``; without a mesh,
+    ``tensor`` itself (counted on ``recorder`` under ``label``: its bytes
+    over the ring)."""
+    _count(recorder, label, "psum", tensor.numel() * tensor.element_size(),
+           _axis_size(mesh, axis))
     if _alone(mesh, axis):
         return tensor
     group = mesh.clients_group if axis == CLIENTS_AXIS else mesh.d_group
@@ -329,3 +389,110 @@ def shard_federation(mesh: Mesh, round_state, data_arrays: Sequence[Any]):
         opt = {k: local_lanes(mesh, v) for k, v in opt.items()}
     state = dataclasses.replace(round_state, client_opt=opt)
     return state, tuple(local_lanes(mesh, a) for a in data_arrays)
+
+
+def broadcast_from(mesh: Mesh, tensor: torch.Tensor, src: int = 0
+                   ) -> torch.Tensor:
+    """Rank ``src``'s ``tensor`` on every rank (every rank passes one of
+    the same shape and dtype), on ``tensor``'s device."""
+    if not dist.is_initialized():
+        return tensor
+    buf = _stage(mesh, tensor).clone()
+    dist.broadcast(buf, src=src)
+    return buf.to(tensor.device)
+
+
+def _block(mesh: Mesh, v, n: int):
+    """Lanes of this rank's block of a per-node stack ``v`` (a tensor, a
+    numpy vector, or a list of per-node states), padded past ``n``: zero
+    rows, zero counters, and the first node's state."""
+    block = LaneBlock.of(mesh, n)
+    if isinstance(v, torch.Tensor):
+        return block.lanes(v[:n])
+    lo, hi = block.real
+    if isinstance(v, np.ndarray):
+        out = np.zeros((block.n_local,), v.dtype)
+        out[:hi - lo] = v[lo:hi]
+        return out
+    out = list(v[lo:hi])
+    return out + [v[0]] * (block.n_local - len(out))
+
+
+def shard_gossip_state(mesh: Mesh, round_state, data_arrays: Sequence[Any],
+                       num_nodes: int):
+    """The gossip placement: this rank's block of a gossip state's
+    per-node stacks and of the client data (counterpart of JAX's
+    ``gossip_federation`` and ``reshard_gossip_state``).  ``round_state``
+    holds the whole federation's ``(n, ...)`` stacks (as
+    :func:`~blades_tpu_torch.topology.gossip.gossip_federation` makes them
+    from the replicated initial state, or as a checkpoint holds them);
+    each rank keeps the contiguous block of ``n_local = ceil(n / c)``
+    nodes its ``clients`` coordinate owns, so a stack re-lays onto any
+    rank count without a broadcast.  Ghost (padding) nodes hold zero
+    parameters and counters, train nothing and are no node's
+    neighbor."""
+    n = int(num_nodes)
+    srv = round_state.server
+    opt = {k: (_block(mesh, v, n) if not isinstance(v, dict)
+               else {kk: _block(mesh, vv, n) for kk, vv in v.items()})
+           for k, v in srv.opt_state.items()}
+    agg_state = srv.agg_state
+    if isinstance(agg_state, list):
+        agg_state = _block(mesh, agg_state, n)
+    server = dataclasses.replace(
+        srv, params={k: _block(mesh, v, n) for k, v in srv.params.items()},
+        opt_state=opt, agg_state=agg_state)
+    client_opt = round_state.client_opt
+    if client_opt is not None:
+        client_opt = {k: _block(mesh, v, n) for k, v in client_opt.items()}
+    state = dataclasses.replace(round_state, server=server,
+                                client_opt=client_opt)
+    return state, tuple(local_lanes(mesh, a) for a in data_arrays)
+
+
+def gather_gossip_state(mesh: Mesh, round_state, num_nodes: int):
+    """The whole federation's unpadded ``(n, ...)`` stacks of a placed
+    gossip state, on every rank (each rank's block gathered, ghost nodes
+    dropped): the one-process layout a checkpoint holds."""
+    n = int(num_nodes)
+    srv = round_state.server
+    dev = next(iter(srv.params.values())).device
+
+    def rows(v):
+        if isinstance(v, torch.Tensor):
+            return all_gather_rows(mesh, v)[:n]
+        if isinstance(v, np.ndarray):
+            t = all_gather_rows(mesh, torch.from_numpy(v).to(dev))
+            return t.cpu().numpy()[:n]
+        return {k: rows(vv) for k, vv in v.items()}
+
+    agg_state = srv.agg_state
+    if isinstance(agg_state, list):
+        parts = [None] * mesh.world_size
+        dist.all_gather_object(parts, [_host(s) for s in agg_state])
+        agg_state = [_to(s, dev) for p in parts for s in p][:n]
+    server = dataclasses.replace(
+        srv, params={k: rows(v) for k, v in srv.params.items()},
+        opt_state={k: rows(v) for k, v in srv.opt_state.items()},
+        agg_state=agg_state)
+    opt = round_state.client_opt
+    return dataclasses.replace(
+        round_state, server=server,
+        client_opt=None if opt is None else {k: rows(v)
+                                             for k, v in opt.items()})
+
+
+def _host(s):
+    if isinstance(s, torch.Tensor):
+        return s.cpu()
+    if isinstance(s, tuple):
+        return tuple(_host(v) for v in s)
+    return s
+
+
+def _to(s, dev):
+    if isinstance(s, torch.Tensor):
+        return s.to(dev)
+    if isinstance(s, tuple):
+        return tuple(_to(v, dev) for v in s)
+    return s

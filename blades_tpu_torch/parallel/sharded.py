@@ -43,11 +43,10 @@ from blades_tpu_torch.core.round import FedRound, RoundState, round_generator
 from blades_tpu_torch.data.sampler import gather_batches, indices_from_uniforms
 from blades_tpu_torch.parallel.mesh import (
     CLIENTS_AXIS,
+    LaneBlock,
     Mesh,
     all_gather_rows,
     all_reduce_sum,
-    lane_block,
-    pad_to_multiple,
 )
 from blades_tpu_torch.utils.seeds import seed_of
 
@@ -78,19 +77,33 @@ def _cat(parts, rows: int):
                                          + tuple(out.shape[1:]))])
 
 
-def dense_block_draws(fr: FedRound, n: int, nb: int, batch: int, generator,
-                      device, start: int, n_local: int, *, masks=None,
-                      aug=None):
-    """This rank's lanes ``[start, start + n_local)`` of the dropout masks
-    and augmentation draws the one-process dense round of ``n`` clients
-    takes from ``generator`` while it trains, client block by client block
-    of ``client_block`` (masks first, then augmentation, per block).  Every
+def block_batches(fr: FedRound, lanes: LaneBlock, generator, data_x, data_y,
+                  lengths):
+    """The batches of the rank's ``lanes`` in the one-process dense round
+    of ``lanes.n`` clients: the batch uniforms of every client drawn from
+    ``generator`` (f64, as that round draws them), the rank's kept, and
+    indexed into its shards ``data_x`` / ``data_y`` (``lengths`` its
+    lanes')."""
+    u = torch.rand((lanes.n, fr.num_batches_per_round, fr.batch_size),
+                   generator=generator, device=generator.device,
+                   dtype=torch.float64)
+    idx = indices_from_uniforms(lanes.lanes(u), lengths)
+    return gather_batches(data_x, data_y, idx.to(data_x.device))
+
+
+def dense_block_draws(fr: FedRound, lanes: LaneBlock, nb: int, batch: int,
+                      generator, device, *, masks=None, aug=None):
+    """The rank's ``lanes`` of the dropout masks and augmentation draws the
+    one-process dense round of ``lanes.n`` clients takes from
+    ``generator`` while it trains, client block by client block of
+    ``client_block`` (masks first, then augmentation, per block).  Every
     block is drawn, so the generator ends where the dense round's does;
     only the rank's rows of each are kept, so the draws held at once are
     one block's and the rank's, not the federation's.  ``masks`` / ``aug``
     handed in (the whole federation's) are not drawn, and their lanes are
     cut.  Lanes past ``n`` are zero rows.  ``(masks, aug)``, ``None`` where
     the model or task draws none."""
+    n, start, n_local = lanes.n, lanes.start, lanes.n_local
     block = min(fr.client_block or n, n)
     end = start + n_local
     mask_parts, aug_parts = [], []
@@ -109,16 +122,6 @@ def dense_block_draws(fr: FedRound, n: int, nb: int, batch: int, generator,
                  n_local),
             _cat(aug_parts if aug is None else [_rows(aug, lo, hi)],
                  n_local))
-
-
-def _lanes(t, start: int, n_local: int, multiple: int):
-    """Lanes ``[start, start + n_local)`` of ``t`` (a tensor, a tuple of
-    them, or None), padded with zeros past its rows."""
-    if t is None:
-        return None
-    if isinstance(t, tuple):
-        return tuple(_lanes(v, start, n_local, multiple) for v in t)
-    return pad_to_multiple(t, multiple)[start:start + n_local]
 
 
 class MeshRound:
@@ -142,12 +145,12 @@ class MeshRound:
         if fr.num_clients is not None and int(fr.num_clients) != self.n:
             raise ValueError(f"num_clients={fr.num_clients} but the round "
                              f"was built for {self.n}")
-        self.c = mesh.num_clients_shards
-        self.start, self.n_local = lane_block(mesh, self.n)
-        self.n_pad = self.c * self.n_local
+        self.block = LaneBlock.of(mesh, self.n)
+        self.c, self.start = self.block.c, self.block.start
+        self.n_local, self.n_pad = self.block.n_local, self.block.n_pad
 
     def lanes(self, t):
-        return _lanes(t, self.start, self.n_local, self.c)
+        return self.block.lanes(t)
 
     def _check_local(self, rows: int, what: str) -> None:
         if rows != self.n_local:
@@ -164,13 +167,9 @@ class MeshRound:
         fr = self.fr
         dev = _params_device(state)
         gen = round_generator(seed, dev)
-        nb, b = fr.num_batches_per_round, fr.batch_size
-        u = torch.rand((self.n, nb, b), generator=gen, device=gen.device,
-                       dtype=torch.float64)
-        idx = indices_from_uniforms(self.lanes(u), lengths)
-        bx, by = gather_batches(data_x, data_y, idx.to(data_x.device))
-        masks, aug = dense_block_draws(fr, self.n, nb, b, gen, dev,
-                                       self.start, self.n_local)
+        bx, by = block_batches(fr, self.block, gen, data_x, data_y, lengths)
+        masks, aug = dense_block_draws(fr, self.block, bx.shape[1],
+                                       bx.shape[2], gen, dev)
         return self.round(state, bx, by, malicious, gen, masks, aug)
 
     def prebatched(self, state: RoundState, bx, by, malicious,
@@ -187,8 +186,8 @@ class MeshRound:
         if isinstance(generator, int):
             generator = round_generator(generator, dev)
         masks, aug = dense_block_draws(
-            fr, self.n, bx.shape[1], bx.shape[2], generator, dev,
-            self.start, self.n_local, masks=dropout_masks, aug=aug_draws)
+            fr, self.block, bx.shape[1], bx.shape[2], generator, dev,
+            masks=dropout_masks, aug=aug_draws)
         return self.round(state, self.lanes(bx[:self.n]),
                           self.lanes(by[:self.n]), malicious, generator,
                           masks, aug, forge_noise=forge_noise,

@@ -290,17 +290,25 @@ Phases, each printing its lines before the last:
    multi-rank groups run over gloo, which stages each collective through
    the host), cuDNN deterministic.  On the ``fedavg`` phase's dense
    ResNet-10 x 60 trial under ALIE + Median in client blocks of 30:
-   (a) ``num_devices=2``, the client-sharded round, 2 rounds, in turns
-   with the one-process dense round on rank 0 (the other rank waiting),
-   bit for bit; launches per rank, rounds/s of both, the gather's bytes
-   and ms; (b) ``execution="hier"`` on a (2, 2) mesh of 4 ranks: at
+   (a) ``num_devices=2``, the client-sharded round, one round, then
+   the one-process dense round on rank 0 (the other rank waiting), bit
+   for bit; launches per rank, rounds/s of both, the gather's bytes and
+   ms; (b) ``execution="hier"`` on a (2, 2) mesh of 4 ranks: at
    ``bucket_size=1`` the dense round bit for bit, bucket and nnm at 2
    with ``ici_bytes`` = ``hier_wire_bytes(hier_round_volumes(...))``,
    and both pre-aggregations timed alone on a rank's block; (c) one NCCL rank
-   through ``sharded_step``, the dense round bit for bit.  Every select
-   (``column_median:mesh``) and BN launch (``bn_bwd_reduce:mesh``,
-   ``bn_bwd_dx:mesh``) of (a)'s first turn, and of (b) at 2 and (c), held
-   against the plain versions.  A rank that fails fails the phase.
+   through ``sharded_step``, the dense round bit for bit.  Then the
+   ``gossip`` phase's headline trial (64 nodes, 2 rounds): (d)
+   ``num_devices=2``, each rank's 32 nodes one block, then the
+   one-process stacked round on rank 0, bit for bit, one ``select:radix``
+   a rank a round, ``gossip_ici_bytes`` = 1,255,230,208 a rank a round
+   (``gossip_round_volumes`` for (2, 1)), the gathers timed; (e)
+   ``gossip_step`` on a group of one NCCL rank, the stacked driver bit
+   for bit; (b) runs beside (c), then (d) beside (e).  Every select (``column_median:mesh``,
+   ``column_median:mesh-gossip``) and BN launch (``bn_bwd_reduce:mesh``,
+   ``bn_bwd_dx:mesh``, ``...:mesh-gossip``) of (a), (b) at 2, (c), (d)
+   and (e) held against the plain versions.  A rank that fails fails the
+   phase.
 21. ``dsharded``: the width-sharded round (``execution="dsharded"``) on
    ranks started as in ``mesh``, cuDNN deterministic: (a)
    ``fedavg_cifar10_1000clients_mesh.yaml``'s three points (Median,
@@ -321,7 +329,11 @@ Phases, each printing its lines before the last:
    ``...:dsharded-nccl``) of (a)'s Median turn and of (b) held against
    the plain versions; the launches per rank and round derived from the
    model (its BN layers x trained client blocks, one select a Median
-   round), a missing or extra one failing the run.
+   round), a missing or extra one failing the run.  Each point's
+   collectives, counted on the step's recorder, equal
+   ``dsharded_round_volumes`` as a multiset; a projection of 8 cards
+   (``project_multichip_rounds_per_sec`` from (b)'s measured rate at the
+   H100 data-sheet NVLink figure) is printed, labelled as a model.
 22. ``profile`` (only when named): one more main-path round, one
    Multikrum round of phase 7 and one GeoMed round, under
    ``torch.profiler``; device time by kernel goes to
@@ -361,6 +373,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import functools
 import importlib
 import json
 import math
@@ -1514,6 +1527,29 @@ def _peak():
     return max(AUDIT["peak"], torch.cuda.max_memory_allocated())
 
 
+def _keep_view(t):
+    """A host copy of the storage span that ``t`` views, with its size,
+    strides, device and offset modulo 128 elements: :func:`_view_on_card`
+    rebuilds the same layout, alignment included, on the card."""
+    import torch
+
+    lo = t.storage_offset()
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    flat = torch.as_strided(t, (span,), (1,), lo)
+    return (flat.cpu(), tuple(t.shape), tuple(t.stride()), lo % 128,
+            t.device)
+
+
+def _view_on_card(kept):
+    import torch
+
+    flat, size, stride, pad, device = kept
+    base = torch.empty((pad + flat.numel(),), dtype=flat.dtype,
+                       device=device)
+    base[pad:].copy_(flat)
+    return torch.as_strided(base, size, stride, pad)
+
+
 class _BnAudit:
     """Wraps the three launchers while a vmapped block trains on the card:
     every launch is also held against the plain versions on the same
@@ -1524,18 +1560,20 @@ class _BnAudit:
     through unaudited.  With ``key``, the first launch at each operand
     layout also times the single kernels, the plain versions and the
     library's backward on its operands, and :meth:`records` turns the
-    audited launches into the path's records.  The audit's own work is
-    set aside (:func:`_aside`)."""
+    audited launches into the path's records.  With ``defer`` those
+    operands are kept on the host, in their layouts (:func:`_keep_view`),
+    and timed by :meth:`time_deferred` when the caller has the card to
+    itself.  The audit's own work is set aside (:func:`_aside`)."""
 
-    def __init__(self, limit=None, key=None):
+    def __init__(self, limit=None, key=None, defer=False):
         from blades_tpu_torch.ops import _cuda
 
         self._cuda = _cuda
         self.layouts = set()
         self.err = 0.0
         self.calls = 0
-        self.limit, self.key = limit, key
-        self.tally, self.times = {}, {}
+        self.limit, self.key, self.defer = limit, key, defer
+        self.tally, self.times, self._pending = {}, {}, {}
 
     def _due(self, n):
         return self.limit is None or self.calls + n <= self.limit
@@ -1549,9 +1587,22 @@ class _BnAudit:
             return
         for k in kernels:
             self.tally[k, lay] = self.tally.get((k, lay), 0) + 1
-        if lay not in self.times:
+        if lay in self.times or lay in self._pending:
+            return
+        if self.defer:
+            self._pending[lay] = [_keep_view(t)
+                                  for t in (x, dy, mean, r, scale)]
+        else:
             self.times[lay] = _bn_launch_times(self._saved, x, dy, mean, r,
                                                scale)
+
+    def time_deferred(self):
+        """Time each layout set aside at its first launch (``defer``), on
+        its operands back on the card in their own layouts."""
+        for lay, kept in self._pending.items():
+            self.times[lay] = _bn_launch_times(
+                self._saved, *(_view_on_card(k) for k in kept))
+        self._pending.clear()
 
     def __enter__(self):
         from blades_tpu_torch.ops import bn_backward as bn
@@ -3980,7 +4031,10 @@ class _PathAudit:
     (``key()``, read at the call) is also timed -- the kernel, the plain
     version and the library call on the same operands -- into that key's
     record (a round's times: each of these paths launches the kernel once
-    a round).  All of it is set aside (:func:`_aside`)."""
+    a round).  ``timing``: ``"launch"`` (then), ``"deferred"`` (the
+    select's operands kept on the host, timed by :meth:`time_deferred`
+    when the caller has the card to itself) or ``None`` (checked, not
+    timed).  All of it is set aside (:func:`_aside`)."""
 
     TARGETS = {
         "finish": ("blades_tpu_torch.parallel.streamed",
@@ -3991,10 +4045,14 @@ class _PathAudit:
                  "row_stats_bundle"),
     }
 
-    def __init__(self, kind, key):
-        self.kind = kind
+    def __init__(self, kind, key, timing="launch"):
+        check(timing in ("launch", "deferred", None)
+              and (timing != "deferred" or kind == "select"),
+              f"_PathAudit({kind!r}): timing {timing!r}")
+        self.kind, self.timing = kind, timing
         self.key = key if callable(key) else (lambda: key)
         self.records, self.calls, self.shapes = {}, 0, set()
+        self._pending = {}
 
     def __enter__(self):
         modname, attr = self.TARGETS[self.kind]
@@ -4019,9 +4077,10 @@ class _PathAudit:
 
     def _keep(self, key, err, rec):
         """The key's record: made at its first launch, its error the
-        largest over every launch."""
+        largest over every launch (untimed: the error alone)."""
         if key not in self.records:
-            self.records[key] = rec()
+            self.records[key] = (rec() if self.timing == "launch"
+                                 else {"max_abs_err": err})
         r = self.records[key]
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
@@ -4067,25 +4126,52 @@ class _PathAudit:
         err = same(out, want, f"{key} {tuple(x.shape)}, launch "
                    f"{self.calls + 1}")
         del want
+        if self.timing == "deferred" and key not in self._pending:
+            self._pending[key] = (orig, _keep_view(x))
+        self._keep(key, err,
+                   lambda: self._select_record(key, orig, x, plain_ms, err))
+
+    def _select_record(self, key, orig, x, plain_ms, err):
+        import torch
+
         rows, d = x.shape
+        # On NaN-free columns the midpoint median is the 0.5 quantile with
+        # linear interpolation: one PyTorch call, where it takes the
+        # operand.
+        xf = x.float()
+        try:
+            lib = timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0]
+        except RuntimeError as exc:
+            log(f"{key}: torch.quantile refuses {tuple(x.shape)}: "
+                f"{str(exc).splitlines()[0]}; library_ms null")
+            lib = None
+        del xf
+        return _record(
+            key, SELECT_SRC, SELECT_TPU["column_median"],
+            timed(lambda: orig(x), REPS)[0], plain_ms,
+            rows * d * x.element_size() + d * 4, rows * d, err, lib)
 
-        def rec():
-            # On NaN-free columns the midpoint median is the 0.5 quantile
-            # with linear interpolation: one PyTorch call, where it takes
-            # the operand.
-            xf = x.float()
-            try:
-                lib = timed(lambda: torch.quantile(xf, 0.5, dim=0), REPS)[0]
-            except RuntimeError as exc:
-                log(f"{key}: torch.quantile refuses {tuple(x.shape)}: "
-                    f"{str(exc).splitlines()[0]}; library_ms null")
-                lib = None
-            return _record(
-                key, SELECT_SRC, SELECT_TPU["column_median"],
-                timed(lambda: orig(x), REPS)[0], plain_ms,
-                rows * d * x.element_size() + d * 4, rows * d, err, lib)
+    def time_deferred(self):
+        """Time each key's first operand set aside (``timing="deferred"``)
+        back on the card: the kernel, the plain version (one run, as at a
+        launch) and ``torch.quantile``, into the key's record (its error
+        the largest over every launch)."""
+        import torch
 
-        self._keep(key, err, rec)
+        from blades_tpu_torch.ops import column_select as cs
+
+        for key, (orig, kept) in self._pending.items():
+            x = _view_on_card(kept)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cs.column_median_plain(x)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = self.records[key]["max_abs_err"]
+            self.records[key] = self._select_record(key, orig, x, plain_ms,
+                                                    err)
+            del x
+        self._pending.clear()
 
     def _trim(self, key, orig, out, a, kw):
         """The trimmed means, within ``TRIM_TOL`` (f32 sums of the kept
@@ -6724,9 +6810,11 @@ def phase_lanes(card):
 # ---------------------------------------------------------------------------
 
 AUTOTUNE_ROUNDS = 2  # rounds of each untuned / winner run held bit for bit
-# A candidate's median is over its timed train() calls, an evaluation's
-# included where the cadence fires: every third round here, so the
-# median of the 3 timed calls is a training round.
+# Timed train() calls per candidate, after one warm-up call: one (the
+# autotuner's default is the median of 3), within the script's time limit.
+# With evaluations every third round the timed call (round 2) is a
+# training round.
+AUTOTUNE_REPS = 1
 AUTOTUNE_HEADLINE = {**STREAMED_TRIAL, "evaluation_interval": 3}
 # (b): a repo model at full width whose round takes the chunked finish,
 # the one route that reads d_chunk: the Fashion-MNIST CNN (1,475,146
@@ -6899,7 +6987,9 @@ def _autotune_ladder(card, plans):
           f"autotune (b): candidates {prov['candidates']}")
     _at_candidates(f"autotune (b) CNN x 5000 f32 ALIE Median [{card}]",
                    prov, tuned["peaks"])
-    for plan in ladder:
+    # The first rung is the untuned run's own plan: the other rungs are
+    # replayed pinned and held against it.
+    for plan in ladder[1:]:
         got = _at_run({**LADDER_TRIAL, "autotune": True,
                        "tuned_plan": plan.as_dict(),
                        "autotune_cache_dir": plans}, LADDER_ROUNDS)
@@ -6918,7 +7008,8 @@ def _autotune_ladder(card, plans):
             f"round {got['run_s']:.3f} s, peak {got['peak'] / 2**30:.2f} GiB)")
 
 
-LADDER_GRID_ROWS = (5000, 1237)  # a second, odd row count
+# An odd row count; the ladder trial above runs at 5,000 rows.
+LADDER_GRID_ROWS = (1237,)
 
 
 def _ladder_finish_grid(card):
@@ -7131,26 +7222,38 @@ def phase_autotune(card):
     the untuned run's bit for bit."""
     import torch
 
+    from blades_tpu_torch.perf import autotune as at
+
     torch.cuda.empty_cache()
     work = _work_dir("autotune")
     plans = os.path.join(work, "plans")
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
         True, False)
+    real = at.timed_measure_fn
+    at.timed_measure_fn = functools.partial(real, reps=AUTOTUNE_REPS)
+    took = []
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        fn(*a)
+        torch.cuda.empty_cache()
+        took.append(f"{name} {time.perf_counter() - t0:.1f}")
+
     try:
         with _shared_datasets():
-            _autotune_headline(card, plans)
-            torch.cuda.empty_cache()
-            _autotune_ladder(card, plans)
-            torch.cuda.empty_cache()
-            _ladder_finish_grid(card)
-            _autotune_dense(card, work, plans)
-            torch.cuda.empty_cache()
-            _default_tier_dense(card, work)
-        _autotune_curves(card, work)
+            part("(a)", _autotune_headline, card, plans)
+            part("(b)", _autotune_ladder, card, plans)
+            part("(b) grid", _ladder_finish_grid, card)
+            part("(c)", _autotune_dense, card, work, plans)
+            part("(e)", _default_tier_dense, card, work)
+        part("(d)", _autotune_curves, card, work)
     finally:
+        at.timed_measure_fn = real
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
             saved)
+    log(f"autotune: seconds by part {', '.join(took)}; each candidate timed "
+        f"on {AUTOTUNE_REPS} train() call after a warm-up")
     return {}, {}
 
 
@@ -7162,8 +7265,10 @@ def phase_autotune(card):
 # that a rank's 30 lanes are one block of the one-process dense round too.
 MESH_TRIAL = {**DENSE_TRIAL, "adversary_config": {"type": "ALIE"},
               "client_block": 30, "evaluation_interval": 2}
-MESH_ROUNDS = 2
-MESH_TURNS = 2  # dense / sharded turns of (a); the first audited
+# (a)-(c), within the script's time limit: with (c) at 2 rounds beside
+# (b)'s four ranks the card ran out of memory.  (d) and (e) run 2.
+MESH_ROUNDS = 1
+MESH_TURNS = 1  # dense / sharded turns of (a), the first audited
 # BN-backward launches of each kernel per rank and round: 30 lanes in one
 # block, 12 BN layers, 2 local steps.
 MESH_BN_ROUND = 12 * 2
@@ -7211,6 +7316,7 @@ def _mesh_run(cfg, turn_audit=None):
         return out
     finally:
         algo.stop()
+        torch.cuda.empty_cache()  # for the other groups on the card
 
 
 def _collective_ms(fn):
@@ -7241,9 +7347,10 @@ def _mesh_gather_ms(mesh, d):
 
 
 def _mesh_sharded(rank, world):
-    """(a) Dense on rank 0 (the others wait at a barrier), then the
-    sharded round on every rank, in turns; the first sharded turn
-    audited.  Rank 0 holds each sharded turn against the dense turn."""
+    """(a) The sharded round on every rank, then dense on rank 0 (the
+    others wait at a barrier), in turns: every rank's first rounds start
+    together, and rank 0's dense rounds run warm.  The first sharded turn
+    audited; rank 0 holds each sharded turn against the dense turn."""
     import torch.distributed as dist
 
     from blades_tpu_torch.parallel.mesh import params_digest
@@ -7252,19 +7359,17 @@ def _mesh_sharded(rank, world):
     out = {"dense_s": [], "sharded_s": [], "same": [], "err": []}
     dense = None
     for turn in range(MESH_TURNS):
+        audit = (("column_median:mesh", "mesh") if turn == 0 else None)
+        run = _mesh_run(sharded_cfg, audit)
         if rank == 0:
             dense = _mesh_run(MESH_TRIAL)
             out["dense_s"].append(dense["train_s"])
             out["dense_counts"] = dense["counts"]
-        dist.barrier()
-        audit = (("column_median:mesh", "mesh") if turn == 0 else None)
-        run = _mesh_run(sharded_cfg, audit)
         out["sharded_s"].append(run["train_s"])
         if turn == 0:
             out["records"] = run["records"]
             out["audited"] = run["audited"]
-        else:
-            out["counts"], out["maps"] = run["counts"], run["maps"]
+        out["counts"], out["maps"] = run["counts"], run["maps"]
         out["digest"] = params_digest(run["params"])
         out["rows"] = run["rows"]
         if rank == 0:
@@ -7324,10 +7429,7 @@ def _mesh_hier(rank, world):
     )
     from blades_tpu_torch.parallel.mesh import params_digest
 
-    out = {}
-    if rank == 0:
-        dense = _mesh_run(MESH_TRIAL)
-    dist.barrier()
+    out, b1_params = {}, None
     for key, preagg, b in (("b1", "bucket", 1), ("b2", "bucket", 2),
                            ("nnm2", "nnm", 2)):
         cfg = {**MESH_TRIAL, "num_devices": world, "mesh_shape": (2, 2),
@@ -7349,20 +7451,23 @@ def _mesh_hier(rank, world):
                "finite": all(bool(v.isfinite().all())
                              for v in run["params"].values()),
                "train_s": run["train_s"]}
-        if rank == 0 and key == "b1":
-            err, _, same_bits = _params_diff(run["params"], dense["params"],
-                                             RTOL, ATOL)
-            res["same"], res["err"] = same_bits, err
+        if key == "b1":
+            b1_params = run["params"]
         out[key] = res
         dist.barrier()
     if rank == 0:
+        # The dense round after the ranks' (warm on this rank).
+        dense = _mesh_run(MESH_TRIAL)
+        err, _, same_bits = _params_diff(b1_params, dense["params"], RTOL,
+                                         ATOL)
+        out["b1"]["same"], out["b1"]["err"] = same_bits, err
         out["preagg_ms"] = _preagg_ms(d)
     dist.barrier()
     return out
 
 
 def _mesh_nccl(rank, world):
-    """(c) One NCCL rank: the dense driver's 2 rounds, then
+    """(c) One NCCL rank: the dense driver's rounds, then
     ``sharded_step`` from the same initial state over the driver's data
     and round seeds (its gathers one-rank NCCL collectives)."""
     import copy
@@ -7398,6 +7503,184 @@ def _mesh_nccl(rank, world):
             _host_params(state.server.params), dense, RTOL, ATOL)
         return {"same": same_bits, "err": err, "counts": counts,
                 "backend": mesh.backend}
+    finally:
+        algo.stop()
+
+
+# The mesh phase's gossip parts: the gossip phase's headline trial
+# (_gossip_headline: 64 nodes, kregular k = 4 (k1 = 5), ALIE on 16, Median,
+# f32) on the ranks of a process group, each rank's 32 nodes one block of
+# the one-process round's blocks of 32, 2 rounds: (d) 2 gloo ranks sharing
+# cuda:0, alone on the card, (e) a group of one NCCL rank, beside (a).
+GOSSIP_MESH_ROUNDS = 2
+# gossip_wire_bytes(gossip_round_volumes(64, 4,903,242, (2, 1))): a rank's
+# wire bytes a round on 2 ranks.
+GOSSIP_MESH_ICI = 1_255_230_208
+GOSSIP_MESH_BN_ROUND = 12  # a rank's 32 lanes in one block, 12 BN layers
+
+
+class _GatherTimer:
+    """Times every all-gather the gossip round makes on a mesh (the name
+    its module bound), the card synchronized before and after each and
+    the ranks lined up at a barrier first (a rank's wait for the other's
+    training is not the gather's): ``(rows shape, seconds)`` in call
+    order.  Without a mesh (the stacked round) a gather is the identity
+    and is not timed."""
+
+    def __enter__(self):
+        from blades_tpu_torch.topology import gossip as G
+
+        self._mod, self._orig, self.s = G, G.all_gather_rows, []
+
+        def gather(mesh, t, *a, **kw):
+            import torch
+            import torch.distributed as dist
+
+            if mesh is None:
+                return self._orig(mesh, t, *a, **kw)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(mesh, t, *a, **kw)
+            torch.cuda.synchronize()
+            self.s.append((list(t.shape), time.perf_counter() - t0))
+            return out
+
+        G.all_gather_rows = gather
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.all_gather_rows = self._orig
+
+
+def _gossip_mesh_run(cfg, key=None, timed=False):
+    """One gossip driver of ``cfg`` on cuda:0, ``GOSSIP_MESH_ROUNDS``
+    rounds, the launch counts set to 0 just before them and read just
+    after; with ``key`` every select and BN launch held against the plain
+    versions, and with ``timed`` the first launches' operands kept for
+    their records (the audits under ``"audits"``: :func:`_mesh_gossip`
+    times them when the card is otherwise idle).  Returns every node's
+    parameters (gathered on a mesh) on the host, the rows, the counts,
+    the recorder, the gathers' seconds and each round's seconds (the
+    audits' taken out)."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+
+    algo = FedavgConfig().update_from_dict(cfg).build(device=MESH_DEVICE)
+    audits = contextlib.ExitStack()
+    sel = bn = None
+    if key is not None:
+        sel = audits.enter_context(_PathAudit(
+            "select", f"column_median:{key}",
+            timing="deferred" if timed else None))
+        bn = audits.enter_context(_BnAudit(key=key if timed else None,
+                                           defer=True))
+    AUDIT["s"] = 0.0
+    try:
+        with audits, _GatherTimer() as gathers:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            rows, secs = _cycles(algo, GOSSIP_MESH_ROUNDS)
+            counts, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+        state = (algo._gathered_state() if algo.mesh is not None
+                 else algo.state)
+        rec = algo._gossip_recorder
+        out = {"params": _host_params(state.server.params),
+               "rows": [{k: v for k, v in r.items()
+                         if isinstance(v, (int, float, str))} for r in rows],
+               "counts": counts,
+               "maps": {"/".join(k): v for k, v in maps.items()},
+               "events": [list(e) for e in rec.ici_events],
+               "ici_bytes": rec.ici_bytes, "gathers": gathers.s,
+               "train_s": secs, "d": algo._num_params}
+        if sel is not None:
+            out["audits"] = (sel, bn)
+            out["audited"] = (sel.calls, bn.calls)
+        return out
+    finally:
+        algo.stop()
+        torch.cuda.empty_cache()
+
+
+def _mesh_gossip(rank, world):
+    """(d) The round on both ranks, every select and BN launch audited,
+    then the one-process stacked gossip round on rank 0 (the other rank
+    waiting; rank 0 warm); rank 0 holds the ranks' nodes against the
+    stacked round's.  Then rank 0 times its first select and BN launches
+    on their operands, the other rank waiting at a barrier: the card is
+    otherwise idle ((e) ran beside (a)), so the records are the kernels'
+    own times, not times shared with the other rank's training."""
+    import torch.distributed as dist
+
+    from blades_tpu_torch.parallel.mesh import params_digest
+
+    run = _gossip_mesh_run({**GOSSIP_TRIAL, "num_devices": world},
+                           "mesh-gossip", timed=rank == 0)
+    out = {k: run[k] for k in ("counts", "maps", "events", "ici_bytes",
+                               "gathers", "train_s", "rows", "d", "audited")}
+    if rank == 0:
+        stacked = _gossip_mesh_run(GOSSIP_TRIAL)
+        out["stacked_counts"] = stacked["counts"]
+        out["stacked_s"] = stacked["train_s"]
+        out["stacked_rows"] = stacked["rows"]
+        out["stacked_digest"] = params_digest(stacked["params"])
+        err, _, same_bits = _params_diff(run["params"], stacked["params"],
+                                         RTOL, ATOL)
+        out["same"], out["err"] = same_bits, err
+        del stacked
+    dist.barrier()
+    if rank == 0:
+        sel, bn = run.pop("audits")
+        t0 = time.perf_counter()
+        sel.time_deferred()
+        bn.time_deferred()
+        out["records"] = {**sel.records, **bn.records(GOSSIP_MESH_ROUNDS)}
+        out["timing_s"] = time.perf_counter() - t0
+    run.pop("audits", None)
+    dist.barrier()
+    return out
+
+
+def _gossip_nccl(rank, world):
+    """(e) One NCCL rank: ``gossip_step`` on the group of one, 2 rounds
+    from the stacked driver's initial state over its data and round
+    seeds (its gathers one-rank NCCL collectives), every select and BN
+    launch audited; its parameters' digest is held against (d)'s
+    one-process stacked round (the same trial, the same rounds)."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel import make_mesh
+    from blades_tpu_torch.parallel.mesh import (
+        params_digest,
+        shard_gossip_state,
+    )
+    from blades_tpu_torch.topology import gossip_step
+
+    algo = FedavgConfig().update_from_dict(GOSSIP_TRIAL).build(
+        device=MESH_DEVICE)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(1)
+        state, data = shard_gossip_state(mesh, algo.state, algo._train,
+                                         GOSSIP_N)
+        step, rec = gossip_step(algo.fed_round, algo._topology, mesh=mesh)
+        _cuda.reset_launches()
+        with _PathAudit("select", "column_median:mesh-gossip-nccl",
+                        timing=None) as sel, _BnAudit() as bn:
+            for r in range(GOSSIP_MESH_ROUNDS):
+                state, m = step(state, *data, algo.malicious,
+                                algo.round_seed(r))
+        torch.cuda.synchronize()
+        return {"digest": params_digest(_host_params(state.server.params)),
+                "counts": dict(_cuda.LAUNCHES),
+                "audited": (sel.calls, bn.calls), "backend": mesh.backend,
+                "events": [list(e) for e in rec.ici_events],
+                "ici": int(m["gossip_ici_bytes"]),
+                "s": time.perf_counter() - t0}
     finally:
         algo.stop()
 
@@ -7544,11 +7827,11 @@ class _SwapTimer:
         self._mod, self._orig, self.ms = (dsharded,
                                           dsharded.rows_to_width_shard, [])
 
-        def timed(mesh, rows):
+        def timed(mesh, rows, **kw):
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self._orig(mesh, rows)
+            out = self._orig(mesh, rows, **kw)
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
             return out
@@ -7616,6 +7899,9 @@ def _dsharded_gloo(rank, world):
                                == order.tolist())
             res["bn_layers"] = _bn_layers(params)
             res["f_local"] = algo._step.f_local
+            res["events"] = [list(e) for e in algo._step.recorder.ici_events]
+            res["ici_bytes"] = algo._step.recorder.ici_bytes
+            res["d"] = sum(v.numel() for v in params.values())
             if sel is not None:
                 res["records"] = {**sel.records,
                                   **bn.records(DSHARDED_ROUNDS)}
@@ -7689,7 +7975,8 @@ def _dsharded_nccl():
             f_local=step.f_local, audited=(sel.calls, bn.calls),
             records={**sel.records, **bn.records(1)},
             elided=m.get("elided_lanes"),
-            bn_layers=_bn_layers(state.server.params))
+            bn_layers=_bn_layers(state.server.params),
+            events=[list(e) for e in step.recorder.ici_events])
         err, _, same_bits = _params_diff(_host_params(state.server.params),
                                          dense, RTOL, ATOL)
         out["same"], out["err"] = same_bits, err
@@ -7720,7 +8007,8 @@ def _dsharded_here(work):
 
 
 MESH_PARTS = {"sharded": _mesh_sharded, "hier": _mesh_hier,
-              "nccl": _mesh_nccl, "dsharded": _dsharded_gloo}
+              "nccl": _mesh_nccl, "gossip": _mesh_gossip,
+              "gossip-nccl": _gossip_nccl, "dsharded": _dsharded_gloo}
 
 
 def _mesh_rank_main(args) -> int:
@@ -7801,48 +8089,176 @@ def _mesh_wait(group):
     finally:
         for _, fh in procs:
             fh.close()
-    res = []
+    failed = []
     for r, (p, _) in enumerate(procs):
         if p.returncode != 0:
             err = f"{out}{r}.err"
             why = (open(err).read() if os.path.exists(err)
                    else "no traceback (see chiprun_out/mesh)")
-            raise Failure(f"mesh {part}: rank {r} exited {p.returncode}: "
-                          f"{why[-3000:]}")
+            failed.append(f"rank {r} exited {p.returncode}: {why[-3000:]}")
+    if failed:
+        raise Failure(f"mesh {part}: " + "\n".join(failed))
+    res = []
+    for r in range(len(procs)):
         with open(f"{out}{r}.json") as fh:
             res.append(json.load(fh))
     return res
 
 
+def _mesh_wait_all(groups):
+    """:func:`_mesh_wait` of groups started together; if one fails, the
+    others' ranks are killed before the failure is raised."""
+    res = []
+    try:
+        for grp in groups:
+            res.append(_mesh_wait(grp))
+    except BaseException:
+        for _, _, procs in groups:
+            for p, fh in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                fh.close()
+        raise
+    return res
+
+
+def _mesh_gossip_checks(g, e0, card):
+    """(d) and (e) held and logged: ``g`` the 2 gloo ranks' results, ``e0``
+    the NCCL rank's; returns the path's launch counts and records."""
+    from blades_tpu_torch.parallel.comm_model import (
+        gossip_round_volumes,
+        gossip_wire_bytes,
+    )
+
+    g0, rounds = g[0], GOSSIP_MESH_ROUNDS
+    gd = g0["d"]
+    vols = gossip_round_volumes(GOSSIP_N, gd, (2, 1))
+    model = [[v.label, v.kind, v.payload_bytes, k] for v, k in vols]
+    check(gossip_wire_bytes(vols) == GOSSIP_MESH_ICI, f"mesh (d): the comm "
+          f"model's {gossip_wire_bytes(vols)} bytes at d = {gd}")
+    want_rank = {"column_median": rounds,
+                 **{k: rounds * GOSSIP_MESH_BN_ROUND for k in BN_TPU}}
+    for r, res in enumerate(g):
+        check(res["counts"] == want_rank
+              and res["maps"].get("column_median/select:radix") == rounds,
+              f"mesh (d) rank {r}: launches {res['counts']} by route "
+              f"{res['maps']}, expected {want_rank}")
+        check(list(res["audited"]) == [rounds,
+                                       2 * rounds * GOSSIP_MESH_BN_ROUND],
+              f"mesh (d) rank {r}: audited {res['audited']}")
+        check(res["events"] == model and res["ici_bytes"] == GOSSIP_MESH_ICI
+              and all(row["gossip_ici_bytes"] == GOSSIP_MESH_ICI
+                      for row in res["rows"]),
+              f"mesh (d) rank {r}: recorder {res['events']} "
+              f"({res['ici_bytes']} B), rows' gossip_ici_bytes "
+              f"{[row['gossip_ici_bytes'] for row in res['rows']]}, the "
+              f"model {model}")
+    want_stacked = {"column_median": rounds,
+                    **{k: rounds * GOSSIP_BN_ROUND for k in BN_TPU}}
+    check(g0["stacked_counts"] == want_stacked, f"mesh (d): the stacked "
+          f"round's launches {g0['stacked_counts']}, expected {want_stacked}")
+    keys = ("train_loss", "agg_norm", "update_norm_mean", "consensus_dist")
+    rows_same = all(a[k] == s_[k] for a, s_ in zip(g0["rows"],
+                                                   g0["stacked_rows"])
+                    for k in keys)
+    check(g0["same"] and rows_same, f"mesh (d): the rank round differs from "
+          f"the stacked round (max abs err {g0['err']}; rows "
+          f"{[[a[k] for k in keys] for a in g0['rows']]} vs "
+          f"{[[a[k] for k in keys] for a in g0['stacked_rows']]})")
+    check(g0.get("records", {}).get("column_median:mesh-gossip",
+                                    {}).get("library_ms") is not None,
+          f"mesh (d): the select's record {g0.get('records')}")
+    big = [[round(t, 3) for shape, t in res["gathers"] if len(shape) == 2]
+           for res in g]
+    small = [[round(t * 1e3, 3) for shape, t in res["gathers"]
+              if len(shape) == 1] for res in g]
+    log(f"mesh (d): gossip ResNet-10 x {GOSSIP_N} (d = {gd:,}, kregular "
+        f"k1 = 5, ALIE on {GOSSIP_N // 4}, Median, f32) on 2 gloo ranks "
+        f"sharing cuda:0 equals the one-process stacked round bit for bit "
+        f"(every node's parameters; train_loss, agg_norm, update_norm_mean, "
+        f"consensus_dist of each round); launches per rank {g0['counts']} "
+        f"(stacked {g0['stacked_counts']}); gossip_ici_bytes "
+        f"{GOSSIP_MESH_ICI:,} a rank a round = gossip_wire_bytes("
+        f"gossip_round_volumes(64, d, (2, 1))), recorder events "
+        f"{[e[0] for e in g0['events']]} [{card}]")
+    log(f"mesh (d): stacked {_warm_rate(g0['stacked_s'], 'round')}; on the "
+        f"ranks {_warm_rate(g0['train_s'], 'round')} / "
+        f"{_warm_rate(g[1]['train_s'], 'round')} (each a process's first "
+        f"ResNet rounds); the (32, {gd:,}) f32 gathers (updates, parameters; 2 a round) "
+        f"{big[0]} / {big[1]} s a rank, the (32,) ones (losses, aggregate "
+        f"norms) {small[0]} / {small[1]} ms (gloo through the host, two "
+        f"ranks on one card: not an NCCL or multi-GPU number); rank 0's "
+        f"first select and BN launches timed after the rounds, the other "
+        f"rank at a barrier ({g0['timing_s']:.1f} s) [{card}]")
+
+    # (e) the gossip round on one NCCL rank.
+    one = [[v.label, v.kind, v.payload_bytes, k]
+           for v, k in gossip_round_volumes(GOSSIP_N, gd, (1, 1))]
+    want_e = {"column_median": rounds,
+              **{k: rounds * GOSSIP_BN_ROUND for k in BN_TPU}}
+    check(e0["backend"] == "nccl" and e0["digest"] == g0["stacked_digest"],
+          f"mesh (e): backend {e0['backend']}, the NCCL rank's gossip_step "
+          f"differs from (d)'s stacked round (digests {e0['digest']} vs "
+          f"{g0['stacked_digest']})")
+    check(e0["counts"] == want_e and list(e0["audited"]) == [
+        rounds, 2 * rounds * GOSSIP_BN_ROUND] and e0["events"] == one
+        and e0["ici"] == 0, f"mesh (e): launches {e0['counts']} (expected "
+          f"{want_e}), audited {e0['audited']}, recorder {e0['events']}, "
+          f"gossip_ici_bytes {e0['ici']}")
+    log(f"mesh (e): gossip_step on one NCCL rank equals (d)'s stacked "
+        f"round bit for bit (parameter digests); launches {e0['counts']}, "
+        f"every one audited; gossip_ici_bytes 0 (a ring of one); "
+        f"{e0['s']:.1f} s, beside (a) on the card [{card}]")
+    counts = {"column_median:mesh-gossip": g0["counts"]["column_median"],
+              **{f"{k}:mesh-gossip": g0["counts"][k] for k in BN_TPU}}
+    return counts, g0["records"]
+
+
 def phase_mesh(card):
     """The rounds on the ranks of a process group, through ``FedavgConfig``
     -> ``Fedavg.train()`` (``num_devices``, ``mesh_shape``,
-    ``execution="hier"``): (a) the client-sharded round on 2 gloo ranks
-    sharing cuda:0, 2 rounds, in turns with the one-process dense round
-    (bit for bit: the ranks' 30-lane blocks are the dense round's blocks,
-    cuDNN deterministic); (b) the hierarchical round on a (2, 2) mesh of 4
-    ranks, at bucket_size 1 the dense round bit for bit, bucket and nnm at
-    2 with ``ici_bytes`` the comm model's; (c) one NCCL rank through
-    ``sharded_step``, the dense round bit for bit.  Every select and BN
-    launch of the ranks held against the plain versions."""
+    ``execution="hier"`` / ``"gossip"``): (a) the client-sharded round on
+    2 gloo ranks sharing cuda:0, 1 round, in turns with the one-process
+    dense round (bit for bit: the ranks' 30-lane blocks are the dense
+    round's blocks, cuDNN deterministic); (b) the hierarchical round on a
+    (2, 2) mesh of 4 ranks, at bucket_size 1 the dense round bit for bit,
+    bucket and nnm at 2 with ``ici_bytes`` the comm model's; (c) one NCCL
+    rank through ``sharded_step``, the dense round bit for bit;
+    (d) the gossip phase's headline trial on 2 gloo ranks sharing cuda:0,
+    then the one-process stacked round on rank 0, bit for bit,
+    ``gossip_ici_bytes`` the comm model's, the gathers timed; (e) the same
+    round through ``gossip_step`` on a group of one NCCL rank, bit for bit
+    with (d)'s stacked round.  (a) runs beside (e), (b) beside (c), then
+    (d) alone, so that its select and BN records are taken on an
+    otherwise idle card.  Every select and BN launch of the ranks held
+    against the plain versions."""
     from blades_tpu_torch.ops import _cuda
 
     _cuda.build()  # the ranks load this build
     _cuda.library()
     work = _work_dir("mesh")
     t0 = time.perf_counter()
-    a = _mesh_wait(_mesh_start("sharded", 2, "gloo", work))
-    log(f"mesh (a): 2 gloo ranks in {time.perf_counter() - t0:.1f} s (a "
-        f"rank's start to its group {a[0]['setup_s']:.1f} s, its rounds, "
-        f"audits and gathers {a[0]['part_s']:.1f} s)")
+    groups = [_mesh_start("sharded", 2, "gloo", work),
+              _mesh_start("gossip-nccl", 1, "nccl", work)]
+    a, e = _mesh_wait_all(groups)
+    log(f"mesh (a)+(e): 2 gloo ranks and 1 NCCL rank in "
+        f"{time.perf_counter() - t0:.1f} s (setup {a[0]['setup_s']:.1f} / "
+        f"{e[0]['setup_s']:.1f} s, parts {a[0]['part_s']:.1f} / "
+        f"{e[0]['part_s']:.1f} s)")
     t0 = time.perf_counter()
     groups = [_mesh_start("hier", 4, "gloo", work),
               _mesh_start("nccl", 1, "nccl", work)]
-    b, c = (_mesh_wait(g) for g in groups)
+    b, c = _mesh_wait_all(groups)
     log(f"mesh (b)+(c): 4 gloo ranks and 1 NCCL rank in "
         f"{time.perf_counter() - t0:.1f} s (setup {b[0]['setup_s']:.1f} / "
         f"{c[0]['setup_s']:.1f} s, parts {b[0]['part_s']:.1f} / "
         f"{c[0]['part_s']:.1f} s)")
+    # (d) alone: its records are timed on an otherwise idle card.
+    t0 = time.perf_counter()
+    g = _mesh_wait(_mesh_start("gossip", 2, "gloo", work))
+    log(f"mesh (d): 2 gloo ranks in {time.perf_counter() - t0:.1f} s "
+        f"(setup {g[0]['setup_s']:.1f} s, part {g[0]['part_s']:.1f} s)")
 
     # (a) the sharded round.
     r0 = a[0]
@@ -7931,9 +8347,10 @@ def phase_mesh(card):
           f"mesh (c): launches {c0['counts']}")
     log(f"mesh (c): sharded_step on one NCCL rank equals the dense round "
         f"bit for bit; launches {c0['counts']} [{card}]")
+    gcounts, grecords = _mesh_gossip_checks(g, e[0], card)
     counts = {"column_median:mesh": r0["counts"]["column_median"],
-              **{f"{k}:mesh": r0["counts"][k] for k in BN_TPU}}
-    return counts, r0["records"]
+              **{f"{k}:mesh": r0["counts"][k] for k in BN_TPU}, **gcounts}
+    return counts, {**r0["records"], **grecords}
 
 
 def _forged_classes(mask, malicious):
@@ -8106,6 +8523,53 @@ def phase_dsharded(card):
           f"expected {want_b}")
     check(list(b["audited"]) == [1, 2 * nb], f"dsharded (b): audited "
           f"{b['audited']}")
+
+    # Every point's recorder against the comm model.
+    from blades_tpu_torch.parallel.comm_model import (
+        H100_NVLINK_BYTES_PER_SEC,
+        dsharded_round_volumes,
+        hier_wire_bytes,
+        project_multichip_rounds_per_sec,
+    )
+
+    def model(cfg, n_, d_, k_):
+        vols = dsharded_round_volumes(
+            n_, d_, k_, aggregator=cfg["server_config"]["aggregator"]["type"],
+            adversary=cfg["adversary_config"]["type"],
+            health_check=bool(cfg.get("health_check")))
+        return vols, [[v.label, v.kind, v.payload_bytes, k_] for v in vols
+                      for _ in range(v.count)]
+
+    points = _dsharded_trials(cut)
+    for agg in DSHARDED_AGGS:
+        vols, want = model(points[agg], n, a[0][agg]["d"], k)
+        for r, res in enumerate(a):
+            got = [list(e) for e in res[agg]["events"]]
+            check(got == want and res[agg]["ici_bytes"] == hier_wire_bytes(
+                [(v, k) for v in vols]), f"dsharded (a) {agg} rank {r}: "
+                f"recorder {res[agg]['events']} against the model {want}")
+        log(f"dsharded (a) {agg}: each rank's recorder equals "
+            f"dsharded_round_volumes event by event: "
+            f"{[(v.label, v.kind, v.payload_bytes, v.count) for v in vols]}, "
+            f"{a[0][agg]['ici_bytes']:,} wire bytes a rank a round")
+    vols, want = model(_dsharded_trials(DSHARDED_NCCL_CUT)["Median"], nn,
+                       a[0]["Median"]["d"], 1)
+    check([list(e) for e in b["events"]] == want, f"dsharded (b): "
+          f"recorder {b['events']} against the model {want}")
+    log(f"dsharded (b): the recorder equals dsharded_round_volumes on a ring "
+        f"of one ({len(b['events'])} collectives, 0 wire bytes)")
+    proj = project_multichip_rounds_per_sec(
+        1.0 / b["s"], nn - ff, 1000, 8, a[0]["Median"]["d"],
+        aggregator="Median", adversary="ALIE", num_malicious=250)
+    log(f"dsharded projection (a model, not a measurement): ResNet-18 x 1000 "
+        f"(250 ALIE) on 8 cards from (b)'s measured {1.0 / b['s']:.4f} "
+        f"rounds/s over {nn - ff} trained lanes, at NVIDIA's H100 SXM "
+        f"data-sheet NVLink figure {H100_NVLINK_BYTES_PER_SEC / 1e9:.0f} GB/s "
+        f"one way (never measured here: one card): {proj['rounds_per_sec']} "
+        f"rounds/s (compute {proj['t_compute_s']} s, wire {proj['t_ici_s']} "
+        f"s, {proj['wire_bytes_per_chip']:,} bytes a card, dominant "
+        f"{proj['dominant_collective']}, {proj['trained_lanes_per_chip']} "
+        f"trained lanes a card)")
     counts = {"column_median:dsharded": med["counts"]["column_median"],
               "column_median:dsharded-nccl": b["counts"]["column_median"],
               **{f"{kk}:dsharded": med["counts"][kk] for kk in BN_TPU},

@@ -6,8 +6,8 @@ start on gloo ranks.
 ``make_mesh``'s errors, ``pad_to_multiple``, the lane blocks and
 ``hier_kept_counts`` equal the JAX package's; every validation message of
 JAX's ``test_pod_scale_validation_messages`` comes back from the port's
-``validate()`` (the autotuner and gossip on a mesh raise
-``NotImplementedError`` by name; ``execution="dsharded"`` is accepted);
+``validate()`` (the autotuner on a mesh raises ``NotImplementedError``
+by name; ``execution="dsharded"`` and ``"gossip"`` are accepted);
 ``--mesh-shape`` / ``--preagg`` /
 ``--bucket-size`` and ``--coordinator`` / ``--num-processes`` /
 ``--process-id`` reach the config and the process group.
@@ -472,12 +472,18 @@ def test_pod_scale_validation_messages(match, kw):
 
 @pytest.mark.parametrize("kw,named", [
     (dict(num_devices=2, autotune="on"), "lockstep"),
-    (dict(num_devices=2, execution="gossip"), "gossip"),
 ])
 def test_later_mesh_paths_raise_by_name(kw, named):
     cfg = _configs(**kw)[1]
     with pytest.raises(NotImplementedError, match=named):
         cfg.validate()
+
+
+def test_gossip_is_accepted_on_a_mesh():
+    """Both configs accept the gossip round on a 1-D mesh (the ranks run
+    it in tests/test_torch_gossip_mesh.py)."""
+    for cfg in _configs(execution="gossip", num_devices=2):
+        assert cfg.validate() is None
 
 
 @pytest.mark.parametrize("kw", [dict(execution="dsharded", num_devices=8),
