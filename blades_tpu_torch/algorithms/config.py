@@ -11,17 +11,17 @@ reference's nested ``dataset_config`` / ``client_config`` /
 ranks of a ``torch.distributed`` process group (one process per rank:
 the client-sharded dense round, under ``execution="hier"`` the
 hierarchical round with ``preagg`` and ``bucket_size``, under
-``execution="dsharded"`` the width-sharded round); the autotuner on a
-mesh raises ``NotImplementedError``.  An unknown key raises ``KeyError``.  The execution
-autotuner's fields (``autotune``, ``autotune_cache_dir``, ``tuned_plan``)
-are the reference's; ``mxu_finish`` takes only ``None`` or ``""`` (the
-port has no MXU route) and ``donate_buffers`` either value (the port
-updates in place, so it changes nothing).  ``validate()``
-refuses the codec, fault, wire-domain, buffered-async, participation-
-window, data-store, forensics, ledger, control, gossip and client-packing
-combinations the reference refuses, with its reasons, and
-``get_fed_round()`` resolves the ``client_packing`` request
-(:func:`~blades_tpu_torch.parallel.packed.resolve_client_packing`).
+``execution="dsharded"`` the width-sharded round); the autotuner tunes
+on a mesh too, its ranks in lockstep, rank 0 deciding.  An unknown key
+raises ``KeyError``.  The execution autotuner's fields (``autotune``,
+``autotune_cache_dir``, ``tuned_plan``) are the reference's;
+``mxu_finish`` takes only ``None`` or ``""`` (the port has no MXU route)
+and ``donate_buffers`` either value (the port updates in place, so it
+changes nothing).  ``validate()`` refuses the codec, fault, wire-domain,
+buffered-async, participation-window, data-store, forensics, ledger,
+control, gossip and client-packing combinations the reference refuses,
+with its reasons, and ``get_fed_round()`` resolves the ``client_packing``
+request (:func:`~blades_tpu_torch.parallel.packed.resolve_client_packing`).
 """
 
 from __future__ import annotations
@@ -466,8 +466,8 @@ class FedavgConfig:
     def _validate_mesh(self) -> None:
         """The reference's checks of ``num_devices``, ``mesh_shape``,
         ``preagg``, ``bucket_size`` and ``execution='hier'`` and of every
-        pair it refuses on a mesh, with its words; then the port's own
-        refusal on a mesh (the autotuner), by name."""
+        pair it refuses on a mesh, with its words (the autotuner only with
+        an explicit ``execution='hier'`` or ``'dsharded'`` pin)."""
         from blades_tpu_torch.ops.preagg import PREAGG_FLAVORS
 
         multi = bool(self.num_devices and self.num_devices > 1)
@@ -615,12 +615,6 @@ class FedavgConfig:
                 "plan would silently rewrite the pin) — set "
                 ".resources(autotune='off'), or drop the explicit "
                 "execution pin")
-        if self.autotune_mode:
-            raise NotImplementedError(
-                "autotune × num_devices>1 is not in the port yet: timing "
-                "candidates in lockstep across ranks is still to be "
-                "ported (ROADMAP); set .resources(autotune='off') or pin "
-                "the plan via tuned_plan")
 
     def _validate_dsharded(self) -> None:
         """The reference's refusals of the width-sharded round's pairs

@@ -71,12 +71,15 @@ measured selection on the card or the ranked heuristic off it -- and
 writes it into the config's knobs before the pipeline is built;
 :attr:`Fedavg.plan` / :attr:`Fedavg.plan_summary` hold it and its
 provenance, and the rows carry ``plan_id``, ``autotune_cache_hit``,
-``autotune_timed`` and ``autotune_candidates``.  A ``replan`` control
-action re-resolves it on the dense path.  The dense and windowed rounds'
-rows carry the kernel build cache's ``compile_cache_hits`` /
-``compile_cache_misses``.  With ``prefetch`` on (on the card by default)
-the dense single-round path draws round ``r+1``'s batches on a side
-stream while round ``r`` computes
+``autotune_timed`` and ``autotune_candidates``.  On a mesh the ranks
+time the candidates in lockstep and adopt rank 0's winner and
+provenance, and only rank 0 reads and writes the plan cache; a
+hierarchical winner (``collective="hier"``) runs the hierarchical round.
+A ``replan`` control action re-resolves it on the dense path.  The dense
+and windowed rounds' rows carry the kernel build cache's
+``compile_cache_hits`` / ``compile_cache_misses``.  With ``prefetch`` on
+(on the card by default) the dense single-round path draws round
+``r+1``'s batches on a side stream while round ``r`` computes
 (:class:`~blades_tpu_torch.data.prefetch.BatchPrefetcher`).
 :meth:`Fedavg.cost_analysis` counts one dispatch's operations and bytes.
 
@@ -996,9 +999,21 @@ class Fedavg:
         knob's list ordered current-resolution first and collapsed to one
         entry where the user set the knob, as the JAX package enumerates
         them; the port offers no MXU finish, and the ``d_chunk`` ladder
-        only where the round takes the chunked finish."""
+        only where the round takes the chunked finish.  On a mesh the
+        config's own mesh resolution comes first, the reassociating tier
+        adds the hierarchical round (on ``mesh_shape``, else ``(k, 1)``),
+        and an ``"auto"`` that resolves to the width-sharded round is
+        refused: the plans have no vocabulary for it."""
         cfg = self.config
         explicit = getattr(cfg, "_explicit", set()) or set()
+        nd = int(cfg.num_devices or 1)
+        if nd > 1 and cfg.execution == "auto" and self._dsharded_auto():
+            raise ValueError(
+                "autotune × execution='auto'-resolved-to-dsharded is an "
+                "unsupported pair: the plan space has no d-sharded "
+                "vocabulary — pin .resources(execution='dsharded') "
+                "without autotune, or shrink the federation into the "
+                "dense budget")
         baseline_streamed = self._use_streamed()
         windowed = self._windowed
         stateless = bool(getattr(self.fed_round, "stateless_clients", False))
@@ -1018,7 +1033,8 @@ class Fedavg:
                         <= self.dense_matrix_limit(self.device)):
                     execs.append("dense")
                 elif (not baseline_streamed and self._streamed_supported()
-                      and not dense_features and base_pack == 1):
+                      and not dense_features and base_pack == 1
+                      and nd == 1):
                     execs.append("streamed")
         streamed_in_space = "streamed" in execs
 
@@ -1054,7 +1070,7 @@ class Fedavg:
                         warnings.simplefilter("ignore")
                         _, dec = resolve_client_packing(
                             stripped, p, num_clients=cfg.num_clients,
-                            execution="dense")
+                            num_devices=cfg.num_devices, execution="dense")
                 except Exception:
                     continue
                 if dec and int(dec.get("pack_factor", 1)) == p:
@@ -1093,13 +1109,25 @@ class Fedavg:
                 if alt not in state_stores:
                     state_stores.append(alt)
 
+        # The mesh knobs: the config's own resolution first (a plan whose
+        # mesh_shape is None leaves the layout alone); the reassociating
+        # tier adds the hierarchical collective on its 2-D grid.
+        mesh_shapes = [tuple(cfg.mesh_shape) if cfg.mesh_shape else None]
+        collectives = ["ring"]
+        if nd > 1 and allow_reassociating:
+            hier_ms = tuple(cfg.mesh_shape) if cfg.mesh_shape else (nd, 1)
+            if hier_ms not in mesh_shapes:
+                mesh_shapes.append(hier_ms)
+            collectives.append("hier")
+
         return at.enumerate_plans(
             executions=execs, d_chunks=d_chunks, mxu_modes=[""],
             pack_factors=packs, scan_windows=windows,
             prefetch_options=prefetch_options, agg_domains=agg_domains,
             state_stores=state_stores,
             state_windows=[cfg.state_window],
-            allow_reassociating=allow_reassociating)
+            mesh_shapes=mesh_shapes, collectives=collectives,
+            num_devices=nd, allow_reassociating=allow_reassociating)
 
     def _program_fingerprint(self) -> Optional[str]:
         """The config fields that steer the program, digested (the plan
@@ -1136,24 +1164,56 @@ class Fedavg:
             items["__trusted_digest__"] = h.hexdigest()
         return compile_cache.fingerprint(items)
 
+    def _control_mesh(self):
+        """The whole process group as one ``(k, 1)`` mesh for the
+        autotuner's agreement messages on a mesh (it creates no subgroup,
+        so it is free to make before the round's own mesh); None in one
+        process."""
+        from blades_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(self.config.num_devices) if self._multi else None
+
     def _select(self, space):
         """The measured selection on the card (each candidate its own
-        driver, stopped before the next), the ranked heuristic off it."""
-        measure = (at.timed_measure_fn(self.config, device=self.device)
+        driver, stopped before the next), the ranked heuristic off it.  On
+        a mesh every rank times each candidate in lockstep and rank 0's
+        medians decide for all."""
+        mesh = self._control_mesh()
+        measure = (at.timed_measure_fn(self.config, device=self.device,
+                                       mesh=mesh)
                    if at.timing_available(self.device) else None)
-        plan, prov = at.select_plan(space, measure_fn=measure)
+        plan, prov = at.select_plan(space, measure_fn=measure, mesh=mesh)
         self.candidate_peaks = dict(getattr(measure, "peaks", {}) or {})
         return plan, prov
 
     def _resolve_autotune_plan(self):
         """This trial's plan: the ``tuned_plan`` pin, the plan cache's
         winner (when it is still in this run's space), or a selection
-        (then cached).  Returns ``(Plan, provenance)``."""
+        (then cached).  Returns ``(Plan, provenance)``.  On a mesh a pin is
+        checked to be every rank's, only rank 0 reads the cache and
+        broadcasts what it found (the ranks may not share a filesystem),
+        a miss is tuned on every rank in lockstep, and only rank 0 writes
+        the winner back."""
+        from blades_tpu_torch.parallel.mesh import (
+            all_ranks_ok,
+            broadcast_object,
+        )
+
         cfg = self.config
         mode = cfg.autotune_mode
         self.candidate_peaks = {}
         if cfg.tuned_plan:
             plan = at.Plan.from_dict(cfg.tuned_plan)
+            if self._multi:
+                mesh = self._control_mesh()
+                mine = plan.as_dict()
+                same = broadcast_object(mesh, mine,
+                                        label="autotune:pin") == mine
+                if not all_ranks_ok(mesh, same, label="autotune:pin"):
+                    raise RuntimeError(
+                        "the pinned plan (tuned_plan, or the checkpoint's) "
+                        "differs across ranks: every rank must resume the "
+                        "same trial")
             return plan, {
                 "mode": "pinned", "timed": False, "cache_hit": False,
                 "winner": plan.as_dict(), "winner_id": plan.plan_id,
@@ -1161,12 +1221,16 @@ class Fedavg:
             }
         space = self._plan_space(
             allow_reassociating=(mode == "reassociating"))
+        mesh = self._control_mesh()
+        writer = mesh is None or mesh.rank == 0
         cache = at.PlanCache(cfg.autotune_cache_dir)
         fp = self._program_fingerprint()
         key = at.cache_key(fp, tier=mode) if fp else None
         cache_stale = False
         if key is not None:
-            entry = cache.get(key)
+            entry = cache.get(key) if writer else None
+            if mesh is not None:
+                entry = broadcast_object(mesh, entry, label="autotune:cache")
             if entry is not None:
                 plan = at.Plan.from_dict(entry["plan"])
                 if plan in space.candidates:
@@ -1181,7 +1245,7 @@ class Fedavg:
         plan, prov = self._select(space)
         if cache_stale:
             prov["cache_stale"] = True
-        if key is not None:
+        if key is not None and writer:
             cache.put(key, plan, prov)
         return plan, prov
 

@@ -17,7 +17,10 @@ does not, or the reverse, the model describes the port's program
 model): its width-sharded round's update matrix is f32, ``d`` is padded
 to a multiple of ``64 k`` (``ops/layout.py::SHARD_ALIGN``), its psums are
 issued one geometry term at a time, and the malicious mask is replicated,
-not gathered.
+not gathered.  The control messages of
+:mod:`~blades_tpu_torch.parallel.mesh` (``all_ranks_ok``,
+``all_ranks_max``, ``broadcast_object``: the autotuner's and the sweep
+runner's agreements between rounds) carry no model data and are left out.
 
 Ring-collective wire cost per device, payload ``P`` bytes (the classic
 ring results):

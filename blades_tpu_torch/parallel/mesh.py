@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import pickle
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -342,15 +343,52 @@ def all_reduce_sum(mesh: Optional[Mesh], tensor: torch.Tensor,
     return src.to(tensor.device)
 
 
-def all_ranks_max(mesh: Mesh, value: int) -> int:
-    """The largest of the ranks' ``value`` over the whole process group
-    (one int64 all-reduce: on the card under NCCL, else on the host)."""
-    if mesh.world_size == 1 or not dist.is_initialized():
+def _all_ranks(mesh: Optional[Mesh], value: int, op) -> int:
+    """``op`` of the ranks' ``value`` over the whole process group (one
+    int64 all-reduce: on the card under NCCL, else on the host)."""
+    if mesh is None or mesh.world_size == 1 or not dist.is_initialized():
         return int(value)
     t = torch.tensor([int(value)], dtype=torch.int64,
                      device="cuda" if mesh.backend == "nccl" else "cpu")
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=op)
     return int(t.item())
+
+
+def all_ranks_max(mesh: Mesh, value: int) -> int:
+    """The largest of the ranks' ``value`` over the whole process group."""
+    return _all_ranks(mesh, value, dist.ReduceOp.MAX)
+
+
+# The two agreement messages below steer the ranks (who decided, whether
+# a step went through everywhere); they carry no model data, and the comm
+# models (parallel/comm_model.py) leave them out.  A recorder still counts
+# them, under their own labels, so that its inventory is complete.
+
+
+def all_ranks_ok(mesh: Optional[Mesh], ok: bool, recorder=None,
+                 label: Optional[str] = None) -> bool:
+    """Whether ``ok`` holds on every rank of the process group: a MIN
+    all-reduce of one int64 (on the card under NCCL, else on the host).
+    Every rank must call it; without a group, ``ok`` itself."""
+    _count(recorder, label, "psum", 8, 1 if mesh is None else mesh.world_size)
+    return bool(_all_ranks(mesh, int(bool(ok)), dist.ReduceOp.MIN))
+
+
+def broadcast_object(mesh: Optional[Mesh], obj: Any, src: int = 0,
+                     recorder=None, label: Optional[str] = None) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank
+    (``dist.broadcast_object_list``; the other ranks' ``obj`` is ignored).
+    Every rank must call it; without a group, ``obj`` itself.  Counted on
+    ``recorder`` as the pickled bytes over the ring."""
+    if mesh is not None and mesh.world_size > 1 and dist.is_initialized():
+        box = [obj]
+        dist.broadcast_object_list(box, src=src)
+        obj = box[0]
+    if recorder is not None:
+        recorder.count_ici(label or "broadcast", "broadcast",
+                           len(pickle.dumps(obj)),
+                           1 if mesh is None else mesh.world_size)
+    return obj
 
 
 def params_digest(params) -> str:

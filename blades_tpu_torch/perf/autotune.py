@@ -25,15 +25,21 @@ plans, time each on the card, cache the winner.
   so the peak device memory is one candidate's.  Off the card (the CPU
   tests) selection falls back to the deterministic ranked heuristic:
   ``candidates[0]``, the plan today's heuristics resolve.  Tests inject a
-  fake clock through ``clock=``.
+  fake clock through ``clock=``.  On a mesh (``num_devices > 1``, one
+  process a rank) every rank builds and times each candidate together:
+  the ranks agree after each step whether it still stands (a candidate
+  that fails on one rank is dropped on all), and rank 0's medians decide
+  the winner, which every rank adopts with rank 0's provenance.
 - **Plan cache** (:class:`PlanCache`): winners persist to one JSON file
   per key ``(config fingerprint, tier, device name, torch and CUDA
   versions)`` under ``$BLADES_TPU_TORCH_PLAN_CACHE_DIR`` or
   ``~/.cache/blades_tpu_torch/plans`` (the port's own directory: a TPU
   entry never serves the card), written atomically (tmp + fsync +
   ``os.replace``).  A torn, corrupt or stale entry means a re-tune, never
-  a crash.  ``python -m blades_tpu_torch.tools.show_plan`` lists, shows
-  and invalidates entries.
+  a crash.  On a mesh only rank 0 reads and writes it (the ranks may not
+  share a filesystem) and broadcasts what it read.
+  ``python -m blades_tpu_torch.tools.show_plan`` lists, shows and
+  invalidates entries.
 
 The driver's side is
 :meth:`blades_tpu_torch.algorithms.fedavg.Fedavg._resolve_autotune_plan`.
@@ -428,11 +434,13 @@ def timed_measure_fn(
     clock: Optional[Callable[[], float]] = None,
     build: Optional[Callable[[Any], Any]] = None,
     device=None,
+    mesh=None,
 ) -> Callable[[Plan], Optional[float]]:
     """Build the measured-trial function: plan -> median seconds per **FL
     round** (or ``None`` when the candidate fails to build or run; a
     failure raised in a kernel's build or launch,
-    :func:`~blades_tpu_torch.ops._cuda.raised_in_kernel`, propagates).
+    :func:`~blades_tpu_torch.ops._cuda.raised_in_kernel`, propagates, on a
+    mesh from every rank).
 
     One ``train()`` dispatch advances ``plan.rounds_per_dispatch`` rounds,
     so the dispatch median is divided by the window width.  The candidate
@@ -443,17 +451,40 @@ def timed_measure_fn(
     injected) times finished work.  Each candidate is stopped, dropped and
     the allocator's cache emptied before the next one is built, so the
     peak device memory is one candidate's; on the card ``measure.peaks``
-    maps each ``plan_id`` to its peak allocated bytes.
+    maps each ``plan_id`` to its peak allocated bytes (this rank's).
+
+    On a mesh (``config.num_devices > 1``) every rank of the process group
+    calls ``measure`` on the same plans in the same order, and the
+    candidate's driver runs its rounds on all of them, in lockstep.  After
+    the build and after each warm-up and timed ``train()`` the ranks agree
+    (:func:`~blades_tpu_torch.parallel.mesh.all_ranks_ok`, on ``mesh``,
+    the whole group's, made from ``config.num_devices`` unless given)
+    whether the candidate still stands: one that raised on any rank is
+    dropped on every rank (``None``), and they go on to the next candidate
+    together.  A barrier between the build and the first warm-up keeps
+    the skew of the ranks' setup out of the timed window.  Each rank
+    returns its own median; the caller takes rank 0's (:func:`select_plan`
+    with ``mesh``).  A rank can drop out only between
+    collectives: a failure that leaves a rank inside one (a rank-local
+    error in the middle of a round, while the others wait in its gather)
+    cannot be recovered, and ends as the process group's timeout error,
+    not as a silent hang.
     """
     clock = clock or time.perf_counter
     if warmup < 0 or reps < 1:
         raise ValueError(f"need warmup >= 0, reps >= 1; got {warmup}/{reps}")
+    multi = int(getattr(config, "num_devices", None) or 1) > 1
 
     def measure(plan: Plan) -> Optional[float]:
         import torch
 
         from blades_tpu_torch.ops import _cuda
+        from blades_tpu_torch.parallel.mesh import all_ranks_ok, make_mesh
 
+        group = None
+        if multi:
+            group = (mesh if mesh is not None
+                     else make_mesh(int(config.num_devices)))
         cand = config.copy()
         cand.autotune = False
         cand.tuned_plan = None
@@ -464,25 +495,66 @@ def timed_measure_fn(
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         algo = None
-        try:
+
+        def attempt(fn, what):
+            """``fn()``; whether it went through on every rank.  A
+            candidate that fails is ranked out, loudly; a kernel's failure
+            is never hidden behind another plan: on a mesh the ranks then
+            agree once more, and every rank raises."""
+            err = None
+            try:
+                fn()
+            except Exception as exc:
+                if group is None and _cuda.raised_in_kernel(exc):
+                    raise
+                err = exc
+            ok = err is None
+            if group is not None:
+                label = f"autotune:{what}"
+                ok = all_ranks_ok(group, ok, label=label)
+                kernel = err is not None and _cuda.raised_in_kernel(err)
+                if not ok and not all_ranks_ok(group, not kernel,
+                                               label=label):
+                    if kernel:
+                        raise err
+                    raise RuntimeError(
+                        f"autotune candidate {plan.plan_id}: a kernel "
+                        f"failed on another rank in its {what}")
+            if err is not None:
+                warnings.warn(
+                    f"autotune candidate {plan.plan_id} failed and was "
+                    f"skipped: {type(err).__name__}: {err}", RuntimeWarning)
+            elif not ok:
+                warnings.warn(
+                    f"autotune candidate {plan.plan_id} failed on another "
+                    f"rank in its {what} and was skipped", RuntimeWarning)
+            return ok
+
+        def built():
+            nonlocal algo
             algo = (build(cand) if build is not None
                     else cand.build(device=device))
+
+        times = []
+
+        def timed_train():
+            t0 = clock()
+            algo.train()
+            times.append(clock() - t0)
+
+        try:
+            if not attempt(built, "build"):
+                return None
+            if group is not None:
+                import torch.distributed as dist
+
+                dist.barrier()
             for _ in range(warmup):
-                algo.train()
-            times = []
+                if not attempt(algo.train, "warmup"):
+                    return None
             for _ in range(reps):
-                t0 = clock()
-                algo.train()
-                times.append(clock() - t0)
-        except Exception as exc:
-            # A candidate that fails is ranked out, loudly; a kernel's
-            # failure is never hidden behind another plan.
-            if _cuda.raised_in_kernel(exc):
-                raise
-            warnings.warn(
-                f"autotune candidate {plan.plan_id} failed and was "
-                f"skipped: {type(exc).__name__}: {exc}", RuntimeWarning)
-            return None
+                if not attempt(timed_train, "timed"):
+                    return None
         finally:
             if algo is not None and callable(getattr(algo, "stop", None)):
                 algo.stop()
@@ -503,6 +575,7 @@ def select_plan(
     space: PlanSpace,
     *,
     measure_fn: Optional[Callable[[Plan], Optional[float]]] = None,
+    mesh=None,
 ) -> Tuple[Plan, Dict[str, Any]]:
     """Pick the winner from ``space``.
 
@@ -512,6 +585,11 @@ def select_plan(
     every measurement fails — the deterministic ranked heuristic wins:
     ``space.candidates[0]``, the plan the current resolution order
     produces, marked ``"mode": "heuristic"`` in the provenance.
+
+    With ``mesh`` (a process group's), every rank measures in lockstep
+    (:func:`timed_measure_fn`) and rank 0's medians decide: the winner and
+    the provenance are rank 0's on every rank
+    (:func:`~blades_tpu_torch.parallel.mesh.broadcast_object`).
     """
     timings: List[Optional[float]] = []
     if measure_fn is not None:
@@ -539,6 +617,12 @@ def select_plan(
         ],
         "truncated": space.truncated,
     }
+    if mesh is not None:
+        from blades_tpu_torch.parallel.mesh import broadcast_object
+
+        provenance = broadcast_object(mesh, provenance,
+                                      label="autotune:winner")
+        winner = Plan.from_dict(provenance["winner"])
     return winner, provenance
 
 

@@ -304,11 +304,18 @@ Phases, each printing its lines before the last:
    a rank a round, ``gossip_ici_bytes`` = 1,255,230,208 a rank a round
    (``gossip_round_volumes`` for (2, 1)), the gathers timed; (e)
    ``gossip_step`` on a group of one NCCL rank, the stacked driver bit
-   for bit; (b) runs beside (c), then (d) beside (e).  Every select (``column_median:mesh``,
+   for bit.  (f) the execution autotuner on 2 gloo ranks: ResNet-10 x 32,
+   ALIE + Median, ``autotune="reassociating"`` over a fresh plan cache,
+   5 candidates (the flat round and the hierarchical round on (2, 1))
+   built and timed in lockstep; both ranks on rank 0's winner and
+   provenance, its rounds equal to the ``tuned_plan`` run's bit for bit,
+   the second build a cache hit on both ranks with no candidate built,
+   only rank 0's cache directory written.  (a) runs beside (e), (b)
+   alone, (f) beside (c), then (d) alone.  Every select (``column_median:mesh``,
    ``column_median:mesh-gossip``) and BN launch (``bn_bwd_reduce:mesh``,
-   ``bn_bwd_dx:mesh``, ``...:mesh-gossip``) of (a), (b) at 2, (c), (d)
-   and (e) held against the plain versions.  A rank that fails fails the
-   phase.
+   ``bn_bwd_dx:mesh``, ``...:mesh-gossip``) of (a), (b) at 2, (c), (d),
+   (e) and (f) held against the plain versions.  A rank that fails fails
+   the phase.
 21. ``dsharded``: the width-sharded round (``execution="dsharded"``) on
    ranks started as in ``mesh``, cuDNN deterministic: (a)
    ``fedavg_cifar10_1000clients_mesh.yaml``'s three points (Median,
@@ -7507,6 +7514,124 @@ def _mesh_nccl(rank, world):
         algo.stop()
 
 
+# (f) the execution autotuner on the ranks: ResNet-10 at full width x 32
+# clients, ALIE on 8, Median, 2 gloo ranks sharing cuda:0, autotune
+# "reassociating" over a fresh plan cache (a directory a rank: only rank 0
+# may write one).  Each rank's 16 lanes are one block.  The plan space
+# (``Fedavg._plan_space`` on a mesh of 2): the flat client-sharded round
+# with and without prefetch, the same on a pinned (2, 1) grid, and the
+# hierarchical round on (2, 1); each candidate timed on AUTOTUNE_REPS
+# train() call after a warm-up, in lockstep.
+MESH_AUTOTUNE_TRIAL = {
+    **MESH_TRIAL, "num_malicious_clients": 8, "client_block": 16,
+    "dataset_config": {**DENSE_TRIAL["dataset_config"], "num_clients": 32},
+    "evaluation_interval": 3}
+MESH_AUTOTUNE_ROUNDS = 2  # the winner's rounds, held against tuned_plan's
+MESH_AUTOTUNE_IDS = tuple(
+    "dense|c131072|p1|mxu=off|w1|" + tail for tail in (
+        "pre", "nopre", "pre|mesh=2x1", "nopre|mesh=2x1",
+        "nopre|mesh=2x1|hier"))
+MESH_OUT = []  # a rank's --mesh-out
+
+
+def _at_mesh_run(cfg, rounds):
+    """Build ``cfg`` on ``MESH_DEVICE`` (an autotuned build times its
+    candidates, every select and BN launch held against the plain versions
+    as the rounds' are) and run ``rounds`` rounds, the launch counts set to
+    0 just before the build and read after the rounds.  Each candidate is
+    timed on the rank's clock less its own audits' seconds, and peaks at
+    the larger of its measured peak and the peak its audits saw.  Returns
+    the plan, the provenance, the candidates this rank timed and its own
+    medians and peaks, the parameters' digest and finiteness, the rows'
+    scalars, the counts, routes, audited launches and seconds."""
+    import torch
+
+    from blades_tpu_torch.algorithms import FedavgConfig
+    from blades_tpu_torch.ops import _cuda
+    from blades_tpu_torch.parallel.mesh import params_digest
+    from blades_tpu_torch.perf import autotune as at
+
+    real = at.timed_measure_fn
+    local, peaks = {}, {}
+
+    def measure_fn(config, **kw):
+        measure = real(config, reps=AUTOTUNE_REPS,
+                       clock=lambda: time.perf_counter() - AUDIT["s"], **kw)
+
+        def m(plan):
+            AUDIT["peak"] = 0
+            local[plan.plan_id] = measure(plan)
+            peaks[plan.plan_id] = max(measure.peaks.get(plan.plan_id, 0),
+                                      AUDIT["peak"])
+            return local[plan.plan_id]
+
+        return m
+
+    at.timed_measure_fn = measure_fn
+    AUDIT["s"] = 0.0
+    sel = _PathAudit("select", "column_median:mesh-autotune", timing=None)
+    try:
+        with sel, _BnAudit() as bn:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            algo = FedavgConfig().update_from_dict(cfg).build(
+                device=MESH_DEVICE)
+            build_s = time.perf_counter() - t0
+            try:
+                rows = [algo.train() for _ in range(rounds)]
+                torch.cuda.synchronize()
+                counts, maps = dict(_cuda.LAUNCHES), dict(_cuda.MAPS)
+                params = algo.state.server.params
+                out = {"plan": algo.plan.as_dict(),
+                       "prov": algo.plan_summary,
+                       "built": list(local), "local": local, "peaks": peaks,
+                       "digest": params_digest(params),
+                       "finite": all(bool(v.isfinite().all())
+                                     for v in params.values()),
+                       "hier": algo._hier_recorder is not None,
+                       "rows": [{k: v for k, v in r.items()
+                                 if isinstance(v, (int, float, str))}
+                                for r in rows],
+                       "counts": counts,
+                       "maps": {"/".join(k): v for k, v in maps.items()},
+                       "build_s": build_s,
+                       "train_s": (rows[-1]["timers"]["training_step"]
+                                   ["total_s"] if rows else 0.0)}
+            finally:
+                algo.stop()
+                torch.cuda.empty_cache()
+        out["audited"] = (sel.calls, bn.calls)
+        out["errs"] = (max([r["max_abs_err"] for r in sel.records.values()],
+                           default=0.0), bn.err)
+        out["audit_s"] = AUDIT["s"]
+        return out
+    finally:
+        at.timed_measure_fn = real
+
+
+def _mesh_autotune(rank, world):
+    """(f) The autotuned trial on every rank (its candidates built and timed
+    in lockstep, rank 0 deciding), then the run pinned to its winner
+    (``tuned_plan``), then the same autotuned config again (a cache hit on
+    every rank, no candidate built).  Every rank keeps its own plan-cache
+    directory: only rank 0's gets the file."""
+    import torch.distributed as dist
+
+    plans = os.path.join(os.path.dirname(MESH_OUT[0]), "plans", f"rank{rank}")
+    cfg = {**MESH_AUTOTUNE_TRIAL, "num_devices": world,
+           "autotune": "reassociating", "autotune_cache_dir": plans}
+    tuned = _at_mesh_run(cfg, MESH_AUTOTUNE_ROUNDS)
+    dist.barrier()
+    pinned = _at_mesh_run({**cfg, "tuned_plan": tuned["plan"]},
+                          MESH_AUTOTUNE_ROUNDS)
+    dist.barrier()
+    files = sorted(os.listdir(plans)) if os.path.isdir(plans) else []
+    again = _at_mesh_run(cfg, 0)
+    return {"tuned": tuned, "pinned": pinned, "again": again,
+            "files": files}
+
+
 # The mesh phase's gossip parts: the gossip phase's headline trial
 # (_gossip_headline: 64 nodes, kregular k = 4 (k1 = 5), ALIE on 16, Median,
 # f32) on the ranks of a process group, each rank's 32 nodes one block of
@@ -8007,7 +8132,8 @@ def _dsharded_here(work):
 
 
 MESH_PARTS = {"sharded": _mesh_sharded, "hier": _mesh_hier,
-              "nccl": _mesh_nccl, "gossip": _mesh_gossip,
+              "nccl": _mesh_nccl, "autotune": _mesh_autotune,
+              "gossip": _mesh_gossip,
               "gossip-nccl": _gossip_nccl, "dsharded": _dsharded_gloo}
 
 
@@ -8024,6 +8150,7 @@ def _mesh_rank_main(args) -> int:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
         True, False)
     out = args.mesh_out
+    MESH_OUT.append(out)
     try:
         from blades_tpu_torch.parallel import init_distributed
         import torch.distributed as dist
@@ -8215,6 +8342,81 @@ def _mesh_gossip_checks(g, e0, card):
     return counts, g0["records"]
 
 
+def _mesh_autotune_checks(f, card):
+    """(f) held and logged: ``f`` the 2 gloo ranks' results."""
+    f0 = f[0]
+    ids = list(MESH_AUTOTUNE_IDS)
+    prov = f0["tuned"]["prov"]
+    n = len(ids)
+    rounds = MESH_AUTOTUNE_ROUNDS
+    tuned_rounds = n * (1 + AUTOTUNE_REPS) + rounds
+    for r, res in enumerate(f):
+        t, p, g = res["tuned"], res["pinned"], res["again"]
+        check(t["prov"] == prov and t["plan"] == f0["tuned"]["plan"],
+              f"mesh (f) rank {r}: plan {t['prov']['winner_id']}, "
+              f"provenance differs from rank 0's")
+        check(t["built"] == ids and all(t["local"][i] is not None
+                                        for i in ids),
+              f"mesh (f) rank {r}: timed {t['local']}, expected {ids}")
+        for res_, nr, what in ((t, tuned_rounds, "tuned"),
+                               (p, rounds, "pinned")):
+            want = {"column_median": nr,
+                    **{k: nr * MESH_BN_ROUND for k in BN_TPU}}
+            check(res_["counts"] == want
+                  and res_["maps"].get("column_median/select:radix") == nr,
+                  f"mesh (f) rank {r} {what}: launches {res_['counts']} by "
+                  f"route {res_['maps']}, expected {want}")
+            check(list(res_["audited"]) == [nr, 2 * nr * MESH_BN_ROUND],
+                  f"mesh (f) rank {r} {what}: audited {res_['audited']}")
+            check(res_["finite"] and all(math.isfinite(row["train_loss"])
+                                         for row in res_["rows"]),
+                  f"mesh (f) rank {r} {what}: parameters or losses not "
+                  f"finite")
+        keys = ("train_loss", "agg_norm", "update_norm_mean")
+        check(p["prov"]["mode"] == "pinned" and p["plan"] == t["plan"]
+              and p["digest"] == t["digest"]
+              and [[x[k] for k in keys] for x in p["rows"]]
+              == [[x[k] for k in keys] for x in t["rows"]]
+              and p["hier"] is t["hier"],
+              f"mesh (f) rank {r}: the winner's rounds differ from the "
+              f"tuned_plan run's")
+        check(g["prov"]["mode"] == "cache" and g["prov"]["cache_hit"]
+              and g["built"] == [] and g["plan"] == t["plan"]
+              and not g["counts"],
+              f"mesh (f) rank {r}: second run {g['prov']['mode']}, timed "
+              f"{g['built']}, launches {g['counts']}")
+        check(res["tuned"]["digest"] == f0["tuned"]["digest"],
+              f"mesh (f): rank {r}'s parameters differ from rank 0's")
+    check([c["plan_id"] for c in prov["candidates"]] == ids
+          and [c["median_s"] for c in prov["candidates"]]
+          == [f0["tuned"]["local"][i] for i in ids]
+          and prov["mode"] == "measured",
+          f"mesh (f): provenance {prov}, rank 0's medians "
+          f"{f0['tuned']['local']}")
+    check(len(f0["files"]) == 1 and f[1]["files"] == [],
+          f"mesh (f): plan-cache files by rank {[x['files'] for x in f]}")
+    what = (f"mesh (f) ResNet-10 x 32 ALIE Median, 2 gloo ranks on cuda:0 "
+            f"[{card}]")
+    for c in prov["candidates"]:
+        i = c["plan_id"]
+        log(f"{what}: candidate {c['rank']} {i} ({c['tier']}) median "
+            f"{c['median_s']:.4f} s a round (rank 1 timed "
+            f"{f[1]['tuned']['local'][i]:.4f}), peak "
+            f"{f0['tuned']['peaks'][i] / 2**30:.2f} / "
+            f"{f[1]['tuned']['peaks'][i] / 2**30:.2f} GiB")
+    t0 = f0["tuned"]
+    log(f"{what}: winner {prov['winner_id']} on both ranks, rank 0's "
+        f"medians and provenance on rank 1; its {rounds} rounds equal the "
+        f"tuned_plan run's bit for bit (train_loss "
+        f"{[x['train_loss'] for x in t0['rows']]}); build with the "
+        f"candidates {t0['build_s']:.1f} / {f[1]['tuned']['build_s']:.1f} s; "
+        f"launches a rank {t0['counts']}, every one audited (select max "
+        f"abs err {t0['errs'][0]}, BN sums {t0['errs'][1]:.3g}); the second "
+        f"build a cache hit on both ranks, no candidate built "
+        f"({f0['again']['build_s']:.1f} s); only rank 0's cache directory "
+        f"holds the entry")
+
+
 def phase_mesh(card):
     """The rounds on the ranks of a process group, through ``FedavgConfig``
     -> ``Fedavg.train()`` (``num_devices``, ``mesh_shape``,
@@ -8229,10 +8431,16 @@ def phase_mesh(card):
     then the one-process stacked round on rank 0, bit for bit,
     ``gossip_ici_bytes`` the comm model's, the gathers timed; (e) the same
     round through ``gossip_step`` on a group of one NCCL rank, bit for bit
-    with (d)'s stacked round.  (a) runs beside (e), (b) beside (c), then
-    (d) alone, so that its select and BN records are taken on an
-    otherwise idle card.  Every select and BN launch of the ranks held
-    against the plain versions."""
+    with (d)'s stacked round; (f) the execution autotuner on 2 gloo ranks
+    sharing cuda:0 (ResNet-10 x 32, ``autotune="reassociating"``): the
+    candidates (the flat and the hierarchical round) timed in lockstep,
+    rank 0's winner and provenance on both ranks, its rounds equal to the
+    ``tuned_plan`` run's bit for bit, the second build a cache hit on both
+    ranks.  (a) runs beside (e), (b) alone, (f) beside (c), then (d)
+    alone, so that its select and BN records are taken on an otherwise
+    idle card ((a), (e) and (f) together can run the card out of
+    memory).  Every select and BN launch of the ranks held against the
+    plain versions."""
     from blades_tpu_torch.ops import _cuda
 
     _cuda.build()  # the ranks load this build
@@ -8247,12 +8455,16 @@ def phase_mesh(card):
         f"{e[0]['setup_s']:.1f} s, parts {a[0]['part_s']:.1f} / "
         f"{e[0]['part_s']:.1f} s)")
     t0 = time.perf_counter()
-    groups = [_mesh_start("hier", 4, "gloo", work),
+    b = _mesh_wait(_mesh_start("hier", 4, "gloo", work))
+    log(f"mesh (b): 4 gloo ranks in {time.perf_counter() - t0:.1f} s "
+        f"(setup {b[0]['setup_s']:.1f} s, part {b[0]['part_s']:.1f} s)")
+    t0 = time.perf_counter()
+    groups = [_mesh_start("autotune", 2, "gloo", work),
               _mesh_start("nccl", 1, "nccl", work)]
-    b, c = _mesh_wait_all(groups)
-    log(f"mesh (b)+(c): 4 gloo ranks and 1 NCCL rank in "
-        f"{time.perf_counter() - t0:.1f} s (setup {b[0]['setup_s']:.1f} / "
-        f"{c[0]['setup_s']:.1f} s, parts {b[0]['part_s']:.1f} / "
+    f, c = _mesh_wait_all(groups)
+    log(f"mesh (f)+(c): 2 gloo ranks and 1 NCCL rank in "
+        f"{time.perf_counter() - t0:.1f} s (setup {f[0]['setup_s']:.1f} / "
+        f"{c[0]['setup_s']:.1f} s, parts {f[0]['part_s']:.1f} / "
         f"{c[0]['part_s']:.1f} s)")
     # (d) alone: its records are timed on an otherwise idle card.
     t0 = time.perf_counter()
@@ -8348,6 +8560,7 @@ def phase_mesh(card):
     log(f"mesh (c): sharded_step on one NCCL rank equals the dense round "
         f"bit for bit; launches {c0['counts']} [{card}]")
     gcounts, grecords = _mesh_gossip_checks(g, e[0], card)
+    _mesh_autotune_checks(f, card)
     counts = {"column_median:mesh": r0["counts"]["column_median"],
               **{f"{k}:mesh": r0["counts"][k] for k in BN_TPU}, **gcounts}
     return counts, {**r0["records"], **grecords}
