@@ -7,4 +7,11 @@ are hand-written CUDA (``csrc/``), built on first use.  Entry points take
 unless the caller passes ``device="cpu"``.
 """
 
-from blades_tpu_torch.device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    # Lazy, so that the tools that need no torch (the lint) load none.
+    if name == "resolve_device":
+        from blades_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'blades_tpu_torch' has no attribute {name!r}")

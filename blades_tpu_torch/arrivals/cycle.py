@@ -139,8 +139,8 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
         params = state.server.params
         layout = FlatLayout(params)
         k = len(ev_clients)
-        stale = np.clip(np.asarray(ev_stale, np.int64), 0, staleness_cap)
-        mal_host = np.asarray(ev_malicious, bool)
+        stale = np.clip(np.asarray(ev_stale, np.int64), 0, staleness_cap)  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
+        mal_host = np.asarray(ev_malicious, bool)  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
         if stale_replay:
             stale = np.where(mal_host, staleness_cap, stale)
         # The ring row each event trained against, for inspection.
@@ -148,7 +148,7 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
         ring_rows = torch.as_tensor(stale, device=dev)
         mal = torch.as_tensor(mal_host, device=dev)
         rows = torch.as_tensor(
-            np.arange(k) if windowed_state else np.asarray(ev_clients),
+            np.arange(k) if windowed_state else np.asarray(ev_clients),  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
             dtype=torch.int64, device=dev)
         x, y = data
         if prebatched is None:
@@ -187,14 +187,14 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
                 for n, v in opt_b.items():
                     new_opt[n][b0:b1] = v
             del lane
-        corrupt = torch.as_tensor(np.asarray(ev_corrupt, bool), device=dev)
+        corrupt = torch.as_tensor(np.asarray(ev_corrupt, bool), device=dev)  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
         if fill is not None:
             updates = torch.where(corrupt[:, None], torch.full(
                 (), fill, dtype=updates.dtype, device=dev), updates)
         gen = torch.Generator(device=dev).manual_seed(cycle_seed(seed,
                                                                  version))
         if forges(adv):
-            kw = {"ticks": torch.as_tensor(np.asarray(ev_ticks, np.int64),
+            kw = {"ticks": torch.as_tensor(np.asarray(ev_ticks, np.int64),  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
                                            device=dev)} if wants_ticks else {}
             updates = adv.on_updates_ready(
                 updates, mal, noise=forge_noise, generator=gen,
@@ -208,7 +208,7 @@ def build_cycle(fed_round, *, staleness_cap: int, weight_schedule: str,
         step = server.step_buffered_diag if forensics else server.step_buffered
         out = step(
             state.server, updates, staleness=torch.as_tensor(
-                np.asarray(ev_stale, np.int64)), generator=gen,
+                np.asarray(ev_stale, np.int64)), generator=gen,  # blades-lint: disable=host-sync — the event columns are the host engine's numpy arrays: no card read
             trusted_update=trusted, schedule=weight_schedule,
             power=weight_power, cutoff=weight_cutoff)
         new_server, agg = out[:2]

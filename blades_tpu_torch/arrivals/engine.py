@@ -29,7 +29,6 @@ shards.  No realization reads a wall clock; only the staging telemetry
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -43,6 +42,7 @@ from blades_tpu_torch.arrivals.weights import (
     STALENESS_SCHEDULES,
     staleness_weights,
 )
+from blades_tpu_torch.obs.trace import now
 
 #: Ticks realized per window while filling the buffer.
 _REALIZE_WINDOW = 64
@@ -396,7 +396,9 @@ class AsyncEngine:
         them, scatter the advanced rows back."""
         store = self.state_store
         dev = state.arrivals.device
-        t0 = time.perf_counter()
+        from blades_tpu_torch.obs.trace import now
+
+        t0 = now()
         rows = store.gather(clients, device=dev)
         if self.data_store is not None:
             ex, ey, _ = self.data_store.gather(clients, device=dev)
@@ -407,7 +409,7 @@ class AsyncEngine:
         data_bytes = (ex.numel() * ex.element_size()
                       + ey.numel() * ey.element_size())
         self.store_stats.observe(
-            time.perf_counter() - t0, len(clients) * store.row_bytes
+            now() - t0, len(clients) * store.row_bytes
             + data_bytes, store.device_bytes()
             + 2 * len(clients) * store.row_bytes + data_bytes)
         opt = rows_to_opt(self.fed_round, state, rows)

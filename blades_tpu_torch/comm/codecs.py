@@ -299,7 +299,7 @@ class CodecConfig:
         True onto the wire grid (how forged lanes re-enter the wire); the
         other rows keep their payload.  Returns new ``(q, scales)``."""
         q, scales = q.clone(), scales.clone()
-        idx = rows.nonzero().flatten()
+        idx = rows.nonzero().flatten()  # blades-lint: disable=host-sync — known round-time sync: the forged lanes' indices size dec[idx]; once a wire round with a forge
         self.requantize_into(q, scales, idx, dec[idx])
         return q, scales
 

@@ -510,14 +510,14 @@ class FedRound:
         dequant_extra = 0
         if self.adversary is not None:
             adv, agg = self.adversary, self.server.aggregator
-            idx = malicious.nonzero().flatten()
+            idx = malicious.nonzero().flatten()  # blades-lint: disable=host-sync — known round-time sync: the malicious lanes' indices size the forged rows; once a wire round with an adversary
             if not forges(adv) or isinstance(adv, _CHUNKED_WIRE_FORGERS):
                 c = min(self.agg_d_chunk, d)
                 forged = torch.empty((idx.numel(), d), dtype=torch.float32,
                                      device=q.device)
                 for i, c0 in enumerate(range(0, d, c)):
                     c1 = min(c0 + c, d)
-                    dec = dequantize(q[:, c0:c1], scales)
+                    dec = dequantize(q[:, c0:c1], scales)  # blades-lint: disable=streamed-pass-discipline — sanctioned forge materialization: the adversary reads the FULL quantized-domain geometry (strongest-adversary convention); the decode is counted in dequant_rows
                     if forges(adv):
                         dec = adv.on_updates_ready(
                             dec, malicious, generator=generator,
@@ -528,7 +528,7 @@ class FedRound:
                     del dec
             else:
                 dec = adv.on_updates_ready(
-                    dequantize(q, scales, d), malicious, noise=forge_noise,
+                    dequantize(q, scales, d), malicious, noise=forge_noise,  # blades-lint: disable=streamed-pass-discipline — sanctioned forge materialization: the adversary reads the FULL quantized-domain geometry (strongest-adversary convention); the decode is counted in dequant_rows
                     generator=generator, aggregator=agg)
                 forged = dec[idx]
                 del dec

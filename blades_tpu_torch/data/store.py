@@ -81,7 +81,7 @@ class DataStore:
 
     def take(self, ids: np.ndarray) -> Tuple[np.ndarray, ...]:
         """Host rows ``(x, y, lengths)`` of ``ids`` (any order)."""
-        ids = np.asarray(ids, np.int64)
+        ids = np.asarray(ids, np.int64)  # blades-lint: disable=host-sync — cohort ids are host ints: numpy over host data, no card read
         out = tuple(np.empty((len(ids),) + sh, dt)
                     for sh, dt in zip(self._shapes, self._dtypes))
         self._fill(ids, out)
@@ -92,11 +92,11 @@ class DataStore:
         """The :meth:`take` rows on ``device``: assembled in host buffers
         (pinned when the store serves the card) and copied
         ``non_blocking`` on the current stream."""
-        ids = np.asarray(ids, np.int64)
+        ids = np.asarray(ids, np.int64)  # blades-lint: disable=host-sync — cohort ids are host ints: numpy over host data, no card read
         bufs = [torch.empty((len(ids),) + sh, pin_memory=self.pin,
                             dtype=torch.from_numpy(np.empty(0, dt)).dtype)
                 for sh, dt in zip(self._shapes, self._dtypes)]
-        self._fill(ids, [b.numpy() for b in bufs])
+        self._fill(ids, [b.numpy() for b in bufs])  # blades-lint: disable=host-sync — numpy views of the host staging buffers, no card read
         return tuple(b.to(device, non_blocking=self.pin) for b in bufs)
 
     def total_bytes(self) -> int:

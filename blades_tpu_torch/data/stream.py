@@ -18,13 +18,13 @@ store (counterpart of ``blades_tpu/data/stream.py``).
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from blades_tpu_torch.data.store import DataStats, DataStore
+from blades_tpu_torch.obs.trace import now
 
 #: The per-client sums ``Task.evaluate`` returns.
 EVAL_SUM_KEYS = ("ce_sum", "top1_sum", "top3_sum", "count")
@@ -49,10 +49,10 @@ class DataPrefetcher:
                ) -> Tuple[torch.Tensor, ...]:
         """``(x, y, lengths)`` of ``ids`` on ``device``; ``y`` and
         ``lengths`` as int64, as the rounds index with them."""
-        t0 = time.perf_counter()
+        t0 = now()
         x, y, ln = self._store.gather(ids, device=device)
         rows = (x, y.long(), ln.long())
-        self.stats.observe(time.perf_counter() - t0,
+        self.stats.observe(now() - t0,
                            sum(t.numel() * t.element_size()
                                for t in (x, y, ln)))
         return rows

@@ -144,7 +144,7 @@ class FaultInjector:
         u_drop, u_strag, u_corr = (torch.rand((n,), generator=gen)
                                    for _ in range(3))
         participation = u_drop >= self.dropout_rate_at(round_idx)
-        if not bool(participation.any()):
+        if not bool(participation.any()):  # blades-lint: disable=host-sync — the masks are CPU tensors from a CPU generator: no card read
             participation = torch.ones_like(participation)
         straggled = torch.zeros((n,), dtype=torch.bool)
         if self.needs_stale_buffer:

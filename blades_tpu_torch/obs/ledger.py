@@ -176,7 +176,7 @@ class ClientLedger:
         already-host data (fetched rows and engine columns) — this is
         the sanctioned boundary, never a device fetch.
         """
-        ids = np.asarray(ids, dtype=np.int64)
+        ids = np.asarray(ids, dtype=np.int64)  # blades-lint: disable=host-sync — sanctioned ledger boundary: cohort ids arrive as already-fetched host data (fetched rows / engine columns), never a card fetch
         if ids.ndim != 1 or not len(ids):
             raise LedgerError(
                 f"cohort ids must be a non-empty 1-D vector, got shape "
@@ -198,23 +198,23 @@ class ClientLedger:
             cols["last_tick"][:] = int(tick)
         churn = 0
         if flagged is not None:
-            fl = np.asarray(flagged, dtype=bool)
+            fl = np.asarray(flagged, dtype=bool)  # blades-lint: disable=host-sync — sanctioned ledger boundary: the diagnosis mask is a slice of the row Fedavg already fetched
             cols["flagged"] = cols["flagged"] + fl
             # Churn vs each client's OWN previous participation (a
             # first-timer's baseline is "not flagged"): cohort-local
             # (O(window), not O(n_registered)) and persistent through
             # the last_flagged column, so kill-and-resume re-derives it.
-            churn = int((fl != (cols["last_flagged"] > 0)).sum())
+            churn = int((fl != (cols["last_flagged"] > 0)).sum())  # blades-lint: disable=host-sync — sanctioned ledger boundary: numpy reduction over host columns, no card tensor in sight
             cols["last_flagged"] = fl.astype(np.uint8)
         if scores is not None:
-            sc = np.asarray(scores, dtype=np.float64)
+            sc = np.asarray(scores, dtype=np.float64)  # blades-lint: disable=host-sync — sanctioned ledger boundary: diagnosis scores are a slice of the already-fetched row
             a = LEDGER_EWMA_ALPHA
             cols["score_ewma"] = np.where(
                 first, sc, (1.0 - a) * cols["score_ewma"] + a * sc)
         if staleness is not None:
-            self._welford(cols, "stale", np.asarray(staleness, np.float64))
+            self._welford(cols, "stale", np.asarray(staleness, np.float64))  # blades-lint: disable=host-sync — sanctioned ledger boundary: staleness is the engine's host event column
         if norms is not None:
-            self._welford(cols, "norm", np.asarray(norms, np.float64))
+            self._welford(cols, "norm", np.asarray(norms, np.float64))  # blades-lint: disable=host-sync — sanctioned ledger boundary: per-lane norms are a slice of the already-fetched row
         self._put(ids, [cols[name] for name in _COLUMN_NAMES])
         self._last_churn = churn
 
@@ -235,9 +235,9 @@ class ClientLedger:
     def round_fields(self) -> Dict[str, Any]:
         """The per-round ledger row fields (schema-registered in
         ``obs/schema.py``), computed over every client seen so far."""
-        part = np.asarray(self._column("participation"))
+        part = np.asarray(self._column("participation"))  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read
         seen = part > 0
-        n_seen = int(seen.sum())
+        n_seen = int(seen.sum())  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column reduction
         rec = {
             "suspected_fraction": 0.0,
             "flagged_churn": int(self._last_churn),
@@ -249,9 +249,9 @@ class ClientLedger:
         }
         if not n_seen:
             return rec
-        flag_rate = (np.asarray(self._column("flagged"))[seen]
+        flag_rate = (np.asarray(self._column("flagged"))[seen]  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read
                      / part[seen].astype(np.float64))
-        rec["suspected_fraction"] = float(
+        rec["suspected_fraction"] = float(  # blades-lint: disable=host-sync — sanctioned ledger boundary: numpy reduction over a host column
             (flag_rate > SUSPECT_FLAG_RATE).mean())
         rep = 1.0 - flag_rate
         p10, p50, p90 = np.percentile(rep, [10.0, 50.0, 90.0])
@@ -259,7 +259,7 @@ class ClientLedger:
         rec["reputation_p50"] = float(p50)
         rec["reputation_p90"] = float(p90)
         seen_ids = np.nonzero(seen)[0]
-        ew = np.asarray(self._column("score_ewma"))[seen]
+        ew = np.asarray(self._column("score_ewma"))[seen]  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read
         # Highest flag rate first, score EWMA then id as deterministic
         # tie-breaks (np.lexsort keys are last-is-primary).
         order = np.lexsort((seen_ids, -ew, -flag_rate))
@@ -274,7 +274,7 @@ class ClientLedger:
             raise LedgerError(
                 f"client id {client_id} out of range "
                 f"[0, {self.n_registered})")
-        ids = np.asarray([int(client_id)], np.int64)
+        ids = np.asarray([int(client_id)], np.int64)  # blades-lint: disable=host-sync — sanctioned ledger boundary: wraps a python int, offline query path
         vals = dict(zip(_COLUMN_NAMES, (a[0] for a in self._take(ids))))
         part = int(vals["participation"])
         out = {
@@ -298,13 +298,13 @@ class ClientLedger:
     def top_suspects(self, k: int = 10) -> List[Dict[str, Any]]:
         """The ``k`` seen clients with the highest lifetime flag rate
         (score EWMA then id break ties), as full records."""
-        part = np.asarray(self._column("participation"))
+        part = np.asarray(self._column("participation"))  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read, offline query path
         seen_ids = np.nonzero(part > 0)[0]
         if not len(seen_ids):
             return []
-        flag_rate = (np.asarray(self._column("flagged"))[seen_ids]
+        flag_rate = (np.asarray(self._column("flagged"))[seen_ids]  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read, offline query path
                      / part[seen_ids].astype(np.float64))
-        ew = np.asarray(self._column("score_ewma"))[seen_ids]
+        ew = np.asarray(self._column("score_ewma"))[seen_ids]  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read, offline query path
         order = np.lexsort((seen_ids, -ew, -flag_rate))
         return [self.client_record(int(seen_ids[i]))
                 for i in order[:int(k)]]
@@ -316,7 +316,7 @@ class ClientLedger:
             "backend": self.backend,
             "n_registered": self.n_registered,
             "clients_seen": rf["ledger_clients_seen"],
-            "total_flagged": int(np.asarray(self._column("flagged")).sum()),
+            "total_flagged": int(np.asarray(self._column("flagged")).sum()),  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column reduction, end-of-trial path
             "suspected_fraction": rf["suspected_fraction"],
             "reputation_p10": rf["reputation_p10"],
             "reputation_p50": rf["reputation_p50"],
@@ -334,13 +334,13 @@ class ClientLedger:
             for arr in self._take(np.arange(lo, hi, dtype=np.int64)):
                 crc = zlib.crc32(
                     memoryview(np.ascontiguousarray(arr)).cast("B"), crc)
-        part = np.asarray(self._column("participation"))
+        part = np.asarray(self._column("participation"))  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column read, dump path
         return {
             "backend": self.backend,
             "n_registered": self.n_registered,
-            "clients_seen": int((part > 0).sum()),
-            "participation_total": int(part.sum()),
-            "flagged_total": int(np.asarray(self._column("flagged")).sum()),
+            "clients_seen": int((part > 0).sum()),  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column reduction, dump path
+            "participation_total": int(part.sum()),  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column reduction, dump path
+            "flagged_total": int(np.asarray(self._column("flagged")).sum()),  # blades-lint: disable=host-sync — sanctioned ledger boundary: host column reduction, dump path
             "crc32": crc & 0xFFFFFFFF,
         }
 

@@ -111,7 +111,7 @@ def trim_fraction(x: torch.Tensor, k: int, part=None,
     The ranks are ``argsort(argsort(column))`` with stable sorts, as
     JAX's sort is, taken ``chunk`` columns at a time."""
     n, d = x.shape
-    m = n if part is None else int(part.sum())
+    m = n if part is None else int(part.sum())  # blades-lint: disable=host-sync — known round-time sync: the participating count sizes the trim window, once per trim-fraction diagnosis under dropout
     count = torch.zeros((n,), dtype=torch.int64, device=x.device)
     for c0 in range(0, d, chunk):
         cols = x[:, c0:c0 + chunk]
@@ -165,7 +165,7 @@ class Aggregator:
                     state=(), *, generator=None, draws=None):
         """Aggregate over the lanes where ``participation`` (n,) is True:
         the dense call itself when every lane participates."""
-        if bool(participation.all()):
+        if bool(participation.all()):  # blades-lint: disable=host-sync — known round-time sync: the all-participate test picks the dense call, once per aggregation under dropout
             return self(updates, state, generator=generator, draws=draws)
         return self._masked(updates, participation, state,
                             generator=generator, draws=draws)
@@ -176,7 +176,7 @@ class Aggregator:
         """:meth:`masked_call` plus the per-lane bundle; under dropout the
         ``benign_mask`` covers participating lanes only (a dropped lane
         was never judged, so it is not "kept")."""
-        if bool(participation.all()):
+        if bool(participation.all()):  # blades-lint: disable=host-sync — known round-time sync: the all-participate test picks the dense call, once per diagnosis under dropout
             return self.diagnose(updates, state, generator=generator,
                                  draws=draws)
         return self._masked_diag(updates, participation, state,
@@ -215,7 +215,7 @@ def _impute(updates, participation):
 def _fix_nan_columns(out, x, mask, padded):
     """Recompute from ``padded(x[:, cols], mask)`` the columns where the
     compacted ``out`` is NaN (a host read of their count)."""
-    bad = torch.isnan(out).nonzero().flatten()
+    bad = torch.isnan(out).nonzero().flatten()  # blades-lint: disable=host-sync — known round-time sync: the count of all-NaN participant columns, once per participant median / trimmed mean
     if bad.numel():
         out[bad] = padded(x.index_select(1, bad), mask).to(out.dtype)
     return out
@@ -225,7 +225,7 @@ def participant_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``masked.masked_median(x, mask)`` through the column median of the
     participating rows."""
     mask = masked._nonempty(mask)
-    rows = x.index_select(0, mask.nonzero().flatten())
+    rows = x.index_select(0, mask.nonzero().flatten())  # blades-lint: disable=host-sync — known round-time sync: the participants' row indices compact the matrix, once per aggregation under dropout
     return _fix_nan_columns(column_median(rows), x, mask,
                             masked.masked_median)
 
@@ -235,7 +235,7 @@ def participant_trimmed_mean(x: torch.Tensor, mask: torch.Tensor,
     """``masked.masked_trimmed_mean(x, mask, k)`` through the column
     trimmed mean of the participating rows (``2k`` below their count)."""
     mask = masked._nonempty(mask)
-    rows = x.index_select(0, mask.nonzero().flatten())
+    rows = x.index_select(0, mask.nonzero().flatten())  # blades-lint: disable=host-sync — known round-time sync: the participants' row indices compact the matrix, once per aggregation under dropout
     return _fix_nan_columns(
         column_trimmed_mean(rows, k), x, mask,
         lambda xc, mc: masked.masked_trimmed_mean(xc, mc, k))
@@ -312,7 +312,7 @@ class Trimmedmean(Aggregator):
                 draws=None):
         """The trim count clamped to ``(m - 1) // 2`` of the participating
         count ``m``, so one lane always survives the trim."""
-        m = int(masked._nonempty(participation).sum())
+        m = int(masked._nonempty(participation).sum())  # blades-lint: disable=host-sync — known round-time sync: the participating count sizes the trim, once per aggregation under dropout
         k = min(self.num_excluded, max((m - 1) // 2, 0))
         return participant_trimmed_mean(updates, participation, k), state
 
@@ -322,7 +322,7 @@ class Trimmedmean(Aggregator):
         dropped rows past the window)."""
         agg, state = self._masked(updates, participation, state)
         part = participation.to(updates.device)
-        m = int(part.sum())
+        m = int(part.sum())  # blades-lint: disable=host-sync — known round-time sync: the participating count sizes the trim, once per diagnosis under dropout
         k = min(self.num_excluded, max((m - 1) // 2, 0))
         frac = trim_fraction(updates, k, part)
         return agg, state, lane_diag(part & (frac < 0.5), frac)
@@ -358,7 +358,7 @@ class GeoMed(Aggregator):
         median = wavg(weights)
         prev, cur = torch.tensor(float("inf")), obj(median)
         i = 0
-        while i < self.maxiter and bool(
+        while i < self.maxiter and bool(  # blades-lint: disable=host-sync — known round-time sync: GeoMed's stopping test reads the objective once per Weiszfeld iteration
                 torch.abs(prev - cur) > self.ftol * cur):
             denom = row_norms(updates - median).clamp(min=self.eps)
             median = wavg(weights / denom)
@@ -451,7 +451,7 @@ class DnC(Aggregator):
         score +inf (they never rank into the keep set)."""
         n, d = updates.shape
         part = participation.to(updates.device)
-        m = int(part.sum())
+        m = int(part.sum())  # blades-lint: disable=host-sync — known round-time sync: the participating count sizes DnC's keep set, once per aggregation under dropout
         keep = min(max(m - int(self.filter_frac * self.num_byzantine), 1), m)
         idx = draws if draws is not None else self.draw(
             d, generator, updates.device)
@@ -469,7 +469,7 @@ class DnC(Aggregator):
                                                stable=True), stable=True)
             benign |= (rank < keep) & part
             scores.append(s)
-        if not bool(benign.any()):
+        if not bool(benign.any()):  # blades-lint: disable=host-sync — known round-time sync: DnC's empty-keep-set fallback test, once per aggregation under dropout
             benign = part
         scores = torch.where(part, torch.stack(scores).mean(0),
                              torch.zeros_like(scores[0]))
@@ -536,7 +536,7 @@ class Multikrum(Aggregator):
         participants."""
         n = updates.shape[0]
         part = participation.to(updates.device)
-        m = int(part.sum())
+        m = int(part.sum())  # blades-lint: disable=host-sync — known round-time sync: the participating count sizes Multikrum's neighbourhood, once per aggregation under dropout
         q = max(m - self.num_byzantine - 2, 1)
         sq = (updates * updates).sum(1)
         d2 = (sq[:, None] + sq[None, :] - 2.0 * (updates @ updates.T)
@@ -550,7 +550,7 @@ class Multikrum(Aggregator):
         scores = torch.where(neigh, sortd, torch.zeros_like(sortd)).sum(1)
         rank = torch.argsort(torch.argsort(scores, stable=True), stable=True)
         mask = (rank < min(self.k, m)) & part
-        if not bool(mask.any()):
+        if not bool(mask.any()):  # blades-lint: disable=host-sync — known round-time sync: Multikrum's empty-selection fallback test, once per aggregation under dropout
             mask = part
         return (masked.masked_mean(updates, mask), state,
                 lane_diag(mask, scores))

@@ -168,7 +168,7 @@ def _finish_plain(x, active, mult, forge, agg, sanitize, noise,
     """Shared plain body: ``(agg, sq, bad, forged)`` over column chunks."""
     rows, d = x.shape
     keys16 = x.dtype == torch.bfloat16
-    n_true = (rows if active is None else int(active.sum())) + mult
+    n_true = (rows if active is None else int(active.sum())) + mult  # blades-lint: disable=host-sync — the plain version, taken only for CPU tensors (on the card the wrapper launches the kernel)
     agg_vec = torch.empty((d,), dtype=torch.float32, device=x.device)
     forged_vec = (torch.zeros((d,), dtype=torch.float32, device=x.device)
                   if forge is not None else None)
@@ -285,7 +285,7 @@ def fused_finish_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_finish`."""
     active = _check_full(updates, malicious, forge_noise, forge, agg)
-    mult = 0 if active is None else int((~active).sum())
+    mult = 0 if active is None else int((~active).sum())  # blades-lint: disable=host-sync — the plain version, taken only for CPU tensors (on the card the wrapper launches the kernel)
     agg_vec, sq, bad, _ = _finish_plain(updates, active, mult, forge, agg,
                                         sanitize, forge_noise, compact=False)
     return agg_vec, sq, bad

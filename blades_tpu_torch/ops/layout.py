@@ -121,7 +121,7 @@ class ShardInfo:
         ``generator``, which every shard holds in the same state."""
         from blades_tpu_torch.utils.seeds import seed_of
 
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,  # blades-lint: disable=host-sync — known round-time sync: one seed word drawn from the round's generator per width shard, once a forge on the width-sharded round
                                  device=generator.device))
         gen = torch.Generator(device=generator.device)
         gen.manual_seed(seed_of(seed, self.index))

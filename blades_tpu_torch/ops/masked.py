@@ -26,7 +26,7 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Coordinate-wise median over the selected rows (unselected rows sort
     past them as +inf)."""
     mask = _nonempty(mask)
-    m = int(mask.sum())
+    m = int(mask.sum())  # blades-lint: disable=host-sync — known round-time sync: the selected count sizes the trim window, once per masked median / trimmed mean
     xs = torch.where(mask[:, None], x, torch.full_like(x, float("inf")))
     xs = xs.sort(0).values
     return (xs[max(m - 1, 0) // 2] + xs[m // 2]) / 2.0
@@ -45,7 +45,7 @@ def masked_trimmed_mean(x: torch.Tensor, mask: torch.Tensor, k: int
     unselected rows sort past the selected ones as +inf and the mean runs
     over sorted ranks ``[k, m - k)``."""
     mask = _nonempty(mask)
-    m = int(mask.sum())
+    m = int(mask.sum())  # blades-lint: disable=host-sync — known round-time sync: the selected count sizes the trim window, once per masked median / trimmed mean
     xs = torch.where(mask[:, None], x, torch.full_like(x, float("inf")))
     xs = xs.sort(0).values
     idx = torch.arange(x.shape[0], device=x.device)

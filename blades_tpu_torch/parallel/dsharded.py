@@ -255,7 +255,7 @@ def elision_client_order(n: int, f: int, n_dev: int) -> np.ndarray:
         extra = 1 if k < r else 0
         order += [next(mal) for _ in range(fl + extra)]
         order += [next(ben) for _ in range(nl - fl - extra)]
-    return np.asarray(order)
+    return np.asarray(order)  # blades-lint: disable=host-sync — a host list of client ids, built once at setup
 
 
 class DshardedStep(MeshRound):
@@ -288,9 +288,9 @@ class DshardedStep(MeshRound):
         must be malicious, else a benign lane would lose its training."""
         if not self.f_local or self._checked is malicious:
             return
-        m = malicious.detach().to("cpu", torch.bool)
+        m = malicious.detach().to("cpu", torch.bool)  # blades-lint: disable=host-sync — once per mask object, by design (same contract as streamed.py)
         m = torch.cat([m, m.new_zeros(self.n_pad - m.shape[0])])
-        if not bool(m.view(self.c, self.n_local)[:, :self.f_local].all()):
+        if not bool(m.view(self.c, self.n_local)[:, :self.f_local].all()):  # blades-lint: disable=host-sync — once per mask object, by design (same contract as streamed.py)
             raise ValueError(
                 f"d-sharded elision promised every rank's first "
                 f"{self.f_local} lanes malicious, but the mask disagrees "

@@ -241,7 +241,7 @@ def _stage(mesh: Mesh, tensor: torch.Tensor) -> torch.Tensor:
     """The tensor a collective hands the backend: a host copy under gloo
     for a tensor on the card, else the tensor itself."""
     if mesh.backend == "gloo" and tensor.is_cuda:
-        return tensor.cpu()
+        return tensor.cpu()  # blades-lint: disable=host-sync — gloo stages a card tensor through the host: the copy is the collective's transport
     return tensor.contiguous()
 
 
@@ -351,7 +351,7 @@ def _all_ranks(mesh: Optional[Mesh], value: int, op) -> int:
     t = torch.tensor([int(value)], dtype=torch.int64,
                      device="cuda" if mesh.backend == "nccl" else "cpu")
     dist.all_reduce(t, op=op)
-    return int(t.item())
+    return int(t.item())  # blades-lint: disable=host-sync — the all-reduced int is the helper's result: one scalar, in the sweep's and the autotuner's lockstep, not in a round
 
 
 def all_ranks_max(mesh: Mesh, value: int) -> int:
@@ -396,7 +396,7 @@ def params_digest(params) -> str:
     h = hashlib.sha256()
     for k in sorted(params):
         h.update(k.encode())
-        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())  # blades-lint: disable=host-sync — a replication check at setup (shard_federation), never per round
     return h.hexdigest()
 
 
@@ -501,7 +501,7 @@ def gather_gossip_state(mesh: Mesh, round_state, num_nodes: int):
             return all_gather_rows(mesh, v)[:n]
         if isinstance(v, np.ndarray):
             t = all_gather_rows(mesh, torch.from_numpy(v).to(dev))
-            return t.cpu().numpy()[:n]
+            return t.cpu().numpy()[:n]  # blades-lint: disable=host-sync — gathers the gossip state to the host once, at the end of a run
         return {k: rows(vv) for k, vv in v.items()}
 
     agg_state = srv.agg_state
@@ -522,7 +522,7 @@ def gather_gossip_state(mesh: Mesh, round_state, num_nodes: int):
 
 def _host(s):
     if isinstance(s, torch.Tensor):
-        return s.cpu()
+        return s.cpu()  # blades-lint: disable=host-sync — gloo objects travel through the host: the aggregator state, once at the end of a run
     if isinstance(s, tuple):
         return tuple(_host(v) for v in s)
     return s

@@ -520,7 +520,7 @@ def streamed_step(
             sq, bad = None, torch.zeros((n,), dtype=torch.bool, device=dev)
         if row_forges:
             forged, sq = _forge_row(buf, malicious, sq, gen, d, recorder)
-            rows = malicious.nonzero().flatten()
+            rows = malicious.nonzero().flatten()  # blades-lint: disable=host-sync — known round-time sync: the malicious lanes' indices, once a round on the row-geometry forge
             for start in starts:
                 _scatter_chunk(buf, forged, rows, start, c)
         if row_geom:
@@ -601,9 +601,9 @@ def streamed_step(
         if malicious_prefix and forging:
             skip_blocks = malicious_prefix // client_block
             if skip_blocks and checked_mask[0] is not malicious:
-                mal = malicious.cpu()
-                if not (bool(mal[:skip_blocks * client_block].all())
-                        and not bool(mal[malicious_prefix:].any())):
+                mal = malicious.cpu()  # blades-lint: disable=host-sync — once per mask object, by design (the elision check)
+                if not (bool(mal[:skip_blocks * client_block].all())  # blades-lint: disable=host-sync — once per mask object, by design (the elision check)
+                        and not bool(mal[malicious_prefix:].any())):  # blades-lint: disable=host-sync — once per mask object, by design (the elision check)
                     raise ValueError(
                         f"malicious_prefix={malicious_prefix} promised "
                         "exactly the first lanes malicious, but the mask "

@@ -593,7 +593,7 @@ def _geomed(agg: GeoMed, pl_: PassPlanner, sq):
     i = 0
     with pl_.loop(agg.maxiter) as tick:
         # The stopping test reads the objective on the host each iteration.
-        while i < agg.maxiter and bool(
+        while i < agg.maxiter and bool(  # blades-lint: disable=host-sync — known round-time sync: GeoMed's stopping test reads the objective once per Weiszfeld iteration
                 torch.abs(prev - obj) > agg.ftol * obj):
             w_k = w0 / dists.clamp(min=agg.eps)
             h_m = pl_.weighted_sum(w_k)

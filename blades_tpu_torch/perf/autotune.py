@@ -548,7 +548,7 @@ def timed_measure_fn(
             if group is not None:
                 import torch.distributed as dist
 
-                dist.barrier()
+                dist.barrier()  # blades-lint: disable=topology-discipline — a barrier moves no bytes the rows report: it lines the ranks up before a candidate's timed steps
             for _ in range(warmup):
                 if not attempt(algo.train, "warmup"):
                     return None

@@ -31,13 +31,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from blades_tpu_torch.obs.trace import now
 from blades_tpu_torch.state.store import ClientStateStore, StoreStats
 
 
@@ -79,7 +79,7 @@ class StatePrefetcher:
                  async_staging: bool = False):
         self._store = store
         self._data = data if hasattr(data, "gather") else tuple(data)
-        self._malicious = np.asarray(malicious, bool)
+        self._malicious = np.asarray(malicious, bool)  # blades-lint: disable=host-sync — setup: the malicious mask is copied to the host once per prefetcher
         self._cohort = cohort_fn
         self.device = torch.device(device)
         self._pool = (ThreadPoolExecutor(max_workers=1,
@@ -105,8 +105,8 @@ class StatePrefetcher:
 
     def _stage_job(self, index: int, prev_ids: Optional[np.ndarray]
                    ) -> StagedCohort:
-        t0 = time.perf_counter()
-        ids = np.asarray(self._cohort(index), np.int64)
+        t0 = now()
+        ids = np.asarray(self._cohort(index), np.int64)  # blades-lint: disable=host-sync — sanctioned staging boundary: cohort ids must be host ints to index the out-of-core store; runs in the prefetcher, overlapping the in-flight round
         new_mask = (np.ones(len(ids), bool) if prev_ids is None
                     else ~np.isin(ids, prev_ids))
         new_pos = np.nonzero(new_mask)[0]
@@ -131,7 +131,7 @@ class StatePrefetcher:
         return StagedCohort(
             index=index, ids=ids, new_pos=new_pos, new_rows=new_rows,
             old_pos=old_pos, prev_pos=prev_pos, data=data, malicious=mal,
-            bytes_staged=int(staged), stage_seconds=time.perf_counter() - t0,
+            bytes_staged=int(staged), stage_seconds=now() - t0,
             event=event)
 
     # -- driver API ----------------------------------------------------------
@@ -216,7 +216,7 @@ class StatePrefetcher:
         self._reap(wait=True)
         self._submit(lambda: None).result()
         if self._stream is not None:
-            self._stream.synchronize()
+            self._stream.synchronize()  # blades-lint: disable=host-sync — drain before a checkpoint: the staging stream finishes its write-backs before shards stream, never per round
 
     def invalidate(self) -> None:
         """Drop staged work (after a checkpoint restore)."""

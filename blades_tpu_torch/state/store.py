@@ -81,7 +81,7 @@ def sample_cohort(round_seed: int, n_registered: int,
             f"window must be in [1, n_registered={n_registered}], "
             f"got {window}")
     gen = torch.Generator().manual_seed(cohort_seed(round_seed))
-    ids = torch.randperm(n_registered, generator=gen)[:window].numpy()
+    ids = torch.randperm(n_registered, generator=gen)[:window].numpy()  # blades-lint: disable=host-sync — the cohort draw is a CPU generator's: no card read
     return np.sort(ids).astype(np.int32)
 
 
@@ -114,7 +114,7 @@ def by_shard(ids: np.ndarray, shard_rows: int):
 
 
 def _np_dtype(dt: torch.dtype) -> np.dtype:
-    return np.dtype(torch.empty((), dtype=dt).numpy().dtype)
+    return np.dtype(torch.empty((), dtype=dt).numpy().dtype)  # blades-lint: disable=host-sync — dtype probe on a CPU scalar at setup
 
 
 class ClientStateStore:
@@ -134,7 +134,7 @@ class ClientStateStore:
             raise ValueError(f"n_registered must be >= 1, got {n_registered}")
         self.n_registered = int(n_registered)
         self.names = sorted(template)
-        self._template = [template[k].detach().cpu() for k in self.names]
+        self._template = [template[k].detach().cpu() for k in self.names]  # blades-lint: disable=host-sync — store INIT only: the one-row template is fetched once to seed the host population, never per round
         self._shapes = [tuple(t.shape) for t in self._template]
         self._dtypes = [t.dtype for t in self._template]
         self.row_bytes = sum(t.numel() * t.element_size()
@@ -161,7 +161,7 @@ class ClientStateStore:
         """The rows of ``ids`` on ``device``, ``{name: (len(ids), ...)}``
         (host copies are ``non_blocking`` from pinned buffers on the
         current stream)."""
-        host = self._take(np.asarray(ids, np.int64))
+        host = self._take(np.asarray(ids, np.int64))  # blades-lint: disable=host-sync — sanctioned staging boundary: cohort ids are host ints indexing the out-of-core store
         return {k: t.to(device, non_blocking=self.pin) if device is not None
                 else t for k, t in zip(self.names, host)}
 
@@ -179,8 +179,8 @@ class ClientStateStore:
             else:
                 host.append(r)
         if any(rows[k].is_cuda for k in self.names):
-            torch.cuda.current_stream().synchronize()
-        self._put(np.asarray(ids, np.int64), host)
+            torch.cuda.current_stream().synchronize()  # blades-lint: disable=host-sync — sanctioned staging boundary: the cohort write-back must land in the host buffers before they are stored; in the prefetcher worker when staging is async
+        self._put(np.asarray(ids, np.int64), host)  # blades-lint: disable=host-sync — sanctioned staging boundary: cohort ids are host ints indexing the out-of-core store
 
     def device_bytes(self) -> int:
         """Bytes of client state the store itself keeps on the card."""
@@ -213,7 +213,7 @@ class ClientStateStore:
         for s, lo, hi in self._shard_ranges(shard_rows):
             arrays = self._take(np.arange(lo, hi, dtype=np.int64))
             for j, t in enumerate(arrays):
-                arr = np.ascontiguousarray(t.numpy())
+                arr = np.ascontiguousarray(t.numpy())  # blades-lint: disable=host-sync — checkpoint streaming only (save()): host shard rows, never in the round hot path
                 name = f"shard-{s:05d}.l{j:02d}.npy"
                 path = directory / name
                 tmp = directory / (name + ".tmp")
@@ -338,14 +338,14 @@ class ResidentStore(ClientStateStore):
                        .contiguous() for t in self._template]
 
     def gather(self, ids, device=None):
-        idx = torch.as_tensor(np.asarray(ids, np.int64)).to(
+        idx = torch.as_tensor(np.asarray(ids, np.int64)).to(  # blades-lint: disable=host-sync — cohort ids are host ints: the index goes to the card, nothing comes back
             self._stack[0].device if self._stack else "cpu")
         return {k: s.index_select(0, idx) for k, s in zip(self.names,
                                                             self._stack)}
 
     def scatter(self, ids, rows):
         for k, s in zip(self.names, self._stack):
-            idx = torch.as_tensor(np.asarray(ids, np.int64)).to(s.device)
+            idx = torch.as_tensor(np.asarray(ids, np.int64)).to(s.device)  # blades-lint: disable=host-sync — cohort ids are host ints: the index goes to the card, nothing comes back
             s.index_copy_(0, idx, rows[k].to(s.device))
 
     def device_bytes(self) -> int:
@@ -353,7 +353,7 @@ class ResidentStore(ClientStateStore):
         return self.total_bytes() if on_card else 0
 
     def _take(self, ids):
-        return [s[torch.as_tensor(ids).to(s.device)].cpu()
+        return [s[torch.as_tensor(ids).to(s.device)].cpu()  # blades-lint: disable=host-sync — checkpoint streaming only (save()): one bounded shard slice per fetch, never in the round hot path
                 for s in self._stack]
 
     def _put(self, ids, arrays):
@@ -377,14 +377,14 @@ class HostStore(ClientStateStore):
             self._arrays.append(a)
 
     def _take(self, ids):
-        idx = torch.from_numpy(np.asarray(ids, np.int64))
+        idx = torch.from_numpy(np.asarray(ids, np.int64))  # blades-lint: disable=host-sync — cohort ids are host ints indexing the host store
         out = self._staging(len(ids))
         for a, buf in zip(self._arrays, out):
             torch.index_select(a, 0, idx, out=buf)
         return out
 
     def _put(self, ids, arrays):
-        idx = torch.from_numpy(np.asarray(ids, np.int64))
+        idx = torch.from_numpy(np.asarray(ids, np.int64))  # blades-lint: disable=host-sync — cohort ids are host ints indexing the host store
         for a, rows in zip(self._arrays, arrays):
             a.index_copy_(0, idx, rows.to(a.dtype))
 
@@ -412,14 +412,14 @@ class DiskStore(ClientStateStore):
                     self._dir / f"live-{s:05d}.l{j:02d}.npy", mode="w+",
                     dtype=_np_dtype(self._dtypes[j]),
                     shape=(hi - lo,) + self._shapes[j])
-                mm[:] = t.numpy()
+                mm[:] = t.numpy()  # blades-lint: disable=host-sync — store INIT only: the template row seeds the on-disk population, never per round
                 self._maps[(s, j)] = mm
 
     def _take(self, ids):
         out = self._staging(len(ids))
-        views = [b.numpy() for b in out]
+        views = [b.numpy() for b in out]  # blades-lint: disable=host-sync — numpy views of the host staging buffers, no card read
         if len(ids):
-            for s, pos, local in by_shard(np.asarray(ids), self.shard_rows):
+            for s, pos, local in by_shard(np.asarray(ids), self.shard_rows):  # blades-lint: disable=host-sync — cohort ids are host ints indexing the on-disk shards
                 for j in range(self.num_leaves):
                     views[j][pos] = self._maps[(s, j)][local]
         return out
@@ -427,8 +427,8 @@ class DiskStore(ClientStateStore):
     def _put(self, ids, arrays):
         if not len(ids):
             return
-        views = [a.numpy() for a in arrays]
-        for s, pos, local in by_shard(np.asarray(ids), self.shard_rows):
+        views = [a.numpy() for a in arrays]  # blades-lint: disable=host-sync — numpy views of the host staging buffers, no card read
+        for s, pos, local in by_shard(np.asarray(ids), self.shard_rows):  # blades-lint: disable=host-sync — cohort ids are host ints indexing the on-disk shards
             for j in range(self.num_leaves):
                 self._maps[(s, j)][local] = views[j][pos]
 

@@ -15,5 +15,12 @@ no JAX (counterparts of the JAX package's ``tools/``):
 - :mod:`~blades_tpu_torch.tools.show_plan`: list, show and invalidate the
   autotuner's plan cache;
 - :mod:`~blades_tpu_torch.tools.gossip_curves`: gossip against
-  centralized convergence curves on a synthetic federation.
+  centralized convergence curves on a synthetic federation;
+- :mod:`~blades_tpu_torch.tools.lint`: blades-lint over the port (host
+  syncs in the round, raw clocks, uncounted collectives, raw traversals
+  and decodes, schema drift, artifact stamps);
+- :mod:`~blades_tpu_torch.tools.check_tier1_budget`: the tier-1 wall-time
+  guard;
+- :mod:`~blades_tpu_torch.tools.restamp_curves`: the completeness stamps of
+  ``curves.json`` artifacts, recomputed from their rows.
 """

@@ -39,7 +39,7 @@ import time
 
 def _age(created) -> str:
     try:
-        secs = max(0.0, time.time() - float(created))
+        secs = max(0.0, time.time() - float(created))  # blades-lint: disable=trace-discipline — a cache entry's wall-clock age for display, not a duration measurement
     except (TypeError, ValueError):
         return "?"
     if secs < 3600:

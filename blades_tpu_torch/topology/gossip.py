@@ -408,13 +408,13 @@ class GossipStep:
             drop = (fr.faults.realize_edges(n, r0) if edge_drop is None
                     else torch.as_tensor(edge_drop, dtype=torch.bool))
             dropped = np.take_along_axis(
-                np.asarray(drop.cpu(), bool)[lo:hi], nbr, 1)
+                np.asarray(drop.cpu(), bool)[lo:hi], nbr, 1)  # blades-lint: disable=host-sync — the edge-drop realization is a CPU tensor from a CPU generator: no card read
             is_self = nbr == np.arange(lo, hi)[:, None]
             live = tabs.valid[lo:hi] & (is_self | ~dropped)
             w_eff = np.where(live, w_eff, np.float32(0.0))
             # Loud per-node degradation: live rows below the aggregator's
             # breakdown line a*f_i + b -> self-trust.
-            mal_host = malicious.cpu().numpy()
+            mal_host = malicious.cpu().numpy()  # blades-lint: disable=host-sync — known round-time sync: the malicious mask for the per-node breakdown count, once a round with edge dropout
             f_i = (mal_host[nbr] & live).sum(1)
             a_bd, b_bd = self.bound
             degraded = live.sum(1) < a_bd * f_i + b_bd
@@ -450,10 +450,10 @@ class GossipStep:
         }
         if degraded is not None:
             parts = all_reduce_sum(
-                self.mesh, torch.tensor([int(degraded.sum())],
+                self.mesh, torch.tensor([int(degraded.sum())],  # blades-lint: disable=host-sync — degraded is a host numpy mask: no card read
                                         dtype=torch.int32, device=dev),
                 recorder=rec, label="partitioned_psum")
-            metrics["num_partitioned_nodes"] = parts[0].cpu()
+            metrics["num_partitioned_nodes"] = parts[0].cpu()  # blades-lint: disable=host-sync — known round-time sync: the partitioned-node count, one scalar once a round with edge dropout
         else:
             metrics["num_partitioned_nodes"] = torch.tensor(
                 0, dtype=torch.int32)
@@ -506,7 +506,7 @@ class GossipStep:
         own = theta[self.lo:self.lo + nbr.shape[0]]
         acc = torch.zeros_like(own)
         dev_s = torch.empty_like(own)
-        w = torch.as_tensor(np.asarray(w_eff, np.float32), device=dev)
+        w = torch.as_tensor(np.asarray(w_eff, np.float32), device=dev)  # blades-lint: disable=host-sync — the mixing weights are host numpy tables: the copy goes to the card, nothing comes back
         for s in range(self.k1):
             torch.index_select(theta, 0, torch.as_tensor(nbr[:, s],
                                                          device=dev),
@@ -602,13 +602,13 @@ class GossipStep:
             opt["buf"], opt["step"] = buf, opt["step"] + 1
             grads = buf
         sched = lr_schedule(server.lr, server.schedule)
-        step = _per_node(np.array([-sched(int(c)) for c in opt["count"]]),
+        step = _per_node(np.array([-sched(int(c)) for c in opt["count"]]),  # blades-lint: disable=host-sync — the optimizer counts are host numpy ints: no card read
                          params)
         opt["count"] = opt["count"] + 1
         new = {k: params[k] + _bcast(step, g) * g for k, g in grads.items()}
         if self.fr.health_check:
             ok = torch.isfinite(aggs).all(1)
-            if not bool(ok.all()):
+            if not bool(ok.all()):  # blades-lint: disable=host-sync — known round-time sync: the health check's all-finite test, once a round with health_check
                 new, opt, agg_state = _guard(ok, new, opt, agg_state, srv)
         return ServerState(params=new, opt_state=opt, agg_state=agg_state,
                            round=srv.round + 1)
@@ -633,7 +633,7 @@ def _bcast(v, like):
 def _guard(ok, new, opt, agg_state, old: ServerState):
     """Nodes where ``ok`` is False keep their old parameters, optimizer
     state and aggregator state (the round counter advances)."""
-    keep = ok.cpu().numpy()
+    keep = ok.cpu().numpy()  # blades-lint: disable=host-sync — an unhealthy round only: the keep mask patches the host optimizer counts
     new = {k: torch.where(_bcast(ok, v), v, old.params[k])
            for k, v in new.items()}
     old_opt = old.opt_state

@@ -1,4 +1,5 @@
 #!/usr/bin/env python3
+# blades-lint: disable-file=streamed-pass-discipline — each kernel is held against its plain version, and timed, on purpose
 """Chip smoke of the PyTorch/CUDA port (``blades_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                 # every phase, as a check runs it

@@ -1,3 +1,4 @@
+# blades-lint: disable-file=streamed-pass-discipline — the codec's decode is held against the JAX package's on purpose
 """The port's update codecs (blades_tpu_torch/comm/codecs.py) and the
 dense round and driver under them, against the JAX package's.
 

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "blades_tpu"}
+# The root ``tools`` package is the JAX package's tooling (its lint included).
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "blades_tpu", "tools"}
 
 
 def _port_files():
@@ -85,7 +86,15 @@ def test_no_jax_imports_in_the_port():
             "blades_tpu_torch/benchmarks/main.py",
             "blades_tpu_torch/benchmarks/accuracy_curves.py",
             "blades_tpu_torch/tools/show_plan.py",
-            "blades_tpu_torch/tools/gossip_curves.py"} <= names
+            "blades_tpu_torch/tools/gossip_curves.py",
+            "blades_tpu_torch/tools/check_tier1_budget.py",
+            "blades_tpu_torch/tools/restamp_curves.py"} <= names
+    lint = {str(f.relative_to(REPO)) for f in
+            (REPO / "blades_tpu_torch" / "tools" / "lint").rglob("*.py")}
+    assert {"blades_tpu_torch/tools/lint/core.py",
+            "blades_tpu_torch/tools/lint/cli.py",
+            "blades_tpu_torch/tools/lint/passes/host_sync.py",
+            "blades_tpu_torch/tools/lint/passes/artifacts.py"} <= lint <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -127,6 +136,27 @@ def test_importing_the_port_loads_no_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("argv", [
+    ["blades_tpu_torch.tools.lint", "--list-passes"],
+    ["blades_tpu_torch.tools.check_tier1_budget", "--help"],
+    ["blades_tpu_torch.tools.restamp_curves", "--help"],
+])
+def test_the_port_tools_load_no_jax(argv):
+    """The lint, the budget guard and the restamper run as ``python -m``
+    entry points without loading JAX or the JAX package's tools."""
+    code = ("import runpy, sys\n"
+            f"sys.argv = {argv!r}\n"
+            "try:\n"
+            f"    runpy.run_module({argv[0]!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120, capture_output=True)
 
 
 def test_no_module_level_pandas_or_matplotlib_import():

@@ -1,3 +1,4 @@
+# blades-lint: disable-file=streamed-pass-discipline — the row-statistics bundle is held against the Pallas kernel on purpose
 """The port's ``row_stats_bundle`` (blades_tpu_torch/ops/rowstats.py) against
 the JAX Pallas kernel (blades_tpu/ops/pallas_rowstats.py) run in interpret
 mode, on identical numpy-made matrices.
